@@ -30,3 +30,8 @@ def random_forest(rng):
     return make_forest(feature, threshold, leaf_value,
                        default_left=default_left, n_features=11,
                        model_type="xgboost")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips without one")
