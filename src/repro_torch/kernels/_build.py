@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``.  The
+shared library with a plain C interface and loaded with ``ctypes``; each
+library holds one kernel's fused and raw entry points.  The
 build runs at first use, from the sources in this package only, into
 ``build/kernels/`` at the root of the checkout; a library's file name
 carries a digest of its sources and flags, so an edited source is rebuilt
@@ -33,17 +34,24 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 
-#: library name -> (source file, C function, argtypes)
+
+def _entry_points(kind: str, n_pointers: int):
+    """The fused and raw C entry points of one kernel: ``n_pointers``
+    tensor pointers (inputs, then out), B, then F, T, depth, block_b,
+    block_t, and the stream."""
+    argtypes = [_P] * n_pointers + [_LL] + [_I] * 5 + [_P]
+    return [(f"forest_{kind}_{variant}", argtypes)
+            for variant in ("fused", "raw")]
+
+
+#: library name -> (source file, [(C function, argtypes), ...])
 KERNEL_SOURCES = {
-    "forest_predicated": (
-        "forest_predicated.cu", "forest_predicated_fused",
-        [_P] * 6 + [_LL] + [_I] * 5 + [_P]),
-    "forest_hummingbird": (
-        "forest_hummingbird.cu", "forest_hummingbird_fused",
-        [_P] * 9 + [_LL] + [_I] * 5 + [_P]),
-    "forest_quickscorer": (
-        "forest_quickscorer.cu", "forest_quickscorer_fused",
-        [_P] * 7 + [_LL] + [_I] * 5 + [_P]),
+    "forest_predicated": ("forest_predicated.cu",
+                          _entry_points("predicated", 6)),
+    "forest_hummingbird": ("forest_hummingbird.cu",
+                           _entry_points("hummingbird", 9)),
+    "forest_quickscorer": ("forest_quickscorer.cu",
+                           _entry_points("quickscorer", 7)),
 }
 
 #: ptxas resource report of each library built by this process
@@ -74,10 +82,10 @@ def _target(name: str) -> Path:
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    _, fn_name, argtypes = KERNEL_SOURCES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in KERNEL_SOURCES[name][1]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.forest_error_string.argtypes = [ctypes.c_int]
     lib.forest_error_string.restype = ctypes.c_char_p
     _LOADED[name] = lib

@@ -17,8 +17,12 @@ thread per sample (BB threads), and a shared-memory working set of
                                           leaves
     extra     HummingBird: 8 * L * ceil(I/32) + 4 * L   (C masks, D)
               QuickScorer: 4 * I * ceil(L/32)           (bit-vectors)
+    out tile  raw kernels only: 4 * BB * (BT + 1)       (scores, staged so
+                                          the [B, T] rows leave coalesced)
 
 each part rounded up to 16 bytes (``csrc/forest_common.cuh:tile_layout``).
+A raw kernel's out tile is why ``fused=False`` can get a smaller tree tile
+than ``fused=True`` for the same forest.
 The budget is half the 227 KB a block may take, so two blocks (16 warps at
 BB = 256) share an SM and one block's tile staging overlaps the other's
 compute.  At depth 8 one tree takes 3.3 KB, so the tree tile is 16 trees
@@ -30,9 +34,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.algorithms import go_left
+from repro_torch.kernels import _build
 
 __all__ = ["dense_predicates", "block_heuristics", "tile_smem_bytes",
-           "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH"]
+           "launch_forest_kernel", "SMEM_BLOCK_MAX", "SMEM_BUDGET",
+           "MAX_KERNEL_DEPTH"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
@@ -70,29 +76,36 @@ def _extra_bytes(kind: str, depth: int) -> int:
 
 
 def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
-                    depth: int) -> int:
-    """Dynamic shared memory of one block, as the CUDA layout lays it out."""
+                    depth: int, *, fused: bool = True) -> int:
+    """Dynamic shared memory of one block, as the CUDA layout lays it out
+    (``fused=False``: the raw [B, T] kernel, with its out tile)."""
     I, L = (1 << depth) - 1, 1 << depth
+    out_tile = 0 if fused else 4 * block_b * (block_t + 1)
     return (_align16(4 * F * block_b) + _align16(4 * block_t * I)
             + _align16(4 * block_t * L) + _align16(4 * block_t * I)
-            + _align16(block_t * I) + _align16(_extra_bytes(kind, depth)))
+            + _align16(block_t * I) + _align16(_extra_bytes(kind, depth))
+            + _align16(out_tile))
 
 
-def block_heuristics(kind: str, B: int, T: int, F: int,
-                     depth: int) -> tuple[int, int]:
-    """(BB, BT) for one kernel launch: BB a multiple of 32 up to 256, BT a
-    power of two up to 64, shrunk (tree tile first, then sample tile)
-    until the block's shared memory fits ``SMEM_BUDGET``.  Raises when even
-    (32, 1) does not fit a block at all (a very wide F)."""
+def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
+                     fused: bool = True) -> tuple[int, int]:
+    """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch: BB
+    a multiple of 32 up to 256, BT a power of two up to 64, shrunk (tree
+    tile first, then sample tile) until the block's shared memory fits
+    ``SMEM_BUDGET``.  Raises when even (32, 1) does not fit a block at all
+    (a very wide F)."""
+    def smem(bb, bt):
+        return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused)
+
     bb = min(MAX_BLOCK_B, max(32, -(-B // 32) * 32))
     bt = 1
     while bt * 2 <= min(T, MAX_BLOCK_T):
         bt *= 2
-    while tile_smem_bytes(kind, bb, bt, F, depth) > SMEM_BUDGET and bt > 1:
+    while smem(bb, bt) > SMEM_BUDGET and bt > 1:
         bt //= 2
-    while tile_smem_bytes(kind, bb, bt, F, depth) > SMEM_BUDGET and bb > 32:
+    while smem(bb, bt) > SMEM_BUDGET and bb > 32:
         bb //= 2
-    if tile_smem_bytes(kind, bb, bt, F, depth) > SMEM_BLOCK_MAX:
+    if smem(bb, bt) > SMEM_BLOCK_MAX:
         raise ValueError(
             f"{kind}: a 32-sample tile of {F} features at depth {depth} "
             f"does not fit one block's shared memory")
@@ -112,7 +125,7 @@ def sum_trees_in_order(scores: torch.Tensor) -> torch.Tensor:
 def check_kernel_inputs(kind: str, x: torch.Tensor, feature: torch.Tensor,
                         threshold: torch.Tensor, default_left: torch.Tensor,
                         leaf_value: torch.Tensor, *, depth: int,
-                        block_b: int, block_t: int,
+                        block_b: int, block_t: int, fused: bool,
                         structure: tuple[torch.Tensor, ...] = ()) -> None:
     """Everything a CUDA forest kernel assumes, checked before launch."""
     tensors = (x, feature, threshold, default_left, leaf_value) + structure
@@ -150,12 +163,33 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, feature: torch.Tensor,
     if block_t < 1 or T % block_t:
         raise ValueError(f"{kind}: {T} trees are not a multiple of "
                          f"block_t={block_t}")
-    smem = tile_smem_bytes(kind, block_b, block_t, x.shape[1], depth)
+    smem = tile_smem_bytes(kind, block_b, block_t, x.shape[1], depth,
+                           fused=fused)
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"{kind}: tile needs {smem} B of shared memory, "
                          f"a block has {SMEM_BLOCK_MAX}")
 
 
-def stream_handle(device: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``device``."""
-    return torch.cuda.current_stream(device).cuda_stream
+def launch_forest_kernel(kind: str, x: torch.Tensor,
+                         trees: tuple[torch.Tensor, ...],
+                         structure: tuple[torch.Tensor, ...], *, depth: int,
+                         block_b: int, block_t: int,
+                         fused: bool) -> torch.Tensor:
+    """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]) or
+    ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream.  Every
+    C entry point takes (x, feature, threshold, default_left, leaf_value,
+    *structure, out, B, F, T, depth, block_b, block_t, stream) and returns
+    the launch's CUDA error; a nonzero one raises."""
+    check_kernel_inputs(kind, x, *trees, depth=depth, block_b=block_b,
+                        block_t=block_t, fused=fused, structure=structure)
+    lib = _build.load(f"forest_{kind}")
+    name = f"forest_{kind}_{'fused' if fused else 'raw'}"
+    B, F = x.shape
+    T = trees[0].shape[0]
+    out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,
+                      device=x.device)
+    ptrs = [t.data_ptr() for t in (x, *trees, *structure, out)]
+    err = getattr(lib, name)(*ptrs, B, F, T, depth, block_b, block_t,
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, name)
+    return out

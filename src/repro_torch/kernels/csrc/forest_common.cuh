@@ -1,18 +1,28 @@
-// Shared pieces of the fused forest kernels (Hopper, sm_90a).
+// Shared pieces of the forest kernels (Hopper, sm_90a).
 //
-// Skeleton common to all three kernels.  On the TPU the tree axis was a
-// sequential grid axis that revisited one [BB, 1] output block
-// (repro/kernels/forest_*.py, ``pl.when(program_id(1) == 0)`` init).  Here
-// that axis becomes a loop INSIDE the block:
+// Skeleton common to all six kernels: three algorithms, each FUSED (per
+// sample sum of the trees' scores, [B]) or RAW (each tree's score written
+// out, [B, T]).  On the TPU the tree axis was a sequential grid axis
+// (repro/kernels/forest_*.py): the fused kernels revisited one [BB, 1]
+// output block along it (``pl.when(program_id(1) == 0)`` init), the raw
+// ones wrote one [BB, BT] block per grid step.  Here that axis becomes a
+// loop INSIDE the block (``walk_tree_tiles``):
 //   * a block owns BB samples, one thread per sample, and stages its x tile
 //     in shared memory once, feature-major (x_s[f * BB + b]) so that a warp
 //     reading 32 different features still hits 32 different banks;
 //   * it walks every tree tile in order; each tile's feature, threshold,
 //     default_left and leaf values are staged in shared memory by all
 //     threads together;
-//   * each thread keeps its sample's sum in a register and writes [B] once.
-// No atomics, and the summation order (tree 0, 1, 2, ... in sequence) is
-// fixed from run to run.
+//   * FUSED: each thread keeps its sample's sum in a register and writes
+//     [B] once.  No atomics, and the summation order (tree 0, 1, 2, ... in
+//     sequence) is fixed from run to run;
+//   * RAW: each thread puts its tile scores in a shared [BB][BT + 1] out
+//     tile (the +1 keeps a warp's column writes on 32 banks), and the block
+//     then writes the tile's BB rows of BT floats with consecutive threads
+//     on consecutive addresses.  Offsets into x and out are 64-bit: B * T
+//     passes 2^31 at the paper's sizes.
+// The per-(sample, tree) score is one function shared by both variants, so
+// a raw score is exactly the term the fused kernel adds.
 //
 // Predicates are a direct gather x_s[feature[t, i]] from shared memory,
 // ``isnan(v) ? default_left : v < threshold`` -- the reference's
@@ -37,13 +47,16 @@ __host__ __device__ inline size_t align16(size_t n) {
 //   feat  int32   [BT][I]
 //   dl    uint8   [BT][I]
 //   extra         kernel-specific structure tensors (shared by all trees)
+//   out   float   [BB][BT + 1]  raw kernels only
+// kernels/common.py:tile_smem_bytes mirrors this layout.
 struct TileLayout {
-  size_t x, thr, leaf, feat, dl, extra, total;
+  size_t x, thr, leaf, feat, dl, extra, out, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
                                                   int depth,
-                                                  size_t extra_bytes) {
+                                                  size_t extra_bytes,
+                                                  bool fused) {
   const size_t I = (size_t(1) << depth) - 1, L = size_t(1) << depth;
   TileLayout s;
   s.x = 0;
@@ -52,7 +65,8 @@ __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
   s.feat = s.leaf + align16(sizeof(float) * bt * L);
   s.dl = s.feat + align16(sizeof(int32_t) * bt * I);
   s.extra = s.dl + align16(size_t(bt) * I);
-  s.total = s.extra + align16(extra_bytes);
+  s.out = s.extra + align16(extra_bytes);
+  s.total = s.out + (fused ? 0 : align16(sizeof(float) * bb * (bt + 1)));
   return s;
 }
 
@@ -63,6 +77,7 @@ struct TileRefs {
   int32_t* feat;
   uint8_t* dl;
   unsigned char* extra;
+  float* out;
 };
 
 __device__ inline TileRefs tile_refs(unsigned char* smem,
@@ -71,7 +86,8 @@ __device__ inline TileRefs tile_refs(unsigned char* smem,
                   reinterpret_cast<float*>(smem + lay.thr),
                   reinterpret_cast<float*>(smem + lay.leaf),
                   reinterpret_cast<int32_t*>(smem + lay.feat),
-                  smem + lay.dl, smem + lay.extra};
+                  smem + lay.dl, smem + lay.extra,
+                  reinterpret_cast<float*>(smem + lay.out)};
 }
 
 // Rows past B read as 0 (the reference pads samples with zeros).
@@ -107,6 +123,45 @@ __device__ inline bool go_left(float v, float thr, uint8_t dl) {
   return isnan(v) ? dl != 0 : v < thr;
 }
 
+// The tree loop of every kernel.  ``score(t)`` is this thread's sample's
+// score for tree t of the staged tile.  FUSED: out[b] = sum over all trees
+// in order.  RAW: out[b * T + t] = each tree's score.  x must be staged.
+template <bool FUSED, typename Score>
+__device__ inline void walk_tree_tiles(
+    const TileRefs& s, const int32_t* __restrict__ feature,
+    const float* __restrict__ threshold,
+    const uint8_t* __restrict__ default_left,
+    const float* __restrict__ leaf_value, float* __restrict__ out,
+    long long b0, long long B, int T, int bt, int I, int L, Score score) {
+  const int b = threadIdx.x, bb = blockDim.x;
+  float acc = 0.f;
+  for (int t0 = 0; t0 < T; t0 += bt) {
+    __syncthreads();  // x staged / previous tile consumed and written out
+    stage_trees(s, feature, threshold, default_left, leaf_value, t0, bt, I,
+                L);
+    __syncthreads();
+    for (int t = 0; t < bt; ++t) {
+      const float v = score(t);
+      if constexpr (FUSED) {
+        acc += v;
+      } else {
+        s.out[b * (bt + 1) + t] = v;
+      }
+    }
+    if constexpr (!FUSED) {
+      __syncthreads();
+      for (int k = threadIdx.x; k < bb * bt; k += bb) {
+        const int r = k / bt, c = k - r * bt;
+        const long long row = b0 + r;
+        if (row < B) out[row * T + t0 + c] = s.out[r * (bt + 1) + c];
+      }
+    }
+  }
+  if constexpr (FUSED) {
+    if (b0 + b < B) out[b0 + b] = acc;
+  }
+}
+
 // Ask for the dynamic shared memory, launch, and report the launch error.
 template <typename Kernel, typename... Args>
 inline int launch_kernel(Kernel kernel, long long B, int block_b,
@@ -121,16 +176,17 @@ inline int launch_kernel(Kernel kernel, long long B, int block_b,
 
 }  // namespace forest
 
-#define FOREST_DISPATCH_DEPTH(depth, FN, ...)          \
+// FN<depth, FUSED>(...) for a depth known only at run time.
+#define FOREST_DISPATCH_DEPTH(depth, FN, FUSED, ...)   \
   switch (depth) {                                     \
-    case 1: return FN<1>(__VA_ARGS__);                 \
-    case 2: return FN<2>(__VA_ARGS__);                 \
-    case 3: return FN<3>(__VA_ARGS__);                 \
-    case 4: return FN<4>(__VA_ARGS__);                 \
-    case 5: return FN<5>(__VA_ARGS__);                 \
-    case 6: return FN<6>(__VA_ARGS__);                 \
-    case 7: return FN<7>(__VA_ARGS__);                 \
-    case 8: return FN<8>(__VA_ARGS__);                 \
+    case 1: return FN<1, FUSED>(__VA_ARGS__);          \
+    case 2: return FN<2, FUSED>(__VA_ARGS__);          \
+    case 3: return FN<3, FUSED>(__VA_ARGS__);          \
+    case 4: return FN<4, FUSED>(__VA_ARGS__);          \
+    case 5: return FN<5, FUSED>(__VA_ARGS__);          \
+    case 6: return FN<6, FUSED>(__VA_ARGS__);          \
+    case 7: return FN<7, FUSED>(__VA_ARGS__);          \
+    case 8: return FN<8, FUSED>(__VA_ARGS__);          \
     default: return int(cudaErrorInvalidValue);       \
   }
 

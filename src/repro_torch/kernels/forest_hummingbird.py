@@ -1,15 +1,17 @@
-"""Fused HummingBird (GEMM formulation) forest inference + SUM: CUDA kernel
-wrapper and its plain PyTorch version.
+"""HummingBird (GEMM formulation) forest inference, fused (+ SUM) and raw
+([B, T]): CUDA kernel wrappers and their plain PyTorch versions.
 
 Replaces ``repro/kernels/forest_hummingbird.py:hummingbird_fused_kernel_call``
-(Pallas, TPU).  The kernel is ``csrc/forest_hummingbird.cu``: it contracts
-the predicate vector S with the path matrix C over the node axis by
-popcounts over bit-packed S and C's +1 / -1 masks (exact integers).
+and ``hummingbird_kernel_call`` (Pallas, TPU).  Both kernels are
+``csrc/forest_hummingbird.cu``: it contracts the predicate vector S with
+the path matrix C over the node axis by popcounts over bit-packed S and
+C's +1 / -1 masks (exact integers).
 
 Structure tensors (``hb_masks``): ``cpos``/``cneg`` [L, ceil(I/32)] int32
 holding uint32 bit patterns (bit i%32 of word i/32 is node i), and
 ``dcount`` [L] int32, the left-turn count of each leaf.
-``hummingbird_fused.launches`` counts kernel launches.
+``hummingbird_fused.launches`` / ``hummingbird_raw.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -18,11 +20,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.forest import hb_path_matrix
-from repro_torch.kernels import _build
-from repro_torch.kernels.common import (check_kernel_inputs, dense_predicates,
-                                        stream_handle, sum_trees_in_order)
+from repro_torch.kernels.common import (dense_predicates, launch_forest_kernel,
+                                        sum_trees_in_order)
 
-__all__ = ["hummingbird_fused", "hummingbird_fused_plain", "hb_masks"]
+__all__ = ["hummingbird_fused", "hummingbird_fused_plain", "hummingbird_raw",
+           "hummingbird_raw_plain", "hb_masks"]
 
 #: rows per step of the plain version ([rows, T, L] f32 at T=512, L=256 is
 #: 512 MiB for 1024 rows)
@@ -57,29 +59,50 @@ def _path_matrix(cpos: torch.Tensor, cneg: torch.Tensor,
     return (bits(cpos) - bits(cneg)).float()
 
 
+def hummingbird_raw_plain(x: torch.Tensor, feature: torch.Tensor,
+                          threshold: torch.Tensor, default_left: torch.Tensor,
+                          leaf_value: torch.Tensor, cpos: torch.Tensor,
+                          cneg: torch.Tensor, dcount: torch.Tensor, *,
+                          depth: int) -> torch.Tensor:
+    """The raw kernel's function in plain torch: P = S @ C (S, C small
+    integers, so exact in f32), exit leaf where P == D, leaf contraction ->
+    [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` at a time: the [rows, T, L]
+    path tensor is the largest intermediate."""
+    chunk = PLAIN_CHUNK_ROWS
+    C = _path_matrix(cpos, cneg, depth)
+    D = dcount.float()
+    out = [torch.zeros((0, feature.shape[0]), dtype=torch.float32,
+                       device=x.device)]
+    for lo in range(0, x.shape[0], chunk):
+        s = dense_predicates(x[lo:lo + chunk], feature, threshold,
+                             default_left).float()          # [b, T, I]
+        P = torch.matmul(s, C)                              # [b, T, L]
+        out.append(((P == D).float() * leaf_value[None]).sum(-1))
+    return torch.cat(out)
+
+
 def hummingbird_fused_plain(x: torch.Tensor, feature: torch.Tensor,
                             threshold: torch.Tensor,
                             default_left: torch.Tensor,
                             leaf_value: torch.Tensor, cpos: torch.Tensor,
                             cneg: torch.Tensor, dcount: torch.Tensor, *,
                             depth: int) -> torch.Tensor:
-    """The kernel's function in plain torch: P = S @ C (S, C small integers,
-    so exact in f32), exit leaf where P == D, leaf contraction, trees added
-    in order.  Samples go ``PLAIN_CHUNK_ROWS`` at a time: the [rows, T, L]
-    path tensor is the largest intermediate."""
-    chunk = PLAIN_CHUNK_ROWS
-    C = _path_matrix(cpos, cneg, depth)
-    D = dcount.float()
-    out = []
-    for lo in range(0, x.shape[0], chunk):
-        s = dense_predicates(x[lo:lo + chunk], feature, threshold,
-                             default_left).float()          # [b, T, I]
-        P = torch.matmul(s, C)                              # [b, T, L]
-        scores = ((P == D).float() * leaf_value[None]).sum(-1)
-        out.append(sum_trees_in_order(scores))
-    if not out:
-        return torch.zeros(0, dtype=torch.float32, device=x.device)
-    return torch.cat(out)
+    """The fused kernel's function: the raw scores added tree by tree."""
+    return sum_trees_in_order(hummingbird_raw_plain(
+        x, feature, threshold, default_left, leaf_value, cpos, cneg, dcount,
+        depth=depth))
+
+
+def _check_masks(cpos: torch.Tensor, cneg: torch.Tensor,
+                 dcount: torch.Tensor, depth: int) -> None:
+    I, L = (1 << depth) - 1, 1 << depth
+    IW = (I + 31) // 32
+    if (tuple(cpos.shape) != (L, IW) or tuple(cneg.shape) != (L, IW)
+            or tuple(dcount.shape) != (L,)):
+        raise ValueError("hummingbird: structure masks do not match depth "
+                         f"{depth}")
+    if {cpos.dtype, cneg.dtype, dcount.dtype} != {torch.int32}:
+        raise TypeError("hummingbird: structure masks must be int32")
 
 
 def hummingbird_fused(x: torch.Tensor, feature: torch.Tensor,
@@ -89,33 +112,35 @@ def hummingbird_fused(x: torch.Tensor, feature: torch.Tensor,
                       depth: int, block_b: int,
                       block_t: int) -> torch.Tensor:
     """[B, F] samples, tree-padded arrays, structure masks -> [B] f32."""
+    trees = (feature, threshold, default_left, leaf_value)
     if x.device.type == "cpu":
-        return hummingbird_fused_plain(x, feature, threshold, default_left,
-                                       leaf_value, cpos, cneg, dcount,
+        return hummingbird_fused_plain(x, *trees, cpos, cneg, dcount,
                                        depth=depth)
-    check_kernel_inputs("hummingbird", x, feature, threshold, default_left,
-                        leaf_value, depth=depth, block_b=block_b,
-                        block_t=block_t, structure=(cpos, cneg, dcount))
-    I, L = (1 << depth) - 1, 1 << depth
-    IW = (I + 31) // 32
-    if (tuple(cpos.shape) != (L, IW) or tuple(cneg.shape) != (L, IW)
-            or tuple(dcount.shape) != (L,)):
-        raise ValueError("hummingbird: structure masks do not match depth "
-                         f"{depth}")
-    if {cpos.dtype, cneg.dtype, dcount.dtype} != {torch.int32}:
-        raise TypeError("hummingbird: structure masks must be int32")
-    lib = _build.load("forest_hummingbird")
-    B, F = x.shape
-    out = torch.empty(B, dtype=torch.float32, device=x.device)
-    err = lib.forest_hummingbird_fused(
-        x.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
-        default_left.data_ptr(), leaf_value.data_ptr(), cpos.data_ptr(),
-        cneg.data_ptr(), dcount.data_ptr(), out.data_ptr(),
-        B, F, feature.shape[0], depth, block_b, block_t,
-        stream_handle(x.device))
-    _build.check(lib, err, "forest_hummingbird_fused")
+    _check_masks(cpos, cneg, dcount, depth)
+    out = launch_forest_kernel("hummingbird", x, trees, (cpos, cneg, dcount),
+                               depth=depth, block_b=block_b, block_t=block_t,
+                               fused=True)
     hummingbird_fused.launches += 1
     return out
 
 
+def hummingbird_raw(x: torch.Tensor, feature: torch.Tensor,
+                    threshold: torch.Tensor, default_left: torch.Tensor,
+                    leaf_value: torch.Tensor, cpos: torch.Tensor,
+                    cneg: torch.Tensor, dcount: torch.Tensor, *,
+                    depth: int, block_b: int, block_t: int) -> torch.Tensor:
+    """As ``hummingbird_fused``, but -> [B, T] f32, each tree's score."""
+    trees = (feature, threshold, default_left, leaf_value)
+    if x.device.type == "cpu":
+        return hummingbird_raw_plain(x, *trees, cpos, cneg, dcount,
+                                     depth=depth)
+    _check_masks(cpos, cneg, dcount, depth)
+    out = launch_forest_kernel("hummingbird", x, trees, (cpos, cneg, dcount),
+                               depth=depth, block_b=block_b, block_t=block_t,
+                               fused=False)
+    hummingbird_raw.launches += 1
+    return out
+
+
 hummingbird_fused.launches = 0
+hummingbird_raw.launches = 0

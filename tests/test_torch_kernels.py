@@ -1,12 +1,13 @@
-"""Port parity: the fused kernels' plain versions and their wrappers.
+"""Port parity: the kernels' plain versions and their wrappers.
 
 On the CPU each wrapper runs its kernel's plain PyTorch version (and only
 because the tensors lie on the CPU); those are held against the reference's
-fused Pallas kernels in interpret mode over ``tests/test_fused.py``'s shape
-grid: bit-identical on small-integer leaves, else within 1e-6 (the port adds
-trees in another order than the reference's per-tile sums).  The CUDA
-kernels themselves are held against these plain versions by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
+Pallas kernels in interpret mode over ``tests/test_fused.py``'s shape grid.
+Fused sums: bit-identical on small-integer leaves, else within 1e-6 (the
+port adds trees in another order than the reference's per-tile sums).  Raw
+[B, T] scores: bit-identical on any leaves, since each entry is one leaf
+lookup.  The CUDA kernels themselves are held against these plain versions
+by ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
 """
 
 import zlib
@@ -19,16 +20,23 @@ import torch
 from repro.core.forest import make_forest as jmake_forest
 from repro.core.postprocess import postprocess as jpostprocess
 from repro.kernels.ops import FUSED_KERNEL_ALGORITHMS as JFUSED
+from repro.kernels.ops import KERNEL_ALGORITHMS as JRAW
 from repro_torch.core.forest import hb_path_matrix
 from repro_torch.core.postprocess import postprocess
 from repro_torch.kernels import _build, common
+from repro_torch.kernels.common import sum_trees_in_order
 from repro_torch.kernels.forest_hummingbird import (_path_matrix, hb_masks,
-                                                    hummingbird_fused_plain)
-from repro_torch.kernels.forest_predicated import predicated_fused_plain
-from repro_torch.kernels.forest_quickscorer import quickscorer_fused_plain
+                                                    hummingbird_fused_plain,
+                                                    hummingbird_raw_plain)
+from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
+                                                   predicated_raw_plain)
+from repro_torch.kernels.forest_quickscorer import (quickscorer_fused_plain,
+                                                    quickscorer_raw_plain)
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
-                                     KERNEL_WRAPPERS, default_tree_block,
-                                     predict_sum_pallas, prepare_inputs)
+                                     KERNEL_ALGORITHMS, KERNEL_WRAPPERS,
+                                     RAW_KERNEL_WRAPPERS, default_tree_block,
+                                     predict_raw_pallas, predict_sum_pallas,
+                                     prepare_inputs)
 
 from conftest import random_forest_arrays
 from test_torch_forest import port_forest
@@ -37,6 +45,9 @@ BASES = ("predicated", "hummingbird", "quickscorer")
 PLAIN = dict(predicated=predicated_fused_plain,
              hummingbird=hummingbird_fused_plain,
              quickscorer=quickscorer_fused_plain)
+RAW_PLAIN = dict(predicated=predicated_raw_plain,
+                 hummingbird=hummingbird_raw_plain,
+                 quickscorer=quickscorer_raw_plain)
 
 SHAPE_GRID = [
     # (B, T, depth, F, block_b, block_t), as tests/test_fused.py
@@ -82,6 +93,49 @@ def test_fused_matches_reference_kernel(base, shape, integer_leaves):
         assert np.array_equal(got, want), (got, want)
     else:
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("integer_leaves", [False, True],
+                         ids=["float", "integer"])
+@pytest.mark.parametrize("base", BASES)
+@pytest.mark.parametrize("shape", SHAPE_GRID,
+                         ids=[f"B{b}T{t}d{d}F{f}" for b, t, d, f, _, _
+                              in SHAPE_GRID])
+def test_raw_matches_reference_kernel(base, shape, integer_leaves):
+    """[B, T] per-tree scores, with NaN and whole-NaN rows: bit-identical
+    to the reference's raw Pallas kernel on float and integer leaves."""
+    B, T, depth, F, bb, bt = shape
+    seed = zlib.crc32(f"raw{base}{shape}".encode()) % 9973
+    jf, tf, x = _case(B, T, depth, F, seed, integer_leaves=integer_leaves,
+                      nan_frac=0.2)
+    name = base + "_pallas"
+    want = np.asarray(JRAW[name](jf, jnp.asarray(x), block_b=bb,
+                                 block_t=bt, interpret=True))
+    got = KERNEL_ALGORITHMS[name](tf, torch.from_numpy(x)).numpy()
+    assert got.shape == (B, T)
+    assert np.array_equal(got, want), (got, want)
+
+
+@pytest.mark.parametrize("base", BASES)
+def test_raw_sum_in_order_equals_fused(base):
+    """The raw plain version added tree by tree is the fused plain version,
+    bit for bit, whatever tiles each picks (padding trees add 0.0)."""
+    _, tf, x = _case(33, 21, 6, 9, 17, nan_frac=0.2)
+    xt = torch.from_numpy(x)
+    raw = predict_raw_pallas(tf, xt, base + "_pallas")
+    fused = predict_sum_pallas(tf, xt, base + "_pallas_fused")
+    assert torch.equal(sum_trees_in_order(raw), fused)
+    args, tiles = prepare_inputs(base, tf, xt, fused=False)
+    assert torch.equal(sum_trees_in_order(RAW_PLAIN[base](*args, depth=6)),
+                       PLAIN[base](*args, depth=6))
+
+
+def test_predict_raw_pallas_names_the_options():
+    _, tf, x = _case(4, 3, 2, 5, 1)
+    with pytest.raises(ValueError, match="predicated_pallas"):
+        predict_raw_pallas(tf, torch.from_numpy(x), "predicated")
+    empty = predict_raw_pallas(tf, torch.zeros(0, 5), "predicated_pallas")
+    assert empty.shape == (0, 3)
 
 
 @pytest.mark.parametrize("base", BASES)
@@ -146,6 +200,17 @@ def test_block_heuristics_fit_shared_memory():
         assert (bb, bt) == (256, 16)
         assert common.tile_smem_bytes(kind, bb, bt, 28, 8) \
             <= common.SMEM_BUDGET
+    # the raw kernels add their [BB, BT + 1] out tile and still fit; the
+    # HummingBird raw tile halves its tree tile for it
+    for kind, bt in (("predicated", 16), ("hummingbird", 8),
+                     ("quickscorer", 16)):
+        tiles = common.block_heuristics(kind, 11_000_000, 1600, 28, 8,
+                                        fused=False)
+        assert tiles == (256, bt)
+        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
+            == common.tile_smem_bytes(kind, *tiles, 28, 8) + 256 * (bt + 1) * 4
+        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
+            <= common.SMEM_BUDGET
     # small batches shrink the sample tile to a warp multiple
     assert common.block_heuristics("predicated", 7, 3, 5, 2) == (32, 2)
     # wide rows shrink the sample tile; too wide for any tile raises
@@ -158,8 +223,14 @@ def test_block_heuristics_fit_shared_memory():
 def test_default_tree_block():
     _, tf, _ = _case(8, 40, 8, 28, 3)
     assert default_tree_block(tf) == 16
+    assert default_tree_block(tf, fused=False) == 16
     _, small, _ = _case(8, 3, 3, 5, 3)
     assert default_tree_block(small) == 2
+    # sized by the kernel it will launch: the raw out tile takes room the
+    # fused kernel gives to trees
+    _, wide, _ = _case(8, 64, 6, 60, 3)
+    assert default_tree_block(wide, fused=True) == 64
+    assert default_tree_block(wide, fused=False) == 32
 
 
 def test_wrappers_use_plain_only_for_cpu_tensors():
@@ -172,6 +243,22 @@ def test_wrappers_use_plain_only_for_cpu_tensors():
         got = wrapper(*args, **tiles)
         assert wrapper.launches == before
         assert torch.equal(got, PLAIN[kind](*args, depth=tiles["depth"]))
+        meta = [a.to("meta") for a in args]
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            wrapper(*meta, **tiles)
+        assert wrapper.launches == before
+
+
+def test_raw_wrappers_use_plain_only_for_cpu_tensors():
+    _, tf, x = _case(16, 6, 4, 9, 9)
+    for kind, wrapper in RAW_KERNEL_WRAPPERS.items():
+        args, tiles = prepare_inputs(kind, tf, torch.from_numpy(x),
+                                     fused=False)
+        before = wrapper.launches
+        got = wrapper(*args, **tiles)
+        assert wrapper.launches == before
+        assert got.shape == (32, args[1].shape[0])
+        assert torch.equal(got, RAW_PLAIN[kind](*args, depth=tiles["depth"]))
         meta = [a.to("meta") for a in args]
         with pytest.raises(ValueError, match="CUDA tensor"):
             wrapper(*meta, **tiles)
@@ -192,9 +279,16 @@ def test_prepare_inputs_pads_like_the_reference():
 
 
 def test_kernel_sources_are_in_the_package():
-    for src, fn, _ in _build.KERNEL_SOURCES.values():
+    bound = set()
+    for src, entry_points in _build.KERNEL_SOURCES.values():
         text = (_build.CSRC / src).read_text()
-        assert f'extern "C" int {fn}(' in text
+        for fn, argtypes in entry_points:
+            assert f'extern "C" int {fn}(' in text
+            # B is the one 64-bit integer; every pointer is c_void_p
+            assert argtypes.count(_build._LL) == 1
+            bound.add(fn)
+    assert bound == {f"forest_{k}_{v}" for k in BASES
+                     for v in ("fused", "raw")}
     names = [_build._target(n).name for n in _build.KERNEL_SOURCES]
     assert len(set(names)) == 3 and all(n.endswith(".so") for n in names)
 

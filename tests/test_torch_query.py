@@ -157,11 +157,12 @@ def test_unported_plans_and_tiers_raise():
     x = _rows(5)
     store, engine = _port_engine(x)
     tf = port_forest(_forest(integer_leaves=False))
-    for plan in ("rel", "rel+reuse", "auto"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.infer("t", tf, plan=plan)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        engine.infer("t", tf, algorithm="predicated_pallas")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.infer("t", tf, plan="auto")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.infer("t", tf, algorithm="auto", plan="rel")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.infer_rows(tf, x[:8], plan="auto")
     with pytest.raises(ValueError, match="unknown plan"):
         engine.infer("t", tf, plan="nope")
     with pytest.raises(ValueError, match="unknown algorithm"):
