@@ -1,0 +1,82 @@
+"""Time two checkouts of the port on one card, in turns.
+
+    python3 chip_ab.py PARENT_DIR [--out DIR]
+
+Runs ``python3 chip_smoke.py`` from PARENT_DIR (the root of another
+checkout, for example a parent commit unpacked there with ``git archive``)
+and from this checkout, in the order parent, change, change, parent, on
+this machine's card.  Each run's whole output goes to
+``DIR/<n>-<side>.log`` (default ``chiprun_out/ab``).  The script prints
+each run's kernel times (from the ``{"kernels": ...}`` line chip_smoke.py
+prints), its rel+reuse repeat and its ``infer_rows`` repeats, then each
+side's mean per kernel and the change / parent ratio.  Any run that fails
+makes the script exit non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ORDER = ("parent", "change", "change", "parent")
+REL_REPEAT = re.compile(r"\[rel\] infer\(plan='rel\+reuse', algorithm="
+                        r"'predicated_pallas'\) run 2 .* total ([0-9.]+) s")
+ROWS = re.compile(r"\[rows\] infer_rows\((\d+) rows.*plan='([^']+)'.*repeat "
+                  r"([0-9.]+) s")
+
+
+def run(root: Path, log: Path) -> dict:
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                          capture_output=True, text=True, timeout=1500)
+    log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
+                           f"see {log}")
+    out = {"kernels": None, "rel_repeat_s": None, "rows": {}}
+    for line in proc.stdout.splitlines():
+        if line.startswith('{"kernels"'):
+            out["kernels"] = {k["name"]: k["ms"]
+                              for k in json.loads(line)["kernels"]}
+        elif (m := REL_REPEAT.search(line)):
+            out["rel_repeat_s"] = float(m.group(1))
+        elif (m := ROWS.search(line)):
+            out["rows"][f"{m.group(2)} {m.group(1)}"] = float(m.group(3))
+        elif line.startswith("[report]"):
+            out["report"] = line
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab"))
+    args = ap.parse_args()
+    here = Path(__file__).resolve().parent
+    args.out.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for n, side in enumerate(ORDER):
+        root = args.parent.resolve() if side == "parent" else here
+        res = run(root, args.out / f"{n}-{side}.log")
+        runs.append((side, res))
+        print(f"[ab] run {n} {side}: {res.get('report')}", flush=True)
+        print(f"[ab] run {n} {side}: kernels ms {json.dumps(res['kernels'])}"
+              f"; rel+reuse repeat {res['rel_repeat_s']} s; infer_rows "
+              f"repeat s {json.dumps(res['rows'])}", flush=True)
+    names = list(runs[0][1]["kernels"])
+    for name in names:
+        side_ms = {s: [r["kernels"][name] for side, r in runs if side == s]
+                   for s in ("parent", "change")}
+        p = sum(side_ms["parent"]) / 2
+        c = sum(side_ms["change"]) / 2
+        print(f"[ab] {name}: parent {side_ms['parent']} ms, change "
+              f"{side_ms['change']} ms, change/parent {c / p:.4f}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,12 @@ Phases (any failure exits non-zero and prints no result line):
   2. build    the CUDA kernels from src/repro_torch/kernels/csrc with nvcc
               (each library holds one kernel's fused and raw entry points);
   3. kernels  each fused and each raw kernel against its plain PyTorch
-              version at depth 8, 500 trees, 28 features on 16,384 rows
-              with NaN rows: fused sums bit-identical on integer leaves and
-              within TOL on float leaves, raw [B, T] scores bit-identical;
+              version at depth 8, 500 trees, 28 features on 16,421 rows
+              (a ragged last block) with NaN rows: fused sums bit-identical
+              on integer leaves and within TOL on float leaves, raw [B, T]
+              scores bit-identical (bit for bit, sign of zero included);
+              then the predicated and HummingBird kernels, fused and raw,
+              at depths 1, 3 and 5 with -0.0 leaves, all bit for bit;
   4. path     the in-database query on a HIGGS-shaped table (11,000,000 x
               28 rows from a seed, on the device tier):
               infer(plan="udf", algorithm="predicated_pallas_fused") twice
@@ -56,7 +59,8 @@ DEPTH, TREES, FEATURES = 8, 500, 28
 REL_TREES = 1600                # the large-model regime of the rel plans
 HIGGS_ROWS = 11_000_000
 CUT_ROWS = 1_000_000            # HummingBird / QuickScorer path rows
-CHECK_ROWS = 16_384             # phase 3 kernel-vs-plain rows
+CHECK_ROWS = 16_421             # phase 3 kernel-vs-plain rows (ragged)
+SHALLOW = (1, 3, 5)             # phase 3 depths beside DEPTH
 COMPARE_ROWS = 65_536           # path rows held against the oracle
 ROW_BATCHES = (8, 32, 128)      # the serving plane's bucket ladder
 TOL = 1e-6                      # rtol = atol for float sums (order differs)
@@ -91,8 +95,8 @@ def nvidia_smi_line() -> str:
 
 
 def make_forest_arrays(rng, *, integer_leaves: bool, trees: int = TREES,
-                       leaf_scale: float = 0.1):
-    I, L = (1 << DEPTH) - 1, 1 << DEPTH
+                       leaf_scale: float = 0.1, depth: int = DEPTH):
+    I, L = (1 << depth) - 1, 1 << depth
     feature = rng.integers(0, FEATURES, (trees, I)).astype(np.int32)
     threshold = rng.normal(size=(trees, I)).astype(np.float32)
     default_left = rng.random((trees, I)) < 0.5
@@ -102,6 +106,11 @@ def make_forest_arrays(rng, *, integer_leaves: bool, trees: int = TREES,
         leaves = (leaf_scale * rng.normal(size=(trees, L))).astype(
             np.float32)
     return feature, threshold, default_left, leaves
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, so that equality is bit for bit."""
+    return t.contiguous().view(torch.int32)
 
 
 def cuda_ms(fn, *, warmup: int, reps: int) -> float:
@@ -140,18 +149,19 @@ def bound(kind: str, B: int, F: int, T: int = TREES, *,
           raw: bool = False) -> tuple[float, str, dict]:
     """Least time (ms) the card could take for one launch over B rows and
     T trees: the larger of bytes over HBM rate and operations over peak.
-    Bytes: x read once, the trees and structure tensors read once, the
-    output ([B], or [B, T] for a raw launch) written once."""
+    Bytes: x read once, the trees (an 8-byte record per node slot and a
+    4-byte leaf) and structure tensors read once, the output ([B], or
+    [B, T] for a raw launch) written once."""
     I, L = (1 << DEPTH) - 1, 1 << DEPTH
     W = (L + 31) // 32
-    nbytes = 4 * B * F + T * (9 * I + 4 * L) + 4 * B * (T if raw else 1)
+    nbytes = 4 * B * F + T * 12 * L + 4 * B * (T if raw else 1)
     pairs = B * T
     add = 0 if raw else 1         # the fused kernels add each pair's leaf
     if kind == "predicated":      # depth compares (+ 1 add) per pair
         ops, rate = pairs * (DEPTH + add), SCALAR_OPS_PER_S
     elif kind == "hummingbird":   # S.C contraction: I x L MACs per pair
         ops, rate = pairs * I * L * 2, INT8_TENSOR_OPS_PER_S
-        nbytes += 8 * L * ((I + 31) // 32) + 4 * L
+        nbytes += max(32, L) * max(8, L) + 4 * max(8, L)   # C^T int8, D
     else:                         # I compares + I*W ANDs + W ffs (+ 1 add)
         ops, rate = pairs * (I * (1 + W) + W + add), SCALAR_OPS_PER_S
         nbytes += 4 * I * W
@@ -296,7 +306,8 @@ def main() -> int:
             want = raw_plain[kind](*args, depth=DEPTH)
             err = float((got - want).abs().max())
             raw_err[kind] = max(raw_err[kind], err)
-            ok = torch.equal(got, want) and bool(torch.isfinite(got).all())
+            ok = torch.equal(bits(got), bits(want)) and bool(
+                torch.isfinite(got).all())
             log(f"[kernels] {kind} raw {'integer' if integer else 'float'} "
                 f"leaves, {CHECK_ROWS} rows x {TREES} trees, tiles {tiles}: "
                 f"max_abs_err={err!r} bit-identical: "
@@ -304,6 +315,37 @@ def main() -> int:
             if not ok:
                 raise AssertionError(f"{kind} raw kernel disagrees with its "
                                      f"plain version")
+
+    # rows 1, 2, 4 and 5 of PERF.md at the shallower depths, -0.0 leaves
+    # (a leaf lookup keeps the sign; HummingBird's contraction gives +0.0)
+    for depth in SHALLOW:
+        fe, th, dl, lv = make_forest_arrays(
+            np.random.default_rng(SEED + 10 + depth), integer_leaves=True,
+            trees=37, depth=depth)
+        lv[:, ::3] = -0.0
+        f = make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
+                        device="cuda")
+        for kind in ("predicated", "hummingbird"):
+            for fused in (True, False):
+                args, tiles = prepare_inputs(kind, f, x_chk, fused=fused)
+                wrapper = (KERNEL_WRAPPERS if fused
+                           else RAW_KERNEL_WRAPPERS)[kind]
+                got = wrapper(*args, **tiles)
+                torch.cuda.synchronize()
+                want = (plain if fused else raw_plain)[kind](*args,
+                                                             depth=depth)
+                ok = torch.equal(bits(got), bits(want))
+                err = float((got - want).abs().max())
+                (max_err if fused else raw_err)[kind] = max(
+                    (max_err if fused else raw_err)[kind], err)
+                log(f"[kernels] {kind} {'fused' if fused else 'raw'} depth "
+                    f"{depth}, 37 trees, integer and -0.0 leaves, "
+                    f"{CHECK_ROWS} rows, tiles {tiles}: max_abs_err={err!r} "
+                    f"bit for bit: {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{kind} at depth {depth} disagrees "
+                                         f"with its plain version")
+    del x_chk
 
     # -- 4. main path ---------------------------------------------------------
     fe, th, dl, lv = make_forest_arrays(np.random.default_rng(SEED + 2),
@@ -528,7 +570,7 @@ def main() -> int:
         t_plain = time.perf_counter()
         want, plain_ms = timed_plain(raw_plain[kind], args, DEPTH)
         err = float((got - want).abs().max())
-        if not torch.equal(got, want):
+        if not torch.equal(bits(got), bits(want)):
             raise AssertionError(f"{kind} raw at path shapes: max_abs_err "
                                  f"{err}")
         raw_err[kind] = max(raw_err[kind], err)

@@ -58,7 +58,8 @@ from repro_torch.db.operators import (Operator, StageReport, run_stages,
                                       split_into_stages)
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
-                                     KERNEL_ALGORITHMS, default_tree_block)
+                                     KERNEL_ALGORITHMS, default_tree_block,
+                                     packed_nodes, share_packed_nodes)
 
 __all__ = ["QueryResult", "RowBatchResult", "CompiledQueryPlan",
            "ForestQueryEngine"]
@@ -190,15 +191,18 @@ class ForestQueryEngine:
     def _partition_model(self, forest: Forest,
                          num_parts: int) -> MaterializedModel:
         """The forest on the store's device, its tree axis padded to a
-        multiple of ``num_parts``.  ``aux`` stays empty: the kernels'
-        structure tensors come from ``kernels.ops``'s per-(depth, device)
-        cache, and the eager oracles build their own."""
+        multiple of ``num_parts``, and (``aux["nodes"]``) its node records
+        as the kernels read them, built here once so that no partition
+        launch builds any.  The kernels' structure tensors come from
+        ``kernels.ops``'s per-(depth, device) cache, and the eager oracles
+        build their own."""
         dev = self.store.device
         forest_p, true_T = pad_trees(forest.to(dev), num_parts)
+        aux = {"nodes": packed_nodes(forest_p)}
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return MaterializedModel(forest=forest_p, true_num_trees=true_T,
-                                 aux={})
+                                 aux=aux)
 
     # -- plan bodies ----------------------------------------------------------
     @staticmethod
@@ -229,6 +233,8 @@ class ForestQueryEngine:
                     base_score=forest.base_score)
         per = forest.num_trees // n_parts
         parts = [tree_slice(forest, p * per, per) for p in range(n_parts)]
+        for p, part in enumerate(parts):
+            share_packed_nodes(part, mat.aux["nodes"][p * per:(p + 1) * per])
 
         def cross_product(state):
             """CROSS-PRODUCT(tree partition, sample block) -> partials

@@ -47,11 +47,11 @@ def _entry_points(kind: str, n_pointers: int):
 #: library name -> (source file, [(C function, argtypes), ...])
 KERNEL_SOURCES = {
     "forest_predicated": ("forest_predicated.cu",
-                          _entry_points("predicated", 6)),
+                          _entry_points("predicated", 4)),
     "forest_hummingbird": ("forest_hummingbird.cu",
-                           _entry_points("hummingbird", 9)),
+                           _entry_points("hummingbird", 6)),
     "forest_quickscorer": ("forest_quickscorer.cu",
-                           _entry_points("quickscorer", 7)),
+                           _entry_points("quickscorer", 5)),
 }
 
 #: ptxas resource report of each library built by this process

@@ -9,24 +9,35 @@ same on finite and NaN inputs, but a +-inf feature turns into ``0 * inf =
 NaN`` there and goes right on every node of that row.  The port follows
 ``_go_left`` (see ROADMAP section 3).
 
+``pack_nodes`` / ``unpack_nodes`` convert between the forest's node arrays
+and the one 8-byte record per node that every CUDA kernel reads:
+``nodes[t, i + 1] = (threshold bits, feature << 1 | default_left)`` as
+int32 [T, L, 2], heap slot 0 unused (``csrc/forest_common.cuh``).  The
+plain versions take the same record and unpack it.
+
 ``block_heuristics`` sizes the kernels' tiles for an H100 block: one
 thread per sample (BB threads), and a shared-memory working set of
 
-    x tile    4 * F * BB
-    tree tile BT * (9 * I + 4 * L)        feature, threshold, default_left,
-                                          leaves
-    extra     HummingBird: 8 * L * ceil(I/32) + 4 * L   (C masks, D)
-              QuickScorer: 4 * I * ceil(L/32)           (bit-vectors)
-    out tile  raw kernels only: 4 * BB * (BT + 1)       (scores, staged so
-                                          the [B, T] rows leave coalesced)
+    x tile     4 * F * BB
+    tree tiles buffers * BT * 12 * L      node records and leaves; two
+                                          buffers when a launch walks more
+                                          than one tile (double buffering)
+    extra      HummingBird: NP * KP + 4 * NP + BB * KP   (C^T int8, D, one
+                                          S tile per warp; KP = max(32, L),
+                                          NP = max(8, L))
+               QuickScorer: 4 * I * ceil(L/32)           (bit-vectors)
+    out tile   raw kernels only: 4 * BB * (BT + 1)       (scores, staged
+                                          so the [B, T] rows leave
+                                          coalesced)
 
 each part rounded up to 16 bytes (``csrc/forest_common.cuh:tile_layout``).
-A raw kernel's out tile is why ``fused=False`` can get a smaller tree tile
-than ``fused=True`` for the same forest.
-The budget is half the 227 KB a block may take, so two blocks (16 warps at
-BB = 256) share an SM and one block's tile staging overlaps the other's
-compute.  At depth 8 one tree takes 3.3 KB, so the tree tile is 16 trees
-(the TPU's 12 MiB VMEM budget and 32-tree cap do not apply).
+The budget (``smem_budget``) is half the 227 KB a block may take for the
+predicated and QuickScorer kernels, so two 256-thread blocks share an SM
+and one block's staging overlaps the other's walk; HummingBird's C^T (64 KB
+at depth 8) and S tiles take one block an SM, with the whole 227 KB.  At
+the HIGGS shape (depth 8, 28 features) a one-tile launch -- a rel partition
+-- takes 16 trees; a launch over many trees walks 8-tree tiles, two
+buffers of them.
 """
 
 from __future__ import annotations
@@ -36,17 +47,19 @@ import torch
 from repro_torch.core.algorithms import go_left
 from repro_torch.kernels import _build
 
-__all__ = ["dense_predicates", "block_heuristics", "tile_smem_bytes",
-           "launch_forest_kernel", "SMEM_BLOCK_MAX", "SMEM_BUDGET",
-           "MAX_KERNEL_DEPTH"]
+__all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
+           "block_heuristics", "tile_smem_bytes", "tree_buffers",
+           "smem_budget", "launch_forest_kernel", "SMEM_BLOCK_MAX",
+           "SMEM_BUDGET", "MAX_KERNEL_DEPTH"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
-#: the tiling budget: two blocks per SM
+#: the tiling budget of the predicated and QuickScorer kernels: two blocks
+#: per SM
 SMEM_BUDGET = SMEM_BLOCK_MAX // 2
 #: deepest forest the CUDA kernels are instantiated for
 MAX_KERNEL_DEPTH = 8
-#: sample-tile cap (threads per block)
+#: sample-tile cap (threads per block; the kernels' __launch_bounds__)
 MAX_BLOCK_B = 256
 #: tree-tile cap
 MAX_BLOCK_T = 64
@@ -60,14 +73,41 @@ def dense_predicates(x: torch.Tensor, feature: torch.Tensor,
     return go_left(xv, threshold[None], default_left[None].bool())
 
 
+def pack_nodes(feature: torch.Tensor, threshold: torch.Tensor,
+               default_left: torch.Tensor) -> torch.Tensor:
+    """[T, I] node arrays -> the kernels' node records, int32 [T, I + 1, 2]:
+    ``[t, i + 1] = (threshold bits, feature << 1 | default_left)``, slot 0
+    zero."""
+    if threshold.dtype != torch.float32:
+        raise TypeError(f"node records hold float32 thresholds, got "
+                        f"{threshold.dtype}")
+    T, I = feature.shape
+    nodes = torch.zeros((T, I + 1, 2), dtype=torch.int32,
+                        device=feature.device)
+    nodes[:, 1:, 0] = threshold.contiguous().view(torch.int32)
+    nodes[:, 1:, 1] = (feature.to(torch.int32) << 1) | default_left.to(
+        torch.int32)
+    return nodes
+
+
+def unpack_nodes(nodes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """Node records -> (feature int32, threshold f32, default_left bool),
+    each [T, I]: the inverse of ``pack_nodes``, bit for bit."""
+    body = nodes[:, 1:]
+    threshold = body[..., 0].contiguous().view(torch.float32)
+    return body[..., 1] >> 1, threshold, (body[..., 1] & 1).bool()
+
+
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _extra_bytes(kind: str, depth: int) -> int:
+def _extra_bytes(kind: str, depth: int, block_b: int) -> int:
     I, L = (1 << depth) - 1, 1 << depth
-    if kind == "hummingbird":
-        return 4 * 2 * L * ((I + 31) // 32) + 4 * L
+    if kind == "hummingbird":        # csrc/forest_hummingbird.cu
+        kp, np_ = max(32, L), max(8, L)
+        return _align16(np_ * kp) + _align16(4 * np_) + block_b * kp
     if kind == "quickscorer":
         return 4 * I * ((L + 31) // 32)
     if kind == "predicated":
@@ -75,35 +115,53 @@ def _extra_bytes(kind: str, depth: int) -> int:
     raise ValueError(f"unknown kernel {kind!r}")
 
 
+def smem_budget(kind: str) -> int:
+    """Shared memory the tiling may give one block of this kernel."""
+    return SMEM_BLOCK_MAX if kind == "hummingbird" else SMEM_BUDGET
+
+
+def tree_buffers(T: int, block_t: int) -> int:
+    """Tree tiles a launch over T trees holds: two (double buffering) when
+    it walks more than one."""
+    return 2 if T > block_t else 1
+
+
 def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
-                    depth: int, *, fused: bool = True) -> int:
+                    depth: int, *, fused: bool = True,
+                    buffers: int = 1) -> int:
     """Dynamic shared memory of one block, as the CUDA layout lays it out
-    (``fused=False``: the raw [B, T] kernel, with its out tile)."""
-    I, L = (1 << depth) - 1, 1 << depth
-    out_tile = 0 if fused else 4 * block_b * (block_t + 1)
-    return (_align16(4 * F * block_b) + _align16(4 * block_t * I)
-            + _align16(4 * block_t * L) + _align16(4 * block_t * I)
-            + _align16(block_t * I) + _align16(_extra_bytes(kind, depth))
-            + _align16(out_tile))
+    (``fused=False``: the raw [B, T] kernel, with its out tile;
+    ``buffers``: tree tiles held, ``tree_buffers``)."""
+    L = 1 << depth
+    tree = _align16(8 * block_t * L) + _align16(4 * block_t * L)
+    out_tile = 0 if fused else _align16(4 * block_b * (block_t + 1))
+    return (_align16(4 * F * block_b) + buffers * tree
+            + _align16(_extra_bytes(kind, depth, block_b)) + out_tile)
 
 
 def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
-                     fused: bool = True) -> tuple[int, int]:
-    """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch: BB
-    a multiple of 32 up to 256, BT a power of two up to 64, shrunk (tree
-    tile first, then sample tile) until the block's shared memory fits
-    ``SMEM_BUDGET``.  Raises when even (32, 1) does not fit a block at all
-    (a very wide F)."""
+                     fused: bool = True,
+                     one_tile: bool = False) -> tuple[int, int]:
+    """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch over
+    T trees: BB a multiple of 32 up to 256, BT a power of two up to 64,
+    shrunk (tree tile first, then sample tile) until the block's shared
+    memory fits ``smem_budget``.  ``one_tile``: size the tile for launches
+    of exactly BT trees (one tree partition each), which hold one tree
+    buffer.  Raises when even (32, 1) does not fit a block at all (a very
+    wide F)."""
     def smem(bb, bt):
-        return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused)
+        buffers = 1 if one_tile else tree_buffers(T, bt)
+        return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused,
+                               buffers=buffers)
 
+    budget = smem_budget(kind)
     bb = min(MAX_BLOCK_B, max(32, -(-B // 32) * 32))
     bt = 1
     while bt * 2 <= min(T, MAX_BLOCK_T):
         bt *= 2
-    while smem(bb, bt) > SMEM_BUDGET and bt > 1:
+    while smem(bb, bt) > budget and bt > 1:
         bt //= 2
-    while smem(bb, bt) > SMEM_BUDGET and bb > 32:
+    while smem(bb, bt) > budget and bb > 32:
         bb //= 2
     if smem(bb, bt) > SMEM_BLOCK_MAX:
         raise ValueError(
@@ -122,21 +180,18 @@ def sum_trees_in_order(scores: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def check_kernel_inputs(kind: str, x: torch.Tensor, feature: torch.Tensor,
-                        threshold: torch.Tensor, default_left: torch.Tensor,
+def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
                         leaf_value: torch.Tensor, *, depth: int,
                         block_b: int, block_t: int, fused: bool,
                         structure: tuple[torch.Tensor, ...] = ()) -> None:
     """Everything a CUDA forest kernel assumes, checked before launch."""
-    tensors = (x, feature, threshold, default_left, leaf_value) + structure
+    tensors = (x, nodes, leaf_value) + structure
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{kind}: every input must be a CUDA tensor, got "
                          f"{[str(t.device) for t in tensors]}")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{kind}: inputs on different devices")
-    want = {"x": (x, torch.float32), "feature": (feature, torch.int32),
-            "threshold": (threshold, torch.float32),
-            "default_left": (default_left, torch.uint8),
+    want = {"x": (x, torch.float32), "nodes": (nodes, torch.int32),
             "leaf_value": (leaf_value, torch.float32)}
     for name, (t, dtype) in want.items():
         if t.dtype != dtype:
@@ -147,39 +202,40 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, feature: torch.Tensor,
     if not 1 <= depth <= MAX_KERNEL_DEPTH:
         raise ValueError(f"{kind}: the CUDA kernels take depth 1.."
                          f"{MAX_KERNEL_DEPTH}, got {depth}")
-    I, L = (1 << depth) - 1, 1 << depth
-    T = feature.shape[0]
+    L = 1 << depth
+    T = nodes.shape[0]
     if x.dim() != 2 or x.shape[1] < 1:
         raise ValueError(f"{kind}: x must be [B, F], got {tuple(x.shape)}")
-    for name, t, cols in (("feature", feature, I), ("threshold", threshold, I),
-                          ("default_left", default_left, I),
-                          ("leaf_value", leaf_value, L)):
-        if tuple(t.shape) != (T, cols):
-            raise ValueError(f"{kind}: {name} shape {tuple(t.shape)} != "
-                             f"({T}, {cols})")
-    if block_b % 32 or not 32 <= block_b <= 1024:
+    if tuple(nodes.shape) != (T, L, 2):
+        raise ValueError(f"{kind}: nodes shape {tuple(nodes.shape)} != "
+                         f"({T}, {L}, 2)")
+    if tuple(leaf_value.shape) != (T, L):
+        raise ValueError(f"{kind}: leaf_value shape "
+                         f"{tuple(leaf_value.shape)} != ({T}, {L})")
+    if block_b % 32 or not 32 <= block_b <= MAX_BLOCK_B:
         raise ValueError(f"{kind}: block_b must be a multiple of 32 in "
-                         f"[32, 1024], got {block_b}")
+                         f"[32, {MAX_BLOCK_B}], got {block_b}")
     if block_t < 1 or T % block_t:
         raise ValueError(f"{kind}: {T} trees are not a multiple of "
                          f"block_t={block_t}")
     smem = tile_smem_bytes(kind, block_b, block_t, x.shape[1], depth,
-                           fused=fused)
+                           fused=fused, buffers=tree_buffers(T, block_t))
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"{kind}: tile needs {smem} B of shared memory, "
                          f"a block has {SMEM_BLOCK_MAX}")
 
 
 def launch_forest_kernel(kind: str, x: torch.Tensor,
-                         trees: tuple[torch.Tensor, ...],
+                         trees: tuple[torch.Tensor, torch.Tensor],
                          structure: tuple[torch.Tensor, ...], *, depth: int,
                          block_b: int, block_t: int,
                          fused: bool) -> torch.Tensor:
     """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]) or
     ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream.  Every
-    C entry point takes (x, feature, threshold, default_left, leaf_value,
-    *structure, out, B, F, T, depth, block_b, block_t, stream) and returns
-    the launch's CUDA error; a nonzero one raises."""
+    C entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
+    depth, block_b, block_t, stream) and returns the launch's CUDA error;
+    a nonzero one raises.  B need not be a multiple of block_b: the kernel
+    stages rows past B as zeros and writes none of them."""
     check_kernel_inputs(kind, x, *trees, depth=depth, block_b=block_b,
                         block_t=block_t, fused=fused, structure=structure)
     lib = _build.load(f"forest_{kind}")

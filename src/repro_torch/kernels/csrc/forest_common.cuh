@@ -6,27 +6,36 @@
 // (repro/kernels/forest_*.py): the fused kernels revisited one [BB, 1]
 // output block along it (``pl.when(program_id(1) == 0)`` init), the raw
 // ones wrote one [BB, BT] block per grid step.  Here that axis becomes a
-// loop INSIDE the block (``walk_tree_tiles``):
-//   * a block owns BB samples, one thread per sample, and stages its x tile
-//     in shared memory once, feature-major (x_s[f * BB + b]) so that a warp
-//     reading 32 different features still hits 32 different banks;
-//   * it walks every tree tile in order; each tile's feature, threshold,
-//     default_left and leaf values are staged in shared memory by all
-//     threads together;
+// loop INSIDE the block (``run_tiles``):
+//   * a block owns BB samples and stages its x tile in shared memory once,
+//     feature-major (x_s[f * BB + b]) so that a warp reading 32 different
+//     features at its 32 rows hits 32 different banks.  The staging copy
+//     runs with lanes over b fastest, so its shared-memory stores are
+//     conflict-free too (a store order of lanes over f put a warp's 32
+//     stores on 2-3 banks); its strided global reads hit the x rows' lines
+//     in L1 once fetched;
+//   * trees arrive as one 8-byte record per node (``kernels/ops.py:
+//     pack_nodes``): {threshold bits, feature << 1 | default_left}, heap
+//     slots 1..I of a [T][L] array (slot 0 unused, so a tree's records
+//     start 16-byte aligned and the descent is idx <- 2 * idx + right from
+//     idx = 1, leaf = idx - L).  A level is one LDS.64 and one x load;
+//   * tree tiles (records [BT][L] int2 + leaves [BT][L] f32) are copied by
+//     cp.async.  A launch over more than one tile double-buffers them:
+//     tile j + 1 is in flight while tile j is walked, one barrier per tile.
+//     A launch over one tile (a rel partition) has nothing to pipeline
+//     across tiles: there the tile's copy and the x tile's are in flight
+//     together, and the second block on the SM walks while one stages;
 //   * FUSED: each thread keeps its sample's sum in a register and writes
 //     [B] once.  No atomics, and the summation order (tree 0, 1, 2, ... in
 //     sequence) is fixed from run to run;
-//   * RAW: each thread puts its tile scores in a shared [BB][BT + 1] out
-//     tile (the +1 keeps a warp's column writes on 32 banks), and the block
-//     then writes the tile's BB rows of BT floats with consecutive threads
-//     on consecutive addresses.  Offsets into x and out are 64-bit: B * T
-//     passes 2^31 at the paper's sizes.
-// The per-(sample, tree) score is one function shared by both variants, so
-// a raw score is exactly the term the fused kernel adds.
-//
-// Predicates are a direct gather x_s[feature[t, i]] from shared memory,
-// ``isnan(v) ? default_left : v < threshold`` -- the reference's
-// core/algorithms.py ``_go_left``.  Nothing rounds through a matrix unit.
+//   * RAW: tree scores go to a shared [BB][BT + 1] out tile (the +1 keeps
+//     a warp's column writes on 32 banks), and the block then writes the
+//     tile's BB rows of BT floats with consecutive threads on consecutive
+//     addresses.  Offsets into x and out are 64-bit: B * T passes 2^31 at
+//     the paper's sizes.  Rows past B are staged as zeros and never
+//     written, so B need not be a multiple of BB.
+// Predicates are ``isnan(v) ? default_left : v < threshold`` -- the
+// reference's core/algorithms.py ``_go_left``.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,37 +43,49 @@
 
 namespace forest {
 
-constexpr int kMaxDepth = 8;
+constexpr int kMaxBlock = 256;
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
+// Tree tiles in shared memory: two when the launch walks several tiles.
+__host__ __device__ inline int tree_buffers(int T, int bt) {
+  return T > bt ? 2 : 1;
+}
+
 // Byte offsets of one block's shared memory, each 16-byte aligned:
-//   x     float   [F][BB]  sample tile, feature-major
-//   thr   float   [BT][I]
-//   leaf  float   [BT][L]
-//   feat  int32   [BT][I]
-//   dl    uint8   [BT][I]
-//   extra         kernel-specific structure tensors (shared by all trees)
-//   out   float   [BB][BT + 1]  raw kernels only
+//   x      float  [F][BB]       sample tile, feature-major
+//   per tree buffer (1 or 2):
+//     nodes  int2   [BT][L]     packed node records
+//     leaf   float  [BT][L]
+//   extra                       kernel-specific (structure tensors, ...)
+//   out    float  [BB][BT + 1]  raw kernels only
 // kernels/common.py:tile_smem_bytes mirrors this layout.
 struct TileLayout {
-  size_t x, thr, leaf, feat, dl, extra, out, total;
+  size_t x, nodes[2], leaf[2], extra, out, total;
 };
 
 __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
-                                                  int depth,
+                                                  int L, int buffers,
                                                   size_t extra_bytes,
                                                   bool fused) {
-  const size_t I = (size_t(1) << depth) - 1, L = size_t(1) << depth;
+  const size_t node_bytes = align16(8 * size_t(bt) * L);
+  const size_t leaf_bytes = align16(4 * size_t(bt) * L);
   TileLayout s;
   s.x = 0;
-  s.thr = s.x + align16(sizeof(float) * size_t(F) * bb);
-  s.leaf = s.thr + align16(sizeof(float) * bt * I);
-  s.feat = s.leaf + align16(sizeof(float) * bt * L);
-  s.dl = s.feat + align16(sizeof(int32_t) * bt * I);
-  s.extra = s.dl + align16(size_t(bt) * I);
+  size_t at = align16(sizeof(float) * size_t(F) * bb);
+  for (int k = 0; k < 2; ++k) {
+    if (k < buffers) {
+      s.nodes[k] = at;
+      s.leaf[k] = at + node_bytes;
+      at += node_bytes + leaf_bytes;
+    } else {
+      s.nodes[k] = s.nodes[0];
+      s.leaf[k] = s.leaf[0];
+    }
+  }
+  s.extra = at;
   s.out = s.extra + align16(extra_bytes);
   s.total = s.out + (fused ? 0 : align16(sizeof(float) * bb * (bt + 1)));
   return s;
@@ -72,93 +93,140 @@ __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
 
 struct TileRefs {
   float* x;
-  float* thr;
-  float* leaf;
-  int32_t* feat;
-  uint8_t* dl;
+  int2* nodes[2];
+  float* leaf[2];
   unsigned char* extra;
   float* out;
 };
 
 __device__ inline TileRefs tile_refs(unsigned char* smem,
                                      const TileLayout& lay) {
-  return TileRefs{reinterpret_cast<float*>(smem + lay.x),
-                  reinterpret_cast<float*>(smem + lay.thr),
-                  reinterpret_cast<float*>(smem + lay.leaf),
-                  reinterpret_cast<int32_t*>(smem + lay.feat),
-                  smem + lay.dl, smem + lay.extra,
-                  reinterpret_cast<float*>(smem + lay.out)};
+  return TileRefs{
+      reinterpret_cast<float*>(smem + lay.x),
+      {reinterpret_cast<int2*>(smem + lay.nodes[0]),
+       reinterpret_cast<int2*>(smem + lay.nodes[1])},
+      {reinterpret_cast<float*>(smem + lay.leaf[0]),
+       reinterpret_cast<float*>(smem + lay.leaf[1])},
+      smem + lay.extra,
+      reinterpret_cast<float*>(smem + lay.out)};
 }
 
-// Rows past B read as 0 (the reference pads samples with zeros).
-__device__ inline void stage_x(float* x_s, const float* __restrict__ x,
-                               long long b0, long long B, int F, int bb) {
+// ---- asynchronous copies global -> shared (cp.async, sm_80+) -------------
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes; ``valid`` false writes zeros and reads nothing.
+__device__ inline void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The whole block copies ``bytes`` (a multiple of 4): 16-byte pieces when
+// both ends and the size allow, else 4-byte ones.
+__device__ inline void copy_async(void* dst, const void* src, size_t bytes) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s) |
+        bytes) & 15) == 0) {
+    for (size_t k = size_t(threadIdx.x) * 16; k < bytes;
+         k += size_t(blockDim.x) * 16) {
+      cp_async16(d + k, s + k);
+    }
+  } else {
+    for (size_t k = size_t(threadIdx.x) * 4; k < bytes;
+         k += size_t(blockDim.x) * 4) {
+      cp_async4(d + k, s + k, true);
+    }
+  }
+}
+
+// x_s[f * bb + b] = x[b0 + b, f], lanes over b (conflict-free stores);
+// rows past B read as 0 (the reference pads samples with zeros).
+__device__ inline void stage_x_async(float* x_s, const float* __restrict__ x,
+                                     long long b0, long long B, int F,
+                                     int bb) {
   for (int k = threadIdx.x; k < bb * F; k += blockDim.x) {
-    const int b = k / F, f = k - b * F;
+    const int f = k / bb, b = k - f * bb;
     const long long row = b0 + b;
-    x_s[f * bb + b] = row < B ? x[row * F + f] : 0.f;
+    const bool in = row < B;
+    cp_async4(x_s + k, x + (in ? row * F + f : 0), in);
   }
 }
 
-__device__ inline void stage_trees(const TileRefs& s,
-                                   const int32_t* __restrict__ feature,
-                                   const float* __restrict__ threshold,
-                                   const uint8_t* __restrict__ default_left,
-                                   const float* __restrict__ leaf_value,
-                                   int t0, int bt, int I, int L) {
-  const size_t g0 = size_t(t0) * I;
-  for (int k = threadIdx.x; k < bt * I; k += blockDim.x) {
-    s.feat[k] = feature[g0 + k];
-    s.thr[k] = threshold[g0 + k];
-    s.dl[k] = default_left[g0 + k];
-  }
-  const size_t l0 = size_t(t0) * L;
-  for (int k = threadIdx.x; k < bt * L; k += blockDim.x) {
-    s.leaf[k] = leaf_value[l0 + k];
-  }
+__device__ inline void stage_tree_tile(const TileRefs& s, int buf,
+                                       const int2* __restrict__ nodes,
+                                       const float* __restrict__ leaf_value,
+                                       int t0, int bt, int L) {
+  const size_t n = size_t(bt) * L, g0 = size_t(t0) * L;
+  // selected, not indexed: a run-time index into s puts s in local memory
+  copy_async(buf ? s.nodes[1] : s.nodes[0], nodes + g0, 8 * n);
+  copy_async(buf ? s.leaf[1] : s.leaf[0], leaf_value + g0, 4 * n);
 }
 
 // True = left child.  +-inf compares like any other number.
-__device__ inline bool go_left(float v, float thr, uint8_t dl) {
-  return isnan(v) ? dl != 0 : v < thr;
+__device__ inline bool go_left(float v, int2 node) {
+  return isnan(v) ? (node.y & 1) != 0 : v < __int_as_float(node.x);
 }
 
-// The tree loop of every kernel.  ``score(t)`` is this thread's sample's
-// score for tree t of the staged tile.  FUSED: out[b] = sum over all trees
-// in order.  RAW: out[b * T + t] = each tree's score.  x must be staged.
-template <bool FUSED, typename Score>
-__device__ inline void walk_tree_tiles(
-    const TileRefs& s, const int32_t* __restrict__ feature,
-    const float* __restrict__ threshold,
-    const uint8_t* __restrict__ default_left,
-    const float* __restrict__ leaf_value, float* __restrict__ out,
-    long long b0, long long B, int T, int bt, int I, int L, Score score) {
-  const int b = threadIdx.x, bb = blockDim.x;
-  float acc = 0.f;
-  for (int t0 = 0; t0 < T; t0 += bt) {
-    __syncthreads();  // x staged / previous tile consumed and written out
-    stage_trees(s, feature, threshold, default_left, leaf_value, t0, bt, I,
-                L);
+// The tree loop of every kernel.  Issues tile 0 (after whatever the caller
+// already issued: x, structure tensors) and walks all T / bt tiles in
+// order.  ``walk(nodes_s, leaf_s)`` scores one staged tile: FUSED
+// kernels add into their own registers, RAW ones fill s.out[r * (bt + 1) +
+// t], which this loop then writes to out[(b0 + r) * T + t0 + t].
+template <bool FUSED, typename Walk>
+__device__ inline void run_tiles(const TileRefs& s,
+                                 const int2* __restrict__ nodes,
+                                 const float* __restrict__ leaf_value,
+                                 float* __restrict__ out, long long b0,
+                                 long long B, int T, int bt, int L,
+                                 Walk walk) {
+  const int n_tiles = T / bt, nbuf = tree_buffers(T, bt);
+  const int bb = blockDim.x;
+  stage_tree_tile(s, 0, nodes, leaf_value, 0, bt, L);
+  cp_async_commit();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % nbuf;
+    cp_async_wait_all();
+    // tile j (and x) landed; every thread is done with tile j - 1 and the
+    // out tile, so buffer (j + 1) % 2 and s.out are free
     __syncthreads();
-    for (int t = 0; t < bt; ++t) {
-      const float v = score(t);
-      if constexpr (FUSED) {
-        acc += v;
-      } else {
-        s.out[b * (bt + 1) + t] = v;
-      }
+    if (nbuf == 2 && j + 1 < n_tiles) {
+      stage_tree_tile(s, (j + 1) & 1, nodes, leaf_value, (j + 1) * bt, bt,
+                      L);
+      cp_async_commit();
     }
+    walk(buf ? s.nodes[1] : s.nodes[0], buf ? s.leaf[1] : s.leaf[0]);
     if constexpr (!FUSED) {
       __syncthreads();
+      const long long t0 = (long long)j * bt;
       for (int k = threadIdx.x; k < bb * bt; k += bb) {
         const int r = k / bt, c = k - r * bt;
         const long long row = b0 + r;
         if (row < B) out[row * T + t0 + c] = s.out[r * (bt + 1) + c];
       }
     }
-  }
-  if constexpr (FUSED) {
-    if (b0 + b < B) out[b0 + b] = acc;
+    if (nbuf == 1 && j + 1 < n_tiles) {
+      __syncthreads();
+      stage_tree_tile(s, 0, nodes, leaf_value, (j + 1) * bt, bt, L);
+      cp_async_commit();
+    }
   }
 }
 

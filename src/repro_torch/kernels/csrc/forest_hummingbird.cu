@@ -6,132 +6,280 @@
 // hummingbird_kernel_call (line 115).  Per (sample, tree):
 //     S[i]   = go_left(node i)                    i in [0, I)
 //     P[l]   = sum_i S[i] * C[i, l]               C in {-1, 0, +1}, [I, L]
-//     score  = sum_l (P[l] == D[l]) * leaf_value[t, l]
+//     score  = leaf_value[t, l] + 0.0 for the one l with P[l] == D[l]
 // fused: out[b] += score over the trees in order; raw: out[b * T + t].
-// C and D are structure-only (one per depth, shared by every tree).
+// C and D are structure-only (one per depth, shared by every tree).  The
+// "+ 0.0" turns a -0.0 leaf into +0.0, as the plain version's one-hot
+// contraction (a sum that starts from +0.0) does.
 //
-// Arithmetic of the S.C contraction: popcounts over bit-packed operands.
-// S is packed into IW = ceil(I/32) 32-bit words; column l of C is split
-// into its +1 mask Cpos[l] and -1 mask Cneg[l] (each IW words), so
-//     P[l] = popc(S & Cpos[l]) - popc(S & Cneg[l])
-// summed over all IW words -- the full contraction over the node axis, in
-// exact integer arithmetic, so P == D is an exact equality as it must be.
+// The S.C contraction runs on the tensor cores:
+// mma.sync.m16n8k32.s32.s8.s8.s32, S and C as int8, P in int32 -- exact,
+// so P == D is an exact equality.  K = the node axis padded to KP =
+// max(32, L) (C's pad rows are 0), N = the leaf axis padded to NP =
+// max(8, L) (pad leaves have D = -1 and never match).  The structure
+// tensor ``ct`` is C transposed, [NP][KP] int8, so that B fragments load
+// with ldmatrix like A ones.
 //
-// What bounds it on this card: integer operations.  The contraction costs
-// 2 * L * IW AND+POPC pairs per (sample, tree) -- 4096 popcounts at depth
-// 8 -- against 255 predicate gathers, and __popc issues at a quarter of
-// the integer rate.  Bytes (x read once, [B] or [B, T] written once) are
-// small beside that.  Design: the masks and D live in shared memory and
-// are read as broadcasts (every thread of a warp reads the same leaf's
-// masks); S stays in registers (IW words); the fused variant carries its
-// sample's sum in a register, the raw one writes through the out tile.
+// What bounds it on this card: operations.  Against the int8 tensor-core
+// peak the GEMM is 2 * I * L per pair; the kernel also evaluates all I
+// node predicates per pair (a broadcast node-record load and an x load
+// each).  A popcount form of the contraction (2 * L * ceil(I/32) __popc
+// per pair over bit-packed S and C masks) runs at the popcount pipe's
+// rate and leaves the tensor cores idle.  Design, per warp of 32 rows and
+// per tree:
+//   1. each lane builds its row's S as KP bytes and stores them to the
+//      warp's [32][KP] S tile (16-byte chunks XOR-swizzled by row, so the
+//      stores and the ldmatrix reads are conflict-free);
+//   2. ldmatrix.x4 loads the A fragments (2 m-tiles x KP/32 k-steps) into
+//      registers; C^T stays in shared memory for the whole kernel (64 KB
+//      at depth 8, same swizzle) and is read by ldmatrix per n-tile;
+//   3. per group of four n-tiles of 8 leaves, one mma per (n-tile,
+//      m-tile, k-step), the k-step outermost, so that eight independent
+//      accumulations hide the mma latency (8 warps an SM leave little
+//      else to); each lane checks its P entries against D and keeps the
+//      matching leaf;
+//   4. two quad shuffles give every lane of a quad the leaves of its rows,
+//      and lane t of the quad scores row (t >> 1) * 16 + (t & 1) * 8 + g.
+// C^T, the S tiles and the x tile leave room for one 256-thread block an
+// SM (kernels/common.py:smem_budget).
 #include "forest_common.cuh"
 
 namespace forest {
 
 template <int DEPTH>
-__host__ __device__ constexpr size_t hb_extra_bytes() {
-  constexpr int L = 1 << DEPTH, IW = ((1 << DEPTH) - 1 + 31) / 32;
-  return sizeof(uint32_t) * 2 * L * IW + sizeof(int32_t) * L;
+struct Hb {
+  static constexpr int L = 1 << DEPTH, I = L - 1;
+  static constexpr int KP = L < 32 ? 32 : L;   // node axis, mma K multiple
+  static constexpr int NP = L < 8 ? 8 : L;     // leaf axis, mma N multiple
+  static constexpr int KS = KP / 32;           // k-steps
+  static constexpr int NT = NP / 8;            // n-tiles
+  static constexpr int NG = NT < 4 ? NT : 4;   // n-tiles in flight
+  static constexpr int CH = KP / 16;           // 16-byte chunks in a row
+  static constexpr int SWZ = CH < 8 ? CH - 1 : 7;
+};
+
+// Bytes of the kernel-specific shared memory: C^T, D, one S tile a warp.
+// kernels/common.py:_extra_bytes mirrors it.
+__host__ __device__ inline size_t hb_extra_bytes(int depth, int bb) {
+  const size_t L = size_t(1) << depth;
+  const size_t KP = L < 32 ? 32 : L, NP = L < 8 ? 8 : L;
+  return align16(NP * KP) + align16(4 * NP) + size_t(bb) * KP;
+}
+
+template <int DEPTH>
+__device__ inline int swizzled(int row, int chunk) {
+  return row * Hb<DEPTH>::KP + ((chunk ^ (row & Hb<DEPTH>::SWZ)) << 4);
+}
+
+__device__ inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ inline void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a . b, one 16 x 8 x 32 int8 tile, int32 accumulate.
+__device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                              const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 template <int DEPTH, bool FUSED>
-__global__ void hummingbird_kernel(
-    const float* __restrict__ x, const int32_t* __restrict__ feature,
-    const float* __restrict__ threshold,
-    const uint8_t* __restrict__ default_left,
-    const float* __restrict__ leaf_value, const uint32_t* __restrict__ cpos,
-    const uint32_t* __restrict__ cneg, const int32_t* __restrict__ dcount,
-    float* __restrict__ out, long long B, int F, int T, int bt) {
-  constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
-  constexpr int IW = (I + 31) / 32;
+__global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
+    const float* __restrict__ x, const int2* __restrict__ nodes,
+    const float* __restrict__ leaf_value, const int8_t* __restrict__ ct,
+    const int32_t* __restrict__ dcount, float* __restrict__ out,
+    long long B, int F, int T, int bt) {
+  using H = Hb<DEPTH>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x;
-  const TileRefs s = tile_refs(
-      smem, tile_layout(bb, bt, F, DEPTH, hb_extra_bytes<DEPTH>(), FUSED));
-  uint32_t* cpos_s = reinterpret_cast<uint32_t*>(s.extra);
-  uint32_t* cneg_s = cpos_s + L * IW;
-  int32_t* d_s = reinterpret_cast<int32_t*>(cneg_s + L * IW);
+  const TileRefs s =
+      tile_refs(smem, tile_layout(bb, bt, F, H::L, tree_buffers(T, bt),
+                                  hb_extra_bytes(DEPTH, bb), FUSED));
+  unsigned char* ct_s = s.extra;
+  int32_t* d_s = reinterpret_cast<int32_t*>(ct_s + align16(H::NP * H::KP));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* s_tile = reinterpret_cast<unsigned char*>(d_s) +
+                          align16(4 * H::NP) + warp * 32 * H::KP;
   const long long b0 = (long long)blockIdx.x * bb;
-  const int b = threadIdx.x;
 
-  for (int k = threadIdx.x; k < L * IW; k += blockDim.x) {
-    cpos_s[k] = cpos[k];
-    cneg_s[k] = cneg[k];
+  for (int k = threadIdx.x; k < H::NP * H::CH; k += bb) {
+    const int n = k / H::CH;
+    cp_async16(ct_s + swizzled<DEPTH>(n, k - n * H::CH), ct + size_t(k) * 16);
   }
-  for (int k = threadIdx.x; k < L; k += blockDim.x) d_s[k] = dcount[k];
-  stage_x(s.x, x, b0, B, F, bb);
+  for (int k = threadIdx.x; k < H::NP; k += bb) {
+    cp_async4(d_s + k, dcount + k, true);
+  }
+  stage_x_async(s.x, x, b0, B, F, bb);
 
-  walk_tree_tiles<FUSED>(
-      s, feature, threshold, default_left, leaf_value, out, b0, B, T, bt, I,
-      L, [&](int t) {
-        const int base = t * I;
-        uint32_t sw[IW];  // S, bit i%32 of word i/32
+  const int g = lane >> 2, tq = lane & 3;
+  // the row of the block this lane scores (step 4 above)
+  const int row = warp * 32 + (tq >> 1) * 16 + (tq & 1) * 8 + g;
+  // the row whose predicates this lane builds (step 1)
+  const float* xb = s.x + warp * 32 + lane;
+  float acc = 0.f;
+
+  run_tiles<FUSED>(
+      s, nodes, leaf_value, out, b0, B, T, bt, H::L,
+      [&](const int2* nd, const float* lv) {
+        for (int t = 0; t < bt; ++t) {
+          const int2* tree = nd + t * H::L;
+          // 1. S: byte i of the row = go_left(node i), zero past I
 #pragma unroll
-        for (int w = 0; w < IW; ++w) {
-          uint32_t bits = 0;
+          for (int c = 0; c < H::CH; ++c) {
+            uint32_t w[4];
 #pragma unroll
-          for (int k = 0; k < 32; ++k) {
-            const int i = w * 32 + k;
-            if (i < I) {
-              const int n = base + i;
-              const float v = s.x[s.feat[n] * bb + b];
-              bits |= uint32_t(go_left(v, s.thr[n], s.dl[n])) << k;
+            for (int q = 0; q < 4; ++q) {
+              uint32_t bits = 0;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int i = c * 16 + q * 4 + j;
+                if (i < H::I) {
+                  const int2 n = tree[i + 1];
+                  bits |= uint32_t(go_left(xb[(n.y >> 1) * bb], n))
+                          << (8 * j);
+                }
+              }
+              w[q] = bits;
+            }
+            *reinterpret_cast<uint4*>(s_tile + swizzled<DEPTH>(lane, c)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+          }
+          __syncwarp();
+          // 2. A fragments: matrix lane >> 3 of each x4 is (rows +0 / +8,
+          // chunk 2ks / 2ks + 1)
+          uint32_t a[2][H::KS][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int ks = 0; ks < H::KS; ++ks) {
+              const int r = mt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+              ldmatrix_x4(a[mt][ks],
+                          s_tile + swizzled<DEPTH>(r, 2 * ks + (lane >> 4)));
             }
           }
-          sw[w] = bits;
-        }
-        float tree = 0.f;  // leaf contraction: exactly one l matches
-        const float* leaves = s.leaf + t * L;
-        for (int l = 0; l < L; ++l) {
-          int p = 0;
+          __syncwarp();  // the S tile is free for the next tree
+          // 3. P = S.C, H::NG n-tiles at a time (2 * H::NG independent
+          // accumulators per k-step); keep the leaf where P == D
+          int hit[2][2] = {{-1, -1}, {-1, -1}};  // [m-tile][row g / g + 8]
+#pragma unroll 1
+          for (int n0 = 0; n0 < H::NT; n0 += H::NG) {
+            int p[H::NG][2][4] = {};
 #pragma unroll
-          for (int w = 0; w < IW; ++w) {
-            p += __popc(sw[w] & cpos_s[l * IW + w]) -
-                 __popc(sw[w] & cneg_s[l * IW + w]);
+            for (int ks = 0; ks < H::KS; ++ks) {
+              uint32_t bf[H::NG][2];
+              if constexpr (H::NG == 1) {
+                ldmatrix_x2(bf[0], ct_s + swizzled<DEPTH>(
+                                       n0 * 8 + (lane & 7),
+                                       2 * ks + ((lane >> 3) & 1)));
+              } else {
+                // matrix lane >> 3 of each x4: (n-tile +0 / +1, chunk
+                // 2ks / 2ks + 1)
+#pragma unroll
+                for (int j = 0; j < H::NG; j += 2) {
+                  uint32_t r4[4];
+                  const int nt = n0 + j + (lane >> 4);
+                  ldmatrix_x4(r4, ct_s + swizzled<DEPTH>(
+                                      nt * 8 + (lane & 7),
+                                      2 * ks + ((lane >> 3) & 1)));
+                  bf[j][0] = r4[0];
+                  bf[j][1] = r4[1];
+                  bf[j + 1][0] = r4[2];
+                  bf[j + 1][1] = r4[3];
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < H::NG; ++j) {
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  mma_s8(p[j][mt], a[mt][ks], bf[j]);
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < H::NG; ++j) {
+              const int l0 = (n0 + j) * 8 + 2 * tq;
+              const int2 d = *reinterpret_cast<const int2*>(d_s + l0);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                if (p[j][mt][0] == d.x) hit[mt][0] = l0;
+                if (p[j][mt][1] == d.y) hit[mt][0] = l0 + 1;
+                if (p[j][mt][2] == d.x) hit[mt][1] = l0;
+                if (p[j][mt][3] == d.y) hit[mt][1] = l0 + 1;
+              }
+            }
           }
-          tree += p == d_s[l] ? leaves[l] : 0.f;
+          // 4. the quad's lanes share their hits; lane tq takes its row's
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              int v = hit[mt][h];
+              v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+              v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+              hit[mt][h] = v;
+            }
+          }
+          const int leaf = max(0, tq == 0   ? hit[0][0]
+                                  : tq == 1 ? hit[0][1]
+                                  : tq == 2 ? hit[1][0]
+                                            : hit[1][1]);
+          const float v = __fadd_rn(lv[t * H::L + leaf], 0.f);
+          if constexpr (FUSED) {
+            acc += v;
+          } else {
+            s.out[row * (bt + 1) + t] = v;
+          }
         }
-        return tree;
       });
+  if constexpr (FUSED) {
+    if (b0 + row < B) out[b0 + row] = acc;
+  }
 }
 
 template <int DEPTH, bool FUSED>
-int launch_hummingbird(const float* x, const int32_t* feature,
-                       const float* threshold, const uint8_t* default_left,
-                       const float* leaf_value, const uint32_t* cpos,
-                       const uint32_t* cneg, const int32_t* dcount,
-                       float* out, long long B, int F, int T, int block_b,
-                       int block_t, cudaStream_t stream) {
-  const size_t smem = tile_layout(block_b, block_t, F, DEPTH,
-                                  hb_extra_bytes<DEPTH>(), FUSED)
-                          .total;
+int launch_hummingbird(const float* x, const int2* nodes,
+                       const float* leaf_value, const int8_t* ct,
+                       const int32_t* dcount, float* out, long long B, int F,
+                       int T, int block_b, int block_t, cudaStream_t stream) {
+  const size_t smem =
+      tile_layout(block_b, block_t, F, 1 << DEPTH, tree_buffers(T, block_t),
+                  hb_extra_bytes(DEPTH, block_b), FUSED)
+          .total;
   return launch_kernel(hummingbird_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, feature, threshold, default_left,
-                       leaf_value, cpos, cneg, dcount, out, B, F, T,
-                       block_t);
+                       stream, x, nodes, leaf_value, ct, dcount, out, B, F,
+                       T, block_t);
 }
 
 }  // namespace forest
 
 extern "C" int forest_hummingbird_fused(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value,
-    const uint32_t* cpos, const uint32_t* cneg, const int32_t* dcount,
-    float* out, long long B, int F, int T, int depth, int block_b,
-    int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, true, x, feature,
-                        threshold, default_left, leaf_value, cpos, cneg,
-                        dcount, out, B, F, T, block_b, block_t, stream)
+    const float* x, const int2* nodes, const float* leaf_value,
+    const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
+    int T, int depth, int block_b, int block_t, cudaStream_t stream) {
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, true, x, nodes,
+                        leaf_value, ct, dcount, out, B, F, T, block_b,
+                        block_t, stream)
 }
 
 extern "C" int forest_hummingbird_raw(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value,
-    const uint32_t* cpos, const uint32_t* cneg, const int32_t* dcount,
-    float* out, long long B, int F, int T, int depth, int block_b,
-    int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, false, x,
-                        feature, threshold, default_left, leaf_value, cpos,
-                        cneg, dcount, out, B, F, T, block_b, block_t, stream)
+    const float* x, const int2* nodes, const float* leaf_value,
+    const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
+    int T, int depth, int block_b, int block_t, cudaStream_t stream) {
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, false, x, nodes,
+                        leaf_value, ct, dcount, out, B, F, T, block_b,
+                        block_t, stream)
 }

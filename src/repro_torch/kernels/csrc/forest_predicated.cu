@@ -3,91 +3,115 @@
 //
 // Replaces repro/kernels/forest_predicated.py:predicated_fused_kernel_call
 // (the Pallas kernel at its pl.pallas_call, line 143) and
-// predicated_kernel_call (line 110).  For every sample b and tree t
-//     score(b, t) = leaf_value[t, idx - I] after `depth` steps of
-//                   idx <- 2*idx + 1 + (1 - go_left(x[b, feature[t, idx]]))
+// predicated_kernel_call (line 110).  For every sample b and tree t, with
+// the tree's node records in heap slots 1..I (forest_common.cuh):
+//     idx = 1; `depth` times: idx <- 2 * idx + !go_left(x[b, feature], node)
+//     score(b, t) = leaf_value[t, idx - L]
 // fused: out[b] = sum_t score(b, t), trees added in order;
 // raw:   out[b * T + t] = score(b, t).
 //
-// What bounds it on this card.  Fused: not bytes.  Each (sample, tree)
-// pair takes `depth` dependent shared-memory gathers (node record, then
-// the sample's feature), so the kernel is bound by shared-memory load
-// latency and throughput; the HBM traffic (x read once, [B] written once)
-// is far below the card's 3.35 TB/s.  Raw: the [B, T] write (4 bytes per
-// pair, 704 MB for 11M rows x 16 trees) puts the bound on bytes, but the
-// gathers still set the time.  Design: one thread per sample; the x tile
-// is feature-major so the feature gather is bank-conflict free whatever
-// features a warp asks for; tree tiles are staged by the whole block and
-// reused by all BB samples; the raw out tile leaves through shared memory
-// in coalesced rows.  The node-record gathers at divergent idx still
-// conflict; packing a node into one 8-byte record is a later change.
+// What bounds it on this card.  Raw: bytes -- the [B, T] write (4 bytes a
+// pair, 704 MB at 11M rows x 16 trees) plus x read once per launch.
+// Fused: neither HBM bytes nor arithmetic; the time goes to shared-memory
+// traffic and latency: each (sample, tree) pair takes `depth` levels of a
+// node-record load followed by a dependent x load.  Design:
+//   * one 8-byte node record, so a level is two shared loads: the record,
+//     then the x value it names;
+//   * each thread walks kChains trees of the tile at once, so four
+//     independent load chains hide each other's latency (a thread with one
+//     chain waits on every load); the fused sum still adds tree 0, 1, 2, ...
+//     in order, so kernel and plain version agree bit for bit;
+//   * x staging with conflict-free stores, cp.async tree tiles, double
+//     buffered when a launch has several tiles (forest_common.cuh);
+//   * 256 threads a block, two blocks an SM (kernels/common.py budget).
 #include "forest_common.cuh"
 
 namespace forest {
 
-template <int DEPTH, bool FUSED>
-__global__ void predicated_kernel(const float* __restrict__ x,
-                                  const int32_t* __restrict__ feature,
-                                  const float* __restrict__ threshold,
-                                  const uint8_t* __restrict__ default_left,
-                                  const float* __restrict__ leaf_value,
-                                  float* __restrict__ out, long long B,
-                                  int F, int T, int bt) {
-  constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int bb = blockDim.x;
-  const TileRefs s =
-      tile_refs(smem, tile_layout(bb, bt, F, DEPTH, 0, FUSED));
-  const long long b0 = (long long)blockIdx.x * bb;
-  const int b = threadIdx.x;
+constexpr int kChains = 4;
 
-  stage_x(s.x, x, b0, B, F, bb);
-  walk_tree_tiles<FUSED>(
-      s, feature, threshold, default_left, leaf_value, out, b0, B, T, bt, I,
-      L, [&](int t) {
-        const int base = t * I;
-        int idx = 0;
+template <int DEPTH, bool FUSED>
+__global__ void __launch_bounds__(kMaxBlock, 2)
+    predicated_kernel(const float* __restrict__ x,
+                      const int2* __restrict__ nodes,
+                      const float* __restrict__ leaf_value,
+                      float* __restrict__ out, long long B, int F, int T,
+                      int bt) {
+  constexpr int L = 1 << DEPTH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bb = blockDim.x, b = threadIdx.x;
+  const TileRefs s = tile_refs(
+      smem, tile_layout(bb, bt, F, L, tree_buffers(T, bt), 0, FUSED));
+  const long long b0 = (long long)blockIdx.x * bb;
+  const float* xb = s.x + b;
+
+  stage_x_async(s.x, x, b0, B, F, bb);
+  float acc = 0.f;
+  run_tiles<FUSED>(
+      s, nodes, leaf_value, out, b0, B, T, bt, L,
+      [&](const int2* nd, const float* lv) {
+        for (int t = 0; t < bt; t += kChains) {
+          const int2* tree[kChains];
+          int idx[kChains];
 #pragma unroll
-        for (int d = 0; d < DEPTH; ++d) {
-          const int n = base + idx;
-          const float v = s.x[s.feat[n] * bb + b];
-          idx = 2 * idx + 2 - int(go_left(v, s.thr[n], s.dl[n]));
+          for (int c = 0; c < kChains; ++c) {
+            tree[c] = nd + min(t + c, bt - 1) * L;  // past bt: discarded
+            idx[c] = 1;
+          }
+#pragma unroll
+          for (int d = 0; d < DEPTH; ++d) {
+#pragma unroll
+            for (int c = 0; c < kChains; ++c) {
+              const int2 n = tree[c][idx[c]];
+              idx[c] = 2 * idx[c] + int(!go_left(xb[(n.y >> 1) * bb], n));
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kChains; ++c) {
+            if (t + c < bt) {
+              const float v = lv[(t + c) * L + idx[c] - L];
+              if constexpr (FUSED) {
+                acc += v;
+              } else {
+                s.out[b * (bt + 1) + t + c] = v;
+              }
+            }
+          }
         }
-        return s.leaf[t * L + idx - I];
       });
+  if constexpr (FUSED) {
+    if (b0 + b < B) out[b0 + b] = acc;
+  }
 }
 
 template <int DEPTH, bool FUSED>
-int launch_predicated(const float* x, const int32_t* feature,
-                      const float* threshold, const uint8_t* default_left,
+int launch_predicated(const float* x, const int2* nodes,
                       const float* leaf_value, float* out, long long B,
                       int F, int T, int block_b, int block_t,
                       cudaStream_t stream) {
-  const size_t smem =
-      tile_layout(block_b, block_t, F, DEPTH, 0, FUSED).total;
+  const size_t smem = tile_layout(block_b, block_t, F, 1 << DEPTH,
+                                  tree_buffers(T, block_t), 0, FUSED)
+                          .total;
   return launch_kernel(predicated_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, feature, threshold, default_left,
-                       leaf_value, out, B, F, T, block_t);
+                       stream, x, nodes, leaf_value, out, B, F, T, block_t);
 }
 
 }  // namespace forest
 
-extern "C" int forest_predicated_fused(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value, float* out,
-    long long B, int F, int T, int depth, int block_b, int block_t,
-    cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, true, x, feature,
-                        threshold, default_left, leaf_value, out, B, F, T,
-                        block_b, block_t, stream)
+extern "C" int forest_predicated_fused(const float* x, const int2* nodes,
+                                       const float* leaf_value, float* out,
+                                       long long B, int F, int T, int depth,
+                                       int block_b, int block_t,
+                                       cudaStream_t stream) {
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, true, x, nodes,
+                        leaf_value, out, B, F, T, block_b, block_t, stream)
 }
 
-extern "C" int forest_predicated_raw(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value, float* out,
-    long long B, int F, int T, int depth, int block_b, int block_t,
-    cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, false, x, feature,
-                        threshold, default_left, leaf_value, out, B, F, T,
-                        block_b, block_t, stream)
+extern "C" int forest_predicated_raw(const float* x, const int2* nodes,
+                                     const float* leaf_value, float* out,
+                                     long long B, int F, int T, int depth,
+                                     int block_b, int block_t,
+                                     cudaStream_t stream) {
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, false, x, nodes,
+                        leaf_value, out, B, F, T, block_b, block_t, stream)
 }

@@ -16,96 +16,105 @@
 // evaluated (I shared-memory gathers per pair) and each selects a W-word
 // mask (I * W ANDs per pair); bytes (x read once, [B] or [B, T] written
 // once) are small beside that.  Design: surv lives in W registers, the
-// node's mask is a broadcast shared-memory read (every thread of a warp is
-// at the same node), the select is branch-free, and __ffs finds the lowest
-// bit in one instruction per word.
+// node's record and mask are broadcast shared-memory reads (every thread
+// of a warp is at the same node), the select is branch-free, and __ffs
+// finds the lowest bit in one instruction per word.  Node records, x
+// staging and tree tiles are the shared ones of forest_common.cuh.
 #include "forest_common.cuh"
 
 namespace forest {
 
 template <int DEPTH, bool FUSED>
-__global__ void quickscorer_kernel(
-    const float* __restrict__ x, const int32_t* __restrict__ feature,
-    const float* __restrict__ threshold,
-    const uint8_t* __restrict__ default_left,
+__global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
+    const float* __restrict__ x, const int2* __restrict__ nodes,
     const float* __restrict__ leaf_value, const uint32_t* __restrict__ bv,
     float* __restrict__ out, long long B, int F, int T, int bt) {
   constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
   constexpr int W = (L + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bb = blockDim.x;
-  const TileRefs s = tile_refs(
-      smem, tile_layout(bb, bt, F, DEPTH, sizeof(uint32_t) * I * W, FUSED));
+  const int bb = blockDim.x, b = threadIdx.x;
+  const TileRefs s =
+      tile_refs(smem, tile_layout(bb, bt, F, L, tree_buffers(T, bt),
+                                  sizeof(uint32_t) * I * W, FUSED));
   uint32_t* bv_s = reinterpret_cast<uint32_t*>(s.extra);
   const long long b0 = (long long)blockIdx.x * bb;
-  const int b = threadIdx.x;
+  const float* xb = s.x + b;
 
-  for (int k = threadIdx.x; k < I * W; k += blockDim.x) bv_s[k] = bv[k];
-  stage_x(s.x, x, b0, B, F, bb);
-
-  walk_tree_tiles<FUSED>(
-      s, feature, threshold, default_left, leaf_value, out, b0, B, T, bt, I,
-      L, [&](int t) {
-        const int base = t * I;
-        uint32_t surv[W];
+  for (int k = threadIdx.x; k < I * W; k += blockDim.x) {
+    cp_async4(bv_s + k, bv + k, true);
+  }
+  stage_x_async(s.x, x, b0, B, F, bb);
+  float acc = 0.f;
+  run_tiles<FUSED>(
+      s, nodes, leaf_value, out, b0, B, T, bt, L,
+      [&](const int2* nd, const float* lv) {
+        for (int t = 0; t < bt; ++t) {
+          const int2* tree = nd + t * L;
+          uint32_t surv[W];
 #pragma unroll
-        for (int w = 0; w < W; ++w) surv[w] = 0xFFFFFFFFu;
-        for (int i = 0; i < I; ++i) {
-          const int n = base + i;
-          const float v = s.x[s.feat[n] * bb + b];
-          // all-ones for a TRUE node, the node's bit-vector for a FALSE one
-          const uint32_t keep =
-              go_left(v, s.thr[n], s.dl[n]) ? 0xFFFFFFFFu : 0u;
+          for (int w = 0; w < W; ++w) surv[w] = 0xFFFFFFFFu;
+          for (int i = 0; i < I; ++i) {
+            const int2 n = tree[i + 1];
+            // all-ones for a TRUE node, the node's bit-vector for a FALSE one
+            const uint32_t keep =
+                go_left(xb[(n.y >> 1) * bb], n) ? 0xFFFFFFFFu : 0u;
 #pragma unroll
-          for (int w = 0; w < W; ++w) surv[w] &= bv_s[i * W + w] | keep;
-        }
-        int leaf = 0;
-        bool found = false;
+            for (int w = 0; w < W; ++w) surv[w] &= bv_s[i * W + w] | keep;
+          }
+          int leaf = 0;
+          bool found = false;
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          if (!found && surv[w] != 0u) {
-            leaf = w * 32 + __ffs(int(surv[w])) - 1;
-            found = true;
+          for (int w = 0; w < W; ++w) {
+            if (!found && surv[w] != 0u) {
+              leaf = w * 32 + __ffs(int(surv[w])) - 1;
+              found = true;
+            }
+          }
+          const float v = lv[t * L + leaf];
+          if constexpr (FUSED) {
+            acc += v;
+          } else {
+            s.out[b * (bt + 1) + t] = v;
           }
         }
-        return s.leaf[t * L + leaf];
       });
+  if constexpr (FUSED) {
+    if (b0 + b < B) out[b0 + b] = acc;
+  }
 }
 
 template <int DEPTH, bool FUSED>
-int launch_quickscorer(const float* x, const int32_t* feature,
-                       const float* threshold, const uint8_t* default_left,
+int launch_quickscorer(const float* x, const int2* nodes,
                        const float* leaf_value, const uint32_t* bv,
                        float* out, long long B, int F, int T, int block_b,
                        int block_t, cudaStream_t stream) {
   constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
   constexpr int W = (L + 31) / 32;
-  const size_t smem = tile_layout(block_b, block_t, F, DEPTH,
+  const size_t smem = tile_layout(block_b, block_t, F, L,
+                                  tree_buffers(T, block_t),
                                   sizeof(uint32_t) * I * W, FUSED)
                           .total;
   return launch_kernel(quickscorer_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, feature, threshold, default_left,
-                       leaf_value, bv, out, B, F, T, block_t);
+                       stream, x, nodes, leaf_value, bv, out, B, F, T,
+                       block_t);
 }
 
 }  // namespace forest
 
 extern "C" int forest_quickscorer_fused(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value,
+    const float* x, const int2* nodes, const float* leaf_value,
     const uint32_t* bv, float* out, long long B, int F, int T, int depth,
     int block_b, int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, true, x, feature,
-                        threshold, default_left, leaf_value, bv, out, B, F,
-                        T, block_b, block_t, stream)
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, true, x, nodes,
+                        leaf_value, bv, out, B, F, T, block_b, block_t,
+                        stream)
 }
 
 extern "C" int forest_quickscorer_raw(
-    const float* x, const int32_t* feature, const float* threshold,
-    const uint8_t* default_left, const float* leaf_value,
+    const float* x, const int2* nodes, const float* leaf_value,
     const uint32_t* bv, float* out, long long B, int F, int T, int depth,
     int block_b, int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, false, x,
-                        feature, threshold, default_left, leaf_value, bv,
-                        out, B, F, T, block_b, block_t, stream)
+  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, false, x, nodes,
+                        leaf_value, bv, out, B, F, T, block_b, block_t,
+                        stream)
 }

@@ -4,14 +4,14 @@
 Replaces ``repro/kernels/forest_hummingbird.py:hummingbird_fused_kernel_call``
 and ``hummingbird_kernel_call`` (Pallas, TPU).  Both kernels are
 ``csrc/forest_hummingbird.cu``: it contracts the predicate vector S with
-the path matrix C over the node axis by popcounts over bit-packed S and
-C's +1 / -1 masks (exact integers).
+the path matrix C over the node axis on the tensor cores (int8 operands,
+int32 sums: exact).
 
-Structure tensors (``hb_masks``): ``cpos``/``cneg`` [L, ceil(I/32)] int32
-holding uint32 bit patterns (bit i%32 of word i/32 is node i), and
-``dcount`` [L] int32, the left-turn count of each leaf.
-``hummingbird_fused.launches`` / ``hummingbird_raw.launches`` count kernel
-launches.
+Structure tensors (``hb_structure``): ``ct`` [NP, KP] int8, the path
+matrix C transposed and zero-padded (KP = max(32, L) nodes, NP = max(8, L)
+leaves), and ``dcount`` [NP] int32, the left-turn count of each leaf (-1
+on pad leaves, which never match).  ``hummingbird_fused.launches`` /
+``hummingbird_raw.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -21,56 +21,48 @@ import torch
 
 from repro_torch.core.forest import hb_path_matrix
 from repro_torch.kernels.common import (dense_predicates, launch_forest_kernel,
-                                        sum_trees_in_order)
+                                        sum_trees_in_order, unpack_nodes)
 
 __all__ = ["hummingbird_fused", "hummingbird_fused_plain", "hummingbird_raw",
-           "hummingbird_raw_plain", "hb_masks"]
+           "hummingbird_raw_plain", "hb_structure"]
 
 #: rows per step of the plain version ([rows, T, L] f32 at T=512, L=256 is
 #: 512 MiB for 1024 rows)
 PLAIN_CHUNK_ROWS = 1024
 
 
-def hb_masks(depth: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(cpos, cneg, dcount) for a depth, from ``hb_path_matrix``."""
+def _padded_dims(depth: int) -> tuple[int, int]:
+    L = 1 << depth
+    return max(32, L), max(8, L)
+
+
+def hb_structure(depth: int) -> tuple[np.ndarray, np.ndarray]:
+    """(ct [NP, KP] int8, dcount [NP] int32) for a depth, from
+    ``hb_path_matrix``: ``ct[:L, :I]`` is C transposed, the rest 0, and
+    ``dcount[:L]`` is D, the rest -1."""
     C, D = hb_path_matrix(depth)
     I, L = C.shape
-    IW = (I + 31) // 32
-    cpos = np.zeros((L, IW), np.uint32)
-    cneg = np.zeros((L, IW), np.uint32)
-    for i in range(I):
-        bit = np.uint32(1 << (i % 32))
-        cpos[C[i] == 1, i // 32] |= bit
-        cneg[C[i] == -1, i // 32] |= bit
-    return cpos.view(np.int32), cneg.view(np.int32), D.astype(np.int32)
+    kp, np_ = _padded_dims(depth)
+    ct = np.zeros((np_, kp), np.int8)
+    ct[:L, :I] = C.T
+    dcount = np.full(np_, -1, np.int32)
+    dcount[:L] = D
+    return ct, dcount
 
 
-def _path_matrix(cpos: torch.Tensor, cneg: torch.Tensor,
-                 depth: int) -> torch.Tensor:
-    """Unpack the masks back into C [I, L] f32 in {-1, 0, +1}."""
-    I = (1 << depth) - 1
-    i = torch.arange(I, device=cpos.device)
-    word, shift = i // 32, i % 32
-
-    def bits(masks):
-        m = masks.long() & 0xFFFFFFFF                       # [L, IW]
-        return ((m[:, word] >> shift) & 1).T                # [I, L]
-
-    return (bits(cpos) - bits(cneg)).float()
-
-
-def hummingbird_raw_plain(x: torch.Tensor, feature: torch.Tensor,
-                          threshold: torch.Tensor, default_left: torch.Tensor,
-                          leaf_value: torch.Tensor, cpos: torch.Tensor,
-                          cneg: torch.Tensor, dcount: torch.Tensor, *,
+def hummingbird_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
+                          leaf_value: torch.Tensor, ct: torch.Tensor,
+                          dcount: torch.Tensor, *,
                           depth: int) -> torch.Tensor:
     """The raw kernel's function in plain torch: P = S @ C (S, C small
     integers, so exact in f32), exit leaf where P == D, leaf contraction ->
     [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` at a time: the [rows, T, L]
     path tensor is the largest intermediate."""
     chunk = PLAIN_CHUNK_ROWS
-    C = _path_matrix(cpos, cneg, depth)
-    D = dcount.float()
+    feature, threshold, default_left = unpack_nodes(nodes)
+    I, L = (1 << depth) - 1, 1 << depth
+    C = ct[:L, :I].T.float()
+    D = dcount[:L].float()
     out = [torch.zeros((0, feature.shape[0]), dtype=torch.float32,
                        device=x.device)]
     for lo in range(0, x.shape[0], chunk):
@@ -81,61 +73,53 @@ def hummingbird_raw_plain(x: torch.Tensor, feature: torch.Tensor,
     return torch.cat(out)
 
 
-def hummingbird_fused_plain(x: torch.Tensor, feature: torch.Tensor,
-                            threshold: torch.Tensor,
-                            default_left: torch.Tensor,
-                            leaf_value: torch.Tensor, cpos: torch.Tensor,
-                            cneg: torch.Tensor, dcount: torch.Tensor, *,
+def hummingbird_fused_plain(x: torch.Tensor, nodes: torch.Tensor,
+                            leaf_value: torch.Tensor, ct: torch.Tensor,
+                            dcount: torch.Tensor, *,
                             depth: int) -> torch.Tensor:
     """The fused kernel's function: the raw scores added tree by tree."""
     return sum_trees_in_order(hummingbird_raw_plain(
-        x, feature, threshold, default_left, leaf_value, cpos, cneg, dcount,
-        depth=depth))
+        x, nodes, leaf_value, ct, dcount, depth=depth))
 
 
-def _check_masks(cpos: torch.Tensor, cneg: torch.Tensor,
-                 dcount: torch.Tensor, depth: int) -> None:
-    I, L = (1 << depth) - 1, 1 << depth
-    IW = (I + 31) // 32
-    if (tuple(cpos.shape) != (L, IW) or tuple(cneg.shape) != (L, IW)
-            or tuple(dcount.shape) != (L,)):
-        raise ValueError("hummingbird: structure masks do not match depth "
+def _check_structure(ct: torch.Tensor, dcount: torch.Tensor,
+                     depth: int) -> None:
+    kp, np_ = _padded_dims(depth)
+    if tuple(ct.shape) != (np_, kp) or tuple(dcount.shape) != (np_,):
+        raise ValueError("hummingbird: structure tensors do not match depth "
                          f"{depth}")
-    if {cpos.dtype, cneg.dtype, dcount.dtype} != {torch.int32}:
-        raise TypeError("hummingbird: structure masks must be int32")
+    if ct.dtype != torch.int8 or dcount.dtype != torch.int32:
+        raise TypeError("hummingbird: structure tensors must be int8 C^T "
+                        "and int32 D")
 
 
-def hummingbird_fused(x: torch.Tensor, feature: torch.Tensor,
-                      threshold: torch.Tensor, default_left: torch.Tensor,
-                      leaf_value: torch.Tensor, cpos: torch.Tensor,
-                      cneg: torch.Tensor, dcount: torch.Tensor, *,
-                      depth: int, block_b: int,
+def hummingbird_fused(x: torch.Tensor, nodes: torch.Tensor,
+                      leaf_value: torch.Tensor, ct: torch.Tensor,
+                      dcount: torch.Tensor, *, depth: int, block_b: int,
                       block_t: int) -> torch.Tensor:
-    """[B, F] samples, tree-padded arrays, structure masks -> [B] f32."""
-    trees = (feature, threshold, default_left, leaf_value)
+    """[B, F] samples, tree-padded node records and leaves, structure
+    tensors -> [B] f32."""
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
-        return hummingbird_fused_plain(x, *trees, cpos, cneg, dcount,
-                                       depth=depth)
-    _check_masks(cpos, cneg, dcount, depth)
-    out = launch_forest_kernel("hummingbird", x, trees, (cpos, cneg, dcount),
+        return hummingbird_fused_plain(x, *trees, ct, dcount, depth=depth)
+    _check_structure(ct, dcount, depth)
+    out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
                                fused=True)
     hummingbird_fused.launches += 1
     return out
 
 
-def hummingbird_raw(x: torch.Tensor, feature: torch.Tensor,
-                    threshold: torch.Tensor, default_left: torch.Tensor,
-                    leaf_value: torch.Tensor, cpos: torch.Tensor,
-                    cneg: torch.Tensor, dcount: torch.Tensor, *,
-                    depth: int, block_b: int, block_t: int) -> torch.Tensor:
+def hummingbird_raw(x: torch.Tensor, nodes: torch.Tensor,
+                    leaf_value: torch.Tensor, ct: torch.Tensor,
+                    dcount: torch.Tensor, *, depth: int, block_b: int,
+                    block_t: int) -> torch.Tensor:
     """As ``hummingbird_fused``, but -> [B, T] f32, each tree's score."""
-    trees = (feature, threshold, default_left, leaf_value)
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
-        return hummingbird_raw_plain(x, *trees, cpos, cneg, dcount,
-                                     depth=depth)
-    _check_masks(cpos, cneg, dcount, depth)
-    out = launch_forest_kernel("hummingbird", x, trees, (cpos, cneg, dcount),
+        return hummingbird_raw_plain(x, *trees, ct, dcount, depth=depth)
+    _check_structure(ct, dcount, depth)
+    out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
                                fused=False)
     hummingbird_raw.launches += 1

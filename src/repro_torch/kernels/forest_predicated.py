@@ -6,11 +6,12 @@ and ``predicated_kernel_call`` (Pallas, TPU).  Both kernels are
 ``csrc/forest_predicated.cu``; its note says what bounds them and how they
 are laid out.
 
-The wrappers take tree-padded arrays (``kernels/ops.py`` pads):
-``predicated_fused`` returns the per-sample sum [B] f32, ``predicated_raw``
-each tree's score [B, T] f32.  For CPU tensors they run the plain versions;
-for CUDA tensors they launch the kernel or raise.  Each wrapper's
-``.launches`` counts its kernel launches.
+The wrappers take the tree-padded node records and leaves
+(``kernels/ops.py:kernel_trees``): ``predicated_fused`` returns the
+per-sample sum [B] f32, ``predicated_raw`` each tree's score [B, T] f32.
+For CPU tensors they run the plain versions; for CUDA tensors they launch
+the kernel or raise.  Each wrapper's ``.launches`` counts its kernel
+launches.
 """
 
 from __future__ import annotations
@@ -18,18 +19,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (launch_forest_kernel,
-                                        sum_trees_in_order)
+                                        sum_trees_in_order, unpack_nodes)
 
 __all__ = ["predicated_fused", "predicated_fused_plain", "predicated_raw",
            "predicated_raw_plain"]
 
 
-def predicated_raw_plain(x: torch.Tensor, feature: torch.Tensor,
-                         threshold: torch.Tensor, default_left: torch.Tensor,
+def predicated_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
                          leaf_value: torch.Tensor, *,
                          depth: int) -> torch.Tensor:
     """The raw kernel's arithmetic in plain torch: `depth` branch-free
     descent steps per (sample, tree), then each tree's exit leaf [B, T]."""
+    feature, threshold, default_left = unpack_nodes(nodes)
     B = x.shape[0]
     T, I = feature.shape
     t_ix = torch.arange(T, device=x.device)[None, :]
@@ -43,23 +44,20 @@ def predicated_raw_plain(x: torch.Tensor, feature: torch.Tensor,
     return leaf_value[t_ix, idx - I]
 
 
-def predicated_fused_plain(x: torch.Tensor, feature: torch.Tensor,
-                           threshold: torch.Tensor,
-                           default_left: torch.Tensor,
+def predicated_fused_plain(x: torch.Tensor, nodes: torch.Tensor,
                            leaf_value: torch.Tensor, *,
                            depth: int) -> torch.Tensor:
     """The fused kernel's arithmetic: the raw scores added tree by tree."""
     return sum_trees_in_order(predicated_raw_plain(
-        x, feature, threshold, default_left, leaf_value, depth=depth))
+        x, nodes, leaf_value, depth=depth))
 
 
-def predicated_fused(x: torch.Tensor, feature: torch.Tensor,
-                     threshold: torch.Tensor, default_left: torch.Tensor,
+def predicated_fused(x: torch.Tensor, nodes: torch.Tensor,
                      leaf_value: torch.Tensor, *, depth: int, block_b: int,
                      block_t: int) -> torch.Tensor:
-    """[B, F] samples, [T, I]/[T, L] tree arrays (T a multiple of block_t,
-    default_left uint8) -> [B] f32 sums over trees."""
-    trees = (feature, threshold, default_left, leaf_value)
+    """[B, F] samples, node records [T, L, 2] int32 and leaves [T, L] f32
+    (T a multiple of block_t) -> [B] f32 sums over trees."""
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return predicated_fused_plain(x, *trees, depth=depth)
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
@@ -68,12 +66,11 @@ def predicated_fused(x: torch.Tensor, feature: torch.Tensor,
     return out
 
 
-def predicated_raw(x: torch.Tensor, feature: torch.Tensor,
-                   threshold: torch.Tensor, default_left: torch.Tensor,
+def predicated_raw(x: torch.Tensor, nodes: torch.Tensor,
                    leaf_value: torch.Tensor, *, depth: int, block_b: int,
                    block_t: int) -> torch.Tensor:
     """As ``predicated_fused``, but -> [B, T] f32, each tree's score."""
-    trees = (feature, threshold, default_left, leaf_value)
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return predicated_raw_plain(x, *trees, depth=depth)
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,

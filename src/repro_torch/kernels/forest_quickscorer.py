@@ -21,7 +21,7 @@ import torch
 from repro_torch.core.algorithms import ALL_ONES, lowest_set_bit
 from repro_torch.core.forest import qs_bitvectors
 from repro_torch.kernels.common import (dense_predicates, launch_forest_kernel,
-                                        sum_trees_in_order)
+                                        sum_trees_in_order, unpack_nodes)
 
 __all__ = ["quickscorer_fused", "quickscorer_fused_plain", "quickscorer_raw",
            "quickscorer_raw_plain", "qs_words"]
@@ -36,14 +36,14 @@ def qs_words(depth: int) -> np.ndarray:
     return qs_bitvectors(depth).view(np.int32)
 
 
-def quickscorer_raw_plain(x: torch.Tensor, feature: torch.Tensor,
-                          threshold: torch.Tensor, default_left: torch.Tensor,
+def quickscorer_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
                           leaf_value: torch.Tensor, bv: torch.Tensor, *,
                           depth: int) -> torch.Tensor:
     """The raw kernel's function in plain torch: per (sample, tree) AND the
     FALSE nodes' words node by node, take the lowest set bit, look up the
     leaf -> [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` rows at a time."""
     chunk = PLAIN_CHUNK_ROWS
+    feature, threshold, default_left = unpack_nodes(nodes)
     words = bv.long() & 0xFFFFFFFF                          # [I, W]
     T, I = feature.shape
     t_ix = torch.arange(T, device=x.device)[None, :]
@@ -61,14 +61,12 @@ def quickscorer_raw_plain(x: torch.Tensor, feature: torch.Tensor,
     return torch.cat(out)
 
 
-def quickscorer_fused_plain(x: torch.Tensor, feature: torch.Tensor,
-                            threshold: torch.Tensor,
-                            default_left: torch.Tensor,
+def quickscorer_fused_plain(x: torch.Tensor, nodes: torch.Tensor,
                             leaf_value: torch.Tensor, bv: torch.Tensor, *,
                             depth: int) -> torch.Tensor:
     """The fused kernel's function: the raw scores added tree by tree."""
     return sum_trees_in_order(quickscorer_raw_plain(
-        x, feature, threshold, default_left, leaf_value, bv, depth=depth))
+        x, nodes, leaf_value, bv, depth=depth))
 
 
 def _check_words(bv: torch.Tensor, depth: int) -> None:
@@ -78,13 +76,13 @@ def _check_words(bv: torch.Tensor, depth: int) -> None:
                          f"{depth} as int32 [{I}, {(L + 31) // 32}]")
 
 
-def quickscorer_fused(x: torch.Tensor, feature: torch.Tensor,
-                      threshold: torch.Tensor, default_left: torch.Tensor,
+def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
                       leaf_value: torch.Tensor, bv: torch.Tensor, *,
                       depth: int, block_b: int,
                       block_t: int) -> torch.Tensor:
-    """[B, F] samples, tree-padded arrays, bit-vectors -> [B] f32."""
-    trees = (feature, threshold, default_left, leaf_value)
+    """[B, F] samples, tree-padded node records and leaves, bit-vectors ->
+    [B] f32."""
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return quickscorer_fused_plain(x, *trees, bv, depth=depth)
     _check_words(bv, depth)
@@ -94,12 +92,11 @@ def quickscorer_fused(x: torch.Tensor, feature: torch.Tensor,
     return out
 
 
-def quickscorer_raw(x: torch.Tensor, feature: torch.Tensor,
-                    threshold: torch.Tensor, default_left: torch.Tensor,
+def quickscorer_raw(x: torch.Tensor, nodes: torch.Tensor,
                     leaf_value: torch.Tensor, bv: torch.Tensor, *,
                     depth: int, block_b: int, block_t: int) -> torch.Tensor:
     """As ``quickscorer_fused``, but -> [B, T] f32, each tree's score."""
-    trees = (feature, threshold, default_left, leaf_value)
+    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return quickscorer_raw_plain(x, *trees, bv, depth=depth)
     _check_words(bv, depth)

@@ -2,12 +2,17 @@
 
 Mirrors ``repro/kernels/ops.py``.  Handles what the kernel wrappers
 assume away:
-  * padding the sample axis (zero rows) to the sample tile, and the tree
-    axis with pass-through zero-leaf trees (threshold +inf, default_left
-    True, leaves 0) to the tree tile, and cutting the output back;
+  * the forest's trees as the kernels read them (``kernel_trees``): one
+    8-byte node record per node (``common.pack_nodes``), the tree axis
+    padded with pass-through zero-leaf trees (threshold +inf, default_left
+    True, leaves 0) to the tree tile.  Built once per (forest, tree tile)
+    and kept while the forest lives, so no launch packs or pads trees; a
+    plan that already holds a forest's records hands them over
+    (``share_packed_nodes``).  The sample axis is not padded: the kernels
+    mask their ragged last block;
   * tile selection against the H100's shared memory
     (``common.block_heuristics``, per kernel kind and variant);
-  * the structure-only side tensors (HummingBird masks, QuickScorer
+  * the structure-only side tensors (HummingBird C^T and D, QuickScorer
     bit-vectors), built once per (depth, device) and cached.
 
 Two backend families, under the reference's names so a query reads the
@@ -18,20 +23,21 @@ same in both packages:
   ``core.postprocess``.
 
   ``FUSED_KERNEL_ALGORITHMS`` (``*_pallas_fused``) return the per-sample
-  SUM [B] of raw tree scores; only the sample axis is cut back, since
-  padding trees add exactly 0.0 to every sum.  MEAN divides by the TRUE
-  tree count downstream.
+  SUM [B] of raw tree scores; padding trees add exactly 0.0 to every
+  sum.  MEAN divides by the TRUE tree count downstream.
 """
 
 from __future__ import annotations
 
 import functools
+import weakref
 
 import torch
 
 from repro_torch.core.forest import PAD_FILLS, Forest
-from repro_torch.kernels.common import block_heuristics
-from repro_torch.kernels.forest_hummingbird import (hb_masks,
+from repro_torch.kernels.common import (MAX_BLOCK_B, block_heuristics,
+                                        pack_nodes)
+from repro_torch.kernels.forest_hummingbird import (hb_structure,
                                                     hummingbird_fused,
                                                     hummingbird_raw)
 from repro_torch.kernels.forest_predicated import (predicated_fused,
@@ -55,6 +61,9 @@ __all__ = [
     "predict_sum_pallas",
     "default_tree_block",
     "prepare_inputs",
+    "kernel_trees",
+    "packed_nodes",
+    "share_packed_nodes",
 ]
 
 #: the fused CUDA kernel wrapper behind each kernel kind
@@ -81,16 +90,61 @@ def _pad_axis0(x: torch.Tensor, multiple: int, fill) -> torch.Tensor:
     return torch.cat([x, tail])
 
 
-def pad_forest_arrays(forest: Forest, block_t: int):
-    """Tree-axis padding with pass-through zero-leaf trees; default_left
-    goes to the kernels as uint8."""
-    return (
-        _pad_axis0(forest.feature, block_t, PAD_FILLS["feature"]),
-        _pad_axis0(forest.threshold, block_t, PAD_FILLS["threshold"]),
-        _pad_axis0(forest.default_left, block_t,
-                   PAD_FILLS["default_left"]).to(torch.uint8),
-        _pad_axis0(forest.leaf_value, block_t, PAD_FILLS["leaf_value"]),
-    )
+#: id(forest) -> {0: node records, block_t: (padded records, leaves)};
+#: an entry goes when its forest is collected
+_TREES: dict[int, dict] = {}
+
+
+def _forest_entry(forest: Forest) -> dict:
+    key = id(forest)
+    entry = _TREES.get(key)
+    if entry is None:
+        entry = _TREES[key] = {}
+        weakref.finalize(forest, _TREES.pop, key, None)
+    return entry
+
+
+def packed_nodes(forest: Forest) -> torch.Tensor:
+    """The forest's node records [T, L, 2] int32 (``common.pack_nodes``),
+    built at the first call and kept while the forest lives."""
+    entry = _forest_entry(forest)
+    if 0 not in entry:
+        entry[0] = pack_nodes(forest.feature, forest.threshold,
+                              forest.default_left)
+    return entry[0]
+
+
+def share_packed_nodes(forest: Forest, nodes: torch.Tensor) -> None:
+    """Give ``forest`` node records built elsewhere (a tree partition's
+    slice of its whole model's records), so none are built for it."""
+    if tuple(nodes.shape) != (forest.num_trees, forest.num_leaves, 2):
+        raise ValueError(f"node records {tuple(nodes.shape)} do not fit "
+                         f"{forest.num_trees} trees of depth {forest.depth}")
+    _forest_entry(forest)[0] = nodes
+
+
+def kernel_trees(forest: Forest, block_t: int):
+    """(node records, leaf values) with the tree axis padded to a multiple
+    of ``block_t`` by pass-through zero-leaf trees, built once per
+    (forest, block_t)."""
+    entry = _forest_entry(forest)
+    if block_t not in entry:
+        nodes = packed_nodes(forest)
+        pad = (-forest.num_trees) % block_t
+        leaves = forest.leaf_value
+        if pad:
+            dev = forest.device
+            pad_nodes = pack_nodes(
+                torch.full((pad, forest.num_internal), PAD_FILLS["feature"],
+                           dtype=torch.int32, device=dev),
+                torch.full((pad, forest.num_internal),
+                           PAD_FILLS["threshold"], device=dev),
+                torch.full((pad, forest.num_internal),
+                           PAD_FILLS["default_left"], device=dev))
+            nodes = torch.cat([nodes, pad_nodes])
+            leaves = _pad_axis0(leaves, block_t, PAD_FILLS["leaf_value"])
+        entry[block_t] = (nodes, leaves.contiguous())
+    return entry[block_t]
 
 
 @functools.lru_cache(maxsize=16)
@@ -99,7 +153,7 @@ def _structure(kind: str, depth: int,
     """The structure-only tensors a kernel kind takes, on ``device``."""
     if kind == "hummingbird":
         return tuple(torch.as_tensor(a, device=device)
-                     for a in hb_masks(depth))
+                     for a in hb_structure(depth))
     if kind == "quickscorer":
         return (torch.as_tensor(qs_words(depth), device=device),)
     return ()
@@ -115,15 +169,17 @@ def _blocks(kind: str, forest: Forest, B: int, F: int, block_b, block_t, *,
     return block_b, block_t
 
 
-def default_tree_block(forest: Forest, batch_rows: int = 128, *,
+def default_tree_block(forest: Forest, batch_rows: int = MAX_BLOCK_B, *,
                        fused: bool = True) -> int:
-    """The tree tile ``block_heuristics`` picks for this forest's fused
-    (or, ``fused=False``, raw) predicated kernel: the natural
-    tree-partition granularity of the relation-centric plans, one
-    partition per tree tile.  A raw kernel also holds its out tile in
-    shared memory, so its tree tile can be the smaller."""
-    return _blocks("predicated", forest, batch_rows, forest.n_features,
-                   None, None, fused=fused)[1]
+    """The tree tile of a one-tile launch of this forest's fused (or,
+    ``fused=False``, raw) predicated kernel over a full sample tile: the
+    natural tree-partition granularity of the relation-centric plans, one
+    partition per launch of one tree tile (one tree buffer).  A raw
+    kernel also holds its out tile in shared memory, so its tree tile can
+    be the smaller."""
+    return block_heuristics("predicated", batch_rows, forest.num_trees,
+                            forest.n_features, forest.depth, fused=fused,
+                            one_tile=True)[1]
 
 
 def prepare_inputs(kind: str, forest: Forest, x: torch.Tensor, *,
@@ -140,21 +196,20 @@ def prepare_inputs(kind: str, forest: Forest, x: torch.Tensor, *,
                          f"{forest.device}")
     block_b, block_t = _blocks(kind, forest, x.shape[0], x.shape[1],
                                block_b, block_t, fused=fused)
-    xp = _pad_axis0(x, block_b, 0.0)
-    args = (xp, *pad_forest_arrays(forest, block_t),
+    args = (x.contiguous(), *kernel_trees(forest, block_t),
             *_structure(kind, forest.depth, x.device))
     return args, dict(depth=forest.depth, block_b=block_b, block_t=block_t)
 
 
 def _run(kind: str, forest: Forest, x: torch.Tensor, *, block_b=None,
          block_t=None) -> torch.Tensor:
-    """Raw per-tree scores [B, T]: pad, launch, cut back to [:B, :T]."""
+    """Raw per-tree scores [B, T]: launch, cut the pad trees off."""
     B, T = x.shape[0], forest.num_trees
     if B == 0:
         return torch.zeros((0, T), dtype=torch.float32, device=x.device)
     args, tiles = prepare_inputs(kind, forest, x, block_b=block_b,
                                  block_t=block_t, fused=False)
-    return RAW_KERNEL_WRAPPERS[kind](*args, **tiles)[:B, :T]
+    return RAW_KERNEL_WRAPPERS[kind](*args, **tiles)[:, :T]
 
 
 def _run_fused(kind: str, forest: Forest, x: torch.Tensor, *,
@@ -165,7 +220,7 @@ def _run_fused(kind: str, forest: Forest, x: torch.Tensor, *,
         return torch.zeros(0, dtype=torch.float32, device=x.device)
     args, tiles = prepare_inputs(kind, forest, x, block_b=block_b,
                                  block_t=block_t)
-    return KERNEL_WRAPPERS[kind](*args, **tiles)[:B]
+    return KERNEL_WRAPPERS[kind](*args, **tiles)
 
 
 predicated_pallas = functools.partial(_run, "predicated")

@@ -62,10 +62,15 @@ def _case(*, T, depth, F, B, seed, integer_leaves, device):
     return forest, x
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Compare floats bit for bit (-0.0 != +0.0, NaN == same NaN)."""
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("integer_leaves", [True, False],
                          ids=["integer", "float"])
-@pytest.mark.parametrize("depth", [1, 3, 5, 8])
+@pytest.mark.parametrize("depth", range(1, 9))
 @pytest.mark.parametrize("base", BASES)
 def test_cuda_kernel_matches_plain(base, depth, integer_leaves):
     _need_card()
@@ -87,7 +92,7 @@ def test_cuda_kernel_matches_plain(base, depth, integer_leaves):
 @pytest.mark.gpu
 @pytest.mark.parametrize("integer_leaves", [True, False],
                          ids=["integer", "float"])
-@pytest.mark.parametrize("depth", [1, 3, 5, 8])
+@pytest.mark.parametrize("depth", range(1, 9))
 @pytest.mark.parametrize("base", BASES)
 def test_cuda_raw_kernel_matches_plain(base, depth, integer_leaves):
     _need_card()
@@ -101,7 +106,33 @@ def test_cuda_raw_kernel_matches_plain(base, depth, integer_leaves):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert got.shape == (args[0].shape[0], args[1].shape[0])
-    assert torch.equal(got, RAW_PLAIN[base](*args, depth=depth))
+    assert torch.equal(_bits(got), _bits(RAW_PLAIN[base](*args, depth=depth)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,depth", [(1, 8), (3, 4), (6, 8), (37, 2)])
+@pytest.mark.parametrize("base", BASES)
+def test_cuda_kernels_few_trees_ragged_rows_negative_zero(base, T, depth):
+    """Tree counts below and off the predicated kernel's four chains, a
+    ragged last sample block (B = 77), and -0.0 leaves: raw scores bit for
+    bit, fused sums bit for bit (both add in tree order)."""
+    _need_card()
+    forest, x = _case(T=T, depth=depth, F=13, B=77, seed=T + depth,
+                      integer_leaves=True, device="cuda")
+    lv = forest.leaf_value.clone()
+    lv[:, ::3] = -0.0
+    forest = dataclasses.replace(forest, leaf_value=lv)
+    xc = torch.from_numpy(x).cuda()
+    for fused, wrappers, plain in ((True, KERNEL_WRAPPERS, PLAIN),
+                                   (False, RAW_KERNEL_WRAPPERS, RAW_PLAIN)):
+        args, tiles = prepare_inputs(base, forest, xc, fused=fused)
+        got = wrappers[base](*args, **tiles)
+        torch.cuda.synchronize()
+        want = plain[base](*args, depth=depth)
+        assert got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want)), (base, fused)
+    if base == "predicated":        # a leaf lookup keeps the sign of zero
+        assert (_bits(got) == _bits(torch.tensor(-0.0))).any()
 
 
 @pytest.mark.gpu

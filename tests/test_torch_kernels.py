@@ -10,6 +10,7 @@ lookup.  The CUDA kernels themselves are held against these plain versions
 by ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
 """
 
+import dataclasses
 import zlib
 
 import jax.numpy as jnp
@@ -23,9 +24,10 @@ from repro.kernels.ops import FUSED_KERNEL_ALGORITHMS as JFUSED
 from repro.kernels.ops import KERNEL_ALGORITHMS as JRAW
 from repro_torch.core.forest import hb_path_matrix
 from repro_torch.core.postprocess import postprocess
-from repro_torch.kernels import _build, common
-from repro_torch.kernels.common import sum_trees_in_order
-from repro_torch.kernels.forest_hummingbird import (_path_matrix, hb_masks,
+from repro_torch.kernels import _build, common, ops
+from repro_torch.kernels.common import (pack_nodes, sum_trees_in_order,
+                                        unpack_nodes)
+from repro_torch.kernels.forest_hummingbird import (hb_structure,
                                                     hummingbird_fused_plain,
                                                     hummingbird_raw_plain)
 from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
@@ -35,8 +37,8 @@ from repro_torch.kernels.forest_quickscorer import (quickscorer_fused_plain,
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
                                      KERNEL_ALGORITHMS, KERNEL_WRAPPERS,
                                      RAW_KERNEL_WRAPPERS, default_tree_block,
-                                     predict_raw_pallas, predict_sum_pallas,
-                                     prepare_inputs)
+                                     kernel_trees, predict_raw_pallas,
+                                     predict_sum_pallas, prepare_inputs)
 
 from conftest import random_forest_arrays
 from test_torch_forest import port_forest
@@ -184,33 +186,106 @@ def test_plain_versions_ignore_tiling(base):
 
 
 def test_hb_masks_encode_the_path_matrix():
-    for depth in (1, 3, 6, 8):
-        cpos, cneg, D = hb_masks(depth)
+    """The kernel's int8 structure tensor is hb_path_matrix's C, transposed
+    and zero-padded to the mma shape; D is padded with -1 (never hit)."""
+    for depth in range(1, 9):
+        ct, D = hb_structure(depth)
         C, D_ref = hb_path_matrix(depth)
-        unpacked = _path_matrix(torch.from_numpy(cpos),
-                                torch.from_numpy(cneg), depth)
-        assert torch.equal(unpacked, torch.from_numpy(C).float())
-        assert np.array_equal(D, D_ref)
+        I, L = C.shape
+        assert ct.dtype == np.int8 and D.dtype == np.int32
+        assert ct.shape == (max(8, L), max(32, L))
+        assert np.array_equal(ct[:L, :I], C.T)
+        assert not ct[L:].any() and not ct[:, I:].any()
+        assert np.array_equal(D[:L], D_ref) and (D[L:] == -1).all()
+
+
+def _popcount_path_counts(s: np.ndarray, C: np.ndarray) -> np.ndarray:
+    """P[b, l] = popc(S & Cpos[l]) - popc(S & Cneg[l]) over bit-packed
+    words: the popcount form of the contraction."""
+    I, L = C.shape
+    words = (I + 31) // 32
+
+    def pack(bits):                         # [..., I] -> [..., words]
+        out = np.zeros(bits.shape[:-1] + (words,), np.uint64)
+        for i in range(I):
+            out[..., i // 32] |= bits[..., i].astype(np.uint64) << np.uint64(
+                i % 32)
+        return out
+
+    sw = pack(s)                            # [B, words]
+    pos, neg = pack((C == 1).T), pack((C == -1).T)        # [L, words]
+
+    def popc(a):
+        return np.array([bin(int(v)).count("1") for v in a.ravel()]
+                        ).reshape(a.shape)
+
+    return (popc(sw[:, None] & pos[None]).sum(-1)
+            - popc(sw[:, None] & neg[None]).sum(-1))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3, 5, 8])
+def test_int8_path_product_equals_popcount_form(depth):
+    """S_int8 @ C_int8 accumulated in int32 (what the tensor cores do) is
+    the popcount P of the bit-packed masks, for random S."""
+    ct, _ = hb_structure(depth)
+    C, _ = hb_path_matrix(depth)
+    I, L = C.shape
+    s = np.random.default_rng(depth).random((40, ct.shape[1])) < 0.5
+    s[:, I:] = False                        # the kernel's S pad bytes are 0
+    S = torch.from_numpy(s.astype(np.int8))
+    P = S.to(torch.int32) @ torch.from_numpy(ct).to(torch.int32).T
+    assert P.dtype == torch.int32
+    assert np.array_equal(P[:, :L].numpy(),
+                          _popcount_path_counts(s[:, :I], C))
+    assert not P[:, L:].any()               # pad leaves: P = 0, D = -1
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_packed_nodes_round_trip(depth):
+    """One 8-byte record per node, heap slot 0 unused: unpacking gives the
+    feature, threshold and default_left arrays back bit for bit, extreme
+    thresholds and the first and last feature included."""
+    r = np.random.default_rng(depth)
+    T, I, F = 7, (1 << depth) - 1, 29
+    feature = r.integers(0, F, (T, I)).astype(np.int32)
+    feature[0, 0], feature[-1, -1] = 0, F - 1
+    threshold = r.normal(size=(T, I)).astype(np.float32)
+    extremes = np.array([np.inf, -np.inf, np.finfo(np.float32).max,
+                         -np.finfo(np.float32).max, np.finfo(np.float32).tiny,
+                         1e-45, -0.0, 0.0], np.float32)
+    flat = threshold.reshape(-1)
+    flat[:min(flat.size, extremes.size)] = extremes[:flat.size]
+    default_left = r.random((T, I)) < 0.5
+    nodes = pack_nodes(torch.from_numpy(feature), torch.from_numpy(threshold),
+                       torch.from_numpy(default_left))
+    assert nodes.shape == (T, 1 << depth, 2) and nodes.dtype == torch.int32
+    assert not nodes[:, 0].any()
+    fe, th, dl = unpack_nodes(nodes)
+    assert fe.dtype == torch.int32 and np.array_equal(fe.numpy(), feature)
+    assert np.array_equal(th.numpy().view(np.uint32),
+                          threshold.view(np.uint32))
+    assert np.array_equal(dl.numpy(), default_left)
 
 
 def test_block_heuristics_fit_shared_memory():
-    # the HIGGS shape: 256 samples x 16 trees, two blocks per SM
+    # a launch over 500 trees walks double-buffered 8-tree tiles; a
+    # one-tile launch (a rel partition) takes 16 trees and one buffer
     for kind in BASES:
         bb, bt = common.block_heuristics(kind, 11_000_000, 500, 28, 8)
-        assert (bb, bt) == (256, 16)
-        assert common.tile_smem_bytes(kind, bb, bt, 28, 8) \
-            <= common.SMEM_BUDGET
-    # the raw kernels add their [BB, BT + 1] out tile and still fit; the
-    # HummingBird raw tile halves its tree tile for it
-    for kind, bt in (("predicated", 16), ("hummingbird", 8),
-                     ("quickscorer", 16)):
-        tiles = common.block_heuristics(kind, 11_000_000, 1600, 28, 8,
+        assert (bb, bt) == (256, 8)
+        assert common.tile_smem_bytes(kind, bb, bt, 28, 8, buffers=2) \
+            <= common.smem_budget(kind)
+        tiles = common.block_heuristics(kind, 11_000_000, 16, 28, 8,
                                         fused=False)
-        assert tiles == (256, bt)
+        assert tiles == (256, 16)
+        # the raw kernels add their [BB, BT + 1] out tile and still fit
         assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
-            == common.tile_smem_bytes(kind, *tiles, 28, 8) + 256 * (bt + 1) * 4
+            == common.tile_smem_bytes(kind, *tiles, 28, 8) + 256 * 17 * 4
         assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
-            <= common.SMEM_BUDGET
+            <= common.smem_budget(kind)
+    # two blocks an SM for predicated / QuickScorer, one for HummingBird
+    assert common.smem_budget("predicated") == common.SMEM_BUDGET
+    assert common.smem_budget("hummingbird") == common.SMEM_BLOCK_MAX
     # small batches shrink the sample tile to a warp multiple
     assert common.block_heuristics("predicated", 7, 3, 5, 2) == (32, 2)
     # wide rows shrink the sample tile; too wide for any tile raises
@@ -218,6 +293,38 @@ def test_block_heuristics_fit_shared_memory():
     assert bb < 256 and bb % 32 == 0
     with pytest.raises(ValueError, match="does not fit"):
         common.block_heuristics("predicated", 64, 8, 5000, 8)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
+@pytest.mark.parametrize("kind", BASES)
+def test_tile_smem_bytes_mirrors_the_cuda_layout(kind, fused):
+    """csrc/forest_common.cuh:tile_layout, part by part: x [F][BB] f32,
+    then per tree buffer records [BT][L] int2 and leaves [BT][L] f32, the
+    kind's extra, the raw out tile [BB][BT + 1] f32; each 16-byte
+    aligned."""
+    def a16(n):
+        return -(-n // 16) * 16
+
+    for depth in range(1, 9):
+        I, L = (1 << depth) - 1, 1 << depth
+        kp, np_ = max(32, L), max(8, L)
+        for bb, bt, F in ((256, 16, 28), (32, 1, 5), (64, 3, 11)):
+            extra = {"predicated": 0,
+                     "hummingbird": a16(np_ * kp) + a16(4 * np_) + bb * kp,
+                     "quickscorer": 4 * I * ((L + 31) // 32)}[kind]
+            for buffers in (1, 2):
+                want = (a16(4 * F * bb)
+                        + buffers * (a16(8 * bt * L) + a16(4 * bt * L))
+                        + a16(extra)
+                        + (0 if fused else a16(4 * bb * (bt + 1))))
+                assert common.tile_smem_bytes(
+                    kind, bb, bt, F, depth, fused=fused,
+                    buffers=buffers) == want
+    # the phase-7 rel partition of the raw predicated kernel, by hand:
+    # 28 x 256 x 4 + 16 x 256 x 8 + 16 x 256 x 4 + 256 x 17 x 4
+    if kind == "predicated" and not fused:
+        assert common.tile_smem_bytes(kind, 256, 16, 28, 8,
+                                      fused=False) == 95_232
 
 
 def test_default_tree_block():
@@ -230,7 +337,42 @@ def test_default_tree_block():
     # fused kernel gives to trees
     _, wide, _ = _case(8, 64, 6, 60, 3)
     assert default_tree_block(wide, fused=True) == 64
-    assert default_tree_block(wide, fused=False) == 32
+    assert default_tree_block(wide, fused=False) == 16
+
+
+def test_tree_records_are_built_once_per_forest(monkeypatch):
+    """No launch packs or pads trees: the records of a forest (and of each
+    tree tile it is padded to) are built at its first launch and reused;
+    a rel plan's partitions get slices of the model's records."""
+    built = []
+    real = ops.pack_nodes
+
+    def counting(*a):
+        built.append(a[0].shape)
+        return real(*a)
+
+    monkeypatch.setattr(ops, "pack_nodes", counting)
+    _, tf, x = _case(16, 6, 4, 9, 21)
+    xt = torch.from_numpy(x)
+    for _ in range(3):
+        predict_sum_pallas(tf, xt, "predicated_pallas_fused", block_t=4)
+    assert len(built) == 2              # the records, then 2 pad trees
+    nodes, leaves = kernel_trees(tf, 4)
+    assert nodes.shape == (8, 16, 2) and leaves.shape == (8, 16)
+    assert kernel_trees(tf, 4)[0] is nodes
+    fe, th, dl = unpack_nodes(nodes[6:])
+    assert (fe == 0).all() and torch.isinf(th).all() and dl.all()
+    built.clear()
+    part = dataclasses.replace(tf, feature=tf.feature[2:4],
+                               threshold=tf.threshold[2:4],
+                               default_left=tf.default_left[2:4],
+                               leaf_value=tf.leaf_value[2:4])
+    ops.share_packed_nodes(part, ops.packed_nodes(tf)[2:4])
+    assert torch.equal(predict_raw_pallas(part, xt, "predicated_pallas"),
+                       predict_raw_pallas(tf, xt, "predicated_pallas")[:, 2:4])
+    assert built == []
+    with pytest.raises(ValueError, match="do not fit"):
+        ops.share_packed_nodes(part, ops.packed_nodes(tf))
 
 
 def test_wrappers_use_plain_only_for_cpu_tensors():
@@ -257,7 +399,7 @@ def test_raw_wrappers_use_plain_only_for_cpu_tensors():
         before = wrapper.launches
         got = wrapper(*args, **tiles)
         assert wrapper.launches == before
-        assert got.shape == (32, args[1].shape[0])
+        assert got.shape == (16, args[1].shape[0])
         assert torch.equal(got, RAW_PLAIN[kind](*args, depth=tiles["depth"]))
         meta = [a.to("meta") for a in args]
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -266,14 +408,19 @@ def test_raw_wrappers_use_plain_only_for_cpu_tensors():
 
 
 def test_prepare_inputs_pads_like_the_reference():
+    """Trees are padded like the reference's (pass-through, zero leaves);
+    samples are not: the kernels mask their ragged last block."""
     _, tf, x = _case(9, 5, 3, 6, 13)
     args, tiles = prepare_inputs("predicated", tf, torch.from_numpy(x),
                                  block_b=32, block_t=4)
-    xp, fe, th, dl, lv = args
-    assert xp.shape == (32, 6) and torch.equal(xp[9:], torch.zeros(23, 6))
+    xp, nodes, lv = args
+    assert torch.equal(xp, torch.from_numpy(x))
+    fe, th, dl = unpack_nodes(nodes)
     assert fe.shape == (8, 7) and (fe[5:] == 0).all()
-    assert torch.isinf(th[5:]).all() and (dl[5:] == 1).all()
-    assert dl.dtype == torch.uint8 and (lv[5:] == 0).all()
+    assert torch.isinf(th[5:]).all() and dl[5:].all()
+    assert torch.equal(fe[:5], tf.feature) and torch.equal(dl[:5],
+                                                           tf.default_left)
+    assert lv.shape == (8, 8) and (lv[5:] == 0).all()
     with pytest.raises(ValueError, match="features"):
         prepare_inputs("predicated", tf, torch.zeros(4, 3))
 

@@ -94,7 +94,7 @@ def test_default_n_parts_follows_the_tile_of_the_kernel_launched():
     _, engine = _port_engine(x)
     fused_bt = default_tree_block(tf, fused=True)
     raw_bt = default_tree_block(tf, fused=False)
-    assert (fused_bt, raw_bt) == (64, 32)
+    assert (fused_bt, raw_bt) == (64, 16)
     for algorithm, want in (("predicated_pallas_fused", 64 // fused_bt),
                             ("hummingbird_pallas", 64 // raw_bt),
                             ("predicated", 4)):
