@@ -8,9 +8,10 @@ and from this checkout, in the order parent, change, change, parent, on
 this machine's card.  Each run's whole output goes to
 ``DIR/<n>-<side>.log`` (default ``chiprun_out/ab``).  The script prints
 each run's kernel times (from the ``{"kernels": ...}`` line chip_smoke.py
-prints), its rel+reuse repeat and its ``infer_rows`` repeats, then each
-side's mean per kernel and the change / parent ratio.  Any run that fails
-makes the script exit non-zero.
+prints), its rel+reuse query times (each algorithm's runs, over each
+table it ran on) and its ``infer_rows`` repeats, then each side's mean per
+kernel and per rel+reuse run, and the change / parent ratio.  Any run
+that fails makes the script exit non-zero.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import sys
 from pathlib import Path
 
 ORDER = ("parent", "change", "change", "parent")
-REL_REPEAT = re.compile(r"\[rel\] infer\(plan='rel\+reuse', algorithm="
-                        r"'predicated_pallas'\) run 2 .* total ([0-9.]+) s")
+REL_RUN = re.compile(r"\[rel\] infer\(plan='rel\+reuse', algorithm="
+                        r"'(\w+)'\) (run \d+) over (\d+) rows .* total "
+                        r"([0-9.]+) s")
 ROWS = re.compile(r"\[rows\] infer_rows\((\d+) rows.*plan='([^']+)'.*repeat "
                   r"([0-9.]+) s")
 
@@ -36,13 +38,14 @@ def run(root: Path, log: Path) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
                            f"see {log}")
-    out = {"kernels": None, "rel_repeat_s": None, "rows": {}}
+    out = {"kernels": None, "rel_s": {}, "rows": {}}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
                               for k in json.loads(line)["kernels"]}
-        elif (m := REL_REPEAT.search(line)):
-            out["rel_repeat_s"] = float(m.group(1))
+        elif (m := REL_RUN.search(line)):
+            algorithm, run_, rows, total = m.groups()
+            out["rel_s"][f"{algorithm} {rows} rows {run_}"] = float(total)
         elif (m := ROWS.search(line)):
             out["rows"][f"{m.group(2)} {m.group(1)}"] = float(m.group(3))
         elif line.startswith("[report]"):
@@ -64,17 +67,23 @@ def main() -> int:
         runs.append((side, res))
         print(f"[ab] run {n} {side}: {res.get('report')}", flush=True)
         print(f"[ab] run {n} {side}: kernels ms {json.dumps(res['kernels'])}"
-              f"; rel+reuse repeat {res['rel_repeat_s']} s; infer_rows "
-              f"repeat s {json.dumps(res['rows'])}", flush=True)
-    names = list(runs[0][1]["kernels"])
-    for name in names:
-        side_ms = {s: [r["kernels"][name] for side, r in runs if side == s]
-                   for s in ("parent", "change")}
-        p = sum(side_ms["parent"]) / 2
-        c = sum(side_ms["change"]) / 2
-        print(f"[ab] {name}: parent {side_ms['parent']} ms, change "
-              f"{side_ms['change']} ms, change/parent {c / p:.4f}",
-              flush=True)
+              f"; rel+reuse s {json.dumps(res['rel_s'])}; "
+              f"infer_rows repeat s {json.dumps(res['rows'])}", flush=True)
+    for what, unit in (("kernels", "ms"), ("rel_s", "s")):
+        names = {n: None for _, r in runs for n in r[what]}
+        for name in names:
+            side_t = {s: [r[what].get(name) for side, r in runs if side == s]
+                      for s in ("parent", "change")}
+            if None in side_t["parent"] + side_t["change"]:
+                print(f"[ab] {what} {name}: parent {side_t['parent']} {unit}, "
+                      f"change {side_t['change']} {unit}", flush=True)
+                continue
+            p = sum(side_t["parent"]) / 2
+            c = sum(side_t["change"]) / 2
+            label = name if what == "kernels" else f"rel+reuse {name}"
+            print(f"[ab] {label}: parent {side_t['parent']} {unit}, change "
+                  f"{side_t['change']} {unit}, change/parent {c / p:.4f}",
+                  flush=True)
     return 0
 
 

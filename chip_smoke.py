@@ -11,8 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
               (a ragged last block) with NaN rows: fused sums bit-identical
               on integer leaves and within TOL on float leaves, raw [B, T]
               scores bit-identical (bit for bit, sign of zero included);
-              then the predicated and HummingBird kernels, fused and raw,
-              at depths 1, 3 and 5 with -0.0 leaves, all bit for bit;
+              then every kernel, fused and raw, at shallower depths with
+              -0.0 leaves, all bit for bit: predicated and HummingBird at
+              1, 3 and 5, QuickScorer at 1, 3, 5 and 6 (the first depth
+              whose top node clears a whole 32-leaf word);
   4. path     the in-database query on a HIGGS-shaped table (11,000,000 x
               28 rows from a seed, on the device tier):
               infer(plan="udf", algorithm="predicated_pallas_fused") twice
@@ -29,10 +31,11 @@ Phases (any failure exits non-zero and prints no result line):
               once, infer_rows at 8/32/128 rows (udf with the fused kernel,
               rel+reuse with the raw one, each called twice), the
               HummingBird and QuickScorer raw kernels through rel+reuse on
-              the 1M-row cut, and udf with predicated_pallas (one raw
-              launch over all 1600 trees) on that cut.  Every run counts
-              launches (raw = n_parts x scan batches, no other kernel) and
-              holds its first rows against the eager oracle;
+              the 1M-row cut (twice each: the repeat is the query time),
+              and udf with predicated_pallas (one raw launch over all 1600
+              trees) on that cut.  Every query counts its own launches
+              (raw = n_parts x scan batches, no other kernel) and holds its
+              first rows against the eager oracle;
   7. timing   each raw kernel at one rel launch's shape (16 trees).
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
@@ -60,7 +63,10 @@ REL_TREES = 1600                # the large-model regime of the rel plans
 HIGGS_ROWS = 11_000_000
 CUT_ROWS = 1_000_000            # HummingBird / QuickScorer path rows
 CHECK_ROWS = 16_421             # phase 3 kernel-vs-plain rows (ragged)
-SHALLOW = (1, 3, 5)             # phase 3 depths beside DEPTH
+#: phase 3 depths beside DEPTH; QuickScorer adds 6, where its top node
+#: first clears a whole word
+SHALLOW = dict(predicated=(1, 3, 5), hummingbird=(1, 3, 5),
+               quickscorer=(1, 3, 5, 6))
 COMPARE_ROWS = 65_536           # path rows held against the oracle
 ROW_BATCHES = (8, 32, 128)      # the serving plane's bucket ladder
 TOL = 1e-6                      # rtol = atol for float sums (order differs)
@@ -150,8 +156,10 @@ def bound(kind: str, B: int, F: int, T: int = TREES, *,
     """Least time (ms) the card could take for one launch over B rows and
     T trees: the larger of bytes over HBM rate and operations over peak.
     Bytes: x read once, the trees (an 8-byte record per node slot and a
-    4-byte leaf) and structure tensors read once, the output ([B], or
-    [B, T] for a raw launch) written once."""
+    4-byte leaf) and the structure tensors a kernel reads once, the output
+    ([B], or [B, T] for a raw launch) written once."""
+    from repro_torch.core.forest import qs_bitvectors
+
     I, L = (1 << DEPTH) - 1, 1 << DEPTH
     W = (L + 31) // 32
     nbytes = 4 * B * F + T * 12 * L + 4 * B * (T if raw else 1)
@@ -162,9 +170,9 @@ def bound(kind: str, B: int, F: int, T: int = TREES, *,
     elif kind == "hummingbird":   # S.C contraction: I x L MACs per pair
         ops, rate = pairs * I * L * 2, INT8_TENSOR_OPS_PER_S
         nbytes += max(32, L) * max(8, L) + 4 * max(8, L)   # C^T int8, D
-    else:                         # I compares + I*W ANDs + W ffs (+ 1 add)
-        ops, rate = pairs * (I * (1 + W) + W + add), SCALAR_OPS_PER_S
-        nbytes += 4 * I * W
+    else:   # I compares + an AND per mask word not all-ones + W ffs (+ 1)
+        masks = int((qs_bitvectors(DEPTH) != 0xFFFFFFFF).sum())
+        ops, rate = pairs * (I + masks + W + add), SCALAR_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / rate * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
@@ -316,16 +324,16 @@ def main() -> int:
                 raise AssertionError(f"{kind} raw kernel disagrees with its "
                                      f"plain version")
 
-    # rows 1, 2, 4 and 5 of PERF.md at the shallower depths, -0.0 leaves
-    # (a leaf lookup keeps the sign; HummingBird's contraction gives +0.0)
-    for depth in SHALLOW:
+    # every kernel at the shallower depths, -0.0 leaves (a leaf lookup
+    # keeps the sign; HummingBird's contraction gives +0.0)
+    for depth in sorted(set().union(*SHALLOW.values())):
         fe, th, dl, lv = make_forest_arrays(
             np.random.default_rng(SEED + 10 + depth), integer_leaves=True,
             trees=37, depth=depth)
         lv[:, ::3] = -0.0
         f = make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
                         device="cuda")
-        for kind in ("predicated", "hummingbird"):
+        for kind in (k for k in KINDS if depth in SHALLOW[k]):
             for fused in (True, False):
                 args, tiles = prepare_inputs(kind, f, x_chk, fused=fused)
                 wrapper = (KERNEL_WRAPPERS if fused
@@ -470,25 +478,28 @@ def main() -> int:
                 f"{r.aggregate_s:.6f}; {stages})")
 
     def rel_run(dataset: str, plan: str, algorithm: str, runs: int):
+        """``runs`` queries, each with its launches counted on its own."""
         kind = algorithm.split("_")[0]
-        variant = "fused" if algorithm.endswith("_fused") else "raw"
-        results, counts = counted(lambda: [
-            engine.infer(dataset, big, plan=plan, algorithm=algorithm)
-            for _ in range(runs)])
-        want = sum(r.n_parts * r.scan.batches for r in results)
-        only(counts, f"{kind}_{variant}", want, f"{plan} {algorithm}")
+        name_ = f"{kind}_{'fused' if algorithm.endswith('_fused') else 'raw'}"
         n = store.get(dataset).num_rows
-        err = max(hold(r.predictions, n, f"{plan} {algorithm}")
-                  for r in results)
-        for i, r in enumerate(results):
+        results, counts = [], {k: 0 for k in wrappers}
+        for i in range(runs):
+            r, c = counted(lambda: engine.infer(dataset, big, plan=plan,
+                                                algorithm=algorithm))
+            only(c, name_, r.n_parts * r.scan.batches,
+                 f"{plan} {algorithm} run {i + 1}")
+            err = hold(r.predictions, n, f"{plan} {algorithm}")
             log(f"[rel] infer(plan='{plan}', algorithm='{algorithm}') run "
                 f"{i + 1} over {n} rows x {REL_TREES} trees: n_parts="
                 f"{r.n_parts}, reuse_hit={r.reuse_hit}, plan_reuse_hit="
                 f"{r.plan_reuse_hit}, {breakdown(r)} = "
-                f"{n / r.total_s:.1f} rows/s on {smi}")
-        log(f"[rel] {plan} {algorithm}: {counts[f'{kind}_{variant}']} "
-            f"{kind}_{variant} launches = n_parts x scan batches; max |pred "
-            f"- eager predicated| over {min(n, COMPARE_ROWS)} rows = {err!r}")
+                f"{n / r.total_s:.1f} rows/s on {smi}; {c[name_]} {name_} "
+                f"launches = n_parts x scan batches, no other kernel; max "
+                f"|pred - eager predicated| over {min(n, COMPARE_ROWS)} "
+                f"rows = {err!r}")
+            results.append(r)
+            for k, v in c.items():
+                counts[k] += v
         return results, counts
 
     totals = {k: 0 for k in wrappers}
@@ -547,8 +558,11 @@ def main() -> int:
 
     for kind in ("hummingbird", "quickscorer"):
         res, counts = rel_run("higgs_1m", "rel+reuse", f"{kind}_pallas",
-                              runs=1)
+                              runs=2)
         tally(counts)
+        if not (res[1].reuse_hit and res[1].plan_reuse_hit):
+            raise AssertionError(f"the repeated rel+reuse {kind} query did "
+                                 f"not hit both caches")
     res, counts = rel_run("higgs_1m", "udf", "predicated_pallas", runs=1)
     tally(counts)
     for name_ in ("predicated_fused", "hummingbird_fused",

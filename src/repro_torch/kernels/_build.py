@@ -51,7 +51,7 @@ KERNEL_SOURCES = {
     "forest_hummingbird": ("forest_hummingbird.cu",
                            _entry_points("hummingbird", 6)),
     "forest_quickscorer": ("forest_quickscorer.cu",
-                           _entry_points("quickscorer", 5)),
+                           _entry_points("quickscorer", 4)),
 }
 
 #: ptxas resource report of each library built by this process

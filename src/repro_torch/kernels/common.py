@@ -15,29 +15,33 @@ and the one 8-byte record per node that every CUDA kernel reads:
 int32 [T, L, 2], heap slot 0 unused (``csrc/forest_common.cuh``).  The
 plain versions take the same record and unpack it.
 
-``block_heuristics`` sizes the kernels' tiles for an H100 block: one
-thread per sample (BB threads), and a shared-memory working set of
+``block_heuristics`` sizes the kernels' tiles for an H100 block: BB
+threads, one sample a thread (QuickScorer: ``QS_ROWS_PER_THREAD`` samples
+a thread, BB apart, so its tile holds rows = 4 * BB samples; the others
+rows = BB), and a shared-memory working set of
 
-    x tile     4 * F * BB
+    x tile     4 * F * rows
     tree tiles buffers * BT * 12 * L      node records and leaves; two
                                           buffers when a launch walks more
                                           than one tile (double buffering)
     extra      HummingBird: NP * KP + 4 * NP + BB * KP   (C^T int8, D, one
                                           S tile per warp; KP = max(32, L),
                                           NP = max(8, L))
-               QuickScorer: 4 * I * ceil(L/32)           (bit-vectors)
-    out tile   raw kernels only: 4 * BB * (BT + 1)       (scores, staged
+               QuickScorer: none     (its masks are derived from
+                                          the heap, not loaded)
+    out tile   raw kernels only: 4 * rows * (BT + 1)     (scores, staged
                                           so the [B, T] rows leave
                                           coalesced)
 
 each part rounded up to 16 bytes (``csrc/forest_common.cuh:tile_layout``).
 The budget (``smem_budget``) is half the 227 KB a block may take for the
-predicated and QuickScorer kernels, so two 256-thread blocks share an SM
-and one block's staging overlaps the other's walk; HummingBird's C^T (64 KB
+predicated and QuickScorer kernels, so two blocks share an SM and one
+block's staging overlaps the other's walk; HummingBird's C^T (64 KB
 at depth 8) and S tiles take one block an SM, with the whole 227 KB.  At
 the HIGGS shape (depth 8, 28 features) a one-tile launch -- a rel partition
 -- takes 16 trees; a launch over many trees walks 8-tree tiles, two
-buffers of them.
+buffers of them.  QuickScorer's 4 rows a thread shrink its block to 128
+threads (512 samples) there, and its 16-tree launches walk 4-tree tiles.
 """
 
 from __future__ import annotations
@@ -49,8 +53,9 @@ from repro_torch.kernels import _build
 
 __all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
            "block_heuristics", "tile_smem_bytes", "tree_buffers",
-           "smem_budget", "launch_forest_kernel", "SMEM_BLOCK_MAX",
-           "SMEM_BUDGET", "MAX_KERNEL_DEPTH"]
+           "smem_budget", "launch_forest_kernel", "rows_per_thread",
+           "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH",
+           "QS_ROWS_PER_THREAD"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
@@ -63,6 +68,8 @@ MAX_KERNEL_DEPTH = 8
 MAX_BLOCK_B = 256
 #: tree-tile cap
 MAX_BLOCK_T = 64
+#: samples a QuickScorer thread scores (csrc/forest_quickscorer.cu: kRows)
+QS_ROWS_PER_THREAD = 4
 
 
 def dense_predicates(x: torch.Tensor, feature: torch.Tensor,
@@ -104,15 +111,19 @@ def _align16(n: int) -> int:
 
 
 def _extra_bytes(kind: str, depth: int, block_b: int) -> int:
-    I, L = (1 << depth) - 1, 1 << depth
+    L = 1 << depth
     if kind == "hummingbird":        # csrc/forest_hummingbird.cu
         kp, np_ = max(32, L), max(8, L)
         return _align16(np_ * kp) + _align16(4 * np_) + block_b * kp
-    if kind == "quickscorer":
-        return 4 * I * ((L + 31) // 32)
-    if kind == "predicated":
+    if kind in ("predicated", "quickscorer"):
         return 0
     raise ValueError(f"unknown kernel {kind!r}")
+
+
+def rows_per_thread(kind: str) -> int:
+    """Samples one thread of this kernel scores: a block of BB threads
+    holds BB times as many."""
+    return QS_ROWS_PER_THREAD if kind == "quickscorer" else 1
 
 
 def smem_budget(kind: str) -> int:
@@ -131,11 +142,13 @@ def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
                     buffers: int = 1) -> int:
     """Dynamic shared memory of one block, as the CUDA layout lays it out
     (``fused=False``: the raw [B, T] kernel, with its out tile;
-    ``buffers``: tree tiles held, ``tree_buffers``)."""
+    ``buffers``: tree tiles held, ``tree_buffers``).  ``block_b`` counts
+    threads; the tile holds ``rows_per_thread(kind)`` samples for each."""
     L = 1 << depth
+    rows = block_b * rows_per_thread(kind)
     tree = _align16(8 * block_t * L) + _align16(4 * block_t * L)
-    out_tile = 0 if fused else _align16(4 * block_b * (block_t + 1))
-    return (_align16(4 * F * block_b) + buffers * tree
+    out_tile = 0 if fused else _align16(4 * rows * (block_t + 1))
+    return (_align16(4 * F * rows) + buffers * tree
             + _align16(_extra_bytes(kind, depth, block_b)) + out_tile)
 
 
@@ -143,26 +156,29 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
                      fused: bool = True,
                      one_tile: bool = False) -> tuple[int, int]:
     """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch over
-    T trees: BB a multiple of 32 up to 256, BT a power of two up to 64,
-    shrunk (tree tile first, then sample tile) until the block's shared
-    memory fits ``smem_budget``.  ``one_tile``: size the tile for launches
-    of exactly BT trees (one tree partition each), which hold one tree
-    buffer.  Raises when even (32, 1) does not fit a block at all (a very
-    wide F)."""
+    T trees: BB threads, a multiple of 32 up to 256 (no more than B
+    samples need at ``rows_per_thread`` a thread), BT a power of two up to
+    64.  The sample tile shrinks (down to 32 samples) until it fits
+    ``smem_budget`` beside one tree, then the tree tile until the block's
+    shared memory fits.  ``one_tile``: size the tile for launches of
+    exactly BT trees (one tree partition each), which hold one tree
+    buffer.  Raises when even 32 samples and one tree do not fit a block
+    at all (a very wide F)."""
     def smem(bb, bt):
         buffers = 1 if one_tile else tree_buffers(T, bt)
         return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused,
                                buffers=buffers)
 
     budget = smem_budget(kind)
-    bb = min(MAX_BLOCK_B, max(32, -(-B // 32) * 32))
+    per = rows_per_thread(kind)
+    bb = min(MAX_BLOCK_B, max(32, -(-B // (32 * per)) * 32))
     bt = 1
     while bt * 2 <= min(T, MAX_BLOCK_T):
         bt *= 2
+    while smem(bb, 1) > budget and bb * per > 32:
+        bb //= 2
     while smem(bb, bt) > budget and bt > 1:
         bt //= 2
-    while smem(bb, bt) > budget and bb > 32:
-        bb //= 2
     if smem(bb, bt) > SMEM_BLOCK_MAX:
         raise ValueError(
             f"{kind}: a 32-sample tile of {F} features at depth {depth} "
@@ -212,9 +228,11 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
     if tuple(leaf_value.shape) != (T, L):
         raise ValueError(f"{kind}: leaf_value shape "
                          f"{tuple(leaf_value.shape)} != ({T}, {L})")
-    if block_b % 32 or not 32 <= block_b <= MAX_BLOCK_B:
-        raise ValueError(f"{kind}: block_b must be a multiple of 32 in "
-                         f"[32, {MAX_BLOCK_B}], got {block_b}")
+    per = rows_per_thread(kind)
+    if block_b * per % 32 or not 32 // per <= block_b <= MAX_BLOCK_B:
+        raise ValueError(f"{kind}: block_b must be in [{32 // per}, "
+                         f"{MAX_BLOCK_B}] threads of {per} samples, a "
+                         f"multiple of 32 samples, got {block_b}")
     if block_t < 1 or T % block_t:
         raise ValueError(f"{kind}: {T} trees are not a multiple of "
                          f"block_t={block_t}")

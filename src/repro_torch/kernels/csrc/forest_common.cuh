@@ -7,10 +7,11 @@
 // output block along it (``pl.when(program_id(1) == 0)`` init), the raw
 // ones wrote one [BB, BT] block per grid step.  Here that axis becomes a
 // loop INSIDE the block (``run_tiles``):
-//   * a block owns BB samples and stages its x tile in shared memory once,
-//     feature-major (x_s[f * BB + b]) so that a warp reading 32 different
-//     features at its 32 rows hits 32 different banks.  The staging copy
-//     runs with lanes over b fastest, so its shared-memory stores are
+//   * a block owns its samples (BB, one a thread; QuickScorer kRows a
+//     thread) and stages their x tile in shared memory once, feature-major
+//     (x_s[f * rows + b]) so that a warp reading 32 different features at
+//     its 32 rows hits 32 different banks.  The staging copy runs with
+//     lanes over b fastest, so its shared-memory stores are
 //     conflict-free too (a store order of lanes over f put a warp's 32
 //     stores on 2-3 banks); its strided global reads hit the x rows' lines
 //     in L1 once fetched;
@@ -25,12 +26,12 @@
 //     A launch over one tile (a rel partition) has nothing to pipeline
 //     across tiles: there the tile's copy and the x tile's are in flight
 //     together, and the second block on the SM walks while one stages;
-//   * FUSED: each thread keeps its sample's sum in a register and writes
+//   * FUSED: each thread keeps its samples' sums in registers and writes
 //     [B] once.  No atomics, and the summation order (tree 0, 1, 2, ... in
 //     sequence) is fixed from run to run;
-//   * RAW: tree scores go to a shared [BB][BT + 1] out tile (the +1 keeps
-//     a warp's column writes on 32 banks), and the block then writes the
-//     tile's BB rows of BT floats with consecutive threads on consecutive
+//   * RAW: tree scores go to a shared [rows][BT + 1] out tile (the +1
+//     keeps a warp's column writes on 32 banks), and the block then writes
+//     the tile's rows of BT floats with consecutive threads on consecutive
 //     addresses.  Offsets into x and out are 64-bit: B * T passes 2^31 at
 //     the paper's sizes.  Rows past B are staged as zeros and never
 //     written, so B need not be a multiple of BB.
@@ -55,18 +56,18 @@ __host__ __device__ inline int tree_buffers(int T, int bt) {
 }
 
 // Byte offsets of one block's shared memory, each 16-byte aligned:
-//   x      float  [F][BB]       sample tile, feature-major
+//   x      float  [F][rows]     sample tile, feature-major
 //   per tree buffer (1 or 2):
 //     nodes  int2   [BT][L]     packed node records
 //     leaf   float  [BT][L]
 //   extra                       kernel-specific (structure tensors, ...)
-//   out    float  [BB][BT + 1]  raw kernels only
+//   out    float  [rows][BT+1]  raw kernels only
 // kernels/common.py:tile_smem_bytes mirrors this layout.
 struct TileLayout {
   size_t x, nodes[2], leaf[2], extra, out, total;
 };
 
-__host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
+__host__ __device__ inline TileLayout tile_layout(int rows, int bt, int F,
                                                   int L, int buffers,
                                                   size_t extra_bytes,
                                                   bool fused) {
@@ -74,7 +75,7 @@ __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
   const size_t leaf_bytes = align16(4 * size_t(bt) * L);
   TileLayout s;
   s.x = 0;
-  size_t at = align16(sizeof(float) * size_t(F) * bb);
+  size_t at = align16(sizeof(float) * size_t(F) * rows);
   for (int k = 0; k < 2; ++k) {
     if (k < buffers) {
       s.nodes[k] = at;
@@ -87,7 +88,7 @@ __host__ __device__ inline TileLayout tile_layout(int bb, int bt, int F,
   }
   s.extra = at;
   s.out = s.extra + align16(extra_bytes);
-  s.total = s.out + (fused ? 0 : align16(sizeof(float) * bb * (bt + 1)));
+  s.total = s.out + (fused ? 0 : align16(sizeof(float) * rows * (bt + 1)));
   return s;
 }
 
@@ -157,13 +158,14 @@ __device__ inline void copy_async(void* dst, const void* src, size_t bytes) {
   }
 }
 
-// x_s[f * bb + b] = x[b0 + b, f], lanes over b (conflict-free stores);
-// rows past B read as 0 (the reference pads samples with zeros).
+// x_s[f * rows + b] = x[b0 + b, f] for the block's rows, lanes over b
+// (conflict-free stores); rows past B read as 0 (the reference pads
+// samples with zeros).
 __device__ inline void stage_x_async(float* x_s, const float* __restrict__ x,
                                      long long b0, long long B, int F,
-                                     int bb) {
-  for (int k = threadIdx.x; k < bb * F; k += blockDim.x) {
-    const int f = k / bb, b = k - f * bb;
+                                     int rows) {
+  for (int k = threadIdx.x; k < rows * F; k += blockDim.x) {
+    const int f = k / rows, b = k - f * rows;
     const long long row = b0 + b;
     const bool in = row < B;
     cp_async4(x_s + k, x + (in ? row * F + f : 0), in);
@@ -189,8 +191,9 @@ __device__ inline bool go_left(float v, int2 node) {
 // already issued: x, structure tensors) and walks all T / bt tiles in
 // order.  ``walk(nodes_s, leaf_s)`` scores one staged tile: FUSED
 // kernels add into their own registers, RAW ones fill s.out[r * (bt + 1) +
-// t], which this loop then writes to out[(b0 + r) * T + t0 + t].
-template <bool FUSED, typename Walk>
+// t] for the block's rows = ROWS_PER_THREAD * blockDim.x samples r, which
+// this loop then writes to out[(b0 + r) * T + t0 + t].
+template <bool FUSED, int ROWS_PER_THREAD = 1, typename Walk>
 __device__ inline void run_tiles(const TileRefs& s,
                                  const int2* __restrict__ nodes,
                                  const float* __restrict__ leaf_value,
@@ -198,7 +201,7 @@ __device__ inline void run_tiles(const TileRefs& s,
                                  long long B, int T, int bt, int L,
                                  Walk walk) {
   const int n_tiles = T / bt, nbuf = tree_buffers(T, bt);
-  const int bb = blockDim.x;
+  const int bb = blockDim.x, rows = ROWS_PER_THREAD * bb;
   stage_tree_tile(s, 0, nodes, leaf_value, 0, bt, L);
   cp_async_commit();
   for (int j = 0; j < n_tiles; ++j) {
@@ -216,7 +219,7 @@ __device__ inline void run_tiles(const TileRefs& s,
     if constexpr (!FUSED) {
       __syncthreads();
       const long long t0 = (long long)j * bt;
-      for (int k = threadIdx.x; k < bb * bt; k += bb) {
+      for (int k = threadIdx.x; k < rows * bt; k += bb) {
         const int r = k / bt, c = k - r * bt;
         const long long row = b0 + r;
         if (row < B) out[row * T + t0 + c] = s.out[r * (bt + 1) + c];
@@ -230,14 +233,16 @@ __device__ inline void run_tiles(const TileRefs& s,
   }
 }
 
-// Ask for the dynamic shared memory, launch, and report the launch error.
-template <typename Kernel, typename... Args>
+// Ask for the dynamic shared memory, launch block_b threads a block, one
+// block per ROWS_PER_THREAD * block_b samples, and report the launch error.
+template <int ROWS_PER_THREAD = 1, typename Kernel, typename... Args>
 inline int launch_kernel(Kernel kernel, long long B, int block_b,
                          size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const unsigned grid = unsigned((B + block_b - 1) / block_b);
+  const long long rows = (long long)ROWS_PER_THREAD * block_b;
+  const unsigned grid = unsigned((B + rows - 1) / rows);
   kernel<<<grid, block_b, smem, stream>>>(args...);
   return int(cudaGetLastError());
 }

@@ -3,118 +3,208 @@
 //
 // Replaces repro/kernels/forest_quickscorer.py:quickscorer_fused_kernel_call
 // (the Pallas kernel at its pl.pallas_call, line 172) and
-// quickscorer_kernel_call (line 142).  Per (sample, tree):
+// quickscorer_kernel_call (line 142).  Per (sample, tree), every one of the
+// I node predicates is evaluated, and
 //     surv[w] = AND over FALSE nodes i (sample goes right) of bv[i, w]
 //     leaf    = lowest set bit of surv, words taken in order, LSB first
 //     score   = leaf_value[t, leaf]
 // fused: out[b] += score over the trees in order; raw: out[b * T + t].
-// bv [I, W] uint32, W = ceil(L/32), is structure-only (one per depth).
-// Below depth 5 the bits past L are phantoms that are never cleared; the
-// real exit leaf always survives and is lower, so the lowest bit is right.
+//
+// The masks are derived from the heap, not loaded.  bv [I, W] uint32
+// depends on the tree structure only (core/forest.py:qs_bitvectors): the
+// FALSE node at level d, position p clears exactly the leaves of its left
+// subtree, [p 2^(D-d), p 2^(D-d) + 2^(D-d-1)).  With DW = min(D, 5) levels
+// to a 32-bit word, K = D - DW top levels and W = 2^K words:
+//   * the W - 1 top nodes (levels < K) clear whole words: a FALSE one sets
+//     bits of a W-bit dead-words mask (``dead_words``);
+//   * word w holds the leaves of the depth-DW subtree at level K, position
+//     w; each of its 2^DW - 1 nodes (level K + k, position (w << k) + q)
+//     ANDs one in-word mask (``in_word_mask``) into one register, cur;
+//   * surv[w] = dead bit w ? 0 : cur, and the exit leaf is the lowest set
+//     bit of the first non-zero word.
+// At depth 8 that is 260 mask words that are not all-ones of the 2,040 in
+// bv, and no load of bv at all.  Below depth 5, W = 1 and the bits past L
+// are phantoms that are never cleared; the real exit leaf always survives
+// and is lower, so the lowest bit is right.  kernels/forest_quickscorer.py:
+// qs_node_masks is the same rule in Python, held against qs_bitvectors by
+// the tests.
 //
 // What bounds it on this card: operations.  Every node predicate is
-// evaluated (I shared-memory gathers per pair) and each selects a W-word
-// mask (I * W ANDs per pair); bytes (x read once, [B] or [B, T] written
-// once) are small beside that.  Design: surv lives in W registers, the
-// node's record and mask are broadcast shared-memory reads (every thread
-// of a warp is at the same node), the select is branch-free, and __ffs
-// finds the lowest bit in one instruction per word.  Node records, x
-// staging and tree tiles are the shared ones of forest_common.cuh.
+// evaluated (I shared-memory gathers and compares per pair); bytes (x read
+// once, [B] or [B, T] written once) are small beside that.  Design:
+//   * kRows samples a thread, blockDim.x apart: one broadcast node-record
+//     load (every thread of a warp is at the same node) serves kRows rows,
+//     the kRows AND chains are independent, and each x gather of a warp
+//     reads 32 consecutive floats of the feature-major tile (no bank
+//     conflicts);
+//   * the word loop is not unrolled, its body of at most 31 nodes x kRows
+//     rows is: one flat loop of constant trip count over the subtree's
+//     heap slots, which unrolls whole (a level loop with a position loop
+//     inside does not), so the masks are immediates and a word's records
+//     load at fixed offsets from one base per level, ((W + w) << k) + q.
+//     All 255 nodes unrolled would be ~100 KB of code and thrash the
+//     instruction cache;
+//   * per row and node: one gather, two compares (``goes_right``) and one
+//     predicated AND; __ffs per word;
+//   * x staging, cp.async tree tiles (double-buffered over several tiles)
+//     and the raw out tile are the shared ones of forest_common.cuh.
 #include "forest_common.cuh"
 
 namespace forest {
 
+// samples a thread (kernels/common.py:QS_ROWS_PER_THREAD mirrors it)
+constexpr int kRows = 4;
+
+__host__ __device__ constexpr int ilog2(int v) {
+  return v > 1 ? 1 + ilog2(v >> 1) : 0;
+}
+
+// The FALSE node at level k, position q of a depth-dw word subtree clears
+// 2^(dw-k-1) bits from bit q 2^(dw-k): its left subtree's leaves.
+__host__ __device__ constexpr uint32_t in_word_mask(int dw, int k, int q) {
+  return ~(((1u << (1 << (dw - k - 1))) - 1u) << (q << (dw - k)));
+}
+
+// The FALSE top node at level d, position p of K top levels kills words
+// [p 2^(K-d), p 2^(K-d) + 2^(K-d-1)).
+__host__ __device__ constexpr uint32_t dead_words(int K, int d, int p) {
+  return ((1u << (1 << (K - d - 1))) - 1u) << (p << (K - d));
+}
+
+// !go_left (forest_common.cuh): the sample goes right, the node is FALSE.
+// One ordered compare, OR a NaN test ANDed with the node's default-right
+// bit: bitwise, so it compiles to two compares a row and no branch on the
+// node's bit.
+__device__ inline bool goes_right(float v, float threshold, bool nan_right) {
+  return (v >= threshold) | (nan_right & isnan(v));
+}
+
 template <int DEPTH, bool FUSED>
 __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
     const float* __restrict__ x, const int2* __restrict__ nodes,
-    const float* __restrict__ leaf_value, const uint32_t* __restrict__ bv,
-    float* __restrict__ out, long long B, int F, int T, int bt) {
-  constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
-  constexpr int W = (L + 31) / 32;
+    const float* __restrict__ leaf_value, float* __restrict__ out,
+    long long B, int F, int T, int bt) {
+  constexpr int L = 1 << DEPTH;
+  constexpr int DW = DEPTH < 5 ? DEPTH : 5;  // levels inside one word
+  constexpr int K = DEPTH - DW;              // top levels
+  constexpr int W = 1 << K;                  // words of a tree's leaves
   extern __shared__ __align__(16) unsigned char smem[];
-  const int bb = blockDim.x, b = threadIdx.x;
-  const TileRefs s =
-      tile_refs(smem, tile_layout(bb, bt, F, L, tree_buffers(T, bt),
-                                  sizeof(uint32_t) * I * W, FUSED));
-  uint32_t* bv_s = reinterpret_cast<uint32_t*>(s.extra);
-  const long long b0 = (long long)blockIdx.x * bb;
-  const float* xb = s.x + b;
+  const int bb = blockDim.x, b = threadIdx.x, rows = kRows * bb;
+  const TileRefs s = tile_refs(
+      smem, tile_layout(rows, bt, F, L, tree_buffers(T, bt), 0, FUSED));
+  const long long b0 = (long long)blockIdx.x * rows;
+  const float* xb = s.x + b;  // row j of this thread: xb[f * rows + j * bb]
 
-  for (int k = threadIdx.x; k < I * W; k += blockDim.x) {
-    cp_async4(bv_s + k, bv + k, true);
-  }
-  stage_x_async(s.x, x, b0, B, F, bb);
-  float acc = 0.f;
-  run_tiles<FUSED>(
+  // right[j]: row j goes right at node record n (heap slot order)
+  auto eval = [&](const int2 n, bool (&right)[kRows]) {
+    const float* xf = xb + (n.y >> 1) * rows;
+    const float threshold = __int_as_float(n.x);
+    const bool nan_right = (n.y & 1) == 0;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      right[j] = goes_right(xf[j * bb], threshold, nan_right);
+    }
+  };
+
+  stage_x_async(s.x, x, b0, B, F, rows);
+  float acc[kRows] = {};
+  run_tiles<FUSED, kRows>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
       [&](const int2* nd, const float* lv) {
+#pragma unroll 1
         for (int t = 0; t < bt; ++t) {
           const int2* tree = nd + t * L;
-          uint32_t surv[W];
+          // top nodes, heap slots 1 .. W-1 (one loop of constant trip
+          // count, so it unrolls whole and every mask is an immediate)
+          uint32_t dead[kRows] = {};
 #pragma unroll
-          for (int w = 0; w < W; ++w) surv[w] = 0xFFFFFFFFu;
-          for (int i = 0; i < I; ++i) {
-            const int2 n = tree[i + 1];
-            // all-ones for a TRUE node, the node's bit-vector for a FALSE one
-            const uint32_t keep =
-                go_left(xb[(n.y >> 1) * bb], n) ? 0xFFFFFFFFu : 0u;
+          for (int i = 1; i < W; ++i) {
+            bool right[kRows];
+            eval(tree[i], right);
+            const uint32_t m = dead_words(K, ilog2(i), i - (1 << ilog2(i)));
 #pragma unroll
-            for (int w = 0; w < W; ++w) surv[w] &= bv_s[i * W + w] | keep;
-          }
-          int leaf = 0;
-          bool found = false;
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            if (!found && surv[w] != 0u) {
-              leaf = w * 32 + __ffs(int(surv[w])) - 1;
-              found = true;
+            for (int j = 0; j < kRows; ++j) {
+              if (right[j]) dead[j] |= m;
             }
           }
-          const float v = lv[t * L + leaf];
-          if constexpr (FUSED) {
-            acc += v;
-          } else {
-            s.out[b * (bt + 1) + t] = v;
+          int leaf[kRows];
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) leaf[j] = -1;
+#pragma unroll 1
+          for (int w = 0; w < W; ++w) {
+            uint32_t cur[kRows];
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) cur[j] = 0xFFFFFFFFu;
+            // word w's subtree: its node i (level k = ilog2(i), position
+            // q = i - 2^k) is heap slot ((W + w) << k) + q
+#pragma unroll
+            for (int i = 1; i < (1 << DW); ++i) {
+              const int k = ilog2(i), q = i - (1 << k);
+              bool right[kRows];
+              eval(tree[((W + w) << k) + q], right);
+              const uint32_t m = in_word_mask(DW, k, q);
+#pragma unroll
+              for (int j = 0; j < kRows; ++j) {
+                if (right[j]) cur[j] &= m;  // a predicated AND, no branch
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < kRows; ++j) {
+              const uint32_t surv = (dead[j] >> w) & 1u ? 0u : cur[j];
+              leaf[j] = leaf[j] < 0 && surv != 0u
+                            ? w * 32 + __ffs(int(surv)) - 1
+                            : leaf[j];
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            const float v = lv[t * L + leaf[j]];
+            if constexpr (FUSED) {
+              acc[j] += v;
+            } else {
+              s.out[(j * bb + b) * (bt + 1) + t] = v;
+            }
           }
         }
       });
   if constexpr (FUSED) {
-    if (b0 + b < B) out[b0 + b] = acc;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const long long row = b0 + j * bb + b;
+      if (row < B) out[row] = acc[j];
+    }
   }
 }
 
 template <int DEPTH, bool FUSED>
 int launch_quickscorer(const float* x, const int2* nodes,
-                       const float* leaf_value, const uint32_t* bv,
-                       float* out, long long B, int F, int T, int block_b,
-                       int block_t, cudaStream_t stream) {
-  constexpr int I = (1 << DEPTH) - 1, L = 1 << DEPTH;
-  constexpr int W = (L + 31) / 32;
-  const size_t smem = tile_layout(block_b, block_t, F, L,
-                                  tree_buffers(T, block_t),
-                                  sizeof(uint32_t) * I * W, FUSED)
+                       const float* leaf_value, float* out, long long B,
+                       int F, int T, int block_b, int block_t,
+                       cudaStream_t stream) {
+  const size_t smem = tile_layout(kRows * block_b, block_t, F, 1 << DEPTH,
+                                  tree_buffers(T, block_t), 0, FUSED)
                           .total;
-  return launch_kernel(quickscorer_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, nodes, leaf_value, bv, out, B, F, T,
-                       block_t);
+  return launch_kernel<kRows>(quickscorer_kernel<DEPTH, FUSED>, B, block_b,
+                              smem, stream, x, nodes, leaf_value, out, B, F,
+                              T, block_t);
 }
 
 }  // namespace forest
 
-extern "C" int forest_quickscorer_fused(
-    const float* x, const int2* nodes, const float* leaf_value,
-    const uint32_t* bv, float* out, long long B, int F, int T, int depth,
-    int block_b, int block_t, cudaStream_t stream) {
+extern "C" int forest_quickscorer_fused(const float* x, const int2* nodes,
+                                        const float* leaf_value, float* out,
+                                        long long B, int F, int T, int depth,
+                                        int block_b, int block_t,
+                                        cudaStream_t stream) {
   FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, true, x, nodes,
-                        leaf_value, bv, out, B, F, T, block_b, block_t,
-                        stream)
+                        leaf_value, out, B, F, T, block_b, block_t, stream)
 }
 
-extern "C" int forest_quickscorer_raw(
-    const float* x, const int2* nodes, const float* leaf_value,
-    const uint32_t* bv, float* out, long long B, int F, int T, int depth,
-    int block_b, int block_t, cudaStream_t stream) {
+extern "C" int forest_quickscorer_raw(const float* x, const int2* nodes,
+                                      const float* leaf_value, float* out,
+                                      long long B, int F, int T, int depth,
+                                      int block_b, int block_t,
+                                      cudaStream_t stream) {
   FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, false, x, nodes,
-                        leaf_value, bv, out, B, F, T, block_b, block_t,
-                        stream)
+                        leaf_value, out, B, F, T, block_b, block_t, stream)
 }

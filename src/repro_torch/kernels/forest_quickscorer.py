@@ -7,24 +7,32 @@ and ``quickscorer_kernel_call`` (Pallas, TPU).  Both kernels are
 exit leaf = lowest set bit by ``__ffs`` per word in word order.
 
 Structure tensor: ``bv`` [I, ceil(L/32)] int32 holding the uint32 bit
-patterns of ``core.forest.qs_bitvectors``.  The plain version does its bit
-operations in int64, since torch's uint32 support is partial and an int32
-``>>`` is arithmetic.  ``quickscorer_fused.launches`` /
+patterns of ``core.forest.qs_bitvectors``.  The wrappers take it, as the
+TPU kernels do, and the plain versions AND it; the CUDA kernel derives the
+same masks from the heap instead of loading them (``qs_node_masks`` is its
+rule), so on the card the wrappers check once per tensor that ``bv`` is
+``qs_words(depth)`` and raise if it is not.  The plain version does its
+bit operations in int64, since torch's uint32 support is partial and an
+int32 ``>>`` is arithmetic.  ``quickscorer_fused.launches`` /
 ``quickscorer_raw.launches`` count kernel launches.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.core.algorithms import ALL_ONES, lowest_set_bit
 from repro_torch.core.forest import qs_bitvectors
-from repro_torch.kernels.common import (dense_predicates, launch_forest_kernel,
+from repro_torch.kernels.common import (check_kernel_inputs, dense_predicates,
+                                        launch_forest_kernel,
                                         sum_trees_in_order, unpack_nodes)
 
 __all__ = ["quickscorer_fused", "quickscorer_fused_plain", "quickscorer_raw",
-           "quickscorer_raw_plain", "qs_words"]
+           "quickscorer_raw_plain", "qs_words", "qs_word_split",
+           "in_word_mask", "dead_words", "qs_node_masks", "check_words"]
 
 #: rows per step of the plain version (its [rows, T, I] predicate gather
 #: is 1 GiB f32 for 2048 rows at T=512, I=255)
@@ -34,6 +42,50 @@ PLAIN_CHUNK_ROWS = 2048
 def qs_words(depth: int) -> np.ndarray:
     """The bit-vectors of a depth as int32 bit patterns [I, W]."""
     return qs_bitvectors(depth).view(np.int32)
+
+
+# -- the CUDA kernel's mask rule (csrc/forest_quickscorer.cu) ---------------
+# A FALSE node at level d, position p of a depth-D heap clears exactly its
+# left subtree's leaves, [p 2^(D-d), p 2^(D-d) + 2^(D-d-1)).  With DW =
+# min(D, 5) levels to a 32-bit word, the K = D - DW top levels clear whole
+# words, and every node below sits in the depth-DW subtree of one word.
+
+def qs_word_split(depth: int) -> tuple[int, int, int]:
+    """(DW, K, W): levels inside one word, top levels, words per tree."""
+    dw = min(depth, 5)
+    return dw, depth - dw, 1 << (depth - dw)
+
+
+def in_word_mask(dw: int, k: int, q: int) -> int:
+    """The word mask of a FALSE node at level k, position q of a depth-dw
+    word subtree: 2^(dw-k-1) bits cleared from bit q 2^(dw-k)."""
+    return ~(((1 << (1 << (dw - k - 1))) - 1) << (q << (dw - k))) \
+        & 0xFFFFFFFF
+
+
+def dead_words(K: int, d: int, p: int) -> int:
+    """The words a FALSE top node (level d < K, position p) clears, as bits
+    of a W-bit mask: [p 2^(K-d), p 2^(K-d) + 2^(K-d-1))."""
+    return ((1 << (1 << (K - d - 1))) - 1) << (p << (K - d))
+
+
+def qs_node_masks(depth: int) -> np.ndarray:
+    """The bit-vectors [I, W] uint32 rebuilt from the kernel's rule: top
+    node (d, p) is heap slot 2^d + p, node (k, q) of word w's subtree is
+    slot ((W + w) << k) + q (node index = slot - 1).  Equals
+    ``core.forest.qs_bitvectors(depth)``."""
+    dw, K, W = qs_word_split(depth)
+    bv = np.full(((1 << depth) - 1, W), 0xFFFFFFFF, np.uint32)
+    for d in range(K):
+        for p in range(1 << d):
+            dead = dead_words(K, d, p)
+            bv[(1 << d) + p - 1] = [0 if dead >> w & 1 else 0xFFFFFFFF
+                                    for w in range(W)]
+    for w in range(W):
+        for k in range(dw):
+            for q in range(1 << k):
+                bv[((W + w) << k) + q - 1, w] = in_word_mask(dw, k, q)
+    return bv
 
 
 def quickscorer_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
@@ -69,11 +121,45 @@ def quickscorer_fused_plain(x: torch.Tensor, nodes: torch.Tensor,
         x, nodes, leaf_value, bv, depth=depth))
 
 
-def _check_words(bv: torch.Tensor, depth: int) -> None:
+#: id(bv) -> (weak reference, depth, version) of each tensor found equal
+#: to ``qs_words(depth)``; an entry goes when its tensor is collected
+_CHECKED: dict[int, tuple] = {}
+
+
+def check_words(bv: torch.Tensor, depth: int) -> None:
+    """Raise unless ``bv`` holds ``qs_words(depth)``: the CUDA kernel
+    derives these masks and never reads ``bv``, so any other bit-vectors
+    must not pass silently.  The contents are compared once per tensor
+    (and again after an in-place change)."""
     I, L = (1 << depth) - 1, 1 << depth
     if tuple(bv.shape) != (I, (L + 31) // 32) or bv.dtype != torch.int32:
         raise ValueError(f"quickscorer: bit-vectors do not match depth "
                          f"{depth} as int32 [{I}, {(L + 31) // 32}]")
+    key = id(bv)
+    seen = _CHECKED.get(key)
+    if seen is not None and seen[0]() is bv and seen[1:] == (depth,
+                                                             bv._version):
+        return
+    want = torch.as_tensor(qs_words(depth), device=bv.device)
+    if not torch.equal(bv, want):
+        raise ValueError(f"quickscorer: bit-vectors are not those of a "
+                         f"depth-{depth} heap (qs_words); the CUDA kernel "
+                         f"derives the heap's masks and cannot take others")
+    if seen is None:
+        weakref.finalize(bv, _CHECKED.pop, key, None)
+    _CHECKED[key] = (weakref.ref(bv), depth, bv._version)
+
+
+def _launch(x, nodes, leaf_value, bv, *, depth, block_b, block_t, fused):
+    """Check every input, ``bv`` included, then launch the kernel, which
+    takes no bit-vectors."""
+    check_kernel_inputs("quickscorer", x, nodes, leaf_value, depth=depth,
+                        block_b=block_b, block_t=block_t, fused=fused,
+                        structure=(bv,))
+    check_words(bv, depth)
+    return launch_forest_kernel("quickscorer", x, (nodes, leaf_value), (),
+                                depth=depth, block_b=block_b,
+                                block_t=block_t, fused=fused)
 
 
 def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
@@ -82,12 +168,10 @@ def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
                       block_t: int) -> torch.Tensor:
     """[B, F] samples, tree-padded node records and leaves, bit-vectors ->
     [B] f32."""
-    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
-        return quickscorer_fused_plain(x, *trees, bv, depth=depth)
-    _check_words(bv, depth)
-    out = launch_forest_kernel("quickscorer", x, trees, (bv,), depth=depth,
-                               block_b=block_b, block_t=block_t, fused=True)
+        return quickscorer_fused_plain(x, nodes, leaf_value, bv, depth=depth)
+    out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
+                  block_t=block_t, fused=True)
     quickscorer_fused.launches += 1
     return out
 
@@ -96,12 +180,10 @@ def quickscorer_raw(x: torch.Tensor, nodes: torch.Tensor,
                     leaf_value: torch.Tensor, bv: torch.Tensor, *,
                     depth: int, block_b: int, block_t: int) -> torch.Tensor:
     """As ``quickscorer_fused``, but -> [B, T] f32, each tree's score."""
-    trees = (nodes, leaf_value)
     if x.device.type == "cpu":
-        return quickscorer_raw_plain(x, *trees, bv, depth=depth)
-    _check_words(bv, depth)
-    out = launch_forest_kernel("quickscorer", x, trees, (bv,), depth=depth,
-                               block_b=block_b, block_t=block_t, fused=False)
+        return quickscorer_raw_plain(x, nodes, leaf_value, bv, depth=depth)
+    out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
+                  block_t=block_t, fused=False)
     quickscorer_raw.launches += 1
     return out
 

@@ -136,6 +136,71 @@ def test_cuda_kernels_few_trees_ragged_rows_negative_zero(base, T, depth):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3, 5, 6])
+def test_cuda_quickscorer_shallow_depths_negative_zero(depth):
+    """QuickScorer fused and raw below depth 8, as chip_smoke.py phase 3:
+    one word with phantom bits (depths 1-5) and the first depth whose top
+    node clears a whole word (6); -0.0 leaves, bit for bit."""
+    _need_card()
+    forest, x = _case(T=37, depth=depth, F=28, B=1000, seed=20 + depth,
+                      integer_leaves=True, device="cuda")
+    lv = forest.leaf_value.clone()
+    lv[:, ::3] = -0.0
+    forest = dataclasses.replace(forest, leaf_value=lv)
+    xc = torch.from_numpy(x).cuda()
+    for fused, wrappers, plain in ((True, KERNEL_WRAPPERS, PLAIN),
+                                   (False, RAW_KERNEL_WRAPPERS, RAW_PLAIN)):
+        args, tiles = prepare_inputs("quickscorer", forest, xc, fused=fused)
+        got = wrappers["quickscorer"](*args, **tiles)
+        torch.cuda.synchronize()
+        want = plain["quickscorer"](*args, depth=depth)
+        assert torch.equal(_bits(got), _bits(want)), (depth, fused)
+    assert (_bits(got) == _bits(torch.tensor(-0.0))).any()
+
+
+@pytest.mark.gpu
+def test_cuda_quickscorer_wide_rows_take_partial_warp_blocks():
+    """968 features (Bosch's width) leave room for 32 samples a block:
+    8 QuickScorer threads of 4 rows; scores bit for bit."""
+    _need_card()
+    forest, x = _case(T=9, depth=8, F=968, B=101, seed=7,
+                      integer_leaves=True, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    for fused, wrappers, plain in ((True, KERNEL_WRAPPERS, PLAIN),
+                                   (False, RAW_KERNEL_WRAPPERS, RAW_PLAIN)):
+        args, tiles = prepare_inputs("quickscorer", forest, xc, fused=fused)
+        assert tiles["block_b"] == 8
+        got = wrappers["quickscorer"](*args, **tiles)
+        torch.cuda.synchronize()
+        want = plain["quickscorer"](*args, depth=8)
+        assert torch.equal(_bits(got), _bits(want)), fused
+
+
+@pytest.mark.gpu
+def test_cuda_quickscorer_rejects_other_bit_vectors():
+    """The kernel derives the heap's masks and reads no bv: a bv other than
+    qs_words(depth) raises on the card path, before any launch."""
+    _need_card()
+    forest, x = _case(T=4, depth=6, F=6, B=40, seed=2,
+                      integer_leaves=True, device="cuda")
+    for fused, wrappers in ((True, KERNEL_WRAPPERS),
+                            (False, RAW_KERNEL_WRAPPERS)):
+        args, tiles = prepare_inputs("quickscorer", forest,
+                                     torch.from_numpy(x).cuda(), fused=fused)
+        wrong = args[3].clone()
+        wrong[2, 0] ^= 1
+        kernel = wrappers["quickscorer"]
+        before = kernel.launches
+        with pytest.raises(ValueError, match="not those of a depth-6 heap"):
+            kernel(*args[:3], wrong, **tiles)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            kernel(*args[:3], args[3].cpu(), **tiles)
+        assert kernel.launches == before
+        kernel(*args, **tiles)
+        assert kernel.launches == before + 1
+
+
+@pytest.mark.gpu
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()
     forest, x = _case(T=4, depth=3, F=6, B=40, seed=1,

@@ -22,7 +22,7 @@ from repro.core.forest import make_forest as jmake_forest
 from repro.core.postprocess import postprocess as jpostprocess
 from repro.kernels.ops import FUSED_KERNEL_ALGORITHMS as JFUSED
 from repro.kernels.ops import KERNEL_ALGORITHMS as JRAW
-from repro_torch.core.forest import hb_path_matrix
+from repro_torch.core.forest import hb_path_matrix, qs_bitvectors
 from repro_torch.core.postprocess import postprocess
 from repro_torch.kernels import _build, common, ops
 from repro_torch.kernels.common import (pack_nodes, sum_trees_in_order,
@@ -32,7 +32,11 @@ from repro_torch.kernels.forest_hummingbird import (hb_structure,
                                                     hummingbird_raw_plain)
 from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
                                                    predicated_raw_plain)
-from repro_torch.kernels.forest_quickscorer import (quickscorer_fused_plain,
+from repro_torch.kernels.forest_quickscorer import (check_words, dead_words,
+                                                    in_word_mask,
+                                                    qs_node_masks,
+                                                    qs_word_split, qs_words,
+                                                    quickscorer_fused_plain,
                                                     quickscorer_raw_plain)
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
                                      KERNEL_ALGORITHMS, KERNEL_WRAPPERS,
@@ -241,6 +245,123 @@ def test_int8_path_product_equals_popcount_form(depth):
 
 
 @pytest.mark.parametrize("depth", range(1, 9))
+def test_qs_node_masks_reproduce_qs_bitvectors(depth):
+    """The CUDA kernel's mask rule (top nodes kill whole words, the rest
+    AND one in-word mask), rebuilt as [I, W], is the reference's bv."""
+    assert np.array_equal(qs_node_masks(depth), qs_bitvectors(depth))
+    assert np.array_equal(qs_node_masks(depth).view(np.int32),
+                          qs_words(depth))
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_qs_nodes_below_the_top_levels_touch_one_word(depth):
+    """Every node at level >= D - 5 has exactly one mask word that is not
+    all-ones (its in-word mask); a top node at level d clears 2^(K-d-1)
+    whole words.  At depth 8: 260 of the 2,040 words."""
+    bv = qs_bitvectors(depth)
+    dw, K, W = qs_word_split(depth)
+    touched = (bv != 0xFFFFFFFF).sum(axis=1)
+    level = np.floor(np.log2(np.arange(1, bv.shape[0] + 1))).astype(int)
+    assert (touched[level >= depth - 5] == 1).all()
+    for d in range(K):
+        assert (touched[level == d] == 1 << (K - d - 1)).all()
+        assert (bv[level == d] % 0xFFFFFFFF == 0).all()   # whole words
+    assert touched.sum() == sum((1 << d) << (K - d - 1) for d in range(K)) \
+        + W * ((1 << dw) - 1)
+    if depth == 8:
+        assert (touched.sum(), bv.size) == (260, 2040)
+
+
+def _simulate_quickscorer_kernel(x, nodes, leaf_value, depth):
+    """numpy, in csrc/forest_quickscorer.cu's order, each thread's R rows
+    at once: the dead-word mask from the top nodes, then word by word the
+    in-word ANDs into one register, and the first non-zero word's lowest
+    bit -> [B, T] scores.  Rows past B are zeros, as the kernel stages."""
+    R = common.QS_ROWS_PER_THREAD
+    fe, th, dl = (a.numpy() for a in unpack_nodes(nodes))
+    lv = leaf_value.numpy()
+    B, F = x.shape
+    xs = np.zeros((-(-B // R) * R, F), np.float32)
+    xs[:B] = x
+    xs = xs.reshape(-1, R, F)                     # [threads, R, F]
+    dw, K, W = qs_word_split(depth)
+    ones = np.uint32(0xFFFFFFFF)
+    out = np.empty(xs.shape[:2] + (fe.shape[0],), np.float32)
+    for t in range(fe.shape[0]):
+        def left(slot):
+            i = slot - 1
+            v = xs[:, :, fe[t, i]]
+            return np.where(np.isnan(v), dl[t, i], v < th[t, i])
+
+        dead = np.zeros(xs.shape[:2], np.uint32)
+        for d in range(K):
+            for p in range(1 << d):
+                dead |= np.where(left((1 << d) + p), np.uint32(0),
+                                 np.uint32(dead_words(K, d, p)))
+        leaf = np.full(xs.shape[:2], -1)
+        for w in range(W):
+            cur = np.full(xs.shape[:2], ones)
+            for k in range(dw):
+                for q in range(1 << k):
+                    cur &= np.where(left(((W + w) << k) + q), ones,
+                                    np.uint32(in_word_mask(dw, k, q)))
+            surv = np.where((dead >> np.uint32(w)) & 1, np.uint32(0), cur)
+            low = surv & (~surv + np.uint32(1))
+            bit = np.log2(np.maximum(low, 1).astype(np.float64)).astype(int)
+            leaf = np.where((leaf < 0) & (surv != 0), w * 32 + bit, leaf)
+        assert (leaf >= 0).all() and (leaf < 1 << depth).all()
+        out[:, :, t] = lv[t, leaf]
+    return out.reshape(-1, fe.shape[0])[:B]
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_quickscorer_kernel_order_matches_plain(depth):
+    """The kernel's word-by-word order gives the plain version's scores
+    bit for bit, on rows with NaNs, whole-NaN rows, +-inf and -0.0
+    leaves, and a ragged last group of rows."""
+    _, tf, x = _case(4 * 9 + 3, 6, depth, 7, 40 + depth, nan_frac=0.2)
+    x[1, 0], x[2, 3] = np.inf, -np.inf
+    lv = tf.leaf_value.clone()
+    lv[:, ::3] = -0.0
+    tf = dataclasses.replace(tf, leaf_value=lv)
+    args, tiles = prepare_inputs("quickscorer", tf, torch.from_numpy(x),
+                                 fused=False)
+    want = quickscorer_raw_plain(*args, depth=depth).numpy()
+    got = _simulate_quickscorer_kernel(x, args[1], args[2], depth)
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_quickscorer_card_path_checks_the_bit_vectors():
+    """The CUDA kernel derives the masks of qs_words(depth) and reads no
+    bv, so the card path raises on any other bv; the contents are
+    compared once per tensor, and again after an in-place change."""
+    bv = torch.as_tensor(qs_words(6))
+    check_words(bv, 6)
+    check_words(bv, 6)
+    wrong = bv.clone()
+    wrong[5, 1] ^= 4
+    with pytest.raises(ValueError, match="not those of a depth-6 heap"):
+        check_words(wrong, 6)
+    bv[1, 0] = 0                      # in place: the next check sees it
+    with pytest.raises(ValueError, match="not those of a depth-6 heap"):
+        check_words(bv, 6)
+    with pytest.raises(ValueError, match="do not match depth 7"):
+        check_words(torch.as_tensor(qs_words(6)), 7)
+    with pytest.raises(ValueError, match="do not match depth 6"):
+        check_words(torch.as_tensor(qs_words(6)).long(), 6)
+
+
+def test_quickscorer_rows_per_thread_mirrors_the_cuda_source():
+    src = (_build.CSRC / "forest_quickscorer.cu").read_text()
+    assert (f"constexpr int kRows = {common.QS_ROWS_PER_THREAD};"
+            in src)
+    # x, nodes, leaf_value, out: no bit-vectors cross into the kernel
+    entry_points = _build.KERNEL_SOURCES["forest_quickscorer"][1]
+    for _, argtypes in entry_points:
+        assert argtypes.count(_build._P) == 4 + 1          # + the stream
+
+
+@pytest.mark.parametrize("depth", range(1, 9))
 def test_packed_nodes_round_trip(depth):
     """One 8-byte record per node, heap slot 0 unused: unpacking gives the
     feature, threshold and default_left arrays back bit for bit, extreme
@@ -269,39 +390,61 @@ def test_packed_nodes_round_trip(depth):
 
 def test_block_heuristics_fit_shared_memory():
     # a launch over 500 trees walks double-buffered 8-tree tiles; a
-    # one-tile launch (a rel partition) takes 16 trees and one buffer
+    # one-tile launch (a rel partition) takes 16 trees and one buffer.
+    # QuickScorer's threads hold 4 samples each: 128 threads (512 samples)
+    # a block, and its 16-tree raw launch walks 4-tree tiles, two buffers
+    want = {"predicated": ((256, 8), (256, 16)),
+            "hummingbird": ((256, 8), (256, 16)),
+            "quickscorer": ((128, 8), (128, 4))}
     for kind in BASES:
+        fused_tiles, raw_tiles = want[kind]
         bb, bt = common.block_heuristics(kind, 11_000_000, 500, 28, 8)
-        assert (bb, bt) == (256, 8)
+        assert (bb, bt) == fused_tiles
         assert common.tile_smem_bytes(kind, bb, bt, 28, 8, buffers=2) \
             <= common.smem_budget(kind)
         tiles = common.block_heuristics(kind, 11_000_000, 16, 28, 8,
                                         fused=False)
-        assert tiles == (256, 16)
-        # the raw kernels add their [BB, BT + 1] out tile and still fit
-        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
-            == common.tile_smem_bytes(kind, *tiles, 28, 8) + 256 * 17 * 4
-        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False) \
+        assert tiles == raw_tiles
+        rows = tiles[0] * common.rows_per_thread(kind)
+        assert rows == 256 if kind != "quickscorer" else rows == 512
+        buffers = common.tree_buffers(16, tiles[1])
+        # the raw kernels add their [rows, BT + 1] out tile and still fit
+        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False,
+                                      buffers=buffers) \
+            == common.tile_smem_bytes(kind, *tiles, 28, 8, buffers=buffers) \
+            + rows * (tiles[1] + 1) * 4
+        assert common.tile_smem_bytes(kind, *tiles, 28, 8, fused=False,
+                                      buffers=buffers) \
             <= common.smem_budget(kind)
     # two blocks an SM for predicated / QuickScorer, one for HummingBird
     assert common.smem_budget("predicated") == common.SMEM_BUDGET
     assert common.smem_budget("hummingbird") == common.SMEM_BLOCK_MAX
     # small batches shrink the sample tile to a warp multiple
     assert common.block_heuristics("predicated", 7, 3, 5, 2) == (32, 2)
+    assert common.block_heuristics("quickscorer", 7, 3, 5, 2) == (32, 2)
     # wide rows shrink the sample tile; too wide for any tile raises
     bb, bt = common.block_heuristics("quickscorer", 4096, 500, 400, 8)
-    assert bb < 256 and bb % 32 == 0
+    assert bb < 256 and bb * common.QS_ROWS_PER_THREAD % 32 == 0
+    # down to 32 samples a block, as one sample a thread allows: 8
+    # QuickScorer threads at Bosch's 968 features
+    assert common.block_heuristics("quickscorer", 4096, 500, 968, 8) \
+        == (8, 1)
+    assert common.block_heuristics("predicated", 4096, 500, 968, 8) \
+        == (32, 1)
     with pytest.raises(ValueError, match="does not fit"):
         common.block_heuristics("predicated", 64, 8, 5000, 8)
+    with pytest.raises(ValueError, match="does not fit"):
+        common.block_heuristics("quickscorer", 64, 8, 5000, 8)
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
 @pytest.mark.parametrize("kind", BASES)
 def test_tile_smem_bytes_mirrors_the_cuda_layout(kind, fused):
-    """csrc/forest_common.cuh:tile_layout, part by part: x [F][BB] f32,
+    """csrc/forest_common.cuh:tile_layout, part by part: x [F][rows] f32,
     then per tree buffer records [BT][L] int2 and leaves [BT][L] f32, the
-    kind's extra, the raw out tile [BB][BT + 1] f32; each 16-byte
-    aligned."""
+    kind's extra, the raw out tile [rows][BT + 1] f32; each 16-byte
+    aligned.  rows = BB, or 4 * BB for QuickScorer (kRows samples a
+    thread), which has no extra: it derives its masks."""
     def a16(n):
         return -(-n // 16) * 16
 
@@ -311,12 +454,13 @@ def test_tile_smem_bytes_mirrors_the_cuda_layout(kind, fused):
         for bb, bt, F in ((256, 16, 28), (32, 1, 5), (64, 3, 11)):
             extra = {"predicated": 0,
                      "hummingbird": a16(np_ * kp) + a16(4 * np_) + bb * kp,
-                     "quickscorer": 4 * I * ((L + 31) // 32)}[kind]
+                     "quickscorer": 0}[kind]
+            rows = bb * (4 if kind == "quickscorer" else 1)
             for buffers in (1, 2):
-                want = (a16(4 * F * bb)
+                want = (a16(4 * F * rows)
                         + buffers * (a16(8 * bt * L) + a16(4 * bt * L))
                         + a16(extra)
-                        + (0 if fused else a16(4 * bb * (bt + 1))))
+                        + (0 if fused else a16(4 * rows * (bt + 1))))
                 assert common.tile_smem_bytes(
                     kind, bb, bt, F, depth, fused=fused,
                     buffers=buffers) == want
@@ -325,6 +469,10 @@ def test_tile_smem_bytes_mirrors_the_cuda_layout(kind, fused):
     if kind == "predicated" and not fused:
         assert common.tile_smem_bytes(kind, 256, 16, 28, 8,
                                       fused=False) == 95_232
+    # and QuickScorer's: 28 x 512 x 4 + 2 x (4 x 256 x 12) + 512 x 5 x 4
+    if kind == "quickscorer" and not fused:
+        assert common.tile_smem_bytes(kind, 128, 4, 28, 8, fused=False,
+                                      buffers=2) == 92_160
 
 
 def test_default_tree_block():
