@@ -9,9 +9,11 @@ this machine's card.  Each run's whole output goes to
 ``DIR/<n>-<side>.log`` (default ``chiprun_out/ab``).  The script prints
 each run's kernel times (from the ``{"kernels": ...}`` line chip_smoke.py
 prints), its rel+reuse query times (each algorithm's runs, over each
-table it ran on) and its ``infer_rows`` repeats, then each side's mean per
-kernel and per rel+reuse run, and the change / parent ratio.  Any run
-that fails makes the script exit non-zero.
+table it ran on), its ``infer_rows`` repeats and its ``[tiers]`` runs
+(wall time and rows/s of each host- and disk-tier query, and each overlap
+fraction), then each side's mean per kernel, per rel+reuse run and per
+tier run, and the change / parent ratio; a side whose script has no such
+line shows "n/a".  Any run that fails makes the script exit non-zero.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ REL_RUN = re.compile(r"\[rel\] infer\(plan='rel\+reuse', algorithm="
                         r"([0-9.]+) s")
 ROWS = re.compile(r"\[rows\] infer_rows\((\d+) rows.*plan='([^']+)'.*repeat "
                   r"([0-9.]+) s")
+TIER_RUN = re.compile(r"\[tiers\] run (.+?): wall_s ([0-9.]+), ([0-9.]+) "
+                      r"rows/s")
+OVERLAP = re.compile(r"\[tiers\] overlap_fraction (\w+ \w+): (-?[0-9.]+)")
 
 
 def run(root: Path, log: Path) -> dict:
@@ -38,7 +43,8 @@ def run(root: Path, log: Path) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
                            f"see {log}")
-    out = {"kernels": None, "rel_s": {}, "rows": {}}
+    out = {"kernels": None, "rel_s": {}, "rows": {}, "tier_s": {},
+           "tier_rows_s": {}, "overlap": {}}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
@@ -48,6 +54,11 @@ def run(root: Path, log: Path) -> dict:
             out["rel_s"][f"{algorithm} {rows} rows {run_}"] = float(total)
         elif (m := ROWS.search(line)):
             out["rows"][f"{m.group(2)} {m.group(1)}"] = float(m.group(3))
+        elif (m := TIER_RUN.search(line)):
+            out["tier_s"][m.group(1)] = float(m.group(2))
+            out["tier_rows_s"][m.group(1)] = float(m.group(3))
+        elif (m := OVERLAP.search(line)):
+            out["overlap"][m.group(1)] = float(m.group(2))
         elif line.startswith("[report]"):
             out["report"] = line
     return out
@@ -68,21 +79,29 @@ def main() -> int:
         print(f"[ab] run {n} {side}: {res.get('report')}", flush=True)
         print(f"[ab] run {n} {side}: kernels ms {json.dumps(res['kernels'])}"
               f"; rel+reuse s {json.dumps(res['rel_s'])}; "
-              f"infer_rows repeat s {json.dumps(res['rows'])}", flush=True)
-    for what, unit in (("kernels", "ms"), ("rel_s", "s")):
+              f"infer_rows repeat s {json.dumps(res['rows'])}; tiers wall s "
+              f"{json.dumps(res['tier_s'])}, rows/s "
+              f"{json.dumps(res['tier_rows_s'])}, overlap_fraction "
+              f"{json.dumps(res['overlap'])}", flush=True)
+    for what, unit, prefix in (("kernels", "ms", ""),
+                               ("rel_s", "s", "rel+reuse "),
+                               ("tier_s", "s", "tiers wall "),
+                               ("tier_rows_s", "rows/s", "tiers "),
+                               ("overlap", "", "overlap_fraction ")):
         names = {n: None for _, r in runs for n in r[what]}
         for name in names:
-            side_t = {s: [r[what].get(name) for side, r in runs if side == s]
-                      for s in ("parent", "change")}
-            if None in side_t["parent"] + side_t["change"]:
-                print(f"[ab] {what} {name}: parent {side_t['parent']} {unit}, "
-                      f"change {side_t['change']} {unit}", flush=True)
+            side_t = {s: [r[what].get(name, "n/a") for side, r in runs
+                          if side == s] for s in ("parent", "change")}
+            if "n/a" in side_t["parent"] + side_t["change"]:
+                print(f"[ab] {prefix}{name}: parent {side_t['parent']} "
+                      f"{unit}, change {side_t['change']} {unit}",
+                      flush=True)
                 continue
             p = sum(side_t["parent"]) / 2
             c = sum(side_t["change"]) / 2
-            label = name if what == "kernels" else f"rel+reuse {name}"
-            print(f"[ab] {label}: parent {side_t['parent']} {unit}, change "
-                  f"{side_t['change']} {unit}, change/parent {c / p:.4f}",
+            ratio = f"{c / p:.4f}" if p else "n/a"
+            print(f"[ab] {prefix}{name}: parent {side_t['parent']} {unit}, "
+                  f"change {side_t['change']} {unit}, change/parent {ratio}",
                   flush=True)
     return 0
 

@@ -36,7 +36,23 @@ Phases (any failure exits non-zero and prints no result line):
               trees) on that cut.  Every query counts its own launches
               (raw = n_parts x scan batches, no other kernel) and holds its
               first rows against the eager oracle;
-  7. timing   each raw kernel at one rel launch's shape (16 trees).
+  7. timing   each raw kernel at one rel launch's shape (16 trees);
+  8. tiers    the same 11M-row table off the card: a store with a 256 MiB
+              device budget (the auto cascade puts it on the pinned host
+              tier) and one with 256 MiB host and device budgets (disk
+              tier, mmap page files in a temporary spill directory deleted
+              at the end).  udf "predicated_pallas_fused" at 500 trees
+              over both, at prefetch depths 2 and 1, and rel+reuse
+              "predicated_pallas" at 1600 trees twice over the host tier,
+              each bit-identical to the device tier at the same batch
+              (10 batches of 1,170 pages), with exact launch counts; the
+              scan's telemetry, the overlap fraction, the link rate of one
+              pinned 128 MiB H2D copy and the scan's bound; a
+              torch.profiler trace of one host-tier query, before any
+              disk-tier scan (device busy share, the device's wait before
+              and between the kernels, H2D overlapping the kernel, flagged
+              when it misses page copies); a move round trip device ->
+              host -> disk -> device on the 1M-row cut.
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 {"ok": true, "device": {...}}.
 
@@ -49,8 +65,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -70,6 +89,11 @@ SHALLOW = dict(predicated=(1, 3, 5), hummingbird=(1, 3, 5),
 COMPARE_ROWS = 65_536           # path rows held against the oracle
 ROW_BATCHES = (8, 32, 128)      # the serving plane's bucket ladder
 TOL = 1e-6                      # rtol = atol for float sums (order differs)
+TIER_BUDGET = 256 << 20         # phase 8's device (and host) budget
+LINK_BYTES = 128 << 20          # phase 8's plain pinned H2D copy
+MOVE_BATCH_PAGES = 100          # phase 8's move round trip, 1M-row cut
+PROFILE_H2D_SHARE = 0.75        # least H2D time of a complete phase 8
+#                                 trace, as a share of bytes / link rate
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
@@ -207,6 +231,265 @@ def profile_query(run, what: str, smi: str, top: int = 8) -> None:
     for kname, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                  )[:top]:
         log(f"[profile]   {us / 1e3:10.3f} ms  {n:5d} x  {kname}")
+
+
+def device_intervals(prof) -> tuple[list, list, list]:
+    """(all, kernel, host-to-device copy) device intervals of a trace, in
+    microseconds."""
+    from torch.autograd import DeviceType
+
+    every, kernels, h2d = [], [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        every.append(span)
+        if e.name.startswith("Memcpy"):
+            if "HtoD" in e.name:
+                h2d.append(span)
+        elif not e.name.startswith("Memset"):
+            kernels.append(span)
+    return every, kernels, h2d
+
+
+def union_us(spans: list) -> float:
+    total, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def overlap_us(a: list, b: list) -> float:
+    """Time during which an interval of ``a`` and one of ``b`` both run."""
+    return union_us(a) + union_us(b) - union_us(a + b)
+
+
+def scan_trace(prof, wall_us: float) -> str:
+    """One scan's trace, summarised: the device busy share of the wall,
+    how long before the first kernel the device started (the first
+    batch's copy), how long no kernel ran between the first and the last
+    (the host's turnaround at each batch's stage boundary), and the page
+    copies and their overlap with the kernels."""
+    every, kernels, h2d = device_intervals(prof)
+    busy = union_us(every)
+    k_lo = min(lo for lo, _ in kernels)
+    k_hi = max(hi for _, hi in kernels)
+    return (f"wall {wall_us / 1e3:.3f} ms under the profiler, device busy "
+            f"{busy / 1e3:.3f} ms = {100 * busy / wall_us:.1f} % (idle "
+            f"{100 - 100 * busy / wall_us:.1f} %); first kernel "
+            f"{(k_lo - min(lo for lo, _ in every)) / 1e3:.3f} ms after the "
+            f"first device event, no kernel running for "
+            f"{(k_hi - k_lo - union_us(kernels)) / 1e3:.3f} ms between the "
+            f"first kernel and the last; kernels {union_us(kernels) / 1e3:.3f}"
+            f" ms over {len(kernels)} launches, Memcpy HtoD "
+            f"{union_us(h2d) / 1e3:.3f} ms over {len(h2d)} copies, HtoD "
+            f"overlapping a kernel {overlap_us(kernels, h2d) / 1e3:.3f} ms")
+
+
+def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
+                fused_ms: float, rel_device_s: float) -> dict:
+    """Phase 8: the 11M-row table on the host and disk tiers.  Returns the
+    launches of its queries by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+
+    launches: dict[str, int] = {}
+    table = store.get("higgs")
+    rows = table.data[:HIGGS_ROWS]
+    batch_pages = (TIER_BUDGET // 2) // table.page_nbytes
+    batches = -(-table.num_pages // batch_pages)
+    spill = tempfile.mkdtemp(prefix="chip-smoke-spill-")
+    try:
+        t0 = time.perf_counter()
+        host_store = TensorBlockStore(device="cuda",
+                                      device_budget_bytes=TIER_BUDGET)
+        hds = host_store.put("higgs", rows)
+        host_put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        disk_store = TensorBlockStore(device="cuda",
+                                      device_budget_bytes=TIER_BUDGET,
+                                      host_budget_bytes=TIER_BUDGET,
+                                      spill_dir=spill)
+        dds = disk_store.put("higgs", rows)
+        disk_put_s = time.perf_counter() - t0
+        if (hds.tier, dds.tier) != ("host", "disk"):
+            raise AssertionError(f"auto cascade put the table on "
+                                 f"{hds.tier} and {dds.tier}")
+        if not host_store.get("higgs").data.is_pinned():
+            raise AssertionError("the host tier's pages are not pinned")
+        if hds.nbytes != table.nbytes or dds.nbytes != table.nbytes:
+            raise AssertionError("the tiers hold another page layout")
+        log(f"[tiers] put: host tier {hds.nbytes} B pinned in "
+            f"{host_put_s:.3f} s, disk tier {dds.nbytes} B in "
+            f"{len(os.listdir(spill))} spill file(s) in {disk_put_s:.3f} s "
+            f"(set-up); budgets {TIER_BUDGET} B, default batch "
+            f"{batch_pages} pages of {table.page_rows} rows = {batches} "
+            f"batches")
+        engines = {"host": ForestQueryEngine(host_store),
+                   "disk": ForestQueryEngine(disk_store)}
+        refs = {}
+        for plan, algorithm, f in (("udf", "predicated_pallas_fused",
+                                    forest),
+                                   ("rel+reuse", "predicated_pallas", big)):
+            r = engine.infer("higgs", f, plan=plan, algorithm=algorithm,
+                             batch_pages=batch_pages)
+            refs[plan] = r.predictions.cpu()
+        torch.cuda.synchronize()
+
+        def run(tier: str, plan: str, algorithm: str, f, depth: int,
+                label: str):
+            fused = algorithm.endswith("_fused")
+            name_ = f"predicated_{'fused' if fused else 'raw'}"
+            r, c = counted(lambda: engines[tier].infer(
+                "higgs", f, plan=plan, algorithm=algorithm,
+                prefetch_depth=depth))
+            s = r.scan
+            only(c, name_, r.n_parts * s.batches, f"[tiers] {label}")
+            launches[name_] = launches.get(name_, 0) + c[name_]
+            want = refs[plan]
+            ok = (s.batches == batches and s.batch_pages == batch_pages
+                  and s.max_in_flight == depth <= 2 and s.pinned_staging
+                  and s.drain_async == (depth == 2)
+                  and s.bytes_streamed == table.nbytes
+                  and r.tier == tier and r.predictions.is_pinned()
+                  and r.predictions.shape == want.shape
+                  and torch.equal(bits(r.predictions), bits(want)))
+            log(f"[tiers] run {label}: wall_s {s.wall_s:.6f}, "
+                f"{HIGGS_ROWS / s.wall_s:.1f} rows/s; total_s "
+                f"{r.total_s:.6f}, transfer_issue_s {s.transfer_issue_s:.6f}"
+                f", transfer_wait_s {s.transfer_wait_s:.6f}, compute_s "
+                f"{s.compute_s:.6f}, drain_s {s.drain_s:.6f}, drain_wait_s "
+                f"{s.drain_wait_s:.6f}, drain_overlap_s "
+                f"{s.drain_overlap_s:.6f}; {s.batches} batches of "
+                f"{s.batch_pages} pages, max_in_flight {s.max_in_flight}, "
+                f"bytes_streamed {s.bytes_streamed}, pinned_staging "
+                f"{s.pinned_staging}, drain_async {s.drain_async}, "
+                f"reuse_hit {r.reuse_hit}, {c[name_]} {name_} launches = "
+                f"n_parts {r.n_parts} x {s.batches} batches, bit-identical "
+                f"to the device tier: {'ok' if ok else 'FAIL'}; on {smi}")
+            if not ok:
+                raise AssertionError(f"[tiers] {label} failed its checks")
+            return r
+
+        waits = {}
+
+        def udf_runs(tier: str) -> None:
+            for i, depth in enumerate((2, 2, 1, 2, 1)):
+                r = run(tier, "udf", "predicated_pallas_fused", forest,
+                        depth, f"{tier} udf predicated_pallas_fused depth "
+                        f"{depth} #{i}")
+                if i:                       # #0 is the warm-up run
+                    waits.setdefault((tier, depth), []).append(
+                        r.scan.transfer_wait_s)
+                del r
+
+        udf_runs("host")
+        src = torch.empty(LINK_BYTES // 4, dtype=torch.float32,
+                          pin_memory=True)
+        dst = torch.empty(LINK_BYTES // 4, dtype=torch.float32,
+                          device="cuda")
+        link_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True),
+                          warmup=2, reps=10)
+        link = LINK_BYTES / link_ms / 1e6
+        del src, dst
+        h2d_ms = table.nbytes / link / 1e6
+        log(f"[tiers] link: one pinned {LINK_BYTES} B H2D copy_ "
+            f"{link_ms:.4f} ms = {link:.3f} GB/s; the table's "
+            f"{table.nbytes} B at that rate {h2d_ms:.4f} ms; scan bound "
+            f"udf max(H2D, fused kernel {fused_ms:.4f} ms) = "
+            f"{max(h2d_ms, fused_ms):.4f} ms, rel+reuse max(H2D, device-"
+            f"tier query {1e3 * rel_device_s:.4f} ms) = "
+            f"{max(h2d_ms, 1e3 * rel_device_s):.4f} ms; on {smi}")
+
+        # A trace is complete when it holds one page copy per batch, as
+        # long together as the table's bytes take at the link rate (within
+        # PROFILE_H2D_SHARE: the scan's copies may run faster than the one
+        # plain copy).  An incomplete trace is flagged: its busy share
+        # misplaces the idle.  In this process the trace has missed page
+        # copies in every run so far, before the disk-tier scans too;
+        # chip_tiers_probe.py traces the query in a fresh process.
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r = engines["host"].infer("higgs", forest, plan="udf",
+                                      algorithm="predicated_pallas_fused")
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        del r
+        _, _, h2d = device_intervals(prof)
+        complete = (len(h2d) == batches and union_us(h2d) / 1e3
+                    >= PROFILE_H2D_SHARE * h2d_ms)
+        log(f"[tiers] profile host udf predicated_pallas_fused depth 2: "
+            f"{scan_trace(prof, wall_us)}; trace complete: "
+            f"{'yes' if complete else 'NO, the shares above miss copies'} "
+            f"({len(h2d)} of {batches} copies, {union_us(h2d) / 1e3:.3f} of "
+            f"the {h2d_ms:.4f} ms the table takes at the link rate); on "
+            f"{smi}")
+
+        udf_runs("disk")
+        for tier in ("host", "disk"):
+            w2 = sum(waits[tier, 2]) / 2
+            w1 = sum(waits[tier, 1]) / 2
+            log(f"[tiers] overlap_fraction {tier} udf: {1 - w2 / w1:.4f} "
+                f"(= 1 - transfer_wait depth 2 / depth 1 = 1 - {w2:.6f} / "
+                f"{w1:.6f}, means of runs #1-#4) on {smi}")
+        rel = [run("host", "rel+reuse", "predicated_pallas", big, 2,
+                   f"host rel+reuse predicated_pallas depth 2 #{i}")
+               for i in range(2)]
+        if rel[0].reuse_hit or not (rel[1].reuse_hit
+                                    and rel[1].plan_reuse_hit) \
+                or rel[1].partition_s != 0.0:
+            raise AssertionError("[tiers] the repeated host-tier rel+reuse "
+                                 "query did not hit both caches")
+        log(f"[tiers] host rel+reuse repeat total_s {rel[1].total_s:.6f} "
+            f"against the device tier's {rel_device_s:.6f} (phase 6, one "
+            f"batch) on {smi}")
+        del rel
+
+        cut = store.get("higgs_1m").data[:CUT_ROWS]
+        disk_store.put("cut", cut, tier="device")
+        eng = engines["disk"]
+
+        def cut_query():
+            return eng.infer("cut", forest, plan="udf",
+                             algorithm="predicated_pallas_fused",
+                             batch_pages=MOVE_BATCH_PAGES)
+
+        want, c = counted(cut_query)
+        want = want.predictions.cpu()
+        launches["predicated_fused"] += c["predicated_fused"]
+        for tier in ("host", "disk", "device"):
+            moved = disk_store.move("cut", tier)
+            r, c = counted(cut_query)
+            only(c, "predicated_fused", r.scan.batches,
+                 f"[tiers] move to {tier}")
+            launches["predicated_fused"] += c["predicated_fused"]
+            ok = (moved.tier == r.tier == tier and r.plan_reuse_hit
+                  and (tier != "host" or moved.data.is_pinned())
+                  and torch.equal(bits(r.predictions.cpu()), bits(want)))
+            files = sorted(os.listdir(spill))
+            log(f"[tiers] move cut ({CUT_ROWS} rows) -> {tier}: "
+                f"predictions unchanged, plan reused: "
+                f"{'ok' if ok else 'FAIL'}; spill files {files}")
+            if not ok:
+                raise AssertionError(f"[tiers] move to {tier} changed the "
+                                     f"query")
+        if len(os.listdir(spill)) != 1:
+            raise AssertionError("[tiers] moving off the disk tier left a "
+                                 "spill file")
+        disk_store.drop("higgs")
+        host_store.drop("higgs")
+        if os.listdir(spill):
+            raise AssertionError("[tiers] drop left a spill file")
+        log(f"[tiers] drop: spill directory empty; launches {launches}")
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -516,6 +799,7 @@ def main() -> int:
         raise AssertionError("the repeated rel+reuse query did not hit both "
                              "caches")
     rel_parts = first.n_parts
+    rel_device_s = second.total_s
     if rel_parts != -(-REL_TREES // default_tree_block(big, fused=False)):
         raise AssertionError(f"n_parts {rel_parts} is not one partition "
                              f"per raw tree tile")
@@ -613,6 +897,15 @@ def main() -> int:
             max_abs_err=raw_err[kind], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
         del args, got, want
+
+    # -- 8. the host and disk tiers ------------------------------------------
+    fused_ms = next(e["ms"] for e in record
+                    if e["name"] == "predicated_fused")
+    for name_, n in tiers_phase(
+            forest=forest, big=big, store=store, engine=engine,
+            counted=counted, only=only, smi=smi, fused_ms=fused_ms,
+            rel_device_s=rel_device_s).items():
+        next(e for e in record if e["name"] == name_)["launches"] += n
 
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)

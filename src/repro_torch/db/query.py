@@ -32,9 +32,17 @@ entry point) put the ``"#rows"`` sentinel at key[2], so dropping a
 dataset never sweeps them.  ``rel+reuse`` plan keys also carry
 ``id(mat)``, and the entry pins that materialization.
 
-Not ported yet, and refused with ``NotImplementedError``: host/disk tiers
-(ROADMAP queue 1, item 6), CSR datasets (item 7), ``plan="auto"`` (item
-10), meshes (item 12).
+Every plan runs over a dataset on any tier of the store: the tier is a
+property of the scan (``db/executor.py``), not of the plan, so plans and
+their cache keys are the same on every tier and stay valid across
+``store.move``.  A scan over a host- or disk-tier table streams it in
+batches (by default half the store's ``device_budget_bytes`` each, or
+``DEFAULT_STREAM_BATCH_BYTES`` with no budget) and returns its predictions
+in host memory.
+
+Not ported yet, and refused with ``NotImplementedError``: ``plan="auto"``
+(ROADMAP queue 1, item 10); CSR datasets (item 7) and meshes (item 12)
+have no entry point yet.
 """
 
 from __future__ import annotations
@@ -53,7 +61,8 @@ from repro_torch.core import postprocess as post
 from repro_torch.core.forest import Forest, pad_trees, tree_slice
 from repro_torch.core.reuse import (MaterializedModel, ModelReuseCache,
                                     fingerprint_forest, mesh_signature)
-from repro_torch.db.executor import ScanStats, StreamingScanExecutor
+from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
+                                     StreamingScanExecutor)
 from repro_torch.db.operators import (Operator, StageReport, run_stages,
                                       split_into_stages)
 from repro_torch.db.store import TensorBlockStore
@@ -75,7 +84,10 @@ _AUTO_REFUSED = ("the cost-based optimizer is not ported yet (ROADMAP "
 
 @dataclasses.dataclass
 class QueryResult:
-    predictions: torch.Tensor         # [N] final probabilities / regressands
+    predictions: torch.Tensor         # [N] final probabilities / regressands;
+    #                                   on the device for a device-tier
+    #                                   table, else in host memory (pinned
+    #                                   on the card)
     plan: str
     algorithm: str
     num_stages: int
@@ -321,10 +333,16 @@ class ForestQueryEngine:
               prefetch_depth: int = 2) -> QueryResult:
         """Run the end-to-end inference query over a stored dataset.
 
-        ``batch_pages`` pages go to each scan batch (default: the whole
-        dataset, one batch).  ``n_parts`` overrides the rel plans'
-        tree-partition count.  ``write_as`` registers the predictions as a
-        new dataset (the WRITE operator's sink)."""
+        ``batch_pages`` pages go to each scan batch.  By default a
+        device-tier table is one batch; a host- or disk-tier table streams
+        in batches of half the store's ``device_budget_bytes`` (two page
+        buffers in flight fit the budget), or of
+        ``DEFAULT_STREAM_BATCH_BYTES`` with no budget, in whole pages and at
+        least one.  ``prefetch_depth`` 2 overlaps batch i+1's pages and
+        batch i-1's drain with batch i's stages; 1 is the synchronous
+        reference.  ``n_parts`` overrides the rel plans' tree-partition
+        count.  ``write_as`` registers the predictions as a new dataset
+        where they landed (the WRITE operator's sink)."""
         if plan == "auto" or algorithm == "auto":
             raise NotImplementedError(_AUTO_REFUSED)
         if plan not in ("udf", "rel", "rel+reuse"):
@@ -334,6 +352,11 @@ class ForestQueryEngine:
         t_query0 = time.perf_counter()
         if batch_pages is None:
             batch_pages = ds.num_pages
+            if ds.tier != "device":
+                budget = self.store.device_budget_bytes
+                target = budget // 2 if budget else DEFAULT_STREAM_BATCH_BYTES
+                fit = target // max(ds.page_nbytes, 1)
+                batch_pages = min(ds.num_pages, max(1, fit))
         batch_sig = (ds.num_features, ds.num_pages, ds.page_rows,
                      batch_pages)
         fmt = ds.storage_format

@@ -1,42 +1,110 @@
-"""The tensor-block store: netsDB's native storage, device tier (torch).
+"""The tensor-block store: netsDB's native storage, tiered (torch).
 
-Mirrors the device tier of ``repro/db/store.py``.  Paper Sec. 3.1: the
+Mirrors the dense half of ``repro/db/store.py``.  Paper Sec. 3.1: the
 input samples are stored as a collection of tensor blocks.  A stored
-dataset is ONE tensor [N_padded, F] on the store's device, laid out as
-``page_rows``-row pages; the tail is padded to whole pages with NaN rows,
-which the scan scores and then cuts off.  Pages are the batching unit
-(paper F3): a batch is a contiguous page range, and batch k always covers
-the same rows.
+dataset is ONE array [N_padded, F] laid out as ``page_rows``-row pages;
+the tail is padded to whole pages with NaN rows, which the scan scores
+and then cuts off.  Pages are the batching unit (paper F3): a batch is a
+contiguous page range, and batch k always covers the same rows.
 
-"In-database inference" = the query plan consumes these device tensors
-directly, with no parse, convert or transfer on the query path.
+Every dataset lives on one rung of the TIER LADDER:
 
-Not ported yet: the host and disk tiers and ``move`` (ROADMAP queue 1,
-item 6), CSR pages (item 7), labels for training (item 11), the
-optimizer's decision catalog (item 10).
+  ``device``  a tensor on the store's device, consumed by the kernels
+              with no staging ("in-database inference": no parse, convert
+              or transfer on the query path);
+  ``host``    a CPU tensor in PINNED memory on a CUDA store, so that the
+              scan's page copies to the card are truly asynchronous
+              (plain CPU memory only on a store made with
+              ``device="cpu"``; on a CUDA store a failed pin raises);
+  ``disk``    a page-aligned raw ``np.memmap`` file under the store's
+              ``spill_dir``.  Its ``page_slice`` is a lazy memmap view:
+              only the pages a batch touches are read.
+
+``put(tier="auto")`` walks the ladder top-down: an ingest that would push
+the device-resident total past ``device_budget_bytes`` spills to host,
+and one that would also push the host-resident total past
+``host_budget_bytes`` spills to disk (no budget: the device).  ``move``
+migrates a dataset between any two tiers with the page layout unchanged
+and rolls back on failure; ``drop`` deletes the spill files the store
+wrote.  Each dataset is a ``ScanSource`` for the streaming executor
+(``page_slice`` in its own tier, ``to_device`` staging), so no caller
+branches on where pages live.
+
+Not ported yet: CSR pages and ``put_sparse`` (ROADMAP queue 1, item 7),
+labels for training (item 11), the optimizer's decision catalog (item
+10), the ``disk_page_read`` fault site and the store's spans (item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import re
+import tempfile
 import time
 import weakref
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["StoredDataset", "TensorBlockStore"]
+__all__ = ["StoredDataset", "TensorBlockStore", "DenseStreamWriter",
+           "mmap_array", "TIERS"]
+
+#: the tier ladder, fastest first; the ``auto`` cascade walks it top-down
+TIERS = ("device", "host", "disk")
+
+
+def _check_tier(tier: str) -> str:
+    if tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}; expected one of {TIERS}")
+    return tier
+
+
+def _host_rows(data) -> torch.Tensor:
+    """A tier's array as a tensor: a memmap as a tensor over the mapping
+    (no copy), a tensor as itself."""
+    return torch.from_numpy(data) if isinstance(data, np.ndarray) else data
+
+
+def mmap_array(path: str, arr: np.ndarray | torch.Tensor) -> np.memmap:
+    """Write ``arr`` (numpy, or a tensor on any device) to ``path`` as a
+    raw page-aligned memory-mapped file and return the live map.
+
+    Raw (headerless) layout at offset 0, C-contiguous: store page ``p``
+    occupies bytes ``[p * page_nbytes, (p+1) * page_nbytes)``, so a page
+    view reads only that range.  An existing file is unlinked first, never
+    truncated in place: truncating a mapped file SIGBUSes readers of the
+    old map, and the unlinked inode stays alive for them.  A write that
+    fails removes its partial file."""
+    if os.path.exists(path):
+        os.unlink(path)
+    src = _host_rows(arr)
+    dtype = torch.empty(0, dtype=src.dtype).numpy().dtype
+    mm = np.memmap(path, dtype=dtype, mode="w+", shape=tuple(src.shape))
+    try:
+        torch.from_numpy(mm).copy_(src)
+        mm.flush()
+    except BaseException:
+        del mm
+        os.unlink(path)
+        raise
+    return mm
 
 
 @dataclasses.dataclass
 class StoredDataset:
     name: str
-    data: torch.Tensor            # [N_padded, F] on the store's device
+    data: Any                     # [N_padded, F]: a tensor on the store's
+    #                               device (device tier), a CPU tensor,
+    #                               pinned on a CUDA store (host tier), or
+    #                               an np.memmap (disk tier)
     num_rows: int                 # true N (pre-padding)
     page_rows: int
+    device: torch.device = torch.device("cpu")   # the store's device
     task: str = "classification"
     created_at: float = dataclasses.field(default_factory=time.time)
     storage_format: str = "dense"
@@ -54,34 +122,64 @@ class StoredDataset:
     def nbytes(self) -> int:
         return self.data.nbytes
 
-    def page_slice(self, first_page: int, num_pages: int) -> torch.Tensor:
-        """[num_pages * page_rows, F] contiguous page range, a view."""
+    @property
+    def page_nbytes(self) -> int:
+        """Bytes of ONE page: the unit the streaming scan budgets."""
+        return self.nbytes // max(self.num_pages, 1)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _host_rows(self.data[:0]).dtype
+
+    @property
+    def pageable(self) -> bool:
+        """Pages that a copy to the card cannot read asynchronously (the
+        disk tier's mapping): the scan stages them through pinned buffers."""
+        return self.tier == "disk"
+
+    def page_slice(self, first_page: int, num_pages: int):
+        """[num_pages * page_rows, F] contiguous page range, a VIEW in the
+        dataset's own tier: a device or host tensor view, or an np.memmap
+        view that reads only the pages it covers."""
         lo = first_page * self.page_rows
         return self.data[lo: lo + num_pages * self.page_rows]
 
-    def to_device(self, block: torch.Tensor) -> torch.Tensor:
-        """Scan staging: the device tier's transfer is a no-op."""
-        return block
-
-
-def _check_tier(tier: str) -> None:
-    if tier not in ("device", "auto"):
-        raise NotImplementedError(
-            f"tier {tier!r} is not ported yet: the host and disk tiers are "
-            f"ROADMAP queue 1, item 6")
+    def to_device(self, block, out: torch.Tensor,
+                  staging: torch.Tensor | None = None) -> torch.Tensor:
+        """ScanSource staging on the current stream: ``block`` is copied
+        into ``out`` (a device page buffer of the block's shape),
+        non-blocking, which is asynchronous from pinned memory: the host
+        tier's own pages, or for the disk tier ``staging``, a pinned
+        buffer the block is first read into."""
+        src = _host_rows(block)
+        if staging is not None:
+            src = staging.copy_(src)
+        return out.copy_(src, non_blocking=True)
 
 
 class TensorBlockStore:
-    """Catalog of device-resident datasets and pinned models.
+    """Catalog of tiered datasets and pinned models.
 
-    ``device``: where datasets live -- the card unless ``"cpu"`` is passed
-    (raises with no card).
+    ``device``: where queries compute -- the card unless ``"cpu"`` is
+    passed (raises with no card).  ``device_budget_bytes`` /
+    ``host_budget_bytes``: soft caps on the device- and host-resident
+    totals that steer ``tier="auto"`` ingests down the ladder.
+    ``spill_dir``: where disk-tier page files go (a new temporary
+    directory at the first spill when None).
     """
 
     def __init__(self, device: str | torch.device | None = None, *,
-                 default_page_rows: int = 1024):
+                 default_page_rows: int = 1024,
+                 device_budget_bytes: int | None = None,
+                 host_budget_bytes: int | None = None,
+                 spill_dir: str | None = None):
         self.device = resolve_device(device)
         self.default_page_rows = default_page_rows
+        self.device_budget_bytes = device_budget_bytes
+        self.host_budget_bytes = host_budget_bytes
+        self._spill_dir = spill_dir
+        # spill files THIS store wrote, per dataset
+        self._disk_paths: dict[str, list[str]] = {}
         self._datasets: dict[str, StoredDataset] = {}
         self._models: dict[str, dict[str, Any]] = {}
         # engines register invalidate_dataset / invalidate (weakly) so a
@@ -89,37 +187,208 @@ class TensorBlockStore:
         self._invalidators: list[weakref.ref] = []
         self._model_invalidators: list[weakref.ref] = []
 
+    # -- disk-tier spill files ----------------------------------------------
+    @property
+    def spill_dir(self) -> str:
+        """Directory of this store's disk-tier page files (created at the
+        first use: a store that never spills touches no filesystem)."""
+        if self._spill_dir is None:
+            self._spill_dir = tempfile.mkdtemp(prefix="tbstore-disk-")
+        return self._spill_dir
+
+    def _disk_path(self, name: str, label: str) -> str:
+        """Spill-file path for one page array.  The file name carries a
+        short digest of the raw dataset name: sanitising is lossy ("a/b"
+        and "a:b" both become "a_b"), and two datasets sharing a path
+        would unlink each other's files."""
+        digest = hashlib.blake2s(name.encode(), digest_size=4).hexdigest()
+        stem = f"{re.sub(r'[^A-Za-z0-9._@+-]', '_', name)}-{digest}"
+        return os.path.join(self.spill_dir, f"{stem}.{label}.bin")
+
+    def _track(self, name: str, label: str) -> str:
+        """Reserve and track a spill path before anything is written to
+        it, so a failed write is swept like a finished one."""
+        path = self._disk_path(name, label)
+        self._disk_paths.setdefault(name, []).append(path)
+        return path
+
+    def _disk_array(self, name: str, label: str, arr) -> np.memmap:
+        """Spill one page array to ``spill_dir`` and track the file."""
+        return mmap_array(self._track(name, label), arr)
+
+    def _disk_empty(self, name: str, label: str, shape) -> np.memmap:
+        """An EMPTY page-aligned spill file, tracked: the streamed-ingest
+        target (same unlink-first rule as :func:`mmap_array`)."""
+        path = self._track(name, label)
+        if os.path.exists(path):
+            os.unlink(path)
+        return np.memmap(path, dtype=np.float32, mode="w+", shape=shape)
+
+    def _release_disk(self, name: str) -> None:
+        """Delete the spill files written for ``name`` (live memmap views
+        keep the unlinked inodes readable until they are collected)."""
+        for path in self._disk_paths.pop(name, ()):
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass
+
+    # -- tier storage ---------------------------------------------------------
+    def _host_empty(self, shape, dtype=torch.float32) -> torch.Tensor:
+        """Host-tier storage: pinned on a CUDA store, where an allocation
+        that comes back unpinned raises instead of quietly streaming
+        synchronously."""
+        pin = self.device.type == "cuda"
+        out = torch.empty(shape, dtype=dtype, pin_memory=pin)
+        if pin and not out.is_pinned():
+            raise RuntimeError("the host tier's pages could not be pinned")
+        return out
+
+    def _relocate(self, name: str, tier: str, rows) -> Any:
+        """A copy of ``rows`` (a tensor on any device, or a memmap) in
+        ``tier``'s storage, page layout unchanged."""
+        if tier == "disk":
+            return self._disk_array(name, "rows", rows)
+        src = _host_rows(rows)
+        if tier == "host":
+            return self._host_empty(tuple(src.shape), src.dtype).copy_(src)
+        return src.to(self.device, copy=True)
+
+    # -- tier accounting ----------------------------------------------------
+    def _tier_nbytes(self, tier: str) -> int:
+        return sum(d.nbytes for d in self._datasets.values()
+                   if d.tier == tier)
+
+    @property
+    def device_nbytes(self) -> int:
+        return self._tier_nbytes("device")
+
+    @property
+    def host_nbytes(self) -> int:
+        return self._tier_nbytes("host")
+
+    @property
+    def disk_nbytes(self) -> int:
+        return self._tier_nbytes("disk")
+
+    def _resolve_tier(self, tier: str, ingest_nbytes: int) -> str:
+        """``auto`` cascades down the ladder: past ``device_budget_bytes``
+        to host, past ``host_budget_bytes`` too to disk."""
+        if tier != "auto":
+            return _check_tier(tier)
+        if (self.device_budget_bytes is None
+                or self.device_nbytes + ingest_nbytes
+                <= self.device_budget_bytes):
+            return "device"
+        if (self.host_budget_bytes is None
+                or self.host_nbytes + ingest_nbytes
+                <= self.host_budget_bytes):
+            return "host"
+        return "disk"
+
     # -- ingestion ----------------------------------------------------------
     def put(self, name: str, data: np.ndarray | torch.Tensor, *,
             page_rows: int | None = None, task: str = "classification",
-            tier: str = "device") -> StoredDataset:
-        """Ingest [N, F] dense rows onto the device, padded to whole pages
-        with NaN rows (never counted in results), and register them."""
-        _check_tier(tier)
+            tier: str = "auto") -> StoredDataset:
+        """Ingest [N, F] dense rows (numpy, or a tensor on any device):
+        pad to whole pages with NaN rows (never counted in results),
+        resolve the tier, lay the rows out there and register them."""
         page_rows = page_rows or self.default_page_rows
         src = torch.as_tensor(data)
         if src.dim() != 2:
             raise ValueError(f"expected [N, F] rows, got {tuple(src.shape)}")
         n, F = src.shape
-        total = n + (-n) % page_rows
-        stored = torch.empty((total, F), dtype=torch.float32,
-                             device=self.device)
-        stored[:n].copy_(src)
-        stored[n:] = float("nan")
-        ds = StoredDataset(name=name, data=stored, num_rows=n,
-                           page_rows=page_rows, task=task)
-        self._datasets[name] = ds
-        return ds
+        w = self.stream_writer(name, num_rows=n, num_features=F,
+                               page_rows=page_rows, tier=tier, task=task)
+        try:
+            w.write(src)
+        except BaseException:
+            w.abort()
+            raise
+        return w.close()
 
     def put_result(self, name: str, result: torch.Tensor,
                    num_rows: int) -> StoredDataset:
-        """The WRITE operator's sink: register an output dataset."""
+        """The WRITE operator's sink: register an output dataset where the
+        scan left it -- on the device, or on the host tier (pinned on a
+        CUDA store) for a scan over an off-device table."""
         data = result[:, None] if result.dim() == 1 else result
-        ds = StoredDataset(name=name, data=data.to(self.device),
-                           num_rows=num_rows,
-                           page_rows=self.default_page_rows)
+        # by device type: the store's "cuda" carries no index, a result's
+        # "cuda:0" does, and the two do not compare equal
+        tier = "device"
+        if data.device.type != self.device.type:
+            tier = "host"
+            if self.device.type == "cuda" and not data.is_pinned():
+                data = self._relocate(name, "host", data)
+        ds = StoredDataset(name=name, data=data, num_rows=num_rows,
+                           page_rows=self.default_page_rows,
+                           device=self.device, tier=tier)
         self._datasets[name] = ds
         return ds
+
+    def stream_writer(self, name: str, *, num_rows: int, num_features: int,
+                      page_rows: int | None = None, tier: str = "auto",
+                      task: str = "classification") -> "DenseStreamWriter":
+        """Open a batch-by-batch dense ingest under ``name``.
+
+        Rows arrive in order through ``write(batch)`` and land straight
+        in the resolved tier's storage (on the disk tier, the mmap file),
+        so the whole [N, F] array never has to exist in caller memory.
+        Rows are stored as float32, the tier is resolved up front from the
+        declared size, and NaN rows pad the page-alignment tail.
+        ``close()`` registers and returns the ``StoredDataset``;
+        ``abort()`` drops what was written."""
+        return DenseStreamWriter(self, name, num_rows=num_rows,
+                                 num_features=num_features,
+                                 page_rows=page_rows or self.default_page_rows,
+                                 tier=tier, task=task)
+
+    def put_stream(self, name: str, batches: Iterable, **kw
+                   ) -> StoredDataset:
+        """Ingest an iterator of [rows_i, F] batches, in row order,
+        through :meth:`stream_writer` (same keywords)."""
+        w = self.stream_writer(name, **kw)
+        try:
+            for batch in batches:
+                w.write(batch)
+        except BaseException:
+            w.abort()
+            raise
+        return w.close()
+
+    # -- tier migration -----------------------------------------------------
+    def move(self, name: str, tier: str) -> StoredDataset:
+        """Migrate a dataset to ``tier`` (eviction down the ladder,
+        promotion up it).  The page layout is kept exactly, so every
+        prediction is unchanged and compiled plans stay valid: the tier
+        is a property of the scan, not of the plan.  Leaving the disk
+        tier deletes the store's spill files for the dataset.
+
+        On ANY exception the move rolls back -- the spill files it wrote
+        are unlinked, the tracked paths restored, the catalog (and so the
+        per-tier accounting) untouched -- and the exception is re-raised
+        as it is."""
+        _check_tier(tier)
+        ds = self.get(name)
+        if ds.tier == tier:
+            return ds
+        paths_before = list(self._disk_paths.get(name, ()))
+        try:
+            new = dataclasses.replace(
+                ds, data=self._relocate(name, tier, ds.data), tier=tier)
+        except BaseException:
+            for path in self._disk_paths.get(name, ()):
+                if path not in paths_before and os.path.exists(path):
+                    os.unlink(path)
+            if paths_before:
+                self._disk_paths[name] = paths_before
+            else:
+                self._disk_paths.pop(name, None)
+            raise
+        if ds.tier == "disk":
+            self._release_disk(name)
+        self._datasets[name] = new
+        return new
 
     # -- catalog --------------------------------------------------------------
     def get(self, name: str) -> StoredDataset:
@@ -164,9 +433,12 @@ class TensorBlockStore:
         return n
 
     def drop(self, name: str) -> int:
-        """Drop a dataset AND sweep the compiled plans built against it
-        (their batch signatures came from it).  Returns entries swept."""
-        if self._datasets.pop(name, None) is None:
+        """Drop a dataset, delete the spill files the store wrote for it,
+        AND sweep the compiled plans built against it (their batch
+        signatures came from it).  Returns entries swept."""
+        existed = self._datasets.pop(name, None)
+        self._release_disk(name)
+        if existed is None:
             return 0
         return self._call_hooks(self._invalidators, name)
 
@@ -199,3 +471,80 @@ class TensorBlockStore:
     def model_catalog(self) -> dict[str, dict[str, Any]]:
         return {n: {k: v for k, v in e.items() if k != "forest"}
                 for n, e in self._models.items()}
+
+
+class DenseStreamWriter:
+    """Batch-by-batch dense ingest (``TensorBlockStore.stream_writer``).
+
+    Rows arrive in order and are written straight into the resolved
+    tier's storage, allocated up front: a tensor on the store's device, a
+    (pinned) host tensor, or an EMPTY page-aligned mmap file.  ``close()``
+    pads the page-alignment tail with NaN rows, flushes, registers and
+    returns the ``StoredDataset``; ``abort()`` unlinks anything this writer
+    created and registers nothing.
+    """
+
+    def __init__(self, store: TensorBlockStore, name: str, *,
+                 num_rows: int, num_features: int, page_rows: int,
+                 tier: str, task: str):
+        self.store = store
+        self.name = name
+        self.num_rows = int(num_rows)
+        self.page_rows = int(page_rows)
+        self.task = task
+        self.total_rows = self.num_rows + (-self.num_rows) % self.page_rows
+        shape = (self.total_rows, int(num_features))
+        self.tier = store._resolve_tier(tier, self.total_rows * shape[1] * 4)
+        # a re-put's old spill files go away when the ingest opens
+        store._release_disk(name)
+        if self.tier == "disk":
+            self._buf = store._disk_empty(name, "rows", shape)
+        elif self.tier == "host":
+            self._buf = store._host_empty(shape)
+        else:
+            self._buf = torch.empty(shape, device=store.device)
+        self._rows = _host_rows(self._buf)
+        self._cursor = 0
+        self._closed = False
+
+    def write(self, batch) -> None:
+        """Append one [rows, F] batch (numpy, or a tensor on any device)
+        at the row cursor."""
+        if self._closed:
+            raise RuntimeError(f"stream_writer({self.name!r}) is closed")
+        src = torch.as_tensor(batch)
+        end = self._cursor + src.shape[0]
+        if end > self.num_rows:
+            raise ValueError(
+                f"stream_writer({self.name!r}): batch overruns the "
+                f"declared num_rows ({end} > {self.num_rows})")
+        self._rows[self._cursor:end].copy_(src)
+        self._cursor = end
+
+    def abort(self) -> None:
+        """Drop everything this writer created (nothing is registered)."""
+        if self._closed:
+            return
+        self._closed = True
+        self._buf = self._rows = None
+        if self.tier == "disk":
+            self.store._release_disk(self.name)
+
+    def close(self) -> StoredDataset:
+        """Pad, flush, register: returns the new ``StoredDataset``."""
+        if self._closed:
+            raise RuntimeError(f"stream_writer({self.name!r}) is closed")
+        if self._cursor != self.num_rows:
+            raise ValueError(
+                f"stream_writer({self.name!r}): wrote {self._cursor} rows, "
+                f"declared {self.num_rows}")
+        self._closed = True
+        self._rows[self._cursor:] = float("nan")   # page-alignment tail
+        if self.tier == "disk":
+            self._buf.flush()
+        ds = StoredDataset(name=self.name, data=self._buf,
+                           num_rows=self.num_rows, page_rows=self.page_rows,
+                           device=self.store.device, task=self.task,
+                           tier=self.tier)
+        self.store._datasets[self.name] = ds
+        return ds

@@ -295,3 +295,98 @@ def test_infer_rows_on_the_card_matches_cpu(plan, algorithm):
         results[device] = again.predictions
     assert torch.equal(results["cuda"].cpu().nan_to_num(),
                        results["cpu"].nan_to_num())
+
+
+@pytest.mark.gpu
+def test_host_tier_is_pinned_on_the_card():
+    _need_card()
+    _, x = _case(T=3, depth=3, F=9, B=150, seed=7, integer_leaves=True,
+                 device="cpu")
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    assert store.put("h", x, tier="host").data.is_pinned()
+    assert store.put("d", x).tier == "device"
+    assert store.move("d", "host").data.is_pinned()
+    assert store.move("d", "disk").tier == "disk"
+    assert store.move("d", "host").data.is_pinned()
+    assert store.move("d", "device").data.is_cuda
+    w = store.stream_writer("w", num_rows=150, num_features=9, tier="host")
+    w.write(x)
+    assert w.close().data.is_pinned()
+    auto = TensorBlockStore(device="cuda", default_page_rows=32,
+                            device_budget_bytes=1)
+    assert auto.put("a", torch.from_numpy(x).cuda()).data.is_pinned()
+    for name in ("h", "d", "w"):
+        assert torch.equal(store.get(name).data.cpu().nan_to_num(),
+                           store.get("h").data.nan_to_num())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 1])
+@pytest.mark.parametrize("tier", ["host", "disk"])
+@pytest.mark.parametrize("plan,algorithm", [
+    ("udf", "predicated_pallas_fused"), ("rel+reuse", "predicated_pallas"),
+    ("udf", "quickscorer_pallas_fused"), ("rel", "hummingbird_pallas")])
+def test_off_device_scan_in_many_batches_matches_the_device_tier(
+        plan, algorithm, tier, depth):
+    """64 one-page batches: every page buffer is refilled 32 times while
+    the other is computed on, and every drain overlaps a later batch."""
+    _need_card()
+    base = algorithm.split("_")[0]
+    wrappers = KERNEL_WRAPPERS if algorithm.endswith("_fused") \
+        else RAW_KERNEL_WRAPPERS
+    forest, x = _case(T=37, depth=6, F=28, B=64 * 32 - 5, seed=8,
+                      integer_leaves=False, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    store.put("dev", x)
+    store.put("off", x, tier=tier)
+    engine = ForestQueryEngine(store)
+    kw = dict(algorithm=algorithm, plan=plan, batch_pages=1, n_parts=3)
+    ref = engine.infer("dev", forest, **kw)
+    before = wrappers[base].launches
+    res = engine.infer("off", forest, prefetch_depth=depth, **kw)
+    s = res.scan
+    assert wrappers[base].launches - before == res.n_parts * s.batches
+    assert s.batches == 64 and s.max_in_flight == depth
+    assert s.pinned_staging and s.drain_async == (depth == 2)
+    assert s.bytes_streamed == store.get("off").nbytes
+    assert res.predictions.device.type == "cpu"
+    assert torch.equal(_bits(res.predictions), _bits(ref.predictions.cpu()))
+
+
+@pytest.mark.gpu
+def test_drain_lands_in_a_pinned_buffer():
+    _need_card()
+    forest, x = _case(T=10, depth=5, F=9, B=1000, seed=9,
+                      integer_leaves=False, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=32,
+                             device_budget_bytes=1)
+    assert store.put("t", x).tier == "host"
+    engine = ForestQueryEngine(store)
+    res = engine.infer("t", forest, algorithm="predicated_pallas_fused",
+                       batch_pages=4, write_as="t:pred")
+    assert res.predictions.is_pinned() and res.predictions.shape == (1000,)
+    assert res.scan.drain_async and res.scan.drain_s > 0
+    assert res.scan.drain_overlap_s >= 0 and res.scan.transfer_wait_s > 0
+    out = store.get("t:pred")
+    assert out.tier == "host" and out.data.is_pinned()
+    assert torch.equal(out.data[:, 0], res.predictions)
+
+
+@pytest.mark.gpu
+def test_write_as_on_the_device_tier_stays_on_the_card():
+    """The store's device is "cuda" and a result's "cuda:0": a device-tier
+    query's written result is registered on the device tier, on the card."""
+    _need_card()
+    forest, x = _case(T=10, depth=5, F=9, B=1000, seed=10,
+                      integer_leaves=False, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    assert store.put("t", x).tier == "device"
+    res = ForestQueryEngine(store).infer(
+        "t", forest, algorithm="predicated_pallas_fused", batch_pages=4,
+        write_as="t:pred")
+    out = store.get("t:pred")
+    assert res.predictions.is_cuda and res.scan.bytes_streamed == 0
+    assert out.tier == "device" and out.data.is_cuda
+    assert store.device_nbytes == store.get("t").nbytes + out.nbytes
+    assert store.host_nbytes == 0
+    assert torch.equal(out.data[:, 0], res.predictions)

@@ -1,4 +1,4 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
+"""Import hygiene of the port: ``repro_torch`` and the chip scripts import
 neither jax nor the JAX package ``repro`` (``repro_torch`` itself is
 allowed), and the query engine imports in a process where jax cannot."""
 
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / name for name in ("chip_smoke.py", "chip_ab.py",
+                             "chip_tiers_probe.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:

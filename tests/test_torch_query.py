@@ -167,8 +167,8 @@ def test_unported_plans_and_tiers_raise():
         engine.infer("t", tf, plan="nope")
     with pytest.raises(ValueError, match="unknown algorithm"):
         engine.infer("t", tf, algorithm="nope")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        store.put("h", x, tier="host")
+    with pytest.raises(ValueError, match="unknown tier"):
+        store.put("h", x, tier="tape")
     with pytest.raises(KeyError):
         engine.infer("missing", tf)
 
