@@ -9,11 +9,14 @@ this machine's card.  Each run's whole output goes to
 ``DIR/<n>-<side>.log`` (default ``chiprun_out/ab``).  The script prints
 each run's kernel times (from the ``{"kernels": ...}`` line chip_smoke.py
 prints), its rel+reuse query times (each algorithm's runs, over each
-table it ran on), its ``infer_rows`` repeats and its ``[tiers]`` runs
+table it ran on), its ``infer_rows`` repeats, its ``[tiers]`` runs
 (wall time and rows/s of each host- and disk-tier query, and each overlap
-fraction), then each side's mean per kernel, per rel+reuse run and per
-tier run, and the change / parent ratio; a side whose script has no such
-line shows "n/a".  Any run that fails makes the script exit non-zero.
+fraction) and its ``[sparse]`` runs (each x-mode kernel time, and the wall
+time and rows/s of each Epsilon, Bosch and Criteo-shaped query), then each
+side's mean per kernel, per rel+reuse run, per tier run and per sparse
+run, and the change / parent ratio; a side whose script has no such line
+(a parent without phase 9) shows "n/a".  Any run that fails makes the
+script exit non-zero.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ ROWS = re.compile(r"\[rows\] infer_rows\((\d+) rows.*plan='([^']+)'.*repeat "
 TIER_RUN = re.compile(r"\[tiers\] run (.+?): wall_s ([0-9.]+), ([0-9.]+) "
                       r"rows/s")
 OVERLAP = re.compile(r"\[tiers\] overlap_fraction (\w+ \w+): (-?[0-9.]+)")
+SPARSE_RUN = re.compile(r"\[sparse\] run (.+?): wall_s ([0-9.]+), ([0-9.]+) "
+                        r"rows/s")
+XMODE = re.compile(r"\[sparse\] xmode (\w+ \w+ F=\d+): staged "
+                   r"(does not fit|[0-9.]+ ms), wide ([0-9.]+) ms")
 
 
 def run(root: Path, log: Path) -> dict:
@@ -44,7 +51,8 @@ def run(root: Path, log: Path) -> dict:
         raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
                            f"see {log}")
     out = {"kernels": None, "rel_s": {}, "rows": {}, "tier_s": {},
-           "tier_rows_s": {}, "overlap": {}}
+           "tier_rows_s": {}, "overlap": {}, "sparse_s": {},
+           "sparse_rows_s": {}, "xmode": {}}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
@@ -59,6 +67,14 @@ def run(root: Path, log: Path) -> dict:
             out["tier_rows_s"][m.group(1)] = float(m.group(3))
         elif (m := OVERLAP.search(line)):
             out["overlap"][m.group(1)] = float(m.group(2))
+        elif (m := SPARSE_RUN.search(line)):
+            out["sparse_s"][m.group(1)] = float(m.group(2))
+            out["sparse_rows_s"][m.group(1)] = float(m.group(3))
+        elif (m := XMODE.search(line)):
+            name, staged, wide = m.groups()
+            if staged != "does not fit":
+                out["xmode"][f"{name} staged"] = float(staged.split()[0])
+            out["xmode"][f"{name} wide"] = float(wide)
         elif line.startswith("[report]"):
             out["report"] = line
     return out
@@ -82,12 +98,17 @@ def main() -> int:
               f"infer_rows repeat s {json.dumps(res['rows'])}; tiers wall s "
               f"{json.dumps(res['tier_s'])}, rows/s "
               f"{json.dumps(res['tier_rows_s'])}, overlap_fraction "
-              f"{json.dumps(res['overlap'])}", flush=True)
+              f"{json.dumps(res['overlap'])}; sparse wall s "
+              f"{json.dumps(res['sparse_s'])}, x-mode ms "
+              f"{json.dumps(res['xmode'])}", flush=True)
     for what, unit, prefix in (("kernels", "ms", ""),
                                ("rel_s", "s", "rel+reuse "),
                                ("tier_s", "s", "tiers wall "),
                                ("tier_rows_s", "rows/s", "tiers "),
-                               ("overlap", "", "overlap_fraction ")):
+                               ("overlap", "", "overlap_fraction "),
+                               ("xmode", "ms", "xmode "),
+                               ("sparse_s", "s", "sparse wall "),
+                               ("sparse_rows_s", "rows/s", "sparse ")):
         names = {n: None for _, r in runs for n in r[what]}
         for name in names:
             side_t = {s: [r[what].get(name, "n/a") for side, r in runs

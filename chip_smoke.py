@@ -14,7 +14,12 @@ Phases (any failure exits non-zero and prints no result line):
               then every kernel, fused and raw, at shallower depths with
               -0.0 leaves, all bit for bit: predicated and HummingBird at
               1, 3 and 5, QuickScorer at 1, 3, 5 and 6 (the first depth
-              whose top node clears a whole 32-leaf word);
+              whose top node clears a whole 32-leaf word); then the wide
+              rows: at F = 968, 1,185, 2,000, 4,096 and 10,000 every
+              kernel, fused and raw, in the wide-row x mode and (where a
+              32-sample tile fits) staged, at depth 8 on 16,421 rows with
+              NaN rows, and from 1,185 up the shallower depths with -0.0
+              leaves likewise, all bit for bit;
   4. path     the in-database query on a HIGGS-shaped table (11,000,000 x
               28 rows from a seed, on the device tier):
               infer(plan="udf", algorithm="predicated_pallas_fused") twice
@@ -52,17 +57,40 @@ Phases (any failure exits non-zero and prints no result line):
               disk-tier scan (device busy share, the device's wait before
               and between the kernels, H2D overlapping the kernel, flagged
               when it misses page copies); a move round trip device ->
-              host -> disk -> device on the 1M-row cut.
-The last lines are the kernels' JSON record, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+              host -> disk -> device on the 1M-row cut;
+  9. sparse   wide rows and the CSR plane.  x modes: each kernel, fused
+              (500 trees) and raw (16), staged and wide-row, on 65,536
+              rows at widths from 28 to 10,000, beside its bound, and each
+              kernel's crossover.  Epsilon (100,000 x 2,000 dense, device
+              tier): udf with the three fused kernels, rel+reuse with
+              predicated_pallas twice (the repeat hits both caches) and
+              with the raw HummingBird and QuickScorer kernels, each held
+              against the eager oracle; the wide-row kernels timed at that
+              shape.  Bosch (1,184,000 x 968, 81 % missing) dense and as
+              CSR on the device tier, both on the pinned host tier (256 MiB
+              device budget) and the CSR copy on the disk tier: udf with
+              the fused predicated and HummingBird kernels, rel+reuse
+              predicated_pallas twice, each CSR result bit for bit the
+              device tier's dense one, with a trace of each host-tier udf
+              scan.  Criteo-shaped (2,000,000 x 10,000, 96 % missing, CSR
+              made on the card in 64-page chunks, 6.4 GB on the device
+              tier): udf with the fused predicated and HummingBird kernels
+              at 64 pages a batch, the gather's share of the stage time,
+              and both held bit for bit against the dense plane over the
+              first 65,536 rows, densified on the card.
+The last lines are the kernels' JSON record (each kernel twice: staged x,
+timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
+shape), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
-It imports nothing of the JAX package.  The forests' weights and the table
-are random, made from SEED, at the published HIGGS shape (depth-8 XGBoost
-trees over 28 features; 500 trees, and 1600 for the rel plans).
+It imports nothing of the JAX package.  The forests' weights and the tables
+are random, made from SEED on the card, at the published shapes (depth-8
+XGBoost trees, 500 and 1600 for the rel plans; HIGGS's 28 features,
+Epsilon's 2,000, Bosch's 968, Criteo's 10,000 of DATASETS).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -86,6 +114,8 @@ CHECK_ROWS = 16_421             # phase 3 kernel-vs-plain rows (ragged)
 #: first clears a whole word
 SHALLOW = dict(predicated=(1, 3, 5), hummingbird=(1, 3, 5),
                quickscorer=(1, 3, 5, 6))
+#: phase 3's wide-row checks (all but Bosch's 968 also at SHALLOW depths)
+WIDE_CHECK_F = (968, 1185, 2000, 4096, 10000)
 COMPARE_ROWS = 65_536           # path rows held against the oracle
 ROW_BATCHES = (8, 32, 128)      # the serving plane's bucket ladder
 TOL = 1e-6                      # rtol = atol for float sums (order differs)
@@ -94,6 +124,19 @@ LINK_BYTES = 128 << 20          # phase 8's plain pinned H2D copy
 MOVE_BATCH_PAGES = 100          # phase 8's move round trip, 1M-row cut
 PROFILE_H2D_SHARE = 0.75        # least H2D time of a complete phase 8
 #                                 trace, as a share of bytes / link rate
+#: phase 9: the x-mode timings' widths and rows (65,536 rows: 500 trees
+#: fused, one 16-tree partition raw)
+XMODE_F = (28, 200, 400, 512, 640, 768, 968, 1184, 1536, 2000, 10000)
+XMODE_ROWS = 65_536
+#: phase 9's tables, at the datasets' shapes (src/repro/db/loader.py:
+#: DATASETS): Epsilon dense at its full 100,000 x 2,000; Bosch at its full
+#: 1,184,000 x 968 with 81 % missing; Criteo-shaped 10,000 features at 96 %
+#: missing, cut from 51M to 2M rows
+EPSILON_ROWS, EPSILON_F = 100_000, 2000
+BOSCH_ROWS, BOSCH_F, BOSCH_MISSING = 1_184_000, 968, 0.81
+CRITEO_ROWS, CRITEO_F, CRITEO_MISSING = 2_000_000, 10_000, 0.96
+CRITEO_BATCH_PAGES = 64         # pages of 1,024 rows a scan batch
+PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
@@ -125,9 +168,10 @@ def nvidia_smi_line() -> str:
 
 
 def make_forest_arrays(rng, *, integer_leaves: bool, trees: int = TREES,
-                       leaf_scale: float = 0.1, depth: int = DEPTH):
+                       leaf_scale: float = 0.1, depth: int = DEPTH,
+                       features: int = FEATURES):
     I, L = (1 << depth) - 1, 1 << depth
-    feature = rng.integers(0, FEATURES, (trees, I)).astype(np.int32)
+    feature = rng.integers(0, features, (trees, I)).astype(np.int32)
     threshold = rng.normal(size=(trees, I)).astype(np.float32)
     default_left = rng.random((trees, I)) < 0.5
     if integer_leaves:
@@ -136,6 +180,43 @@ def make_forest_arrays(rng, *, integer_leaves: bool, trees: int = TREES,
         leaves = (leaf_scale * rng.normal(size=(trees, L))).astype(
             np.float32)
     return feature, threshold, default_left, leaves
+
+
+def card_rows(rows: int, features: int, *, seed: int, missing: float = 0.0,
+              nan_every: int = 0) -> torch.Tensor:
+    """[rows, features] f32 made on the card from ``seed``: normal values,
+    each missing (NaN) with probability ``missing``, and every
+    ``nan_every``-th row all NaN."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((rows, features), generator=gen, device="cuda")
+    if missing:
+        x[torch.rand((rows, features), generator=gen, device="cuda")
+          < missing] = float("nan")
+    if nan_every:
+        x[::nan_every] = float("nan")
+    return x
+
+
+def stage_sums(r) -> str:
+    """A query's stage reports summed by stage name: "name n x total s"."""
+    sums: dict[str, list] = {}
+    for rep in r.stage_reports:
+        entry = sums.setdefault(rep.name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += rep.seconds
+    return ", ".join(f"{name} {n} x {sec:.6f} s"
+                     for name, (n, sec) in sums.items())
+
+
+def pinned_bytes() -> str:
+    """The pinned host allocator's bytes (current / peak), where this
+    torch reports them."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return "pinned total not reported by this torch"
+    st = stats()
+    return (f"pinned allocator {st.get('allocated_bytes.current', 'n/a')} B "
+            f"now, {st.get('allocated_bytes.peak', 'n/a')} B peak")
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -204,11 +285,8 @@ def bound(kind: str, B: int, F: int, T: int = TREES, *,
                                            bytes_ms=bytes_ms, ops_ms=ops_ms)
 
 
-def profile_query(run, what: str, smi: str, top: int = 8) -> None:
-    """One run under torch.profiler: device time by kernel and the share
-    of the run's wall time the card was busy (kernels do not overlap on
-    the one stream)."""
-    from torch.autograd import DeviceType
+def traced(run):
+    """``run()`` under torch.profiler: (the profile, wall microseconds)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -218,19 +296,37 @@ def profile_query(run, what: str, smi: str, top: int = 8) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
+
+
+def log_device_time(prof, top: int) -> None:
+    """The trace's device time by kernel (and copy) name, largest first."""
+    from torch.autograd import DeviceType
+
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             entry = by_name.setdefault(e.name[:90], [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us()
-    busy_us = sum(us for _, us in by_name.values())
-    log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms under the profiler, "
-        f"device busy {busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f} "
-        f"% (idle {100 - 100 * busy_us / wall_us:.1f} %), on {smi}")
     for kname, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]
                                  )[:top]:
         log(f"[profile]   {us / 1e3:10.3f} ms  {n:5d} x  {kname}")
+
+
+def profile_query(run, what: str, smi: str, top: int = 8) -> None:
+    """One run under torch.profiler: device time by kernel and the share
+    of the run's wall time the card was busy (kernels do not overlap on
+    the one stream)."""
+    from torch.autograd import DeviceType
+
+    prof, wall_us = traced(run)
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    log(f"[profile] {what}: wall {wall_us / 1e3:.3f} ms under the profiler, "
+        f"device busy {busy_us / 1e3:.3f} ms = {100 * busy_us / wall_us:.1f} "
+        f"% (idle {100 - 100 * busy_us / wall_us:.1f} %), on {smi}")
+    log_device_time(prof, top)
 
 
 def device_intervals(prof) -> tuple[list, list, list]:
@@ -492,7 +588,378 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
     return launches
 
 
+def sparse_phase(*, counted, only, smi: str, tally) -> dict:
+    """Phase 9: wide rows and the CSR plane.  The x-mode timings; Epsilon
+    dense wide; Bosch as CSR against dense on the device, host and disk
+    tiers; a Criteo-shaped CSR table.  ``tally(counts)`` adds a query's
+    launches to the kernels' record.  Returns the wide-row kernels' record
+    numbers at the Epsilon shape."""
+    from repro_torch.core.forest import (compact_forest, make_forest,
+                                         tree_slice)
+    from repro_torch.core.postprocess import predict_proba
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.sparse import (concat_pages, csr_from_dense,
+                                       densify_csr, paginate_csr)
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.kernels.common import X_STAGED_MAX_F
+    from repro_torch.kernels.forest_hummingbird import (
+        hummingbird_fused_plain, hummingbird_raw_plain)
+    from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
+                                                       predicated_raw_plain)
+    from repro_torch.kernels.forest_quickscorer import (
+        quickscorer_fused_plain, quickscorer_raw_plain)
+    from repro_torch.kernels.gather import (csr_block_to_dense,
+                                            gather_inverse_map)
+    from repro_torch.kernels.ops import (KERNEL_WRAPPERS, RAW_KERNEL_WRAPPERS,
+                                         prepare_inputs)
+
+    plain = dict(predicated=predicated_fused_plain,
+                 hummingbird=hummingbird_fused_plain,
+                 quickscorer=quickscorer_fused_plain)
+    raw_plain = dict(predicated=predicated_raw_plain,
+                     hummingbird=hummingbird_raw_plain,
+                     quickscorer=quickscorer_raw_plain)
+
+    def forests(F: int, seed: int):
+        """(500-tree, 1600-tree) random forests over F features."""
+        fe, th, dl, lv = make_forest_arrays(np.random.default_rng(seed),
+                                            integer_leaves=False, features=F)
+        f = make_forest(fe, th, lv, default_left=dl, n_features=F,
+                        device="cuda")
+        fe, th, dl, lv = make_forest_arrays(
+            np.random.default_rng(seed + 1), integer_leaves=False,
+            trees=REL_TREES, leaf_scale=0.1 * math.sqrt(TREES / REL_TREES),
+            features=F)
+        big = make_forest(fe, th, lv, default_left=dl, n_features=F,
+                          device="cuda")
+        return f, big
+
+    # -- x modes: each kernel staged and wide-row across widths ----------
+    times: dict = {}
+    for F in XMODE_F:
+        x = card_rows(XMODE_ROWS, F, seed=SEED + 20)
+        f, _ = forests(F, SEED + 21)
+        part = tree_slice(f, 0, 16)
+        for kind in KINDS:
+            for fused in (True, False):
+                variant = "fused" if fused else "raw"
+                forest_ = f if fused else part
+                wrapper = (KERNEL_WRAPPERS if fused
+                           else RAW_KERNEL_WRAPPERS)[kind]
+                got, tiles = {}, {}
+                for staged in (True, False):
+                    try:
+                        args, tiles[staged] = prepare_inputs(
+                            kind, forest_, x, fused=fused, staged=staged)
+                    except ValueError:
+                        got[staged] = None
+                        continue
+                    got[staged] = cuda_ms(
+                        lambda: wrapper(*args, **tiles[staged]), warmup=1,
+                        reps=3)
+                times[kind, variant, F] = got
+                bound_ms, bound_by, _ = bound(kind, XMODE_ROWS, F,
+                                              forest_.num_trees,
+                                              raw=not fused)
+                st = ("does not fit" if got[True] is None
+                      else f"{got[True]:.4f} ms")
+                log(f"[sparse] xmode {kind} {variant} F={F}: staged {st}, "
+                    f"wide {got[False]:.4f} ms ({XMODE_ROWS} rows x "
+                    f"{forest_.num_trees} trees, tiles staged "
+                    f"{tiles.get(True)} / wide {tiles[False]}); bound "
+                    f"{bound_ms:.4f} ms by {bound_by}; on {smi}")
+        del x
+    for kind in KINDS:
+        for variant in ("fused", "raw"):
+            cross = next((F for F in XMODE_F
+                          if times[kind, variant, F][True] is None
+                          or times[kind, variant, F][False]
+                          < times[kind, variant, F][True]), None)
+            limit = X_STAGED_MAX_F[kind, variant == "fused"]
+            log(f"[sparse] xmode crossover {kind} {variant}: the wide-row "
+                f"mode is first faster at F={cross} of {XMODE_F}; the port "
+                f"stages x up to "
+                f"{'where a tile fits' if limit is None else limit}")
+
+    def query(engine, dataset, f, plan, algorithm, label, *, n_rows,
+              oracle=None, **kw):
+        """One counted query: exact launches, finite predictions of the
+        right shape, and (``oracle``) its first rows against the eager
+        oracle."""
+        kind = algorithm.split("_")[0]
+        name = f"{kind}_{'fused' if algorithm.endswith('_fused') else 'raw'}"
+        r, c = counted(lambda: engine.infer(dataset, f, plan=plan,
+                                            algorithm=algorithm, **kw))
+        s = r.scan
+        only(c, name, r.n_parts * s.batches, f"[sparse] {label}")
+        tally(c)
+        preds = r.predictions
+        if tuple(preds.shape) != (n_rows,) or not bool(
+                torch.isfinite(preds).all()):
+            raise AssertionError(f"[sparse] {label}: bad predictions")
+        err = ""
+        if oracle is not None:
+            k = oracle.shape[0]
+            got = preds[:k].to(oracle.device)
+            e = float((got - oracle).abs().max())
+            if not torch.allclose(got, oracle, rtol=TOL, atol=TOL):
+                raise AssertionError(f"[sparse] {label}: {e} from the "
+                                     f"eager oracle")
+            err = f"; max |pred - eager predicated| over {k} rows = {e!r}"
+        log(f"[sparse] run {label}: wall_s {s.wall_s:.6f}, "
+            f"{n_rows / s.wall_s:.1f} rows/s; total_s {r.total_s:.6f}, "
+            f"storage_format {r.storage_format}, tier {r.tier}, n_parts "
+            f"{r.n_parts} x {s.batches} batches of {s.batch_pages} pages = "
+            f"{c[name]} {name} launches ({c[name + '_wide']} wide-row), "
+            f"reuse_hit {r.reuse_hit}, bytes_streamed {s.bytes_streamed}, "
+            f"transfer_wait_s {s.transfer_wait_s:.6f}, compute_s "
+            f"{s.compute_s:.6f}; stages {stage_sums(r)}{err}; on {smi}")
+        return r
+
+    # -- Epsilon: dense, 2,000 features, device tier ---------------------
+    t0 = time.perf_counter()
+    store = TensorBlockStore(device="cuda")
+    x = card_rows(EPSILON_ROWS, EPSILON_F, seed=SEED + 30)
+    eps = store.put("epsilon", x)
+    del x
+    f, big = forests(EPSILON_F, SEED + 31)
+    sample = eps.data[:COMPARE_ROWS]
+    oracle = predict_proba(f, sample, algorithm="predicated")
+    big_oracle = predict_proba(big, sample, algorithm="predicated")
+    torch.cuda.synchronize()
+    log(f"[sparse] epsilon: {EPSILON_ROWS} x {EPSILON_F} f32 dense, "
+        f"{eps.nbytes} B on the device tier, {time.perf_counter() - t0:.3f} "
+        f"s set-up")
+    engine = ForestQueryEngine(store)
+    for algorithm in ("predicated_pallas_fused", "hummingbird_pallas_fused",
+                      "quickscorer_pallas_fused"):
+        query(engine, "epsilon", f, "udf", algorithm,
+              f"epsilon udf {algorithm}", n_rows=EPSILON_ROWS,
+              oracle=oracle)
+    rel = [query(engine, "epsilon", big, "rel+reuse", "predicated_pallas",
+                 f"epsilon rel+reuse predicated_pallas #{i}",
+                 n_rows=EPSILON_ROWS, oracle=big_oracle) for i in range(2)]
+    if rel[0].reuse_hit or not (rel[1].reuse_hit and rel[1].plan_reuse_hit):
+        raise AssertionError("[sparse] the repeated Epsilon rel+reuse query "
+                             "did not hit both caches")
+    for algorithm in ("hummingbird_pallas", "quickscorer_pallas"):
+        query(engine, "epsilon", big, "rel+reuse", algorithm,
+              f"epsilon rel+reuse {algorithm}", n_rows=EPSILON_ROWS,
+              oracle=big_oracle)
+    # the wide-row kernels' record numbers, at the Epsilon shape
+    record = {}
+    part = tree_slice(big, 0, 16)
+    for kind in KINDS:
+        for fused in (True, False):
+            variant = "fused" if fused else "raw"
+            args, tiles = prepare_inputs(kind, f if fused else part,
+                                         eps.data, fused=fused)
+            wrapper = (KERNEL_WRAPPERS if fused
+                       else RAW_KERNEL_WRAPPERS)[kind]
+            ms = cuda_ms(lambda: wrapper(*args, **tiles), warmup=1, reps=3)
+            got = wrapper(*args, **tiles)
+            want, plain_ms = timed_plain((plain if fused
+                                          else raw_plain)[kind], args,
+                                         DEPTH)
+            err = float((got - want).abs().max())
+            ok = (torch.allclose(got, want, rtol=TOL, atol=TOL) if fused
+                  else torch.equal(bits(got), bits(want)))
+            B, T = eps.data.shape[0], args[1].shape[0]
+            bound_ms, bound_by, parts = bound(kind, B, EPSILON_F, T,
+                                              raw=not fused)
+            log(f"[sparse] timing {kind} {variant} wide-row x: {B} rows x "
+                f"{EPSILON_F} features x {T} trees, tiles {tiles}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by} ({parts}), max_abs_err "
+                f"{err!r}: {'ok' if ok else 'FAIL'}; on {smi}")
+            if not ok or tiles["staged"]:
+                raise AssertionError(f"[sparse] {kind} {variant} at the "
+                                     f"Epsilon shape")
+            record[f"{kind}_{variant}_wide"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+            del args, got, want
+    store.drop("epsilon")
+    del eps, sample, oracle, big_oracle, engine, store, rel
+
+    # -- Bosch: CSR against dense, device / host / disk tiers --------------
+    t0 = time.perf_counter()
+    x = card_rows(BOSCH_ROWS, BOSCH_F, seed=SEED + 40, missing=BOSCH_MISSING)
+    f, big = forests(BOSCH_F, SEED + 41)
+    dev_store = TensorBlockStore(device="cuda")
+    dense = dev_store.put("dense", x)
+    csr = dev_store.put_sparse("csr", x)
+    oracle = predict_proba(f, x[:COMPARE_ROWS], algorithm="predicated")
+    del x
+    torch.cuda.synchronize()
+    f_used = compact_forest(f)[1].numel()
+    log(f"[sparse] bosch: {BOSCH_ROWS} x {BOSCH_F}, {BOSCH_MISSING:.0%} "
+        f"missing: dense {dense.nbytes} B, CSR {csr.nbytes} B "
+        f"({csr.nbytes / dense.nbytes:.4f} of dense; {csr.nnz} entries, "
+        f"capacity {csr.pages.capacity} a page of {csr.page_rows} rows); "
+        f"F_used {f_used} (500 trees), "
+        f"{compact_forest(big)[1].numel()} (1600); "
+        f"{time.perf_counter() - t0:.3f} s set-up")
+    runs = (("udf", "predicated_pallas_fused", f),
+            ("udf", "hummingbird_pallas_fused", f),
+            ("rel+reuse", "predicated_pallas", big),
+            ("rel+reuse", "predicated_pallas", big))
+
+    def bosch(engine, dataset: str, tier: str, fmt: str, want=None):
+        out = []
+        for i, (plan, algorithm, forest_) in enumerate(runs):
+            r = query(engine, dataset, forest_, plan, algorithm,
+                      f"bosch {tier} {fmt} {plan} {algorithm} #{i}",
+                      n_rows=BOSCH_ROWS,
+                      oracle=oracle if i == 0 and want is None else None)
+            if (r.storage_format, r.tier) != (fmt, tier):
+                raise AssertionError(f"[sparse] bosch ran {r.storage_format}"
+                                     f" on {r.tier}")
+            if i == 3 and not (r.reuse_hit and r.plan_reuse_hit):
+                raise AssertionError("[sparse] the repeated rel+reuse query "
+                                     "missed a cache")
+            preds = r.predictions.cpu()
+            if want is not None and not torch.equal(bits(preds),
+                                                    bits(want[i])):
+                raise AssertionError(f"[sparse] bosch {tier} {fmt} "
+                                     f"{algorithm} differs from the device "
+                                     f"tier's dense predictions")
+            out.append(preds)
+        return out
+
+    engine = ForestQueryEngine(dev_store)
+    want = bosch(engine, "dense", "device", "dense")
+    bosch(engine, "csr", "device", "csr", want)
+    log("[sparse] bosch device tier: CSR == dense bit for bit, every query")
+    spill = tempfile.mkdtemp(prefix="chip-smoke-sparse-")
+    try:
+        host_store = TensorBlockStore(device="cuda",
+                                      device_budget_bytes=TIER_BUDGET)
+        host_engine = ForestQueryEngine(host_store)
+        for fmt in ("dense", "csr"):
+            t0 = time.perf_counter()
+            if fmt == "dense":
+                ds = host_store.put("dense", dense.data[:BOSCH_ROWS])
+            else:
+                ds = host_store.put_sparse("csr", pages=csr.pages,
+                                           num_rows=BOSCH_ROWS)
+            if ds.tier != "host":
+                raise AssertionError(f"[sparse] the auto cascade put {fmt} "
+                                     f"on {ds.tier}")
+            log(f"[sparse] bosch host tier {fmt}: {ds.nbytes} B pinned in "
+                f"{time.perf_counter() - t0:.3f} s (set-up); "
+                f"{pinned_bytes()}")
+            bosch(host_engine, fmt, "host", fmt, want)
+            # where a streamed scan's time goes: the kernel, the gather's
+            # torch ops, the page copies (a copy stream beside the kernels,
+            # so the busy share is the union of the device intervals)
+            prof, wall_us = traced(lambda: host_engine.infer(
+                fmt, f, plan="udf", algorithm="predicated_pallas_fused"))
+            log(f"[profile] bosch host-tier {fmt} udf "
+                f"predicated_pallas_fused: {scan_trace(prof, wall_us)}; on "
+                f"{smi}")
+            log_device_time(prof, top=10)
+            del prof
+            host_store.drop(fmt)
+            del ds
+            gc.collect()
+        log("[sparse] bosch host tier: CSR == dense == the device tier, "
+            "bit for bit")
+        disk_store = TensorBlockStore(device="cuda",
+                                      device_budget_bytes=TIER_BUDGET,
+                                      host_budget_bytes=TIER_BUDGET,
+                                      spill_dir=spill)
+        t0 = time.perf_counter()
+        ds = disk_store.put_sparse("csr", pages=csr.pages,
+                                   num_rows=BOSCH_ROWS)
+        log(f"[sparse] bosch disk tier csr: {ds.nbytes} B in "
+            f"{sorted(os.listdir(spill))} in {time.perf_counter() - t0:.3f} "
+            f"s (set-up)")
+        if ds.tier != "disk" or len(os.listdir(spill)) != 3:
+            raise AssertionError("[sparse] the CSR table is not three spill "
+                                 "files on the disk tier")
+        bosch(ForestQueryEngine(disk_store), "csr", "disk", "csr", want)
+        disk_store.drop("csr")
+        if os.listdir(spill):
+            raise AssertionError("[sparse] drop left a spill file")
+        log("[sparse] bosch disk tier: CSR == the device tier's dense, bit "
+            "for bit; spill files removed")
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    del ds, dense, csr, want, oracle, engine, dev_store, host_store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- Criteo-shaped: CSR only, 2M x 10,000 at 96 % missing ----------------
+    t0 = time.perf_counter()
+    chunk = CRITEO_BATCH_PAGES * PAGE_ROWS
+    gen_seed = SEED + 50
+    blocks = []
+    for lo in range(0, CRITEO_ROWS, chunk):
+        n = min(chunk, CRITEO_ROWS - lo)
+        x = card_rows(n, CRITEO_F, seed=gen_seed + lo // chunk,
+                      missing=CRITEO_MISSING)
+        blocks.append(paginate_csr(*csr_from_dense(x), num_rows=n,
+                                   page_rows=PAGE_ROWS, n_features=CRITEO_F))
+        del x
+    pages = concat_pages(blocks, n_features=CRITEO_F)
+    del blocks
+    store = TensorBlockStore(device="cuda")
+    ds = store.put_sparse("criteo", pages=pages, num_rows=CRITEO_ROWS)
+    if ds.pages.indices is not pages.indices:
+        raise AssertionError("[sparse] a device-tier pages= handoff copied")
+    f, _ = forests(CRITEO_F, SEED + 51)
+    torch.cuda.synchronize()
+    gather_idx = compact_forest(f)[1]
+    log(f"[sparse] criteo: {CRITEO_ROWS} x {CRITEO_F}, {CRITEO_MISSING:.0%} "
+        f"missing, made on the card in {chunk}-row chunks: CSR {ds.nbytes} B "
+        f"on the device tier ({ds.nnz} entries, capacity "
+        f"{ds.pages.capacity}; dense would be {CRITEO_ROWS * CRITEO_F * 4} "
+        f"B); F_used {gather_idx.numel()}; "
+        f"{time.perf_counter() - t0:.3f} s set-up")
+    engine = ForestQueryEngine(store)
+    inv = gather_inverse_map(gather_idx, CRITEO_F, device="cuda")
+    block = ds.page_slice(0, CRITEO_BATCH_PAGES)
+    gather_ms = cuda_ms(lambda: csr_block_to_dense(block, inv,
+                                                   gather_idx.numel()),
+                        warmup=1, reps=3)
+    head = {}
+    for algorithm in ("predicated_pallas_fused", "hummingbird_pallas_fused"):
+        r = query(engine, "criteo", f, "udf", algorithm,
+                  f"criteo csr udf {algorithm}", n_rows=CRITEO_ROWS,
+                  batch_pages=CRITEO_BATCH_PAGES)
+        if r.storage_format != "csr":
+            raise AssertionError("[sparse] criteo did not run the CSR plane")
+        stage_s = sum(x.seconds for x in r.stage_reports)
+        share = r.scan.batches * gather_ms / 1e3 / stage_s
+        log(f"[sparse] criteo udf {algorithm}: {CRITEO_ROWS / r.total_s:.1f}"
+            f" rows/s (total_s {r.total_s:.6f}); the gather of one "
+            f"{CRITEO_BATCH_PAGES}-page block {gather_ms:.4f} ms (CUDA "
+            f"events), x {r.scan.batches} batches = {share:.4f} of the "
+            f"stage time {stage_s:.6f} s; on {smi}")
+        head[algorithm] = r.predictions[:chunk].clone()
+        del r
+    dense_head = densify_csr(*block.tensors(), CRITEO_F)
+    dstore = TensorBlockStore(device="cuda")
+    dstore.put("criteo_head", dense_head)
+    del dense_head
+    dengine = ForestQueryEngine(dstore)
+    for algorithm, want in head.items():
+        r = query(dengine, "criteo_head", f, "udf", algorithm,
+                  f"criteo dense head udf {algorithm}", n_rows=chunk)
+        if not torch.equal(bits(r.predictions), bits(want)):
+            raise AssertionError(f"[sparse] criteo {algorithm}: CSR and the "
+                                 f"densified head differ")
+        log(f"[sparse] criteo {algorithm}: CSR == the dense plane (F="
+            f"{CRITEO_F}, full forest) on the first {chunk} rows, bit for "
+            f"bit")
+    store.drop("criteo")
+    dstore.drop("criteo_head")
+    return record
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -528,19 +995,25 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     def counted(run):
-        """Run ``run()`` with every kernel's launch count set to 0 just
-        before; return its result and the counts just after."""
+        """Run ``run()`` with every kernel's launch counts set to 0 just
+        before; return its result and the counts just after: each
+        wrapper's launches under its name, those in the wide-row x mode
+        also under ``<name>_wide``."""
         for w in wrappers.values():
-            w.launches = 0
+            w.launches = w.wide_launches = 0
         out = run()
         torch.cuda.synchronize()
-        return out, {name: w.launches for name, w in wrappers.items()}
+        counts = {name: w.launches for name, w in wrappers.items()}
+        counts.update({f"{name}_wide": w.wide_launches
+                       for name, w in wrappers.items()})
+        return out, counts
 
     def only(counts: dict, name: str, want: int, what: str) -> None:
         if counts[name] != want or want == 0:
             raise AssertionError(f"{what}: {counts[name]} {name} launches, "
                                  f"expected {want}")
-        stray = {k: n for k, n in counts.items() if k != name and n}
+        stray = {k: n for k, n in counts.items()
+                 if k not in (name, f"{name}_wide") and n}
         if stray:
             raise AssertionError(f"{what}: other kernels launched {stray}")
 
@@ -637,6 +1110,69 @@ def main() -> int:
                     raise AssertionError(f"{kind} at depth {depth} disagrees "
                                          f"with its plain version")
     del x_chk
+
+    # wide rows: every kernel, fused and raw, in the wide-row x mode and,
+    # where a 32-sample x tile fits, staged, at depth 8 with integer
+    # leaves; then the shallower depths with -0.0 leaves, wide mode
+    wide_err = {f"{k}_{v}_wide": 0.0 for k in KINDS for v in ("fused", "raw")}
+
+    def hold_wide(kind, f, x, fused, staged, depth, what):
+        try:
+            args, tiles = prepare_inputs(kind, f, x, fused=fused,
+                                         staged=staged)
+        except ValueError:
+            log(f"[kernels] {kind} {'fused' if fused else 'raw'} {what}, "
+                f"staged: does not fit one block")
+            return
+        wrapper = (KERNEL_WRAPPERS if fused else RAW_KERNEL_WRAPPERS)[kind]
+        got = wrapper(*args, **tiles)
+        torch.cuda.synchronize()
+        want = (plain if fused else raw_plain)[kind](*args, depth=depth)
+        ok = torch.equal(bits(got), bits(want))
+        err = float((got - want).abs().max())
+        variant = "fused" if fused else "raw"
+        if staged:
+            (max_err if fused else raw_err)[kind] = max(
+                (max_err if fused else raw_err)[kind], err)
+        else:
+            wide_err[f"{kind}_{variant}_wide"] = max(
+                wide_err[f"{kind}_{variant}_wide"], err)
+        log(f"[kernels] {kind} {variant} {what}, "
+            f"{'staged' if staged else 'wide-row'} x, tiles {tiles}: "
+            f"max_abs_err={err!r} bit for bit: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kind} {variant} {what} disagrees with "
+                                 f"its plain version")
+
+    for F in WIDE_CHECK_F:
+        x_wide = card_rows(CHECK_ROWS, F, seed=SEED + 4, missing=0.05,
+                           nan_every=16)
+        fe, th, dl, lv = make_forest_arrays(
+            np.random.default_rng(SEED + 5), integer_leaves=True,
+            features=F)
+        f = make_forest(fe, th, lv, default_left=dl, n_features=F,
+                        device="cuda")
+        for kind in KINDS:
+            for fused in (True, False):
+                for staged in (False, True):
+                    hold_wide(kind, f, x_wide, fused, staged, DEPTH,
+                              f"F={F}, depth {DEPTH}, {TREES} trees, "
+                              f"integer leaves, {CHECK_ROWS} rows")
+        if F != WIDE_CHECK_F[0]:
+            for depth in sorted(set().union(*SHALLOW.values())):
+                fe, th, dl, lv = make_forest_arrays(
+                    np.random.default_rng(SEED + 10 + depth),
+                    integer_leaves=True, trees=37, depth=depth, features=F)
+                lv[:, ::3] = -0.0
+                f = make_forest(fe, th, lv, default_left=dl, n_features=F,
+                                device="cuda")
+                for kind in (k for k in KINDS if depth in SHALLOW[k]):
+                    for fused in (True, False):
+                        for staged in (False, True):
+                            hold_wide(kind, f, x_wide, fused, staged, depth,
+                                      f"F={F}, depth {depth}, 37 trees, "
+                                      f"-0.0 leaves, {CHECK_ROWS} rows")
+        del x_wide
 
     # -- 4. main path ---------------------------------------------------------
     fe, th, dl, lv = make_forest_arrays(np.random.default_rng(SEED + 2),
@@ -782,14 +1318,14 @@ def main() -> int:
                 f"rows = {err!r}")
             results.append(r)
             for k, v in c.items():
-                counts[k] += v
+                counts[k] = counts.get(k, 0) + v
         return results, counts
 
     totals = {k: 0 for k in wrappers}
 
     def tally(counts: dict) -> None:
         for k, n in counts.items():
-            totals[k] += n
+            totals[k] = totals.get(k, 0) + n
 
     res, counts = rel_run("higgs", "rel+reuse", "predicated_pallas", runs=2)
     tally(counts)
@@ -906,6 +1442,32 @@ def main() -> int:
             counted=counted, only=only, smi=smi, fused_ms=fused_ms,
             rel_device_s=rel_device_s).items():
         next(e for e in record if e["name"] == name_)["launches"] += n
+
+    # -- 9. wide rows and the sparse plane ----------------------------------
+    counts9: dict[str, int] = {}
+
+    def tally9(counts: dict) -> None:
+        for k, n in counts.items():
+            counts9[k] = counts9.get(k, 0) + n
+
+    wide = sparse_phase(counted=counted, only=only, smi=smi, tally=tally9)
+    for entry in record:
+        name_ = entry["name"]
+        entry["launches"] += counts9[name_] - counts9[f"{name_}_wide"]
+    for kind in KINDS:
+        for variant, replaces in (("fused", REPLACES), ("raw", RAW_REPLACES)):
+            name_ = f"{kind}_{variant}_wide"
+            if not counts9[name_]:
+                raise AssertionError(f"{name_}: no launch on phase 9's path")
+            w = wide[name_]
+            record.append(dict(
+                name=name_, route="cuda", source=SOURCES[kind],
+                replaces=replaces[kind], launches=counts9[name_],
+                max_abs_err=max(wide_err[name_], w["max_abs_err"]),
+                ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+                bound_by=w["bound_by"], library_ms=None))
+
+    log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")
 
     print(json.dumps({"kernels": record}), flush=True)
     print(smi, flush=True)

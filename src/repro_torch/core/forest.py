@@ -35,6 +35,8 @@ __all__ = [
     "qs_bitvectors",
     "pad_trees",
     "tree_slice",
+    "used_feature_counts",
+    "compact_forest",
 ]
 
 ARRAY_FIELDS = ("feature", "threshold", "default_left", "leaf_value",
@@ -329,3 +331,56 @@ def tree_slice(forest: Forest, start: int, size: int) -> Forest:
     return dataclasses.replace(
         forest, **{k: v[start:start + size]
                    for k, v in forest.arrays().items()})
+
+
+# ---------------------------------------------------------------------------
+# Used-feature compaction (the sparse plane's model half), reference
+# ``repro/core/forest.py:used_feature_counts`` / ``compact_forest``:
+#
+#     predict(forest, x)  ==  predict(compact, x[:, gather_idx])
+#
+# for every backend, because node n reads x_compact[inv[f_n]] =
+# x[gather_idx[inv[f_n]]] = x[f_n].  Invariants: gather_idx is sorted and
+# duplicate-free over its first F_used slots, and its padding slots repeat
+# gather_idx[0] and are never read by a remapped split; pass-through nodes
+# (threshold +inf) are not "used" and keep whatever slot their ignored
+# feature maps to.
+
+
+def used_feature_counts(forest: Forest) -> np.ndarray:
+    """[T] int64: the DISTINCT features each tree really tests (pass-
+    through nodes, threshold +inf, do not count)."""
+    feat = forest.feature.long()
+    real = torch.isfinite(forest.threshold)
+    keyed = torch.where(real, feat, torch.full_like(feat, -1))
+    ordered = torch.sort(keyed, dim=1).values
+    new = torch.ones_like(ordered, dtype=torch.bool)
+    new[:, 1:] = ordered[:, 1:] != ordered[:, :-1]
+    return ((new & (ordered >= 0)).sum(dim=1)).cpu().numpy().astype(np.int64)
+
+
+def compact_forest(forest: Forest, *, pad_to: int = 8
+                   ) -> tuple[Forest, torch.Tensor]:
+    """Remap split features into the forest's used-feature union.
+
+    Returns (compact forest with n_features = F_used padded to a multiple
+    of ``pad_to``, gather_idx [F_used padded] int32 on the forest's
+    device).  Padding slots repeat gather_idx[0], so the table stays valid
+    for a plain column gather; no remapped split points at them.
+    Thresholds, leaves and tree order are kept, so predictions are the
+    forest's bit for bit."""
+    feat = forest.feature.long()
+    used = torch.unique(feat[torch.isfinite(forest.threshold)])  # sorted
+    if used.numel() == 0:
+        used = torch.zeros(1, dtype=torch.int64, device=feat.device)
+    f_used = used.numel()
+    pad = (-f_used) % max(pad_to, 1)
+    gather_idx = torch.cat([used, used[:1].expand(pad)]).to(torch.int32)
+    inv = torch.zeros(forest.n_features, dtype=torch.int64,
+                      device=feat.device)
+    inv[used] = torch.arange(f_used, device=feat.device)
+    # pass-through nodes keep whatever slot their (ignored) feature maps to
+    remapped = inv[feat.clamp(0, forest.n_features - 1)]
+    compact = dataclasses.replace(forest, feature=remapped.to(torch.int32),
+                                  n_features=int(gather_idx.numel()))
+    return compact, gather_idx

@@ -1,9 +1,11 @@
 """Streaming scan executor: the one batch loop of every plan and tier (torch).
 
-Mirrors ``repro/db/executor.py`` for dense pages.  A source is a
-``ScanSource``: ``page_slice`` (a page range in its own tier) and
-``to_device`` (staging onto the device), so the loop never asks where
-pages live.  Each batch is a contiguous page range (``batch_plan``,
+Mirrors ``repro/db/executor.py``.  A source is a ``ScanSource``:
+``page_slice`` (a page range in its own tier), ``empty_block`` /
+``first_pages`` (its page buffers) and ``to_device`` (staging onto the
+device), so the loop never asks where pages live, nor how a block is laid
+out: one [rows, F] array for a dense table, three page arrays (``CSRPages``)
+for a sparse one.  Each batch is a contiguous page range (``batch_plan``,
 deterministic: batch k always covers the same pages), run through the
 compiled plan's stages; its predictions land at the batch's own slot of a
 preallocated result buffer -- no concatenate.
@@ -12,8 +14,11 @@ Device tier: the page range is a view, the result buffer lives on the
 card, and nothing is copied (``bytes_streamed == 0``).
 
 Host and disk tiers stream through at most ``MAX_IN_FLIGHT = 2`` device
-page buffers, preallocated per scan.  With ``prefetch_depth=2`` on a CUDA
-store:
+page buffers, preallocated per scan (a buffer holds one device array per
+block array: three for CSR pages, and the disk tier as many pinned staging
+arrays; every copy of a batch is ordered by its one copy event, and
+``bytes_streamed`` counts all of them).  With ``prefetch_depth=2`` on a
+CUDA store:
 
     batch i+1   its pages go H2D on a dedicated copy stream,
                 ``non_blocking`` from pinned memory, and record a copy
@@ -97,9 +102,6 @@ class ScanSource(Protocol):
     def num_features(self) -> int: ...
 
     @property
-    def dtype(self) -> torch.dtype: ...
-
-    @property
     def pageable(self) -> bool:
         """Pages a copy to the card cannot read asynchronously: the scan
         stages them through pinned buffers."""
@@ -109,8 +111,17 @@ class ScanSource(Protocol):
         """Contiguous page range in the source's OWN tier, a view."""
         ...
 
-    def to_device(self, block: Any, out: torch.Tensor,
-                  staging: torch.Tensor | None = None) -> torch.Tensor:
+    def empty_block(self, num_pages: int, *, device=None,
+                    pin_memory: bool = False) -> Any:
+        """An uninitialised block of ``num_pages`` pages on ``device``, or
+        in (pinned) host memory: the scan's page and staging buffers."""
+        ...
+
+    def first_pages(self, block: Any, num_pages: int) -> Any:
+        """The first ``num_pages`` pages of a block, a view."""
+        ...
+
+    def to_device(self, block: Any, out: Any, staging: Any = None) -> Any:
         """Stage an off-device block into the device buffer ``out`` on the
         current stream (through the pinned ``staging`` for pageable
         pages)."""
@@ -257,13 +268,11 @@ class _StreamedScan:
         self.cuda = dev.type == "cuda"
         # a one-batch scan needs one buffer, whatever the depth
         self.depth = min(executor.prefetch_depth, len(plan))
-        shape = (batch_pages * self.R, source.num_features)
-        self.bufs = [torch.empty(shape, dtype=source.dtype, device=dev)
+        self.bufs = [source.empty_block(batch_pages, device=dev)
                      for _ in range(self.depth)]
         self.staging = None
         if self.cuda and source.pageable:
-            self.staging = [torch.empty(shape, dtype=source.dtype,
-                                        pin_memory=True)
+            self.staging = [source.empty_block(batch_pages, pin_memory=True)
                             for _ in range(self.depth)]
         self.result: torch.Tensor | None = None
         self.live = 0
@@ -304,19 +313,19 @@ class _StreamedScan:
         """Pages [first, first + n) into page buffer k: the read and the
         copy, issued on the copy stream on the card."""
         t0 = time.perf_counter()
-        rows = n * self.R
-        block = self.source.page_slice(first, n)
-        out = self.bufs[k][:rows]
+        source = self.source
+        block = source.page_slice(first, n)
+        out = source.first_pages(self.bufs[k], n)
         if not self.cuda:
-            self.source.to_device(block, out)
+            source.to_device(block, out)
         else:
             staging = None
             if self.staging is not None:
                 self.copied[k].synchronize()   # its last H2D has finished
-                staging = self.staging[k][:rows]
+                staging = source.first_pages(self.staging[k], n)
             self.copy_stream.wait_event(self.released[k])
             with torch.cuda.stream(self.copy_stream):
-                self.source.to_device(block, out, staging)
+                source.to_device(block, out, staging)
                 self.copied[k].record(self.copy_stream)
         self.stats.transfer_issue_s += time.perf_counter() - t0
         self.stats.bytes_streamed += out.nbytes
@@ -401,8 +410,8 @@ class _StreamedScan:
         if self.cuda:
             self.compute_stream.wait_event(self.copied[k])
         t0 = time.perf_counter()
-        state, reps = run_stages(self.stages,
-                                 {"x": self.bufs[k][: n * self.R]})
+        state, reps = run_stages(
+            self.stages, {"x": self.source.first_pages(self.bufs[k], n)})
         self.stats.compute_s += time.perf_counter() - t0
         reports.extend(reps)
         self.stats.batches += 1

@@ -20,6 +20,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch.db.sparse import CSRPages
+
 __all__ = ["Operator", "Stage", "StageReport", "split_into_stages",
            "run_stages"]
 
@@ -43,8 +45,15 @@ class StageReport:
 
 
 def _tensors(state) -> list[torch.Tensor]:
+    """The state's tensors, a CSR page block's three arrays included."""
     values = state.values() if isinstance(state, dict) else (state,)
-    return [v for v in values if isinstance(v, torch.Tensor)]
+    out = []
+    for v in values:
+        if isinstance(v, CSRPages):
+            out.extend(t for t in v.arrays() if isinstance(t, torch.Tensor))
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
 
 
 def _cuda_device(state) -> torch.device | None:

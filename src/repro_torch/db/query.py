@@ -40,9 +40,20 @@ batches (by default half the store's ``device_budget_bytes`` each, or
 ``DEFAULT_STREAM_BATCH_BYTES`` with no budget) and returns its predictions
 in host memory.
 
+The sparse plane: over a CSR dataset (``store.put_sparse``) every plan
+runs the same kernels on a compact tile.  At plan build (udf) or in the
+model-partition stage (rel plans) ``_sparse_prepass`` compacts the forest
+onto its used features and builds the gather's inverse map, once; each
+batch's page block then goes through the ``gather:csr-compact`` operator
+(``kernels/gather.py``), which is not a breaker: it shares the udf stage
+or the rel plan's cross-product stage.  Compaction keeps thresholds,
+leaves and tree order, so CSR predictions equal the dense plane's bit for
+bit.  The storage format is part of every plan and model key, and a CSR
+batch signature also pins the page capacity.  ``infer_rows`` scores dense
+rows only, as in the reference.
+
 Not ported yet, and refused with ``NotImplementedError``: ``plan="auto"``
-(ROADMAP queue 1, item 10); CSR datasets (item 7) and meshes (item 12)
-have no entry point yet.
+(ROADMAP queue 1, item 10); meshes (item 12) have no entry point yet.
 """
 
 from __future__ import annotations
@@ -58,7 +69,8 @@ import torch
 
 from repro_torch.core import algorithms as algs
 from repro_torch.core import postprocess as post
-from repro_torch.core.forest import Forest, pad_trees, tree_slice
+from repro_torch.core.forest import (Forest, compact_forest, pad_trees,
+                                     tree_slice)
 from repro_torch.core.reuse import (MaterializedModel, ModelReuseCache,
                                     fingerprint_forest, mesh_signature)
 from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
@@ -66,6 +78,7 @@ from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
 from repro_torch.db.operators import (Operator, StageReport, run_stages,
                                       split_into_stages)
 from repro_torch.db.store import TensorBlockStore
+from repro_torch.kernels.gather import csr_block_to_dense, gather_inverse_map
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
                                      KERNEL_ALGORITHMS, default_tree_block,
                                      packed_nodes, share_packed_nodes)
@@ -199,26 +212,59 @@ class ForestQueryEngine:
         stay.  Returns entries dropped."""
         return self.plan_cache.invalidate(dataset, key_index=2)
 
+    # -- sparse prepass (the sparse plane's plan-build half) ----------------
+    def _sparse_prepass(self, forest: Forest):
+        """(compact forest, inverse map, f_used) for a forest on the
+        store's device: the forest remapped onto its used-feature union and
+        the gather's column -> slot table, built once per plan build
+        (cached with the plan or the materialized model)."""
+        cf, gather_idx = compact_forest(forest)
+        inv_map = gather_inverse_map(gather_idx, forest.n_features,
+                                     device=self.store.device)
+        return cf, inv_map, int(gather_idx.numel())
+
+    @staticmethod
+    def _gather_operator(inv_map: torch.Tensor, f_used: int) -> Operator:
+        """SCAN-side feature gather: CSR page block -> dense compact tile.
+        Not a breaker: it runs in the stage of the kernel it feeds."""
+
+        def gather(state):
+            state = dict(state)
+            state["x"] = csr_block_to_dense(state["x"], inv_map, f_used)
+            return state
+
+        return Operator("gather:csr-compact", gather)
+
     # -- model partition stage (the reusable one) ---------------------------
-    def _partition_model(self, forest: Forest,
-                         num_parts: int) -> MaterializedModel:
+    def _partition_model(self, forest: Forest, num_parts: int, *,
+                         storage_format: str = "dense"
+                         ) -> MaterializedModel:
         """The forest on the store's device, its tree axis padded to a
         multiple of ``num_parts``, and (``aux["nodes"]``) its node records
         as the kernels read them, built here once so that no partition
-        launch builds any.  The kernels' structure tensors come from
-        ``kernels.ops``'s per-(depth, device) cache, and the eager oracles
-        build their own."""
+        launch builds any.  Over CSR pages the forest is first compacted
+        (``_sparse_prepass``), and ``aux["inv_map"]`` / ``aux["f_used"]``
+        feed the gather operator.  The kernels' structure tensors come
+        from ``kernels.ops``'s per-(depth, device) cache, and the eager
+        oracles build their own."""
         dev = self.store.device
-        forest_p, true_T = pad_trees(forest.to(dev), num_parts)
-        aux = {"nodes": packed_nodes(forest_p)}
+        aux: dict[str, Any] = {}
+        forest = forest.to(dev)
+        if storage_format == "csr":
+            forest, aux["inv_map"], aux["f_used"] = \
+                self._sparse_prepass(forest)
+        forest_p, true_T = pad_trees(forest, num_parts)
+        aux["nodes"] = packed_nodes(forest_p)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return MaterializedModel(forest=forest_p, true_num_trees=true_T,
                                  aux=aux)
 
     # -- plan bodies ----------------------------------------------------------
-    @staticmethod
-    def _udf_ops(forest: Forest, algorithm: str, true_T: int):
+    def _udf_ops(self, forest: Forest, algorithm: str, true_T: int,
+                 sparse_aux: tuple | None = None):
+        """The UDF-centric plan body; ``sparse_aux`` = (inv_map, f_used)
+        over CSR pages."""
         predict_sum, _ = _predict_sum_fn(algorithm)
         meta = dict(model_type=forest.model_type, task=forest.task,
                     num_trees=true_T, base_score=forest.base_score)
@@ -229,14 +275,16 @@ class ForestQueryEngine:
                 predict_sum(forest, state["x"]), **meta)
             return state
 
-        return [
-            Operator("scan", lambda s: s),
+        ops = [Operator("scan", lambda s: s)]
+        if sparse_aux is not None:
+            ops.append(self._gather_operator(*sparse_aux))
+        return ops + [
             Operator("transform:forest-udf", udf),
             Operator("write", lambda s: s, breaker=True),
         ]
 
-    @staticmethod
-    def _rel_ops(mat: MaterializedModel, algorithm: str, n_parts: int):
+    def _rel_ops(self, mat: MaterializedModel, algorithm: str,
+                 n_parts: int):
         """The relation-centric plan body over a partitioned model."""
         predict_sum, _ = _predict_sum_fn(algorithm)
         forest = mat.forest
@@ -276,8 +324,13 @@ class ForestQueryEngine:
             state["pred"] = post.postprocess(state.pop("summed"), **meta)
             return state
 
-        return [
-            Operator("scan", lambda s: s),
+        ops = [Operator("scan", lambda s: s)]
+        if "inv_map" in mat.aux:
+            # the gather shares the cross-product stage: the compact tile
+            # is its input, not a new materialization boundary
+            ops.append(self._gather_operator(mat.aux["inv_map"],
+                                             mat.aux["f_used"]))
+        return ops + [
             Operator("cross-product:partial-agg", cross_product,
                      breaker=True),
             Operator("aggregate", aggregate, breaker=True),
@@ -300,17 +353,26 @@ class ForestQueryEngine:
         return max(1, -(-forest.num_trees // bt))
 
     def _partitioned(self, forest: Forest, mid: str, algorithm: str,
-                     n_parts: int) -> tuple[MaterializedModel, bool]:
-        """The cached partitioned model and whether it was a hit."""
+                     n_parts: int, fmt: str
+                     ) -> tuple[MaterializedModel, bool]:
+        """The cached partitioned model and whether it was a hit; a CSR
+        materialization (the compacted forest) is its own entry."""
         before = self.cache.stats.hits
         mat = self.cache.get_or_build(
-            (mid, algorithm, n_parts, self.mesh_id, "dense"),
-            lambda: self._partition_model(forest, n_parts))
+            (mid, algorithm, n_parts, self.mesh_id, fmt),
+            lambda: self._partition_model(forest, n_parts,
+                                          storage_format=fmt))
         return mat, self.cache.stats.hits > before
 
-    def _udf_plan(self, forest: Forest, algorithm: str) -> CompiledQueryPlan:
-        fp, true_T = pad_trees(forest.to(self.store.device), 1)
-        stages = split_into_stages(self._udf_ops(fp, algorithm, true_T))
+    def _udf_plan(self, forest: Forest, algorithm: str,
+                  fmt: str = "dense") -> CompiledQueryPlan:
+        forest, sparse_aux = forest.to(self.store.device), None
+        if fmt == "csr":
+            forest, inv_map, f_used = self._sparse_prepass(forest)
+            sparse_aux = (inv_map, f_used)
+        fp, true_T = pad_trees(forest, 1)
+        stages = split_into_stages(self._udf_ops(fp, algorithm, true_T,
+                                                 sparse_aux))
         return CompiledQueryPlan(stages=stages, num_stages=len(stages))
 
     def _rel_plan(self, mat: MaterializedModel, algorithm: str,
@@ -342,7 +404,19 @@ class ForestQueryEngine:
         batch i-1's drain with batch i's stages; 1 is the synchronous
         reference.  ``n_parts`` overrides the rel plans' tree-partition
         count.  ``write_as`` registers the predictions as a new dataset
-        where they landed (the WRITE operator's sink)."""
+        where they landed (the WRITE operator's sink).
+
+        A CSR dataset runs the sparse plane (module note), and its result
+        says ``storage_format == "csr"``.  Its default batch is the same
+        (all pages on the device tier); a compact tile of ``batch_rows x
+        F_used`` floats can exceed the card, so wide sparse tables pass
+        ``batch_pages`` (choosing it is the optimizer's, ROADMAP queue 1
+        item 10).
+
+        A kept divergence (ROADMAP section 3, item 3): the predictions of a
+        host- or disk-tier scan are the scan's pinned host buffer, where
+        the reference always returns a device array
+        (``repro/db/query.py:974``)."""
         if plan == "auto" or algorithm == "auto":
             raise NotImplementedError(_AUTO_REFUSED)
         if plan not in ("udf", "rel", "rel+reuse"):
@@ -357,9 +431,13 @@ class ForestQueryEngine:
                 target = budget // 2 if budget else DEFAULT_STREAM_BATCH_BYTES
                 fit = target // max(ds.page_nbytes, 1)
                 batch_pages = min(ds.num_pages, max(1, fit))
-        batch_sig = (ds.num_features, ds.num_pages, ds.page_rows,
-                     batch_pages)
         fmt = ds.storage_format
+        if fmt == "csr":
+            batch_sig = (ds.num_features, ds.pages.capacity, ds.num_pages,
+                         ds.page_rows, batch_pages)
+        else:
+            batch_sig = (ds.num_features, ds.num_pages, ds.page_rows,
+                         batch_pages)
         partition_s = 0.0
         model_hit = plan_hit = False
         prefix: list[StageReport] = []
@@ -368,7 +446,8 @@ class ForestQueryEngine:
             mid = self._model_key(forest, model_id)
             qplan, plan_hit = self._cached_plan(
                 ("udf-plan", mid, dataset, algorithm, fmt, batch_sig,
-                 self.mesh_id), lambda: self._udf_plan(forest, algorithm))
+                 self.mesh_id),
+                lambda: self._udf_plan(forest, algorithm, fmt))
             n_parts = 1
         else:
             n_parts = self._resolve_n_parts(forest, algorithm, n_parts)
@@ -376,9 +455,10 @@ class ForestQueryEngine:
             if plan == "rel+reuse":
                 mid = self._model_key(forest, model_id)
                 mat, model_hit = self._partitioned(forest, mid, algorithm,
-                                                   n_parts)
+                                                   n_parts, fmt)
             else:
-                mat = self._partition_model(forest, n_parts)
+                mat = self._partition_model(forest, n_parts,
+                                            storage_format=fmt)
             partition_s = time.perf_counter() - t0
             prefix = [StageReport(
                 name="stageP:model-partition",
@@ -457,18 +537,19 @@ class ForestQueryEngine:
                 raise ValueError(f"row_mask shape {mask.shape} != ({B},)")
         mid = self._model_key(forest, model_id)
         batch_sig = (B, F)
+        fmt = "dense"                  # row batches are dense rows
 
         if plan == "udf":
             qplan, plan_hit = self._cached_plan(
-                ("udf-row-plan", mid, ROW_PLAN_DATASET, algorithm, "dense",
+                ("udf-row-plan", mid, ROW_PLAN_DATASET, algorithm, fmt,
                  batch_sig, self.mesh_id),
-                lambda: self._udf_plan(forest, algorithm))
+                lambda: self._udf_plan(forest, algorithm, fmt))
         else:
             n_parts = self._resolve_n_parts(forest, algorithm, n_parts)
-            mat, _ = self._partitioned(forest, mid, algorithm, n_parts)
+            mat, _ = self._partitioned(forest, mid, algorithm, n_parts, fmt)
             qplan, plan_hit = self._cached_plan(
                 ("rel-row-plan", mid, ROW_PLAN_DATASET, algorithm, n_parts,
-                 "dense", batch_sig, self.mesh_id, id(mat)),
+                 fmt, batch_sig, self.mesh_id, id(mat)),
                 lambda: self._rel_plan(mat, algorithm, n_parts))
         state, _ = run_stages(qplan.stages, {"x": x})
         preds = state["pred"]

@@ -7,6 +7,12 @@ the tail is padded to whole pages with NaN rows, which the scan scores
 and then cuts off.  Pages are the batching unit (paper F3): a batch is a
 contiguous page range, and batch k always covers the same rows.
 
+A sparse dataset (``put_sparse``, ``SparseStoredDataset``) holds CSR
+pages instead (``db/sparse.py``): three page arrays -- ``indptr``,
+``indices``, ``values`` -- with the same page <-> batch determinism, on
+the same tiers, where a rung holds three arrays (three pinned tensors,
+three spill files).
+
 Every dataset lives on one rung of the TIER LADDER:
 
   ``device``  a tensor on the store's device, consumed by the kernels
@@ -30,9 +36,9 @@ wrote.  Each dataset is a ``ScanSource`` for the streaming executor
 (``page_slice`` in its own tier, ``to_device`` staging), so no caller
 branches on where pages live.
 
-Not ported yet: CSR pages and ``put_sparse`` (ROADMAP queue 1, item 7),
-labels for training (item 11), the optimizer's decision catalog (item
-10), the ``disk_page_read`` fault site and the store's spans (item 8).
+Not ported yet: labels for training (ROADMAP queue 1, item 11), the
+optimizer's decision catalog (item 10), the ``disk_page_read`` fault site
+and the store's spans (item 8).
 """
 
 from __future__ import annotations
@@ -50,9 +56,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.db.sparse import CSRPages, csr_from_dense, paginate_csr
 
-__all__ = ["StoredDataset", "TensorBlockStore", "DenseStreamWriter",
-           "mmap_array", "TIERS"]
+__all__ = ["StoredDataset", "SparseStoredDataset", "TensorBlockStore",
+           "DenseStreamWriter", "mmap_array", "TIERS"]
 
 #: the tier ladder, fastest first; the ``auto`` cascade walks it top-down
 TIERS = ("device", "host", "disk")
@@ -144,6 +151,21 @@ class StoredDataset:
         lo = first_page * self.page_rows
         return self.data[lo: lo + num_pages * self.page_rows]
 
+    def empty_block(self, num_pages: int, *, device=None,
+                    pin_memory: bool = False) -> torch.Tensor:
+        """An uninitialised block of ``num_pages`` pages: a scan's page
+        buffer on ``device``, or its pinned staging buffer."""
+        shape = (num_pages * self.page_rows, self.num_features)
+        if device is None:
+            return torch.empty(shape, dtype=self.dtype,
+                               pin_memory=pin_memory)
+        return torch.empty(shape, dtype=self.dtype, device=device)
+
+    def first_pages(self, block: torch.Tensor,
+                    num_pages: int) -> torch.Tensor:
+        """The first ``num_pages`` pages of a block, a view."""
+        return block[: num_pages * self.page_rows]
+
     def to_device(self, block, out: torch.Tensor,
                   staging: torch.Tensor | None = None) -> torch.Tensor:
         """ScanSource staging on the current stream: ``block`` is copied
@@ -155,6 +177,90 @@ class StoredDataset:
         if staging is not None:
             src = staging.copy_(src)
         return out.copy_(src, non_blocking=True)
+
+
+@dataclasses.dataclass
+class SparseStoredDataset:
+    """A CSR-paged dataset: the sparse plane's ``StoredDataset``.
+
+    The same page <-> batch determinism (a batch is a contiguous page
+    range, every page block has one shape); pages past ``num_rows`` are
+    EMPTY rows (every feature missing), the dense store's NaN rows.  A
+    ``ScanSource`` on every tier: its blocks are ``CSRPages`` of three
+    arrays, and ``to_device`` stages all three."""
+
+    name: str
+    pages: CSRPages
+    num_rows: int                 # true N (pre-padding)
+    device: torch.device = torch.device("cpu")   # the store's device
+    task: str = "classification"
+    created_at: float = dataclasses.field(default_factory=time.time)
+    storage_format: str = "csr"
+    tier: str = "device"
+
+    @property
+    def num_features(self) -> int:
+        return self.pages.n_features
+
+    @property
+    def page_rows(self) -> int:
+        return self.pages.page_rows
+
+    @property
+    def num_pages(self) -> int:
+        return self.pages.num_pages
+
+    @property
+    def nbytes(self) -> int:
+        return self.pages.nbytes
+
+    @property
+    def page_nbytes(self) -> int:
+        """Bytes of ONE page (all three arrays): the streaming unit."""
+        return self.nbytes // max(self.num_pages, 1)
+
+    @property
+    def pageable(self) -> bool:
+        return self.tier == "disk"
+
+    @property
+    def nnz(self) -> int:
+        """Stored entries, capacity padding excluded."""
+        return int(self.pages.tensors()[0][:, -1].sum())
+
+    def page_slice(self, first_page: int, num_pages: int) -> CSRPages:
+        """A contiguous page range, a view in the dataset's own tier."""
+        return self.pages.page_slice(first_page, num_pages)
+
+    def empty_block(self, num_pages: int, *, device=None,
+                    pin_memory: bool = False) -> CSRPages:
+        """Uninitialised page arrays for ``num_pages`` pages: a scan's
+        page buffers on ``device``, or its pinned staging buffers."""
+        R, C = self.page_rows, self.pages.capacity
+        specs = (((num_pages, R + 1), torch.int32),
+                 ((num_pages, C), torch.int32),
+                 ((num_pages, C), torch.float32))
+        if device is None:
+            arrays = tuple(torch.empty(shape, dtype=dt, pin_memory=pin_memory)
+                           for shape, dt in specs)
+            return self.pages.replace(arrays, tier="host")
+        arrays = tuple(torch.empty(shape, dtype=dt, device=device)
+                       for shape, dt in specs)
+        return self.pages.replace(arrays, tier="device")
+
+    def first_pages(self, block: CSRPages, num_pages: int) -> CSRPages:
+        return block.page_slice(0, num_pages)
+
+    def to_device(self, block: CSRPages, out: CSRPages,
+                  staging: CSRPages | None = None) -> CSRPages:
+        """``StoredDataset.to_device`` for each of the three arrays."""
+        srcs = block.tensors()
+        if staging is not None:
+            srcs = [st.copy_(src)
+                    for st, src in zip(staging.tensors(), srcs)]
+        for dst, src in zip(out.tensors(), srcs):
+            dst.copy_(src, non_blocking=True)
+        return out
 
 
 class TensorBlockStore:
@@ -244,11 +350,13 @@ class TensorBlockStore:
             raise RuntimeError("the host tier's pages could not be pinned")
         return out
 
-    def _relocate(self, name: str, tier: str, rows) -> Any:
+    def _relocate(self, name: str, tier: str, rows,
+                  label: str = "rows") -> Any:
         """A copy of ``rows`` (a tensor on any device, or a memmap) in
-        ``tier``'s storage, page layout unchanged."""
+        ``tier``'s storage, page layout unchanged (``label`` names its
+        spill file)."""
         if tier == "disk":
-            return self._disk_array(name, "rows", rows)
+            return self._disk_array(name, label, rows)
         src = _host_rows(rows)
         if tier == "host":
             return self._host_empty(tuple(src.shape), src.dtype).copy_(src)
@@ -307,11 +415,94 @@ class TensorBlockStore:
             raise
         return w.close()
 
+    def _pages_on(self, pages: CSRPages, tier: str) -> bool:
+        """Whether page arrays already sit in ``tier``'s storage of this
+        store (a ``put_sparse(pages=)`` handoff there is zero-copy)."""
+        arrays = pages.arrays()
+        if tier == "disk":
+            return all(isinstance(a, np.memmap) for a in arrays)
+        if any(isinstance(a, np.ndarray) for a in arrays):
+            return False
+        if tier == "device":
+            return all(a.device.type == self.device.type for a in arrays)
+        pinned = self.device.type != "cuda"
+        return all(a.device.type == "cpu" and (pinned or a.is_pinned())
+                   for a in arrays)
+
+    def _relocate_pages(self, name: str, tier: str,
+                        pages: CSRPages) -> CSRPages:
+        """A copy of page arrays in ``tier``'s storage (on the disk tier,
+        three spill files labelled by array)."""
+        labels = ("indptr", "indices", "values")
+        return pages.replace(tuple(
+            self._relocate(name, tier, a, label)
+            for label, a in zip(labels, pages.arrays())), tier=tier)
+
+    def put_sparse(self, name: str, data=None, *, csr=None,
+                   num_rows: int | None = None,
+                   num_features: int | None = None,
+                   pages: CSRPages | None = None,
+                   page_rows: int | None = None,
+                   task: str = "classification", drop_zeros: bool = False,
+                   tier: str = "auto") -> SparseStoredDataset:
+        """Ingest a CSR dataset (the sparse data plane), most compressed
+        entry point first:
+
+          * ``pages``: already paginated ``CSRPages`` (``num_rows``
+            required); a handoff already on the resolved tier is
+            registered as it is, zero-copy;
+          * ``csr``: an (indptr [N+1], indices, values) triple, numpy or
+            tensors (``num_rows`` and ``num_features`` required);
+          * ``data``: dense rows with NaN = missing (numpy, or a tensor on
+            any device), explicit zeros kept unless ``drop_zeros``.
+
+        Rows pad to whole pages as EMPTY rows, as ``put`` pads with NaN
+        rows.  The tier resolves from the pages' bytes (``auto`` cascades
+        as for ``put``); the host tier holds three pinned tensors on a
+        CUDA store, the disk tier three spill files."""
+        page_rows = page_rows or self.default_page_rows
+        self._release_disk(name)       # a re-put's old spill files go away
+        if pages is None:
+            if csr is None:
+                if data is None:
+                    raise ValueError("need one of data=, csr=, pages=")
+                x = torch.as_tensor(data)
+                if x.dim() != 2:
+                    raise ValueError(f"expected [N, F] rows, got "
+                                     f"{tuple(x.shape)}")
+                num_rows, num_features = x.shape
+                csr = csr_from_dense(x, drop_zeros=drop_zeros)
+            if num_rows is None or num_features is None:
+                raise ValueError("num_rows and num_features are required "
+                                 "with csr=")
+            pages = CSRPages(*paginate_csr(
+                *csr, num_rows=int(num_rows), page_rows=page_rows,
+                n_features=int(num_features)), n_features=int(num_features))
+        elif num_rows is None:
+            raise ValueError("num_rows is required with pages=")
+        tier = self._resolve_tier(tier, pages.nbytes)
+        if self._pages_on(pages, tier):
+            pages = pages.replace(pages.arrays(), tier=tier)
+        else:
+            pages = self._relocate_pages(name, tier, pages)
+        ds = SparseStoredDataset(name=name, pages=pages,
+                                 num_rows=int(num_rows), device=self.device,
+                                 task=task, tier=tier)
+        self._datasets[name] = ds
+        return ds
+
     def put_result(self, name: str, result: torch.Tensor,
                    num_rows: int) -> StoredDataset:
         """The WRITE operator's sink: register an output dataset where the
         scan left it -- on the device, or on the host tier (pinned on a
-        CUDA store) for a scan over an off-device table."""
+        CUDA store) for a scan over an off-device table.
+
+        A kept divergence (ROADMAP section 3, item 3): the reference
+        registers every result on the device tier
+        (``repro/db/store.py:583-589``), since its scan always returns a
+        device array (``repro/db/query.py:974``).  Here an off-device
+        scan's result stays in host memory and counts in ``host_nbytes``,
+        so a later ``put(tier="auto")`` may cascade differently."""
         data = result[:, None] if result.dim() == 1 else result
         # by device type: the store's "cuda" carries no index, a result's
         # "cuda:0" does, and the two do not compare equal
@@ -374,8 +565,13 @@ class TensorBlockStore:
             return ds
         paths_before = list(self._disk_paths.get(name, ()))
         try:
-            new = dataclasses.replace(
-                ds, data=self._relocate(name, tier, ds.data), tier=tier)
+            if ds.storage_format == "csr":
+                new = dataclasses.replace(
+                    ds, pages=self._relocate_pages(name, tier, ds.pages),
+                    tier=tier)
+            else:
+                new = dataclasses.replace(
+                    ds, data=self._relocate(name, tier, ds.data), tier=tier)
         except BaseException:
             for path in self._disk_paths.get(name, ()):
                 if path not in paths_before and os.path.exists(path):
@@ -402,11 +598,18 @@ class TensorBlockStore:
         return name in self._datasets
 
     def catalog(self) -> dict[str, dict[str, Any]]:
-        return {n: dict(rows=d.num_rows, features=d.num_features,
-                        pages=d.num_pages, page_rows=d.page_rows,
-                        bytes=d.nbytes, task=d.task,
-                        format=d.storage_format, tier=d.tier)
-                for n, d in self._datasets.items()}
+        """Every dataset's shape, bytes, tier and storage format (and, for
+        CSR, its stored entries ``nnz``)."""
+        out = {}
+        for n, d in self._datasets.items():
+            entry = dict(rows=d.num_rows, features=d.num_features,
+                         pages=d.num_pages, page_rows=d.page_rows,
+                         bytes=d.nbytes, task=d.task,
+                         format=d.storage_format, tier=d.tier)
+            if d.storage_format == "csr":
+                entry["nnz"] = d.nnz
+            out[n] = entry
+        return out
 
     @staticmethod
     def _weak(fn: Callable) -> weakref.ref:

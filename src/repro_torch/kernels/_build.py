@@ -38,8 +38,9 @@ _LL = ctypes.c_longlong
 def _entry_points(kind: str, n_pointers: int):
     """The fused and raw C entry points of one kernel: ``n_pointers``
     tensor pointers (inputs, then out), B, then F, T, depth, block_b,
-    block_t, and the stream."""
-    argtypes = [_P] * n_pointers + [_LL] + [_I] * 5 + [_P]
+    block_t, x_staged (nonzero: stage x in shared memory), and the
+    stream."""
+    argtypes = [_P] * n_pointers + [_LL] + [_I] * 6 + [_P]
     return [(f"forest_{kind}_{variant}", argtypes)
             for variant in ("fused", "raw")]
 

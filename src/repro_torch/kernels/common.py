@@ -20,7 +20,7 @@ threads, one sample a thread (QuickScorer: ``QS_ROWS_PER_THREAD`` samples
 a thread, BB apart, so its tile holds rows = 4 * BB samples; the others
 rows = BB), and a shared-memory working set of
 
-    x tile     4 * F * rows
+    x tile     4 * F * rows                  staged mode only (below)
     tree tiles buffers * BT * 12 * L      node records and leaves; two
                                           buffers when a launch walks more
                                           than one tile (double buffering)
@@ -42,6 +42,17 @@ the HIGGS shape (depth 8, 28 features) a one-tile launch -- a rel partition
 -- takes 16 trees; a launch over many trees walks 8-tree tiles, two
 buffers of them.  QuickScorer's 4 rows a thread shrink its block to 128
 threads (512 samples) there, and its 16-tree launches walk 4-tree tiles.
+
+Two x modes (``x_staged``, the one place that decides).  STAGED: the
+block's whole x tile sits in shared memory, feature-major, as above.  Up
+to ``X_STAGED_MAX_F`` features it is the faster mode (conflict-free
+shared loads of a short row).  Past it (predicated), or where even a
+32-sample tile does not fit (every kernel), they run the WIDE-ROW mode: x
+is not staged, each thread reads its row from global memory through the
+read-only path, and the tile is sized from the trees alone, as at a
+narrow F: wide rows no longer shrink the block to one warp and one tree
+(a 1600-tree rel plan of the predicated kernel at Bosch's 968 features
+would otherwise take 1600 one-tree launches), and no width is refused.
 """
 
 from __future__ import annotations
@@ -54,8 +65,9 @@ from repro_torch.kernels import _build
 __all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
            "block_heuristics", "tile_smem_bytes", "tree_buffers",
            "smem_budget", "launch_forest_kernel", "rows_per_thread",
-           "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH",
-           "QS_ROWS_PER_THREAD"]
+           "x_staged", "resolve_staged", "count_launch", "SMEM_BLOCK_MAX",
+           "SMEM_BUDGET", "MAX_KERNEL_DEPTH", "QS_ROWS_PER_THREAD",
+           "X_STAGED_MAX_F"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
@@ -70,6 +82,16 @@ MAX_BLOCK_B = 256
 MAX_BLOCK_T = 64
 #: samples a QuickScorer thread scores (csrc/forest_quickscorer.cu: kRows)
 QS_ROWS_PER_THREAD = 4
+#: widest F at which each (kernel, fused) stages x in shared memory, wider
+#: rows running the wide-row mode; None: wherever a 32-sample staged tile
+#: fits one block.  Each limit is the widest width at which chip_smoke.py
+#: phase 9 timed the staged mode faster, at depth 8 on an H100 (PERF.md
+#: section 6): predicated fused is staged-faster at 768 features and wide-
+#: faster at 968, predicated raw at 400 and 512; HummingBird and
+#: QuickScorer stay faster staged for as long as a tile fits
+X_STAGED_MAX_F = {("predicated", True): 768, ("predicated", False): 400,
+                  ("hummingbird", True): None, ("hummingbird", False): None,
+                  ("quickscorer", True): None, ("quickscorer", False): None}
 
 
 def dense_predicates(x: torch.Tensor, feature: torch.Tensor,
@@ -138,23 +160,38 @@ def tree_buffers(T: int, block_t: int) -> int:
 
 
 def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
-                    depth: int, *, fused: bool = True,
-                    buffers: int = 1) -> int:
+                    depth: int, *, fused: bool = True, buffers: int = 1,
+                    staged: bool = True) -> int:
     """Dynamic shared memory of one block, as the CUDA layout lays it out
     (``fused=False``: the raw [B, T] kernel, with its out tile;
-    ``buffers``: tree tiles held, ``tree_buffers``).  ``block_b`` counts
-    threads; the tile holds ``rows_per_thread(kind)`` samples for each."""
+    ``buffers``: tree tiles held, ``tree_buffers``; ``staged=False``: the
+    wide-row mode, no x tile).  ``block_b`` counts threads; the tile holds
+    ``rows_per_thread(kind)`` samples for each."""
     L = 1 << depth
     rows = block_b * rows_per_thread(kind)
     tree = _align16(8 * block_t * L) + _align16(4 * block_t * L)
     out_tile = 0 if fused else _align16(4 * rows * (block_t + 1))
-    return (_align16(4 * F * rows) + buffers * tree
+    x_tile = _align16(4 * F * rows) if staged else 0
+    return (x_tile + buffers * tree
             + _align16(_extra_bytes(kind, depth, block_b)) + out_tile)
 
 
+def x_staged(kind: str, F: int, depth: int, fused: bool = True) -> bool:
+    """Whether a kernel launch over F-feature rows stages x in shared
+    memory: up to ``X_STAGED_MAX_F[kind, fused]`` features, and only where
+    a 32-sample x tile fits one block beside one tree.  Otherwise the
+    wide-row mode reads x from global memory."""
+    limit = X_STAGED_MAX_F[kind, fused]
+    if limit is not None and F > limit:
+        return False
+    least = tile_smem_bytes(kind, 32 // rows_per_thread(kind), 1, F, depth,
+                            fused=fused)
+    return least <= SMEM_BLOCK_MAX
+
+
 def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
-                     fused: bool = True,
-                     one_tile: bool = False) -> tuple[int, int]:
+                     fused: bool = True, one_tile: bool = False,
+                     staged: bool | None = None) -> tuple[int, int]:
     """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch over
     T trees: BB threads, a multiple of 32 up to 256 (no more than B
     samples need at ``rows_per_thread`` a thread), BT a power of two up to
@@ -162,12 +199,17 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
     ``smem_budget`` beside one tree, then the tree tile until the block's
     shared memory fits.  ``one_tile``: size the tile for launches of
     exactly BT trees (one tree partition each), which hold one tree
-    buffer.  Raises when even 32 samples and one tree do not fit a block
-    at all (a very wide F)."""
+    buffer.  ``staged``: the x mode (None: ``x_staged`` decides); the
+    wide-row mode holds no x tile, so F does not shrink its tiles.  Raises
+    only when a staged x tile of 32 samples and one tree does not fit a
+    block at all."""
+    if staged is None:
+        staged = x_staged(kind, F, depth, fused)
+
     def smem(bb, bt):
         buffers = 1 if one_tile else tree_buffers(T, bt)
         return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused,
-                               buffers=buffers)
+                               buffers=buffers, staged=staged)
 
     budget = smem_budget(kind)
     per = rows_per_thread(kind)
@@ -181,9 +223,23 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
         bt //= 2
     if smem(bb, bt) > SMEM_BLOCK_MAX:
         raise ValueError(
-            f"{kind}: a 32-sample tile of {F} features at depth {depth} "
-            f"does not fit one block's shared memory")
+            f"{kind}: a staged 32-sample tile of {F} features at depth "
+            f"{depth} does not fit one block's shared memory")
     return bb, bt
+
+
+def resolve_staged(kind: str, x: torch.Tensor, depth: int, fused: bool,
+                   staged: bool | None) -> bool:
+    """A wrapper's x mode: the caller's, or ``x_staged``'s for x's width."""
+    return x_staged(kind, x.shape[1], depth, fused) if staged is None \
+        else bool(staged)
+
+
+def count_launch(wrapper, staged: bool) -> None:
+    """One launch of ``wrapper``'s kernel: ``.launches`` counts every
+    launch, ``.wide_launches`` those in the wide-row mode."""
+    wrapper.launches += 1
+    wrapper.wide_launches += not staged
 
 
 def sum_trees_in_order(scores: torch.Tensor) -> torch.Tensor:
@@ -199,6 +255,7 @@ def sum_trees_in_order(scores: torch.Tensor) -> torch.Tensor:
 def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
                         leaf_value: torch.Tensor, *, depth: int,
                         block_b: int, block_t: int, fused: bool,
+                        staged: bool = True,
                         structure: tuple[torch.Tensor, ...] = ()) -> None:
     """Everything a CUDA forest kernel assumes, checked before launch."""
     tensors = (x, nodes, leaf_value) + structure
@@ -237,7 +294,8 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
         raise ValueError(f"{kind}: {T} trees are not a multiple of "
                          f"block_t={block_t}")
     smem = tile_smem_bytes(kind, block_b, block_t, x.shape[1], depth,
-                           fused=fused, buffers=tree_buffers(T, block_t))
+                           fused=fused, buffers=tree_buffers(T, block_t),
+                           staged=staged)
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"{kind}: tile needs {smem} B of shared memory, "
                          f"a block has {SMEM_BLOCK_MAX}")
@@ -246,16 +304,18 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
 def launch_forest_kernel(kind: str, x: torch.Tensor,
                          trees: tuple[torch.Tensor, torch.Tensor],
                          structure: tuple[torch.Tensor, ...], *, depth: int,
-                         block_b: int, block_t: int,
-                         fused: bool) -> torch.Tensor:
+                         block_b: int, block_t: int, fused: bool,
+                         staged: bool) -> torch.Tensor:
     """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]) or
-    ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream.  Every
-    C entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
-    depth, block_b, block_t, stream) and returns the launch's CUDA error;
-    a nonzero one raises.  B need not be a multiple of block_b: the kernel
-    stages rows past B as zeros and writes none of them."""
+    ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream, in the
+    x mode ``staged`` (``x_staged``'s choice, or the caller's).  Every C
+    entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
+    depth, block_b, block_t, x_staged, stream) and returns the launch's
+    CUDA error; a nonzero one raises.  B need not be a multiple of
+    block_b: the kernel masks rows past B and writes none of them."""
     check_kernel_inputs(kind, x, *trees, depth=depth, block_b=block_b,
-                        block_t=block_t, fused=fused, structure=structure)
+                        block_t=block_t, fused=fused, staged=staged,
+                        structure=structure)
     lib = _build.load(f"forest_{kind}")
     name = f"forest_{kind}_{'fused' if fused else 'raw'}"
     B, F = x.shape
@@ -264,6 +324,7 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
                       device=x.device)
     ptrs = [t.data_ptr() for t in (x, *trees, *structure, out)]
     err = getattr(lib, name)(*ptrs, B, F, T, depth, block_b, block_t,
+                             int(staged),
                              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, name)
     return out

@@ -8,13 +8,20 @@
 // ones wrote one [BB, BT] block per grid step.  Here that axis becomes a
 // loop INSIDE the block (``run_tiles``):
 //   * a block owns its samples (BB, one a thread; QuickScorer kRows a
-//     thread) and stages their x tile in shared memory once, feature-major
-//     (x_s[f * rows + b]) so that a warp reading 32 different features at
-//     its 32 rows hits 32 different banks.  The staging copy runs with
-//     lanes over b fastest, so its shared-memory stores are
-//     conflict-free too (a store order of lanes over f put a warp's 32
-//     stores on 2-3 banks); its strided global reads hit the x rows' lines
-//     in L1 once fetched;
+//     thread) and, in the STAGED mode, stages their x tile in shared
+//     memory once, feature-major (x_s[f * rows + b]) so that a warp
+//     reading 32 different features at its 32 rows hits 32 different
+//     banks.  The staging copy runs with lanes over b fastest, so its
+//     shared-memory stores are conflict-free too (a store order of lanes
+//     over f put a warp's 32 stores on 2-3 banks); its strided global
+//     reads hit the x rows' lines in L1 once fetched;
+//   * in the WIDE-ROW mode (STAGED false, kernels/common.py:x_staged) x is
+//     not staged: each thread reads its row's features from row-major
+//     global x through the read-only path (``x_at``), with 64-bit offsets.
+//     Shared memory then holds only the tree tiles, the kernel's extra and
+//     the raw out tile, so the block is sized as at a narrow F whatever F
+//     is.  Every kernel is instantiated for both modes; the STAGED one is
+//     the code of the narrow path;
 //   * trees arrive as one 8-byte record per node (``kernels/ops.py:
 //     pack_nodes``): {threshold bits, feature << 1 | default_left}, heap
 //     slots 1..I of a [T][L] array (slot 0 unused, so a tree's records
@@ -33,8 +40,9 @@
 //     keeps a warp's column writes on 32 banks), and the block then writes
 //     the tile's rows of BT floats with consecutive threads on consecutive
 //     addresses.  Offsets into x and out are 64-bit: B * T passes 2^31 at
-//     the paper's sizes.  Rows past B are staged as zeros and never
-//     written, so B need not be a multiple of BB.
+//     the paper's sizes.  Rows past B are staged as zeros (wide-row mode:
+//     read as row B - 1) and never written, so B need not be a multiple
+//     of BB.
 // Predicates are ``isnan(v) ? default_left : v < threshold`` -- the
 // reference's core/algorithms.py ``_go_left``.
 #pragma once
@@ -56,7 +64,8 @@ __host__ __device__ inline int tree_buffers(int T, int bt) {
 }
 
 // Byte offsets of one block's shared memory, each 16-byte aligned:
-//   x      float  [F][rows]     sample tile, feature-major
+//   x      float  [F][rows]     sample tile, feature-major (the wide-row
+//                               mode passes F = 0: no x tile)
 //   per tree buffer (1 or 2):
 //     nodes  int2   [BT][L]     packed node records
 //     leaf   float  [BT][L]
@@ -172,6 +181,27 @@ __device__ inline void stage_x_async(float* x_s, const float* __restrict__ x,
   }
 }
 
+// The wide-row mode's row of a thread: row-major global x, 64-bit
+// offsets; a row past B reads row B - 1 (its result is never written).
+__device__ inline const float* global_row(const float* __restrict__ x,
+                                          long long row, long long B,
+                                          int F) {
+  return x + (row < B ? row : B - 1) * (long long)F;
+}
+
+// Feature f of a thread's row: ``xb`` is its column of the staged tile
+// (stride = the tile's rows) or, not STAGED, its global row, read through
+// the read-only path (ld.global.nc).
+template <bool STAGED>
+__device__ inline float x_at(const float* __restrict__ xb, int f,
+                             int stride) {
+  if constexpr (STAGED) {
+    return xb[f * stride];
+  } else {
+    return __ldg(xb + f);
+  }
+}
+
 __device__ inline void stage_tree_tile(const TileRefs& s, int buf,
                                        const int2* __restrict__ nodes,
                                        const float* __restrict__ leaf_value,
@@ -249,19 +279,26 @@ inline int launch_kernel(Kernel kernel, long long B, int block_b,
 
 }  // namespace forest
 
-// FN<depth, FUSED>(...) for a depth known only at run time.
-#define FOREST_DISPATCH_DEPTH(depth, FN, FUSED, ...)   \
-  switch (depth) {                                     \
-    case 1: return FN<1, FUSED>(__VA_ARGS__);          \
-    case 2: return FN<2, FUSED>(__VA_ARGS__);          \
-    case 3: return FN<3, FUSED>(__VA_ARGS__);          \
-    case 4: return FN<4, FUSED>(__VA_ARGS__);          \
-    case 5: return FN<5, FUSED>(__VA_ARGS__);          \
-    case 6: return FN<6, FUSED>(__VA_ARGS__);          \
-    case 7: return FN<7, FUSED>(__VA_ARGS__);          \
-    case 8: return FN<8, FUSED>(__VA_ARGS__);          \
-    default: return int(cudaErrorInvalidValue);       \
+// FN<depth, FUSED, STAGED>(...) for a depth known only at run time.
+#define FOREST_DISPATCH_DEPTH(depth, FN, FUSED, STAGED, ...) \
+  switch (depth) {                                            \
+    case 1: return FN<1, FUSED, STAGED>(__VA_ARGS__);         \
+    case 2: return FN<2, FUSED, STAGED>(__VA_ARGS__);         \
+    case 3: return FN<3, FUSED, STAGED>(__VA_ARGS__);         \
+    case 4: return FN<4, FUSED, STAGED>(__VA_ARGS__);         \
+    case 5: return FN<5, FUSED, STAGED>(__VA_ARGS__);         \
+    case 6: return FN<6, FUSED, STAGED>(__VA_ARGS__);         \
+    case 7: return FN<7, FUSED, STAGED>(__VA_ARGS__);         \
+    case 8: return FN<8, FUSED, STAGED>(__VA_ARGS__);         \
+    default: return int(cudaErrorInvalidValue);               \
   }
+
+// ... and for the x mode, a launch argument (nonzero = staged).
+#define FOREST_DISPATCH(depth, staged, FN, FUSED, ...)              \
+  if (staged) {                                                     \
+    FOREST_DISPATCH_DEPTH(depth, FN, FUSED, true, __VA_ARGS__)      \
+  }                                                                 \
+  FOREST_DISPATCH_DEPTH(depth, FN, FUSED, false, __VA_ARGS__)
 
 extern "C" const char* forest_error_string(int err) {
   return cudaGetErrorString(cudaError_t(err));

@@ -41,7 +41,9 @@
 //   4. two quad shuffles give every lane of a quad the leaves of its rows,
 //      and lane t of the quad scores row (t >> 1) * 16 + (t & 1) * 8 + g.
 // C^T, the S tiles and the x tile leave room for one 256-thread block an
-// SM (kernels/common.py:smem_budget).
+// SM (kernels/common.py:smem_budget).  Wide rows (STAGED false): step 1
+// gathers the row's node features from global x (read-only loads of the
+// lane's own row) instead of the staged tile; steps 2-4 are unchanged.
 #include "forest_common.cuh"
 
 namespace forest {
@@ -97,7 +99,7 @@ __device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
     const float* __restrict__ x, const int2* __restrict__ nodes,
     const float* __restrict__ leaf_value, const int8_t* __restrict__ ct,
@@ -106,9 +108,9 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   using H = Hb<DEPTH>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x;
-  const TileRefs s =
-      tile_refs(smem, tile_layout(bb, bt, F, H::L, tree_buffers(T, bt),
-                                  hb_extra_bytes(DEPTH, bb), FUSED));
+  const TileRefs s = tile_refs(
+      smem, tile_layout(bb, bt, STAGED ? F : 0, H::L, tree_buffers(T, bt),
+                        hb_extra_bytes(DEPTH, bb), FUSED));
   unsigned char* ct_s = s.extra;
   int32_t* d_s = reinterpret_cast<int32_t*>(ct_s + align16(H::NP * H::KP));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -123,13 +125,14 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   for (int k = threadIdx.x; k < H::NP; k += bb) {
     cp_async4(d_s + k, dcount + k, true);
   }
-  stage_x_async(s.x, x, b0, B, F, bb);
+  if constexpr (STAGED) stage_x_async(s.x, x, b0, B, F, bb);
 
   const int g = lane >> 2, tq = lane & 3;
   // the row of the block this lane scores (step 4 above)
   const int row = warp * 32 + (tq >> 1) * 16 + (tq & 1) * 8 + g;
   // the row whose predicates this lane builds (step 1)
-  const float* xb = s.x + warp * 32 + lane;
+  const float* xb = STAGED ? s.x + warp * 32 + lane
+                           : global_row(x, b0 + warp * 32 + lane, B, F);
   float acc = 0.f;
 
   run_tiles<FUSED>(
@@ -149,7 +152,8 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
                 const int i = c * 16 + q * 4 + j;
                 if (i < H::I) {
                   const int2 n = tree[i + 1];
-                  bits |= uint32_t(go_left(xb[(n.y >> 1) * bb], n))
+                  bits |= uint32_t(go_left(
+                              x_at<STAGED>(xb, n.y >> 1, bb), n))
                           << (8 * j);
                 }
               }
@@ -250,18 +254,19 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   }
 }
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 int launch_hummingbird(const float* x, const int2* nodes,
                        const float* leaf_value, const int8_t* ct,
                        const int32_t* dcount, float* out, long long B, int F,
                        int T, int block_b, int block_t, cudaStream_t stream) {
   const size_t smem =
-      tile_layout(block_b, block_t, F, 1 << DEPTH, tree_buffers(T, block_t),
-                  hb_extra_bytes(DEPTH, block_b), FUSED)
+      tile_layout(block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
+                  tree_buffers(T, block_t), hb_extra_bytes(DEPTH, block_b),
+                  FUSED)
           .total;
-  return launch_kernel(hummingbird_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, nodes, leaf_value, ct, dcount, out, B, F,
-                       T, block_t);
+  return launch_kernel(hummingbird_kernel<DEPTH, FUSED, STAGED>, B, block_b,
+                       smem, stream, x, nodes, leaf_value, ct, dcount, out,
+                       B, F, T, block_t);
 }
 
 }  // namespace forest
@@ -269,17 +274,19 @@ int launch_hummingbird(const float* x, const int2* nodes,
 extern "C" int forest_hummingbird_fused(
     const float* x, const int2* nodes, const float* leaf_value,
     const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
-    int T, int depth, int block_b, int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, true, x, nodes,
-                        leaf_value, ct, dcount, out, B, F, T, block_b,
-                        block_t, stream)
+    int T, int depth, int block_b, int block_t, int x_staged,
+    cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, true, x,
+                  nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
+                  block_t, stream)
 }
 
 extern "C" int forest_hummingbird_raw(
     const float* x, const int2* nodes, const float* leaf_value,
     const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
-    int T, int depth, int block_b, int block_t, cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_hummingbird, false, x, nodes,
-                        leaf_value, ct, dcount, out, B, F, T, block_b,
-                        block_t, stream)
+    int T, int depth, int block_b, int block_t, int x_staged,
+    cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, false, x,
+                  nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
+                  block_t, stream)
 }

@@ -24,13 +24,16 @@
 //   * x staging with conflict-free stores, cp.async tree tiles, double
 //     buffered when a launch has several tiles (forest_common.cuh);
 //   * 256 threads a block, two blocks an SM (kernels/common.py budget).
+// Wide rows (STAGED false): each level's x load is a read-only global load
+// of the thread's own row, 32 rows a warp on 32 lines; the four chains
+// keep four of them in flight, and the block keeps 256 threads at any F.
 #include "forest_common.cuh"
 
 namespace forest {
 
 constexpr int kChains = 4;
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     predicated_kernel(const float* __restrict__ x,
                       const int2* __restrict__ nodes,
@@ -41,11 +44,12 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x, b = threadIdx.x;
   const TileRefs s = tile_refs(
-      smem, tile_layout(bb, bt, F, L, tree_buffers(T, bt), 0, FUSED));
+      smem, tile_layout(bb, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
+                        FUSED));
   const long long b0 = (long long)blockIdx.x * bb;
-  const float* xb = s.x + b;
+  const float* xb = STAGED ? s.x + b : global_row(x, b0 + b, B, F);
 
-  stage_x_async(s.x, x, b0, B, F, bb);
+  if constexpr (STAGED) stage_x_async(s.x, x, b0, B, F, bb);
   float acc = 0.f;
   run_tiles<FUSED>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
@@ -63,7 +67,8 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
 #pragma unroll
             for (int c = 0; c < kChains; ++c) {
               const int2 n = tree[c][idx[c]];
-              idx[c] = 2 * idx[c] + int(!go_left(xb[(n.y >> 1) * bb], n));
+              idx[c] = 2 * idx[c] +
+                       int(!go_left(x_at<STAGED>(xb, n.y >> 1, bb), n));
             }
           }
 #pragma unroll
@@ -84,16 +89,18 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   }
 }
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 int launch_predicated(const float* x, const int2* nodes,
                       const float* leaf_value, float* out, long long B,
                       int F, int T, int block_b, int block_t,
                       cudaStream_t stream) {
-  const size_t smem = tile_layout(block_b, block_t, F, 1 << DEPTH,
-                                  tree_buffers(T, block_t), 0, FUSED)
+  const size_t smem = tile_layout(block_b, block_t, STAGED ? F : 0,
+                                  1 << DEPTH, tree_buffers(T, block_t), 0,
+                                  FUSED)
                           .total;
-  return launch_kernel(predicated_kernel<DEPTH, FUSED>, B, block_b, smem,
-                       stream, x, nodes, leaf_value, out, B, F, T, block_t);
+  return launch_kernel(predicated_kernel<DEPTH, FUSED, STAGED>, B, block_b,
+                       smem, stream, x, nodes, leaf_value, out, B, F, T,
+                       block_t);
 }
 
 }  // namespace forest
@@ -102,16 +109,16 @@ extern "C" int forest_predicated_fused(const float* x, const int2* nodes,
                                        const float* leaf_value, float* out,
                                        long long B, int F, int T, int depth,
                                        int block_b, int block_t,
-                                       cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, true, x, nodes,
-                        leaf_value, out, B, F, T, block_b, block_t, stream)
+                                       int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, true, x, nodes,
+                  leaf_value, out, B, F, T, block_b, block_t, stream)
 }
 
 extern "C" int forest_predicated_raw(const float* x, const int2* nodes,
                                      const float* leaf_value, float* out,
                                      long long B, int F, int T, int depth,
                                      int block_b, int block_t,
-                                     cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_predicated, false, x, nodes,
-                        leaf_value, out, B, F, T, block_b, block_t, stream)
+                                     int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, false, x,
+                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
 }

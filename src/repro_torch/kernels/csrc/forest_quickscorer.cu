@@ -48,6 +48,8 @@
 //     predicated AND; __ffs per word;
 //   * x staging, cp.async tree tiles (double-buffered over several tiles)
 //     and the raw out tile are the shared ones of forest_common.cuh.
+// Wide rows (STAGED false): a thread keeps one global row pointer per
+// sample, and each node's gather is kRows read-only loads of those rows.
 #include "forest_common.cuh"
 
 namespace forest {
@@ -79,7 +81,7 @@ __device__ inline bool goes_right(float v, float threshold, bool nan_right) {
   return (v >= threshold) | (nan_right & isnan(v));
 }
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
     const float* __restrict__ x, const int2* __restrict__ nodes,
     const float* __restrict__ leaf_value, float* __restrict__ out,
@@ -91,22 +93,36 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x, b = threadIdx.x, rows = kRows * bb;
   const TileRefs s = tile_refs(
-      smem, tile_layout(rows, bt, F, L, tree_buffers(T, bt), 0, FUSED));
+      smem, tile_layout(rows, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
+                        FUSED));
   const long long b0 = (long long)blockIdx.x * rows;
   const float* xb = s.x + b;  // row j of this thread: xb[f * rows + j * bb]
+  const float* xr[kRows];     // wide rows: row j of this thread in x
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    xr[j] = STAGED ? nullptr : global_row(x, b0 + j * bb + b, B, F);
+  }
 
   // right[j]: row j goes right at node record n (heap slot order)
   auto eval = [&](const int2 n, bool (&right)[kRows]) {
-    const float* xf = xb + (n.y >> 1) * rows;
     const float threshold = __int_as_float(n.x);
     const bool nan_right = (n.y & 1) == 0;
+    if constexpr (STAGED) {
+      const float* xf = xb + (n.y >> 1) * rows;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      right[j] = goes_right(xf[j * bb], threshold, nan_right);
+      for (int j = 0; j < kRows; ++j) {
+        right[j] = goes_right(xf[j * bb], threshold, nan_right);
+      }
+    } else {
+      const int f = n.y >> 1;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        right[j] = goes_right(__ldg(xr[j] + f), threshold, nan_right);
+      }
     }
   };
 
-  stage_x_async(s.x, x, b0, B, F, rows);
+  if constexpr (STAGED) stage_x_async(s.x, x, b0, B, F, rows);
   float acc[kRows] = {};
   run_tiles<FUSED, kRows>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
@@ -176,17 +192,18 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   }
 }
 
-template <int DEPTH, bool FUSED>
+template <int DEPTH, bool FUSED, bool STAGED>
 int launch_quickscorer(const float* x, const int2* nodes,
                        const float* leaf_value, float* out, long long B,
                        int F, int T, int block_b, int block_t,
                        cudaStream_t stream) {
-  const size_t smem = tile_layout(kRows * block_b, block_t, F, 1 << DEPTH,
-                                  tree_buffers(T, block_t), 0, FUSED)
-                          .total;
-  return launch_kernel<kRows>(quickscorer_kernel<DEPTH, FUSED>, B, block_b,
-                              smem, stream, x, nodes, leaf_value, out, B, F,
-                              T, block_t);
+  const size_t smem =
+      tile_layout(kRows * block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
+                  tree_buffers(T, block_t), 0, FUSED)
+          .total;
+  return launch_kernel<kRows>(quickscorer_kernel<DEPTH, FUSED, STAGED>, B,
+                              block_b, smem, stream, x, nodes, leaf_value,
+                              out, B, F, T, block_t);
 }
 
 }  // namespace forest
@@ -195,16 +212,16 @@ extern "C" int forest_quickscorer_fused(const float* x, const int2* nodes,
                                         const float* leaf_value, float* out,
                                         long long B, int F, int T, int depth,
                                         int block_b, int block_t,
-                                        cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, true, x, nodes,
-                        leaf_value, out, B, F, T, block_b, block_t, stream)
+                                        int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, true, x,
+                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
 }
 
 extern "C" int forest_quickscorer_raw(const float* x, const int2* nodes,
                                       const float* leaf_value, float* out,
                                       long long B, int F, int T, int depth,
                                       int block_b, int block_t,
-                                      cudaStream_t stream) {
-  FOREST_DISPATCH_DEPTH(depth, forest::launch_quickscorer, false, x, nodes,
-                        leaf_value, out, B, F, T, block_b, block_t, stream)
+                                      int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, false, x,
+                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
 }

@@ -11,7 +11,8 @@ Structure tensors (``hb_structure``): ``ct`` [NP, KP] int8, the path
 matrix C transposed and zero-padded (KP = max(32, L) nodes, NP = max(8, L)
 leaves), and ``dcount`` [NP] int32, the left-turn count of each leaf (-1
 on pad leaves, which never match).  ``hummingbird_fused.launches`` /
-``hummingbird_raw.launches`` count kernel launches.
+``hummingbird_raw.launches`` count kernel launches (``.wide_launches``
+those in the wide-row x mode).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.forest import hb_path_matrix
-from repro_torch.kernels.common import (dense_predicates, launch_forest_kernel,
+from repro_torch.kernels.common import (count_launch, dense_predicates,
+                                        launch_forest_kernel, resolve_staged,
                                         sum_trees_in_order, unpack_nodes)
 
 __all__ = ["hummingbird_fused", "hummingbird_fused_plain", "hummingbird_raw",
@@ -96,35 +98,39 @@ def _check_structure(ct: torch.Tensor, dcount: torch.Tensor,
 def hummingbird_fused(x: torch.Tensor, nodes: torch.Tensor,
                       leaf_value: torch.Tensor, ct: torch.Tensor,
                       dcount: torch.Tensor, *, depth: int, block_b: int,
-                      block_t: int) -> torch.Tensor:
+                      block_t: int,
+                      staged: bool | None = None) -> torch.Tensor:
     """[B, F] samples, tree-padded node records and leaves, structure
     tensors -> [B] f32."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return hummingbird_fused_plain(x, *trees, ct, dcount, depth=depth)
     _check_structure(ct, dcount, depth)
+    staged = resolve_staged("hummingbird", x, depth, True, staged)
     out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
-                               fused=True)
-    hummingbird_fused.launches += 1
+                               fused=True, staged=staged)
+    count_launch(hummingbird_fused, staged)
     return out
 
 
 def hummingbird_raw(x: torch.Tensor, nodes: torch.Tensor,
                     leaf_value: torch.Tensor, ct: torch.Tensor,
                     dcount: torch.Tensor, *, depth: int, block_b: int,
-                    block_t: int) -> torch.Tensor:
+                    block_t: int,
+                    staged: bool | None = None) -> torch.Tensor:
     """As ``hummingbird_fused``, but -> [B, T] f32, each tree's score."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return hummingbird_raw_plain(x, *trees, ct, dcount, depth=depth)
     _check_structure(ct, dcount, depth)
+    staged = resolve_staged("hummingbird", x, depth, False, staged)
     out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
-                               fused=False)
-    hummingbird_raw.launches += 1
+                               fused=False, staged=staged)
+    count_launch(hummingbird_raw, staged)
     return out
 
 
-hummingbird_fused.launches = 0
-hummingbird_raw.launches = 0
+hummingbird_fused.launches = hummingbird_fused.wide_launches = 0
+hummingbird_raw.launches = hummingbird_raw.wide_launches = 0

@@ -11,15 +11,16 @@ The wrappers take the tree-padded node records and leaves
 per-sample sum [B] f32, ``predicated_raw`` each tree's score [B, T] f32.
 For CPU tensors they run the plain versions; for CUDA tensors they launch
 the kernel or raise.  Each wrapper's ``.launches`` counts its kernel
-launches.
+launches, ``.wide_launches`` those in the wide-row x mode.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (launch_forest_kernel,
-                                        sum_trees_in_order, unpack_nodes)
+from repro_torch.kernels.common import (count_launch, launch_forest_kernel,
+                                        resolve_staged, sum_trees_in_order,
+                                        unpack_nodes)
 
 __all__ = ["predicated_fused", "predicated_fused_plain", "predicated_raw",
            "predicated_raw_plain"]
@@ -54,30 +55,37 @@ def predicated_fused_plain(x: torch.Tensor, nodes: torch.Tensor,
 
 def predicated_fused(x: torch.Tensor, nodes: torch.Tensor,
                      leaf_value: torch.Tensor, *, depth: int, block_b: int,
-                     block_t: int) -> torch.Tensor:
+                     block_t: int,
+                     staged: bool | None = None) -> torch.Tensor:
     """[B, F] samples, node records [T, L, 2] int32 and leaves [T, L] f32
-    (T a multiple of block_t) -> [B] f32 sums over trees."""
+    (T a multiple of block_t) -> [B] f32 sums over trees.  ``staged``: the
+    kernel's x mode (None: ``common.x_staged`` decides)."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return predicated_fused_plain(x, *trees, depth=depth)
+    staged = resolve_staged("predicated", x, depth, True, staged)
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
-                               block_b=block_b, block_t=block_t, fused=True)
-    predicated_fused.launches += 1
+                               block_b=block_b, block_t=block_t, fused=True,
+                               staged=staged)
+    count_launch(predicated_fused, staged)
     return out
 
 
 def predicated_raw(x: torch.Tensor, nodes: torch.Tensor,
                    leaf_value: torch.Tensor, *, depth: int, block_b: int,
-                   block_t: int) -> torch.Tensor:
+                   block_t: int,
+                   staged: bool | None = None) -> torch.Tensor:
     """As ``predicated_fused``, but -> [B, T] f32, each tree's score."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return predicated_raw_plain(x, *trees, depth=depth)
+    staged = resolve_staged("predicated", x, depth, False, staged)
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
-                               block_b=block_b, block_t=block_t, fused=False)
-    predicated_raw.launches += 1
+                               block_b=block_b, block_t=block_t, fused=False,
+                               staged=staged)
+    count_launch(predicated_raw, staged)
     return out
 
 
-predicated_fused.launches = 0
-predicated_raw.launches = 0
+predicated_fused.launches = predicated_fused.wide_launches = 0
+predicated_raw.launches = predicated_raw.wide_launches = 0

@@ -14,7 +14,8 @@ rule), so on the card the wrappers check once per tensor that ``bv`` is
 ``qs_words(depth)`` and raise if it is not.  The plain version does its
 bit operations in int64, since torch's uint32 support is partial and an
 int32 ``>>`` is arithmetic.  ``quickscorer_fused.launches`` /
-``quickscorer_raw.launches`` count kernel launches.
+``quickscorer_raw.launches`` count kernel launches (``.wide_launches``
+those in the wide-row x mode).
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ import torch
 
 from repro_torch.core.algorithms import ALL_ONES, lowest_set_bit
 from repro_torch.core.forest import qs_bitvectors
-from repro_torch.kernels.common import (check_kernel_inputs, dense_predicates,
-                                        launch_forest_kernel,
+from repro_torch.kernels.common import (check_kernel_inputs, count_launch,
+                                        dense_predicates,
+                                        launch_forest_kernel, resolve_staged,
                                         sum_trees_in_order, unpack_nodes)
 
 __all__ = ["quickscorer_fused", "quickscorer_fused_plain", "quickscorer_raw",
@@ -150,43 +152,47 @@ def check_words(bv: torch.Tensor, depth: int) -> None:
     _CHECKED[key] = (weakref.ref(bv), depth, bv._version)
 
 
-def _launch(x, nodes, leaf_value, bv, *, depth, block_b, block_t, fused):
+def _launch(x, nodes, leaf_value, bv, *, depth, block_b, block_t, fused,
+            staged):
     """Check every input, ``bv`` included, then launch the kernel, which
     takes no bit-vectors."""
     check_kernel_inputs("quickscorer", x, nodes, leaf_value, depth=depth,
                         block_b=block_b, block_t=block_t, fused=fused,
-                        structure=(bv,))
+                        staged=staged, structure=(bv,))
     check_words(bv, depth)
     return launch_forest_kernel("quickscorer", x, (nodes, leaf_value), (),
                                 depth=depth, block_b=block_b,
-                                block_t=block_t, fused=fused)
+                                block_t=block_t, fused=fused, staged=staged)
 
 
 def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
                       leaf_value: torch.Tensor, bv: torch.Tensor, *,
-                      depth: int, block_b: int,
-                      block_t: int) -> torch.Tensor:
+                      depth: int, block_b: int, block_t: int,
+                      staged: bool | None = None) -> torch.Tensor:
     """[B, F] samples, tree-padded node records and leaves, bit-vectors ->
     [B] f32."""
     if x.device.type == "cpu":
         return quickscorer_fused_plain(x, nodes, leaf_value, bv, depth=depth)
+    staged = resolve_staged("quickscorer", x, depth, True, staged)
     out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
-                  block_t=block_t, fused=True)
-    quickscorer_fused.launches += 1
+                  block_t=block_t, fused=True, staged=staged)
+    count_launch(quickscorer_fused, staged)
     return out
 
 
 def quickscorer_raw(x: torch.Tensor, nodes: torch.Tensor,
                     leaf_value: torch.Tensor, bv: torch.Tensor, *,
-                    depth: int, block_b: int, block_t: int) -> torch.Tensor:
+                    depth: int, block_b: int, block_t: int,
+                    staged: bool | None = None) -> torch.Tensor:
     """As ``quickscorer_fused``, but -> [B, T] f32, each tree's score."""
     if x.device.type == "cpu":
         return quickscorer_raw_plain(x, nodes, leaf_value, bv, depth=depth)
+    staged = resolve_staged("quickscorer", x, depth, False, staged)
     out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
-                  block_t=block_t, fused=False)
-    quickscorer_raw.launches += 1
+                  block_t=block_t, fused=False, staged=staged)
+    count_launch(quickscorer_raw, staged)
     return out
 
 
-quickscorer_fused.launches = 0
-quickscorer_raw.launches = 0
+quickscorer_fused.launches = quickscorer_fused.wide_launches = 0
+quickscorer_raw.launches = quickscorer_raw.wide_launches = 0

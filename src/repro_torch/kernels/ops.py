@@ -11,7 +11,9 @@ assume away:
     (``share_packed_nodes``).  The sample axis is not padded: the kernels
     mask their ragged last block;
   * tile selection against the H100's shared memory
-    (``common.block_heuristics``, per kernel kind and variant);
+    (``common.block_heuristics``, per kernel kind and variant) and the x
+    mode (``common.x_staged``: staged in shared memory, or wide rows read
+    from global memory), so any width F runs;
   * the structure-only side tensors (HummingBird C^T and D, QuickScorer
     bit-vectors), built once per (depth, device) and cached.
 
@@ -36,7 +38,7 @@ import torch
 
 from repro_torch.core.forest import PAD_FILLS, Forest
 from repro_torch.kernels.common import (MAX_BLOCK_B, block_heuristics,
-                                        pack_nodes)
+                                        pack_nodes, resolve_staged)
 from repro_torch.kernels.forest_hummingbird import (hb_structure,
                                                     hummingbird_fused,
                                                     hummingbird_raw)
@@ -160,10 +162,10 @@ def _structure(kind: str, depth: int,
 
 
 def _blocks(kind: str, forest: Forest, B: int, F: int, block_b, block_t, *,
-            fused: bool):
+            fused: bool, staged: bool):
     if block_b is None or block_t is None:
         hb, ht = block_heuristics(kind, B, forest.num_trees, F, forest.depth,
-                                  fused=fused)
+                                  fused=fused, staged=staged)
         block_b = block_b or hb
         block_t = block_t or ht
     return block_b, block_t
@@ -176,16 +178,19 @@ def default_tree_block(forest: Forest, batch_rows: int = MAX_BLOCK_B, *,
     natural tree-partition granularity of the relation-centric plans, one
     partition per launch of one tree tile (one tree buffer).  A raw
     kernel also holds its out tile in shared memory, so its tree tile can
-    be the smaller."""
+    be the smaller.  Wide rows run the wide-row x mode, whose tile does
+    not depend on F."""
     return block_heuristics("predicated", batch_rows, forest.num_trees,
                             forest.n_features, forest.depth, fused=fused,
                             one_tile=True)[1]
 
 
 def prepare_inputs(kind: str, forest: Forest, x: torch.Tensor, *,
-                   block_b=None, block_t=None, fused: bool = True):
+                   block_b=None, block_t=None, fused: bool = True,
+                   staged: bool | None = None):
     """(kernel positional inputs, tile keywords) for one fused (or, with
-    ``fused=False``, raw) launch."""
+    ``fused=False``, raw) launch.  The keywords carry the x mode:
+    ``staged``, or ``common.x_staged``'s choice for x's width."""
     if x.dim() != 2:
         raise ValueError(f"expected [B, F] samples, got {tuple(x.shape)}")
     if x.shape[1] < forest.n_features:
@@ -194,11 +199,13 @@ def prepare_inputs(kind: str, forest: Forest, x: torch.Tensor, *,
     if x.device != forest.device:
         raise ValueError(f"samples on {x.device}, forest on "
                          f"{forest.device}")
+    staged = resolve_staged(kind, x, forest.depth, fused, staged)
     block_b, block_t = _blocks(kind, forest, x.shape[0], x.shape[1],
-                               block_b, block_t, fused=fused)
+                               block_b, block_t, fused=fused, staged=staged)
     args = (x.contiguous(), *kernel_trees(forest, block_t),
             *_structure(kind, forest.depth, x.device))
-    return args, dict(depth=forest.depth, block_b=block_b, block_t=block_t)
+    return args, dict(depth=forest.depth, block_b=block_b, block_t=block_t,
+                      staged=staged)
 
 
 def _run(kind: str, forest: Forest, x: torch.Tensor, *, block_b=None,

@@ -160,15 +160,17 @@ def test_cuda_quickscorer_shallow_depths_negative_zero(depth):
 
 @pytest.mark.gpu
 def test_cuda_quickscorer_wide_rows_take_partial_warp_blocks():
-    """968 features (Bosch's width) leave room for 32 samples a block:
-    8 QuickScorer threads of 4 rows; scores bit for bit."""
+    """968 features (Bosch's width) leave room for 32 samples a block in
+    the staged x mode: 8 QuickScorer threads of 4 rows; scores bit for
+    bit."""
     _need_card()
     forest, x = _case(T=9, depth=8, F=968, B=101, seed=7,
                       integer_leaves=True, device="cuda")
     xc = torch.from_numpy(x).cuda()
     for fused, wrappers, plain in ((True, KERNEL_WRAPPERS, PLAIN),
                                    (False, RAW_KERNEL_WRAPPERS, RAW_PLAIN)):
-        args, tiles = prepare_inputs("quickscorer", forest, xc, fused=fused)
+        args, tiles = prepare_inputs("quickscorer", forest, xc, fused=fused,
+                                     staged=True)
         assert tiles["block_b"] == 8
         got = wrappers["quickscorer"](*args, **tiles)
         torch.cuda.synchronize()
@@ -390,3 +392,110 @@ def test_write_as_on_the_device_tier_stays_on_the_card():
     assert store.device_nbytes == store.get("t").nbytes + out.nbytes
     assert store.host_nbytes == 0
     assert torch.equal(out.data[:, 0], res.predictions)
+
+
+# -- wide rows and the sparse plane -------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
+@pytest.mark.parametrize("F", [1185, 2000, 4096])
+@pytest.mark.parametrize("base", BASES)
+def test_cuda_kernels_wide_rows_both_x_modes(base, F, fused):
+    """Wide rows, depth 8: the wide-row x mode at every width and the
+    staged mode where a 32-sample tile fits, each bit for bit against the
+    plain version (ragged rows, NaN rows, +-inf)."""
+    _need_card()
+    forest, x = _case(T=24, depth=8, F=F, B=1000, seed=F + len(base),
+                      integer_leaves=True, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    wrappers = KERNEL_WRAPPERS if fused else RAW_KERNEL_WRAPPERS
+    plain = PLAIN if fused else RAW_PLAIN
+    modes = [False]
+    try:
+        prepare_inputs(base, forest, xc, fused=fused, staged=True)
+        modes.append(True)
+    except ValueError:
+        assert F > 1184                        # a staged tile that fits
+    for staged in modes:
+        args, tiles = prepare_inputs(base, forest, xc, fused=fused,
+                                     staged=staged)
+        before = (wrappers[base].launches, wrappers[base].wide_launches)
+        got = wrappers[base](*args, **tiles)
+        torch.cuda.synchronize()
+        assert (wrappers[base].launches - before[0],
+                wrappers[base].wide_launches - before[1]) \
+            == (1, int(not staged))
+        want = plain[base](*args, depth=8)
+        assert torch.equal(_bits(got), _bits(want)), staged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 1])
+@pytest.mark.parametrize("tier", ["device", "host", "disk"])
+@pytest.mark.parametrize("plan,algorithm", [
+    ("udf", "predicated_pallas_fused"), ("rel+reuse", "predicated_pallas"),
+    ("udf", "hummingbird_pallas_fused"), ("rel", "quickscorer_pallas")])
+def test_csr_scan_in_many_batches_matches_the_device_tier(
+        plan, algorithm, tier, depth):
+    """A CSR table in 64 one-page batches: its three page arrays stream
+    through at most two buffers each, and every prediction equals the
+    dense device tier's bit for bit."""
+    _need_card()
+    forest, x = _case(T=37, depth=6, F=300, B=64 * 32 - 5, seed=11,
+                      integer_leaves=False, device="cuda")
+    x[np.random.default_rng(3).random(x.shape) < 0.8] = np.nan
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    store.put("dense", x)
+    csr = store.put_sparse("csr", x, tier=tier)
+    engine = ForestQueryEngine(store)
+    kw = dict(algorithm=algorithm, plan=plan, batch_pages=1, n_parts=3)
+    ref = engine.infer("dense", forest, **kw)
+    res = engine.infer("csr", forest, prefetch_depth=depth, **kw)
+    s = res.scan
+    assert res.storage_format == "csr" and res.tier == tier
+    assert s.batches == 64
+    if tier == "device":
+        assert s.bytes_streamed == 0 and res.predictions.is_cuda
+    else:
+        assert s.max_in_flight == depth and s.pinned_staging
+        assert s.bytes_streamed == csr.nbytes
+    assert torch.equal(_bits(res.predictions.cpu()),
+                       _bits(ref.predictions.cpu()))
+
+
+@pytest.mark.gpu
+def test_csr_staging_buffers_hold_three_arrays_two_in_flight():
+    """The scan's page buffers for a CSR table are three device arrays
+    each (and, on the disk tier, three pinned staging arrays), never more
+    than two buffers live."""
+    _need_card()
+    from repro_torch.db import executor as ex
+
+    forest, x = _case(T=9, depth=4, F=64, B=40 * 32, seed=12,
+                      integer_leaves=True, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    ds = store.put_sparse("csr", x, tier="disk")
+    made = []
+    real = ex._StreamedScan.__init__
+
+    def spy(self, *a, **k):
+        real(self, *a, **k)
+        made.append(self)
+
+    ex._StreamedScan.__init__ = spy
+    try:
+        res = ForestQueryEngine(store).infer(
+            "csr", forest, algorithm="predicated_pallas_fused",
+            batch_pages=3)
+    finally:
+        ex._StreamedScan.__init__ = real
+    scan = made[0]
+    assert len(scan.bufs) == len(scan.staging) == 2
+    for buf, stage in zip(scan.bufs, scan.staging):
+        assert all(t.is_cuda for t in buf.tensors())
+        assert all(t.is_pinned() for t in stage.tensors())
+        assert [tuple(t.shape) for t in buf.tensors()] == [
+            (3, 33), (3, ds.pages.capacity), (3, ds.pages.capacity)]
+    assert res.scan.max_in_flight == 2
+    assert res.scan.bytes_streamed == ds.nbytes

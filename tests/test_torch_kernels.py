@@ -422,19 +422,34 @@ def test_block_heuristics_fit_shared_memory():
     # small batches shrink the sample tile to a warp multiple
     assert common.block_heuristics("predicated", 7, 3, 5, 2) == (32, 2)
     assert common.block_heuristics("quickscorer", 7, 3, 5, 2) == (32, 2)
-    # wide rows shrink the sample tile; too wide for any tile raises
-    bb, bt = common.block_heuristics("quickscorer", 4096, 500, 400, 8)
+    # a staged x tile shrinks the sample tile with F; too wide for any
+    # staged tile raises
+    bb, bt = common.block_heuristics("quickscorer", 4096, 500, 400, 8,
+                                     staged=True)
     assert bb < 256 and bb * common.QS_ROWS_PER_THREAD % 32 == 0
     # down to 32 samples a block, as one sample a thread allows: 8
     # QuickScorer threads at Bosch's 968 features
-    assert common.block_heuristics("quickscorer", 4096, 500, 968, 8) \
-        == (8, 1)
-    assert common.block_heuristics("predicated", 4096, 500, 968, 8) \
-        == (32, 1)
+    assert common.block_heuristics("quickscorer", 4096, 500, 968, 8,
+                                   staged=True) == (8, 1)
+    assert common.block_heuristics("predicated", 4096, 500, 968, 8,
+                                   staged=True) == (32, 1)
     with pytest.raises(ValueError, match="does not fit"):
-        common.block_heuristics("predicated", 64, 8, 5000, 8)
+        common.block_heuristics("predicated", 64, 8, 5000, 8, staged=True)
     with pytest.raises(ValueError, match="does not fit"):
-        common.block_heuristics("quickscorer", 64, 8, 5000, 8)
+        common.block_heuristics("quickscorer", 64, 8, 5000, 8, staged=True)
+    # the wide-row mode holds no x tile: at any F its tiles are those of
+    # a narrow F without x, and nothing raises; past any staged tile's
+    # width it is the mode every kernel takes
+    for kind in BASES:
+        narrow = common.block_heuristics(kind, 4096, 500, 1, 8,
+                                         staged=False)
+        for F in (400, 968, 5000, 100_000):
+            assert common.block_heuristics(kind, 4096, 500, F, 8,
+                                           staged=False) == narrow
+        for F in (5000, 100_000):
+            assert not common.x_staged(kind, F, 8)
+            assert common.block_heuristics(kind, 4096, 500, F, 8) \
+                == narrow
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
