@@ -11,12 +11,14 @@ each run's kernel times (from the ``{"kernels": ...}`` line chip_smoke.py
 prints), its rel+reuse query times (each algorithm's runs, over each
 table it ran on), its ``infer_rows`` repeats, its ``[tiers]`` runs
 (wall time and rows/s of each host- and disk-tier query, and each overlap
-fraction) and its ``[sparse]`` runs (each x-mode kernel time, and the wall
-time and rows/s of each Epsilon, Bosch and Criteo-shaped query), then each
-side's mean per kernel, per rel+reuse run, per tier run and per sparse
-run, and the change / parent ratio; a side whose script has no such line
-(a parent without phase 9) shows "n/a".  Any run that fails makes the
-script exit non-zero.
+fraction), its ``[sparse]`` runs (each x-mode kernel time, and the wall
+time and rows/s of each Epsilon, Bosch and Criteo-shaped query), its bf16
+tree-tile timings (each fused kernel f32 and bf16 at the HIGGS and Epsilon
+shapes) and its ``[load]`` runs (each loader's LoadTiming total, each
+external / in-database ratio and its two sides), then each side's mean
+per kernel and per run, and the change / parent ratio; a side whose
+script has no such line (a parent without phase 9, 10 or the bf16 tiles)
+shows "n/a".  Any run that fails makes the script exit non-zero.
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ SPARSE_RUN = re.compile(r"\[sparse\] run (.+?): wall_s ([0-9.]+), ([0-9.]+) "
                         r"rows/s")
 XMODE = re.compile(r"\[sparse\] xmode (\w+ \w+ F=\d+): staged "
                    r"(does not fit|[0-9.]+ ms), wide ([0-9.]+) ms")
+BF16 = re.compile(r"\[timing\] (\w+) bf16 at (\w+) .*?: f32 ([0-9.]+) ms .*?"
+                  r"bf16 ([0-9.]+) ms")
+LOAD_TIMING = re.compile(r"\[load\] (.+?) LoadTiming parse_s ([0-9.]+), "
+                         r"convert_s [0-9.]+, transfer_s [0-9.]+, total_s "
+                         r"([0-9.]+)")
+LOAD_RATIO = re.compile(r"\[load\] ratio (.+?): external ([0-9.]+) s .* / "
+                        r"in-database ([0-9.]+) s .*?= ([0-9.]+)")
 
 
 def run(root: Path, log: Path) -> dict:
@@ -52,7 +61,8 @@ def run(root: Path, log: Path) -> dict:
                            f"see {log}")
     out = {"kernels": None, "rel_s": {}, "rows": {}, "tier_s": {},
            "tier_rows_s": {}, "overlap": {}, "sparse_s": {},
-           "sparse_rows_s": {}, "xmode": {}}
+           "sparse_rows_s": {}, "xmode": {}, "bf16": {}, "load_s": {},
+           "load_ratio": {}}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
@@ -75,6 +85,18 @@ def run(root: Path, log: Path) -> dict:
             if staged != "does not fit":
                 out["xmode"][f"{name} staged"] = float(staged.split()[0])
             out["xmode"][f"{name} wide"] = float(wide)
+        elif (m := BF16.search(line)):
+            kind, where, f32, bf16 = m.groups()
+            out["bf16"][f"{kind} {where} f32"] = float(f32)
+            out["bf16"][f"{kind} {where} bf16"] = float(bf16)
+        elif (m := LOAD_TIMING.search(line)):
+            out["load_s"][f"{m.group(1)} parse"] = float(m.group(2))
+            out["load_s"][f"{m.group(1)} total"] = float(m.group(3))
+        elif (m := LOAD_RATIO.search(line)):
+            name, ext, indb, ratio = m.groups()
+            out["load_s"][f"{name} external"] = float(ext)
+            out["load_s"][f"{name} in-database"] = float(indb)
+            out["load_ratio"][name] = float(ratio)
         elif line.startswith("[report]"):
             out["report"] = line
     return out
@@ -100,7 +122,10 @@ def main() -> int:
               f"{json.dumps(res['tier_rows_s'])}, overlap_fraction "
               f"{json.dumps(res['overlap'])}; sparse wall s "
               f"{json.dumps(res['sparse_s'])}, x-mode ms "
-              f"{json.dumps(res['xmode'])}", flush=True)
+              f"{json.dumps(res['xmode'])}; bf16 tiles ms "
+              f"{json.dumps(res['bf16'])}; load s "
+              f"{json.dumps(res['load_s'])}, ratios "
+              f"{json.dumps(res['load_ratio'])}", flush=True)
     for what, unit, prefix in (("kernels", "ms", ""),
                                ("rel_s", "s", "rel+reuse "),
                                ("tier_s", "s", "tiers wall "),
@@ -108,7 +133,10 @@ def main() -> int:
                                ("overlap", "", "overlap_fraction "),
                                ("xmode", "ms", "xmode "),
                                ("sparse_s", "s", "sparse wall "),
-                               ("sparse_rows_s", "rows/s", "sparse ")):
+                               ("sparse_rows_s", "rows/s", "sparse "),
+                               ("bf16", "ms", "bf16 tiles "),
+                               ("load_s", "s", "load "),
+                               ("load_ratio", "", "load ratio ")):
         names = {n: None for _, r in runs for n in r[what]}
         for name in names:
             side_t = {s: [r[what].get(name, "n/a") for side, r in runs

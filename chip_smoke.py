@@ -19,7 +19,13 @@ Phases (any failure exits non-zero and prints no result line):
               kernel, fused and raw, in the wide-row x mode and (where a
               32-sample tile fits) staged, at depth 8 on 16,421 rows with
               NaN rows, and from 1,185 up the shallower depths with -0.0
-              leaves likewise, all bit for bit;
+              leaves likewise, all bit for bit; then the three fused
+              kernels over bf16 tree tiles (tree_dtype=torch.bfloat16: a
+              4-byte node record and bf16 leaves), bit for bit against
+              their plain versions: on the 16,421 rows at depth 8, at the
+              shallower depths with -0.0 leaves, at F = 968 and 2,000 in
+              both x modes, and over 40,000 features (past the narrow
+              record, so the 8-byte one);
   4. path     the in-database query on a HIGGS-shaped table (11,000,000 x
               28 rows from a seed, on the device tier):
               infer(plan="udf", algorithm="predicated_pallas_fused") twice
@@ -28,7 +34,12 @@ Phases (any failure exits non-zero and prints no result line):
               then the HummingBird and QuickScorer kernels over 1,000,000
               rows of the same table;
   5. timing   each fused kernel at the shapes the path gave it (CUDA events
-              over warmed-up repeats) beside its bound and its plain version;
+              over warmed-up repeats) beside its bound and its plain
+              version; then bf16 tree tiles: predict_sum_pallas(...,
+              tree_dtype=torch.bfloat16) for each fused kernel at those
+              shapes and at Epsilon's 100,352 x 2,000 (wide-row), counted,
+              bit for bit the f32 path over the bf16-rounded forest, and
+              each bf16 kernel timed beside the f32 one;
   6. rel      the relation-centric plans at the large-model shape (1600
               depth-8 trees): infer(plan="rel+reuse",
               algorithm="predicated_pallas") twice over the 11M-row table
@@ -78,9 +89,26 @@ Phases (any failure exits non-zero and prints no result line):
               at 64 pages a batch, the gather's share of the stage time,
               and both held bit for bit against the dense plane over the
               first 65,536 rows, densified on the card.
+ 10. load     the paper's external load against in-database inference.
+              HIGGS 1,000,000 x 28 written as CSV, load_csv_external, then
+              the fused predicated kernel + postprocess over the loaded
+              rows at 10 and 500 depth-8 trees, against infer(plan="udf")
+              over the same rows put on the device tier: both stage
+              breakdowns, the ratio, predictions bit-identical.  A
+              Criteo-shaped LIBSVM file (20,000 x 10,000 at 96 % missing)
+              loaded by load_libsvm_csr_external onto the device, host and
+              disk tiers and put_sparse(pages=) zero-copy, udf predicated
+              and HummingBird over each, bit for bit put_sparse(data=) of
+              the same rows; the dense fallback load_libsvm_external beside
+              it.  Epsilon 10,000 x 2,000 as array rows through
+              load_array_rows_external and udf predicated (wide-row).
+              Writing the files is untimed set-up; they go to a temporary
+              directory deleted at the end.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
-shape), the nvidia-smi line, and {"ok": true, "device": {...}}.
+shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
+tiles at the HIGGS shapes), the nvidia-smi line, and {"ok": true,
+"device": {...}}.
 
 It imports nothing of the JAX package.  The forests' weights and the tables
 are random, made from SEED on the card, at the published shapes (depth-8
@@ -136,6 +164,17 @@ EPSILON_ROWS, EPSILON_F = 100_000, 2000
 BOSCH_ROWS, BOSCH_F, BOSCH_MISSING = 1_184_000, 968, 0.81
 CRITEO_ROWS, CRITEO_F, CRITEO_MISSING = 2_000_000, 10_000, 0.96
 CRITEO_BATCH_PAGES = 64         # pages of 1,024 rows a scan batch
+#: phase 3's bf16 checks: the wide-row widths, and a width past the narrow
+#: record's 32,768 features
+BF16_WIDE_F = (968, 2000)
+BF16_PAST_NARROW_F = 40_000
+#: phase 10's tables, cut to fit the phase's ~90 s beside the text parse
+#: (HIGGS from 11M rows, Criteo-shaped from 51M, Epsilon from 100,000)
+LOAD_HIGGS_ROWS = 1_000_000
+LOAD_TREES = (10, 500)          # the paper's small- and large-model ends
+LOAD_CRITEO_ROWS = 20_000
+LOAD_CRITEO_BATCH_PAGES = 4
+LOAD_EPSILON_ROWS = 10_000
 PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
@@ -257,17 +296,19 @@ def timed_plain(plain, args, depth: int) -> tuple[torch.Tensor, float]:
 
 
 def bound(kind: str, B: int, F: int, T: int = TREES, *,
-          raw: bool = False) -> tuple[float, str, dict]:
+          raw: bool = False, record: int = 8) -> tuple[float, str, dict]:
     """Least time (ms) the card could take for one launch over B rows and
     T trees: the larger of bytes over HBM rate and operations over peak.
-    Bytes: x read once, the trees (an 8-byte record per node slot and a
-    4-byte leaf) and the structure tensors a kernel reads once, the output
-    ([B], or [B, T] for a raw launch) written once."""
+    Bytes: x read once, the trees (a ``record``-byte node record per node
+    slot and a leaf of half that: 12 bytes a slot, 6 over bf16 tiles) and
+    the structure tensors a kernel reads once, the output ([B], or [B, T]
+    for a raw launch) written once."""
     from repro_torch.core.forest import qs_bitvectors
 
     I, L = (1 << DEPTH) - 1, 1 << DEPTH
     W = (L + 31) // 32
-    nbytes = 4 * B * F + T * 12 * L + 4 * B * (T if raw else 1)
+    nbytes = (4 * B * F + T * (record + record // 2) * L
+              + 4 * B * (T if raw else 1))
     pairs = B * T
     add = 0 if raw else 1         # the fused kernels add each pair's leaf
     if kind == "predicated":      # depth compares (+ 1 add) per pair
@@ -958,6 +999,237 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     return record
 
 
+def register_report(text: str) -> dict[bool, set]:
+    """ptxas's register lines of one library, split by the kernels' node
+    record: {False: the f32 instantiations', True: the bf16 ones'} (the
+    record is the last template argument, ``NARROW``)."""
+    import re
+
+    out: dict[bool, set] = {False: set(), True: set()}
+    narrow = None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            narrow = re.search(r"ELb[01]ELb[01]ELb1EE", m.group(1)) is not None
+        elif "registers" in ln and narrow is not None:
+            out[narrow].add(ln.split(":", 1)[1].strip())
+            narrow = None
+    return out
+
+
+def timing_line(t) -> str:
+    return (f"parse_s {t.parse_s:.6f}, convert_s {t.convert_s:.6f}, "
+            f"transfer_s {t.transfer_s:.6f}, total_s {t.total_s:.6f}")
+
+
+def host_s(fn):
+    """``fn()`` timed on the host clock, ending in a device synchronise:
+    (its result, seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def load_phase(*, counted, only, smi: str, tally) -> None:
+    """Phase 10: the paper's external load (parse, convert, transfer, then
+    inference over the loaded tensor) against in-database inference over
+    the same rows already in the store.  ``tally(counts)`` adds each
+    query's launches to the kernels' record."""
+    from repro_torch.core.forest import make_forest
+    from repro_torch.core.postprocess import postprocess
+    from repro_torch.db import loader as ld
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.kernels.ops import predicated_pallas_fused
+
+    def forest_over(F: int, trees: int, seed: int):
+        fe, th, dl, lv = make_forest_arrays(np.random.default_rng(seed),
+                                            integer_leaves=False,
+                                            trees=trees, features=F)
+        return make_forest(fe, th, lv, default_left=dl, n_features=F,
+                           model_type="xgboost", task="classification",
+                           device="cuda")
+
+    def written(path: str, what: str, t0: float) -> None:
+        log(f"[load] set-up: {what} written to {os.path.basename(path)}, "
+            f"{os.path.getsize(path)} B, in {time.perf_counter() - t0:.3f} "
+            f"s (untimed)")
+
+    def loaded(name: str, t, nbytes: int) -> None:
+        rate = (f", {nbytes / t.transfer_s / 1e9:.2f} GB/s"
+                if t.transfer_s else "")
+        log(f"[load] {name} LoadTiming {timing_line(t)} ({nbytes} B "
+            f"on the tier{rate}); on {smi}")
+
+    def udf(engine, dataset, forest, algorithm, label, n_rows, **kw):
+        """One counted in-database query: exact launches, finite
+        predictions of the right shape."""
+        kind = algorithm.split("_")[0]
+        r, c = counted(lambda: engine.infer(dataset, forest, plan="udf",
+                                            algorithm=algorithm, **kw))
+        only(c, f"{kind}_fused", r.scan.batches, f"[load] {label}")
+        tally(c)
+        if tuple(r.predictions.shape) != (n_rows,) or not bool(
+                torch.isfinite(r.predictions).all()):
+            raise AssertionError(f"[load] {label}: bad predictions")
+        log(f"[load] run {label}: total_s {r.total_s:.6f}, tier {r.tier}, "
+            f"storage_format {r.storage_format}, {r.scan.batches} batches "
+            f"= {c[f'{kind}_fused']} {kind}_fused launches "
+            f"({c[f'{kind}_fused_wide']} wide-row), plan_reuse_hit "
+            f"{r.plan_reuse_hit}; stages {stage_sums(r)}; on {smi}")
+        return r
+
+    def external_against_in_database(what, rows, t_load, forest, engine,
+                                     dataset):
+        """The fused predicated kernel + postprocess over the loaded rows
+        against the in-database udf query over the same rows: both
+        breakdowns, the ratio, the predictions bit for bit."""
+        def external():
+            sums = predicated_pallas_fused(forest, rows)
+            return postprocess(sums, model_type=forest.model_type,
+                               task=forest.task, num_trees=forest.num_trees,
+                               base_score=forest.base_score)
+
+        external()          # builds the forest's kernel trees, kept after
+        (ext, infer_s), c = counted(lambda: host_s(external))
+        only(c, "predicated_fused", 1, f"[load] {what} external inference")
+        tally(c)
+        n = rows.shape[0]
+        label = f"{what} in-database udf predicated_pallas_fused"
+        first = udf(engine, dataset, forest, "predicated_pallas_fused",
+                    f"{label} #0", n)
+        repeat = udf(engine, dataset, forest, "predicated_pallas_fused",
+                     f"{label} #1", n)
+        if not torch.equal(bits(ext), bits(repeat.predictions)):
+            raise AssertionError(f"[load] {what}: the external and the "
+                                 f"in-database predictions differ")
+        ext_s = t_load.total_s + infer_s
+        log(f"[load] ratio {what}: external {ext_s:.6f} s (load "
+            f"{t_load.total_s:.6f}: {timing_line(t_load)}; inference "
+            f"{infer_s:.6f}) / in-database {repeat.total_s:.6f} s (repeat; "
+            f"first {first.total_s:.6f}) = {ext_s / repeat.total_s:.1f}; "
+            f"predictions bit-identical over {n} rows; on {smi}")
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-load-")
+    try:
+        # -- HIGGS as CSV, at the small and the large model ------------------
+        t0 = time.perf_counter()
+        x = card_rows(LOAD_HIGGS_ROWS, FEATURES, seed=SEED + 60).cpu().numpy()
+        csv = os.path.join(tmp, "higgs.csv")
+        ld.write_csv(csv, x)
+        written(csv, f"HIGGS {LOAD_HIGGS_ROWS} x {FEATURES} as CSV", t0)
+        del x
+        rows, t_csv = ld.load_csv_external(csv, device="cuda")
+        loaded("load_csv_external higgs", t_csv, rows.nbytes)
+        if not (rows.is_cuda and tuple(rows.shape)
+                == (LOAD_HIGGS_ROWS, FEATURES)):
+            raise AssertionError("[load] the CSV did not land on the card")
+        store = TensorBlockStore(device="cuda")
+        store.put("higgs_csv", rows)
+        engine = ForestQueryEngine(store)
+        for trees in LOAD_TREES:
+            external_against_in_database(
+                f"higgs {trees} trees", rows, t_csv,
+                forest_over(FEATURES, trees, SEED + 61 + trees), engine,
+                "higgs_csv")
+        store.drop("higgs_csv")
+        del rows
+
+        # -- Criteo-shaped LIBSVM onto every tier -----------------------------
+        t0 = time.perf_counter()
+        n, F = LOAD_CRITEO_ROWS, CRITEO_F
+        x = card_rows(n, F, seed=SEED + 62, missing=CRITEO_MISSING)
+        y = (torch.rand(n, generator=torch.Generator().manual_seed(SEED))
+             < 0.5).float().numpy()
+        svm = os.path.join(tmp, "criteo.svm")
+        ld.write_libsvm(svm, x.cpu().numpy(), y)
+        written(svm, f"Criteo-shaped {n} x {F} at {CRITEO_MISSING:.0%} "
+                f"missing as LIBSVM ({int(torch.isfinite(x).sum())} "
+                f"entries)", t0)
+        del x
+        dense, labels, t_dense = ld.load_libsvm_external(svm, F,
+                                                         device="cuda")
+        loaded("load_libsvm_external criteo (dense fallback)", t_dense,
+               dense.nbytes)
+        if not np.array_equal(labels, y):
+            raise AssertionError("[load] the LIBSVM labels differ")
+        forest = forest_over(F, TREES, SEED + 63)
+        want = {}
+        # the same rows, put_sparse(data=) on the device tier
+        store.put_sparse("criteo_rows", data=dense, tier="device")
+        for algorithm in ("predicated_pallas_fused",
+                          "hummingbird_pallas_fused"):
+            for i in range(2):      # the repeat is the in-database time
+                want[algorithm] = udf(
+                    engine, "criteo_rows", forest, algorithm,
+                    f"criteo put_sparse(data=) device udf {algorithm} #{i}",
+                    n, batch_pages=LOAD_CRITEO_BATCH_PAGES)
+        del dense
+        store.drop("criteo_rows")
+        for tier in ("device", "host", "disk"):
+            pages, labels, t = ld.load_libsvm_csr_external(
+                svm, F, page_rows=PAGE_ROWS, tier=tier, spill_dir=tmp,
+                device="cuda")
+            loaded(f"load_libsvm_csr_external criteo tier={tier}", t,
+                   pages.nbytes)
+            ds = store.put_sparse(f"criteo_{tier}", pages=pages,
+                                  num_rows=n, labels=labels, tier=tier)
+            handed = all(a is b for a, b in zip(ds.pages.arrays(),
+                                                pages.arrays()))
+            where = dict(device=lambda a: a.is_cuda,
+                         host=lambda a: a.is_pinned(),
+                         disk=lambda a: isinstance(a, np.memmap))[tier]
+            if not (handed and all(map(where, pages.arrays()))
+                    and ds.tier == tier) or (
+                    tier != "device" and t.transfer_s != 0.0):
+                raise AssertionError(f"[load] the {tier}-tier load was not "
+                                     f"handed over zero-copy")
+            names = sorted(os.path.basename(a.filename)
+                           for a in pages.arrays()) if tier == "disk" else ""
+            log(f"[load] criteo tier={tier}: put_sparse(pages=) zero-copy "
+                f"(every array 'is' the loader's), transfer_s "
+                f"{t.transfer_s!r} {names}")
+            for algorithm, ref in want.items():
+                r = udf(engine, f"criteo_{tier}", forest, algorithm,
+                        f"criteo {tier} csr udf {algorithm}", n,
+                        batch_pages=LOAD_CRITEO_BATCH_PAGES)
+                if not torch.equal(bits(r.predictions.cpu()),
+                                   bits(ref.predictions.cpu())):
+                    raise AssertionError(f"[load] criteo {tier} "
+                                         f"{algorithm}: not put_sparse("
+                                         f"data=)'s predictions")
+                log(f"[load] ratio criteo {tier} {algorithm}: external "
+                    f"{t.total_s + r.total_s:.6f} s (load {t.total_s:.6f} "
+                    f"+ query {r.total_s:.6f}) / in-database "
+                    f"{ref.total_s:.6f} s = "
+                    f"{(t.total_s + r.total_s) / ref.total_s:.1f}; "
+                    f"predictions bit for bit put_sparse(data=)'s")
+            store.drop(f"criteo_{tier}")
+            del ds, pages
+            gc.collect()
+
+        # -- Epsilon as array rows ------------------------------------------
+        t0 = time.perf_counter()
+        x = card_rows(LOAD_EPSILON_ROWS, EPSILON_F,
+                      seed=SEED + 64).cpu().numpy()
+        arr = os.path.join(tmp, "epsilon.arr")
+        ld.write_array_rows(arr, x)
+        written(arr, f"Epsilon {LOAD_EPSILON_ROWS} x {EPSILON_F} as array "
+                f"rows", t0)
+        del x
+        rows, t_arr = ld.load_array_rows_external(arr, device="cuda")
+        loaded("load_array_rows_external epsilon", t_arr, rows.nbytes)
+        store.put("epsilon_arr", rows)
+        external_against_in_database(
+            f"epsilon {TREES} trees", rows, t_arr,
+            forest_over(EPSILON_F, TREES, SEED + 65), engine, "epsilon_arr")
+        store.drop("epsilon_arr")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -981,8 +1253,10 @@ def main() -> int:
     from repro_torch.kernels.forest_quickscorer import (
         quickscorer_fused_plain, quickscorer_raw_plain)
     from repro_torch.kernels.ops import (KERNEL_WRAPPERS, RAW_KERNEL_WRAPPERS,
-                                         default_tree_block, prepare_inputs)
+                                         default_tree_block,
+                                         predict_sum_pallas, prepare_inputs)
 
+    BF16 = torch.bfloat16
     plain = dict(predicated=predicated_fused_plain,
                  hummingbird=hummingbird_fused_plain,
                  quickscorer=quickscorer_fused_plain)
@@ -998,14 +1272,19 @@ def main() -> int:
         """Run ``run()`` with every kernel's launch counts set to 0 just
         before; return its result and the counts just after: each
         wrapper's launches under its name, those in the wide-row x mode
-        also under ``<name>_wide``."""
+        also under ``<name>_wide``, a fused kernel's over bf16 tree tiles
+        also under ``<name>_bf16``."""
         for w in wrappers.values():
             w.launches = w.wide_launches = 0
+        for w in KERNEL_WRAPPERS.values():
+            w.bf16_launches = 0
         out = run()
         torch.cuda.synchronize()
         counts = {name: w.launches for name, w in wrappers.items()}
         counts.update({f"{name}_wide": w.wide_launches
                        for name, w in wrappers.items()})
+        counts.update({f"{kind}_fused_bf16": w.bf16_launches
+                       for kind, w in KERNEL_WRAPPERS.items()})
         return out, counts
 
     def only(counts: dict, name: str, want: int, what: str) -> None:
@@ -1013,7 +1292,7 @@ def main() -> int:
             raise AssertionError(f"{what}: {counts[name]} {name} launches, "
                                  f"expected {want}")
         stray = {k: n for k, n in counts.items()
-                 if k not in (name, f"{name}_wide") and n}
+                 if k not in (name, f"{name}_wide", f"{name}_bf16") and n}
         if stray:
             raise AssertionError(f"{what}: other kernels launched {stray}")
 
@@ -1028,9 +1307,9 @@ def main() -> int:
     log(f"[build] nvcc sm_90a, {len(_build.KERNEL_SOURCES)} libraries in "
         f"{build_s:.3f} s")
     for lib, text in _build.BUILD_LOG.items():
-        regs = sorted({ln.split(":", 1)[1].strip() for ln in text.splitlines()
-                       if "registers" in ln})
-        log(f"[build] {lib}: {'; '.join(regs)}")
+        regs = register_report(text)
+        log(f"[build] {lib}: {'; '.join(sorted(regs[False]))}")
+        log(f"[build] {lib} bf16: {'; '.join(sorted(regs[True]))}")
 
     # -- 3. kernel against plain version ------------------------------------
     rng = np.random.default_rng(SEED)
@@ -1109,6 +1388,56 @@ def main() -> int:
                 if not ok:
                     raise AssertionError(f"{kind} at depth {depth} disagrees "
                                          f"with its plain version")
+
+    # bf16 tree tiles: the fused kernels over narrow node records (8-byte
+    # ones past 32,768 features), bit for bit against their plain versions
+    bf16_err = {k: 0.0 for k in KINDS}
+
+    def hold_bf16(kind, f, x, depth, what, staged=None):
+        try:
+            args, tiles = prepare_inputs(kind, f, x, staged=staged,
+                                         tree_dtype=BF16)
+        except ValueError:
+            log(f"[kernels] {kind}_fused_bf16 {what}, staged: does not fit "
+                f"one block")
+            return
+        got = KERNEL_WRAPPERS[kind](*args, **tiles)
+        torch.cuda.synchronize()
+        want = plain[kind](*args, depth=depth)
+        ok = torch.equal(bits(got), bits(want)) and bool(
+            torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        bf16_err[kind] = max(bf16_err[kind], err)
+        log(f"[kernels] {kind}_fused_bf16 {what}, "
+            f"{4 if args[1].dim() == 2 else 8}-byte node records, "
+            f"{'staged' if tiles['staged'] else 'wide-row'} x, tiles "
+            f"{tiles}: max_abs_err={err!r} bit for bit: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{kind} over bf16 tree tiles, {what}, "
+                                 f"disagrees with its plain version")
+
+    for integer in (True, False):
+        fe, th, dl, lv = make_forest_arrays(np.random.default_rng(SEED + 1),
+                                            integer_leaves=integer)
+        f = make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
+                        device="cuda")
+        for kind in KINDS:
+            hold_bf16(kind, f, x_chk, DEPTH,
+                      f"{'integer' if integer else 'float'} leaves, depth "
+                      f"{DEPTH}, {TREES} trees, {CHECK_ROWS} rows (1/16 "
+                      f"all-NaN)")
+    for depth in sorted(set().union(*SHALLOW.values())):
+        fe, th, dl, lv = make_forest_arrays(
+            np.random.default_rng(SEED + 10 + depth), integer_leaves=True,
+            trees=37, depth=depth)
+        lv[:, ::3] = -0.0
+        f = make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
+                        device="cuda")
+        for kind in (k for k in KINDS if depth in SHALLOW[k]):
+            hold_bf16(kind, f, x_chk, depth,
+                      f"depth {depth}, 37 trees, integer and -0.0 leaves, "
+                      f"{CHECK_ROWS} rows")
     del x_chk
 
     # wide rows: every kernel, fused and raw, in the wide-row x mode and,
@@ -1158,6 +1487,12 @@ def main() -> int:
                     hold_wide(kind, f, x_wide, fused, staged, DEPTH,
                               f"F={F}, depth {DEPTH}, {TREES} trees, "
                               f"integer leaves, {CHECK_ROWS} rows")
+            if F in BF16_WIDE_F:
+                for staged in (False, True):
+                    hold_bf16(kind, f, x_wide, DEPTH,
+                              f"F={F}, depth {DEPTH}, {TREES} trees, "
+                              f"integer leaves, {CHECK_ROWS} rows",
+                              staged=staged)
         if F != WIDE_CHECK_F[0]:
             for depth in sorted(set().union(*SHALLOW.values())):
                 fe, th, dl, lv = make_forest_arrays(
@@ -1173,6 +1508,19 @@ def main() -> int:
                                       f"F={F}, depth {depth}, 37 trees, "
                                       f"-0.0 leaves, {CHECK_ROWS} rows")
         del x_wide
+    x_far = card_rows(CHECK_ROWS, BF16_PAST_NARROW_F, seed=SEED + 7,
+                      missing=0.05, nan_every=16)
+    fe, th, dl, lv = make_forest_arrays(
+        np.random.default_rng(SEED + 8), integer_leaves=True,
+        features=BF16_PAST_NARROW_F)
+    f = make_forest(fe, th, lv, default_left=dl,
+                    n_features=BF16_PAST_NARROW_F, device="cuda")
+    for kind in KINDS:
+        hold_bf16(kind, f, x_far, DEPTH,
+                  f"F={BF16_PAST_NARROW_F} (past the narrow record), depth "
+                  f"{DEPTH}, {TREES} trees, integer leaves, {CHECK_ROWS} "
+                  f"rows")
+    del x_far, f
 
     # -- 4. main path ---------------------------------------------------------
     fe, th, dl, lv = make_forest_arrays(np.random.default_rng(SEED + 2),
@@ -1266,6 +1614,96 @@ def main() -> int:
             max_abs_err=max_err[kind], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     del args, got, want
+
+    # -- 5b. bf16 tree tiles at the path shapes, beside f32 ----------------
+    eps_x = card_rows(-(-EPSILON_ROWS // PAGE_ROWS) * PAGE_ROWS, EPSILON_F,
+                      seed=SEED + 9)
+    fe, th, dl, lv = make_forest_arrays(np.random.default_rng(SEED + 11),
+                                        integer_leaves=False,
+                                        features=EPSILON_F)
+    eps_forest = make_forest(fe, th, lv, default_left=dl,
+                             n_features=EPSILON_F, device="cuda")
+    shapes = {kind: (("higgs", forest, store.get(
+        "higgs" if kind == "predicated" else "higgs_1m").data),
+        ("epsilon", eps_forest, eps_x)) for kind in KINDS}
+    bf16_out, counts = counted(lambda: {
+        (kind, where): predict_sum_pallas(f_, x_,
+                                          algorithm=f"{kind}_pallas_fused",
+                                          tree_dtype=BF16)
+        for kind in KINDS for where, f_, x_ in shapes[kind]})
+    expect = {}
+    for kind in KINDS:
+        expect.update({f"{kind}_fused": 2, f"{kind}_fused_bf16": 2,
+                       f"{kind}_fused_wide": 1})
+    if {k: n for k, n in counts.items() if n} != expect:
+        raise AssertionError(f"bf16 path launches {counts}, expected "
+                             f"{expect}")
+    rounded = {"higgs": forest.astype(BF16).astype(torch.float32),
+               "epsilon": eps_forest.astype(BF16).astype(torch.float32)}
+    for (kind, where), got in bf16_out.items():
+        x_ = dict((w, x) for w, _, x in shapes[kind])[where]
+        want = predict_sum_pallas(rounded[where], x_,
+                                  algorithm=f"{kind}_pallas_fused")
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"{kind} bf16 at the {where} shape is not "
+                                 f"the f32 path over the rounded forest")
+    log(f"[path] predict_sum_pallas(tree_dtype=torch.bfloat16) for each "
+        f"fused kernel at the HIGGS and Epsilon shapes: launches {counts}; "
+        f"each bit for bit the f32 path over forest.astype(bf16)"
+        f".astype(f32)")
+    del bf16_out, rounded
+    bf16_record = []        # joins the record after the last phase
+    for kind in KINDS:
+        kernel = KERNEL_WRAPPERS[kind]
+        for where, f_, x_ in shapes[kind]:
+            a32, t32 = prepare_inputs(kind, f_, x_)
+            a16, t16 = prepare_inputs(kind, f_, x_, tree_dtype=BF16)
+            reps = 5 if kind == "predicated" else (3 if where == "higgs"
+                                                   else 2)
+            ms = {"f32": [], "bf16": []}
+            for dt in ("f32", "bf16", "bf16", "f32"):
+                a, t = (a32, t32) if dt == "f32" else (a16, t16)
+                ms[dt].append(cuda_ms(lambda: kernel(*a, **t), warmup=1,
+                                      reps=reps))
+            ms32, ms16 = (sum(ms[d]) / 2 for d in ("f32", "bf16"))
+            B, F = x_.shape
+            b32, by32, _ = bound(kind, B, F, f_.num_trees)
+            b16, by16, parts = bound(kind, B, F, f_.num_trees, record=4)
+            log(f"[timing] {kind} bf16 at {where} {B} rows x {F} features "
+                f"x {f_.num_trees} trees: f32 {ms32:.4f} ms (tiles {t32}), "
+                f"bf16 {ms16:.4f} ms (tiles {t16}), bf16/f32 "
+                f"{ms16 / ms32:.4f}; bound f32 {b32:.4f} ms by {by32}, bf16 "
+                f"{b16:.4f} ms by {by16} ({parts}); on {smi}")
+            if where != "higgs":
+                continue
+            # the narrow record at the f32 launch's own tiles: what the
+            # record's decode costs, apart from the larger tree tile
+            same, t_same = prepare_inputs(kind, f_, x_, tree_dtype=BF16,
+                                          block_b=t32["block_b"],
+                                          block_t=t32["block_t"])
+            same_ms = cuda_ms(lambda: kernel(*same, **t_same), warmup=1,
+                              reps=reps)
+            log(f"[timing] {kind} bf16 at the f32 tiles {t_same}: "
+                f"{same_ms:.4f} ms, /f32 {same_ms / ms32:.4f}; on {smi}")
+            del same
+            got = kernel(*a16, **t16)
+            want, plain_ms = timed_plain(plain[kind], a16, DEPTH)
+            err = float((got - want).abs().max())
+            if not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"{kind} bf16 at the path shape: "
+                                     f"max_abs_err {err}")
+            bf16_err[kind] = max(bf16_err[kind], err)
+            log(f"[timing] {kind} bf16 plain version: {plain_ms:.4f} ms, "
+                f"kernel/plain bit for bit; on {smi}")
+            bf16_record.append(dict(
+                name=f"{kind}_fused_bf16", route="cuda",
+                source=SOURCES[kind], replaces=REPLACES[kind],
+                launches=counts[f"{kind}_fused_bf16"],
+                max_abs_err=bf16_err[kind], ms=ms16, plain_ms=plain_ms,
+                bound_ms=b16, bound_by=by16, library_ms=None))
+            del got, want
+        del a32, a16
+    del eps_x, eps_forest, shapes
 
     # -- 6. the relation-centric plans at 1600 trees ----------------------
     # Leaves shrink with the tree count, as boosting's step size does, so
@@ -1466,6 +1904,24 @@ def main() -> int:
                 max_abs_err=max(wide_err[name_], w["max_abs_err"]),
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                 bound_by=w["bound_by"], library_ms=None))
+
+    # -- 10. external loads against in-database inference -------------------
+    counts10: dict[str, int] = {}
+
+    def tally10(counts: dict) -> None:
+        for k, n in counts.items():
+            counts10[k] = counts10.get(k, 0) + n
+
+    t10 = time.perf_counter()
+    load_phase(counted=counted, only=only, smi=smi, tally=tally10)
+    log(f"[load] phase wall {time.perf_counter() - t10:.3f} s")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts10[name_]
+        else:
+            entry["launches"] += counts10[name_] - counts10[f"{name_}_wide"]
+    record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")
 

@@ -36,9 +36,11 @@ wrote.  Each dataset is a ``ScanSource`` for the streaming executor
 (``page_slice`` in its own tier, ``to_device`` staging), so no caller
 branches on where pages live.
 
-Not ported yet: labels for training (ROADMAP queue 1, item 11), the
-optimizer's decision catalog (item 10), the ``disk_page_read`` fault site
-and the store's spans (item 8).
+``put`` and ``put_sparse`` take the rows' ``labels``, kept as f32 [N] on
+the store's device (reference ``repro/db/store.py:_put_impl`` /
+``put_sparse``).  Not ported yet: ``stream_writer``'s labels for training
+(ROADMAP queue 1, item 11), the optimizer's decision catalog (item 10),
+the ``disk_page_read`` fault site and the store's spans (item 8).
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ class StoredDataset:
     created_at: float = dataclasses.field(default_factory=time.time)
     storage_format: str = "dense"
     tier: str = "device"
+    labels: torch.Tensor | None = None   # f32 [N] on the store's device
 
     @property
     def num_features(self) -> int:
@@ -197,6 +200,7 @@ class SparseStoredDataset:
     created_at: float = dataclasses.field(default_factory=time.time)
     storage_format: str = "csr"
     tier: str = "device"
+    labels: torch.Tensor | None = None   # f32 [N] on the store's device
 
     @property
     def num_features(self) -> int:
@@ -395,17 +399,30 @@ class TensorBlockStore:
         return "disk"
 
     # -- ingestion ----------------------------------------------------------
+    def _labels(self, labels, num_rows: int) -> torch.Tensor | None:
+        """A dataset's labels as f32 [N] on the store's device."""
+        if labels is None:
+            return None
+        lab = torch.as_tensor(labels).to(self.device, torch.float32)
+        if tuple(lab.shape) != (num_rows,):
+            raise ValueError(f"labels {tuple(lab.shape)} do not match "
+                             f"{num_rows} rows")
+        return lab
+
     def put(self, name: str, data: np.ndarray | torch.Tensor, *,
-            page_rows: int | None = None, task: str = "classification",
+            labels=None, page_rows: int | None = None,
+            task: str = "classification",
             tier: str = "auto") -> StoredDataset:
         """Ingest [N, F] dense rows (numpy, or a tensor on any device):
         pad to whole pages with NaN rows (never counted in results),
-        resolve the tier, lay the rows out there and register them."""
+        resolve the tier, lay the rows out there and register them.
+        ``labels`` [N], if given, are kept as f32 on the store's device."""
         page_rows = page_rows or self.default_page_rows
         src = torch.as_tensor(data)
         if src.dim() != 2:
             raise ValueError(f"expected [N, F] rows, got {tuple(src.shape)}")
         n, F = src.shape
+        lab = self._labels(labels, n)
         w = self.stream_writer(name, num_rows=n, num_features=F,
                                page_rows=page_rows, tier=tier, task=task)
         try:
@@ -413,7 +430,9 @@ class TensorBlockStore:
         except BaseException:
             w.abort()
             raise
-        return w.close()
+        ds = w.close()
+        ds.labels = lab
+        return ds
 
     def _pages_on(self, pages: CSRPages, tier: str) -> bool:
         """Whether page arrays already sit in ``tier``'s storage of this
@@ -442,7 +461,7 @@ class TensorBlockStore:
                    num_rows: int | None = None,
                    num_features: int | None = None,
                    pages: CSRPages | None = None,
-                   page_rows: int | None = None,
+                   page_rows: int | None = None, labels=None,
                    task: str = "classification", drop_zeros: bool = False,
                    tier: str = "auto") -> SparseStoredDataset:
         """Ingest a CSR dataset (the sparse data plane), most compressed
@@ -459,7 +478,8 @@ class TensorBlockStore:
         Rows pad to whole pages as EMPTY rows, as ``put`` pads with NaN
         rows.  The tier resolves from the pages' bytes (``auto`` cascades
         as for ``put``); the host tier holds three pinned tensors on a
-        CUDA store, the disk tier three spill files."""
+        CUDA store, the disk tier three spill files.  ``labels`` [N], if
+        given, are kept as f32 on the store's device."""
         page_rows = page_rows or self.default_page_rows
         self._release_disk(name)       # a re-put's old spill files go away
         if pages is None:
@@ -480,6 +500,7 @@ class TensorBlockStore:
                 n_features=int(num_features)), n_features=int(num_features))
         elif num_rows is None:
             raise ValueError("num_rows is required with pages=")
+        lab = self._labels(labels, int(num_rows))
         tier = self._resolve_tier(tier, pages.nbytes)
         if self._pages_on(pages, tier):
             pages = pages.replace(pages.arrays(), tier=tier)
@@ -487,7 +508,7 @@ class TensorBlockStore:
             pages = self._relocate_pages(name, tier, pages)
         ds = SparseStoredDataset(name=name, pages=pages,
                                  num_rows=int(num_rows), device=self.device,
-                                 task=task, tier=tier)
+                                 task=task, tier=tier, labels=lab)
         self._datasets[name] = ds
         return ds
 

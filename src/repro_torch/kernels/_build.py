@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; each
-library holds one kernel's fused and raw entry points.  The
+library holds one kernel's fused (f32 and bf16 tree tiles) and raw entry
+points.  The
 build runs at first use, from the sources in this package only, into
 ``build/kernels/`` at the root of the checkout; a library's file name
 carries a digest of its sources and flags, so an edited source is rebuilt
@@ -36,13 +37,13 @@ _LL = ctypes.c_longlong
 
 
 def _entry_points(kind: str, n_pointers: int):
-    """The fused and raw C entry points of one kernel: ``n_pointers``
-    tensor pointers (inputs, then out), B, then F, T, depth, block_b,
-    block_t, x_staged (nonzero: stage x in shared memory), and the
-    stream."""
+    """The fused (f32 and bf16 tree tiles) and raw C entry points of one
+    kernel: ``n_pointers`` tensor pointers (inputs, then out), B, then F,
+    T, depth, block_b, block_t, x_staged (nonzero: stage x in shared
+    memory), and the stream."""
     argtypes = [_P] * n_pointers + [_LL] + [_I] * 6 + [_P]
     return [(f"forest_{kind}_{variant}", argtypes)
-            for variant in ("fused", "raw")]
+            for variant in ("fused", "fused_bf16", "raw")]
 
 
 #: library name -> (source file, [(C function, argtypes), ...])

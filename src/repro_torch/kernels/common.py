@@ -15,13 +15,23 @@ and the one 8-byte record per node that every CUDA kernel reads:
 int32 [T, L, 2], heap slot 0 unused (``csrc/forest_common.cuh``).  The
 plain versions take the same record and unpack it.
 
+bf16 tree tiles (the reference's ``tree_dtype=jnp.bfloat16``,
+``repro/kernels/ops.py:_prepared``) narrow the record to one 4-byte word,
+``pack_narrow_nodes``: ``bf16 threshold bits << 16 | feature << 1 |
+default_left`` as int32 [T, L], with bf16 leaves [T, L].  The word's high
+half IS the f32 bit pattern of the bf16 threshold, so ``word & 0xFFFF0000``
+upcasts it exactly; 15 bits hold the feature, so only forests of at most
+``NARROW_MAX_FEATURES`` features take it (``narrow_record``).  The fused
+kernels read either record; ``unpack_nodes`` unpacks either.
+
 ``block_heuristics`` sizes the kernels' tiles for an H100 block: BB
 threads, one sample a thread (QuickScorer: ``QS_ROWS_PER_THREAD`` samples
 a thread, BB apart, so its tile holds rows = 4 * BB samples; the others
 rows = BB), and a shared-memory working set of
 
     x tile     4 * F * rows                  staged mode only (below)
-    tree tiles buffers * BT * 12 * L      node records and leaves; two
+    tree tiles buffers * BT * 12 * L      node records and leaves (6 * L
+                                          with the narrow record); two
                                           buffers when a launch walks more
                                           than one tile (double buffering)
     extra      HummingBird: NP * KP + 4 * NP + BB * KP   (C^T int8, D, one
@@ -63,11 +73,12 @@ from repro_torch.core.algorithms import go_left
 from repro_torch.kernels import _build
 
 __all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
-           "block_heuristics", "tile_smem_bytes", "tree_buffers",
-           "smem_budget", "launch_forest_kernel", "rows_per_thread",
-           "x_staged", "resolve_staged", "count_launch", "SMEM_BLOCK_MAX",
-           "SMEM_BUDGET", "MAX_KERNEL_DEPTH", "QS_ROWS_PER_THREAD",
-           "X_STAGED_MAX_F"]
+           "pack_narrow_nodes", "unpack_narrow_nodes", "narrow_record",
+           "record_bytes", "block_heuristics", "tile_smem_bytes",
+           "tree_buffers", "smem_budget", "launch_forest_kernel",
+           "rows_per_thread", "x_staged", "resolve_staged", "count_launch",
+           "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH",
+           "QS_ROWS_PER_THREAD", "X_STAGED_MAX_F", "NARROW_MAX_FEATURES"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
@@ -82,6 +93,11 @@ MAX_BLOCK_B = 256
 MAX_BLOCK_T = 64
 #: samples a QuickScorer thread scores (csrc/forest_quickscorer.cu: kRows)
 QS_ROWS_PER_THREAD = 4
+#: widest forest the narrow node record can name: 15 feature bits
+NARROW_MAX_FEATURES = 1 << 15
+#: node-record bytes: the f32 record, the narrow (bf16) one; a leaf takes
+#: half as many
+WIDE_RECORD_BYTES, NARROW_RECORD_BYTES = 8, 4
 #: widest F at which each (kernel, fused) stages x in shared memory, wider
 #: rows running the wide-row mode; None: wherever a 32-sample staged tile
 #: fits one block.  Each limit is the widest width at which chip_smoke.py
@@ -122,10 +138,57 @@ def pack_nodes(feature: torch.Tensor, threshold: torch.Tensor,
 def unpack_nodes(nodes: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
                                                torch.Tensor]:
     """Node records -> (feature int32, threshold f32, default_left bool),
-    each [T, I]: the inverse of ``pack_nodes``, bit for bit."""
+    each [T, I]: the inverse of ``pack_nodes``, bit for bit, or of
+    ``pack_narrow_nodes`` for a narrow record ([T, L], the threshold
+    upcast from bf16)."""
+    if nodes.dim() == 2:
+        return unpack_narrow_nodes(nodes)
     body = nodes[:, 1:]
     threshold = body[..., 0].contiguous().view(torch.float32)
     return body[..., 1] >> 1, threshold, (body[..., 1] & 1).bool()
+
+
+def narrow_record(n_features: int) -> bool:
+    """Whether bf16 tree tiles over a forest of ``n_features`` features
+    take the narrow 4-byte record.  A wider forest's feature indices do
+    not fit 15 bits: its bf16 tiles keep the 8-byte record, holding the
+    bf16-rounded thresholds widened to f32 (exact) and f32 leaves of the
+    bf16-rounded values, so the result is the same."""
+    return n_features <= NARROW_MAX_FEATURES
+
+
+def record_bytes(nodes: torch.Tensor) -> int:
+    """Bytes of one node record of a packed tree tensor."""
+    return NARROW_RECORD_BYTES if nodes.dim() == 2 else WIDE_RECORD_BYTES
+
+
+def pack_narrow_nodes(feature: torch.Tensor, threshold: torch.Tensor,
+                      default_left: torch.Tensor) -> torch.Tensor:
+    """[T, I] node arrays -> the narrow node records, int32 [T, I + 1]:
+    ``[t, i + 1] = bf16(threshold) bits << 16 | feature << 1 |
+    default_left``, slot 0 zero.  The threshold rounds to bf16 to nearest
+    even, as XLA's cast does; +-inf and -0.0 survive exactly."""
+    T, I = feature.shape
+    if feature.numel() and int(feature.max()) >= NARROW_MAX_FEATURES:
+        raise ValueError(f"a narrow node record names features below "
+                         f"{NARROW_MAX_FEATURES}, got {int(feature.max())}")
+    # the f32 pattern of a bf16 value is its bits << 16, low half zero
+    high = threshold.to(torch.bfloat16).float().contiguous().view(
+        torch.int32)
+    nodes = torch.zeros((T, I + 1), dtype=torch.int32, device=feature.device)
+    nodes[:, 1:] = high | (feature.to(torch.int32) << 1) | default_left.to(
+        torch.int32)
+    return nodes
+
+
+def unpack_narrow_nodes(nodes: torch.Tensor) -> tuple[torch.Tensor,
+                                                      torch.Tensor,
+                                                      torch.Tensor]:
+    """Narrow node records -> (feature int32, threshold f32 upcast from
+    bf16, default_left bool), each [T, I]: what the kernels decode."""
+    body = nodes[:, 1:]
+    threshold = (body & -(1 << 16)).contiguous().view(torch.float32)
+    return (body >> 1) & 0x7FFF, threshold, (body & 1).bool()
 
 
 def _align16(n: int) -> int:
@@ -161,22 +224,26 @@ def tree_buffers(T: int, block_t: int) -> int:
 
 def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
                     depth: int, *, fused: bool = True, buffers: int = 1,
-                    staged: bool = True) -> int:
+                    staged: bool = True,
+                    record: int = WIDE_RECORD_BYTES) -> int:
     """Dynamic shared memory of one block, as the CUDA layout lays it out
     (``fused=False``: the raw [B, T] kernel, with its out tile;
     ``buffers``: tree tiles held, ``tree_buffers``; ``staged=False``: the
-    wide-row mode, no x tile).  ``block_b`` counts threads; the tile holds
+    wide-row mode, no x tile; ``record``: node-record bytes, a leaf half
+    of it).  ``block_b`` counts threads; the tile holds
     ``rows_per_thread(kind)`` samples for each."""
     L = 1 << depth
     rows = block_b * rows_per_thread(kind)
-    tree = _align16(8 * block_t * L) + _align16(4 * block_t * L)
+    tree = (_align16(record * block_t * L)
+            + _align16(record // 2 * block_t * L))
     out_tile = 0 if fused else _align16(4 * rows * (block_t + 1))
     x_tile = _align16(4 * F * rows) if staged else 0
     return (x_tile + buffers * tree
             + _align16(_extra_bytes(kind, depth, block_b)) + out_tile)
 
 
-def x_staged(kind: str, F: int, depth: int, fused: bool = True) -> bool:
+def x_staged(kind: str, F: int, depth: int, fused: bool = True, *,
+             record: int = WIDE_RECORD_BYTES) -> bool:
     """Whether a kernel launch over F-feature rows stages x in shared
     memory: up to ``X_STAGED_MAX_F[kind, fused]`` features, and only where
     a 32-sample x tile fits one block beside one tree.  Otherwise the
@@ -185,13 +252,14 @@ def x_staged(kind: str, F: int, depth: int, fused: bool = True) -> bool:
     if limit is not None and F > limit:
         return False
     least = tile_smem_bytes(kind, 32 // rows_per_thread(kind), 1, F, depth,
-                            fused=fused)
+                            fused=fused, record=record)
     return least <= SMEM_BLOCK_MAX
 
 
 def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
                      fused: bool = True, one_tile: bool = False,
-                     staged: bool | None = None) -> tuple[int, int]:
+                     staged: bool | None = None,
+                     record: int = WIDE_RECORD_BYTES) -> tuple[int, int]:
     """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch over
     T trees: BB threads, a multiple of 32 up to 256 (no more than B
     samples need at ``rows_per_thread`` a thread), BT a power of two up to
@@ -200,16 +268,19 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
     shared memory fits.  ``one_tile``: size the tile for launches of
     exactly BT trees (one tree partition each), which hold one tree
     buffer.  ``staged``: the x mode (None: ``x_staged`` decides); the
-    wide-row mode holds no x tile, so F does not shrink its tiles.  Raises
-    only when a staged x tile of 32 samples and one tree does not fit a
-    block at all."""
+    wide-row mode holds no x tile, so F does not shrink its tiles.
+    ``record``: node-record bytes (the narrow bf16 record halves a tree
+    tile, so the same budget takes twice the trees).  Raises only when a
+    staged x tile of 32 samples and one tree does not fit a block at
+    all."""
     if staged is None:
-        staged = x_staged(kind, F, depth, fused)
+        staged = x_staged(kind, F, depth, fused, record=record)
 
     def smem(bb, bt):
         buffers = 1 if one_tile else tree_buffers(T, bt)
         return tile_smem_bytes(kind, bb, bt, F, depth, fused=fused,
-                               buffers=buffers, staged=staged)
+                               buffers=buffers, staged=staged,
+                               record=record)
 
     budget = smem_budget(kind)
     per = rows_per_thread(kind)
@@ -229,17 +300,21 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
 
 
 def resolve_staged(kind: str, x: torch.Tensor, depth: int, fused: bool,
-                   staged: bool | None) -> bool:
+                   staged: bool | None,
+                   record: int = WIDE_RECORD_BYTES) -> bool:
     """A wrapper's x mode: the caller's, or ``x_staged``'s for x's width."""
-    return x_staged(kind, x.shape[1], depth, fused) if staged is None \
-        else bool(staged)
+    return x_staged(kind, x.shape[1], depth, fused, record=record) \
+        if staged is None else bool(staged)
 
 
-def count_launch(wrapper, staged: bool) -> None:
+def count_launch(wrapper, staged: bool, narrow: bool = False) -> None:
     """One launch of ``wrapper``'s kernel: ``.launches`` counts every
-    launch, ``.wide_launches`` those in the wide-row mode."""
+    launch, ``.wide_launches`` those in the wide-row x mode,
+    ``.bf16_launches`` (fused wrappers) those over narrow bf16 records."""
     wrapper.launches += 1
     wrapper.wide_launches += not staged
+    if narrow:
+        wrapper.bf16_launches += 1
 
 
 def sum_trees_in_order(scores: torch.Tensor) -> torch.Tensor:
@@ -257,15 +332,21 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
                         block_b: int, block_t: int, fused: bool,
                         staged: bool = True,
                         structure: tuple[torch.Tensor, ...] = ()) -> None:
-    """Everything a CUDA forest kernel assumes, checked before launch."""
+    """Everything a CUDA forest kernel assumes, checked before launch.
+    A narrow record ([T, L] int32 with bf16 leaves) only feeds the fused
+    kernels."""
     tensors = (x, nodes, leaf_value) + structure
     if any(t.device.type != "cuda" for t in tensors):
         raise ValueError(f"{kind}: every input must be a CUDA tensor, got "
                          f"{[str(t.device) for t in tensors]}")
     if len({t.device for t in tensors}) != 1:
         raise ValueError(f"{kind}: inputs on different devices")
+    narrow = nodes.dim() == 2
+    if narrow and not fused:
+        raise ValueError(f"{kind}: the raw kernel takes f32 trees only")
     want = {"x": (x, torch.float32), "nodes": (nodes, torch.int32),
-            "leaf_value": (leaf_value, torch.float32)}
+            "leaf_value": (leaf_value,
+                           torch.bfloat16 if narrow else torch.float32)}
     for name, (t, dtype) in want.items():
         if t.dtype != dtype:
             raise TypeError(f"{kind}: {name} must be {dtype}, got {t.dtype}")
@@ -279,9 +360,9 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
     T = nodes.shape[0]
     if x.dim() != 2 or x.shape[1] < 1:
         raise ValueError(f"{kind}: x must be [B, F], got {tuple(x.shape)}")
-    if tuple(nodes.shape) != (T, L, 2):
+    if tuple(nodes.shape) != ((T, L) if narrow else (T, L, 2)):
         raise ValueError(f"{kind}: nodes shape {tuple(nodes.shape)} != "
-                         f"({T}, {L}, 2)")
+                         f"({T}, {L}{'' if narrow else ', 2'})")
     if tuple(leaf_value.shape) != (T, L):
         raise ValueError(f"{kind}: leaf_value shape "
                          f"{tuple(leaf_value.shape)} != ({T}, {L})")
@@ -295,7 +376,7 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
                          f"block_t={block_t}")
     smem = tile_smem_bytes(kind, block_b, block_t, x.shape[1], depth,
                            fused=fused, buffers=tree_buffers(T, block_t),
-                           staged=staged)
+                           staged=staged, record=record_bytes(nodes))
     if smem > SMEM_BLOCK_MAX:
         raise ValueError(f"{kind}: tile needs {smem} B of shared memory, "
                          f"a block has {SMEM_BLOCK_MAX}")
@@ -306,7 +387,8 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
                          structure: tuple[torch.Tensor, ...], *, depth: int,
                          block_b: int, block_t: int, fused: bool,
                          staged: bool) -> torch.Tensor:
-    """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]) or
+    """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]; over
+    narrow bf16 records ``forest_<kind>_fused_bf16``) or
     ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream, in the
     x mode ``staged`` (``x_staged``'s choice, or the caller's).  Every C
     entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
@@ -318,6 +400,8 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
                         structure=structure)
     lib = _build.load(f"forest_{kind}")
     name = f"forest_{kind}_{'fused' if fused else 'raw'}"
+    if trees[0].dim() == 2:
+        name += "_bf16"
     B, F = x.shape
     T = trees[0].shape[0]
     out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,

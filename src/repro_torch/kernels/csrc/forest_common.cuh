@@ -17,17 +17,25 @@
 //     reads hit the x rows' lines in L1 once fetched;
 //   * in the WIDE-ROW mode (STAGED false, kernels/common.py:x_staged) x is
 //     not staged: each thread reads its row's features from row-major
-//     global x through the read-only path (``x_at``), with 64-bit offsets.
+//     global x through the read-only path (``node_x``), with 64-bit offsets.
 //     Shared memory then holds only the tree tiles, the kernel's extra and
 //     the raw out tile, so the block is sized as at a narrow F whatever F
 //     is.  Every kernel is instantiated for both modes; the STAGED one is
 //     the code of the narrow path;
-//   * trees arrive as one 8-byte record per node (``kernels/ops.py:
+//   * trees arrive as one 8-byte record per node (``kernels/common.py:
 //     pack_nodes``): {threshold bits, feature << 1 | default_left}, heap
 //     slots 1..I of a [T][L] array (slot 0 unused, so a tree's records
 //     start 16-byte aligned and the descent is idx <- 2 * idx + right from
-//     idx = 1, leaf = idx - L).  A level is one LDS.64 and one x load;
-//   * tree tiles (records [BT][L] int2 + leaves [BT][L] f32) are copied by
+//     idx = 1, leaf = idx - L).  A level is one LDS.64 and one x load.
+//     The fused kernels also take bf16 tree tiles (NARROW, ``Record``):
+//     one 4-byte word a node, bf16 threshold bits << 16 | feature << 1 |
+//     default_left (``pack_narrow_nodes``), and bf16 leaves; the threshold
+//     upcasts exactly by masking the low half, the leaf by a shift, and
+//     sums stay f32.  A node slot then takes 6 bytes of shared memory, not
+//     12.  A depth-1 tree's records are 8 bytes and its leaves 4, so tile
+//     copies that miss 16-byte alignment go in 4-byte pieces
+//     (``copy_async``);
+//   * tree tiles (records [BT][L] + leaves [BT][L]) are copied by
 //     cp.async.  A launch over more than one tile double-buffers them:
 //     tile j + 1 is in flight while tile j is walked, one barrier per tile.
 //     A launch over one tile (a rel partition) has nothing to pipeline
@@ -63,12 +71,42 @@ __host__ __device__ inline int tree_buffers(int T, int bt) {
   return T > bt ? 2 : 1;
 }
 
+// A node record and a leaf as the tree tiles hold them: f32 trees (an
+// 8-byte record, f32 leaves) or, NARROW, bf16 trees (a 4-byte record,
+// bf16 leaves kept as their bits).
+template <bool NARROW>
+struct Record {
+  using Node = int2;
+  using Leaf = float;
+};
+template <>
+struct Record<true> {
+  using Node = uint32_t;
+  using Leaf = uint16_t;
+};
+
+__device__ inline int node_feature(int2 n) { return n.y >> 1; }
+__device__ inline float node_threshold(int2 n) { return __int_as_float(n.x); }
+__device__ inline float node_threshold(uint32_t n) {
+  return __uint_as_float(n & 0xFFFF0000u);
+}
+__device__ inline bool node_default_left(int2 n) { return (n.y & 1) != 0; }
+__device__ inline bool node_default_left(uint32_t n) { return (n & 1u) != 0; }
+__device__ inline bool node_default_right(int2 n) { return (n.y & 1) == 0; }
+__device__ inline bool node_default_right(uint32_t n) {
+  return (n & 1u) == 0;
+}
+__device__ inline float leaf_f32(float v) { return v; }
+__device__ inline float leaf_f32(uint16_t v) {
+  return __uint_as_float(uint32_t(v) << 16);
+}
+
 // Byte offsets of one block's shared memory, each 16-byte aligned:
 //   x      float  [F][rows]     sample tile, feature-major (the wide-row
 //                               mode passes F = 0: no x tile)
 //   per tree buffer (1 or 2):
-//     nodes  int2   [BT][L]     packed node records
-//     leaf   float  [BT][L]
+//     nodes  Node   [BT][L]     packed node records (record_bytes each)
+//     leaf   Leaf   [BT][L]     (record_bytes / 2 each)
 //   extra                       kernel-specific (structure tensors, ...)
 //   out    float  [rows][BT+1]  raw kernels only
 // kernels/common.py:tile_smem_bytes mirrors this layout.
@@ -79,9 +117,10 @@ struct TileLayout {
 __host__ __device__ inline TileLayout tile_layout(int rows, int bt, int F,
                                                   int L, int buffers,
                                                   size_t extra_bytes,
-                                                  bool fused) {
-  const size_t node_bytes = align16(8 * size_t(bt) * L);
-  const size_t leaf_bytes = align16(4 * size_t(bt) * L);
+                                                  bool fused,
+                                                  int record_bytes) {
+  const size_t node_bytes = align16(size_t(record_bytes) * bt * L);
+  const size_t leaf_bytes = align16(size_t(record_bytes / 2) * bt * L);
   TileLayout s;
   s.x = 0;
   size_t at = align16(sizeof(float) * size_t(F) * rows);
@@ -101,22 +140,27 @@ __host__ __device__ inline TileLayout tile_layout(int rows, int bt, int F,
   return s;
 }
 
+template <typename Node, typename Leaf>
 struct TileRefs {
   float* x;
-  int2* nodes[2];
-  float* leaf[2];
+  Node* nodes[2];
+  Leaf* leaf[2];
   unsigned char* extra;
   float* out;
 };
 
-__device__ inline TileRefs tile_refs(unsigned char* smem,
-                                     const TileLayout& lay) {
-  return TileRefs{
+template <bool NARROW>
+__device__ inline TileRefs<typename Record<NARROW>::Node,
+                           typename Record<NARROW>::Leaf>
+tile_refs(unsigned char* smem, const TileLayout& lay) {
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
+  return TileRefs<Node, Leaf>{
       reinterpret_cast<float*>(smem + lay.x),
-      {reinterpret_cast<int2*>(smem + lay.nodes[0]),
-       reinterpret_cast<int2*>(smem + lay.nodes[1])},
-      {reinterpret_cast<float*>(smem + lay.leaf[0]),
-       reinterpret_cast<float*>(smem + lay.leaf[1])},
+      {reinterpret_cast<Node*>(smem + lay.nodes[0]),
+       reinterpret_cast<Node*>(smem + lay.nodes[1])},
+      {reinterpret_cast<Leaf*>(smem + lay.leaf[0]),
+       reinterpret_cast<Leaf*>(smem + lay.leaf[1])},
       smem + lay.extra,
       reinterpret_cast<float*>(smem + lay.out)};
 }
@@ -189,32 +233,55 @@ __device__ inline const float* global_row(const float* __restrict__ x,
   return x + (row < B ? row : B - 1) * (long long)F;
 }
 
-// Feature f of a thread's row: ``xb`` is its column of the staged tile
-// (stride = the tile's rows) or, not STAGED, its global row, read through
-// the read-only path (ld.global.nc).
-template <bool STAGED>
-__device__ inline float x_at(const float* __restrict__ xb, int f,
-                             int stride) {
+// Where node n's feature sits.  The narrow record holds the feature in
+// bits 1..15, so (n & 0xFFFE) is twice the feature: its offsets take one
+// mask and no shift.  node_offset: f * stride, the feature's place in a
+// staged column (stride = the tile's rows, a multiple of 32, so even);
+// row_at: the feature of a global row, read through the read-only path
+// (ld.global.nc).
+__device__ inline int node_offset(int2 n, int stride) {
+  return node_feature(n) * stride;
+}
+__device__ inline int node_offset(uint32_t n, int stride) {
+  return int(n & 0xFFFEu) * (stride >> 1);
+}
+__device__ inline float row_at(const float* __restrict__ row, int2 n) {
+  return __ldg(row + node_feature(n));
+}
+__device__ inline float row_at(const float* __restrict__ row, uint32_t n) {
+  return __ldg(reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(row) + 2 * (n & 0xFFFEu)));
+}
+
+// Node n's feature of a thread's row: ``xb`` is its column of the staged
+// tile (stride = the tile's rows) or, not STAGED, its global row.
+template <bool STAGED, typename Node>
+__device__ inline float node_x(const float* __restrict__ xb, Node n,
+                               int stride) {
   if constexpr (STAGED) {
-    return xb[f * stride];
+    return xb[node_offset(n, stride)];
   } else {
-    return __ldg(xb + f);
+    return row_at(xb, n);
   }
 }
 
-__device__ inline void stage_tree_tile(const TileRefs& s, int buf,
-                                       const int2* __restrict__ nodes,
-                                       const float* __restrict__ leaf_value,
+template <typename Node, typename Leaf>
+__device__ inline void stage_tree_tile(const TileRefs<Node, Leaf>& s,
+                                       int buf,
+                                       const Node* __restrict__ nodes,
+                                       const Leaf* __restrict__ leaf_value,
                                        int t0, int bt, int L) {
   const size_t n = size_t(bt) * L, g0 = size_t(t0) * L;
   // selected, not indexed: a run-time index into s puts s in local memory
-  copy_async(buf ? s.nodes[1] : s.nodes[0], nodes + g0, 8 * n);
-  copy_async(buf ? s.leaf[1] : s.leaf[0], leaf_value + g0, 4 * n);
+  copy_async(buf ? s.nodes[1] : s.nodes[0], nodes + g0, sizeof(Node) * n);
+  copy_async(buf ? s.leaf[1] : s.leaf[0], leaf_value + g0,
+             sizeof(Leaf) * n);
 }
 
 // True = left child.  +-inf compares like any other number.
-__device__ inline bool go_left(float v, int2 node) {
-  return isnan(v) ? (node.y & 1) != 0 : v < __int_as_float(node.x);
+template <typename Node>
+__device__ inline bool go_left(float v, Node node) {
+  return isnan(v) ? node_default_left(node) : v < node_threshold(node);
 }
 
 // The tree loop of every kernel.  Issues tile 0 (after whatever the caller
@@ -223,10 +290,11 @@ __device__ inline bool go_left(float v, int2 node) {
 // kernels add into their own registers, RAW ones fill s.out[r * (bt + 1) +
 // t] for the block's rows = ROWS_PER_THREAD * blockDim.x samples r, which
 // this loop then writes to out[(b0 + r) * T + t0 + t].
-template <bool FUSED, int ROWS_PER_THREAD = 1, typename Walk>
-__device__ inline void run_tiles(const TileRefs& s,
-                                 const int2* __restrict__ nodes,
-                                 const float* __restrict__ leaf_value,
+template <bool FUSED, int ROWS_PER_THREAD = 1, typename Node,
+          typename Leaf, typename Walk>
+__device__ inline void run_tiles(const TileRefs<Node, Leaf>& s,
+                                 const Node* __restrict__ nodes,
+                                 const Leaf* __restrict__ leaf_value,
                                  float* __restrict__ out, long long b0,
                                  long long B, int T, int bt, int L,
                                  Walk walk) {
@@ -279,26 +347,28 @@ inline int launch_kernel(Kernel kernel, long long B, int block_b,
 
 }  // namespace forest
 
-// FN<depth, FUSED, STAGED>(...) for a depth known only at run time.
-#define FOREST_DISPATCH_DEPTH(depth, FN, FUSED, STAGED, ...) \
-  switch (depth) {                                            \
-    case 1: return FN<1, FUSED, STAGED>(__VA_ARGS__);         \
-    case 2: return FN<2, FUSED, STAGED>(__VA_ARGS__);         \
-    case 3: return FN<3, FUSED, STAGED>(__VA_ARGS__);         \
-    case 4: return FN<4, FUSED, STAGED>(__VA_ARGS__);         \
-    case 5: return FN<5, FUSED, STAGED>(__VA_ARGS__);         \
-    case 6: return FN<6, FUSED, STAGED>(__VA_ARGS__);         \
-    case 7: return FN<7, FUSED, STAGED>(__VA_ARGS__);         \
-    case 8: return FN<8, FUSED, STAGED>(__VA_ARGS__);         \
-    default: return int(cudaErrorInvalidValue);               \
+// FN<depth, FUSED, STAGED, NARROW>(...) for a depth known only at run
+// time.
+#define FOREST_DISPATCH_DEPTH(depth, FN, FUSED, STAGED, NARROW, ...) \
+  switch (depth) {                                                    \
+    case 1: return FN<1, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 2: return FN<2, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 3: return FN<3, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 4: return FN<4, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 5: return FN<5, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 6: return FN<6, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 7: return FN<7, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    case 8: return FN<8, FUSED, STAGED, NARROW>(__VA_ARGS__);         \
+    default: return int(cudaErrorInvalidValue);                       \
   }
 
-// ... and for the x mode, a launch argument (nonzero = staged).
-#define FOREST_DISPATCH(depth, staged, FN, FUSED, ...)              \
-  if (staged) {                                                     \
-    FOREST_DISPATCH_DEPTH(depth, FN, FUSED, true, __VA_ARGS__)      \
-  }                                                                 \
-  FOREST_DISPATCH_DEPTH(depth, FN, FUSED, false, __VA_ARGS__)
+// ... and for the x mode, a launch argument (nonzero = staged).  The
+// record (NARROW) is the entry point's: f32 and bf16 trees are two.
+#define FOREST_DISPATCH(depth, staged, FN, FUSED, NARROW, ...)            \
+  if (staged) {                                                           \
+    FOREST_DISPATCH_DEPTH(depth, FN, FUSED, true, NARROW, __VA_ARGS__)    \
+  }                                                                       \
+  FOREST_DISPATCH_DEPTH(depth, FN, FUSED, false, NARROW, __VA_ARGS__)
 
 extern "C" const char* forest_error_string(int err) {
   return cudaGetErrorString(cudaError_t(err));

@@ -44,6 +44,9 @@
 // SM (kernels/common.py:smem_budget).  Wide rows (STAGED false): step 1
 // gathers the row's node features from global x (read-only loads of the
 // lane's own row) instead of the staged tile; steps 2-4 are unchanged.
+// bf16 tree tiles (NARROW, fused only): step 1 reads 4-byte records and
+// the exit leaf is a 2-byte load shifted to f32; C^T, S and the mma are
+// the same.
 #include "forest_common.cuh"
 
 namespace forest {
@@ -99,18 +102,21 @@ __device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int DEPTH, bool FUSED, bool STAGED>
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
 __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
-    const float* __restrict__ x, const int2* __restrict__ nodes,
-    const float* __restrict__ leaf_value, const int8_t* __restrict__ ct,
-    const int32_t* __restrict__ dcount, float* __restrict__ out,
-    long long B, int F, int T, int bt) {
+    const float* __restrict__ x,
+    const typename Record<NARROW>::Node* __restrict__ nodes,
+    const typename Record<NARROW>::Leaf* __restrict__ leaf_value,
+    const int8_t* __restrict__ ct, const int32_t* __restrict__ dcount,
+    float* __restrict__ out, long long B, int F, int T, int bt) {
   using H = Hb<DEPTH>;
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x;
-  const TileRefs s = tile_refs(
+  const auto s = tile_refs<NARROW>(
       smem, tile_layout(bb, bt, STAGED ? F : 0, H::L, tree_buffers(T, bt),
-                        hb_extra_bytes(DEPTH, bb), FUSED));
+                        hb_extra_bytes(DEPTH, bb), FUSED, sizeof(Node)));
   unsigned char* ct_s = s.extra;
   int32_t* d_s = reinterpret_cast<int32_t*>(ct_s + align16(H::NP * H::KP));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -137,9 +143,9 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
 
   run_tiles<FUSED>(
       s, nodes, leaf_value, out, b0, B, T, bt, H::L,
-      [&](const int2* nd, const float* lv) {
+      [&](const Node* nd, const Leaf* lv) {
         for (int t = 0; t < bt; ++t) {
-          const int2* tree = nd + t * H::L;
+          const Node* tree = nd + t * H::L;
           // 1. S: byte i of the row = go_left(node i), zero past I
 #pragma unroll
           for (int c = 0; c < H::CH; ++c) {
@@ -151,9 +157,8 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
               for (int j = 0; j < 4; ++j) {
                 const int i = c * 16 + q * 4 + j;
                 if (i < H::I) {
-                  const int2 n = tree[i + 1];
-                  bits |= uint32_t(go_left(
-                              x_at<STAGED>(xb, n.y >> 1, bb), n))
+                  const Node n = tree[i + 1];
+                  bits |= uint32_t(go_left(node_x<STAGED>(xb, n, bb), n))
                           << (8 * j);
                 }
               }
@@ -241,7 +246,7 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
                                   : tq == 1 ? hit[0][1]
                                   : tq == 2 ? hit[1][0]
                                             : hit[1][1]);
-          const float v = __fadd_rn(lv[t * H::L + leaf], 0.f);
+          const float v = __fadd_rn(leaf_f32(lv[t * H::L + leaf]), 0.f);
           if constexpr (FUSED) {
             acc += v;
           } else {
@@ -254,19 +259,21 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   }
 }
 
-template <int DEPTH, bool FUSED, bool STAGED>
-int launch_hummingbird(const float* x, const int2* nodes,
-                       const float* leaf_value, const int8_t* ct,
-                       const int32_t* dcount, float* out, long long B, int F,
-                       int T, int block_b, int block_t, cudaStream_t stream) {
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
+int launch_hummingbird(const float* x,
+                       const typename Record<NARROW>::Node* nodes,
+                       const typename Record<NARROW>::Leaf* leaf_value,
+                       const int8_t* ct, const int32_t* dcount, float* out,
+                       long long B, int F, int T, int block_b, int block_t,
+                       cudaStream_t stream) {
   const size_t smem =
       tile_layout(block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
                   tree_buffers(T, block_t), hb_extra_bytes(DEPTH, block_b),
-                  FUSED)
+                  FUSED, sizeof(typename Record<NARROW>::Node))
           .total;
-  return launch_kernel(hummingbird_kernel<DEPTH, FUSED, STAGED>, B, block_b,
-                       smem, stream, x, nodes, leaf_value, ct, dcount, out,
-                       B, F, T, block_t);
+  return launch_kernel(hummingbird_kernel<DEPTH, FUSED, STAGED, NARROW>, B,
+                       block_b, smem, stream, x, nodes, leaf_value, ct,
+                       dcount, out, B, F, T, block_t);
 }
 
 }  // namespace forest
@@ -276,8 +283,19 @@ extern "C" int forest_hummingbird_fused(
     const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
     int T, int depth, int block_b, int block_t, int x_staged,
     cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, true, x,
-                  nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
+  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, true, false,
+                  x, nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
+                  block_t, stream)
+}
+
+// The fused kernel over bf16 tree tiles: 4-byte node records, bf16 leaves.
+extern "C" int forest_hummingbird_fused_bf16(
+    const float* x, const uint32_t* nodes, const uint16_t* leaf_value,
+    const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
+    int T, int depth, int block_b, int block_t, int x_staged,
+    cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, true, true,
+                  x, nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
                   block_t, stream)
 }
 
@@ -286,7 +304,7 @@ extern "C" int forest_hummingbird_raw(
     const int8_t* ct, const int32_t* dcount, float* out, long long B, int F,
     int T, int depth, int block_b, int block_t, int x_staged,
     cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, false, x,
-                  nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
+  FOREST_DISPATCH(depth, x_staged, forest::launch_hummingbird, false, false,
+                  x, nodes, leaf_value, ct, dcount, out, B, F, T, block_b,
                   block_t, stream)
 }

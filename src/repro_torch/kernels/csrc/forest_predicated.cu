@@ -27,25 +27,30 @@
 // Wide rows (STAGED false): each level's x load is a read-only global load
 // of the thread's own row, 32 rows a warp on 32 lines; the four chains
 // keep four of them in flight, and the block keeps 256 threads at any F.
+// bf16 tree tiles (NARROW, fused only): a level loads a 4-byte record and
+// masks out its threshold; the exit leaf is a 2-byte load shifted to f32.
 #include "forest_common.cuh"
 
 namespace forest {
 
 constexpr int kChains = 4;
 
-template <int DEPTH, bool FUSED, bool STAGED>
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
 __global__ void __launch_bounds__(kMaxBlock, 2)
     predicated_kernel(const float* __restrict__ x,
-                      const int2* __restrict__ nodes,
-                      const float* __restrict__ leaf_value,
+                      const typename Record<NARROW>::Node* __restrict__ nodes,
+                      const typename Record<NARROW>::Leaf* __restrict__
+                          leaf_value,
                       float* __restrict__ out, long long B, int F, int T,
                       int bt) {
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
   constexpr int L = 1 << DEPTH;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x, b = threadIdx.x;
-  const TileRefs s = tile_refs(
+  const auto s = tile_refs<NARROW>(
       smem, tile_layout(bb, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
-                        FUSED));
+                        FUSED, sizeof(Node)));
   const long long b0 = (long long)blockIdx.x * bb;
   const float* xb = STAGED ? s.x + b : global_row(x, b0 + b, B, F);
 
@@ -53,9 +58,9 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   float acc = 0.f;
   run_tiles<FUSED>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
-      [&](const int2* nd, const float* lv) {
+      [&](const Node* nd, const Leaf* lv) {
         for (int t = 0; t < bt; t += kChains) {
-          const int2* tree[kChains];
+          const Node* tree[kChains];
           int idx[kChains];
 #pragma unroll
           for (int c = 0; c < kChains; ++c) {
@@ -66,15 +71,15 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
           for (int d = 0; d < DEPTH; ++d) {
 #pragma unroll
             for (int c = 0; c < kChains; ++c) {
-              const int2 n = tree[c][idx[c]];
+              const Node n = tree[c][idx[c]];
               idx[c] = 2 * idx[c] +
-                       int(!go_left(x_at<STAGED>(xb, n.y >> 1, bb), n));
+                       int(!go_left(node_x<STAGED>(xb, n, bb), n));
             }
           }
 #pragma unroll
           for (int c = 0; c < kChains; ++c) {
             if (t + c < bt) {
-              const float v = lv[(t + c) * L + idx[c] - L];
+              const float v = leaf_f32(lv[(t + c) * L + idx[c] - L]);
               if constexpr (FUSED) {
                 acc += v;
               } else {
@@ -89,18 +94,20 @@ __global__ void __launch_bounds__(kMaxBlock, 2)
   }
 }
 
-template <int DEPTH, bool FUSED, bool STAGED>
-int launch_predicated(const float* x, const int2* nodes,
-                      const float* leaf_value, float* out, long long B,
-                      int F, int T, int block_b, int block_t,
-                      cudaStream_t stream) {
-  const size_t smem = tile_layout(block_b, block_t, STAGED ? F : 0,
-                                  1 << DEPTH, tree_buffers(T, block_t), 0,
-                                  FUSED)
-                          .total;
-  return launch_kernel(predicated_kernel<DEPTH, FUSED, STAGED>, B, block_b,
-                       smem, stream, x, nodes, leaf_value, out, B, F, T,
-                       block_t);
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
+int launch_predicated(const float* x,
+                      const typename Record<NARROW>::Node* nodes,
+                      const typename Record<NARROW>::Leaf* leaf_value,
+                      float* out, long long B, int F, int T, int block_b,
+                      int block_t, cudaStream_t stream) {
+  const size_t smem =
+      tile_layout(block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
+                  tree_buffers(T, block_t), 0, FUSED,
+                  sizeof(typename Record<NARROW>::Node))
+          .total;
+  return launch_kernel(predicated_kernel<DEPTH, FUSED, STAGED, NARROW>, B,
+                       block_b, smem, stream, x, nodes, leaf_value, out, B,
+                       F, T, block_t);
 }
 
 }  // namespace forest
@@ -110,8 +117,17 @@ extern "C" int forest_predicated_fused(const float* x, const int2* nodes,
                                        long long B, int F, int T, int depth,
                                        int block_b, int block_t,
                                        int x_staged, cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, true, x, nodes,
-                  leaf_value, out, B, F, T, block_b, block_t, stream)
+  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, true, false, x,
+                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
+}
+
+// The fused kernel over bf16 tree tiles: 4-byte node records, bf16 leaves.
+extern "C" int forest_predicated_fused_bf16(
+    const float* x, const uint32_t* nodes, const uint16_t* leaf_value,
+    float* out, long long B, int F, int T, int depth, int block_b,
+    int block_t, int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, true, true, x,
+                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
 }
 
 extern "C" int forest_predicated_raw(const float* x, const int2* nodes,
@@ -119,6 +135,7 @@ extern "C" int forest_predicated_raw(const float* x, const int2* nodes,
                                      long long B, int F, int T, int depth,
                                      int block_b, int block_t,
                                      int x_staged, cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, false, x,
-                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
+  FOREST_DISPATCH(depth, x_staged, forest::launch_predicated, false, false,
+                  x, nodes, leaf_value, out, B, F, T, block_b, block_t,
+                  stream)
 }

@@ -50,6 +50,9 @@
 //     and the raw out tile are the shared ones of forest_common.cuh.
 // Wide rows (STAGED false): a thread keeps one global row pointer per
 // sample, and each node's gather is kRows read-only loads of those rows.
+// bf16 tree tiles (NARROW, fused only): each node is a 4-byte record whose
+// threshold is masked out of it, each exit leaf a 2-byte load shifted to
+// f32; the masks and the word loop are the same.
 #include "forest_common.cuh"
 
 namespace forest {
@@ -81,20 +84,23 @@ __device__ inline bool goes_right(float v, float threshold, bool nan_right) {
   return (v >= threshold) | (nan_right & isnan(v));
 }
 
-template <int DEPTH, bool FUSED, bool STAGED>
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
 __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
-    const float* __restrict__ x, const int2* __restrict__ nodes,
-    const float* __restrict__ leaf_value, float* __restrict__ out,
-    long long B, int F, int T, int bt) {
+    const float* __restrict__ x,
+    const typename Record<NARROW>::Node* __restrict__ nodes,
+    const typename Record<NARROW>::Leaf* __restrict__ leaf_value,
+    float* __restrict__ out, long long B, int F, int T, int bt) {
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
   constexpr int L = 1 << DEPTH;
   constexpr int DW = DEPTH < 5 ? DEPTH : 5;  // levels inside one word
   constexpr int K = DEPTH - DW;              // top levels
   constexpr int W = 1 << K;                  // words of a tree's leaves
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x, b = threadIdx.x, rows = kRows * bb;
-  const TileRefs s = tile_refs(
+  const auto s = tile_refs<NARROW>(
       smem, tile_layout(rows, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
-                        FUSED));
+                        FUSED, sizeof(Node)));
   const long long b0 = (long long)blockIdx.x * rows;
   const float* xb = s.x + b;  // row j of this thread: xb[f * rows + j * bb]
   const float* xr[kRows];     // wide rows: row j of this thread in x
@@ -104,20 +110,19 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   }
 
   // right[j]: row j goes right at node record n (heap slot order)
-  auto eval = [&](const int2 n, bool (&right)[kRows]) {
-    const float threshold = __int_as_float(n.x);
-    const bool nan_right = (n.y & 1) == 0;
+  auto eval = [&](const Node n, bool (&right)[kRows]) {
+    const float threshold = node_threshold(n);
+    const bool nan_right = node_default_right(n);
     if constexpr (STAGED) {
-      const float* xf = xb + (n.y >> 1) * rows;
+      const float* xf = xb + node_offset(n, rows);
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
         right[j] = goes_right(xf[j * bb], threshold, nan_right);
       }
     } else {
-      const int f = n.y >> 1;
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
-        right[j] = goes_right(__ldg(xr[j] + f), threshold, nan_right);
+        right[j] = goes_right(row_at(xr[j], n), threshold, nan_right);
       }
     }
   };
@@ -126,10 +131,10 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   float acc[kRows] = {};
   run_tiles<FUSED, kRows>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
-      [&](const int2* nd, const float* lv) {
+      [&](const Node* nd, const Leaf* lv) {
 #pragma unroll 1
         for (int t = 0; t < bt; ++t) {
-          const int2* tree = nd + t * L;
+          const Node* tree = nd + t * L;
           // top nodes, heap slots 1 .. W-1 (one loop of constant trip
           // count, so it unrolls whole and every mask is an immediate)
           uint32_t dead[kRows] = {};
@@ -174,7 +179,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
           }
 #pragma unroll
           for (int j = 0; j < kRows; ++j) {
-            const float v = lv[t * L + leaf[j]];
+            const float v = leaf_f32(lv[t * L + leaf[j]]);
             if constexpr (FUSED) {
               acc[j] += v;
             } else {
@@ -192,18 +197,20 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   }
 }
 
-template <int DEPTH, bool FUSED, bool STAGED>
-int launch_quickscorer(const float* x, const int2* nodes,
-                       const float* leaf_value, float* out, long long B,
-                       int F, int T, int block_b, int block_t,
-                       cudaStream_t stream) {
+template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
+int launch_quickscorer(const float* x,
+                       const typename Record<NARROW>::Node* nodes,
+                       const typename Record<NARROW>::Leaf* leaf_value,
+                       float* out, long long B, int F, int T, int block_b,
+                       int block_t, cudaStream_t stream) {
   const size_t smem =
       tile_layout(kRows * block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
-                  tree_buffers(T, block_t), 0, FUSED)
+                  tree_buffers(T, block_t), 0, FUSED,
+                  sizeof(typename Record<NARROW>::Node))
           .total;
-  return launch_kernel<kRows>(quickscorer_kernel<DEPTH, FUSED, STAGED>, B,
-                              block_b, smem, stream, x, nodes, leaf_value,
-                              out, B, F, T, block_t);
+  return launch_kernel<kRows>(
+      quickscorer_kernel<DEPTH, FUSED, STAGED, NARROW>, B, block_b, smem,
+      stream, x, nodes, leaf_value, out, B, F, T, block_t);
 }
 
 }  // namespace forest
@@ -213,8 +220,19 @@ extern "C" int forest_quickscorer_fused(const float* x, const int2* nodes,
                                         long long B, int F, int T, int depth,
                                         int block_b, int block_t,
                                         int x_staged, cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, true, x,
-                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
+  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, true, false,
+                  x, nodes, leaf_value, out, B, F, T, block_b, block_t,
+                  stream)
+}
+
+// The fused kernel over bf16 tree tiles: 4-byte node records, bf16 leaves.
+extern "C" int forest_quickscorer_fused_bf16(
+    const float* x, const uint32_t* nodes, const uint16_t* leaf_value,
+    float* out, long long B, int F, int T, int depth, int block_b,
+    int block_t, int x_staged, cudaStream_t stream) {
+  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, true, true,
+                  x, nodes, leaf_value, out, B, F, T, block_b, block_t,
+                  stream)
 }
 
 extern "C" int forest_quickscorer_raw(const float* x, const int2* nodes,
@@ -222,6 +240,7 @@ extern "C" int forest_quickscorer_raw(const float* x, const int2* nodes,
                                       long long B, int F, int T, int depth,
                                       int block_b, int block_t,
                                       int x_staged, cudaStream_t stream) {
-  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, false, x,
-                  nodes, leaf_value, out, B, F, T, block_b, block_t, stream)
+  FOREST_DISPATCH(depth, x_staged, forest::launch_quickscorer, false, false,
+                  x, nodes, leaf_value, out, B, F, T, block_b, block_t,
+                  stream)
 }

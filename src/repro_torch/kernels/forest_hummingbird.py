@@ -10,9 +10,11 @@ int32 sums: exact).
 Structure tensors (``hb_structure``): ``ct`` [NP, KP] int8, the path
 matrix C transposed and zero-padded (KP = max(32, L) nodes, NP = max(8, L)
 leaves), and ``dcount`` [NP] int32, the left-turn count of each leaf (-1
-on pad leaves, which never match).  ``hummingbird_fused.launches`` /
-``hummingbird_raw.launches`` count kernel launches (``.wide_launches``
-those in the wide-row x mode).
+on pad leaves, which never match).  ``hummingbird_fused`` also takes bf16
+tree tiles (narrow records and bf16 leaves, ``common.pack_narrow_nodes``).
+``hummingbird_fused.launches`` / ``hummingbird_raw.launches`` count kernel
+launches (``.wide_launches`` those in the wide-row x mode,
+``hummingbird_fused.bf16_launches`` those over narrow records).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ import torch
 
 from repro_torch.core.forest import hb_path_matrix
 from repro_torch.kernels.common import (count_launch, dense_predicates,
-                                        launch_forest_kernel, resolve_staged,
-                                        sum_trees_in_order, unpack_nodes)
+                                        launch_forest_kernel, record_bytes,
+                                        resolve_staged, sum_trees_in_order,
+                                        unpack_nodes)
 
 __all__ = ["hummingbird_fused", "hummingbird_fused_plain", "hummingbird_raw",
            "hummingbird_raw_plain", "hb_structure"]
@@ -59,9 +62,11 @@ def hummingbird_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
     """The raw kernel's function in plain torch: P = S @ C (S, C small
     integers, so exact in f32), exit leaf where P == D, leaf contraction ->
     [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` at a time: the [rows, T, L]
-    path tensor is the largest intermediate."""
+    path tensor is the largest intermediate.  Takes either node record
+    (bf16 trees upcast to f32)."""
     chunk = PLAIN_CHUNK_ROWS
     feature, threshold, default_left = unpack_nodes(nodes)
+    leaf_value = leaf_value.float()
     I, L = (1 << depth) - 1, 1 << depth
     C = ct[:L, :I].T.float()
     D = dcount[:L].float()
@@ -100,17 +105,18 @@ def hummingbird_fused(x: torch.Tensor, nodes: torch.Tensor,
                       dcount: torch.Tensor, *, depth: int, block_b: int,
                       block_t: int,
                       staged: bool | None = None) -> torch.Tensor:
-    """[B, F] samples, tree-padded node records and leaves, structure
-    tensors -> [B] f32."""
+    """[B, F] samples, tree-padded node records and leaves (f32, or narrow
+    records and bf16 leaves), structure tensors -> [B] f32."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return hummingbird_fused_plain(x, *trees, ct, dcount, depth=depth)
     _check_structure(ct, dcount, depth)
-    staged = resolve_staged("hummingbird", x, depth, True, staged)
+    staged = resolve_staged("hummingbird", x, depth, True, staged,
+                            record_bytes(nodes))
     out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
                                fused=True, staged=staged)
-    count_launch(hummingbird_fused, staged)
+    count_launch(hummingbird_fused, staged, narrow=nodes.dim() == 2)
     return out
 
 
@@ -133,4 +139,5 @@ def hummingbird_raw(x: torch.Tensor, nodes: torch.Tensor,
 
 
 hummingbird_fused.launches = hummingbird_fused.wide_launches = 0
+hummingbird_fused.bf16_launches = 0
 hummingbird_raw.launches = hummingbird_raw.wide_launches = 0

@@ -9,9 +9,13 @@ are laid out.
 The wrappers take the tree-padded node records and leaves
 (``kernels/ops.py:kernel_trees``): ``predicated_fused`` returns the
 per-sample sum [B] f32, ``predicated_raw`` each tree's score [B, T] f32.
-For CPU tensors they run the plain versions; for CUDA tensors they launch
-the kernel or raise.  Each wrapper's ``.launches`` counts its kernel
-launches, ``.wide_launches`` those in the wide-row x mode.
+``predicated_fused`` also takes bf16 tree tiles: narrow node records
+[T, L] int32 and bf16 leaves (``common.pack_narrow_nodes``), upcast on
+load, summed in f32.  For CPU tensors they run the plain versions; for
+CUDA tensors they launch the kernel or raise.  Each wrapper's
+``.launches`` counts its kernel launches, ``.wide_launches`` those in the
+wide-row x mode, ``predicated_fused.bf16_launches`` those over narrow
+records.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (count_launch, launch_forest_kernel,
-                                        resolve_staged, sum_trees_in_order,
-                                        unpack_nodes)
+                                        record_bytes, resolve_staged,
+                                        sum_trees_in_order, unpack_nodes)
 
 __all__ = ["predicated_fused", "predicated_fused_plain", "predicated_raw",
            "predicated_raw_plain"]
@@ -30,8 +34,10 @@ def predicated_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
                          leaf_value: torch.Tensor, *,
                          depth: int) -> torch.Tensor:
     """The raw kernel's arithmetic in plain torch: `depth` branch-free
-    descent steps per (sample, tree), then each tree's exit leaf [B, T]."""
+    descent steps per (sample, tree), then each tree's exit leaf [B, T].
+    Takes either node record (bf16 trees upcast to f32)."""
     feature, threshold, default_left = unpack_nodes(nodes)
+    leaf_value = leaf_value.float()
     B = x.shape[0]
     T, I = feature.shape
     t_ix = torch.arange(T, device=x.device)[None, :]
@@ -58,16 +64,18 @@ def predicated_fused(x: torch.Tensor, nodes: torch.Tensor,
                      block_t: int,
                      staged: bool | None = None) -> torch.Tensor:
     """[B, F] samples, node records [T, L, 2] int32 and leaves [T, L] f32
-    (T a multiple of block_t) -> [B] f32 sums over trees.  ``staged``: the
-    kernel's x mode (None: ``common.x_staged`` decides)."""
+    -- or narrow records [T, L] int32 and bf16 leaves -- (T a multiple of
+    block_t) -> [B] f32 sums over trees.  ``staged``: the kernel's x mode
+    (None: ``common.x_staged`` decides)."""
     trees = (nodes, leaf_value)
     if x.device.type == "cpu":
         return predicated_fused_plain(x, *trees, depth=depth)
-    staged = resolve_staged("predicated", x, depth, True, staged)
+    staged = resolve_staged("predicated", x, depth, True, staged,
+                            record_bytes(nodes))
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
                                block_b=block_b, block_t=block_t, fused=True,
                                staged=staged)
-    count_launch(predicated_fused, staged)
+    count_launch(predicated_fused, staged, narrow=nodes.dim() == 2)
     return out
 
 
@@ -88,4 +96,5 @@ def predicated_raw(x: torch.Tensor, nodes: torch.Tensor,
 
 
 predicated_fused.launches = predicated_fused.wide_launches = 0
+predicated_fused.bf16_launches = 0
 predicated_raw.launches = predicated_raw.wide_launches = 0

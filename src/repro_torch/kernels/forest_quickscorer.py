@@ -13,9 +13,11 @@ same masks from the heap instead of loading them (``qs_node_masks`` is its
 rule), so on the card the wrappers check once per tensor that ``bv`` is
 ``qs_words(depth)`` and raise if it is not.  The plain version does its
 bit operations in int64, since torch's uint32 support is partial and an
-int32 ``>>`` is arithmetic.  ``quickscorer_fused.launches`` /
-``quickscorer_raw.launches`` count kernel launches (``.wide_launches``
-those in the wide-row x mode).
+int32 ``>>`` is arithmetic.  ``quickscorer_fused`` also takes bf16 tree
+tiles (narrow records and bf16 leaves, ``common.pack_narrow_nodes``).
+``quickscorer_fused.launches`` / ``quickscorer_raw.launches`` count kernel
+launches (``.wide_launches`` those in the wide-row x mode,
+``quickscorer_fused.bf16_launches`` those over narrow records).
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ from repro_torch.core.algorithms import ALL_ONES, lowest_set_bit
 from repro_torch.core.forest import qs_bitvectors
 from repro_torch.kernels.common import (check_kernel_inputs, count_launch,
                                         dense_predicates,
-                                        launch_forest_kernel, resolve_staged,
-                                        sum_trees_in_order, unpack_nodes)
+                                        launch_forest_kernel, record_bytes,
+                                        resolve_staged, sum_trees_in_order,
+                                        unpack_nodes)
 
 __all__ = ["quickscorer_fused", "quickscorer_fused_plain", "quickscorer_raw",
            "quickscorer_raw_plain", "qs_words", "qs_word_split",
@@ -95,9 +98,11 @@ def quickscorer_raw_plain(x: torch.Tensor, nodes: torch.Tensor,
                           depth: int) -> torch.Tensor:
     """The raw kernel's function in plain torch: per (sample, tree) AND the
     FALSE nodes' words node by node, take the lowest set bit, look up the
-    leaf -> [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` rows at a time."""
+    leaf -> [B, T].  Samples go ``PLAIN_CHUNK_ROWS`` rows at a time.
+    Takes either node record (bf16 trees upcast to f32)."""
     chunk = PLAIN_CHUNK_ROWS
     feature, threshold, default_left = unpack_nodes(nodes)
+    leaf_value = leaf_value.float()
     words = bv.long() & 0xFFFFFFFF                          # [I, W]
     T, I = feature.shape
     t_ix = torch.arange(T, device=x.device)[None, :]
@@ -169,14 +174,15 @@ def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
                       leaf_value: torch.Tensor, bv: torch.Tensor, *,
                       depth: int, block_b: int, block_t: int,
                       staged: bool | None = None) -> torch.Tensor:
-    """[B, F] samples, tree-padded node records and leaves, bit-vectors ->
-    [B] f32."""
+    """[B, F] samples, tree-padded node records and leaves (f32, or narrow
+    records and bf16 leaves), bit-vectors -> [B] f32."""
     if x.device.type == "cpu":
         return quickscorer_fused_plain(x, nodes, leaf_value, bv, depth=depth)
-    staged = resolve_staged("quickscorer", x, depth, True, staged)
+    staged = resolve_staged("quickscorer", x, depth, True, staged,
+                            record_bytes(nodes))
     out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
                   block_t=block_t, fused=True, staged=staged)
-    count_launch(quickscorer_fused, staged)
+    count_launch(quickscorer_fused, staged, narrow=nodes.dim() == 2)
     return out
 
 
@@ -195,4 +201,5 @@ def quickscorer_raw(x: torch.Tensor, nodes: torch.Tensor,
 
 
 quickscorer_fused.launches = quickscorer_fused.wide_launches = 0
+quickscorer_fused.bf16_launches = 0
 quickscorer_raw.launches = quickscorer_raw.wide_launches = 0

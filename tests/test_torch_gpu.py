@@ -499,3 +499,148 @@ def test_csr_staging_buffers_hold_three_arrays_two_in_flight():
             (3, 33), (3, ds.pages.capacity), (3, ds.pages.capacity)]
     assert res.scan.max_in_flight == 2
     assert res.scan.bytes_streamed == ds.nbytes
+
+
+# -- bf16 tree tiles (the fused kernels' narrow node record) ----------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("staged", [True, False], ids=["staged", "wide"])
+@pytest.mark.parametrize("depth", [1, 3, 5, 6, 8])
+@pytest.mark.parametrize("base", BASES)
+def test_cuda_bf16_kernel_matches_plain_both_x_modes(base, depth, staged):
+    """The fused kernels over narrow records and bf16 leaves, in both x
+    modes: bit for bit against the plain version on the same records, and
+    bit for bit against the f32 kernel over the bf16-rounded forest (-0.0
+    leaves, a ragged block, NaN rows, +-inf)."""
+    _need_card()
+    forest, x = _case(T=37, depth=depth, F=28, B=300, seed=depth + 40,
+                      integer_leaves=False, device="cuda")
+    forest = dataclasses.replace(
+        forest, leaf_value=torch.where(forest.leaf_value > 0.5,
+                                       torch.tensor(-0.0, device="cuda"),
+                                       forest.leaf_value))
+    xc = torch.from_numpy(x).cuda()
+    kernel = KERNEL_WRAPPERS[base]
+    args, tiles = prepare_inputs(base, forest, xc, staged=staged,
+                                 tree_dtype=torch.bfloat16)
+    assert args[1].dim() == 2 and args[2].dtype == torch.bfloat16
+    before = (kernel.launches, kernel.wide_launches, kernel.bf16_launches)
+    got = kernel(*args, **tiles)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0], kernel.wide_launches - before[1],
+            kernel.bf16_launches - before[2]) == (1, int(not staged), 1)
+    assert torch.equal(_bits(got), _bits(PLAIN[base](*args, depth=depth)))
+    q = forest.astype(torch.bfloat16).astype(torch.float32)
+    fargs, ftiles = prepare_inputs(base, q, xc, staged=staged)
+    want = kernel(*fargs, **ftiles)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", BASES)
+def test_cuda_bf16_past_the_narrow_record_keeps_the_wide_one(base):
+    """A forest past 32,768 features takes the 8-byte record for its bf16
+    tiles: the f32 kernel, the same sums as the bf16-rounded forest."""
+    _need_card()
+    from repro_torch.kernels.ops import predict_sum_pallas
+
+    forest, x = _case(T=12, depth=5, F=33_000, B=96, seed=70,
+                      integer_leaves=False, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    kernel = KERNEL_WRAPPERS[base]
+    before = (kernel.launches, kernel.bf16_launches)
+    got = predict_sum_pallas(forest, xc, algorithm=f"{base}_pallas_fused",
+                             tree_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0], kernel.bf16_launches - before[1]) \
+        == (1, 0)
+    q = forest.astype(torch.bfloat16).astype(torch.float32)
+    want = predict_sum_pallas(q, xc, algorithm=f"{base}_pallas_fused")
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_cuda_raw_kernels_refuse_narrow_records():
+    _need_card()
+    forest, x = _case(T=8, depth=4, F=11, B=64, seed=71,
+                      integer_leaves=True, device="cuda")
+    args, tiles = prepare_inputs("predicated", forest,
+                                 torch.from_numpy(x).cuda(),
+                                 tree_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32 trees only"):
+        RAW_KERNEL_WRAPPERS["predicated"](*args, **tiles)
+
+
+# -- the external loaders on the card ----------------------------------------
+
+
+@pytest.mark.gpu
+def test_device_tier_loads_land_on_the_card(tmp_path):
+    """Every loader's device-tier result is CUDA tensors (the default
+    device), equal bit for bit to the same load on the CPU device."""
+    _need_card()
+    from repro_torch.db import loader as ld
+
+    r = np.random.default_rng(80)
+    x = r.normal(size=(300, 24)).astype(np.float32)
+    y = (r.random(300) < 0.5).astype(np.float32)
+    xs = x.copy()
+    xs[r.random(x.shape) < 0.7] = np.nan
+    csv, svm, arr = (str(tmp_path / f"d.{e}") for e in ("csv", "svm", "arr"))
+    ld.write_csv(csv, x)
+    ld.write_libsvm(svm, xs, y)
+    ld.write_array_rows(arr, x)
+    for load in (lambda **k: ld.load_csv_external(csv, **k)[0],
+                 lambda **k: ld.load_libsvm_external(svm, 24, **k)[0],
+                 lambda **k: ld.load_array_rows_external(arr, **k)[0]):
+        got, want = load(), load(device="cpu")
+        assert got.is_cuda and got.dtype == torch.float32
+        assert torch.equal(_bits(got.cpu()), _bits(want))
+    pages, labels, t = ld.load_libsvm_csr_external(svm, 24, page_rows=32)
+    assert all(a.is_cuda for a in pages.arrays()) and t.transfer_s > 0
+    want, _, _ = ld.load_libsvm_csr_external(svm, 24, page_rows=32,
+                                             device="cpu")
+    for a, b in zip(pages.arrays(), want.arrays()):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_off_device_libsvm_loads_hand_over_zero_copy(tmp_path, tier):
+    """A host-tier load returns pinned tensors and a disk-tier one memmaps,
+    both without a transfer; put_sparse(pages=) on the card's store keeps
+    them as they are, and udf queries equal the device-tier load's bit
+    for bit."""
+    _need_card()
+    from repro_torch.db import loader as ld
+
+    forest, x = _case(T=9, depth=4, F=24, B=300, seed=81,
+                      integer_leaves=True, device="cuda")
+    x[np.random.default_rng(82).random(x.shape) < 0.7] = np.nan
+    svm = str(tmp_path / "d.svm")
+    ld.write_libsvm(svm, x, np.zeros(300, np.float32))
+    pages, labels, t = ld.load_libsvm_csr_external(
+        svm, 24, page_rows=32, tier=tier, spill_dir=str(tmp_path))
+    assert t.transfer_s == 0.0 and pages.tier == tier
+    if tier == "host":
+        assert all(a.device.type == "cpu" and a.is_pinned()
+                   for a in pages.arrays())
+    else:
+        assert all(isinstance(a, np.memmap) for a in pages.arrays())
+    store = TensorBlockStore(device="cuda", default_page_rows=32)
+    ds = store.put_sparse("off", pages=pages, num_rows=300, labels=labels,
+                          tier=tier)
+    assert all(a is b for a, b in zip(ds.pages.arrays(), pages.arrays()))
+    assert ds.labels.is_cuda
+    dev, _, _ = ld.load_libsvm_csr_external(svm, 24, page_rows=32)
+    store.put_sparse("dev", pages=dev, num_rows=300)
+    engine = ForestQueryEngine(store)
+    for algorithm in ("predicated_pallas_fused", "hummingbird_pallas_fused"):
+        got = engine.infer("off", forest, algorithm=algorithm, plan="udf",
+                           batch_pages=2)
+        want = engine.infer("dev", forest, algorithm=algorithm, plan="udf",
+                            batch_pages=2)
+        assert got.tier == tier
+        assert torch.equal(_bits(got.predictions.cpu()),
+                           _bits(want.predictions.cpu()))

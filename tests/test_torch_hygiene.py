@@ -35,7 +35,8 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 def test_query_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import repro_torch.db.query, repro_torch.kernels.ops; "
+            "import repro_torch.db.query, repro_torch.kernels.ops, "
+            "repro_torch.db.loader; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

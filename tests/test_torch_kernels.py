@@ -598,7 +598,7 @@ def test_kernel_sources_are_in_the_package():
             assert argtypes.count(_build._LL) == 1
             bound.add(fn)
     assert bound == {f"forest_{k}_{v}" for k in BASES
-                     for v in ("fused", "raw")}
+                     for v in ("fused", "fused_bf16", "raw")}
     names = [_build._target(n).name for n in _build.KERNEL_SOURCES]
     assert len(set(names)) == 3 and all(n.endswith(".so") for n in names)
 
