@@ -15,10 +15,11 @@ fraction), its ``[sparse]`` runs (each x-mode kernel time, and the wall
 time and rows/s of each Epsilon, Bosch and Criteo-shaped query), its bf16
 tree-tile timings (each fused kernel f32 and bf16 at the HIGGS and Epsilon
 shapes) and its ``[load]`` runs (each loader's LoadTiming total, each
-external / in-database ratio and its two sides), then each side's mean
-per kernel and per run, and the change / parent ratio; a side whose
-script has no such line (a parent without phase 9, 10 or the bf16 tiles)
-shows "n/a".  Any run that fails makes the script exit non-zero.
+external / in-database ratio and its two sides) and its ``[obs]``
+overhead lines (untraced and traced medians, their ratio), then each
+side's mean per kernel and per run, and the change / parent ratio; a side
+whose script has no such line (a parent without phase 8b, 9, 10 or the
+bf16 tiles) shows "n/a".  Any run that fails makes the script exit non-zero.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ BF16 = re.compile(r"\[timing\] (\w+) bf16 at (\w+) .*?: f32 ([0-9.]+) ms .*?"
 LOAD_TIMING = re.compile(r"\[load\] (.+?) LoadTiming parse_s ([0-9.]+), "
                          r"convert_s [0-9.]+, transfer_s [0-9.]+, total_s "
                          r"([0-9.]+)")
+OBS = re.compile(r"\[obs\] overhead (.+?): untraced ([0-9.]+) s, traced "
+                 r"([0-9.]+) s .*traced / untraced ([0-9.]+)")
 LOAD_RATIO = re.compile(r"\[load\] ratio (.+?): external ([0-9.]+) s .* / "
                         r"in-database ([0-9.]+) s .*?= ([0-9.]+)")
 
@@ -62,7 +65,7 @@ def run(root: Path, log: Path) -> dict:
     out = {"kernels": None, "rel_s": {}, "rows": {}, "tier_s": {},
            "tier_rows_s": {}, "overlap": {}, "sparse_s": {},
            "sparse_rows_s": {}, "xmode": {}, "bf16": {}, "load_s": {},
-           "load_ratio": {}}
+           "load_ratio": {}, "obs_s": {}, "obs_ratio": {}}
     for line in proc.stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
@@ -97,6 +100,11 @@ def run(root: Path, log: Path) -> dict:
             out["load_s"][f"{name} external"] = float(ext)
             out["load_s"][f"{name} in-database"] = float(indb)
             out["load_ratio"][name] = float(ratio)
+        elif (m := OBS.search(line)):
+            what, off, on, ratio = m.groups()
+            out["obs_s"][f"{what} untraced"] = float(off)
+            out["obs_s"][f"{what} traced"] = float(on)
+            out["obs_ratio"][what] = float(ratio)
         elif line.startswith("[report]"):
             out["report"] = line
     return out
@@ -125,7 +133,9 @@ def main() -> int:
               f"{json.dumps(res['xmode'])}; bf16 tiles ms "
               f"{json.dumps(res['bf16'])}; load s "
               f"{json.dumps(res['load_s'])}, ratios "
-              f"{json.dumps(res['load_ratio'])}", flush=True)
+              f"{json.dumps(res['load_ratio'])}; obs s "
+              f"{json.dumps(res['obs_s'])}, traced/untraced "
+              f"{json.dumps(res['obs_ratio'])}", flush=True)
     for what, unit, prefix in (("kernels", "ms", ""),
                                ("rel_s", "s", "rel+reuse "),
                                ("tier_s", "s", "tiers wall "),
@@ -136,7 +146,9 @@ def main() -> int:
                                ("sparse_rows_s", "rows/s", "sparse "),
                                ("bf16", "ms", "bf16 tiles "),
                                ("load_s", "s", "load "),
-                               ("load_ratio", "", "load ratio ")):
+                               ("load_ratio", "", "load ratio "),
+                               ("obs_s", "s", "obs "),
+                               ("obs_ratio", "", "obs traced/untraced ")):
         names = {n: None for _, r in runs for n in r[what]}
         for name in names:
             side_t = {s: [r[what].get(name, "n/a") for side, r in runs

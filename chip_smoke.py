@@ -67,8 +67,24 @@ Phases (any failure exits non-zero and prints no result line):
               torch.profiler trace of one host-tier query, before any
               disk-tier scan (device busy share, the device's wait before
               and between the kernels, H2D overlapping the kernel, flagged
-              when it misses page copies); a move round trip device ->
-              host -> disk -> device on the 1M-row cut;
+              when it misses page copies); then phase 8b; a move round
+              trip device -> host -> disk -> device on the 1M-row cut;
+ 8b. obs      the observability plane (repro_torch.obs) over phase 8's
+              tables, the only phase with TRACER enabled: a traced udf
+              "predicated_pallas_fused" query on the host and the disk
+              tier (span counts = ScanStats.batches, scan.disk_read one a
+              batch on disk, every scan.drain_write a device span on the
+              cuda:drain track under its scan.batch and inside
+              scan.execute, the stage spans' device_s summing to the
+              StageReport seconds, the counter deltas = ScanStats; the
+              stage turnaround and the drain's overlap with scan.compute
+              printed), each trace exported to chiprun_out/obs_<tier>.json
+              and validated; the 1600-tree rel+reuse query on the device
+              tier traced twice (the repeat's trace shows the plan-cache
+              hit); a traced infer_rows at 8 rows; traced / untraced
+              walls, medians of interleaved pairs, for the device-tier udf
+              query (fails past 1.05), the host-tier one and infer_rows
+              at 8 rows; a disabled tracer records nothing;
   9. sparse   wide rows and the CSR plane.  x modes: each kernel, fused
               (500 trees) and raw (16), staged and wide-row, on 65,536
               rows at widths from 28 to 10,000, beside its bound, and each
@@ -425,6 +441,213 @@ def scan_trace(prof, wall_us: float) -> str:
             f"overlapping a kernel {overlap_us(kernels, h2d) / 1e3:.3f} ms")
 
 
+def validate_chrome_trace(payload: dict) -> dict:
+    """The checks of ``benchmarks/bench_obs.validate_chrome_trace`` (which
+    imports the reference, so it is not imported here): the payload
+    round-trips through JSON, every span has numeric ts / dur / tid / pid,
+    every parent resolves, and some span is nested.  Returns counts."""
+    data = json.loads(json.dumps(payload))
+    events = data["traceEvents"]
+    if not events:
+        raise AssertionError("exported trace is empty")
+    spans = {}
+    for ev in events:
+        if not isinstance(ev.get("name"), str) or "ph" not in ev:
+            raise AssertionError(f"malformed trace event: {ev}")
+        if ev["ph"] == "X":
+            for field in ("ts", "dur", "tid", "pid"):
+                if not isinstance(ev.get(field), (int, float)):
+                    raise AssertionError(f"span {ev['name']!r} missing "
+                                         f"numeric {field}")
+            spans[ev["args"]["span_id"]] = ev
+    nested = cross_thread = 0
+    for ev in spans.values():
+        pid = ev["args"].get("parent_id")
+        if pid is None:
+            continue
+        if pid not in spans:
+            raise AssertionError(f"span {ev['name']!r} parent_id {pid} "
+                                 f"unresolved")
+        nested += 1
+        cross_thread += spans[pid]["tid"] != ev["tid"]
+    if nested == 0:
+        raise AssertionError("no nested spans in exported trace")
+    return {"events": len(events), "spans": len(spans), "nested": nested,
+            "cross_thread": cross_thread,
+            "threads": len({ev["tid"] for ev in spans.values()})}
+
+
+def obs_phase(*, forest, big, engine, engines, counted, only, smi: str,
+              batches: int) -> dict:
+    """Phase 8b: the observability plane on the card, over phase 8's host
+    and disk tiers and phase 4's device tier.  Returns the launches of its
+    queries by kernel."""
+    from repro_torch.obs import TRACER
+
+    launches: dict[str, int] = {}
+
+    def count(c: dict) -> None:
+        for k, n in c.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+
+    def traced(run):
+        TRACER.reset()
+        TRACER.enable()
+        try:
+            out, c = counted(run)
+        finally:
+            TRACER.disable()
+        count(c)
+        return out, c, TRACER.finished()
+
+    def udf(eng, dataset="higgs"):
+        return eng.infer(dataset, forest, plan="udf",
+                         algorithm="predicated_pallas_fused")
+
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for tier in ("host", "disk"):
+        r, c, spans = traced(lambda: udf(engines[tier]))
+        s, tr = r.scan, r.trace
+        only(c, "predicated_fused", s.batches, f"[obs] traced {tier} udf")
+        n = tr.span_counts
+        by_id = {sp.span_id: sp for sp in spans}
+        execute = next(sp for sp in spans if sp.name == "scan.execute")
+        drains = [sp for sp in spans if sp.name == "scan.drain_write"]
+        stages = [sp for sp in spans if sp.name.startswith("stage:")]
+        reports = sum(rep.seconds for rep in r.stage_reports)
+        device_s = sum(sp.attrs["device_s"] for sp in stages)
+        stage_wall = sum(sp.duration_s for sp in stages)
+        drain_iv = [(sp.start_ns, sp.end_ns) for sp in drains]
+        compute_iv = [(sp.start_ns, sp.end_ns) for sp in spans
+                      if sp.name == "scan.compute"]
+        drain_ns = union_us(drain_iv)
+        share = overlap_us(drain_iv, compute_iv) / drain_ns
+        checks = {
+            "span counts = ScanStats.batches": (
+                n["scan.batch"] == n["scan.dma_in"] == n["scan.compute"]
+                == n["scan.drain_write"] == s.batches == batches),
+            "scan.disk_read = batches on disk": (
+                n.get("scan.disk_read", 0) == (s.batches if tier == "disk"
+                                               else 0)),
+            "drain_write on cuda:drain under its scan.batch": all(
+                sp.track == "cuda:drain"
+                and by_id[sp.parent_id].name == "scan.batch"
+                for sp in drains),
+            "drain_write inside scan.execute": all(
+                execute.start_ns <= lo <= hi <= execute.end_ns
+                for lo, hi in drain_iv),
+            "stage device_s sum = StageReport.seconds sum": (
+                len(stages) == len(r.stage_reports)
+                and abs(device_s - reports) <= 1e-9 * max(1.0, reports)),
+            "counter deltas = ScanStats": (
+                tr.counters.get("scan.batches") == s.batches
+                and tr.counters.get("scan.bytes_streamed")
+                == s.bytes_streamed),
+        }
+        log(f"[obs] traced {tier} udf predicated_pallas_fused: span counts "
+            f"{dict(sorted(n.items()))}; counters {tr.counters}; wall_s "
+            f"{s.wall_s:.6f}, trace wall {tr.wall_s:.6f}, seconds by span "
+            f"{ {k: round(v, 6) for k, v in sorted(tr.phase_s.items())} }; "
+            f"stage spans: "
+            f"host wall {stage_wall:.6f} s, device_s {device_s:.6f} s, "
+            f"turnaround {stage_wall - device_s:.6f} s over {len(stages)} "
+            f"stages ({(stage_wall - device_s) / len(stages) * 1e3:.3f} "
+            f"ms a stage); drain device {drain_ns / 1e9:.6f} s (ScanStats "
+            f"drain_s {s.drain_s:.6f}), overlapping scan.compute "
+            f"{share:.4f} of it; on {smi}")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"[obs] traced {tier} udf: {bad}")
+        payload = TRACER.export_chrome(str(out_dir / f"obs_{tier}.json"))
+        shape = validate_chrome_trace(payload)
+        lanes = {e["args"]["name"] for e in payload["traceEvents"]
+                 if e["name"] == "thread_name"}
+        want = {"cuda:drain"} | ({"scan-reader"} if tier == "disk" else set())
+        if not want <= lanes:
+            raise AssertionError(f"[obs] {tier} trace lanes {lanes}")
+        log(f"[obs] exported chiprun_out/obs_{tier}.json: {shape}, lanes "
+            f"{sorted(lanes)}: valid")
+
+    for i in range(2):
+        r, c, spans = traced(lambda: engine.infer(
+            "higgs", big, plan="rel+reuse", algorithm="predicated_pallas"))
+        only(c, "predicated_raw", r.n_parts * r.scan.batches,
+             f"[obs] traced device rel+reuse #{i}")
+        tr = r.trace
+        log(f"[obs] traced device rel+reuse predicated_pallas #{i}: span "
+            f"counts {dict(sorted(tr.span_counts.items()))}, events "
+            f"{tr.event_counts}, counters {tr.counters}, wall "
+            f"{tr.wall_s:.6f} s; on {smi}")
+    if tr.counters.get("plan.cache_hits") != 1 \
+            or "plan.partition" in tr.span_counts:
+        raise AssertionError("[obs] the repeated rel+reuse query's trace "
+                             "shows no plan-cache hit")
+
+    rows = engine.store.get("higgs").data[:8]
+
+    def infer_rows():
+        return engine.infer_rows(big, rows, plan="udf",
+                                 algorithm="predicated_pallas_fused")
+
+    infer_rows()                                   # the plan is built
+    r, c, spans = traced(infer_rows)
+    only(c, "predicated_fused", 1, "[obs] traced infer_rows")
+    names = sorted(sp.name for sp in spans)
+    stage = next(sp for sp in spans if sp.name.startswith("stage:"))
+    if names.count("query.infer_rows") != 1 or "device_s" not in stage.attrs:
+        raise AssertionError(f"[obs] traced infer_rows spans {names}")
+    log(f"[obs] traced infer_rows(8 rows): spans {names}, stage host wall "
+        f"{stage.duration_s * 1e3:.4f} ms, device_s "
+        f"{stage.attrs['device_s'] * 1e3:.4f} ms; on {smi}")
+
+    def wall(run) -> float:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def overhead(run, pairs: int) -> tuple[float, float, float]:
+        """Median walls untraced and traced over interleaved pairs (the
+        order alternating), and their ratio."""
+        walls = {False: [], True: []}
+        for i in range(pairs):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                TRACER.reset()
+                if on:
+                    TRACER.enable()
+                try:
+                    walls[on].append(wall(run))
+                finally:
+                    TRACER.disable()
+        med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        return med[False], med[True], med[True] / med[False]
+
+    ratios = {}
+    for what, run, pairs in (
+            ("device udf 11M rows", lambda: udf(engine), 11),
+            ("host udf 11M rows", lambda: udf(engines["host"]), 5),
+            ("infer_rows 8 rows", infer_rows, 21)):
+        (off, on, ratio), c = counted(lambda: overhead(run, pairs))
+        count(c)
+        ratios[what] = ratio
+        log(f"[obs] overhead {what}: untraced {off:.6f} s, traced "
+            f"{on:.6f} s (medians of {pairs} interleaved pairs), traced / "
+            f"untraced {ratio:.4f}; on {smi}")
+    if ratios["device udf 11M rows"] > 1.05:
+        raise AssertionError("[obs] tracing costs the device-tier udf query "
+                             "more than 5 %")
+
+    TRACER.reset()
+    r = udf(engines["host"])
+    if r.trace is not None or TRACER.finished():
+        raise AssertionError("[obs] a disabled tracer recorded spans")
+    log(f"[obs] disabled tracer: trace None, no span recorded; launches "
+        f"{launches}")
+    return launches
+
+
 def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
                 fused_ms: float, rel_device_s: float) -> dict:
     """Phase 8: the 11M-row table on the host and disk tiers.  Returns the
@@ -587,6 +810,14 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
             f"against the device tier's {rel_device_s:.6f} (phase 6, one "
             f"batch) on {smi}")
         del rel
+
+        t8b = time.perf_counter()
+        for name_, n in obs_phase(forest=forest, big=big, engine=engine,
+                                  engines=engines, counted=counted,
+                                  only=only, smi=smi,
+                                  batches=batches).items():
+            launches[name_] = launches.get(name_, 0) + n
+        log(f"[obs] phase wall {time.perf_counter() - t8b:.3f} s")
 
         cut = store.get("higgs_1m").data[:CUT_ROWS]
         disk_store.put("cut", cut, tier="device")

@@ -50,8 +50,25 @@ are synchronous and the drain is inline (``drain_async`` and
 ``pinned_staging`` are false), while the loop, the disk tier's reader
 thread, the batch plan and the buffer bound are the same.
 
-Not ported yet: the fault-injection sites, retry ladders and deadlines,
-and the scan's spans and counters (ROADMAP queue 1, item 8).
+Tracing (``repro_torch.obs``; the reference's spans, ``executor.py:
+589-741``).  Every scan is one ``scan.execute`` span, and each batch one
+``scan.batch`` with ``scan.transfer_wait``, ``scan.compute`` and
+``scan.drain_submit`` under it; each batch's page load is a
+``scan.dma_in`` (and on the disk tier a ``scan.disk_read``) parented to
+``scan.execute``, explicitly, since the reader thread issues it.  A
+batch's ``scan.drain_write`` is parented to its ``scan.batch``.  Over a
+CUDA store it is a DEVICE span, the interval between the drain's CUDA
+events on the ``cuda:drain`` track: with tracing on, the scan records one
+anchor event on the compute stream at its start, waits for it and reads
+``perf_counter_ns``, and maps each drain event onto that clock through
+``anchor.elapsed_time(event)``; the spans are published once the drain
+has been synchronised.  Elsewhere the drain_write is a host span around
+the copy.  ``scan.batches`` and ``scan.bytes_streamed`` are counted on
+every exit, a raising stage included.  With tracing off every site is
+``NULL_SPAN``: no anchor, no event, no synchronise is added.
+
+Not ported yet: the fault-injection sites, retry ladders and deadlines
+(ROADMAP queue 1, item 8b).
 """
 
 from __future__ import annotations
@@ -66,6 +83,7 @@ from typing import Any, Iterator, Protocol, runtime_checkable
 import torch
 
 from repro_torch.db.operators import StageReport, run_stages
+from repro_torch.obs import METRICS, TRACER
 
 __all__ = ["ScanSource", "ScanStats", "StreamingScanExecutor",
            "MAX_IN_FLIGHT", "DEFAULT_STREAM_BATCH_BYTES"]
@@ -207,11 +225,23 @@ class StreamingScanExecutor:
                           batch_pages=batch_pages,
                           prefetch_depth=self.prefetch_depth)
         t_wall = time.perf_counter()
-        if source.tier == "device":
-            out, reports = self._resident(source, plan, stats)
-        else:
-            out, reports = _StreamedScan(self, source, plan, batch_pages,
-                                         stats).run()
+        with TRACER.span("scan.execute", tier=source.tier,
+                         batch_pages=batch_pages,
+                         prefetch_depth=self.prefetch_depth) as scan_span:
+            try:
+                if source.tier == "device":
+                    out, reports = self._resident(source, plan, stats)
+                else:
+                    out, reports = _StreamedScan(
+                        self, source, plan, batch_pages, stats,
+                        scan_span).run()
+            finally:
+                # counted on every exit: a failed scan still counts
+                scan_span.set(batches=stats.batches,
+                              bytes_streamed=stats.bytes_streamed)
+                METRICS.counter("scan.batches").inc(stats.batches)
+                METRICS.counter("scan.bytes_streamed").inc(
+                    stats.bytes_streamed)
         stats.wall_s = time.perf_counter() - t_wall
         return out[: source.num_rows], reports, stats
 
@@ -225,7 +255,8 @@ class StreamingScanExecutor:
 
         def acquire() -> None:
             first, n = pending.pop()
-            bufs.append(_InFlight(first, n, source.page_slice(first, n)))
+            with TRACER.span("scan.dma_in", first_page=first, num_pages=n):
+                bufs.append(_InFlight(first, n, source.page_slice(first, n)))
             stats.max_in_flight = max(stats.max_in_flight, len(bufs))
             if len(bufs) > MAX_IN_FLIGHT:
                 raise RuntimeError(f"{len(bufs)} page buffers in flight "
@@ -235,21 +266,29 @@ class StreamingScanExecutor:
             while len(bufs) < self.prefetch_depth and pending:
                 acquire()                      # batch i+1 while i computes
             cur = bufs.pop(0)
-            t0 = time.perf_counter()
-            state, reps = run_stages(self.stages, {"x": cur.block})
-            stats.compute_s += time.perf_counter() - t0
-            reports.extend(reps)
-            stats.batches += 1
-            pred = state["pred"].reshape(-1)
-            state = None                       # release the page view
-            t0 = time.perf_counter()
-            if result is None:
-                result = torch.empty(source.num_pages * R, dtype=pred.dtype,
-                                     device=pred.device)
-            lo = cur.first_page * R
-            result[lo: lo + cur.num_pages * R] = pred
-            stats.drain_s += time.perf_counter() - t0
-            stats.drain_wait_s = stats.drain_s
+            pages = dict(first_page=cur.first_page, num_pages=cur.num_pages)
+            with TRACER.span("scan.batch", index=stats.batches, **pages):
+                with TRACER.span("scan.transfer_wait"):
+                    pass                       # the pages are a view
+                t0 = time.perf_counter()
+                with TRACER.span("scan.compute"):
+                    state, reps = run_stages(self.stages, {"x": cur.block})
+                stats.compute_s += time.perf_counter() - t0
+                reports.extend(reps)
+                stats.batches += 1
+                pred = state["pred"].reshape(-1)
+                state = None                   # release the page view
+                t0 = time.perf_counter()
+                with TRACER.span("scan.drain_submit", **pages), \
+                        TRACER.span("scan.drain_write", **pages):
+                    if result is None:
+                        result = torch.empty(source.num_pages * R,
+                                             dtype=pred.dtype,
+                                             device=pred.device)
+                    lo = cur.first_page * R
+                    result[lo: lo + cur.num_pages * R] = pred
+                stats.drain_s += time.perf_counter() - t0
+                stats.drain_wait_s = stats.drain_s
         return result, reports
 
 
@@ -258,8 +297,9 @@ class _StreamedScan:
     reader thread it owns, all released when ``run`` returns or raises."""
 
     def __init__(self, executor: StreamingScanExecutor, source, plan,
-                 batch_pages: int, stats: ScanStats):
+                 batch_pages: int, stats: ScanStats, scan_span):
         self.stages = executor.stages
+        self.scan_span = scan_span
         self.source = source
         self.plan = plan
         self.stats = stats
@@ -290,10 +330,17 @@ class _StreamedScan:
             self.copy_stream.wait_stream(self.compute_stream)
             self.copied = [torch.cuda.Event() for _ in range(self.depth)]
             self.released = [torch.cuda.Event() for _ in range(self.depth)]
-            self.drain_events: list[tuple[torch.cuda.Event,
-                                          torch.cuda.Event]] = []
+            # per batch: (start, end, first_page, num_pages, batch span)
+            self.drain_events: list[tuple] = []
             stats.pinned_staging = True
             stats.drain_async = self.depth > 1
+            # the clock anchor of the device spans, taken only when tracing
+            self.anchor: torch.cuda.Event | None = None
+            if TRACER.enabled:
+                self.anchor = torch.cuda.Event(enable_timing=True)
+                self.anchor.record(self.compute_stream)
+                self.anchor.synchronize()
+                self.anchor_ns = time.perf_counter_ns()
 
     # -- the pages --------------------------------------------------------
     def _acquire(self) -> None:
@@ -314,19 +361,28 @@ class _StreamedScan:
         copy, issued on the copy stream on the card."""
         t0 = time.perf_counter()
         source = self.source
-        block = source.page_slice(first, n)
-        out = source.first_pages(self.bufs[k], n)
-        if not self.cuda:
-            source.to_device(block, out)
+        pages = dict(first_page=first, num_pages=n)
+        if source.tier == "disk":
+            # the lazy memmap view; the pages are read by the staging copy
+            # under scan.dma_in, as the reference's device_put reads them
+            with TRACER.span("scan.disk_read", parent=self.scan_span,
+                             **pages):
+                block = source.page_slice(first, n)
         else:
-            staging = None
-            if self.staging is not None:
-                self.copied[k].synchronize()   # its last H2D has finished
-                staging = source.first_pages(self.staging[k], n)
-            self.copy_stream.wait_event(self.released[k])
-            with torch.cuda.stream(self.copy_stream):
-                source.to_device(block, out, staging)
-                self.copied[k].record(self.copy_stream)
+            block = source.page_slice(first, n)
+        out = source.first_pages(self.bufs[k], n)
+        with TRACER.span("scan.dma_in", parent=self.scan_span, **pages):
+            if not self.cuda:
+                source.to_device(block, out)
+            else:
+                staging = None
+                if self.staging is not None:
+                    self.copied[k].synchronize()   # its last H2D finished
+                    staging = source.first_pages(self.staging[k], n)
+                self.copy_stream.wait_event(self.released[k])
+                with torch.cuda.stream(self.copy_stream):
+                    source.to_device(block, out, staging)
+                    self.copied[k].record(self.copy_stream)
         self.stats.transfer_issue_s += time.perf_counter() - t0
         self.stats.bytes_streamed += out.nbytes
 
@@ -364,7 +420,8 @@ class _StreamedScan:
             ready.put(e)
 
     # -- the predictions --------------------------------------------------
-    def _drain(self, first: int, n: int, pred: torch.Tensor, k: int) -> None:
+    def _drain(self, first: int, n: int, pred: torch.Tensor, k: int,
+               batch_span) -> None:
         """Batch predictions into their slot of the host result buffer."""
         stats = self.stats
         if self.result is None:
@@ -374,20 +431,22 @@ class _StreamedScan:
         dst = self.result[lo: lo + n * self.R]
         if not self.cuda:
             t0 = time.perf_counter()
-            dst.copy_(pred)
+            with TRACER.span("scan.drain_write", parent=batch_span,
+                             first_page=first, num_pages=n):
+                dst.copy_(pred)
             dt = time.perf_counter() - t0
             stats.drain_s += dt
             stats.drain_wait_s += dt
             return
         start, end = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
-        self.drain_events.append((start, end))
         self.drain_stream.wait_stream(self.compute_stream)
         with torch.cuda.stream(self.drain_stream):
             start.record(self.drain_stream)
             dst.copy_(pred, non_blocking=True)
             end.record(self.drain_stream)
             self.released[k].record(self.drain_stream)
+        self.drain_events.append((start, end, first, n, batch_span))
         pred.record_stream(self.drain_stream)
         if self.depth == 1:                    # the synchronous reference
             t0 = time.perf_counter()
@@ -402,22 +461,37 @@ class _StreamedScan:
         self.drain_stream.synchronize()
         self.stats.drain_wait_s += time.perf_counter() - t0
         self.stats.drain_s = sum(s.elapsed_time(e)
-                                 for s, e in self.drain_events) / 1e3
+                                 for s, e, *_ in self.drain_events) / 1e3
+
+    def _publish_drain_spans(self) -> None:
+        """Each recorded D2H as a ``scan.drain_write`` device span under its
+        batch, on the anchor's clock.  Called once the drain stream has
+        been synchronised."""
+        if self.anchor is None:
+            return
+        for start, end, first, n, batch_span in self.drain_events:
+            TRACER._device_span(
+                "scan.drain_write", batch_span,
+                self.anchor_ns + round(self.anchor.elapsed_time(start) * 1e6),
+                self.anchor_ns + round(self.anchor.elapsed_time(end) * 1e6),
+                "cuda:drain", first_page=first, num_pages=n)
 
     # -- the loop ---------------------------------------------------------
     def _compute(self, first: int, n: int, k: int,
-                 reports: list[StageReport]) -> None:
+                 reports: list[StageReport], batch_span) -> None:
         if self.cuda:
             self.compute_stream.wait_event(self.copied[k])
         t0 = time.perf_counter()
-        state, reps = run_stages(
-            self.stages, {"x": self.source.first_pages(self.bufs[k], n)})
+        with TRACER.span("scan.compute"):
+            state, reps = run_stages(
+                self.stages, {"x": self.source.first_pages(self.bufs[k], n)})
         self.stats.compute_s += time.perf_counter() - t0
         reports.extend(reps)
         self.stats.batches += 1
         pred = state["pred"].reshape(-1)
         state = None
-        self._drain(first, n, pred, k)
+        with TRACER.span("scan.drain_submit", first_page=first, num_pages=n):
+            self._drain(first, n, pred, k, batch_span)
 
     def run(self) -> tuple[torch.Tensor, list[StageReport]]:
         """Every batch: wait for its pages (the exposed transfer), run the
@@ -441,18 +515,22 @@ class _StreamedScan:
                 batches = iter(ready.get, None)
             else:
                 batches = self._inline_batches()
-            for _ in self.plan:
-                ahead = self.ahead_issue_s
-                t0 = time.perf_counter()
-                item = next(batches)
-                if isinstance(item, BaseException):
-                    raise item
-                first, n, k = item
-                if self.cuda:
-                    self.copied[k].synchronize()
-                self.stats.transfer_wait_s += (time.perf_counter() - t0
-                                               - (self.ahead_issue_s - ahead))
-                self._compute(first, n, k, reports)
+            for i, (first, n) in enumerate(self.plan):
+                with TRACER.span("scan.batch", index=i, first_page=first,
+                                 num_pages=n) as batch_span:
+                    ahead = self.ahead_issue_s
+                    t0 = time.perf_counter()
+                    with TRACER.span("scan.transfer_wait"):
+                        item = next(batches)
+                        if isinstance(item, BaseException):
+                            raise item
+                        _, _, k = item             # batches come in plan order
+                        if self.cuda:
+                            self.copied[k].synchronize()
+                    self.stats.transfer_wait_s += (
+                        time.perf_counter() - t0
+                        - (self.ahead_issue_s - ahead))
+                    self._compute(first, n, k, reports, batch_span)
                 self._release()
                 if reader is not None:
                     free.put(k)
@@ -475,7 +553,8 @@ class _StreamedScan:
 
     def _quiesce(self) -> None:
         """No stream still touches the scan's buffers when it returns or
-        raises."""
+        raises; the drained batches' device spans are published."""
         if self.cuda:
             self.copy_stream.synchronize()
             self.drain_stream.synchronize()
+            self._publish_drain_spans()

@@ -28,10 +28,15 @@ pinned on a CUDA device (what the store's host tier holds), ``"disk"`` as
 page-aligned ``np.memmap`` files; both with ``transfer_s == 0``, and
 ``store.put_sparse(pages=..., tier=...)`` registers either zero-copy.
 
-Not ported yet (ROADMAP queue 1, item 8): the ``page_dma_in`` fault site
+Tracing (``repro_torch.obs``, reference ``loader.py:130-333``): every
+load counts ``load.external_loads`` and runs its stages under
+``load.parse`` (``format=``), ``load.convert`` (``densify=True`` for the
+dense LIBSVM fallback, ``tier=`` for the CSR loader) and ``load.transfer``
+spans; an off-device CSR load has no transfer and no ``load.transfer``.
+
+Not ported yet (ROADMAP queue 1, item 8b): the ``page_dma_in`` fault site
 with its retry policy around the transfers (reference
-``_guarded_transfer``), the ``load.*`` spans and the
-``load.external_loads`` counter.
+``_guarded_transfer``, the loaders' ``injector=`` / ``retry_policy=``).
 
 ``synth_dataset`` makes the paper's dataset grid (Tab. 1) at its shapes.
 Its seed differs from the reference's on purpose: the reference adds
@@ -53,6 +58,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.db.sparse import CSRPages, paginate_csr
 from repro_torch.db.store import mmap_array
+from repro_torch.obs import METRICS, TRACER
 
 __all__ = [
     "LoadTiming",
@@ -167,12 +173,16 @@ def load_csv_external(path: str, *, device=None, dtype=torch.float32):
     """Timed external load: parse CSV -> convert -> device transfer.
     Returns (rows [N, F] on the device, LoadTiming)."""
     dev = resolve_device(device)
+    METRICS.counter("load.external_loads").inc()
     t0 = time.perf_counter()
-    host = np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
+    with TRACER.span("load.parse", format="csv"):
+        host = np.loadtxt(path, delimiter=",", dtype=np.float64, ndmin=2)
     t1 = time.perf_counter()
-    host32 = np.ascontiguousarray(host, dtype=np.float32)
+    with TRACER.span("load.convert"):
+        host32 = np.ascontiguousarray(host, dtype=np.float32)
     t2 = time.perf_counter()
-    out = _to_device(host32, dev, dtype)
+    with TRACER.span("load.transfer"):
+        out = _to_device(host32, dev, dtype)
     return out, _timing(t0, t1, t2, time.perf_counter())
 
 
@@ -228,17 +238,21 @@ def load_libsvm_external(path: str, num_features: int, *, device=None,
     Returns (rows [N, F] on the device, labels [N] np f32, LoadTiming).
     """
     dev = resolve_device(device)
+    METRICS.counter("load.external_loads").inc()
     t0 = time.perf_counter()
-    indptr, indices, values, labels = _parse_libsvm(path)
-    values = values.astype(np.float32)
+    with TRACER.span("load.parse", format="libsvm"):
+        indptr, indices, values, labels = _parse_libsvm(path)
+        values = values.astype(np.float32)
     t1 = time.perf_counter()
-    n = labels.size
-    dense = np.full((n, num_features),
-                    np.nan if missing_as_nan else 0.0, np.float32)
-    rows = np.repeat(np.arange(n), np.diff(indptr))
-    dense[rows, indices] = values
+    with TRACER.span("load.convert", densify=True):
+        n = labels.size
+        dense = np.full((n, num_features),
+                        np.nan if missing_as_nan else 0.0, np.float32)
+        rows = np.repeat(np.arange(n), np.diff(indptr))
+        dense[rows, indices] = values
     t2 = time.perf_counter()
-    out = _to_device(dense, dev, dtype)
+    with TRACER.span("load.transfer"):
+        out = _to_device(dense, dev, dtype)
     return (out, labels.astype(np.float32),
             _timing(t0, t1, t2, time.perf_counter()))
 
@@ -269,26 +283,32 @@ def load_libsvm_csr_external(path: str, num_features: int, *,
     if tier not in ("device", "host", "disk"):
         raise ValueError(f"unknown tier {tier!r}")
     dev = resolve_device(device)
+    METRICS.counter("load.external_loads").inc()
     t0 = time.perf_counter()
-    indptr, indices, values, labels = _parse_libsvm(path)
+    with TRACER.span("load.parse", format="libsvm-csr"):
+        indptr, indices, values, labels = _parse_libsvm(path)
     t1 = time.perf_counter()
-    arrays = paginate_csr(indptr, indices.astype(np.int32),
-                          values.astype(np.float32), num_rows=labels.size,
-                          page_rows=page_rows, n_features=num_features,
-                          pages_multiple=pages_multiple)
-    if tier == "host" and dev.type == "cuda":
-        arrays = tuple(a.pin_memory() for a in arrays)
-    elif tier == "disk":
-        d = spill_dir or tempfile.mkdtemp(prefix="libsvm-disk-")
-        stem = os.path.splitext(os.path.basename(path))[0]
-        arrays = tuple(
-            mmap_array(os.path.join(d, f"{stem}.{label}.bin"), a)
-            for label, a in zip(("indptr", "indices", "values"), arrays))
+    with TRACER.span("load.convert", tier=tier):
+        arrays = paginate_csr(indptr, indices.astype(np.int32),
+                              values.astype(np.float32),
+                              num_rows=labels.size, page_rows=page_rows,
+                              n_features=num_features,
+                              pages_multiple=pages_multiple)
+        if tier == "host" and dev.type == "cuda":
+            arrays = tuple(a.pin_memory() for a in arrays)
+        elif tier == "disk":
+            d = spill_dir or tempfile.mkdtemp(prefix="libsvm-disk-")
+            stem = os.path.splitext(os.path.basename(path))[0]
+            arrays = tuple(
+                mmap_array(os.path.join(d, f"{stem}.{label}.bin"), a)
+                for label, a in zip(("indptr", "indices", "values"),
+                                    arrays))
     t2 = time.perf_counter()
     if tier == "device":
-        arrays = tuple(a.to(dev, copy=True) for a in arrays)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with TRACER.span("load.transfer"):
+            arrays = tuple(a.to(dev, copy=True) for a in arrays)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
     else:
         t3 = t2                 # no device transfer: transfer_s == 0
@@ -314,13 +334,17 @@ def load_array_rows_external(path: str, *, device=None, dtype=torch.float32):
     a NumPy array ... becomes the bottleneck').  Returns (rows [N, F] on
     the device, LoadTiming)."""
     dev = resolve_device(device)
+    METRICS.counter("load.external_loads").inc()
     t0 = time.perf_counter()
-    rows = []
-    with open(path) as fh:
-        for line in fh:
-            rows.append(np.fromstring(line.strip()[1:-1], sep=","))
+    with TRACER.span("load.parse", format="array-rows"):
+        rows = []
+        with open(path) as fh:
+            for line in fh:
+                rows.append(np.fromstring(line.strip()[1:-1], sep=","))
     t1 = time.perf_counter()
-    host = np.stack(rows).astype(np.float32)
+    with TRACER.span("load.convert"):
+        host = np.stack(rows).astype(np.float32)
     t2 = time.perf_counter()
-    out = _to_device(host, dev, dtype)
+    with TRACER.span("load.transfer"):
+        out = _to_device(host, dev, dtype)
     return out, _timing(t0, t1, t2, time.perf_counter())

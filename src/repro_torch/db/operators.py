@@ -10,6 +10,12 @@ stage runs its operators eagerly; PyTorch returns before the card has
 finished, so the boundary synchronises the device, and on the card the
 stage is timed with CUDA events around its work (a host clock without the
 synchronise would measure only the enqueue).
+
+Each stage run is a ``stage:<name>`` span (reference ``operators.py:137``):
+its host wall includes the boundary's synchronise, and on the card it
+carries ``device_s``, the CUDA-event seconds of ``StageReport.seconds``, so
+a trace tells the host's turnaround at the boundary from the stage's device
+time.  The span adds no event and no synchronise of its own.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.db.sparse import CSRPages
+from repro_torch.obs import TRACER
 
 __all__ = ["Operator", "Stage", "StageReport", "split_into_stages",
            "run_stages"]
@@ -77,18 +84,20 @@ class Stage:
 
     def run(self, state):
         device = _cuda_device(state)
-        if device is None:
-            t0 = time.perf_counter()
-            out = self._apply(state)
-            seconds = time.perf_counter() - t0
-        else:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(torch.cuda.current_stream(device))
-            out = self._apply(state)
-            end.record(torch.cuda.current_stream(device))
-            end.synchronize()                 # stage boundary materializes
-            seconds = start.elapsed_time(end) / 1e3
+        with TRACER.span(f"stage:{self.name}") as sp:
+            if device is None:
+                t0 = time.perf_counter()
+                out = self._apply(state)
+                seconds = time.perf_counter() - t0
+            else:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(torch.cuda.current_stream(device))
+                out = self._apply(state)
+                end.record(torch.cuda.current_stream(device))
+                end.synchronize()             # stage boundary materializes
+                seconds = start.elapsed_time(end) / 1e3
+                sp.set(device_s=seconds)
         report = StageReport(
             name=self.name,
             operators=tuple(op.name for op in self.operators),

@@ -52,6 +52,18 @@ bit.  The storage format is part of every plan and model key, and a CSR
 batch signature also pins the page capacity.  ``infer_rows`` scores dense
 rows only, as in the reference.
 
+Tracing (``repro_torch.obs``; reference ``query.py:569-592``): ``infer``
+is the observability boundary.  With ``TRACER`` enabled the query runs
+under a ``query.infer`` root span and ``QueryResult.trace`` carries its
+``TraceSummary`` (span counts, per-name seconds, the ``METRICS`` counter
+deltas); disabled, ``infer`` is a tail call to ``_infer``.  Inside:
+``plan.build`` when a cached plan is built, ``plan.partition`` when a model
+is partitioned, ``query.write`` for ``write_as``, and at every
+compiled-plan cache lookup (udf and rel+reuse queries, both ``infer_rows``
+plans) a ``plan.cache`` event and one of ``plan.cache_hits`` /
+``plan.cache_misses``; the bare ``rel`` plan consults no cache.
+``infer_rows`` runs under a ``query.infer_rows`` span.
+
 Not ported yet, and refused with ``NotImplementedError``: ``plan="auto"``
 (ROADMAP queue 1, item 10); meshes (item 12) have no entry point yet.
 """
@@ -82,6 +94,7 @@ from repro_torch.kernels.gather import csr_block_to_dense, gather_inverse_map
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
                                      KERNEL_ALGORITHMS, default_tree_block,
                                      packed_nodes, share_packed_nodes)
+from repro_torch.obs import METRICS, TRACER, TraceSummary
 
 __all__ = ["QueryResult", "RowBatchResult", "CompiledQueryPlan",
            "ForestQueryEngine"]
@@ -116,6 +129,8 @@ class QueryResult:
     n_parts: int = 1                  # tree partitions (rel plans)
     tier: str = "device"
     scan: ScanStats | None = None
+    trace: TraceSummary | None = None  # the query's spans and counter
+    #                                   deltas while TRACER is enabled
 
     def breakdown(self) -> dict[str, float]:
         return {"partition": self.partition_s, "inference": self.infer_s,
@@ -236,8 +251,8 @@ class ForestQueryEngine:
         return Operator("gather:csr-compact", gather)
 
     # -- model partition stage (the reusable one) ---------------------------
-    def _partition_model(self, forest: Forest, num_parts: int, *,
-                         storage_format: str = "dense"
+    def _partition_model(self, forest: Forest, algorithm: str,
+                         num_parts: int, *, storage_format: str = "dense"
                          ) -> MaterializedModel:
         """The forest on the store's device, its tree axis padded to a
         multiple of ``num_parts``, and (``aux["nodes"]``) its node records
@@ -247,18 +262,20 @@ class ForestQueryEngine:
         feed the gather operator.  The kernels' structure tensors come
         from ``kernels.ops``'s per-(depth, device) cache, and the eager
         oracles build their own."""
-        dev = self.store.device
-        aux: dict[str, Any] = {}
-        forest = forest.to(dev)
-        if storage_format == "csr":
-            forest, aux["inv_map"], aux["f_used"] = \
-                self._sparse_prepass(forest)
-        forest_p, true_T = pad_trees(forest, num_parts)
-        aux["nodes"] = packed_nodes(forest_p)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return MaterializedModel(forest=forest_p, true_num_trees=true_T,
-                                 aux=aux)
+        with TRACER.span("plan.partition", algorithm=algorithm,
+                         num_parts=num_parts, storage_format=storage_format):
+            dev = self.store.device
+            aux: dict[str, Any] = {}
+            forest = forest.to(dev)
+            if storage_format == "csr":
+                forest, aux["inv_map"], aux["f_used"] = \
+                    self._sparse_prepass(forest)
+            forest_p, true_T = pad_trees(forest, num_parts)
+            aux["nodes"] = packed_nodes(forest_p)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return MaterializedModel(forest=forest_p, true_num_trees=true_T,
+                                     aux=aux)
 
     # -- plan bodies ----------------------------------------------------------
     def _udf_ops(self, forest: Forest, algorithm: str, true_T: int,
@@ -360,7 +377,7 @@ class ForestQueryEngine:
         before = self.cache.stats.hits
         mat = self.cache.get_or_build(
             (mid, algorithm, n_parts, self.mesh_id, fmt),
-            lambda: self._partition_model(forest, n_parts,
+            lambda: self._partition_model(forest, algorithm, n_parts,
                                           storage_format=fmt))
         return mat, self.cache.stats.hits > before
 
@@ -381,18 +398,53 @@ class ForestQueryEngine:
         return CompiledQueryPlan(stages=stages, num_stages=len(stages) + 1,
                                  mat=mat)
 
-    def _cached_plan(self, key: tuple, build) -> tuple[CompiledQueryPlan,
-                                                       bool]:
+    def _cached_plan(self, key: tuple, build, plan: str, **attrs
+                     ) -> tuple[CompiledQueryPlan, bool]:
+        """The compiled-plan cache lookup: the plan and whether it was a
+        hit, counted and traced (a ``plan.build`` span on a miss).  ``plan``
+        labels the lookup ("udf", "rel+reuse", "udf-rows",
+        "rel+reuse-rows")."""
+
+        def traced_build() -> CompiledQueryPlan:
+            with TRACER.span("plan.build", plan=plan, **attrs):
+                return build()
+
         before = self.plan_cache.stats.hits
-        qplan = self.plan_cache.get_or_build(key, build)
-        return qplan, self.plan_cache.stats.hits > before
+        qplan = self.plan_cache.get_or_build(key, traced_build)
+        hit = self.plan_cache.stats.hits > before
+        METRICS.counter("plan.cache_hits" if hit
+                        else "plan.cache_misses").inc()
+        TRACER.event("plan.cache", hit=hit, plan=plan)
+        return qplan, hit
 
     # -- entry points -------------------------------------------------------
-    def infer(self, dataset: str, forest: Forest, *,
-              algorithm: str = "predicated", plan: str = "udf",
-              batch_pages: int | None = None, write_as: str | None = None,
-              model_id: str | None = None, n_parts: int | None = None,
-              prefetch_depth: int = 2) -> QueryResult:
+    def infer(self, dataset: str, forest: Forest, **kw) -> QueryResult:
+        """Run the end-to-end inference query over a stored dataset (the
+        keywords are ``_infer``'s).  The observability boundary: with
+        ``TRACER`` enabled the query runs under a ``query.infer`` root span
+        and ``QueryResult.trace`` is its ``TraceSummary``; disabled, a tail
+        call."""
+        if not TRACER.enabled:
+            return self._infer(dataset, forest, **kw)
+        mark = TRACER.mark()
+        before = METRICS.counter_values()
+        with TRACER.span("query.infer", dataset=dataset,
+                         plan=kw.get("plan", "udf"),
+                         algorithm=kw.get("algorithm", "predicated")
+                         ) as root:
+            res = self._infer(dataset, forest, **kw)
+            root.set(tier=res.tier, storage_format=res.storage_format,
+                     reuse_hit=res.reuse_hit)
+        res.trace = TRACER.summarize(root, since=mark,
+                                     counters_before=before,
+                                     counters_now=METRICS.counter_values())
+        return res
+
+    def _infer(self, dataset: str, forest: Forest, *,
+               algorithm: str = "predicated", plan: str = "udf",
+               batch_pages: int | None = None, write_as: str | None = None,
+               model_id: str | None = None, n_parts: int | None = None,
+               prefetch_depth: int = 2) -> QueryResult:
         """Run the end-to-end inference query over a stored dataset.
 
         ``batch_pages`` pages go to each scan batch.  By default a
@@ -447,7 +499,8 @@ class ForestQueryEngine:
             qplan, plan_hit = self._cached_plan(
                 ("udf-plan", mid, dataset, algorithm, fmt, batch_sig,
                  self.mesh_id),
-                lambda: self._udf_plan(forest, algorithm, fmt))
+                lambda: self._udf_plan(forest, algorithm, fmt), "udf",
+                algorithm=algorithm, storage_format=fmt)
             n_parts = 1
         else:
             n_parts = self._resolve_n_parts(forest, algorithm, n_parts)
@@ -457,7 +510,7 @@ class ForestQueryEngine:
                 mat, model_hit = self._partitioned(forest, mid, algorithm,
                                                    n_parts, fmt)
             else:
-                mat = self._partition_model(forest, n_parts,
+                mat = self._partition_model(forest, algorithm, n_parts,
                                             storage_format=fmt)
             partition_s = time.perf_counter() - t0
             prefix = [StageReport(
@@ -471,7 +524,8 @@ class ForestQueryEngine:
                 qplan, plan_hit = self._cached_plan(
                     ("rel-plan", mid, dataset, algorithm, n_parts, fmt,
                      batch_sig, self.mesh_id, id(mat)),
-                    lambda: self._rel_plan(mat, algorithm, n_parts))
+                    lambda: self._rel_plan(mat, algorithm, n_parts),
+                    "rel+reuse", algorithm=algorithm, storage_format=fmt)
             else:
                 qplan = self._rel_plan(mat, algorithm, n_parts)
         reuse_hit = model_hit or plan_hit
@@ -484,7 +538,8 @@ class ForestQueryEngine:
         write_s = 0.0
         if write_as is not None:
             t0 = time.perf_counter()
-            self.store.put_result(write_as, predictions, ds.num_rows)
+            with TRACER.span("query.write", dataset=write_as):
+                self.store.put_result(write_as, predictions, ds.num_rows)
             write_s = time.perf_counter() - t0
         total_s = time.perf_counter() - t_query0
 
@@ -539,26 +594,33 @@ class ForestQueryEngine:
         batch_sig = (B, F)
         fmt = "dense"                  # row batches are dense rows
 
-        if plan == "udf":
-            qplan, plan_hit = self._cached_plan(
-                ("udf-row-plan", mid, ROW_PLAN_DATASET, algorithm, fmt,
-                 batch_sig, self.mesh_id),
-                lambda: self._udf_plan(forest, algorithm, fmt))
-        else:
-            n_parts = self._resolve_n_parts(forest, algorithm, n_parts)
-            mat, _ = self._partitioned(forest, mid, algorithm, n_parts, fmt)
-            qplan, plan_hit = self._cached_plan(
-                ("rel-row-plan", mid, ROW_PLAN_DATASET, algorithm, n_parts,
-                 fmt, batch_sig, self.mesh_id, id(mat)),
-                lambda: self._rel_plan(mat, algorithm, n_parts))
-        state, _ = run_stages(qplan.stages, {"x": x})
-        preds = state["pred"]
-        rows_scored = B
-        if mask is not None:
-            rows_scored = int(mask.sum())
-            # padding rows never leak: their predictions are NaN
-            preds = torch.where(torch.as_tensor(mask, device=preds.device),
-                                preds, torch.full_like(preds, float("nan")))
+        with TRACER.span("query.infer_rows", plan=plan, algorithm=algorithm,
+                         batch_rows=B) as sp:
+            if plan == "udf":
+                qplan, plan_hit = self._cached_plan(
+                    ("udf-row-plan", mid, ROW_PLAN_DATASET, algorithm, fmt,
+                     batch_sig, self.mesh_id),
+                    lambda: self._udf_plan(forest, algorithm, fmt),
+                    "udf-rows", algorithm=algorithm)
+            else:
+                n_parts = self._resolve_n_parts(forest, algorithm, n_parts)
+                mat, _ = self._partitioned(forest, mid, algorithm, n_parts,
+                                           fmt)
+                qplan, plan_hit = self._cached_plan(
+                    ("rel-row-plan", mid, ROW_PLAN_DATASET, algorithm,
+                     n_parts, fmt, batch_sig, self.mesh_id, id(mat)),
+                    lambda: self._rel_plan(mat, algorithm, n_parts),
+                    "rel+reuse-rows", algorithm=algorithm)
+            state, _ = run_stages(qplan.stages, {"x": x})
+            preds = state["pred"]
+            rows_scored = B
+            if mask is not None:
+                rows_scored = int(mask.sum())
+                # padding rows never leak: their predictions are NaN
+                preds = torch.where(
+                    torch.as_tensor(mask, device=preds.device), preds,
+                    torch.full_like(preds, float("nan")))
+            sp.set(reuse_hit=plan_hit, rows=rows_scored)
         return RowBatchResult(
             predictions=preds, plan_reuse_hit=plan_hit, algorithm=algorithm,
             plan=plan, batch_rows=B, rows_scored=rows_scored,

@@ -40,7 +40,15 @@ branches on where pages live.
 the store's device (reference ``repro/db/store.py:_put_impl`` /
 ``put_sparse``).  Not ported yet: ``stream_writer``'s labels for training
 (ROADMAP queue 1, item 11), the optimizer's decision catalog (item 10),
-the ``disk_page_read`` fault site and the store's spans (item 8).
+and the ``disk_page_read`` fault site (item 8b).
+
+Tracing (``repro_torch.obs``, reference ``store.py:407-475, 637-640,
+952-975``): every ingest is one ``store.put`` (``put``, a
+``stream_writer``'s ``close`` with ``streamed=True``) or
+``store.put_sparse`` span with the RESOLVED tier as its ``tier`` attr,
+and counts ``store.puts``; ``move`` is a ``store.move`` span with ``src`` /
+``dst`` attrs and counts ``store.moves`` per attempt, a rolled-back move
+included.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.db.sparse import CSRPages, csr_from_dense, paginate_csr
+from repro_torch.obs import METRICS, TRACER
 
 __all__ = ["StoredDataset", "SparseStoredDataset", "TensorBlockStore",
            "DenseStreamWriter", "mmap_array", "TIERS"]
@@ -418,20 +427,24 @@ class TensorBlockStore:
         resolve the tier, lay the rows out there and register them.
         ``labels`` [N], if given, are kept as f32 on the store's device."""
         page_rows = page_rows or self.default_page_rows
-        src = torch.as_tensor(data)
-        if src.dim() != 2:
-            raise ValueError(f"expected [N, F] rows, got {tuple(src.shape)}")
-        n, F = src.shape
-        lab = self._labels(labels, n)
-        w = self.stream_writer(name, num_rows=n, num_features=F,
-                               page_rows=page_rows, tier=tier, task=task)
-        try:
-            w.write(src)
-        except BaseException:
-            w.abort()
-            raise
-        ds = w.close()
-        ds.labels = lab
+        with TRACER.span("store.put", dataset=name) as sp:
+            src = torch.as_tensor(data)
+            if src.dim() != 2:
+                raise ValueError(f"expected [N, F] rows, got "
+                                 f"{tuple(src.shape)}")
+            n, F = src.shape
+            lab = self._labels(labels, n)
+            w = self.stream_writer(name, num_rows=n, num_features=F,
+                                   page_rows=page_rows, tier=tier, task=task)
+            try:
+                w.write(src)
+            except BaseException:
+                w.abort()
+                raise
+            ds = w._register()
+            ds.labels = lab
+            sp.set(tier=ds.tier)
+        METRICS.counter("store.puts").inc()
         return ds
 
     def _pages_on(self, pages: CSRPages, tier: str) -> bool:
@@ -480,36 +493,41 @@ class TensorBlockStore:
         as for ``put``); the host tier holds three pinned tensors on a
         CUDA store, the disk tier three spill files.  ``labels`` [N], if
         given, are kept as f32 on the store's device."""
-        page_rows = page_rows or self.default_page_rows
-        self._release_disk(name)       # a re-put's old spill files go away
-        if pages is None:
-            if csr is None:
-                if data is None:
-                    raise ValueError("need one of data=, csr=, pages=")
-                x = torch.as_tensor(data)
-                if x.dim() != 2:
-                    raise ValueError(f"expected [N, F] rows, got "
-                                     f"{tuple(x.shape)}")
-                num_rows, num_features = x.shape
-                csr = csr_from_dense(x, drop_zeros=drop_zeros)
-            if num_rows is None or num_features is None:
-                raise ValueError("num_rows and num_features are required "
-                                 "with csr=")
-            pages = CSRPages(*paginate_csr(
-                *csr, num_rows=int(num_rows), page_rows=page_rows,
-                n_features=int(num_features)), n_features=int(num_features))
-        elif num_rows is None:
-            raise ValueError("num_rows is required with pages=")
-        lab = self._labels(labels, int(num_rows))
-        tier = self._resolve_tier(tier, pages.nbytes)
-        if self._pages_on(pages, tier):
-            pages = pages.replace(pages.arrays(), tier=tier)
-        else:
-            pages = self._relocate_pages(name, tier, pages)
-        ds = SparseStoredDataset(name=name, pages=pages,
-                                 num_rows=int(num_rows), device=self.device,
-                                 task=task, tier=tier, labels=lab)
-        self._datasets[name] = ds
+        with TRACER.span("store.put_sparse", dataset=name) as sp:
+            page_rows = page_rows or self.default_page_rows
+            self._release_disk(name)   # a re-put's old spill files go away
+            if pages is None:
+                if csr is None:
+                    if data is None:
+                        raise ValueError("need one of data=, csr=, pages=")
+                    x = torch.as_tensor(data)
+                    if x.dim() != 2:
+                        raise ValueError(f"expected [N, F] rows, got "
+                                         f"{tuple(x.shape)}")
+                    num_rows, num_features = x.shape
+                    csr = csr_from_dense(x, drop_zeros=drop_zeros)
+                if num_rows is None or num_features is None:
+                    raise ValueError("num_rows and num_features are required "
+                                     "with csr=")
+                pages = CSRPages(*paginate_csr(
+                    *csr, num_rows=int(num_rows), page_rows=page_rows,
+                    n_features=int(num_features)),
+                    n_features=int(num_features))
+            elif num_rows is None:
+                raise ValueError("num_rows is required with pages=")
+            lab = self._labels(labels, int(num_rows))
+            tier = self._resolve_tier(tier, pages.nbytes)
+            if self._pages_on(pages, tier):
+                pages = pages.replace(pages.arrays(), tier=tier)
+            else:
+                pages = self._relocate_pages(name, tier, pages)
+            ds = SparseStoredDataset(name=name, pages=pages,
+                                     num_rows=int(num_rows),
+                                     device=self.device, task=task,
+                                     tier=tier, labels=lab)
+            self._datasets[name] = ds
+            sp.set(tier=tier)
+        METRICS.counter("store.puts").inc()
         return ds
 
     def put_result(self, name: str, result: torch.Tensor,
@@ -580,32 +598,36 @@ class TensorBlockStore:
         are unlinked, the tracked paths restored, the catalog (and so the
         per-tier accounting) untouched -- and the exception is re-raised
         as it is."""
-        _check_tier(tier)
-        ds = self.get(name)
-        if ds.tier == tier:
-            return ds
-        paths_before = list(self._disk_paths.get(name, ()))
-        try:
-            if ds.storage_format == "csr":
-                new = dataclasses.replace(
-                    ds, pages=self._relocate_pages(name, tier, ds.pages),
-                    tier=tier)
-            else:
-                new = dataclasses.replace(
-                    ds, data=self._relocate(name, tier, ds.data), tier=tier)
-        except BaseException:
-            for path in self._disk_paths.get(name, ()):
-                if path not in paths_before and os.path.exists(path):
-                    os.unlink(path)
-            if paths_before:
-                self._disk_paths[name] = paths_before
-            else:
-                self._disk_paths.pop(name, None)
-            raise
-        if ds.tier == "disk":
-            self._release_disk(name)
-        self._datasets[name] = new
-        return new
+        src_tier = self.get(name).tier
+        METRICS.counter("store.moves").inc()   # per attempt
+        with TRACER.span("store.move", dataset=name, src=src_tier, dst=tier):
+            _check_tier(tier)
+            ds = self.get(name)
+            if ds.tier == tier:
+                return ds
+            paths_before = list(self._disk_paths.get(name, ()))
+            try:
+                if ds.storage_format == "csr":
+                    new = dataclasses.replace(
+                        ds, pages=self._relocate_pages(name, tier, ds.pages),
+                        tier=tier)
+                else:
+                    new = dataclasses.replace(
+                        ds, data=self._relocate(name, tier, ds.data),
+                        tier=tier)
+            except BaseException:
+                for path in self._disk_paths.get(name, ()):
+                    if path not in paths_before and os.path.exists(path):
+                        os.unlink(path)
+                if paths_before:
+                    self._disk_paths[name] = paths_before
+                else:
+                    self._disk_paths.pop(name, None)
+                raise
+            if ds.tier == "disk":
+                self._release_disk(name)
+            self._datasets[name] = new
+            return new
 
     # -- catalog --------------------------------------------------------------
     def get(self, name: str) -> StoredDataset:
@@ -756,6 +778,15 @@ class DenseStreamWriter:
 
     def close(self) -> StoredDataset:
         """Pad, flush, register: returns the new ``StoredDataset``."""
+        with TRACER.span("store.put", dataset=self.name,
+                         streamed=True) as sp:
+            ds = self._register()
+            sp.set(tier=ds.tier)
+        METRICS.counter("store.puts").inc()
+        return ds
+
+    def _register(self) -> StoredDataset:
+        """``close`` without its span and count (``put``'s own)."""
         if self._closed:
             raise RuntimeError(f"stream_writer({self.name!r}) is closed")
         if self._cursor != self.num_rows:

@@ -1,0 +1,65 @@
+"""The port's catalog of exported span / event / metric names.
+
+Names are string literals at the call sites; this module is the list of
+what the port's observability plane emits, and every name below appears,
+in backticks, in ``docs/torch_observability.md`` (``tests/
+test_torch_obs.py`` checks both).  It is the port's own catalog, not the
+reference's ``repro/obs/names.py``: a name stays out until the port emits
+it.  ``SPAN_PREFIXES`` covers the dynamically named per-stage spans
+(``stage:<stage name>``).
+"""
+
+from __future__ import annotations
+
+__all__ = ["SPAN_NAMES", "SPAN_PREFIXES", "EVENT_NAMES", "METRIC_NAMES"]
+
+#: every statically named span the port can emit
+SPAN_NAMES = (
+    # query engine (db/query.py)
+    "query.infer",
+    "query.infer_rows",
+    "plan.build",
+    "plan.partition",
+    "query.write",
+    # streaming scan executor (db/executor.py)
+    "scan.execute",
+    "scan.batch",
+    "scan.disk_read",
+    "scan.dma_in",
+    "scan.transfer_wait",
+    "scan.compute",
+    "scan.drain_submit",
+    "scan.drain_write",
+    # tensor-block store (db/store.py)
+    "store.put",
+    "store.put_sparse",
+    "store.move",
+    # external loaders (db/loader.py)
+    "load.parse",
+    "load.convert",
+    "load.transfer",
+)
+
+#: prefixes of dynamically named spans
+SPAN_PREFIXES = (
+    "stage:",            # per-pipeline-stage spans (db/operators.Stage.run)
+)
+
+#: every span-event (instant) name
+EVENT_NAMES = (
+    "plan.cache",        # compiled-plan cache consulted (hit= attr)
+)
+
+#: every process-global METRICS counter
+METRIC_NAMES = (
+    # compiled-plan cache (db/query.py)
+    "plan.cache_hits",
+    "plan.cache_misses",
+    # streaming scan rollups (db/executor.py)
+    "scan.batches",
+    "scan.bytes_streamed",
+    # store / loader (db/store.py, db/loader.py)
+    "store.puts",
+    "store.moves",
+    "load.external_loads",
+)

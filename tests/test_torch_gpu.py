@@ -644,3 +644,109 @@ def test_off_device_libsvm_loads_hand_over_zero_copy(tmp_path, tier):
         assert got.tier == tier
         assert torch.equal(_bits(got.predictions.cpu()),
                            _bits(want.predictions.cpu()))
+
+
+# -- tracing on the card ------------------------------------------------------
+
+
+def _tier_engine(tier: str, seed: int, tmp_path):
+    forest, x = _case(T=10, depth=5, F=9, B=1000, seed=seed,
+                      integer_leaves=False, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=32,
+                             spill_dir=str(tmp_path))
+    store.put("t", x, tier=tier)
+    return ForestQueryEngine(store), forest
+
+
+def _traced_infer(engine, forest, **kw):
+    from repro_torch.obs import TRACER
+
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        res = engine.infer("t", forest, algorithm="predicated_pallas_fused",
+                           batch_pages=4, **kw)
+    finally:
+        TRACER.disable()
+    return res, TRACER.finished()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 1])
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_drain_write_device_spans_lie_inside_their_scan(tier, depth,
+                                                        tmp_path):
+    """Each batch's D2H is a device span on the ``cuda:drain`` track under
+    its ``scan.batch``, and on the anchored clock it lies inside the scan's
+    ``scan.execute`` host interval."""
+    _need_card()
+    engine, forest = _tier_engine(tier, 11, tmp_path)
+    res, spans = _traced_infer(engine, forest, prefetch_depth=depth)
+    by_id = {s.span_id: s for s in spans}
+    execute = next(s for s in spans if s.name == "scan.execute")
+    drains = [s for s in spans if s.name == "scan.drain_write"]
+    assert len(drains) == res.scan.batches == 8
+    for d in drains:
+        assert d.track == "cuda:drain"
+        assert by_id[d.parent_id].name == "scan.batch"
+        assert execute.start_ns <= d.start_ns <= d.end_ns <= execute.end_ns
+    assert sum(d.duration_s for d in drains) == pytest.approx(
+        res.scan.drain_s, rel=1e-3, abs=1e-6)
+    assert res.trace.span_counts["scan.drain_write"] == 8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["device", "host"])
+@pytest.mark.parametrize("plan", ["udf", "rel+reuse"])
+def test_stage_spans_carry_the_stage_reports_device_seconds(plan, tier,
+                                                            tmp_path):
+    _need_card()
+    engine, forest = _tier_engine(tier, 12, tmp_path)
+    res, spans = _traced_infer(engine, forest, plan=plan, n_parts=2)
+    stages = [s for s in spans if s.name.startswith("stage:")]
+    reports = [r for r in res.stage_reports
+               if r.name != "stageP:model-partition"]
+    assert len(stages) == len(reports) > 0
+    assert sorted(s.attrs["device_s"] for s in stages) == sorted(
+        r.seconds for r in reports)
+    for s in stages:                   # host wall includes the synchronise
+        assert s.duration_s > 0 and s.attrs["device_s"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_a_disabled_tracer_adds_no_cuda_event_to_a_scan(tier, monkeypatch,
+                                                        tmp_path):
+    """Tracing off, a scan makes exactly its own events (two page-buffer
+    events a buffer, a drain pair a batch, a pair a stage run) and waits
+    on the same ones; tracing on adds the clock anchor and its wait."""
+    _need_card()
+    engine, forest = _tier_engine(tier, 13, tmp_path)
+    made, waits = [], []
+
+    class _Counted(torch.cuda.Event):
+        def __new__(cls, *a, **kw):
+            made.append(1)
+            return super().__new__(cls, *a, **kw)
+
+        def synchronize(self):
+            waits.append(1)
+            return super().synchronize()
+
+    monkeypatch.setattr(torch.cuda, "Event", _Counted)
+    engine.infer("t", forest, algorithm="predicated_pallas_fused",
+                 batch_pages=4)                  # builds the plan
+    counts = {}
+    for traced in (False, True):
+        made.clear()
+        waits.clear()
+        if traced:
+            res, _ = _traced_infer(engine, forest)
+        else:
+            res = engine.infer("t", forest,
+                               algorithm="predicated_pallas_fused",
+                               batch_pages=4)
+        counts[traced] = (len(made), len(waits))
+    B, S = res.scan.batches, len(res.stage_reports) // res.scan.batches
+    assert counts[False][0] == 2 * 2 + 2 * B + 2 * S * B
+    assert counts[True] == (counts[False][0] + 1, counts[False][1] + 1)

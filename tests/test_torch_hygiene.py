@@ -33,10 +33,21 @@ def test_port_file_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+OBS_FILES = sorted((ROOT / "src" / "repro_torch" / "obs").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", OBS_FILES,
+                         ids=[p.name for p in OBS_FILES])
+def test_obs_modules_are_stdlib_only(path):
+    """The observability plane imports the standard library and itself."""
+    roots = _imported_roots(path) - {"repro_torch"}
+    assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
+
+
 def test_query_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch.db.query, repro_torch.kernels.ops, "
-            "repro_torch.db.loader; "
+            "repro_torch.db.loader, repro_torch.obs; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
