@@ -67,7 +67,7 @@ Phases (any failure exits non-zero and prints no result line):
               torch.profiler trace of one host-tier query, before any
               disk-tier scan (device busy share, the device's wait before
               and between the kernels, H2D overlapping the kernel, flagged
-              when it misses page copies); then phase 8b; a move round
+              when it misses page copies); then phases 8b and 8c; a move round
               trip device -> host -> disk -> device on the 1M-row cut;
  8b. obs      the observability plane (repro_torch.obs) over phase 8's
               tables, the only phase with TRACER enabled: a traced udf
@@ -85,6 +85,27 @@ Phases (any failure exits non-zero and prints no result line):
               walls, medians of interleaved pairs, for the device-tier udf
               query (fails past 1.05), the host-tier one and infer_rows
               at 8 rows; a disabled tracer records nothing;
+ 8c. faults   the fault plane (repro_torch.db.faults) over phase 8's
+              tables, each run held bit for bit against the unfaulted
+              result on its tier, with its ScanStats fault fields, its
+              injector's calls per site and its launches checked: one
+              transient fault (each site's 2nd call) at disk_page_read on
+              the disk tier, at page_dma_in, kernel_launch,
+              drain_copy_out and drain_worker (degraded to the
+              synchronous drain, a longer drain_wait_s) on the host tier
+              and at kernel_launch under the 1600-tree rel+reuse query;
+              the page_dma_in halving ladder (11 batches) and the
+              disk_page_read re-enqueue ladder; kernel_launch and
+              drain_copy_out exhausted (ScanFault, its rows_completed,
+              then a clean query on the same store); deadlines: half the
+              host query's wall (a partial in whole batches, scored rows
+              bit-identical, the rest NaN), 0 on the device and host
+              tiers (all NaN, no launch) and 3600 (not degraded); a move
+              off disk rolled back on an exhausted disk_page_read and
+              then retried; a transient page_dma_in in load_csv_external
+              over 100,000 HIGGS rows written as CSV; an armed but
+              silent injector against none, medians of interleaved pairs
+              (the device-tier udf query fails past 1.05);
   9. sparse   wide rows and the CSR plane.  x modes: each kernel, fused
               (500 trees) and raw (16), staged and wide-row, on 65,536
               rows at widths from 28 to 10,000, beside its bound, and each
@@ -191,6 +212,7 @@ LOAD_TREES = (10, 500)          # the paper's small- and large-model ends
 LOAD_CRITEO_ROWS = 20_000
 LOAD_CRITEO_BATCH_PAGES = 4
 LOAD_EPSILON_ROWS = 10_000
+FAULT_LOAD_ROWS = 100_000       # phase 8c's CSV (phase 10 writes its own)
 PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
@@ -648,6 +670,286 @@ def obs_phase(*, forest, big, engine, engines, counted, only, smi: str,
     return launches
 
 
+def faults_phase(*, forest, big, engine, engines, refs, counted, only,
+                 smi: str, batches: int, cut, load_rows, spill: str) -> dict:
+    """Phase 8c: the fault plane on the card, over phase 8's host and disk
+    tiers and phase 4's device tier.  Returns the launches of its queries
+    by kernel."""
+    from repro_torch.db import loader
+    from repro_torch.db.faults import FaultInjector, RetryPolicy, ScanFault
+
+    fast = RetryPolicy(backoff_base_s=0.0, max_backoff_s=0.0)
+    launches: dict[str, int] = {}
+    sites = ("page_dma_in", "drain_copy_out", "disk_page_read",
+             "kernel_launch", "drain_worker")
+
+    def armed(**arming) -> FaultInjector:
+        inj = FaultInjector()
+        for site, kw in arming.items():
+            inj.inject(site, **kw)
+        return inj
+
+    def calls(tier: str, n: int, **extra) -> dict:
+        """Each site's calls over an n-batch scan at depth 2, plus
+        ``extra``: one call a batch at every site the tier has."""
+        out = {site: n for site in sites}
+        if tier != "disk":
+            out["disk_page_read"] = 0
+        for site, v in extra.items():
+            out[site] += v
+        return out
+
+    def query(tier: str, plan: str = "udf", **kw):
+        """One query, its launches checked and tallied.  A ScanFault is
+        returned in place of the result."""
+        f, algorithm, name_ = ((forest, "predicated_pallas_fused",
+                                "predicated_fused") if plan == "udf"
+                               else (big, "predicated_pallas",
+                                     "predicated_raw"))
+        eng = engine if tier == "device" else engines[tier]
+        if kw.get("injector") is not None:
+            kw["retry_policy"] = fast
+
+        def run():
+            try:
+                return eng.infer("higgs", f, plan=plan, algorithm=algorithm,
+                                 **kw)
+            except ScanFault as e:
+                return e
+
+        r, c = counted(run)
+        for k, n in c.items():
+            if n:
+                launches[k] = launches.get(k, 0) + n
+        return r, c, name_
+
+    def want(plan: str) -> torch.Tensor:
+        return bits(refs[plan])
+
+    def line(r) -> str:
+        s = r.scan
+        return (f"wall_s {s.wall_s:.6f}, total_s {r.total_s:.6f}, batches "
+                f"{s.batches}, retries {s.retries}, faults_injected "
+                f"{s.faults_injected}, batch_resubmits {s.batch_resubmits}, "
+                f"degraded_to_sync {s.degraded_to_sync}, deadline_hit "
+                f"{s.deadline_hit}, max_in_flight {s.max_in_flight}, "
+                f"drain_wait_s {s.drain_wait_s:.6f}")
+
+    def recovered(label: str, tier: str, arming: dict, expect: dict,
+                  want_calls: dict, plan: str = "udf", n: int = batches):
+        inj = armed(**arming)
+        r, c, name_ = query(tier, plan, injector=inj)
+        if isinstance(r, ScanFault):
+            raise AssertionError(f"[faults] {label}: {r}")
+        s = r.scan
+        only(c, name_, r.n_parts * s.batches, f"[faults] {label}")
+        ok = (s.batches == n and s.max_in_flight <= 2
+              and all(getattr(s, k) == v for k, v in expect.items())
+              and inj.calls == want_calls and r.degraded is None
+              and torch.equal(bits(r.predictions.cpu()), want(plan)))
+        log(f"[faults] {label}: {line(r)}; calls {inj.calls}; "
+            f"{c[name_]} {name_} launches; bit-identical to the unfaulted "
+            f"run: {'ok' if ok else 'FAIL'}; on {smi}")
+        if not ok:
+            raise AssertionError(f"[faults] {label} failed its checks "
+                                 f"(calls {inj.calls}, want {want_calls})")
+        return r
+
+    clean = query("host")[0]
+    batch_rows = clean.scan.batch_pages * PAGE_ROWS
+
+    # -- transient faults (each site's 2nd call) ----------------------------
+    one = dict(retries=1, faults_injected=1, batch_resubmits=0,
+               degraded_to_sync=False)
+    recovered("transient disk_page_read, disk udf", "disk",
+              {"disk_page_read": dict(fail_at=2)}, one,
+              calls("disk", batches, disk_page_read=1))
+    for site in ("page_dma_in", "kernel_launch", "drain_copy_out"):
+        recovered(f"transient {site}, host udf", "host",
+                  {site: dict(fail_at=2)}, one,
+                  calls("host", batches, **{site: 1}))
+    r = recovered("transient drain_worker, host udf", "host",
+                  {"drain_worker": dict(fail_at=2)},
+                  dict(retries=0, faults_injected=1, degraded_to_sync=True),
+                  calls("host", batches, drain_worker=2 - batches))
+    if not r.scan.drain_wait_s > clean.scan.drain_wait_s:
+        raise AssertionError("[faults] the degraded drain waited no longer "
+                             "than the asynchronous one")
+    log(f"[faults] degraded drain_wait_s {r.scan.drain_wait_s:.6f} against "
+        f"the clean host scan's {clean.scan.drain_wait_s:.6f} (wall_s "
+        f"{clean.scan.wall_s:.6f}); on {smi}")
+    recovered("transient kernel_launch, host rel+reuse", "host",
+              {"kernel_launch": dict(fail_at=2)}, one,
+              calls("host", batches, kernel_launch=1), plan="rel+reuse")
+
+    # -- the ladders --------------------------------------------------------
+    t0 = time.perf_counter()
+    r = recovered("ladder page_dma_in halving, host udf", "host",
+                  {"page_dma_in": dict(fail_at=1, times=3)},
+                  dict(retries=2, faults_injected=3, batch_resubmits=1),
+                  calls("host", batches + 1, page_dma_in=3), n=batches + 1)
+    log(f"[faults] halved scan: {batches + 1} batches, wall_s "
+        f"{r.scan.wall_s:.6f} (query {time.perf_counter() - t0:.6f} s) "
+        f"against the clean {clean.scan.wall_s:.6f}; on {smi}")
+    recovered("ladder disk_page_read re-enqueue, disk udf", "disk",
+              {"disk_page_read": dict(fail_at=1, times=3)},
+              dict(retries=2, faults_injected=3, batch_resubmits=1),
+              calls("disk", batches, disk_page_read=3))
+
+    # -- exhaustion ---------------------------------------------------------
+    for site, n_launch, extra in (
+            ("kernel_launch", 2, dict(page_dma_in=4, kernel_launch=5,
+                                      drain_copy_out=2, drain_worker=2)),
+            ("drain_copy_out", 3, dict(page_dma_in=4, kernel_launch=3,
+                                       drain_copy_out=5, drain_worker=3))):
+        inj = armed(**{site: dict(fail_at=3, times=10**6)})
+        e, c, name_ = query("host", injector=inj)
+        want_rows = 2 * batch_rows
+        want_calls = dict(calls("host", 0), **extra)
+        ok = (isinstance(e, ScanFault) and e.site == site
+              and e.attempts == fast.max_attempts
+              and e.rows_completed == want_rows
+              and inj.calls == want_calls and c[name_] == n_launch)
+        log(f"[faults] exhausted {site}, host udf: {e!r}; rows_completed "
+            f"{getattr(e, 'rows_completed', None)}; calls {inj.calls}; "
+            f"{c[name_]} launches: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"[faults] exhausted {site} failed its "
+                                 f"checks")
+        r = query("host")[0]
+        if not torch.equal(bits(r.predictions.cpu()), want("udf")):
+            raise AssertionError(f"[faults] the query after the {site} "
+                                 f"ScanFault is not the full result")
+        log(f"[faults] after the {site} ScanFault a clean host query: "
+            f"{line(r)}; full result bit-identical: ok")
+
+    # -- deadlines ----------------------------------------------------------
+    budget = clean.total_s / 2
+    r = query("host", deadline_s=budget)[0]
+    d, s = r.degraded, r.scan
+    mask = torch.from_numpy(d.row_mask) if d is not None else None
+    ref = refs["udf"]
+    whole = mask is not None and all(
+        bool(mask[i:i + batch_rows].all()) or not mask[i:i + batch_rows].any()
+        for i in range(0, ref.shape[0], batch_rows))
+    ok = (s.deadline_hit and d is not None and 0 < d.rows_scored < ref.shape[0]
+          and d.rows_scored == int(mask.sum()) and whole
+          and d.rows_scored + d.rows_missing == ref.shape[0]
+          and torch.equal(bits(r.predictions[mask]), bits(ref[mask]))
+          and bool(torch.isnan(r.predictions[~mask]).all()))
+    log(f"[faults] deadline_s {budget:.6f} (half the clean host query's "
+        f"total_s {clean.total_s:.6f}): {line(r)}; rows_scored "
+        f"{getattr(d, 'rows_scored', None)} of {ref.shape[0]} in whole "
+        f"batches, scored rows bit-identical, the rest NaN: "
+        f"{'ok' if ok else 'FAIL'}; on {smi}")
+    if not ok:
+        raise AssertionError("[faults] the half-budget partial failed its "
+                             "checks")
+    for tier in ("device", "host"):
+        r, c, _ = query(tier, deadline_s=0.0)
+        d = r.degraded
+        ok = (d is not None and d.rows_scored == 0 and not any(c.values())
+              and bool(torch.isnan(r.predictions).all())
+              and r.predictions.device.type == (
+                  engine.store.device.type if tier == "device" else "cpu"))
+        log(f"[faults] deadline_s 0 on the {tier} tier: rows_scored "
+            f"{getattr(d, 'rows_scored', None)}, all NaN, no launch: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[faults] deadline_s=0 failed its checks")
+    r = query("host", deadline_s=3600.0)[0]
+    if r.degraded is not None or r.scan.deadline_hit \
+            or not torch.equal(bits(r.predictions.cpu()), want("udf")):
+        raise AssertionError("[faults] deadline_s=3600 degraded the query")
+    log(f"[faults] deadline_s 3600: {line(r)}; not degraded, "
+        f"bit-identical: ok")
+
+    # -- move off disk, rolled back -----------------------------------------
+    store = engines["disk"].store
+    store.put("fault-cut", cut, tier="disk")
+    files = sorted(os.listdir(spill))
+    tiers0 = (store.device_nbytes, store.host_nbytes, store.disk_nbytes)
+    store.injector = armed(disk_page_read=dict(fail_at=1, times=3))
+    store.retry_policy = fast
+    try:
+        try:
+            store.move("fault-cut", "host")
+            raise AssertionError("[faults] the armed move did not fail")
+        except ScanFault as e:
+            fault = e
+        rolled = (store.get("fault-cut").tier == "disk"
+                  and sorted(os.listdir(spill)) == files
+                  and (store.device_nbytes, store.host_nbytes,
+                       store.disk_nbytes) == tiers0
+                  and fault.site == "disk_page_read"
+                  and fault.attempts == 3 and fault.rows_completed == 0)
+        moved = store.move("fault-cut", "host")
+    finally:
+        store.injector = store.retry_policy = None
+    ok = (rolled and moved.tier == "host" and moved.data.is_pinned()
+          and torch.equal(bits(moved.data[:cut.shape[0]].cuda()),
+                          bits(cut)))
+    log(f"[faults] move {cut.shape[0]} rows disk -> host with disk_page_read "
+        f"exhausted: {fault!r}; spill files, tier bytes and catalog "
+        f"unchanged, the retried move lands the rows: "
+        f"{'ok' if ok else 'FAIL'}")
+    store.drop("fault-cut")
+    if not ok:
+        raise AssertionError("[faults] the move rollback failed its checks")
+
+    # -- a loader -----------------------------------------------------------
+    d = tempfile.mkdtemp(prefix="chip-smoke-faults-")
+    try:
+        path = os.path.join(d, "higgs.csv")
+        rows = load_rows
+        loader.write_csv(path, rows)
+        clean_rows, t_clean = loader.load_csv_external(path, device="cuda")
+        inj = armed(page_dma_in=dict(fail_at=1))
+        got, t_got = loader.load_csv_external(path, device="cuda",
+                                              injector=inj,
+                                              retry_policy=fast)
+        ok = (inj.calls["page_dma_in"] == 2 and inj.total_fired == 1
+              and torch.equal(bits(got), bits(clean_rows)))
+        log(f"[faults] load_csv_external {rows.shape[0]} x {rows.shape[1]} "
+            f"with a transient page_dma_in: transfer_s "
+            f"{t_got.transfer_s:.6f} (clean {t_clean.transfer_s:.6f}), "
+            f"total_s {t_got.total_s:.6f}; calls {inj.calls['page_dma_in']}"
+            f", bit-identical to the clean load: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("[faults] the loader's transient fault")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # -- zero-fault overhead: an armed-but-silent injector against none -----
+    def wall(tier: str, inj) -> float:
+        t0 = time.perf_counter()
+        r = query(tier, injector=inj)[0]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if r.scan.faults_injected or r.scan.retries:
+            raise AssertionError("[faults] the silent injector fired")
+        return dt
+
+    ratios = {}
+    for tier, pairs in (("device", 11), ("host", 5)):
+        walls = {False: [], True: []}
+        for i in range(pairs):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                inj = armed(kernel_launch=dict(fail_at=10**9)) if on else None
+                walls[on].append(wall(tier, inj))
+        med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        ratios[tier] = med[True] / med[False]
+        log(f"[faults] overhead {tier} udf 11M rows: no injector "
+            f"{med[False]:.6f} s, armed but silent {med[True]:.6f} s "
+            f"(medians of {pairs} interleaved pairs), armed / none "
+            f"{ratios[tier]:.4f}; on {smi}")
+    if ratios["device"] > 1.05:
+        raise AssertionError("[faults] an armed injector costs the "
+                             "device-tier udf query more than 5 %")
+    log(f"[faults] launches {launches}")
+    return launches
+
+
 def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
                 fused_ms: float, rel_device_s: float) -> dict:
     """Phase 8: the 11M-row table on the host and disk tiers.  Returns the
@@ -820,6 +1122,15 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
         log(f"[obs] phase wall {time.perf_counter() - t8b:.3f} s")
 
         cut = store.get("higgs_1m").data[:CUT_ROWS]
+        t8c = time.perf_counter()
+        for name_, n in faults_phase(
+                forest=forest, big=big, engine=engine, engines=engines,
+                refs=refs, counted=counted, only=only, smi=smi,
+                batches=batches, cut=cut, spill=spill,
+                load_rows=cut[:FAULT_LOAD_ROWS].cpu().numpy()).items():
+            launches[name_] = launches.get(name_, 0) + n
+        log(f"[faults] phase wall {time.perf_counter() - t8c:.3f} s")
+
         disk_store.put("cut", cut, tier="device")
         eng = engines["disk"]
 

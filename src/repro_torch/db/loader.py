@@ -34,9 +34,12 @@ load counts ``load.external_loads`` and runs its stages under
 dense LIBSVM fallback, ``tier=`` for the CSR loader) and ``load.transfer``
 spans; an off-device CSR load has no transfer and no ``load.transfer``.
 
-Not ported yet (ROADMAP queue 1, item 8b): the ``page_dma_in`` fault site
-with its retry policy around the transfers (reference
-``_guarded_transfer``, the loaders' ``injector=`` / ``retry_policy=``).
+Faults (``db/faults.py``, reference ``loader.py:63-72``): the three
+loaders that transfer onto the device (``load_csv_external``,
+``load_libsvm_external``, ``load_libsvm_csr_external`` on the device tier)
+take ``injector=`` / ``retry_policy=`` and run the transfer through the
+``page_dma_in`` site under the policy; with neither, the transfer is the
+same direct call, and ``LoadTiming`` times what it timed.
 
 ``synth_dataset`` makes the paper's dataset grid (Tab. 1) at its shapes.
 Its seed differs from the reference's on purpose: the reference adds
@@ -56,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.db.faults import RetryPolicy
 from repro_torch.db.sparse import CSRPages, paginate_csr
 from repro_torch.db.store import mmap_array
 from repro_torch.obs import METRICS, TRACER
@@ -154,6 +158,16 @@ def _to_device(host: np.ndarray, dev: torch.device,
     return out
 
 
+def _guarded_transfer(fn, *, injector=None, retry_policy=None):
+    """One transfer through the ``page_dma_in`` site under a retry policy
+    (``RetryPolicy()`` when only an injector is given); a direct call with
+    neither."""
+    if injector is None and retry_policy is None:
+        return fn()
+    policy = retry_policy if retry_policy is not None else RetryPolicy()
+    return policy.run(fn, site="page_dma_in", injector=injector)
+
+
 def _timing(t0: float, t1: float, t2: float, t3: float) -> LoadTiming:
     return LoadTiming(parse_s=t1 - t0, convert_s=t2 - t1,
                       transfer_s=t3 - t2, total_s=t3 - t0)
@@ -169,9 +183,11 @@ def write_csv(path: str, x: np.ndarray) -> None:
     _write_rows(path, x, "", ",", "")
 
 
-def load_csv_external(path: str, *, device=None, dtype=torch.float32):
-    """Timed external load: parse CSV -> convert -> device transfer.
-    Returns (rows [N, F] on the device, LoadTiming)."""
+def load_csv_external(path: str, *, device=None, dtype=torch.float32,
+                      injector=None, retry_policy=None):
+    """Timed external load: parse CSV -> convert -> device transfer (the
+    ``page_dma_in`` site).  Returns (rows [N, F] on the device,
+    LoadTiming)."""
     dev = resolve_device(device)
     METRICS.counter("load.external_loads").inc()
     t0 = time.perf_counter()
@@ -182,7 +198,8 @@ def load_csv_external(path: str, *, device=None, dtype=torch.float32):
         host32 = np.ascontiguousarray(host, dtype=np.float32)
     t2 = time.perf_counter()
     with TRACER.span("load.transfer"):
-        out = _to_device(host32, dev, dtype)
+        out = _guarded_transfer(lambda: _to_device(host32, dev, dtype),
+                                injector=injector, retry_policy=retry_policy)
     return out, _timing(t0, t1, t2, time.perf_counter())
 
 
@@ -228,13 +245,15 @@ def _parse_libsvm(path: str):
 
 
 def load_libsvm_external(path: str, num_features: int, *, device=None,
-                         dtype=torch.float32, missing_as_nan: bool = True):
+                         dtype=torch.float32, missing_as_nan: bool = True,
+                         injector=None, retry_policy=None):
     """Timed sparse load: parse text -> CSR -> densify -> transfer.
 
     The densify step is the "conversion" the paper's Criteo/Bosch pipelines
     pay (sparse store format -> the dense blocks inference kernels want).
     This is the DENSE-FALLBACK baseline; ``load_libsvm_csr_external`` is
-    the sparse data plane's path, which skips the densify entirely.
+    the sparse data plane's path, which skips the densify entirely.  The
+    transfer is the ``page_dma_in`` site.
     Returns (rows [N, F] on the device, labels [N] np f32, LoadTiming).
     """
     dev = resolve_device(device)
@@ -252,7 +271,8 @@ def load_libsvm_external(path: str, num_features: int, *, device=None,
         dense[rows, indices] = values
     t2 = time.perf_counter()
     with TRACER.span("load.transfer"):
-        out = _to_device(dense, dev, dtype)
+        out = _guarded_transfer(lambda: _to_device(dense, dev, dtype),
+                                injector=injector, retry_policy=retry_policy)
     return (out, labels.astype(np.float32),
             _timing(t0, t1, t2, time.perf_counter()))
 
@@ -260,7 +280,8 @@ def load_libsvm_external(path: str, num_features: int, *, device=None,
 def load_libsvm_csr_external(path: str, num_features: int, *,
                              page_rows: int = 512, pages_multiple: int = 1,
                              tier: str = "device",
-                             spill_dir: str | None = None, device=None):
+                             spill_dir: str | None = None, device=None,
+                             injector=None, retry_policy=None):
     """Timed sparse load, SPARSE data plane: parse -> CSR pages -> transfer.
 
     Never builds [N, F] on the host: the parse gives host CSR arrays, the
@@ -276,7 +297,8 @@ def load_libsvm_csr_external(path: str, num_features: int, *,
     ``<stem>.{indptr,indices,values}.bin`` (``store.mmap_array``) in
     ``spill_dir`` or a fresh temporary directory, and come back as
     ``np.memmap`` views, also with ``transfer_s == 0``; the files belong
-    to the caller (a store that registers them never deletes them).
+    to the caller (a store that registers them never deletes them).  The
+    device tier's transfer is the ``page_dma_in`` site.
 
     Returns (CSRPages on ``tier``, labels [N] np f32, LoadTiming).
     """
@@ -305,10 +327,15 @@ def load_libsvm_csr_external(path: str, num_features: int, *,
                                     arrays))
     t2 = time.perf_counter()
     if tier == "device":
-        with TRACER.span("load.transfer"):
-            arrays = tuple(a.to(dev, copy=True) for a in arrays)
+        def transfer():
+            out = tuple(a.to(dev, copy=True) for a in arrays)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+            return out
+
+        with TRACER.span("load.transfer"):
+            arrays = _guarded_transfer(transfer, injector=injector,
+                                       retry_policy=retry_policy)
         t3 = time.perf_counter()
     else:
         t3 = t2                 # no device transfer: transfer_s == 0

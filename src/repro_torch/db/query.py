@@ -64,6 +64,13 @@ plans) a ``plan.cache`` event and one of ``plan.cache_hits`` /
 ``plan.cache_misses``; the bare ``rel`` plan consults no cache.
 ``infer_rows`` runs under a ``query.infer_rows`` span.
 
+Faults (``db/faults.py``, reference ``query.py:757-983``): ``infer``'s
+``injector`` / ``retry_policy`` arm the scan's five sites, and
+``deadline_s`` budgets the whole query from its start; a query that runs
+out of budget returns a PARTIAL result whose ``degraded`` report holds the
+rows scored and missing and the row mask (scored rows bit-identical to an
+unbounded run, missing rows NaN).
+
 Not ported yet, and refused with ``NotImplementedError``: ``plan="auto"``
 (ROADMAP queue 1, item 10); meshes (item 12) have no entry point yet.
 """
@@ -87,6 +94,8 @@ from repro_torch.core.reuse import (MaterializedModel, ModelReuseCache,
                                     fingerprint_forest, mesh_signature)
 from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
                                      StreamingScanExecutor)
+from repro_torch.db.faults import (Deadline, DegradedReport, FaultInjector,
+                                   RetryPolicy)
 from repro_torch.db.operators import (Operator, StageReport, run_stages,
                                       split_into_stages)
 from repro_torch.db.store import TensorBlockStore
@@ -131,6 +140,8 @@ class QueryResult:
     scan: ScanStats | None = None
     trace: TraceSummary | None = None  # the query's spans and counter
     #                                   deltas while TRACER is enabled
+    degraded: DegradedReport | None = None   # a PARTIAL result's report
+    #                                   (deadline_s expired mid-scan)
 
     def breakdown(self) -> dict[str, float]:
         return {"partition": self.partition_s, "inference": self.infer_s,
@@ -444,7 +455,9 @@ class ForestQueryEngine:
                algorithm: str = "predicated", plan: str = "udf",
                batch_pages: int | None = None, write_as: str | None = None,
                model_id: str | None = None, n_parts: int | None = None,
-               prefetch_depth: int = 2) -> QueryResult:
+               prefetch_depth: int = 2, deadline_s: float | None = None,
+               injector: FaultInjector | None = None,
+               retry_policy: RetryPolicy | None = None) -> QueryResult:
         """Run the end-to-end inference query over a stored dataset.
 
         ``batch_pages`` pages go to each scan batch.  By default a
@@ -457,6 +470,11 @@ class ForestQueryEngine:
         reference.  ``n_parts`` overrides the rel plans' tree-partition
         count.  ``write_as`` registers the predictions as a new dataset
         where they landed (the WRITE operator's sink).
+
+        ``injector`` / ``retry_policy`` arm the scan's fault sites and
+        bound their recovery; ``deadline_s`` is the query's budget, read
+        at batch boundaries: out of budget, the result is PARTIAL, with a
+        ``degraded`` report (module note).
 
         A CSR dataset runs the sparse plane (module note), and its result
         says ``storage_format == "csr"``.  Its default batch is the same
@@ -476,6 +494,10 @@ class ForestQueryEngine:
         _predict_sum_fn(algorithm)             # reject unknown names early
         ds = self.store.get(dataset)
         t_query0 = time.perf_counter()
+        # the deadline budgets the whole query from here (plan build and
+        # scan), as a caller on the request path sees it
+        deadline = Deadline(deadline_s, start=t_query0) \
+            if deadline_s is not None else None
         if batch_pages is None:
             batch_pages = ds.num_pages
             if ds.tier != "device":
@@ -530,10 +552,19 @@ class ForestQueryEngine:
                 qplan = self._rel_plan(mat, algorithm, n_parts)
         reuse_hit = model_hit or plan_hit
 
-        executor = StreamingScanExecutor(qplan.stages,
-                                         prefetch_depth=prefetch_depth)
+        executor = StreamingScanExecutor(
+            qplan.stages, prefetch_depth=prefetch_depth, injector=injector,
+            retry_policy=retry_policy, deadline=deadline)
         predictions, batch_reports, scan = executor.execute(ds, batch_pages)
         reports = prefix + batch_reports
+        degraded = None
+        if scan.deadline_hit:
+            mask = executor.last_mask
+            rows_scored = int(mask.sum())
+            degraded = DegradedReport(
+                rows_scored=rows_scored,
+                rows_missing=ds.num_rows - rows_scored, cause="deadline",
+                deadline_s=deadline_s, row_mask=mask)
 
         write_s = 0.0
         if write_as is not None:
@@ -557,7 +588,8 @@ class ForestQueryEngine:
             partition_s=0.0 if reuse_hit else partition_s, infer_s=infer_s,
             aggregate_s=aggregate_s, write_s=write_s, total_s=total_s,
             reuse_hit=reuse_hit, plan_reuse_hit=plan_hit,
-            storage_format=fmt, n_parts=n_parts, tier=ds.tier, scan=scan)
+            storage_format=fmt, n_parts=n_parts, tier=ds.tier, scan=scan,
+            degraded=degraded)
 
     def infer_rows(self, forest: Forest, x, *,
                    row_mask: np.ndarray | None = None,

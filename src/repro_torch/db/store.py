@@ -39,8 +39,14 @@ branches on where pages live.
 ``put`` and ``put_sparse`` take the rows' ``labels``, kept as f32 [N] on
 the store's device (reference ``repro/db/store.py:_put_impl`` /
 ``put_sparse``).  Not ported yet: ``stream_writer``'s labels for training
-(ROADMAP queue 1, item 11), the optimizer's decision catalog (item 10),
-and the ``disk_page_read`` fault site (item 8b).
+(ROADMAP queue 1, item 11) and the optimizer's decision catalog (item 10).
+
+Faults (``db/faults.py``, reference ``store.py:258-270, 642-728``): a store
+made with ``injector=`` / ``retry_policy=`` reads each page array off the
+disk tier in ``move`` through the ``disk_page_read`` site, one guarded
+call an array (three for CSR); an exhausted read rolls the move back and
+raises ``ScanFault("disk_page_read", rows_completed=0)``.  The scan's own
+sites are the executor's.
 
 Tracing (``repro_torch.obs``, reference ``store.py:407-475, 637-640,
 952-975``): every ingest is one ``store.put`` (``put``, a
@@ -66,6 +72,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.db.faults import (FaultInjector, InjectedFault,
+                                   RetryPolicy, ScanFault)
 from repro_torch.db.sparse import CSRPages, csr_from_dense, paginate_csr
 from repro_torch.obs import METRICS, TRACER
 
@@ -74,6 +82,10 @@ __all__ = ["StoredDataset", "SparseStoredDataset", "TensorBlockStore",
 
 #: the tier ladder, fastest first; the ``auto`` cascade walks it top-down
 TIERS = ("device", "host", "disk")
+
+#: a CSR dataset's page arrays, in ``CSRPages.arrays()`` order (and the
+#: labels of their spill files)
+CSR_ARRAYS = ("indptr", "indices", "values")
 
 
 def _check_tier(tier: str) -> str:
@@ -178,17 +190,17 @@ class StoredDataset:
         """The first ``num_pages`` pages of a block, a view."""
         return block[: num_pages * self.page_rows]
 
-    def to_device(self, block, out: torch.Tensor,
-                  staging: torch.Tensor | None = None) -> torch.Tensor:
-        """ScanSource staging on the current stream: ``block`` is copied
-        into ``out`` (a device page buffer of the block's shape),
-        non-blocking, which is asynchronous from pinned memory: the host
-        tier's own pages, or for the disk tier ``staging``, a pinned
-        buffer the block is first read into."""
-        src = _host_rows(block)
-        if staging is not None:
-            src = staging.copy_(src)
-        return out.copy_(src, non_blocking=True)
+    def read_pages(self, block, out: torch.Tensor) -> torch.Tensor:
+        """Read a page block into the host buffer ``out`` (the disk tier's
+        pinned staging): for a memmap view, the real read of its pages."""
+        return out.copy_(_host_rows(block))
+
+    def to_device(self, block, out: torch.Tensor) -> torch.Tensor:
+        """ScanSource staging on the current stream: ``block`` (the host
+        tier's pinned pages, or the disk tier's staged ones) is copied into
+        the device page buffer ``out``, non-blocking, which is asynchronous
+        from pinned memory."""
+        return out.copy_(_host_rows(block), non_blocking=True)
 
 
 @dataclasses.dataclass
@@ -264,14 +276,15 @@ class SparseStoredDataset:
     def first_pages(self, block: CSRPages, num_pages: int) -> CSRPages:
         return block.page_slice(0, num_pages)
 
-    def to_device(self, block: CSRPages, out: CSRPages,
-                  staging: CSRPages | None = None) -> CSRPages:
+    def read_pages(self, block: CSRPages, out: CSRPages) -> CSRPages:
+        """``StoredDataset.read_pages`` for each of the three arrays."""
+        for dst, src in zip(out.tensors(), block.tensors()):
+            dst.copy_(src)
+        return out
+
+    def to_device(self, block: CSRPages, out: CSRPages) -> CSRPages:
         """``StoredDataset.to_device`` for each of the three arrays."""
-        srcs = block.tensors()
-        if staging is not None:
-            srcs = [st.copy_(src)
-                    for st, src in zip(staging.tensors(), srcs)]
-        for dst, src in zip(out.tensors(), srcs):
+        for dst, src in zip(out.tensors(), block.tensors()):
             dst.copy_(src, non_blocking=True)
         return out
 
@@ -284,18 +297,25 @@ class TensorBlockStore:
     ``host_budget_bytes``: soft caps on the device- and host-resident
     totals that steer ``tier="auto"`` ingests down the ladder.
     ``spill_dir``: where disk-tier page files go (a new temporary
-    directory at the first spill when None).
+    directory at the first spill when None).  ``injector`` /
+    ``retry_policy``: the ``disk_page_read`` site of ``move`` off the disk
+    tier (an armed injector with no policy gets ``RetryPolicy()``).
     """
 
     def __init__(self, device: str | torch.device | None = None, *,
                  default_page_rows: int = 1024,
                  device_budget_bytes: int | None = None,
                  host_budget_bytes: int | None = None,
-                 spill_dir: str | None = None):
+                 spill_dir: str | None = None,
+                 injector: FaultInjector | None = None,
+                 retry_policy: RetryPolicy | None = None):
         self.device = resolve_device(device)
         self.default_page_rows = default_page_rows
         self.device_budget_bytes = device_budget_bytes
         self.host_budget_bytes = host_budget_bytes
+        self.injector = injector
+        self.retry_policy = retry_policy if retry_policy is not None \
+            else (RetryPolicy() if injector is not None else None)
         self._spill_dir = spill_dir
         # spill files THIS store wrote, per dataset
         self._disk_paths: dict[str, list[str]] = {}
@@ -465,10 +485,9 @@ class TensorBlockStore:
                         pages: CSRPages) -> CSRPages:
         """A copy of page arrays in ``tier``'s storage (on the disk tier,
         three spill files labelled by array)."""
-        labels = ("indptr", "indices", "values")
         return pages.replace(tuple(
             self._relocate(name, tier, a, label)
-            for label, a in zip(labels, pages.arrays())), tier=tier)
+            for label, a in zip(CSR_ARRAYS, pages.arrays())), tier=tier)
 
     def put_sparse(self, name: str, data=None, *, csr=None,
                    num_rows: int | None = None,
@@ -594,10 +613,13 @@ class TensorBlockStore:
         is a property of the scan, not of the plan.  Leaving the disk
         tier deletes the store's spill files for the dataset.
 
-        On ANY exception the move rolls back -- the spill files it wrote
-        are unlinked, the tracked paths restored, the catalog (and so the
-        per-tier accounting) untouched -- and the exception is re-raised
-        as it is."""
+        Off the disk tier, each page array is read (and copied to its new
+        tier) through the ``disk_page_read`` site under the store's retry
+        policy.  On ANY exception the move rolls back -- the spill files
+        it wrote are unlinked, the tracked paths restored, the catalog
+        (and so the per-tier accounting) untouched; a retryable fault of
+        the disk read is then raised as ``ScanFault("disk_page_read")``,
+        anything else as it is."""
         src_tier = self.get(name).tier
         METRICS.counter("store.moves").inc()   # per attempt
         with TRACER.span("store.move", dataset=name, src=src_tier, dst=tier):
@@ -605,17 +627,25 @@ class TensorBlockStore:
             ds = self.get(name)
             if ds.tier == tier:
                 return ds
+            was_disk = ds.tier == "disk"
+
+            def relocate(label: str, arr):
+                if not was_disk:
+                    return self._relocate(name, tier, arr, label)
+                return self._disk_read(
+                    lambda: self._relocate(name, tier, arr, label))
+
             paths_before = list(self._disk_paths.get(name, ()))
             try:
                 if ds.storage_format == "csr":
-                    new = dataclasses.replace(
-                        ds, pages=self._relocate_pages(name, tier, ds.pages),
-                        tier=tier)
+                    new = dataclasses.replace(ds, pages=ds.pages.replace(
+                        tuple(relocate(label, a) for label, a in
+                              zip(CSR_ARRAYS, ds.pages.arrays())),
+                        tier=tier), tier=tier)
                 else:
                     new = dataclasses.replace(
-                        ds, data=self._relocate(name, tier, ds.data),
-                        tier=tier)
-            except BaseException:
+                        ds, data=relocate("rows", ds.data), tier=tier)
+            except BaseException as e:
                 for path in self._disk_paths.get(name, ()):
                     if path not in paths_before and os.path.exists(path):
                         os.unlink(path)
@@ -623,11 +653,29 @@ class TensorBlockStore:
                     self._disk_paths[name] = paths_before
                 else:
                     self._disk_paths.pop(name, None)
+                policy = self.retry_policy
+                retryable = (policy.retryable if policy is not None
+                             else (InjectedFault, OSError))
+                if was_disk and isinstance(e, retryable):
+                    raise ScanFault(
+                        "disk_page_read", rows_completed=0, cause=e,
+                        attempts=policy.max_attempts if policy else 1,
+                        detail=f"move({name!r} -> {tier!r}) rolled back"
+                    ) from e
                 raise
             if ds.tier == "disk":
                 self._release_disk(name)
             self._datasets[name] = new
             return new
+
+    def _disk_read(self, read: Callable[[], Any]) -> Any:
+        """``read()`` (one page array off the disk tier) through the
+        ``disk_page_read`` site under the store's retry policy; a direct
+        call with none (an injector always comes with one)."""
+        if self.retry_policy is None:
+            return read()
+        return self.retry_policy.run(read, site="disk_page_read",
+                                     injector=self.injector)
 
     # -- catalog --------------------------------------------------------------
     def get(self, name: str) -> StoredDataset:

@@ -48,6 +48,12 @@ SPAN_PREFIXES = (
 #: every span-event (instant) name
 EVENT_NAMES = (
     "plan.cache",        # compiled-plan cache consulted (hit= attr)
+    # the fault plane (db/faults.py, db/executor.py)
+    "fault.injected",    # an armed site fired (site=, call=)
+    "retry",             # a retry re-attempt (site=, attempt=)
+    "degrade.sync_drain",  # the drain fell back to the synchronous drain
+    "batch.resubmit",    # a batch re-enqueued or halved (site=)
+    "deadline.hit",      # the scan stopped at its deadline
 )
 
 #: every process-global METRICS counter
@@ -58,6 +64,11 @@ METRIC_NAMES = (
     # streaming scan rollups (db/executor.py)
     "scan.batches",
     "scan.bytes_streamed",
+    "scan.retries",
+    "scan.faults_injected",
+    "scan.batch_resubmits",
+    "scan.degraded_to_sync",
+    "scan.deadline_hits",
     # store / loader (db/store.py, db/loader.py)
     "store.puts",
     "store.moves",

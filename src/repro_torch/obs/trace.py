@@ -30,6 +30,7 @@ The names are cataloged in ``obs/names.py`` and documented in
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -264,6 +265,19 @@ class Tracer:
             self._orphan_events.append(SpanEvent(
                 name=name, ts_ns=time.perf_counter_ns(),
                 tid=t.ident or 0, thread_name=t.name, attrs=attrs))
+
+    @contextlib.contextmanager
+    def detached(self):
+        """Run a block with no span open on the calling thread: an event
+        inside is a free-standing instant, as on a thread that holds no
+        span (the fault plane's ``drain_worker`` site, whose reference
+        fires on its drain thread)."""
+        st = getattr(self._stacks, "spans", None)
+        self._stacks.spans = []
+        try:
+            yield
+        finally:
+            self._stacks.spans = st if st is not None else []
 
     # -- consumption --------------------------------------------------------
     def mark(self) -> int:

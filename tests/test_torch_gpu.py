@@ -477,19 +477,19 @@ def test_csr_staging_buffers_hold_three_arrays_two_in_flight():
     store = TensorBlockStore(device="cuda", default_page_rows=32)
     ds = store.put_sparse("csr", x, tier="disk")
     made = []
-    real = ex._StreamedScan.__init__
+    real = ex._Scan.__init__
 
     def spy(self, *a, **k):
         real(self, *a, **k)
         made.append(self)
 
-    ex._StreamedScan.__init__ = spy
+    ex._Scan.__init__ = spy
     try:
         res = ForestQueryEngine(store).infer(
             "csr", forest, algorithm="predicated_pallas_fused",
             batch_pages=3)
     finally:
-        ex._StreamedScan.__init__ = real
+        ex._Scan.__init__ = real
     scan = made[0]
     assert len(scan.bufs) == len(scan.staging) == 2
     for buf, stage in zip(scan.bufs, scan.staging):
@@ -750,3 +750,196 @@ def test_a_disabled_tracer_adds_no_cuda_event_to_a_scan(tier, monkeypatch,
     B, S = res.scan.batches, len(res.stage_reports) // res.scan.batches
     assert counts[False][0] == 2 * 2 + 2 * B + 2 * S * B
     assert counts[True] == (counts[False][0] + 1, counts[False][1] + 1)
+
+
+# -- the fault plane on the card ----------------------------------------------
+
+
+def _fast():
+    from repro_torch.db.faults import RetryPolicy
+
+    return RetryPolicy(backoff_base_s=0.0, max_backoff_s=0.0)
+
+
+def _armed(**arming):
+    from repro_torch.db.faults import FaultInjector
+
+    inj = FaultInjector()
+    for site, kw in arming.items():
+        inj.inject(site, **kw)
+    return inj
+
+
+def _x_stages(seen=None):
+    """A plan that sums each row's features (optionally recording the page
+    buffer each batch reads)."""
+    from repro_torch.db.operators import Operator, split_into_stages
+
+    def udf(state):
+        if seen is not None:
+            seen.append(state["x"].data_ptr())
+        return {**state, "pred": torch.nansum(state["x"], dim=1)}
+
+    return split_into_stages([Operator("udf", udf, breaker=True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_failed_attempts_record_no_copy_or_drain_event(tier, monkeypatch,
+                                                       tmp_path):
+    """A fired attempt at page_dma_in, kernel_launch or drain_copy_out
+    enqueues nothing: the scan records as many CUDA events as a clean one,
+    and its drain spans (one a batch) sum to ``drain_s``."""
+    _need_card()
+    engine, forest = _tier_engine(tier, 14, tmp_path)
+    recorded = []
+
+    class _Counted(torch.cuda.Event):
+        def record(self, *a, **kw):
+            recorded.append(1)
+            return super().record(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", _Counted)
+    kw = dict(algorithm="predicated_pallas_fused", batch_pages=4)
+    clean = engine.infer("t", forest, **kw)
+    recorded.clear()
+    clean = engine.infer("t", forest, **kw)
+    n_clean = len(recorded)
+    arming = {s: dict(fail_at=2) for s in ("page_dma_in", "kernel_launch",
+                                           "drain_copy_out")}
+    recorded.clear()
+    res = engine.infer("t", forest, injector=_armed(**arming),
+                       retry_policy=_fast(), **kw)
+    assert len(recorded) == n_clean
+    assert res.scan.retries == res.scan.faults_injected == 3
+    assert torch.equal(_bits(res.predictions), _bits(clean.predictions))
+    res, spans = _traced_infer(engine, forest, injector=_armed(**arming),
+                               retry_policy=_fast())
+    drains = [s for s in spans if s.name == "scan.drain_write"]
+    assert len(drains) == res.scan.batches == 8
+    assert sum(d.duration_s for d in drains) == pytest.approx(
+        res.scan.drain_s, rel=1e-3, abs=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_halving_reuses_the_preallocated_buffers(tier, tmp_path):
+    """The transfer ladder's halves go into the first pages of the same two
+    page buffers: two buffer addresses, at most two in flight, and the
+    result of the clean scan."""
+    _need_card()
+    from repro_torch.db.executor import StreamingScanExecutor
+
+    x = np.random.default_rng(15).normal(size=(640, 7)).astype(np.float32)
+    store = TensorBlockStore(device="cuda", default_page_rows=32,
+                             spill_dir=str(tmp_path))
+    ds = store.put("t", x, tier=tier)
+    clean, _, _ = StreamingScanExecutor(_x_stages()).execute(ds, 4)
+    seen = []
+    out, _, stats = StreamingScanExecutor(
+        _x_stages(seen), injector=_armed(page_dma_in=dict(fail_at=1,
+                                                          times=3)),
+        retry_policy=_fast()).execute(ds, 4)
+    assert stats.batch_resubmits == 1 and stats.batches == 6
+    assert stats.max_in_flight <= 2 and len(set(seen)) == 2
+    assert torch.equal(_bits(out), _bits(clean))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["kernel_launch", "drain_copy_out"])
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_a_scanfault_leaves_no_stream_busy_and_no_reader(tier, site,
+                                                         monkeypatch,
+                                                         tmp_path):
+    _need_card()
+    import threading
+
+    from repro_torch.db.faults import ScanFault
+
+    engine, forest = _tier_engine(tier, 16, tmp_path)
+    streams = []
+
+    class _Kept(torch.cuda.Stream):
+        def __new__(cls, *a, **kw):
+            s = super().__new__(cls, *a, **kw)
+            streams.append(s)
+            return s
+
+    monkeypatch.setattr(torch.cuda, "Stream", _Kept)
+    kw = dict(algorithm="predicated_pallas_fused", batch_pages=4)
+    with pytest.raises(ScanFault) as info:
+        engine.infer("t", forest, retry_policy=_fast(),
+                     injector=_armed(**{site: dict(fail_at=3,
+                                                   times=10**6)}), **kw)
+    assert info.value.site == site
+    assert info.value.rows_completed == 2 * 4 * 32
+    assert len(streams) >= 2 and all(s.query() for s in streams)
+    assert not [t for t in threading.enumerate() if t.name == "scan-reader"]
+    monkeypatch.undo()
+    again = engine.infer("t", forest, **kw)
+    assert again.scan.batches == 8 and not torch.isnan(
+        again.predictions).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["device", "host", "disk"])
+def test_a_deadline_partial_has_landed_when_execute_returns(tier, tmp_path):
+    """Three of eight batches: their rows are in the result when
+    ``execute`` returns (no synchronise by the caller), the rest NaN."""
+    _need_card()
+    from repro_torch.db.executor import StreamingScanExecutor
+    from repro_torch.db.faults import Deadline
+
+    class _Counting(Deadline):
+        def __init__(self, n):
+            super().__init__(None)
+            self.n = n
+
+        @property
+        def expired(self):
+            self.n -= 1
+            return self.n < 0
+
+    x = np.random.default_rng(17).normal(size=(1024, 7)).astype(np.float32)
+    store = TensorBlockStore(device="cuda", default_page_rows=32,
+                             spill_dir=str(tmp_path))
+    ds = store.put("t", x, tier=tier)
+    ex = StreamingScanExecutor(_x_stages(), deadline=_Counting(3))
+    out, _, stats = ex.execute(ds, 4)
+    mask = torch.from_numpy(ex.last_mask)
+    got = out.cpu() if tier == "device" else out.clone()
+    torch.cuda.synchronize()
+    clean, _, _ = StreamingScanExecutor(_x_stages()).execute(ds, 4)
+    assert stats.deadline_hit and stats.batches == 3
+    assert int(mask.sum()) == 3 * 4 * 32
+    assert torch.equal(_bits(got[mask]), _bits(clean.cpu()[mask]))
+    assert torch.isnan(got[~mask]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_a_stage_error_is_not_retried_on_the_card(tier, tmp_path):
+    """A RuntimeError out of a stage (what a CUDA error is) is not in the
+    policy's retryable set: one call, no retry counted."""
+    _need_card()
+    from repro_torch.db.executor import StreamingScanExecutor
+    from repro_torch.obs import METRICS
+
+    x = np.ones((256, 3), np.float32)
+    store = TensorBlockStore(device="cuda", default_page_rows=32,
+                             spill_dir=str(tmp_path))
+    ds = store.put("t", x, tier=tier)
+    from repro_torch.db.operators import Operator, split_into_stages
+    calls = []
+
+    def udf(state):
+        calls.append(1)
+        raise RuntimeError("CUDA error: an illegal memory access")
+
+    before = METRICS.counter_values().get("scan.retries", 0)
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        StreamingScanExecutor(
+            split_into_stages([Operator("udf", udf, breaker=True)]),
+            injector=_armed(), retry_policy=_fast()).execute(ds, 2)
+    assert len(calls) == 1
+    assert METRICS.counter_values().get("scan.retries", 0) == before

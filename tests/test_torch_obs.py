@@ -62,11 +62,6 @@ TIERS = ("device", "host", "disk")
 #: the reference's names the port does not emit yet, each with the ROADMAP
 #: queue 1 item that brings it
 PENDING = {
-    # the fault plane (db/faults.py, its sites and ladders)
-    "fault.injected": "8b", "retry": "8b", "degrade.sync_drain": "8b",
-    "batch.resubmit": "8b", "deadline.hit": "8b", "scan.retries": "8b",
-    "scan.faults_injected": "8b", "scan.batch_resubmits": "8b",
-    "scan.degraded_to_sync": "8b", "scan.deadline_hits": "8b",
     # serving (serve/forest.py, serve/router.py); plan.traces returns as
     # its CUDA-graph captures (the port has no tracing compiler)
     "plan.traces": "9", "serve.tick": "9", "serve.coalesce": "9",
@@ -377,6 +372,70 @@ def test_query_trace_matches_the_reference(engines, plan, tier, fmt):
         assert torch.equal(got.predictions, plain.predictions)
     assert g.span_counts["scan.batch"] == g.span_counts["scan.compute"] \
         == g.span_counts["scan.drain_write"] == 3
+
+
+#: one case a fault ladder: the injector's arming and the query's keywords
+#: (each site's 2nd call transient; three failed transfers halve the first
+#: batch; three failed reads re-enqueue it; the drain's first batch
+#: degrades it, over five batches; a deadline that expires at its third
+#: check)
+LADDERS = {
+    "transient": ({site: dict(fail_at=2) for site in (
+        "page_dma_in", "kernel_launch", "drain_copy_out")}, {}),
+    "halving": ({"page_dma_in": dict(fail_at=1, times=3)},
+                dict(batch_pages=4)),
+    "reenqueue": ({"disk_page_read": dict(fail_at=1, times=3)}, {}),
+    "degrade": ({"drain_worker": dict(fail_at=1)}, dict(batch_pages=1)),
+    "deadline": ({}, dict(deadline_s=1.0)),
+}
+
+
+@pytest.mark.parametrize("ladder,tier", [
+    (ladder, tier) for ladder in LADDERS for tier in ("host", "disk")
+    if (ladder, tier) != ("reenqueue", "host")])
+def test_fault_ladder_trace_matches_the_reference(engines, monkeypatch,
+                                                  ladder, tier):
+    """Each ladder's query: the span and event counts and the counter
+    deltas equal the reference's, the events fired on the disk tier's
+    reader thread included."""
+    from repro.db import faults as jfaults
+    from repro.db import query as jquery
+    from repro_torch.db import faults
+    from repro_torch.db import query as query_mod
+
+    from test_torch_faults import _counting
+    (jengine, engine), jf = engines[0]["dense"], engines[1]
+    arming, kw = LADDERS[ladder]
+    if tier == "disk" and ladder == "transient":
+        arming = dict(arming, disk_page_read=dict(fail_at=2))
+    if ladder == "deadline":
+        jc, c = _counting(jfaults.Deadline), _counting(faults.Deadline)
+        monkeypatch.setattr(jquery, "Deadline", lambda b, start=None: jc(2))
+        monkeypatch.setattr(query_mod, "Deadline",
+                            lambda b, start=None: c(2))
+    kw = dict(dict(algorithm=FUSED, batch_pages=2), **kw)
+
+    def armed(mod):
+        inj = mod.FaultInjector()
+        for site, a in arming.items():
+            inj.inject(site, **a)
+        return dict(injector=inj, retry_policy=mod.RetryPolicy(
+            backoff_base_s=0.0, max_backoff_s=0.0)) if arming else {}
+
+    want = _traced(JTRACER, lambda: jengine.infer(
+        tier, jf, **armed(jfaults), **kw))
+    got = _traced(TRACER, lambda: engine.infer(
+        tier, port_forest(jf), **armed(faults), **kw))
+    w, g = want.trace, got.trace
+    assert g.event_counts == w.event_counts
+    assert g.counters == _ref_counters(w)
+    assert g.span_counts == w.span_counts
+    assert np.array_equal(got.predictions.numpy(),
+                          np.asarray(want.predictions), equal_nan=True)
+    _assert_cataloged(TRACER.finished(), g.counters)
+    fault_names = {"fault.injected", "retry", "batch.resubmit",
+                   "degrade.sync_drain", "deadline.hit"}
+    assert fault_names & set(g.event_counts)
 
 
 @pytest.mark.parametrize("tier", ["host", "disk"])

@@ -30,6 +30,7 @@ from repro.core.reuse import ModelReuseCache as JCache
 from repro.db.query import ForestQueryEngine as JEngine
 from repro.db.store import TensorBlockStore as JStore
 from repro_torch.db import store as store_mod
+from repro_torch.db.faults import ScanFault
 from repro_torch.db.executor import (MAX_IN_FLIGHT, ScanSource,
                                      StreamingScanExecutor)
 from repro_torch.db.operators import Operator, split_into_stages
@@ -291,12 +292,17 @@ class _FailingSource(_Delegate):
 
 @pytest.mark.parametrize("depth", [1, 2])
 def test_reader_error_reaches_the_caller_and_the_thread_stops(depth):
+    """A failing page read is an ``OSError`` at the ``disk_page_read``
+    site: its batch goes once to the back of the plan, then the scan
+    raises ``ScanFault`` (as the reference's does), the thread stopped."""
     ds = _store(_rows(10)).get("disk")
     stages = split_into_stages([Operator("udf", lambda s: {
         **s, "pred": s["x"][:, 0]}, breaker=True)])
-    with pytest.raises(OSError, match="page read failed"):
+    with pytest.raises(ScanFault, match="page read failed") as info:
         StreamingScanExecutor(stages, prefetch_depth=depth).execute(
             _FailingSource(ds), 1)
+    assert info.value.site == "disk_page_read"
+    assert isinstance(info.value.cause, OSError)
     assert not _reader_threads()
 
 
@@ -362,11 +368,11 @@ def test_transfer_wait_excludes_loads_issued_ahead(depth):
     calls = []
 
     class _SlowSource(_Delegate):
-        def to_device(self, block, out, staging=None):
+        def to_device(self, block, out):
             calls.append(1)
             if len(calls) > 1:                 # every load after the first
                 threading.Event().wait(0.02)
-            return self.ds.to_device(block, out, staging)
+            return self.ds.to_device(block, out)
 
     stages = split_into_stages([Operator("udf", lambda s: {
         **s, "pred": s["x"][:, 0]}, breaker=True)])
