@@ -141,6 +141,32 @@ Phases (any failure exits non-zero and prints no result line):
               load_array_rows_external and udf predicated (wide-row).
               Writing the files is untimed set-up; they go to a temporary
               directory deleted at the end.
+ 11. serve    the forest serving plane (repro_torch.serve) over request
+              rows from the HIGGS table's head: four tenants in one
+              ForestServeEngine, each warmed over the ladder 8 / 32 / 128
+              at registration: udf-pred (predicated_pallas_fused, 500
+              integer-leaf trees), udf-hb (hummingbird_pallas_fused,
+              phase 4's forest), udf-qs (quickscorer_pallas_fused, 500
+              integer-leaf trees), udf, and rel (predicated_pallas, the
+              1600-tree forest, rel+reuse in 100 partitions).  A
+              correctness pass (200 requests of 1-4 rows a tenant,
+              submit + drain: each tick bit for bit infer_rows over its
+              padded bucket, bit for bit or within TOL of the eager
+              oracle, 1 fused or 100 raw launches a tick and no other
+              kernel); open-loop single-row interactive traffic with the
+              ticker running on udf-pred and rel at 200, 800, 3,000 and
+              20,000 req/s for 1 s each (latency from the scheduled
+              arrival, queue wait, coalesce width, ticks, padding, shed,
+              served in the window, kernel busy share under a CUDA-only
+              profiler; no plan miss, every request served, launches =
+              ticks x launches a tick); a traced window (serve.tick spans
+              = ticks, no plan.build); the per-request baseline
+              (store.put of one row, infer, read-back) at 200, 800 and
+              3,000 req/s, at most 1,000 requests, beside the coalesced
+              p50; tenancy (max_plans 3: a fourth tenant evicts the
+              first, whose next request misses and re-serves bit for
+              bit); shedding (a timeout below the interactive deadline:
+              shed, counted, served after the batch deadline).
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -213,6 +239,15 @@ LOAD_CRITEO_ROWS = 20_000
 LOAD_CRITEO_BATCH_PAGES = 4
 LOAD_EPSILON_ROWS = 10_000
 FAULT_LOAD_ROWS = 100_000       # phase 8c's CSV (phase 10 writes its own)
+#: phase 11, the serving plane: request rows (the HIGGS table's head), the
+#: correctness pass's requests a tenant, the open-loop rates (the
+#: reference's RATES_HZ, benchmarks/bench_serve.py:65, and one past the
+#: coalescer's saturation), each rate's window, the baseline's cap a rate
+SERVE_ROWS = 65_536
+SERVE_CHECK_REQUESTS = 200
+SERVE_RATES_HZ = (200, 800, 3000, 20000)
+SERVE_WINDOW_S = 1.0
+SERVE_BASELINE_MAX = 1000
 PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
@@ -1772,6 +1807,339 @@ def load_phase(*, counted, only, smi: str, tally) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def window_stats(reqs: list, due: np.ndarray, t0: float) -> dict:
+    """One open-loop window's requests: latency from the scheduled arrival,
+    queue wait (submit to coalesce), and how many were served within the
+    window (by the last scheduled arrival plus 1/rate)."""
+    lat = np.array([r.finished_at - d for r, d in zip(reqs, due)])
+    wait = np.array([r.admitted_at - r.submitted_at for r in reqs])
+    end = due[-1] + (due[-1] - due[0]) / max(len(due) - 1, 1)
+    return dict(
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        wait_p50_ms=float(np.percentile(wait, 50)) * 1e3,
+        wait_p99_ms=float(np.percentile(wait, 99)) * 1e3,
+        in_window=sum(r.finished_at <= end for r in reqs),
+        span_s=max(r.finished_at for r in reqs) - t0)
+
+
+def open_loop(submit, rate_hz: float, n: int) -> tuple[list, np.ndarray,
+                                                       float]:
+    """Call ``submit(i)`` for ``n`` requests on a fixed schedule (request
+    i is due at t0 + i / rate on the perf_counter clock; a late loop
+    submits at once): returns what each call returned, the schedule and
+    t0."""
+    t0 = time.perf_counter() + 0.01
+    due = t0 + np.arange(n) / float(rate_hz)
+    reqs = []
+    for i in range(n):
+        now = time.perf_counter()
+        if now < due[i]:
+            time.sleep(due[i] - now)
+        reqs.append(submit(i))
+    return reqs, due, t0
+
+
+def serve_phase(*, rows: np.ndarray, forest, big, counted, only, smi: str,
+                tally) -> None:
+    """Phase 11: the forest serving plane on the card.  Four tenants in one
+    ``ForestServeEngine`` over HIGGS-shaped request rows: a correctness
+    pass, open-loop traffic with the ticker running, the per-request
+    baseline, tenancy under a small plan cache, and shedding.
+    ``tally(counts)`` adds each counted run's launches to the kernels'
+    record."""
+    from repro_torch.core.forest import make_forest
+    from repro_torch.core.postprocess import predict_proba
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.obs import METRICS, TRACER
+    from repro_torch.serve.forest import ForestServeEngine
+    from repro_torch.serve.router import TIER_BATCH, TIER_INTERACTIVE
+
+    def int_forest(seed: int):
+        fe, th, dl, lv = make_forest_arrays(np.random.default_rng(seed),
+                                            integer_leaves=True)
+        return make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
+                           model_type="xgboost", task="regression",
+                           device="cuda")
+
+    # tenant: (forest, algorithm, plan, integer leaves, kernel record name)
+    tenants = {
+        "udf-pred": (int_forest(SEED + 21), "predicated_pallas_fused", "udf",
+                     True, "predicated_fused"),
+        "udf-hb": (forest, "hummingbird_pallas_fused", "udf", False,
+                   "hummingbird_fused"),
+        "udf-qs": (int_forest(SEED + 22), "quickscorer_pallas_fused", "udf",
+                   True, "quickscorer_fused"),
+        "rel": (big, "predicated_pallas", "rel+reuse", False,
+                "predicated_raw"),
+    }
+    store = TensorBlockStore(device="cuda")
+    eng = ForestServeEngine(store)
+    t_reg = time.perf_counter()
+    for name, (f_, alg, plan, _, _) in tenants.items():
+        t0 = time.perf_counter()
+        eng.register_model(name, f_, algorithm=alg, plan=plan)
+        torch.cuda.synchronize()
+        log(f"[serve] register_model('{name}', {f_.num_trees} trees, "
+            f"algorithm='{alg}', plan='{plan}') with warmup over buckets "
+            f"{eng.buckets}: {time.perf_counter() - t0:.3f} s")
+    rel_parts = eng.qe._resolve_n_parts(big, "predicated_pallas", None)
+    if rel_parts != REL_TREES // 16:
+        raise AssertionError(f"rel tenant: {rel_parts} partitions, expected "
+                             f"{REL_TREES // 16}")
+    per_tick = {n: (rel_parts if t[2] == "rel+reuse" else 1)
+                for n, t in tenants.items()}
+    log(f"[serve] 4 tenants registered in {time.perf_counter() - t_reg:.3f} "
+        f"s; launches a tick: {per_tick}")
+
+    # -- 1. correctness pass: submit + drain, each tick held bit for bit --
+    rng = np.random.default_rng(SEED + 23)
+    for name, (f_, alg, plan, exact, kname) in tenants.items():
+        sizes = rng.integers(1, 5, SERVE_CHECK_REQUESTS)
+        starts = rng.integers(0, len(rows) - 4, SERVE_CHECK_REQUESTS)
+        ticks0 = eng.stats(name)["ticks"]
+        reqs, counts = counted(lambda: (
+            [eng.submit(name, rows[s:s + k], priority=TIER_BATCH)
+             for s, k in zip(starts, sizes)], eng.drain())[0])
+        ticks = eng.stats(name)["ticks"] - ticks0
+        only(counts, kname, ticks * per_tick[name],
+             f"serve {name} correctness pass ({ticks} ticks)")
+        tally(counts)
+        # the ticks as the coalescer took them: FIFO prefixes of <= 128 rows
+        groups, cur, n = [], [], 0
+        for r in reqs:
+            if n + r.num_rows > eng.buckets[-1]:
+                groups.append(cur)
+                cur, n = [], 0
+            cur.append(r)
+            n += r.num_rows
+        groups.append(cur)
+        if len(groups) != ticks:
+            raise AssertionError(f"serve {name}: {ticks} ticks, expected "
+                                 f"{len(groups)}")
+        err = 0.0
+        for group in groups:
+            n = sum(r.num_rows for r in group)
+            bucket = eng._bucket(n)
+            x = np.zeros((bucket, FEATURES), np.float32)
+            x[:n] = np.concatenate([r.rows for r in group])
+            direct = eng.qe.infer_rows(
+                f_, x, row_mask=np.arange(bucket) < n, algorithm=alg,
+                plan=plan, model_id=eng._get(name).model_id)
+            if not direct.plan_reuse_hit:
+                raise AssertionError(f"serve {name}: the direct infer_rows "
+                                     f"missed the plan cache")
+            want = direct.predictions[:n]
+            got = torch.from_numpy(np.concatenate(
+                [r.wait(0) for r in group])).cuda()
+            if got.shape != (n,) or not torch.equal(bits(got), bits(want)):
+                raise AssertionError(f"serve {name}: a tick differs from "
+                                     f"infer_rows over its bucket")
+            eager = predict_proba(f_, torch.from_numpy(x[:n]).cuda(),
+                                  algorithm="predicated")
+            err = max(err, float((got - eager).abs().max()))
+            if exact and not torch.equal(bits(got), bits(eager)):
+                raise AssertionError(f"serve {name}: integer leaves, not "
+                                     f"bit for bit the eager oracle")
+            if not torch.allclose(got, eager, rtol=TOL, atol=TOL):
+                raise AssertionError(f"serve {name}: {err} off the eager "
+                                     f"oracle")
+        log(f"[serve] correctness {name}: {len(reqs)} requests of 1-4 rows "
+            f"({int(sizes.sum())} rows) in {ticks} ticks, buckets "
+            f"{[eng._bucket(sum(r.num_rows for r in g)) for g in groups]}; "
+            f"each request bit for bit infer_rows over its padded bucket, "
+            f"{counts[kname]} {kname} launches = {per_tick[name]} a tick, "
+            f"no other kernel; max |served - eager predicated| = {err!r} "
+            f"({'bit for bit' if exact else f'within {TOL}'})")
+
+    # -- 2-3. open-loop traffic with the ticker running ---------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    coalesced_p50: dict[int, float] = {}
+    for name in ("udf-pred", "rel"):
+        kname = tenants[name][4]
+        m = eng._get(name)
+        for rate in SERVE_RATES_HZ:
+            n = int(rate * SERVE_WINDOW_S)
+            keys = ("serve.ticks", "serve.padding_rows", "serve.shed",
+                    "serve.plan_misses")
+            before = {k: m.metrics.counter(k).value for k in keys}
+            misses0 = METRICS.counter("plan.cache_misses").value
+            torch.cuda.synchronize()
+
+            def window():
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    with eng:
+                        reqs, due, t0 = open_loop(
+                            lambda i: eng.submit(name, rows[i % len(rows)],
+                                                 priority=TIER_INTERACTIVE),
+                            rate, n)
+                        for r in reqs:
+                            r.done.wait(120.0)
+                    torch.cuda.synchronize()
+                return reqs, due, t0, prof
+
+            (reqs, due, t0, prof), counts = counted(window)
+            errors = [r for r in reqs if not r.done.is_set()
+                      or r.error is not None]
+            if errors:
+                raise AssertionError(f"serve {name} at {rate} req/s: "
+                                     f"{len(errors)} requests failed or "
+                                     f"were not served: {errors[0].error!r}")
+            d = {k: m.metrics.counter(k).value - before[k] for k in keys}
+            if d["serve.plan_misses"] or \
+                    METRICS.counter("plan.cache_misses").value != misses0:
+                raise AssertionError(f"serve {name} at {rate} req/s: a plan "
+                                     f"miss after warmup")
+            only(counts, kname, d["serve.ticks"] * per_tick[name],
+                 f"serve {name} at {rate} req/s ({d['serve.ticks']} ticks)")
+            tally(counts)
+            st = window_stats(reqs, due, t0)
+            every, kernels, _ = device_intervals(prof)
+            busy_k, busy = union_us(kernels) / 1e3, union_us(every) / 1e3
+            window_ms = st["span_s"] * 1e3
+            if name == "udf-pred":
+                coalesced_p50[rate] = st["p50_ms"]
+            log(f"[serve] traffic {name} {rate} req/s x {SERVE_WINDOW_S} s: "
+                f"submitted {n}, served in the window {st['in_window']} "
+                f"({st['in_window'] / n:.4f}), served in all {n} (1.0); "
+                f"latency from scheduled arrival p50 {st['p50_ms']:.4f} ms "
+                f"p99 {st['p99_ms']:.4f} ms; queue wait p50 "
+                f"{st['wait_p50_ms']:.4f} ms p99 {st['wait_p99_ms']:.4f} ms; "
+                f"ticks {d['serve.ticks']}, mean coalesce width "
+                f"{n / max(d['serve.ticks'], 1):.2f}, padding rows "
+                f"{d['serve.padding_rows']}, shed {d['serve.shed']}, plan "
+                f"misses 0; throughput {n / st['span_s']:.1f} req/s over "
+                f"{window_ms:.3f} ms; kernels busy {busy_k:.3f} ms = "
+                f"{100 * busy_k / window_ms:.2f} % of the window (device "
+                f"incl. copies {100 * busy / window_ms:.2f} %, CUDA-only "
+                f"profiler); {counts[kname]} {kname} launches = "
+                f"{per_tick[name]} a tick, no other kernel; on {smi}")
+
+    # steady state, traced: serve.tick spans = ticks, no plan.build
+    m = eng._get("udf-pred")
+    ticks0 = m.metrics.counter("serve.ticks").value
+    TRACER.reset()
+    TRACER.enable()
+    try:
+        with eng:
+            reqs, _, _ = open_loop(
+                lambda i: eng.submit("udf-pred", rows[i],
+                                     priority=TIER_INTERACTIVE), 800, 400)
+            for r in reqs:
+                r.wait(60.0)
+    finally:
+        TRACER.disable()
+    spans = [s.name for s in TRACER.finished()]
+    ticks = m.metrics.counter("serve.ticks").value - ticks0
+    if spans.count("serve.tick") != ticks or "plan.build" in spans or \
+            spans.count("query.infer_rows") != ticks:
+        raise AssertionError(f"serve traced window: {ticks} ticks, spans "
+                             f"{ {s: spans.count(s) for s in set(spans)} }")
+    log(f"[serve] traced window udf-pred 400 requests at 800 req/s: {ticks} "
+        f"serve.tick / serve.coalesce / query.infer_rows spans each, no "
+        f"plan.build")
+    TRACER.reset()
+
+    # -- 4. per-request baseline: put one row, infer, read back -------------
+    f_pred = tenants["udf-pred"][0]
+    bstore = TensorBlockStore(device="cuda")
+    bengine = ForestQueryEngine(bstore)
+    bstore.put("req", rows[:1])
+    bengine.infer("req", f_pred, algorithm="predicated_pallas_fused")
+    for rate in SERVE_RATES_HZ[:3]:
+        n = min(int(rate * SERVE_WINDOW_S), SERVE_BASELINE_MAX)
+
+        def baseline():
+            def one(i: int) -> float:
+                bstore.put("req", rows[i:i + 1])
+                res = bengine.infer("req", f_pred,
+                                    algorithm="predicated_pallas_fused")
+                res.predictions.cpu()
+                return time.perf_counter()
+
+            done, due, t0 = open_loop(one, rate, n)
+            return np.array(done) - due, done[-1] - t0
+
+        (lat, span), counts = counted(baseline)
+        only(counts, "predicated_fused", n, f"baseline at {rate} req/s")
+        tally(counts)
+        p50 = float(np.percentile(lat, 50)) * 1e3
+        log(f"[serve] baseline {rate} req/s: {n} requests of store.put(1 "
+            f"row) + infer(udf, predicated_pallas_fused) + read-back: p50 "
+            f"{p50:.4f} ms p99 {float(np.percentile(lat, 99)) * 1e3:.4f} ms "
+            f"from scheduled arrival, throughput {n / span:.1f} req/s; "
+            f"coalesced / baseline p50 {coalesced_p50[rate] / p50:.4f}; on "
+            f"{smi}")
+    del bstore, bengine
+
+    # -- 5. tenancy: a fourth tenant evicts the coldest plan ----------------
+    teng = ForestServeEngine(TensorBlockStore(device="cuda"), buckets=(8,),
+                             max_plans=3, algorithm="predicated_pallas_fused")
+    x = rows[:4]
+
+    def tenancy():
+        teng.register_model("a", f_pred)
+        first = teng.predict("a", x)
+        for i, f_ in enumerate((tenants["udf-qs"][0], forest, big)):
+            teng.register_model(f"b{i}", f_)
+        misses0 = METRICS.counter("plan.cache_misses").value
+        again = teng.predict("a", x)
+        return first, again, METRICS.counter("plan.cache_misses").value \
+            - misses0
+
+    (first, again, missed), counts = counted(tenancy)
+    ticks = sum(s["ticks"] for s in teng.stats()["per_model"].values())
+    warm = 4                        # one warmup call a tenant, bucket 8
+    only(counts, "predicated_fused", ticks + warm, "serve tenancy")
+    tally(counts)
+    if missed != 1 or teng.stats("a")["plan_misses"] != 1 or \
+            not np.array_equal(first.view(np.int32), again.view(np.int32)):
+        raise AssertionError(f"serve tenancy: {missed} plan misses, "
+                             f"re-served bit for bit: "
+                             f"{np.array_equal(first, again)}")
+    log(f"[serve] tenancy: max_plans=3, buckets (8,): tenants b0-b2 evicted "
+        f"a's plan; a's next request a plan miss ({missed}), re-served bit "
+        f"for bit; {counts['predicated_fused']} launches")
+    del teng
+
+    # -- 6. shedding: a timeout below the interactive deadline --------------
+    m = eng._get("udf-pred")
+    shed0 = m.metrics.counter("serve.shed").value
+
+    def shed_run():
+        with eng:
+            req = eng.submit("udf-pred", rows[7], priority=TIER_INTERACTIVE,
+                             timeout_s=eng.interactive_deadline_s / 4)
+            req.wait(30.0)
+        return req
+
+    req, counts = counted(shed_run)
+    only(counts, "predicated_fused", 1, "serve shed")
+    tally(counts)
+    x8 = np.zeros((8, FEATURES), np.float32)
+    x8[0] = rows[7]
+    want = eng.qe.infer_rows(f_pred, x8, row_mask=np.arange(8) < 1,
+                             algorithm="predicated_pallas_fused",
+                             model_id=m.model_id).predictions[:1].cpu()
+    waited = req.finished_at - req.submitted_at
+    if not (req.shed and req.priority == TIER_BATCH
+            and m.metrics.counter("serve.shed").value == shed0 + 1
+            and waited >= eng.batch_deadline_s
+            and torch.equal(bits(torch.from_numpy(req.predictions)),
+                            bits(want))):
+        raise AssertionError(f"serve shed: shed={req.shed}, waited "
+                             f"{waited} s")
+    log(f"[serve] shed: an interactive request with timeout_s "
+        f"{eng.interactive_deadline_s / 4} s (deadline "
+        f"{eng.interactive_deadline_s} s) shed to the batch tier, counted, "
+        f"served after {waited * 1e3:.3f} ms (batch deadline "
+        f"{eng.batch_deadline_s * 1e3:.1f} ms), bit for bit infer_rows")
+    if METRICS.counter("serve.queue_depth").value != 0:
+        raise AssertionError("serve.queue_depth did not return to 0")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2463,6 +2831,24 @@ def main() -> int:
             entry["launches"] += counts10[name_]
         else:
             entry["launches"] += counts10[name_] - counts10[f"{name_}_wide"]
+
+    # -- 11. the forest serving plane ---------------------------------------
+    counts11: dict[str, int] = {}
+
+    def tally11(counts: dict) -> None:
+        for k, n in counts.items():
+            counts11[k] = counts11.get(k, 0) + n
+
+    t11 = time.perf_counter()
+    serve_phase(rows=ds.data[:SERVE_ROWS].cpu().numpy(), forest=forest,
+                big=big, counted=counted, only=only, smi=smi, tally=tally11)
+    log(f"[serve] phase wall {time.perf_counter() - t11:.3f} s")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts11[name_]
+        else:
+            entry["launches"] += counts11[name_] - counts11[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -762,6 +762,12 @@ class TensorBlockStore:
             raise KeyError(f"model {name!r} not in store; "
                            f"have {sorted(self._models)}") from None
 
+    def drop_model(self, name: str) -> bool:
+        """Unpin a model; returns whether ``name`` was pinned.  Compiled
+        plans keyed on its fingerprint are the caller's to sweep
+        (``ForestQueryEngine.invalidate``): the store owns only the pin."""
+        return self._models.pop(name, None) is not None
+
     def model_catalog(self) -> dict[str, dict[str, Any]]:
         return {n: {k: v for k, v in e.items() if k != "forest"}
                 for n, e in self._models.items()}

@@ -48,6 +48,12 @@ class Counter:
         with self._lock:
             self._value += n
 
+    def set(self, value: int | float) -> None:
+        """Overwrite the value (a gauge such as ``serve.queue_depth`` set
+        from outside); prefer ``inc`` / ``reset``."""
+        with self._lock:
+            self._value = value
+
     @property
     def value(self) -> int | float:
         return self._value

@@ -38,6 +38,9 @@ SPAN_NAMES = (
     "load.parse",
     "load.convert",
     "load.transfer",
+    # forest serving plane (serve/forest.py)
+    "serve.tick",
+    "serve.coalesce",
 )
 
 #: prefixes of dynamically named spans
@@ -54,9 +57,11 @@ EVENT_NAMES = (
     "degrade.sync_drain",  # the drain fell back to the synchronous drain
     "batch.resubmit",    # a batch re-enqueued or halved (site=)
     "deadline.hit",      # the scan stopped at its deadline
+    "serve.shed",        # an admission timeout demoted a request to batch
 )
 
-#: every process-global METRICS counter
+#: every process-global METRICS counter, and the serving plane's
+#: per-engine / per-model instruments
 METRIC_NAMES = (
     # compiled-plan cache (db/query.py)
     "plan.cache_hits",
@@ -73,4 +78,17 @@ METRIC_NAMES = (
     "store.puts",
     "store.moves",
     "load.external_loads",
+    # forest serving plane (serve/forest.py; per-engine / per-model
+    # registries except serve.queue_depth, the process-global arrival-load
+    # gauge the router reads)
+    "serve.requests",
+    "serve.shed",
+    "serve.queue_wait_s",
+    "serve.e2e_latency_s",
+    "serve.queue_depth",
+    "serve.ticks",
+    "serve.coalesce_width",
+    "serve.padding_rows",
+    "serve.plan_hits",
+    "serve.plan_misses",
 )

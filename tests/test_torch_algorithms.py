@@ -8,6 +8,7 @@ its own ``_go_left`` and which side the port takes.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,6 +90,29 @@ def test_inf_features_follow_go_left_not_the_onehot_kernels(rng):
                                    rtol=1e-6, atol=1e-6)
         # the divergence itself: pinned so a change on either side shows
         assert not np.allclose(got[inf_rows], ref_kernel[inf_rows]), name
+
+
+@pytest.mark.parametrize("T", [3, 7, 37, 500, 1600])
+def test_rf_mean_divides_where_the_jitted_reference_multiplies(T):
+    """The RandomForest mean (ROADMAP section 3, item 1).  Jitted inside
+    the reference's plan stages, ``summed / num_trees`` becomes
+    ``summed * (1/T)``, which misses the correctly rounded quotient by 1
+    ulp on some sums; the port divides, as the reference's eager call
+    does.  Pinned on integer sums so a change on either side shows."""
+    summed = np.arange(-300, 301, dtype=np.float32)
+    kw = dict(model_type="randomforest", task="regression", num_trees=T)
+    jitted = np.asarray(jax.jit(lambda s: jpost.postprocess(s, **kw))(
+        jnp.asarray(summed)))
+    assert np.array_equal(jitted,
+                          summed * (np.float32(1.0) / np.float32(T)))
+    got = tpost.postprocess(torch.from_numpy(summed), **kw).numpy()
+    assert np.array_equal(got, summed / np.float32(T))
+    assert np.array_equal(got, np.asarray(jpost.postprocess(
+        jnp.asarray(summed), **kw)))
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - jitted.view(np.int32).astype(np.int64))
+    assert ulps.max() == 1
+    assert 0 < int((ulps == 1).sum()) < summed.size
 
 
 @pytest.mark.parametrize("model_type,task", [

@@ -943,3 +943,83 @@ def test_a_stage_error_is_not_retried_on_the_card(tier, tmp_path):
             injector=_armed(), retry_policy=_fast()).execute(ds, 2)
     assert len(calls) == 1
     assert METRICS.counter_values().get("scan.retries", 0) == before
+
+
+# -- the serving plane --------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm,plan", [
+    ("predicated_pallas_fused", "udf"), ("hummingbird_pallas_fused", "udf"),
+    ("quickscorer_pallas_fused", "udf"), ("predicated_pallas", "rel+reuse")])
+def test_serve_tenant_matches_infer_rows_with_exact_launches(algorithm,
+                                                             plan):
+    """A tenant per fused kernel (and the raw predicated one under
+    rel+reuse): every request's predictions bit for bit those of a direct
+    ``infer_rows`` over the same padded bucket, and each tick launches its
+    kernel once (n_parts times for rel+reuse) and nothing else."""
+    _need_card()
+    from repro_torch.serve.forest import ForestServeEngine
+    from repro_torch.serve.router import TIER_BATCH
+
+    forest, x = _case(T=37, depth=6, F=28, B=40, seed=31,
+                      integer_leaves=False, device="cuda")
+    eng = ForestServeEngine(TensorBlockStore(device="cuda"), buckets=(8, 32))
+    eng.register_model("m", forest, algorithm=algorithm, plan=plan)
+    base = algorithm.split("_")[0]
+    wrappers = KERNEL_WRAPPERS if algorithm.endswith("_fused") \
+        else RAW_KERNEL_WRAPPERS
+    sizes = [1, 3, 4, 2, 4, 1, 2, 3]          # 20 rows: one tick of 32
+    before = {w: w.launches for w in (*KERNEL_WRAPPERS.values(),
+                                      *RAW_KERNEL_WRAPPERS.values())}
+    reqs, off = [], 0
+    for k in sizes:
+        reqs.append(eng.submit("m", x[off:off + k], priority=TIER_BATCH))
+        off += k
+    eng.drain()
+    torch.cuda.synchronize()
+    launched = {w: w.launches - n for w, n in before.items()}
+    st = eng.stats("m")
+    assert (st["ticks"], st["padding_rows"], st["plan_misses"]) == (1, 12, 0)
+    n_parts = 1 if plan == "udf" else eng.qe._resolve_n_parts(
+        forest, algorithm, None)
+    assert launched[wrappers[base]] == n_parts
+    assert sum(launched.values()) == n_parts
+    xp = np.zeros((32, 28), np.float32)
+    xp[:off] = x[:off]
+    mask = np.arange(32) < off
+    want = eng.qe.infer_rows(forest, xp, row_mask=mask, algorithm=algorithm,
+                             plan=plan).predictions.cpu()
+    got = torch.from_numpy(np.concatenate([r.wait(5.0) for r in reqs]))
+    assert torch.equal(_bits(got), _bits(want[:off]))
+
+
+@pytest.mark.gpu
+def test_serve_ticker_flushes_a_lone_request_at_its_deadline():
+    """With the ticker running, a lone interactive request is served no
+    earlier than the interactive deadline (it never fills a bucket), and
+    the tick launches the fused kernel once."""
+    _need_card()
+    from repro_torch.serve.forest import ForestServeEngine
+    from repro_torch.serve.router import TIER_INTERACTIVE
+
+    forest, x = _case(T=37, depth=8, F=28, B=8, seed=32,
+                      integer_leaves=True, device="cuda")
+    eng = ForestServeEngine(TensorBlockStore(device="cuda"),
+                            interactive_deadline_s=0.002,
+                            algorithm="predicated_pallas_fused")
+    eng.register_model("m", forest)
+    kernel = KERNEL_WRAPPERS["predicated"]
+    before = kernel.launches
+    with eng:
+        req = eng.submit("m", x[1], priority=TIER_INTERACTIVE)
+        out = req.wait(10.0)
+    assert eng._ticker is None
+    assert kernel.launches == before + 1
+    assert eng.stats("m")["ticks"] == 1
+    assert 0.002 <= req.finished_at - req.submitted_at < 1.0
+    direct = eng.qe.infer_rows(forest, np.pad(x[1:2], ((0, 7), (0, 0))),
+                               row_mask=np.arange(8) < 1,
+                               algorithm="predicated_pallas_fused")
+    assert torch.equal(_bits(torch.from_numpy(out)),
+                       _bits(direct.predictions[:1].cpu()))

@@ -25,6 +25,7 @@ import json
 import re
 import sys
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,16 +61,11 @@ FUSED = "predicated_pallas_fused"
 TIERS = ("device", "host", "disk")
 
 #: the reference's names the port does not emit yet, each with the ROADMAP
-#: queue 1 item that brings it
+#: queue 1 item (or "Work left" entry) that brings it
 PENDING = {
-    # serving (serve/forest.py, serve/router.py); plan.traces returns as
-    # its CUDA-graph captures (the port has no tracing compiler)
-    "plan.traces": "9", "serve.tick": "9", "serve.coalesce": "9",
-    "serve.shed": "9", "serve.requests": "9", "serve.queue_wait_s": "9",
-    "serve.e2e_latency_s": "9", "serve.queue_depth": "9",
-    "serve.ticks": "9", "serve.coalesce_width": "9",
-    "serve.padding_rows": "9", "serve.plan_hits": "9",
-    "serve.plan_misses": "9",
+    # the port has no tracing compiler: plan.traces returns as the count of
+    # the serving plane's CUDA-graph captures
+    "plan.traces": "work left: CUDA graphs",
     # the optimizer (db/optimizer.py)
     "optimizer.decide": "10", "optimizer.autotune": "10",
     "optimizer.decision": "10", "optimizer.decisions": "10",
@@ -168,6 +164,35 @@ def test_metrics_match_the_reference_on_one_script():
     assert np.isnan(Histogram("e").percentile(50))
     with pytest.raises(ValueError, match="at least one bucket"):
         Histogram("e", bounds=())
+
+
+def _counter_set_script(counter_cls):
+    c = counter_cls("g")
+    seen = []
+    for op, v in (("set", 7), ("inc", 2), ("set", -3), ("inc", 0.5),
+                  ("set", 0), ("inc", -1), ("reset", None), ("set", 2.25)):
+        getattr(c, op)(*(() if v is None else (v,)))
+        seen.append(c.value)
+    return seen
+
+
+def test_counter_set_matches_the_reference():
+    """``Counter.set`` overwrites the value under the counter's lock, as
+    the reference's does (the serving plane's gauge is set directly)."""
+    assert _counter_set_script(Counter) == _counter_set_script(JCounter) \
+        == [7, 9, -3, -2.5, 0, -1, 0, 2.25]
+    c = Counter("g")
+    threads = [threading.Thread(target=lambda: [c.inc() for _ in
+                                                range(2000)])
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads)
+    assert c.value == 8000
+    c.set(5)
+    assert c.value == 5
 
 
 # -- the tracer ---------------------------------------------------------------
@@ -555,6 +580,72 @@ def test_infer_rows_spans_and_cache_counters_match_the_reference(plan):
         "plan.cache_hits": 1, "plan.cache_misses": 1}
     rows = next(s for s in gspans if s.name == "query.infer_rows")
     assert rows.attrs["reuse_hit"] and rows.attrs["batch_rows"] == 32
+
+
+def _serve_script(eng, x):
+    """One shed interactive request and five batch ones, ticked once past
+    the shed and once more by ``drain``."""
+    reqs = [eng.submit("m", x[:1], priority=0, timeout_s=0.0)]
+    off = 1
+    for k in (2, 3, 1, 4, 2):
+        reqs.append(eng.submit("m", x[off:off + k], priority=1))
+        off += k
+    eng.tick(now=time.perf_counter() + 0.0005)
+    eng.drain()
+    return [r.wait(5.0) for r in reqs]
+
+
+@pytest.mark.parametrize("algorithm,plan", [
+    ("predicated", "udf"), (FUSED, "udf"), (FUSED, "rel+reuse")])
+def test_serve_tick_trace_matches_the_reference(algorithm, plan):
+    """The same drained requests through the reference's serving engine and
+    the port's, traced: the spans and events by name (``serve.tick``,
+    ``serve.coalesce``, ``query.infer_rows``, ``plan.cache``,
+    ``serve.shed``), the ``METRICS`` deltas and the per-model and engine
+    registries' counters are equal."""
+    from repro.serve.forest import ForestServeEngine as JServe
+    from repro_torch.serve.forest import ForestServeEngine
+
+    jf = _forest(integer_leaves=True)
+    kw = dict(buckets=(4, 8), interactive_deadline_s=0.001,
+              batch_deadline_s=0.05)
+    jeng = JServe(JStore(default_page_rows=PAGE), **kw)
+    eng = ForestServeEngine(TensorBlockStore(device="cpu"), **kw)
+    jeng.register_model("m", jf, algorithm=algorithm, plan=plan)
+    eng.register_model("m", port_forest(jf), algorithm=algorithm, plan=plan)
+    x = np.nan_to_num(_rows(9))
+    jbefore, before = JMETRICS.counter_values(), METRICS.counter_values()
+    want = _traced(JTRACER, lambda: _serve_script(jeng, x))
+    got = _traced(TRACER, lambda: _serve_script(eng, x))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    wspans, gspans = JTRACER.finished(), TRACER.finished()
+    names_ = sorted(s.name for s in gspans)
+    assert names_ == sorted(s.name for s in wspans)
+    events = sorted([ev.name for s in gspans for ev in s.events]
+                    + [ev.name for ev in TRACER._orphan_events])
+    assert events == sorted([ev.name for s in wspans for ev in s.events]
+                            + [ev.name for ev in JTRACER._orphan_events])
+    assert (names_.count("serve.tick"), names_.count("serve.coalesce"),
+            names_.count("query.infer_rows"), names_.count("plan.build")) \
+        == (2, 2, 2, 0)
+    assert (events.count("plan.cache"), events.count("serve.shed")) == (2, 1)
+    delta = {k: v - before.get(k, 0)
+             for k, v in METRICS.counter_values().items()
+             if v != before.get(k, 0)}
+    jdelta = {k: v - jbefore.get(k, 0)
+              for k, v in JMETRICS.counter_values().items()
+              if v != jbefore.get(k, 0) and k not in PENDING}
+    assert delta == jdelta == {"plan.cache_hits": 2}
+    m, jm = eng._get("m"), jeng._get("m")
+    assert m.metrics.counter_values() == jm.metrics.counter_values()
+    assert eng.metrics.counter_values() == jeng.metrics.counter_values()
+    assert m.metrics.counter_values() == {
+        "serve.requests": 6, "serve.shed": 1, "serve.ticks": 2,
+        "serve.padding_rows": 3, "serve.plan_hits": 2}
+    serve_spans = [s for s in gspans if s.name.startswith("serve.")]
+    _assert_cataloged(serve_spans, m.metrics.counter_values())
+    assert set(m.metrics.snapshot()) <= set(names.METRIC_NAMES)
 
 
 # -- the store and the loaders ------------------------------------------------
