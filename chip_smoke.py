@@ -167,6 +167,28 @@ Phases (any failure exits non-zero and prints no result line):
               first, whose next request misses and re-serves bit for
               bit); shedding (a timeout below the interactive deadline:
               shed, counted, served after the batch deadline).
+ 12. optimizer the cost-based optimizer (repro_torch.db.optimizer): the
+              card's calibrated peaks (every key positive, the H2D source
+              pinned; its rate beside phase 8's plain pinned copy); a regret
+              grid over the paper's quadrants at the HIGGS width, 10 and
+              1,600 depth-8 trees x 16,384 and 1,000,448 rows on the device
+              tier: all 12 static cells (the six kernels x udf /
+              rel+reuse, min of 3 warm walls each) and then
+              infer(plan="auto", algorithm="auto") on a fresh engine, its
+              first call and 3 repeats (no autotune re-run, 3 catalog hits,
+              only the decided cell's kernel launched, bit for bit its
+              static run), printing the decision, regret_vs_best,
+              win_vs_worst and each cell's predicted_s beside its static
+              wall; tier advice on 1,000,448 rows put on the host tier
+              under a 256 MiB device budget (500 integer-leaf regression
+              trees: advice "device", the query on the host tier, the
+              hillclimbed batch), then auto_move=True (moved, a second
+              decision, bit for bit the host-tier run); a ForestServeEngine
+              tenant registered with "auto" (a #rows decision at B = 128,
+              the other tenant's plan misses after it reported) under 400
+              open-loop single-row requests at 800 req/s (no plan miss,
+              only the decided kernel, every request bit for bit
+              infer_rows of the decided cell; p50 / p99).
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -248,6 +270,15 @@ SERVE_CHECK_REQUESTS = 200
 SERVE_RATES_HZ = (200, 800, 3000, 20000)
 SERVE_WINDOW_S = 1.0
 SERVE_BASELINE_MAX = 1000
+OPT_TREES = (10, 1600)          # phase 12's regret grid: the paper's
+OPT_ROWS = (16_384, 1_000_448)  # small / large model x data quadrants
+OPT_STATIC_RUNS = 3             # warm walls a static cell (min taken)
+OPT_AUTO_REPEATS = 3
+OPT_REGRET = 1.25               # the reference's regret bar (reported)
+ADVICE_ROWS, ADVICE_TREES = 1_000_448, 500
+OPT_SERVE_REQUESTS, OPT_SERVE_RATE_HZ = 400, 800
+PEAK_KEYS = ("peak_flops_bf16", "hbm_bandwidth", "ici_bandwidth",
+             "gather_bandwidth", "h2d_bandwidth", "dispatch_s")
 PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
@@ -986,9 +1017,10 @@ def faults_phase(*, forest, big, engine, engines, refs, counted, only,
 
 
 def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
-                fused_ms: float, rel_device_s: float) -> dict:
+                fused_ms: float, rel_device_s: float) -> tuple[dict, float]:
     """Phase 8: the 11M-row table on the host and disk tiers.  Returns the
-    launches of its queries by kernel."""
+    launches of its queries by kernel and the plain pinned H2D link rate
+    (GB/s)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.db.query import ForestQueryEngine
@@ -1203,7 +1235,7 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
         log(f"[tiers] drop: spill directory empty; launches {launches}")
     finally:
         shutil.rmtree(spill, ignore_errors=True)
-    return launches
+    return launches, link
 
 
 def sparse_phase(*, counted, only, smi: str, tally) -> dict:
@@ -2140,6 +2172,315 @@ def serve_phase(*, rows: np.ndarray, forest, big, counted, only, smi: str,
         raise AssertionError("serve.queue_depth did not return to 0")
 
 
+def kernel_name(algorithm: str) -> str:
+    """The launch-count name of a kernel algorithm's wrapper."""
+    kind = algorithm.split("_")[0]
+    return f"{kind}_fused" if algorithm.endswith("_fused") else f"{kind}_raw"
+
+
+def rank_disagreements(predicted: dict, measured: dict) -> list:
+    """Pairs of cells that the analytic model and the card order
+    differently (each pair once)."""
+    cells = sorted(predicted)
+    return [(a, b) for i, a in enumerate(cells) for b in cells[i + 1:]
+            if (predicted[a] < predicted[b]) != (measured[a] < measured[b])]
+
+
+def optimizer_phase(*, counted, only, smi: str, tally,
+                    link_gbps: float) -> None:
+    """Phase 12: the cost-based optimizer on the card.  The calibrated
+    peaks; a regret grid over the paper's quadrants (every static cell
+    against ``plan="auto", algorithm="auto"``); tier advice on a host-tier
+    table and ``auto_move``; a served tenant registered with ``"auto"``
+    under open-loop traffic.  ``tally(counts)`` adds each counted run's
+    launches to the kernels' record."""
+    from repro_torch.core.forest import make_forest
+    from repro_torch.db.optimizer import CUDA_ALGORITHMS, DEFAULT_PLANS
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.launch import roofline
+    from repro_torch.obs import METRICS
+    from repro_torch.serve.forest import ForestServeEngine
+    from repro_torch.serve.router import TIER_INTERACTIVE
+
+    def forest_of(trees: int, seed: int, integer: bool):
+        """Random depth-8 trees; integer leaves make a regression forest,
+        whose every cell's sums are exact (so any two cells agree bit for
+        bit)."""
+        fe, th, dl, lv = make_forest_arrays(np.random.default_rng(seed),
+                                            integer_leaves=integer,
+                                            trees=trees)
+        return make_forest(fe, th, lv, default_left=dl, n_features=FEATURES,
+                           task="regression" if integer else
+                           "classification", device="cuda")
+
+    def opt_counters() -> dict:
+        return {k: METRICS.counter(f"optimizer.{k}").value for k in (
+            "decisions", "decision_cache_hits", "decision_cache_misses",
+            "autotune_runs", "measurements")}
+
+    # -- peaks ------------------------------------------------------------
+    t0 = time.perf_counter()
+    # raises unless its H2D source is pinned (roofline.h2d_source)
+    peaks = roofline.calibrate_peaks("cuda")
+    cal_s = time.perf_counter() - t0
+    bad = [k for k in PEAK_KEYS if not peaks.get(k, 0) > 0]
+    if bad or not peaks["measured"]:
+        raise AssertionError(f"[optimizer] peaks missing or not positive: "
+                             f"{bad}")
+    log(f"[optimizer] calibrated peaks of {peaks['backend']} in "
+        f"{cal_s:.3f} s on {smi}: f32 512x512 matmul "
+        f"{peaks['peak_flops_bf16'] / 1e12:.4f} TFLOP/s (key "
+        f"peak_flops_bf16); 32 MiB add {peaks['hbm_bandwidth'] / 1e9:.3f} "
+        f"GB/s (hbm_bandwidth = ici_bandwidth); 16 MiB row gather "
+        f"{peaks['gather_bandwidth'] / 1e9:.3f} GB/s; 16 MiB pinned H2D "
+        f"{peaks['h2d_bandwidth'] / 1e9:.3f} GB/s beside phase 8's plain "
+        f"pinned {LINK_BYTES} B copy {link_gbps:.3f} GB/s; dispatch "
+        f"{peaks['dispatch_s'] * 1e6:.3f} us")
+
+    # -- regret grid ------------------------------------------------------
+    cells = [(a, p) for a in CUDA_ALGORITHMS for p in DEFAULT_PLANS]
+    store = TensorBlockStore(device="cuda")
+    for qi, trees in enumerate(OPT_TREES):
+        forest = forest_of(trees, SEED + 60 + qi, integer=False)
+        for ri, rows in enumerate(OPT_ROWS):
+            name = f"q{trees}x{rows}"
+            store.put(name, card_rows(rows, FEATURES, seed=SEED + 62 + ri))
+            static_eng = ForestQueryEngine(store)
+            walls, static_counts = {}, {}
+            for alg, plan in cells:
+                def runs():
+                    out = []
+                    for _ in range(1 + OPT_STATIC_RUNS):
+                        t1 = time.perf_counter()
+                        r = static_eng.infer(name, forest, algorithm=alg,
+                                             plan=plan)
+                        out.append((time.perf_counter() - t1, r))
+                    return out
+
+                out, counts = counted(runs)
+                tally(counts)
+                walls[(alg, plan)] = min(w for w, _ in out[1:])
+                static_counts[(alg, plan)] = counts[kernel_name(alg)] // \
+                    len(out)
+                del out
+            auto_eng = ForestQueryEngine(store)
+            predicted = {(c.algorithm, c.plan): c.predicted_s for c in
+                         auto_eng.optimizer.scored_cells(name, forest)}
+            before = opt_counters()
+
+            def first_auto():
+                t1 = time.perf_counter()
+                r = auto_eng.infer(name, forest, plan="auto",
+                                   algorithm="auto")
+                return r, time.perf_counter() - t1
+
+            (res, first_s), counts = counted(first_auto)
+            tally(counts)
+            d = res.decision
+            mid = opt_counters()
+            kname = kernel_name(d.algorithm)
+            static = static_eng.infer(name, forest, **d.overrides())
+            want_launches = (d.n_parts or 1) * static.scan.batches
+
+            def repeats():
+                out = []
+                for _ in range(OPT_AUTO_REPEATS):
+                    t1 = time.perf_counter()
+                    r = auto_eng.infer(name, forest, plan="auto",
+                                       algorithm="auto")
+                    out.append((time.perf_counter() - t1, r))
+                return out
+
+            reps, counts = counted(repeats)
+            only(counts, kname, OPT_AUTO_REPEATS * want_launches,
+                 f"[optimizer] {name} auto repeats")
+            tally(counts)
+            after = opt_counters()
+            if after["autotune_runs"] != mid["autotune_runs"] or \
+                    after["decision_cache_hits"] - \
+                    mid["decision_cache_hits"] < OPT_AUTO_REPEATS:
+                raise AssertionError(f"[optimizer] {name}: repeats "
+                                     f"re-decided: {mid} -> {after}")
+            for _, r in reps:
+                if r.decision != d or not torch.equal(
+                        bits(r.predictions), bits(static.predictions)):
+                    raise AssertionError(f"[optimizer] {name}: the auto "
+                                         f"query is not bit for bit its "
+                                         f"decided cell's static run")
+            if d.algorithm not in CUDA_ALGORITHMS:
+                raise AssertionError(f"[optimizer] {name}: chose "
+                                     f"{d.algorithm}")
+            steady = min(w for w, _ in reps)
+            best = min(walls, key=walls.get)
+            worst = max(walls, key=walls.get)
+            regret = steady / walls[best]
+            measured_rank = sorted(walls, key=walls.get)
+            analytic_rank = sorted(predicted, key=predicted.get)
+            disagree = rank_disagreements(predicted, walls)
+            log(f"[optimizer] {name} ({trees} trees x {rows} rows, device "
+                f"tier): decision {d.algorithm} / {d.plan} n_parts "
+                f"{d.n_parts} batch_pages {d.batch_pages} tier {d.tier}, "
+                f"source {d.source}, cells_scored {d.cells_scored}, "
+                f"cells_measured {d.cells_measured}, first call (decide + "
+                f"query) {first_s:.6f} s, counters {before} -> {mid}; "
+                f"steady auto {steady:.6f} s (min of {OPT_AUTO_REPEATS} "
+                f"repeats, 0 autotune re-runs, "
+                f"{after['decision_cache_hits'] - mid['decision_cache_hits']}"
+                f" catalog hits, {counts[kname]} {kname} launches, no other "
+                f"kernel, bit for bit the static run); best static "
+                f"{best[0]}/{best[1]} {walls[best]:.6f} s, worst "
+                f"{worst[0]}/{worst[1]} {walls[worst]:.6f} s; regret_vs_best "
+                f"{regret:.4f}{' ABOVE ' + str(OPT_REGRET) if regret > OPT_REGRET else ''}, "
+                f"win_vs_worst {walls[worst] / steady:.4f}; on {smi}")
+            for c in analytic_rank:
+                log(f"[optimizer] {name} cell {c[0]:<26} {c[1]:<9} "
+                    f"predicted {predicted[c]:.6e} s (analytic rank "
+                    f"{analytic_rank.index(c) + 1}) static wall "
+                    f"{walls[c]:.6f} s (measured rank "
+                    f"{measured_rank.index(c) + 1}), "
+                    f"{static_counts[c]} launches a run")
+            log(f"[optimizer] {name} analytic vs measured rank: top "
+                f"{analytic_rank[0]} vs {measured_rank[0]}; "
+                f"{len(disagree)} of {len(cells) * (len(cells) - 1) // 2} "
+                f"pairs ordered differently")
+            del res, static, reps, static_eng, auto_eng
+            store.drop(name)
+        del forest
+
+    # -- tier advice and auto_move ----------------------------------------
+    f500 = forest_of(ADVICE_TREES, SEED + 64, integer=True)
+    astore = TensorBlockStore(device="cuda", device_budget_bytes=TIER_BUDGET)
+    astore.put("adv", card_rows(ADVICE_ROWS, FEATURES, seed=SEED + 65),
+               tier="host")
+    aeng = ForestQueryEngine(astore)
+    c0 = opt_counters()
+
+    def advised():
+        t1 = time.perf_counter()
+        r = aeng.infer("adv", f500, plan="auto", algorithm="auto")
+        return r, time.perf_counter() - t1
+
+    (host_res, host_s), counts = counted(advised)
+    tally(counts)
+    d = host_res.decision
+    if d.tier != "device" or host_res.tier != "host":
+        raise AssertionError(f"[optimizer] tier advice: decision tier "
+                             f"{d.tier}, query ran on {host_res.tier}")
+    default_bp = aeng.optimizer._default_batch_pages(astore.get("adv"))
+    log(f"[optimizer] tier advice: {ADVICE_ROWS} x {FEATURES} on the host "
+        f"tier under a {TIER_BUDGET} B device budget, {ADVICE_TREES} "
+        f"trees: decision {d.algorithm} / {d.plan} n_parts {d.n_parts}, "
+        f"advice tier {d.tier}, ran on {host_res.tier}, source {d.source}, "
+        f"cells_scored {d.cells_scored}, cells_measured {d.cells_measured}; "
+        f"hillclimbed batch_pages {d.batch_pages} (default {default_bp}, "
+        f"{astore.get('adv').num_pages} pages, {host_res.scan.batches} "
+        f"batches); first call {host_s:.6f} s")
+
+    def moved():
+        t1 = time.perf_counter()
+        r = aeng.infer("adv", f500, plan="auto", algorithm="auto",
+                       auto_move=True)
+        return r, time.perf_counter() - t1
+
+    (dev_res, move_s), counts = counted(moved)
+    tally(counts)
+    c1 = opt_counters()
+    if astore.get("adv").tier != "device" or dev_res.tier != "device" or \
+            c1["decisions"] - c0["decisions"] != 2 or \
+            len(astore.decision_catalog()) != 2 or not torch.equal(
+                bits(dev_res.predictions.cpu()),
+                bits(host_res.predictions.cpu())):
+        raise AssertionError(f"[optimizer] auto_move: tier "
+                             f"{astore.get('adv').tier}, counters {c0} -> "
+                             f"{c1}")
+    log(f"[optimizer] auto_move=True: moved host -> device, second decision "
+        f"{dev_res.decision.algorithm} / {dev_res.decision.plan} "
+        f"(source {dev_res.decision.source}), {move_s:.6f} s with the move "
+        f"and the decision; predictions bit for bit the host-tier run")
+    del aeng, astore, host_res, dev_res
+
+    # -- serving: a tenant registered with "auto" ---------------------------
+    rows = card_rows(OPT_SERVE_REQUESTS, FEATURES, seed=SEED + 66).cpu() \
+        .numpy()
+    seng = ForestServeEngine(TensorBlockStore(device="cuda"))
+    other = forest_of(ADVICE_TREES, SEED + 67, integer=True)
+    seng.register_model("other", other, algorithm="predicated_pallas_fused")
+
+    def register():
+        t1 = time.perf_counter()
+        m_ = seng.register_model("auto", f500, algorithm="auto",
+                                 plan="auto")
+        torch.cuda.synchronize()
+        return m_, time.perf_counter() - t1
+
+    (m, reg_s), counts = counted(register)
+    tally(counts)
+    (key, dec), = [(k, v) for k, v in seng.store.decision_catalog().items()
+                   if k[1] == "#rows"]
+    if key[2] != (max(seng.buckets), FEATURES) or \
+            (m.algorithm, m.plan) != (dec["algorithm"], dec["plan"]) or \
+            m.algorithm not in CUDA_ALGORITHMS:
+        raise AssertionError(f"[optimizer] serve: decision {key} {dec}")
+    misses0 = seng.stats("other")["plan_misses"]
+    seng.predict("other", rows[:3])
+    other_missed = seng.stats("other")["plan_misses"] - misses0
+    kname = kernel_name(m.algorithm)
+    per_tick = seng.qe._resolve_n_parts(f500, m.algorithm, None) \
+        if m.plan == "rel+reuse" else 1
+    log(f"[optimizer] serve: register_model('auto', {ADVICE_TREES} trees, "
+        f"'auto', 'auto') -> {m.algorithm} / {m.plan} at B = "
+        f"{key[2][0]} (source {dec['source']}, cells_measured "
+        f"{dec['cells_measured']}), {reg_s:.6f} s with warmup; the other "
+        f"tenant's plan misses after it: {other_missed}")
+    st0 = seng.stats("auto")
+    gmiss0 = METRICS.counter("plan.cache_misses").value
+
+    def window():
+        with seng:
+            reqs_, due_, t0_ = open_loop(
+                lambda i: seng.submit("auto", rows[i],
+                                      priority=TIER_INTERACTIVE),
+                OPT_SERVE_RATE_HZ, OPT_SERVE_REQUESTS)
+            for r in reqs_:
+                r.done.wait(120.0)
+        torch.cuda.synchronize()
+        return reqs_, due_, t0_
+
+    (reqs, due, t_open), counts = counted(window)
+    st1 = seng.stats("auto")
+    ticks = st1["ticks"] - st0["ticks"]
+    if any(not r.done.is_set() or r.error is not None for r in reqs):
+        raise AssertionError("[optimizer] serve: a request failed")
+    if st1["plan_misses"] != st0["plan_misses"] or \
+            METRICS.counter("plan.cache_misses").value != gmiss0:
+        raise AssertionError("[optimizer] serve: a plan miss after warmup")
+    only(counts, kname, ticks * per_tick, "[optimizer] serve window")
+    tally(counts)
+    got = np.concatenate([r.predictions for r in reqs])
+    big_b = max(seng.buckets)
+    want = []
+    for lo in range(0, OPT_SERVE_REQUESTS, big_b):
+        n = min(big_b, OPT_SERVE_REQUESTS - lo)
+        x = np.zeros((big_b, FEATURES), np.float32)
+        x[:n] = rows[lo:lo + n]
+        want.append(seng.qe.infer_rows(
+            f500, x, row_mask=np.arange(big_b) < n, algorithm=m.algorithm,
+            plan=m.plan, model_id=m.model_id).predictions[:n].cpu())
+    want = torch.cat(want)
+    if not torch.equal(bits(torch.from_numpy(got)), bits(want)):
+        raise AssertionError("[optimizer] serve: a request differs from "
+                             "infer_rows of the decided cell")
+    stw = window_stats(reqs, due, t_open)
+    log(f"[optimizer] serve: {OPT_SERVE_REQUESTS} single-row requests at "
+        f"{OPT_SERVE_RATE_HZ} req/s on the auto tenant: p50 "
+        f"{stw['p50_ms']:.4f} ms p99 {stw['p99_ms']:.4f} ms from scheduled "
+        f"arrival, {ticks} ticks, 0 plan misses, {counts[kname]} {kname} "
+        f"launches = {per_tick} a tick, no other kernel; each request bit "
+        f"for bit infer_rows of {m.algorithm} / {m.plan}; on {smi}")
+    del seng
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2785,10 +3126,10 @@ def main() -> int:
     # -- 8. the host and disk tiers ------------------------------------------
     fused_ms = next(e["ms"] for e in record
                     if e["name"] == "predicated_fused")
-    for name_, n in tiers_phase(
-            forest=forest, big=big, store=store, engine=engine,
-            counted=counted, only=only, smi=smi, fused_ms=fused_ms,
-            rel_device_s=rel_device_s).items():
+    launches8, link_gbps = tiers_phase(
+        forest=forest, big=big, store=store, engine=engine, counted=counted,
+        only=only, smi=smi, fused_ms=fused_ms, rel_device_s=rel_device_s)
+    for name_, n in launches8.items():
         next(e for e in record if e["name"] == name_)["launches"] += n
 
     # -- 9. wide rows and the sparse plane ----------------------------------
@@ -2849,6 +3190,25 @@ def main() -> int:
             entry["launches"] += counts11[name_]
         else:
             entry["launches"] += counts11[name_] - counts11[f"{name_}_wide"]
+
+    # -- 12. the cost-based optimizer ---------------------------------------
+    counts12: dict[str, int] = {}
+
+    def tally12(counts: dict) -> None:
+        for k, n in counts.items():
+            counts12[k] = counts12.get(k, 0) + n
+
+    t12 = time.perf_counter()
+    optimizer_phase(counted=counted, only=only, smi=smi, tally=tally12,
+                    link_gbps=link_gbps)
+    log(f"[optimizer] phase wall {time.perf_counter() - t12:.3f} s; "
+        f"launches { {k: n for k, n in counts12.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts12[name_]
+        else:
+            entry["launches"] += counts12[name_] - counts12[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -71,8 +71,14 @@ out of budget returns a PARTIAL result whose ``degraded`` report holds the
 rows scored and missing and the row mask (scored rows bit-identical to an
 unbounded run, missing rows NaN).
 
-Not ported yet, and refused with ``NotImplementedError``: ``plan="auto"``
-(ROADMAP queue 1, item 10); meshes (item 12) have no entry point yet.
+The optimizer (``db/optimizer.py``, reference ``query.py:645-660,
+790-810``): ``plan="auto"`` / ``algorithm="auto"`` in ``infer`` resolve
+through ``engine.optimizer.decide`` (the result's ``decision``), and in
+``infer_rows`` through ``decide_rows``; either axis can be pinned while the
+other stays auto, and an explicit ``n_parts`` / ``batch_pages`` wins over
+the decision's.  ``invalidate`` and ``invalidate_dataset`` sweep the
+store's decisions with the plans.  Meshes (ROADMAP queue 1, item 12) have
+no entry point yet.
 """
 
 from __future__ import annotations
@@ -98,6 +104,8 @@ from repro_torch.db.faults import (Deadline, DegradedReport, FaultInjector,
                                    RetryPolicy)
 from repro_torch.db.operators import (Operator, StageReport, run_stages,
                                       split_into_stages)
+from repro_torch.db.optimizer import (DEFAULT_ALGORITHM, CostBasedOptimizer,
+                                      Decision)
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.kernels.gather import csr_block_to_dense, gather_inverse_map
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
@@ -112,9 +120,6 @@ __all__ = ["QueryResult", "RowBatchResult", "CompiledQueryPlan",
 #: batches come from the serving plane, not a stored dataset, so
 #: ``store.drop`` -> ``invalidate_dataset`` never sweeps them
 ROW_PLAN_DATASET = "#rows"
-
-_AUTO_REFUSED = ("the cost-based optimizer is not ported yet (ROADMAP "
-                 "queue 1, item 10)")
 
 
 @dataclasses.dataclass
@@ -142,6 +147,8 @@ class QueryResult:
     #                                   deltas while TRACER is enabled
     degraded: DegradedReport | None = None   # a PARTIAL result's report
     #                                   (deadline_s expired mid-scan)
+    decision: Decision | None = None  # the optimizer verdict this query
+    #                                   ran under ("auto" queries only)
 
     def breakdown(self) -> dict[str, float]:
         return {"partition": self.partition_s, "inference": self.infer_s,
@@ -197,7 +204,8 @@ class ForestQueryEngine:
     """Executes forest-inference queries against a TensorBlockStore.
 
     Each engine owns its model-partition cache (``reuse_cache``) and its
-    compiled-plan cache unless the caller passes them in."""
+    compiled-plan cache unless the caller passes them in, and its
+    ``optimizer`` (replaceable: tests install tighter budgets)."""
 
     def __init__(self, store: TensorBlockStore,
                  reuse_cache: ModelReuseCache | None = None,
@@ -212,6 +220,7 @@ class ForestQueryEngine:
         self._fingerprints: dict[int, str] = {}
         store.register_invalidator(self.invalidate_dataset)
         store.register_model_invalidator(self.invalidate)
+        self.optimizer = CostBasedOptimizer(self)
 
     # -- cache keys and sweeps ---------------------------------------------
     def _model_key(self, forest: Forest, model_id: str | None) -> str:
@@ -226,17 +235,21 @@ class ForestQueryEngine:
         return fp
 
     def invalidate(self, model_id: str | None = None) -> int:
-        """Sweep BOTH the model-partition cache (model id at key[0]) and
-        the compiled-plan cache (model id at key[1]): all entries, or one
-        model's.  Returns entries dropped."""
+        """Sweep the model-partition cache (model id at key[0]), the
+        compiled-plan cache (model id at key[1]) and the store's optimizer
+        decisions (fingerprint at key[0]): all entries, or one model's.
+        Returns entries dropped."""
         return (self.cache.invalidate(model_id)
-                + self.plan_cache.invalidate(model_id, key_index=1))
+                + self.plan_cache.invalidate(model_id, key_index=1)
+                + self.store.drop_decisions(model_id=model_id))
 
     def invalidate_dataset(self, dataset: str) -> int:
-        """``store.drop``'s hook: sweep the plans built against
-        ``dataset``.  Partitioned models do not depend on a dataset and
-        stay.  Returns entries dropped."""
-        return self.plan_cache.invalidate(dataset, key_index=2)
+        """``store.drop``'s hook: sweep the plans built against ``dataset``
+        and the decisions keyed on it (``drop`` sweeps those itself first;
+        this keeps a direct call equivalent).  Partitioned models do not
+        depend on a dataset and stay.  Returns entries dropped."""
+        return (self.plan_cache.invalidate(dataset, key_index=2)
+                + self.store.drop_decisions(dataset=dataset))
 
     # -- sparse prepass (the sparse plane's plan-build half) ----------------
     def _sparse_prepass(self, forest: Forest):
@@ -441,7 +454,7 @@ class ForestQueryEngine:
         before = METRICS.counter_values()
         with TRACER.span("query.infer", dataset=dataset,
                          plan=kw.get("plan", "udf"),
-                         algorithm=kw.get("algorithm", "predicated")
+                         algorithm=kw.get("algorithm") or DEFAULT_ALGORITHM
                          ) as root:
             res = self._infer(dataset, forest, **kw)
             root.set(tier=res.tier, storage_format=res.storage_format,
@@ -452,13 +465,25 @@ class ForestQueryEngine:
         return res
 
     def _infer(self, dataset: str, forest: Forest, *,
-               algorithm: str = "predicated", plan: str = "udf",
+               algorithm: str | None = None, plan: str = "udf",
                batch_pages: int | None = None, write_as: str | None = None,
                model_id: str | None = None, n_parts: int | None = None,
                prefetch_depth: int = 2, deadline_s: float | None = None,
                injector: FaultInjector | None = None,
-               retry_policy: RetryPolicy | None = None) -> QueryResult:
+               retry_policy: RetryPolicy | None = None,
+               auto_move: bool = False) -> QueryResult:
         """Run the end-to-end inference query over a stored dataset.
+
+        ``plan="auto"`` / ``algorithm="auto"`` resolve through the
+        optimizer (module note): the first query per (model, dataset
+        signature) pays a bounded score and measure pass, later ones a
+        catalog lookup.  ``algorithm`` None (the default) runs
+        ``"predicated"``; under ``plan="auto"`` it pins that name on a CPU
+        store, as the reference does, and leaves a CUDA store's six kernels
+        to the optimizer.  ``auto_move`` also applies the decision's tier
+        advice (``store.move`` before the scan, then one decision under the
+        new tier's signature); off by default, since a query should not
+        silently migrate a dataset.
 
         ``batch_pages`` pages go to each scan batch.  By default a
         device-tier table is one batch; a host- or disk-tier table streams
@@ -487,8 +512,25 @@ class ForestQueryEngine:
         host- or disk-tier scan are the scan's pinned host buffer, where
         the reference always returns a device array
         (``repro/db/query.py:974``)."""
+        decision = None
         if plan == "auto" or algorithm == "auto":
-            raise NotImplementedError(_AUTO_REFUSED)
+            pinned = dict(
+                algorithms=self.optimizer.algorithms_for(algorithm),
+                plans=None if plan == "auto" else (plan,))
+            decision = self.optimizer.decide(dataset, forest,
+                                             model_id=model_id, **pinned)
+            if auto_move and decision.tier != self.store.get(dataset).tier:
+                self.store.move(dataset, decision.tier)
+                # the move changed the dataset signature: decide once under
+                # the new tier (persisted, so still one-shot)
+                decision = self.optimizer.decide(dataset, forest,
+                                                 model_id=model_id, **pinned)
+            algorithm, plan = decision.algorithm, decision.plan
+            if n_parts is None:
+                n_parts = decision.n_parts
+            if batch_pages is None:
+                batch_pages = decision.batch_pages
+        algorithm = algorithm or DEFAULT_ALGORITHM
         if plan not in ("udf", "rel", "rel+reuse"):
             raise ValueError(f"unknown plan {plan!r}")
         _predict_sum_fn(algorithm)             # reject unknown names early
@@ -589,11 +631,11 @@ class ForestQueryEngine:
             aggregate_s=aggregate_s, write_s=write_s, total_s=total_s,
             reuse_hit=reuse_hit, plan_reuse_hit=plan_hit,
             storage_format=fmt, n_parts=n_parts, tier=ds.tier, scan=scan,
-            degraded=degraded)
+            degraded=degraded, decision=decision)
 
     def infer_rows(self, forest: Forest, x, *,
                    row_mask: np.ndarray | None = None,
-                   algorithm: str = "predicated", plan: str = "udf",
+                   algorithm: str | None = None, plan: str = "udf",
                    model_id: str | None = None,
                    n_parts: int | None = None) -> RowBatchResult:
         """Score a PRE-PADDED row batch against the compiled-plan cache.
@@ -604,9 +646,22 @@ class ForestQueryEngine:
         round-trip, no scan executor, and (``rel+reuse``) no
         re-partitioning.  ``row_mask`` marks the real rows: padding rows
         come back NaN.  The bare ``rel`` plan is refused: serving runs
-        cached plans only."""
+        cached plans only.
+
+        ``plan="auto"`` / ``algorithm="auto"`` resolve through the
+        optimizer's row-batch decision (``decide_rows``, persisted per
+        (model, batch signature)); the serving plane resolves it once, at
+        ``register_model``.  ``algorithm`` None is ``infer``'s."""
         if plan == "auto" or algorithm == "auto":
-            raise NotImplementedError(_AUTO_REFUSED)
+            dec = self.optimizer.decide_rows(
+                forest, int(getattr(x, "shape", (len(x),))[0]),
+                model_id=model_id,
+                algorithms=self.optimizer.algorithms_for(algorithm),
+                plans=None if plan == "auto" else (plan,))
+            algorithm, plan = dec.algorithm, dec.plan
+            if n_parts is None:
+                n_parts = dec.n_parts
+        algorithm = algorithm or DEFAULT_ALGORITHM
         if plan not in ("udf", "rel+reuse"):
             raise ValueError(f"infer_rows serves cached plans only (udf / "
                              f"rel+reuse), got {plan!r}")

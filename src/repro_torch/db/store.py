@@ -39,7 +39,15 @@ branches on where pages live.
 ``put`` and ``put_sparse`` take the rows' ``labels``, kept as f32 [N] on
 the store's device (reference ``repro/db/store.py:_put_impl`` /
 ``put_sparse``).  Not ported yet: ``stream_writer``'s labels for training
-(ROADMAP queue 1, item 11) and the optimizer's decision catalog (item 10).
+(ROADMAP queue 1, item 11).
+
+The decision catalog (reference ``store.py:779-809``): the cost-based
+optimizer (``db/optimizer.py``) persists its verdicts here, keyed (model
+fingerprint, dataset name or the ``"#rows"`` sentinel, dataset signature,
+mesh signature, candidate sets).  They are swept on the events that sweep
+compiled plans: ``drop``, a re-``put`` / re-``put_sparse`` / an opened
+``stream_writer`` of the name, and ``put_model`` replacing a forest (the
+old fingerprint's decisions).
 
 Faults (``db/faults.py``, reference ``store.py:258-270, 642-728``): a store
 made with ``injector=`` / ``retry_policy=`` reads each page array off the
@@ -325,6 +333,8 @@ class TensorBlockStore:
         # drop or a model re-pin sweeps the compiled plans built on it
         self._invalidators: list[weakref.ref] = []
         self._model_invalidators: list[weakref.ref] = []
+        # persisted optimizer decisions (module note)
+        self._decisions: dict[tuple, Any] = {}
 
     # -- disk-tier spill files ----------------------------------------------
     @property
@@ -515,6 +525,7 @@ class TensorBlockStore:
         with TRACER.span("store.put_sparse", dataset=name) as sp:
             page_rows = page_rows or self.default_page_rows
             self._release_disk(name)   # a re-put's old spill files go away
+            self.drop_decisions(dataset=name)   # and its decisions are stale
             if pages is None:
                 if csr is None:
                     if data is None:
@@ -728,18 +739,49 @@ class TensorBlockStore:
 
     def drop(self, name: str) -> int:
         """Drop a dataset, delete the spill files the store wrote for it,
-        AND sweep the compiled plans built against it (their batch
-        signatures came from it).  Returns entries swept."""
+        AND sweep the optimizer decisions keyed on it and the compiled
+        plans built against it (their batch signatures came from it).
+        Returns entries swept (decisions + plans)."""
         existed = self._datasets.pop(name, None)
         self._release_disk(name)
         if existed is None:
             return 0
-        return self._call_hooks(self._invalidators, name)
+        # decisions first: the engines' hooks then find none to re-drop
+        swept = self.drop_decisions(dataset=name)
+        return swept + self._call_hooks(self._invalidators, name)
+
+    # -- decision catalog (db/optimizer.py) -----------------------------------
+    def put_decision(self, key: tuple, decision) -> None:
+        """Persist an optimizer decision.  ``key[0]`` is the model
+        fingerprint and ``key[1]`` the dataset name (or ``"#rows"`` for
+        the serving plane's row-batch decisions): the two slots the sweeps
+        match on."""
+        self._decisions[key] = decision
+
+    def get_decision(self, key: tuple):
+        """The steady-state lookup (None on a miss)."""
+        return self._decisions.get(key)
+
+    def drop_decisions(self, *, model_id: str | None = None,
+                       dataset: str | None = None) -> int:
+        """Sweep decisions by model fingerprint (``key[0]``) and / or
+        dataset name (``key[1]``); both None sweeps all.  Returns entries
+        dropped."""
+        doomed = [k for k in self._decisions
+                  if (model_id is None or k[0] == model_id)
+                  and (dataset is None or k[1] == dataset)]
+        for k in doomed:
+            del self._decisions[k]
+        return len(doomed)
+
+    def decision_catalog(self) -> dict[tuple, dict[str, Any]]:
+        """Every persisted decision, as a dict of its fields."""
+        return {k: dataclasses.asdict(d) for k, d in self._decisions.items()}
 
     # -- model catalog --------------------------------------------------------
     def put_model(self, name: str, forest, **meta) -> dict[str, Any]:
         """Pin a forest under ``name``.  Re-pinning a name with another
-        forest sweeps the replaced forest's compiled plans."""
+        forest sweeps the replaced forest's decisions and compiled plans."""
         old = self._models.get(name)
         entry = dict(forest=forest, trees=int(forest.num_trees),
                      depth=int(forest.depth),
@@ -752,6 +794,7 @@ class TensorBlockStore:
             if old_fp is None:
                 from repro_torch.core.reuse import fingerprint_forest
                 old_fp = fingerprint_forest(old["forest"])
+            self.drop_decisions(model_id=old_fp)
             self._call_hooks(self._model_invalidators, old_fp)
         return entry
 
@@ -795,8 +838,10 @@ class DenseStreamWriter:
         self.total_rows = self.num_rows + (-self.num_rows) % self.page_rows
         shape = (self.total_rows, int(num_features))
         self.tier = store._resolve_tier(tier, self.total_rows * shape[1] * 4)
-        # a re-put's old spill files go away when the ingest opens
+        # a re-put's old spill files and stale decisions go away when the
+        # ingest opens
         store._release_disk(name)
+        store.drop_decisions(dataset=name)
         if self.tier == "disk":
             self._buf = store._disk_empty(name, "rows", shape)
         elif self.tier == "host":

@@ -41,6 +41,9 @@ SPAN_NAMES = (
     # forest serving plane (serve/forest.py)
     "serve.tick",
     "serve.coalesce",
+    # cost-based optimizer (db/optimizer.py)
+    "optimizer.decide",
+    "optimizer.autotune",
 )
 
 #: prefixes of dynamically named spans
@@ -58,6 +61,7 @@ EVENT_NAMES = (
     "batch.resubmit",    # a batch re-enqueued or halved (site=)
     "deadline.hit",      # the scan stopped at its deadline
     "serve.shed",        # an admission timeout demoted a request to batch
+    "optimizer.decision",  # a decision was made and persisted (cell attrs)
 )
 
 #: every process-global METRICS counter, and the serving plane's
@@ -91,4 +95,10 @@ METRIC_NAMES = (
     "serve.padding_rows",
     "serve.plan_hits",
     "serve.plan_misses",
+    # cost-based optimizer (db/optimizer.py)
+    "optimizer.decisions",
+    "optimizer.decision_cache_hits",
+    "optimizer.decision_cache_misses",
+    "optimizer.autotune_runs",
+    "optimizer.measurements",
 )

@@ -42,10 +42,13 @@ by ``_lock`` (taken inside ``_engine_lock``, never around it).  Callers
 that use ``engine.qe`` directly while the ticker runs must hold
 ``_engine_lock`` too.
 
-Not ported yet: ``algorithm="auto"`` / ``plan="auto"`` (the optimizer,
-ROADMAP queue 1 item 10) are refused at ``register_model``; the
-reference's ``plan.traces`` has nothing to count without a tracing
-compiler or a CUDA graph (docs/torch_serving.md).
+``register_model(..., algorithm="auto" | plan="auto")`` resolves once, at
+registration, through the optimizer's row-batch decision at the largest
+bucket (``db/optimizer.py``), under the engine lock: its probes run
+``infer_rows`` and build plans in the same bounded plan cache, as the
+reference's do.  Not ported: the reference's ``plan.traces`` has nothing
+to count without a tracing compiler or a CUDA graph
+(docs/torch_serving.md).
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ from typing import Any
 import numpy as np
 
 from repro_torch.core.reuse import ModelReuseCache, fingerprint_forest
-from repro_torch.db.query import _AUTO_REFUSED, ForestQueryEngine
+from repro_torch.db.optimizer import DEFAULT_ALGORITHM
+from repro_torch.db.query import ForestQueryEngine
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.obs import METRICS, TRACER, MetricsRegistry
 from repro_torch.serve.router import (QUEUE_DEPTH_METRIC, TIER_BATCH,
@@ -146,7 +150,7 @@ class ForestServeEngine:
                  router: ForestRouter | None = None,
                  max_plans: int = 32,
                  tick_interval_s: float = 0.0005,
-                 algorithm: str = "predicated",
+                 algorithm: str | None = None,
                  plan: str = "udf"):
         self.store = store if store is not None else TensorBlockStore()
         self.qe = query_engine if query_engine is not None else \
@@ -192,12 +196,21 @@ class ForestServeEngine:
         (default), builds one plan per bucket rung, so the first real tick
         already hits the cache (and the kernels' first-use work, a build
         or a check, falls here).  Replacing a name sweeps the old model's
-        plans first.  ``"auto"`` is refused until the optimizer is ported
-        (ROADMAP queue 1, item 10)."""
+        plans first.  ``"auto"`` resolves here, once a tenant, through the
+        optimizer's row-batch decision at the largest bucket, so every tick
+        runs a concrete, persisted choice.  An ``algorithm`` that neither
+        this call nor the engine names is None, resolved as ``infer``
+        resolves it."""
         algorithm = algorithm or self.default_algorithm
         plan = plan or self.default_plan
         if algorithm == "auto" or plan == "auto":
-            raise NotImplementedError(_AUTO_REFUSED)
+            with self._engine_lock:
+                dec = self.qe.optimizer.decide_rows(
+                    forest, max(self.buckets),
+                    algorithms=self.qe.optimizer.algorithms_for(algorithm),
+                    plans=None if plan == "auto" else (plan,))
+            algorithm, plan = dec.algorithm, dec.plan
+        algorithm = algorithm or DEFAULT_ALGORITHM
         mid = fingerprint_forest(forest)
         m = ServedModel(name=name, forest=forest, model_id=mid,
                         algorithm=algorithm, plan=plan)

@@ -14,6 +14,7 @@ bit for bit too).  Raw [B, T] scores: bit-identical on any leaves.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1023,3 +1024,122 @@ def test_serve_ticker_flushes_a_lone_request_at_its_deadline():
                                algorithm="predicated_pallas_fused")
     assert torch.equal(_bits(torch.from_numpy(out)),
                        _bits(direct.predictions[:1].cpu()))
+
+
+# -- the cost-based optimizer ---------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_calibration_on_the_card_is_pinned_and_positive():
+    """The card's peaks table: every key positive, the H2D source pinned,
+    keyed by the device (a CPU table is another table), cached."""
+    _need_card()
+    from repro_torch.launch import roofline
+
+    assert roofline.h2d_source("cuda").is_pinned()
+    peaks = roofline.calibrate_peaks("cuda")
+    for k in ("peak_flops_bf16", "hbm_bandwidth", "ici_bandwidth",
+              "gather_bandwidth", "h2d_bandwidth", "dispatch_s"):
+        assert peaks[k] > 0, k
+    assert peaks["backend"].startswith("cuda") and peaks["measured"]
+    assert roofline.resolve_peaks(torch.device("cuda")) is peaks
+    assert roofline.calibrate_peaks("cpu") is not peaks
+
+
+def _auto_case(tier="device"):
+    forest, x = _case(T=64, depth=6, F=28, B=4096, seed=41,
+                      integer_leaves=True, device="cuda")
+    store = TensorBlockStore(device="cuda", default_page_rows=256)
+    store.put("t", x, tier=tier)
+    return forest, store, ForestQueryEngine(store)
+
+
+@pytest.mark.gpu
+def test_auto_query_on_the_card_probes_and_runs_only_kernels(monkeypatch):
+    """On a CUDA store the candidates are the six kernels: no eager
+    algorithm is probed (it would raise here) or chosen, and the repeat
+    launches only the decided cell's kernel, bit for bit its static run."""
+    _need_card()
+    from repro_torch.core import algorithms as algs
+    from repro_torch.db.optimizer import CUDA_ALGORITHMS
+
+    def eager(*a, **k):
+        raise AssertionError("an eager algorithm ran on the card")
+
+    monkeypatch.setattr(algs, "predict_raw", eager)
+    forest, store, eng = _auto_case()
+    assert eng.optimizer.algorithms == CUDA_ALGORITHMS
+    first = eng.infer("t", forest, plan="auto", algorithm="auto")
+    d = first.decision
+    assert d.algorithm in CUDA_ALGORITHMS and d.source == "measured"
+    assert d.cells_scored == 12 and d.cells_measured >= 2
+    (key,) = store.decision_catalog()
+    assert key[4] == CUDA_ALGORITHMS
+    wrappers = {**{f"{k}_pallas_fused": w for k, w in KERNEL_WRAPPERS.items()},
+                **{f"{k}_pallas": w for k, w in RAW_KERNEL_WRAPPERS.items()}}
+    before = {n: w.launches for n, w in wrappers.items()}
+    again = eng.infer("t", forest, plan="auto", algorithm="auto")
+    torch.cuda.synchronize()
+    launched = {n: w.launches - before[n] for n, w in wrappers.items()}
+    want = (d.n_parts or 1) * again.scan.batches
+    assert launched == {n: (want if n == d.algorithm else 0)
+                        for n in wrappers}
+    static = eng.infer("t", forest, **d.overrides())
+    assert torch.equal(_bits(again.predictions), _bits(static.predictions))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["infer", "infer_rows", "register_model"])
+def test_plan_auto_without_an_algorithm_chooses_a_kernel_on_the_card(
+        entry, monkeypatch):
+    """``plan="auto"`` with no algorithm named: the reference's default
+    argument pins ``"predicated"``, but on a CUDA store the axis stays
+    free, so the decision is over the six kernels and no eager algorithm
+    is probed (it would raise here) or chosen, at every entry point."""
+    _need_card()
+    from repro_torch.core import algorithms as algs
+    from repro_torch.db.optimizer import CUDA_ALGORITHMS
+    from repro_torch.serve.forest import ForestServeEngine
+
+    def eager(*a, **k):
+        raise AssertionError("an eager algorithm ran on the card")
+
+    monkeypatch.setattr(algs, "predict_raw", eager)
+    forest, store, eng = _auto_case()
+    if entry == "infer":
+        chosen = eng.infer("t", forest, plan="auto").algorithm
+    elif entry == "infer_rows":
+        x = np.random.default_rng(5).standard_normal((64, 28)).astype(
+            np.float32)
+        chosen = eng.infer_rows(forest, x, plan="auto").algorithm
+    else:
+        serve = ForestServeEngine(store, buckets=(8, 32))
+        chosen = serve.register_model("m", forest, plan="auto").algorithm
+    assert chosen in CUDA_ALGORITHMS
+    (key,) = store.decision_catalog()
+    assert key[4] == CUDA_ALGORITHMS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["device", "host"])
+def test_a_probe_wall_covers_its_stages_device_time(tier):
+    """The autotune's probes time ``_infer`` on the host clock; every
+    stage ends in a device synchronise, so each probe's wall is at least
+    the CUDA-event seconds of its stages."""
+    _need_card()
+    forest, store, eng = _auto_case(tier)
+    calls = []
+    infer = eng._infer
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        res = infer(*a, **k)
+        calls.append((time.perf_counter() - t0,
+                      sum(r.seconds for r in res.stage_reports)))
+        return res
+
+    eng._infer = timed
+    d = eng.optimizer.decide("t", forest)
+    assert d.source == "measured" and len(calls) >= 2 * d.cells_measured
+    for wall, device_s in calls:
+        assert device_s > 0 and wall >= device_s

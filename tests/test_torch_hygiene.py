@@ -47,7 +47,8 @@ def test_obs_modules_are_stdlib_only(path):
 def test_query_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch.db.query, repro_torch.kernels.ops, "
-            "repro_torch.db.loader, repro_torch.obs; "
+            "repro_torch.db.loader, repro_torch.obs, "
+            "repro_torch.db.optimizer, repro_torch.launch.roofline; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -66,12 +66,6 @@ PENDING = {
     # the port has no tracing compiler: plan.traces returns as the count of
     # the serving plane's CUDA-graph captures
     "plan.traces": "work left: CUDA graphs",
-    # the optimizer (db/optimizer.py)
-    "optimizer.decide": "10", "optimizer.autotune": "10",
-    "optimizer.decision": "10", "optimizer.decisions": "10",
-    "optimizer.decision_cache_hits": "10",
-    "optimizer.decision_cache_misses": "10",
-    "optimizer.autotune_runs": "10", "optimizer.measurements": "10",
     # training (db/train.py)
     "train.forest": "11", "train.sketch": "11", "train.bin_ingest": "11",
     "train.level": "11", "train.runs": "11", "train.trees_grown": "11",
@@ -461,6 +455,54 @@ def test_fault_ladder_trace_matches_the_reference(engines, monkeypatch,
     fault_names = {"fault.injected", "retry", "batch.resubmit",
                    "degrade.sync_drain", "deadline.hit"}
     assert fault_names & set(g.event_counts)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("mode", ["model", "autotune"])
+def test_auto_query_trace_matches_the_reference(mode, tier, fmt,
+                                                monkeypatch):
+    """A traced ``plan="auto"`` query (a decision-catalog miss, then the
+    repeat's hit) on both packages under one injected peaks table: span
+    counts (``optimizer.decide``, and ``optimizer.autotune`` with its probes'
+    spans when three udf cells are measured), event counts
+    (``optimizer.decision``) and the ``optimizer.*`` counter deltas equal
+    the reference's."""
+    import repro.db.optimizer as jopt
+    import repro_torch.db.optimizer as topt
+    from test_torch_optimizer import inject_peaks
+
+    inject_peaks(monkeypatch)
+    jengine, engine = _stores(_rows(5), fmt)
+    band = 1.0 if mode == "model" else 16.0
+    for e, mod in ((jengine, jopt), (engine, topt)):
+        e.optimizer = mod.CostBasedOptimizer(
+            e, uncertainty_band=band, hillclimb=False, max_measurements=6,
+            measure_budget_s=600.0, probe_iters=1)
+    jf = _forest(integer_leaves=True)
+    tf = port_forest(jf)
+    kw = dict(plan="auto" if mode == "model" else "udf", algorithm="auto")
+    for run in ("miss", "hit"):
+        want = _traced(JTRACER, lambda: jengine.infer(tier, jf, **kw))
+        got = _traced(TRACER, lambda: engine.infer(tier, tf, **kw))
+        w, g = want.trace, got.trace
+        assert g.span_counts == w.span_counts, run
+        assert g.event_counts == w.event_counts, run
+        assert g.counters == _ref_counters(w), run
+        assert g.num_spans == w.num_spans, run
+        assert np.array_equal(got.predictions.numpy(),
+                              np.asarray(want.predictions))
+        _assert_cataloged(TRACER.finished(), g.counters)
+        if run == "miss":
+            assert g.span_counts["optimizer.decide"] == 1
+            assert g.event_counts["optimizer.decision"] == 1
+            assert g.counters["optimizer.decision_cache_misses"] == 1
+            assert g.span_counts.get("optimizer.autotune", 0) == \
+                (mode == "autotune")
+            assert g.counters.get("optimizer.measurements", 0) == \
+                (3 if mode == "autotune" else 0)
+    assert "optimizer.decide" not in g.span_counts
+    assert g.counters["optimizer.decision_cache_hits"] == 1
 
 
 @pytest.mark.parametrize("tier", ["host", "disk"])

@@ -153,16 +153,38 @@ def test_store_pads_pages_with_nan_rows_and_writes_results():
     assert [s.name for s in res.stage_reports] == ["stage0:write"]
 
 
-def test_unported_plans_and_tiers_raise():
+def test_unported_plans_and_tiers_raise(monkeypatch):
+    """``"auto"`` resolves as the reference's does (one injected peaks
+    table, decisions from the model alone); unknown plans, algorithms,
+    tiers and datasets raise."""
+    import repro.db.optimizer as jopt
+    import repro_torch.db.optimizer as topt
+    from test_torch_optimizer import inject_peaks
+
+    inject_peaks(monkeypatch)
     x = _rows(5)
     store, engine = _port_engine(x)
-    tf = port_forest(_forest(integer_leaves=False))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.infer("t", tf, plan="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.infer("t", tf, algorithm="auto", plan="rel")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.infer_rows(tf, x[:8], plan="auto")
+    jf = _forest(integer_leaves=True)
+    tf = port_forest(jf)
+    jstore = JStore(default_page_rows=PAGE)
+    jstore.put("t", x)
+    jengine = JEngine(jstore, reuse_cache=JCache(), plan_cache=JCache())
+    engine.optimizer = topt.CostBasedOptimizer(engine, uncertainty_band=1.0)
+    jengine.optimizer = jopt.CostBasedOptimizer(jengine,
+                                                uncertainty_band=1.0)
+    for kw in (dict(plan="auto"), dict(algorithm="auto", plan="rel")):
+        got, want = engine.infer("t", tf, **kw), jengine.infer("t", jf, **kw)
+        assert (got.algorithm, got.plan, got.n_parts) == \
+            (want.algorithm, want.plan, want.n_parts)
+        assert got.decision.source == want.decision.source == "model"
+        assert np.array_equal(got.predictions.numpy(),
+                              np.asarray(want.predictions), equal_nan=True)
+    rows = np.nan_to_num(x[:8])
+    got = engine.infer_rows(tf, rows, plan="auto")
+    want = jengine.infer_rows(jf, rows, plan="auto")
+    assert (got.algorithm, got.plan) == (want.algorithm, want.plan)
+    assert np.array_equal(got.predictions.numpy(),
+                          np.asarray(want.predictions))
     with pytest.raises(ValueError, match="unknown plan"):
         engine.infer("t", tf, plan="nope")
     with pytest.raises(ValueError, match="unknown algorithm"):

@@ -15,8 +15,8 @@ router's tiers equal the reference's.
 
 Beyond the reference's claims: tenants registered and unregistered while
 the ticker serves another (the engine lock), the refusals of what is not
-ported yet (``"auto"``, ``ForestRouter(forest=None)``), and the card
-default of ``ForestServeEngine()``.
+ported yet (``ForestRouter(forest=None)``), ``"auto"`` resolved as the
+reference's, and the card default of ``ForestServeEngine()``.
 """
 
 import dataclasses
@@ -35,7 +35,6 @@ from repro.obs import METRICS as JMETRICS
 from repro.serve import router as jrouter
 from repro.serve.forest import ForestServeEngine as JServe
 from repro_torch.core.postprocess import predict_proba
-from repro_torch.db.query import _AUTO_REFUSED
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.obs import METRICS
 from repro_torch.serve import router
@@ -256,8 +255,10 @@ def test_batch_tier_waits_for_deadline():
     _register(engines, "m", _forest("xgboost", 3))
 
     def serve(eng):
-        now = time.perf_counter()
         req = eng.submit("m", _rows(11, 2), priority=TIER_BATCH)
+        # read the clock after the submit: the wait is then measured from
+        # no earlier than the request's own stamp, however slow the submit
+        now = time.perf_counter()
         served = [eng.tick(now=now)]
         assert not req.done.is_set()
         served.append(eng.tick(now=now + 0.051))
@@ -460,14 +461,34 @@ def test_register_from_catalog_and_drop_model():
     assert eng.models() == jeng.models() == {}
 
 
-def test_register_model_refuses_auto():
-    eng = _port(buckets=(8,))
-    tf = port_forest(_forest("xgboost", 0))
-    for kw in (dict(algorithm="auto"), dict(plan="auto")):
-        with pytest.raises(NotImplementedError, match="item 10") as exc:
-            eng.register_model("m", tf, **kw)
-        assert str(exc.value) == _AUTO_REFUSED
-    assert eng.models() == {} and eng.store.model_catalog() == {}
+def test_register_model_refuses_auto(monkeypatch):
+    """``register_model(..., "auto")`` resolves as the reference engine's
+    does (one injected peaks table, decisions from the model alone): the
+    same cell, the same ``#rows`` decision at the largest bucket, the same
+    catalogs, and requests served bit for bit."""
+    import repro.db.optimizer as jopt
+    import repro_torch.db.optimizer as topt
+    from test_torch_optimizer import inject_peaks
+
+    inject_peaks(monkeypatch)
+    engines = _pair(buckets=(8,))
+    for e, mod in zip(engines, (jopt, topt)):
+        e.qe.optimizer = mod.CostBasedOptimizer(e.qe, uncertainty_band=1.0)
+    jf = _forest("xgboost", 0)
+    for i, kw in enumerate((dict(algorithm="auto"), dict(plan="auto"),
+                            dict(algorithm="auto", plan="rel+reuse"))):
+        _register(engines, f"m{i}", jf, **kw)
+    jeng, eng = engines
+    assert eng.models() == jeng.models()
+    assert _catalog(eng.store) == _catalog(jeng.store)
+    assert {k[:3] + k[4:]: v for k, v in
+            eng.store.decision_catalog().items()} == \
+        {k[:3] + k[4:]: v for k, v in jeng.store.decision_catalog().items()}
+    assert {k[1:3] for k in eng.store.decision_catalog()} == {("#rows",
+                                                               (8, F))}
+    x = _rows(0, 5)
+    for i in range(3):
+        _same(eng.predict(f"m{i}", x), jeng.predict(f"m{i}", x), "xgboost")
 
 
 def test_engine_without_a_device_is_the_card():
