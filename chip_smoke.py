@@ -189,6 +189,26 @@ Phases (any failure exits non-zero and prints no result line):
               open-loop single-row requests at 800 req/s (no plan miss,
               only the decided kernel, every request bit for bit
               infer_rows of the decided cell; p50 / p99).
+ 13. train    in-database training (repro_torch.db.train) at HIGGS's width
+              on 1,000,448 rows (cut from 11M: the histograms run on the
+              host) with 10 % missing and labels from a seeded linear rule,
+              depth 8, 64 bins: XGBoost classification, 4 trees, streamed
+              through engine.train on the pinned host tier (256 MiB device
+              budget, batches of 100 pages), bit for bit train_forest run
+              resident on the card with the same edges; LightGBM (GOSS) and
+              RandomForest (colsample 0.5), 2 trees each, streamed on the
+              device tier, each bit for bit its resident run; the XGBoost
+              forest from the model catalog scored by infer(plan="udf",
+              algorithm="predicated_pallas_fused"): one fused launch, within
+              TOL of the eager "predicated", training-set accuracy above
+              0.6; ForestRouter() trained and routing 1,000 rows on the card
+              (bit for bit the CPU router's forest).  Prints each pass's
+              wall, per level the routing stage's device time beside the
+              host histogram time, rows x trees / s, the bins relation's
+              bytes and tier, one level scan's ScanStats, and one level's
+              host histogram over the whole bins relation in one np.add.at
+              call against row chunks of 102,400 (a host-tier batch),
+              32,768, HIST_CHUNK_ROWS and 2,048 (bit for bit).
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -277,6 +297,16 @@ OPT_AUTO_REPEATS = 3
 OPT_REGRET = 1.25               # the reference's regret bar (reported)
 ADVICE_ROWS, ADVICE_TREES = 1_000_448, 500
 OPT_SERVE_REQUESTS, OPT_SERVE_RATE_HZ = 400, 800
+#: phase 13, in-database training: HIGGS's width at a 1,000,448-row cut of
+#: its 11M rows (the histograms are host float64 np.add.at, ~0.45 s a level
+#: at this cut), 10 % missing, labels from a seeded linear rule; depth 8,
+#: 64 bins; trees a family (streamed, then resident)
+TRAIN_ROWS, TRAIN_MISSING = 1_000_448, 0.1
+TRAIN_DEPTH, TRAIN_BINS = 8, 64
+TRAIN_TREES = dict(xgboost=4, lightgbm=2, randomforest=2)
+TRAIN_BATCH_PAGES = 100         # the host-tier scans' batch (10 a scan)
+TRAIN_ACCURACY = 0.6            # training-set accuracy gate (XGBoost)
+ROUTER_ROWS = 1000
 PEAK_KEYS = ("peak_flops_bf16", "hbm_bandwidth", "ici_bandwidth",
              "gather_bandwidth", "h2d_bandwidth", "dispatch_s")
 PAGE_ROWS = 1024                # the store's default page
@@ -2481,6 +2511,174 @@ def optimizer_phase(*, counted, only, smi: str, tally,
     del seng
 
 
+def train_phase(*, counted, only, smi: str, tally) -> None:
+    """Phase 13: in-database training on the card.  Three families trained
+    by ``engine.train`` on a HIGGS-width table, each held bit for bit
+    against ``train_forest`` run resident on the card; the XGBoost forest
+    scored from the model catalog by the fused predicated kernel; the
+    router's default forest trained and routing.  ``tally(counts)`` adds
+    each counted run's launches to the kernels' record."""
+    from repro_torch.core import train as train_mod
+    from repro_torch.core.train import TrainConfig, train_forest
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.serve.router import ForestRouter, synth_router_trace
+
+    t_phase = time.perf_counter()
+    x = card_rows(TRAIN_ROWS, FEATURES, seed=SEED + 130,
+                  missing=TRAIN_MISSING)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
+    w = torch.randn(FEATURES, generator=gen, device="cuda")
+    y = (torch.nan_to_num(x) @ w > 0).to(torch.float32)
+    x_np, y_np = x.cpu().numpy(), y.cpu().numpy()
+    host = TensorBlockStore(device_budget_bytes=TIER_BUDGET)
+    host.put("higgs", x, labels=y, tier="host")
+    dev = TensorBlockStore()
+    dev.put("higgs", x, labels=y, tier="device")
+    del x, y
+    engines = {"host": ForestQueryEngine(host),
+               "device": ForestQueryEngine(dev)}
+    runs = (("xgboost", "host", dict(), TRAIN_BATCH_PAGES),
+            ("lightgbm", "device", dict(), None),
+            ("randomforest", "device", dict(colsample=0.5), None))
+    results = {}
+    for model_type, tier, extra, batch_pages in runs:
+        cfg = TrainConfig(model_type=model_type, num_trees=TRAIN_TREES[
+            model_type], max_depth=TRAIN_DEPTH, num_bins=TRAIN_BINS,
+                          seed=SEED, **extra)
+        torch.cuda.synchronize()
+        res = engines[tier].train("higgs", cfg, batch_pages=batch_pages)
+        t0 = time.perf_counter()
+        ref = train_forest(x_np, y_np, cfg, edges=res.edges, device="cuda")
+        torch.cuda.synchronize()
+        resident_s = time.perf_counter() - t0
+        same = all(torch.equal(getattr(res.forest, k), a)
+                   for k, a in ref.arrays().items())
+        store = engines[tier].store
+        bins = store.get(res.bins_dataset)
+        levels_s = res.pass_s["levels"]
+        route_s = sum(lv["route_s"] for lv in res.levels)
+        hist_s = sum(lv["hist_s"] for lv in res.levels)
+        log(f"[train] {model_type} {cfg.num_trees} trees x depth "
+            f"{TRAIN_DEPTH}, {TRAIN_ROWS} x {FEATURES} rows on the {tier} "
+            f"tier ({smi}): wall {res.wall_s:.3f} s (sketch "
+            f"{res.pass_s['sketch']:.3f}, bin ingest "
+            f"{res.pass_s['bin_ingest']:.3f}, level scans {levels_s:.3f}: "
+            f"{levels_s / res.wall_s:.1%}), "
+            f"{TRAIN_ROWS * cfg.num_trees / res.wall_s:.0f} rows x trees / "
+            f"s; {res.num_scans} scans; resident on the card "
+            f"{resident_s:.3f} s; streamed == resident bit for bit: "
+            f"{'ok' if same else 'FAIL'}")
+        log(f"[train] {model_type} level scans: routing device "
+            f"{route_s:.4f} s ({route_s / levels_s:.2%} of the level "
+            f"scans), host histograms {hist_s:.3f} s "
+            f"({hist_s / levels_s:.1%})")
+        for lv in res.levels[: TRAIN_DEPTH + 1]:
+            log(f"[train] {model_type} tree 0 level {lv['level']}: route "
+                f"device {lv['route_s'] * 1e3:.3f} ms, host histogram "
+                f"{lv['hist_s'] * 1e3:.1f} ms")
+        st = res.scan_stats[-2]                       # a routed hist scan
+        log(f"[train] {model_type} bins relation {res.bins_dataset}: "
+            f"{bins.nbytes} bytes, {bins.dtype}, tier {bins.tier}; a level "
+            f"scan: batches={st.batches} batch_pages={st.batch_pages} "
+            f"max_in_flight={st.max_in_flight} bytes_streamed="
+            f"{st.bytes_streamed} wall={st.wall_s:.4f} s")
+        if not same:
+            raise AssertionError(f"[train] {model_type}: the streamed forest "
+                                 f"differs from the resident one")
+        if bins.tier != tier or bins.dtype != torch.uint8:
+            raise AssertionError(f"[train] {model_type}: bins relation on "
+                                 f"{bins.tier} as {bins.dtype}")
+        if any(s.max_in_flight > 2 for s in res.scan_stats) or (
+                tier == "host" and st.batches < 2):
+            raise AssertionError(f"[train] {model_type}: scan bound or "
+                                 f"streaming broken")
+        results[model_type] = res
+
+    # the host histogram alone: one level over the whole bins relation in
+    # one np.add.at call against HIST_CHUNK_ROWS-row chunks (bit for bit)
+    bins_np = host.get("higgs::bins").data.numpy()[:TRAIN_ROWS]
+    r = np.random.default_rng(SEED + 132)
+    level = 4
+    node_of = r.integers((1 << level) - 1, (2 << level) - 1,
+                         TRAIN_ROWS).astype(np.int32)
+    g = r.normal(size=TRAIN_ROWS).astype(np.float32)
+    h = r.random(TRAIN_ROWS).astype(np.float32)
+    hist_s, hists = {}, {}
+    chunk = train_mod.HIST_CHUNK_ROWS
+    sizes = (TRAIN_ROWS, TRAIN_BATCH_PAGES * PAGE_ROWS, 32768, chunk, 2048)
+    try:
+        for rows in sizes + sizes:
+            train_mod.HIST_CHUNK_ROWS = rows
+            hg = np.zeros((1 << level, FEATURES, TRAIN_BINS + 1))
+            hh = np.zeros_like(hg)
+            t0 = time.perf_counter()
+            train_mod.hist_update(hg, hh, bins_np, node_of, g, h)
+            dt = time.perf_counter() - t0
+            hist_s[rows] = min(hist_s.get(rows, dt), dt)
+            hists[rows] = (hg, hh)
+    finally:
+        train_mod.HIST_CHUNK_ROWS = chunk
+    same = all(np.array_equal(a, b) for rows in sizes
+               for a, b in zip(hists[TRAIN_ROWS], hists[rows]))
+    log(f"[train] host histogram of one level ({TRAIN_ROWS} x {FEATURES} "
+        f"bins, {1 << level} nodes), min of 2, rows an np.add.at call: "
+        + ", ".join(f"{rows} {hist_s[rows]:.4f} s" for rows in sizes)
+        + f" (HIST_CHUNK_ROWS = {chunk}: "
+        f"{hist_s[TRAIN_ROWS] / hist_s[chunk]:.2f}x one call); bit for "
+        f"bit: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("[train] chunked histograms differ")
+
+    # the XGBoost forest from the model catalog, scored by the fused kernel
+    engine = engines["host"]
+    forest = host.get_model("higgs:model")
+    q, counts = counted(lambda: engine.infer(
+        "higgs", forest, plan="udf", algorithm="predicated_pallas_fused",
+        model_id=results["xgboost"].fingerprint))
+    only(counts, "predicated_fused", 1, "[train] scoring the trained forest")
+    tally(counts)
+    eager = engine.infer("higgs", forest, plan="udf",
+                         algorithm="predicated").predictions
+    got = q.predictions
+    err = float((got - eager).abs().max())
+    close = bool(torch.allclose(got, eager, rtol=TOL, atol=TOL))
+    acc = float(((got.cpu().numpy() > 0.5) == (y_np > 0.5)).mean())
+    log(f"[train] scored the catalog's xgboost forest: udf "
+        f"predicated_pallas_fused {q.total_s:.4f} s on the host tier, 1 "
+        f"launch; max_abs_err vs eager {err!r} rtol=atol={TOL}: "
+        f"{'ok' if close else 'FAIL'}; training-set accuracy {acc:.4f} "
+        f"(gate > {TRAIN_ACCURACY})")
+    if not close or acc <= TRAIN_ACCURACY or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError("[train] the trained forest scores wrong")
+
+    # the router's default forest, trained on the card
+    t0 = time.perf_counter()
+    router = ForestRouter()
+    torch.cuda.synchronize()
+    router_s = time.perf_counter() - t0
+    cpu_router = ForestRouter(device="cpu")
+    same = all(torch.equal(getattr(router.forest, k).cpu(), a)
+               for k, a in cpu_router.forest.arrays().items())
+    rx, ry = synth_router_trace(ROUTER_ROWS, seed=3)
+    tiers = router.route(rx)
+    agree = float((tiers == ry.astype(int)).mean())
+    log(f"[train] ForestRouter() trained on the card in {router_s:.3f} s "
+        f"({router.forest.num_trees} trees, depth {router.forest.depth}, "
+        f"{router.forest.device}); routed {ROUTER_ROWS} rows, "
+        f"{int(tiers.sum())} to the batch tier, {agree:.3f} agree with the "
+        f"trace's rule; forest bit for bit the CPU router's: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same or tiers.shape != (ROUTER_ROWS,) or \
+            not np.array_equal(tiers, cpu_router.route(rx)):
+        raise AssertionError("[train] the router differs from the CPU's")
+    for store in (host, dev):
+        store.drop("higgs")
+        store.drop("higgs::bins")
+    log(f"[train] phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3209,6 +3407,21 @@ def main() -> int:
             entry["launches"] += counts12[name_]
         else:
             entry["launches"] += counts12[name_] - counts12[f"{name_}_wide"]
+
+    # -- 13. in-database training -------------------------------------------
+    counts13: dict[str, int] = {}
+
+    def tally13(counts: dict) -> None:
+        for k, n in counts.items():
+            counts13[k] = counts13.get(k, 0) + n
+
+    train_phase(counted=counted, only=only, smi=smi, tally=tally13)
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts13[name_]
+        else:
+            entry["launches"] += counts13[name_] - counts13[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

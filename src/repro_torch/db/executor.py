@@ -52,6 +52,15 @@ are synchronous and the drain is inline (``drain_async`` and
 ``pinned_staging`` are false), while the loop, the disk tier's reader
 thread, the batch plan and the buffer bound are the same.
 
+Reduction scans (the trainer, ``db/train.py``; reference ``executor.py:
+465-494``): ``execute(extras=, on_batch=)`` merges per-batch inputs into
+the stages' initial state and calls a hook on the stages' thread after
+each batch's stages, before its drain, in plan order; a scan made with
+``result_key=None`` has no result buffer and no drain (on the card its
+page buffer is released on the compute stream after the hook).  The
+result buffer takes the dtype of the first batch's result (the trainer's
+int32 node-of frontier).
+
 Faults (``db/faults.py``; the reference's ladders, ``executor.py:
 505-825``).  A scan made with an ``injector`` / ``retry_policy`` guards
 its five sites, on every tier; with neither, each site is a direct call.
@@ -252,7 +261,9 @@ class _InFlight:
 
 class StreamingScanExecutor:
     """Runs compiled plan stages over a ``ScanSource`` page batch by page
-    batch; the last stage leaves the per-row predictions at ``"pred"``.
+    batch; the last stage leaves the per-row result at ``result_key``
+    (``"pred"``; None for a scan whose product flows through
+    ``execute``'s ``on_batch``: no result buffer, no drain).
 
     ``injector`` / ``retry_policy`` / ``deadline`` opt the scan into the
     fault plane (an armed injector with no policy gets ``RetryPolicy()``);
@@ -261,6 +272,7 @@ class StreamingScanExecutor:
     deadline (None otherwise)."""
 
     def __init__(self, stages, *, prefetch_depth: int = 2,
+                 result_key: str | None = "pred",
                  injector: FaultInjector | None = None,
                  retry_policy: RetryPolicy | None = None,
                  deadline: Deadline | None = None,
@@ -270,6 +282,7 @@ class StreamingScanExecutor:
                              f"{MAX_IN_FLIGHT}], got {prefetch_depth}")
         self.stages = stages
         self.prefetch_depth = prefetch_depth
+        self.result_key = result_key
         self.injector = injector
         self.retry_policy = retry_policy if retry_policy is not None \
             else (RetryPolicy() if injector is not None else None)
@@ -287,17 +300,34 @@ class StreamingScanExecutor:
         for k, first in enumerate(range(0, num_pages, batch_pages)):
             yield k, first, min(batch_pages, num_pages - first)
 
-    def execute(self, source: ScanSource, batch_pages: int
-                ) -> tuple[torch.Tensor, list[StageReport], ScanStats]:
+    def execute(self, source: ScanSource, batch_pages: int, *,
+                extras=None, on_batch=None
+                ) -> tuple[torch.Tensor | None, list[StageReport],
+                           ScanStats]:
         """Stream every page batch of ``source`` through the stages.
 
         Returns (predictions [num_rows], per-batch stage reports, stats).
         Pad rows past ``num_rows`` are scored like any row and cut off.
         The predictions of a device-tier scan stay on the device; those
         of a host- or disk-tier scan land in host memory (pinned on the
-        card).  An exhausted ladder raises ``ScanFault``; an expired
-        deadline returns the partial buffer with ``stats.deadline_hit``
-        and ``last_mask``."""
+        card), in the dtype of the batches' results.  An exhausted ladder
+        raises ``ScanFault``; an expired deadline returns the partial
+        buffer with ``stats.deadline_hit`` and ``last_mask``.
+
+        Two hooks open the loop to reduction scans (the trainer,
+        ``db/train.py``; reference ``executor.py:465-494``), both off by
+        default:
+
+          * ``extras(first_page, num_pages) -> dict``: per-batch inputs
+            merged into the stages' initial state beside ``"x"``;
+          * ``on_batch(first_page, num_pages, state)``: called on the
+            stages' thread after the stages and before the drain, in plan
+            order.  With no injector the plan is never reordered or
+            split, so the hook sees every batch once, in global row
+            order: an order-sensitive reduction runs with the fault
+            ladders off.
+
+        With ``result_key=None`` the result is None."""
         plan = [(first, n) for _, first, n in
                 self.batch_plan(source.num_pages, batch_pages)]
         if not plan:
@@ -313,7 +343,7 @@ class StreamingScanExecutor:
                          prefetch_depth=self.prefetch_depth) as scan_span:
             try:
                 scan = _Scan(self, source, plan, batch_pages, stats,
-                             scan_span)
+                             scan_span, extras, on_batch)
                 out, reports = scan.run()
             finally:
                 # counted on every exit: a failed scan still counts
@@ -337,6 +367,8 @@ class StreamingScanExecutor:
         stats.wall_s = time.perf_counter() - t_wall
         self.last_mask = (scan.mask[: source.num_rows]
                           if stats.deadline_hit else None)
+        if out is None:
+            return None, reports, stats
         return out[: source.num_rows], reports, stats
 
 
@@ -346,8 +378,12 @@ class _Scan:
     or raises), the result buffer and the drain."""
 
     def __init__(self, executor: StreamingScanExecutor, source, plan,
-                 batch_pages: int, stats: ScanStats, scan_span):
+                 batch_pages: int, stats: ScanStats, scan_span,
+                 extras=None, on_batch=None):
         self.stages = executor.stages
+        self.result_key = executor.result_key
+        self.extras = extras
+        self.on_batch = on_batch
         self.injector = executor.injector
         self.policy = policy = executor.retry_policy
         self.deadline = executor.deadline
@@ -364,7 +400,8 @@ class _Scan:
         # a one-batch scan needs one buffer, whatever the depth
         self.depth = min(executor.prefetch_depth, len(plan))
         # where the reference's drain thread runs: its drain_worker site
-        self.async_drain = self.depth > 1
+        # (a scan with no result has no drain)
+        self.async_drain = self.depth > 1 and self.result_key is not None
         self.degraded = False
         self.resident = source.tier == "device"
         self.loads = 0                   # batches loaded (buffer rotation)
@@ -671,7 +708,10 @@ class _Scan:
             def launch():
                 if self.cuda:
                     self.compute_stream.wait_event(self.copied[cur.k])
-                return run_stages(self.stages, {"x": cur.block})
+                state = {"x": cur.block}
+                if self.extras is not None:
+                    state.update(self.extras(cur.first_page, cur.num_pages))
+                return run_stages(self.stages, state)
 
             t0 = time.perf_counter()
             try:
@@ -684,10 +724,17 @@ class _Scan:
             stats.compute_s += time.perf_counter() - t0
             reports.extend(reps)
             stats.batches += 1
-            pred = state["pred"].reshape(-1)
-            state = None                     # release the page buffer
-            with TRACER.span("scan.drain_submit", **pages):
-                self._drain(cur, pred, batch_span)
+            if self.on_batch is not None:
+                self.on_batch(cur.first_page, cur.num_pages, state)
+            if self.result_key is None:
+                state = None
+                if self.cuda:                # no drain releases the buffer
+                    self.released[cur.k].record(self.compute_stream)
+            else:
+                pred = state[self.result_key].reshape(-1)
+                state = None                 # release the page buffer
+                with TRACER.span("scan.drain_submit", **pages):
+                    self._drain(cur, pred, batch_span)
         self._release()
         return cur
 
@@ -783,7 +830,8 @@ class _Scan:
                 if failed is None:
                     raise RuntimeError(msg)
                 failed.add_note(msg)           # keep the error in flight
-        if self.result is None:                # stopped before any drain
+        if self.result is None and self.result_key is not None:
+            # stopped before any drain
             self.result = self._result_buffer(torch.float32,
                                               self.source.device)
         return self.result, reports

@@ -442,6 +442,17 @@ class ForestQueryEngine:
         return qplan, hit
 
     # -- entry points -------------------------------------------------------
+    def train(self, dataset: str, cfg, **kw):
+        """Train a forest ON a stored dataset (``db/train.py``), streaming
+        every pass through the tier ladder and the scan executor the
+        plans use.  The forest lands in the store's model catalog under
+        ``model_name`` (default ``f"{dataset}:model"``), on the store's
+        device.  Returns a ``TrainResult`` whose forest equals
+        ``core.train.train_forest`` on the resident rows bit for bit,
+        given the same bin edges."""
+        from repro_torch.db.train import train_streaming
+        return train_streaming(self, dataset, cfg, **kw)
+
     def infer(self, dataset: str, forest: Forest, **kw) -> QueryResult:
         """Run the end-to-end inference query over a stored dataset (the
         keywords are ``_infer``'s).  The observability boundary: with

@@ -36,10 +36,12 @@ wrote.  Each dataset is a ``ScanSource`` for the streaming executor
 (``page_slice`` in its own tier, ``to_device`` staging), so no caller
 branches on where pages live.
 
-``put`` and ``put_sparse`` take the rows' ``labels``, kept as f32 [N] on
-the store's device (reference ``repro/db/store.py:_put_impl`` /
-``put_sparse``).  Not ported yet: ``stream_writer``'s labels for training
-(ROADMAP queue 1, item 11).
+``put``, ``put_sparse`` and ``stream_writer`` take the rows' ``labels``,
+kept as f32 [N] on the store's device (reference ``repro/db/store.py:
+_put_impl`` / ``put_sparse`` / ``stream_writer``).  ``stream_writer`` also
+takes the relation's ``dtype`` and the ``fill`` of its page-alignment
+tail: the trainer's bins relation is uint8, padded with the MISSING bin,
+and counts its uint8 bytes in the tier cascade (``db/train.py``).
 
 The decision catalog (reference ``store.py:779-809``): the cost-based
 optimizer (``db/optimizer.py``) persists its verdicts here, keyed (model
@@ -365,13 +367,14 @@ class TensorBlockStore:
         """Spill one page array to ``spill_dir`` and track the file."""
         return mmap_array(self._track(name, label), arr)
 
-    def _disk_empty(self, name: str, label: str, shape) -> np.memmap:
+    def _disk_empty(self, name: str, label: str, shape,
+                    dtype=np.float32) -> np.memmap:
         """An EMPTY page-aligned spill file, tracked: the streamed-ingest
         target (same unlink-first rule as :func:`mmap_array`)."""
         path = self._track(name, label)
         if os.path.exists(path):
             os.unlink(path)
-        return np.memmap(path, dtype=np.float32, mode="w+", shape=shape)
+        return np.memmap(path, dtype=dtype, mode="w+", shape=shape)
 
     def _release_disk(self, name: str) -> None:
         """Delete the spill files written for ``name`` (live memmap views
@@ -463,16 +466,15 @@ class TensorBlockStore:
                 raise ValueError(f"expected [N, F] rows, got "
                                  f"{tuple(src.shape)}")
             n, F = src.shape
-            lab = self._labels(labels, n)
             w = self.stream_writer(name, num_rows=n, num_features=F,
-                                   page_rows=page_rows, tier=tier, task=task)
+                                   page_rows=page_rows, tier=tier,
+                                   labels=labels, task=task)
             try:
                 w.write(src)
             except BaseException:
                 w.abort()
                 raise
             ds = w._register()
-            ds.labels = lab
             sp.set(tier=ds.tier)
         METRICS.counter("store.puts").inc()
         return ds
@@ -587,21 +589,27 @@ class TensorBlockStore:
         return ds
 
     def stream_writer(self, name: str, *, num_rows: int, num_features: int,
-                      page_rows: int | None = None, tier: str = "auto",
+                      dtype=torch.float32, page_rows: int | None = None,
+                      tier: str = "auto", fill=float("nan"), labels=None,
                       task: str = "classification") -> "DenseStreamWriter":
         """Open a batch-by-batch dense ingest under ``name``.
 
         Rows arrive in order through ``write(batch)`` and land straight
         in the resolved tier's storage (on the disk tier, the mmap file),
         so the whole [N, F] array never has to exist in caller memory.
-        Rows are stored as float32, the tier is resolved up front from the
-        declared size, and NaN rows pad the page-alignment tail.
-        ``close()`` registers and returns the ``StoredDataset``;
-        ``abort()`` drops what was written."""
+        Rows are stored as ``dtype`` (a torch dtype), the tier is
+        resolved up front from the declared size in that dtype, and
+        ``fill`` pads the page-alignment tail (NaN for float rows, the
+        MISSING bin for a bins relation).  ``labels`` [N], if given, are
+        kept as f32 on the store's device.  ``close()`` registers and
+        returns the ``StoredDataset``; ``abort()`` drops what was
+        written."""
         return DenseStreamWriter(self, name, num_rows=num_rows,
-                                 num_features=num_features,
+                                 num_features=num_features, dtype=dtype,
                                  page_rows=page_rows or self.default_page_rows,
-                                 tier=tier, task=task)
+                                 tier=tier, fill=fill,
+                                 labels=self._labels(labels, num_rows),
+                                 task=task)
 
     def put_stream(self, name: str, batches: Iterable, **kw
                    ) -> StoredDataset:
@@ -822,32 +830,38 @@ class DenseStreamWriter:
     Rows arrive in order and are written straight into the resolved
     tier's storage, allocated up front: a tensor on the store's device, a
     (pinned) host tensor, or an EMPTY page-aligned mmap file.  ``close()``
-    pads the page-alignment tail with NaN rows, flushes, registers and
+    pads the page-alignment tail with ``fill``, flushes, registers and
     returns the ``StoredDataset``; ``abort()`` unlinks anything this writer
     created and registers nothing.
     """
 
     def __init__(self, store: TensorBlockStore, name: str, *,
                  num_rows: int, num_features: int, page_rows: int,
-                 tier: str, task: str):
+                 tier: str, task: str, dtype=torch.float32,
+                 fill=float("nan"), labels: torch.Tensor | None = None):
         self.store = store
         self.name = name
         self.num_rows = int(num_rows)
         self.page_rows = int(page_rows)
         self.task = task
+        self.fill = fill
+        self.labels = labels
         self.total_rows = self.num_rows + (-self.num_rows) % self.page_rows
         shape = (self.total_rows, int(num_features))
-        self.tier = store._resolve_tier(tier, self.total_rows * shape[1] * 4)
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        self.tier = store._resolve_tier(
+            tier, self.total_rows * shape[1] * itemsize)
         # a re-put's old spill files and stale decisions go away when the
         # ingest opens
         store._release_disk(name)
         store.drop_decisions(dataset=name)
         if self.tier == "disk":
-            self._buf = store._disk_empty(name, "rows", shape)
+            np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+            self._buf = store._disk_empty(name, "rows", shape, np_dtype)
         elif self.tier == "host":
-            self._buf = store._host_empty(shape)
+            self._buf = store._host_empty(shape, dtype)
         else:
-            self._buf = torch.empty(shape, device=store.device)
+            self._buf = torch.empty(shape, dtype=dtype, device=store.device)
         self._rows = _host_rows(self._buf)
         self._cursor = 0
         self._closed = False
@@ -893,12 +907,12 @@ class DenseStreamWriter:
                 f"stream_writer({self.name!r}): wrote {self._cursor} rows, "
                 f"declared {self.num_rows}")
         self._closed = True
-        self._rows[self._cursor:] = float("nan")   # page-alignment tail
+        self._rows[self._cursor:] = self.fill   # page-alignment tail
         if self.tier == "disk":
             self._buf.flush()
         ds = StoredDataset(name=self.name, data=self._buf,
                            num_rows=self.num_rows, page_rows=self.page_rows,
                            device=self.store.device, task=self.task,
-                           tier=self.tier)
+                           tier=self.tier, labels=self.labels)
         self.store._datasets[self.name] = ds
         return ds

@@ -44,6 +44,11 @@ SPAN_NAMES = (
     # cost-based optimizer (db/optimizer.py)
     "optimizer.decide",
     "optimizer.autotune",
+    # in-database streamed training (db/train.py)
+    "train.forest",
+    "train.sketch",
+    "train.bin_ingest",
+    "train.level",
 )
 
 #: prefixes of dynamically named spans
@@ -101,4 +106,8 @@ METRIC_NAMES = (
     "optimizer.decision_cache_misses",
     "optimizer.autotune_runs",
     "optimizer.measurements",
+    # in-database streamed training (db/train.py)
+    "train.runs",
+    "train.trees_grown",
+    "train.level_scans",
 )

@@ -5,11 +5,10 @@ the live arrival-load gauge, the request feature vector, the synthetic
 router trace, and ``ForestRouter.route``, which scores request features
 with a RandomForest through the port's ``predict_proba`` on the forest's
 device and maps P(expensive) above the threshold to the batch tier.
-
-Not ported yet: ``ForestRouter(forest=None)``, which trains its forest in
-the reference (``core/train.train_forest``); the port refuses it until the
-trainer is ported (ROADMAP queue 1, item 11).  The LM ``ServeEngine`` the
-reference router also feeds is item 13.
+``ForestRouter(forest=None)`` trains that RandomForest on
+``synth_router_trace`` with ``core.train.train_forest``, as the reference
+does.  The LM ``ServeEngine`` the reference router also feeds is not
+ported (ROADMAP queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.postprocess import predict_proba
+from repro_torch.core.train import TrainConfig, train_forest
 from repro_torch.obs import METRICS
 
 __all__ = ["RouterConfig", "ForestRouter", "synth_router_trace",
@@ -31,10 +31,6 @@ __all__ = ["RouterConfig", "ForestRouter", "synth_router_trace",
 #: waited past its admission timeout down to TIER_BATCH
 TIER_INTERACTIVE = 0
 TIER_BATCH = 1
-
-_UNTRAINED_REFUSED = ("ForestRouter(forest=None) trains its forest, and "
-                      "training is not ported yet (ROADMAP queue 1, item "
-                      "11); pass forest=")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +86,18 @@ def synth_router_trace(n: int = 4096, seed: int = 0):
 
 
 class ForestRouter:
-    """Routes request features to a tier with a given (trained) forest."""
+    """Routes request features to a tier with a RandomForest: ``forest``,
+    or one trained on ``synth_router_trace(seed=seed)`` on ``device`` (the
+    card when None)."""
 
     def __init__(self, cfg: RouterConfig = RouterConfig(), *,
-                 forest=None):
-        if forest is None:
-            raise NotImplementedError(_UNTRAINED_REFUSED)
+                 forest=None, seed: int = 0, device=None):
         self.cfg = cfg
+        if forest is None:
+            x, y = synth_router_trace(seed=seed)
+            forest = train_forest(x, y, TrainConfig(
+                model_type="randomforest", num_trees=cfg.num_trees,
+                max_depth=cfg.max_depth, seed=seed), device=device)
         self.forest = forest
 
     def route(self, feats: np.ndarray):

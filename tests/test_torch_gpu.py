@@ -1143,3 +1143,100 @@ def test_a_probe_wall_covers_its_stages_device_time(tier):
     assert d.source == "measured" and len(calls) >= 2 * d.cells_measured
     for wall, device_s in calls:
         assert device_s > 0 and wall >= device_s
+
+
+# -- in-database training on the card (db/train.py) ---------------------------
+
+
+def _train_case(tier, tmp_path, *, n=3000, f=9, seed=0):
+    from repro_torch.core.train import TrainConfig, quantile_bin_edges
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, f)).astype(np.float32)
+    y = (np.nan_to_num(x) @ r.normal(size=f) > 0).astype(np.float32)
+    x[r.random(x.shape) < 0.1] = np.nan
+    budgets = dict(device=dict(), host=dict(device_budget_bytes=16 << 10),
+                   disk=dict(device_budget_bytes=16 << 10,
+                             host_budget_bytes=8 << 10))[tier]
+    store = TensorBlockStore(default_page_rows=64, spill_dir=str(tmp_path),
+                             **budgets)
+    store.put("d", x, labels=y, tier="auto")
+    assert store.get("d").tier == tier
+    cfg = TrainConfig(num_trees=3, max_depth=4, num_bins=32)
+    return store, x, y, cfg, quantile_bin_edges(x, cfg.num_bins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_type", ["randomforest", "xgboost",
+                                        "lightgbm"])
+@pytest.mark.parametrize("tier", ["host", "device"])
+def test_streamed_train_on_the_card_equals_resident(tier, model_type,
+                                                    tmp_path):
+    """Routing and binning on the card, histograms on the host: the
+    streamed forest equals the resident ``train_forest`` on the card (and
+    on the CPU) bit for bit."""
+    _need_card()
+    from repro_torch.core.train import train_forest
+    store, x, y, cfg, edges = _train_case(tier, tmp_path)
+    cfg = dataclasses.replace(cfg, model_type=model_type, colsample=0.6)
+    res = ForestQueryEngine(store).train("d", cfg, edges=edges,
+                                         batch_pages=5)
+    assert res.forest.device.type == "cuda"
+    ref = train_forest(x, y, cfg, edges=edges)
+    cpu = train_forest(x, y, cfg, edges=edges, device="cpu")
+    for name, arr in ref.arrays().items():
+        assert torch.equal(getattr(res.forest, name), arr), name
+        assert torch.equal(arr.cpu(), getattr(cpu, name)), name
+    assert store.get("d::bins").data.is_pinned() == (tier == "host")
+    assert all(st.max_in_flight <= 2 for st in res.scan_stats)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_on_batch_sees_row_order_at_depth_two_on_the_card(tier, tmp_path):
+    """The hook runs on the stages' thread in plan order, each batch once,
+    while the next batch's pages are in flight (and, on the disk tier,
+    the reader thread reads ahead)."""
+    _need_card()
+    from repro_torch.db.executor import StreamingScanExecutor
+    from repro_torch.db.operators import Operator, split_into_stages
+    store, x, _, _, _ = _train_case(tier, tmp_path)
+    ds = store.get("d")
+    seen = []
+
+    def op(state):
+        state = dict(state)
+        state["node_of"] = state["k"] * 2
+        return state
+
+    def on_batch(first, n, state):
+        seen.append((first, state["x"][:, 0].cpu(),
+                     state["node_of"][:1].item()))
+
+    out, _, st = StreamingScanExecutor(
+        split_into_stages([Operator("op", op)]), prefetch_depth=2,
+        result_key="node_of").execute(
+        ds, 4, on_batch=on_batch,
+        extras=lambda first, n: {"k": torch.full(
+            (n * 64,), first, dtype=torch.int32, device="cuda")})
+    firsts = [f for f, _, _ in seen]
+    assert firsts == list(range(0, ds.num_pages, 4))
+    assert [v for *_, v in seen] == [2 * f for f in firsts]
+    got = torch.cat([c for _, c, _ in seen])[: x.shape[0]].numpy()
+    np.testing.assert_array_equal(got, x[:, 0])
+    assert out.dtype == torch.int32 and out.is_pinned()
+    assert st.max_in_flight == 2 and st.batches == len(seen)
+
+
+@pytest.mark.gpu
+def test_router_trains_and_routes_on_the_card():
+    _need_card()
+    from repro_torch.serve.router import ForestRouter, synth_router_trace
+    router = ForestRouter()
+    assert router.forest.device.type == "cuda"
+    cpu = ForestRouter(device="cpu")
+    for name, arr in cpu.forest.arrays().items():
+        assert torch.equal(getattr(router.forest, name).cpu(), arr), name
+    x, y = synth_router_trace(1000, seed=3)
+    tiers = router.route(x)
+    np.testing.assert_array_equal(tiers, cpu.route(x))
+    assert (tiers == y.astype(int)).mean() > 0.8

@@ -66,10 +66,6 @@ PENDING = {
     # the port has no tracing compiler: plan.traces returns as the count of
     # the serving plane's CUDA-graph captures
     "plan.traces": "work left: CUDA graphs",
-    # training (db/train.py)
-    "train.forest": "11", "train.sketch": "11", "train.bin_ingest": "11",
-    "train.level": "11", "train.runs": "11", "train.trees_grown": "11",
-    "train.level_scans": "11",
     # the LM stack's serving engine (serve/engine.py)
     "serve.prefill": "13", "serve.execute": "13",
 }

@@ -14,8 +14,8 @@ counts, shed order, the model catalog, ``synth_router_trace`` and the
 router's tiers equal the reference's.
 
 Beyond the reference's claims: tenants registered and unregistered while
-the ticker serves another (the engine lock), the refusals of what is not
-ported yet (``ForestRouter(forest=None)``), ``"auto"`` resolved as the
+the ticker serves another (the engine lock), ``ForestRouter()``'s trained
+default forest against the reference's, ``"auto"`` resolved as the
 reference's, and the card default of ``ForestServeEngine()``.
 """
 
@@ -648,8 +648,18 @@ def test_router_gates_unprioritized_submits(routers):
 
 
 def test_untrained_router_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ForestRouter()
+    """No longer refused: ``ForestRouter()`` trains its RandomForest on
+    ``synth_router_trace``, the reference's forest bit for bit (the
+    RandomForest gradients take no sigmoid), and routes as the
+    reference's does."""
+    jr = jrouter.ForestRouter(seed=0)
+    tr = ForestRouter(device="cpu")
+    for name, arr in jr.forest.arrays().items():
+        got = getattr(tr.forest, name).numpy()
+        assert got.dtype == np.asarray(arr).dtype, name
+        assert np.array_equal(got, np.asarray(arr)), name
+    x, _ = router.synth_router_trace(256, seed=5)
+    assert np.array_equal(tr.route(x), jr.route(x))
 
 
 def test_default_priority_is_named_batch_tier():
