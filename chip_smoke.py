@@ -209,6 +209,25 @@ Phases (any failure exits non-zero and prints no result line):
               host histogram over the whole bins relation in one np.add.at
               call against row chunks of 102,400 (a host-tier batch),
               32,768, HIST_CHUNK_ROWS and 2,048 (bit for bit).
+ 14. mesh     multi-device forest inference (repro_torch.dist.sharding) on
+              a (data 2, model 4) mesh of eight explicit cuda:0 positions
+              (one card: the mesh's semantics, not scaling): the 11M-row
+              table put once on a mesh store (the allocation grows by one
+              padded copy), udf predicated_pallas_fused at 500 trees twice
+              (2 launches a batch, the repeat hits the plan cache), bit for
+              bit phase 4's mesh-less udf; rel+reuse at 1600 trees with the
+              fused predicated kernel twice (8 launches a batch, the repeat
+              hits both caches), bit for bit the mesh-less rel+reuse at
+              n_parts = 4; rel with fused HummingBird and QuickScorer and
+              raw predicated on the 1,000,448-row cut, each bit for bit
+              its mesh-less n_parts = 4 run; infer_rows at 8 / 32 / 128
+              rows (udf and rel+reuse); one host-tier scan in batches of
+              100 pages, bit for bit the mesh's device tier; one CSR scan
+              (65,536 rows), bit for bit the mesh-less CSR scan; one
+              transient kernel_launch fault, recovered bit for bit; one
+              XGBoost tree (depth 6) trained on the mesh over the 1M cut,
+              bit for bit the mesh-less tree.  Prints every wall beside its
+              mesh-less wall and their ratio.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -312,6 +331,12 @@ PEAK_KEYS = ("peak_flops_bf16", "hbm_bandwidth", "ici_bandwidth",
 PAGE_ROWS = 1024                # the store's default page
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12        # f32 outside the tensor cores
+#: phase 14, the mesh: (data, model) positions, all on cuda:0; the host
+#: tier's batch; the CSR cut; the trained tree's depth
+MESH_DATA, MESH_MODEL = 2, 4
+MESH_HOST_BATCH_PAGES = 100
+MESH_CSR_ROWS = 65_536
+MESH_TRAIN_DEPTH = 6
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
@@ -2679,6 +2704,204 @@ def train_phase(*, counted, only, smi: str, tally) -> None:
     log(f"[train] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def mesh_phase(*, forest, big, store, engine, udf_device, udf_device_s: float,
+               rel_device_s: float, counted, only, smi: str, tally) -> None:
+    """Phase 14: the (data, model) mesh over repeated cuda:0 positions.
+    Every mesh query is held bit for bit against the same query without a
+    mesh (at n_parts = n_model for rel), with exact launch counts; walls
+    and mesh / mesh-less ratios are printed.  ``tally(counts)`` adds each
+    counted run's launches to the kernels' record."""
+    from repro_torch.core.train import TrainConfig
+    from repro_torch.db.faults import FaultInjector, RetryPolicy
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    nd, nm = MESH_DATA, MESH_MODEL
+    mesh = make_local_mesh(nd, nm, devices=["cuda:0"] * (nd * nm))
+    src = store.get("higgs")
+    n = src.num_rows
+    mstore = TensorBlockStore(mesh=mesh)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mds = mstore.put("higgs", src.data[:n])
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    log(f"[mesh] {mesh!r}: physical devices "
+        f"{[str(d) for d in mesh.physical_devices()]}; store.put('higgs', "
+        f"{n} x {FEATURES}): {mds.num_pages} pages (a multiple of {nd}), "
+        f"{mds.nbytes} B; device allocation grew {grown} B")
+    if not mds.nbytes <= grown < mds.nbytes + (64 << 20):
+        raise AssertionError(f"[mesh] the table is not held once: "
+                             f"{grown} B for {mds.nbytes} B")
+    mengine = ForestQueryEngine(mstore)
+
+    def same(a, b, what: str) -> None:
+        if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"[mesh] {what}: not bit for bit the "
+                                 f"mesh-less result")
+
+    def kernel(algorithm: str) -> str:
+        kind = algorithm.split("_")[0]
+        return f"{kind}_{'fused' if algorithm.endswith('_fused') else 'raw'}"
+
+    def run(eng, dataset, model, runs: int, per_batch: int, what: str,
+            **kw):
+        results, c = counted(lambda: [eng.infer(dataset, model, **kw)
+                                      for _ in range(runs)])
+        batches = sum(r.scan.batches for r in results)
+        only(c, kernel(kw["algorithm"]), per_batch * batches, what)
+        tally(c)
+        return results
+
+    def ratio_line(what: str, mesh_s: float, flat_s: float, extra="",
+                   against="mesh-less") -> None:
+        log(f"[mesh] {what}: mesh {mesh_s:.6f} s, {against} "
+            f"{flat_s:.6f} s, mesh / {against} {mesh_s / flat_s:.4f}"
+            f"{extra} on {smi}")
+
+    # -- udf: 500 trees over the 11M rows, 2 launches a batch -----------------
+    udf = run(mengine, "higgs", forest, 2, nd, "mesh udf", plan="udf",
+              algorithm="predicated_pallas_fused")
+    if udf[0].plan_reuse_hit or not udf[1].plan_reuse_hit:
+        raise AssertionError("[mesh] the repeated udf missed the plan cache")
+    same(udf[1].predictions, udf_device, "udf")
+    ops = [op for r in udf[1].stage_reports for op in r.operators]
+    if "transform:forest-udf@shard_map" not in ops \
+            or udf[1].mesh_devices != nd * nm:
+        raise AssertionError(f"[mesh] udf stages {ops}")
+    ratio_line(f"udf predicated_pallas_fused {TREES} trees x {n} rows "
+               f"({nd} launches a batch, devices "
+               f"{[r.devices for r in udf[1].stage_reports]})",
+               udf[1].total_s, udf_device_s)
+
+    # -- rel+reuse: 1600 trees, n_parts = n_model, 8 launches a batch ---------
+    kw = dict(plan="rel+reuse", algorithm="predicated_pallas_fused")
+    flat = run(engine, "higgs", big, 2, nm, "mesh-less rel+reuse",
+               n_parts=nm, **kw)
+    rel = run(mengine, "higgs", big, 2, nd * nm, "mesh rel+reuse", **kw)
+    if rel[0].reuse_hit or not (rel[1].reuse_hit and rel[1].plan_reuse_hit) \
+            or rel[1].partition_s != 0.0 or rel[1].n_parts != nm:
+        raise AssertionError("[mesh] the repeated rel+reuse did not hit "
+                             "both caches")
+    same(rel[1].predictions, flat[1].predictions, "rel+reuse")
+    ops = [op for r in rel[1].stage_reports for op in r.operators]
+    if "cross-product:psum-agg" not in ops:
+        raise AssertionError(f"[mesh] rel stages {ops}")
+    ratio_line(f"rel+reuse predicated_pallas_fused {REL_TREES} trees x {n} "
+               f"rows, n_parts {nm} ({nd * nm} launches a batch; "
+               f"{', '.join(f'{r.name} {r.seconds:.6f} s' for r in rel[1].stage_reports)})",
+               rel[1].total_s, flat[1].total_s,
+               f"; against phase 6's raw rel+reuse at its own n_parts "
+               f"{rel_device_s:.6f} s: {rel[1].total_s / rel_device_s:.4f} "
+               f"(reported, not gated: other partitionings)")
+
+    # -- the other kernels under rel on the 1M cut (walls: the 2nd run) -------
+    mstore.put("higgs_1m", src.data[:CUT_ROWS])
+    for algorithm in ("hummingbird_pallas_fused", "quickscorer_pallas_fused",
+                      "predicated_pallas"):
+        kw = dict(plan="rel", algorithm=algorithm)
+        f1 = run(engine, "higgs_1m", big, 2, nm, f"mesh-less rel {algorithm}",
+                 n_parts=nm, **kw)
+        m1 = run(mengine, "higgs_1m", big, 2, nd * nm, f"mesh rel {algorithm}",
+                 **kw)
+        same(m1[1].predictions, f1[1].predictions, f"rel {algorithm}")
+        ratio_line(f"rel {algorithm} {REL_TREES} trees x {CUT_ROWS} rows "
+                   f"({nd * nm} launches a batch)", m1[1].total_s,
+                   f1[1].total_s)
+
+    # -- infer_rows ------------------------------------------------------------
+    for plan, model in (("udf", forest), ("rel+reuse", big)):
+        for B in ROW_BATCHES:
+            x = src.data[:B]
+            kw = dict(plan=plan, algorithm="predicated_pallas_fused")
+            per = nd if plan == "udf" else nd * nm
+            calls, c = counted(lambda: [mengine.infer_rows(model, x, **kw)
+                                        for _ in range(2)])
+            only(c, "predicated_fused", 2 * per, f"mesh infer_rows {plan} {B}")
+            tally(c)
+            flat_rows, c = counted(lambda: [engine.infer_rows(
+                model, x, n_parts=None if plan == "udf" else nm, **kw)
+                for _ in range(2)])
+            tally(c)
+            if not calls[1].plan_reuse_hit:
+                raise AssertionError(f"[mesh] infer_rows {plan} {B}: the "
+                                     f"repeat missed the plan cache")
+            same(calls[1].predictions, flat_rows[1].predictions,
+                 f"infer_rows {plan} {B}")
+            ratio_line(f"infer_rows {plan} {B} rows (repeat, {per} "
+                       f"launches)", calls[1].total_s, flat_rows[1].total_s)
+
+    # -- the host tier, in data-unit batches ----------------------------------
+    mhost = TensorBlockStore(mesh=mesh)
+    hds = mhost.put("higgs_1m", src.data[:CUT_ROWS], tier="host")
+    kw = dict(plan="udf", algorithm="predicated_pallas_fused")
+    dev1m = run(mengine, "higgs_1m", forest, 2, nd, "mesh udf 1M", **kw)
+    host = run(ForestQueryEngine(mhost), "higgs_1m", forest, 2, nd,
+               "mesh host udf", batch_pages=MESH_HOST_BATCH_PAGES, **kw)
+    st = host[1].scan
+    if hds.tier != "host" or host[1].tier != "host":
+        raise AssertionError(f"[mesh] the host-tier scan ran on the "
+                             f"{host[1].tier} tier (stored {hds.tier})")
+    if st.batches < 2 or st.batch_pages % nd:
+        raise AssertionError(f"[mesh] host scan {st}")
+    same(host[1].predictions.cuda(), dev1m[1].predictions, "host tier")
+    ratio_line(f"host-tier udf over {CUT_ROWS} rows ({st.batches} batches "
+               f"of {st.batch_pages} pages, max_in_flight "
+               f"{st.max_in_flight}, transfer_wait {st.transfer_wait_s:.6f} "
+               f"s)", host[1].total_s, dev1m[1].total_s,
+               against="mesh device tier")
+
+    # -- CSR: the gather inside each row shard --------------------------------
+    mstore.put_sparse("higgs_csr", src.data[:MESH_CSR_ROWS])
+    store.put_sparse("higgs_csr", src.data[:MESH_CSR_ROWS])
+    kw = dict(plan="udf", algorithm="hummingbird_pallas_fused")
+    fc = run(engine, "higgs_csr", forest, 2, 1, "mesh-less csr", **kw)
+    mc = run(mengine, "higgs_csr", forest, 2, nd, "mesh csr", **kw)
+    same(mc[1].predictions, fc[1].predictions, "csr")
+    ratio_line(f"CSR udf hummingbird_pallas_fused over {MESH_CSR_ROWS} "
+               f"rows", mc[1].total_s, fc[1].total_s)
+    store.drop("higgs_csr")
+
+    # -- a transient kernel_launch fault ----------------------------------------
+    kw = dict(plan="rel+reuse", algorithm="predicated_pallas_fused")
+    clean = run(mengine, "higgs_1m", big, 2, nd * nm, "mesh clean", **kw)
+    inj = FaultInjector().inject("kernel_launch", fail_at=1)
+    faulted = run(mengine, "higgs_1m", big, 1, nd * nm, "mesh fault",
+                  injector=inj, retry_policy=RetryPolicy(
+                      backoff_base_s=0.0, max_backoff_s=0.0), **kw)
+    st = faulted[0].scan
+    if (st.faults_injected, st.retries) != (1, 1):
+        raise AssertionError(f"[mesh] fault {st}")
+    same(faulted[0].predictions, clean[1].predictions, "kernel_launch fault")
+    ratio_line("rel+reuse with one transient kernel_launch fault (retries "
+               "1)", faulted[0].total_s, clean[1].total_s,
+               against="clean mesh run")
+
+    # -- training: one XGBoost tree on the mesh ----------------------------------
+    x = src.data[:CUT_ROWS]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    y = (x @ torch.randn(FEATURES, generator=gen, device="cuda") > 0).float()
+    mstore.put("train", x, labels=y)
+    store.put("train", x, labels=y)
+    cfg = TrainConfig(model_type="xgboost", num_trees=1,
+                      max_depth=MESH_TRAIN_DEPTH, num_bins=TRAIN_BINS,
+                      seed=SEED)
+    flat_t = engine.train("train", cfg)
+    mesh_t = mengine.train("train", cfg)
+    if not np.array_equal(flat_t.edges, mesh_t.edges) or not all(
+            torch.equal(getattr(mesh_t.forest, k), a)
+            for k, a in flat_t.forest.arrays().items()):
+        raise AssertionError("[mesh] the mesh-trained tree differs")
+    ratio_line(f"engine.train XGBoost 1 tree depth {MESH_TRAIN_DEPTH} over "
+               f"{CUT_ROWS} rows ({mesh_t.num_scans} scans; bit for bit)",
+               mesh_t.wall_s, flat_t.wall_s)
+    store.drop("train")
+    store.drop("train::bins")
+    log(f"[mesh] phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3012,6 +3235,7 @@ def main() -> int:
 
     res, launches_main, err = drive("predicated", "higgs", runs=2)
     first, second = res
+    udf_device, udf_device_s = second.predictions, second.total_s
     if first.plan_reuse_hit or not second.plan_reuse_hit:
         raise AssertionError("the repeated query did not hit the plan cache")
     rows_per_s = ds.num_rows / second.total_s
@@ -3422,6 +3646,25 @@ def main() -> int:
             entry["launches"] += counts13[name_]
         else:
             entry["launches"] += counts13[name_] - counts13[f"{name_}_wide"]
+
+    # -- 14. the (data, model) mesh ------------------------------------------
+    counts14: dict[str, int] = {}
+
+    def tally14(counts: dict) -> None:
+        for k, n in counts.items():
+            counts14[k] = counts14.get(k, 0) + n
+
+    mesh_phase(forest=forest, big=big, store=store, engine=engine,
+               udf_device=udf_device, udf_device_s=udf_device_s,
+               rel_device_s=rel_device_s, counted=counted, only=only,
+               smi=smi, tally=tally14)
+    log(f"[mesh] launches { {k: n for k, n in counts14.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts14[name_]
+        else:
+            entry["launches"] += counts14[name_] - counts14[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -6,8 +6,10 @@ whole compiled query plan -- so a steady-state query skips the work that
 depends only on the model and the batch signature (paper Sec. 3.3,
 netsDB-OPT).
 
-The port has no device mesh yet: ``mesh_signature`` names the single
-device every plan runs on.
+Cache keys carry ``mesh_signature``: the single device (1), or a mesh's
+content (axis names, shape and the device at each position), so one model
+on two meshes gives two entries and a signature never outlives its mesh's
+identity the way an ``id()`` could.
 """
 
 from __future__ import annotations
@@ -21,13 +23,14 @@ __all__ = ["MaterializedModel", "ModelReuseCache", "fingerprint_forest",
            "mesh_signature"]
 
 
-def mesh_signature(mesh=None) -> int:
-    """Cache-key component for the device layout: 1 (one device).  A mesh
-    arrives with the multi-device port (ROADMAP queue 1, item 12)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "device meshes are not ported yet (ROADMAP queue 1, item 12)")
-    return 1
+def mesh_signature(mesh=None) -> tuple | int:
+    """Cache-key component for the device layout: 1 for one device, else
+    the mesh's content (reference ``repro/core/reuse.py:32-38``, whose
+    mesh-less value is 0)."""
+    if mesh is None:
+        return 1
+    return (tuple(mesh.axis_names), tuple(mesh.devices.shape),
+            tuple(str(d) for d in mesh.devices.flat))
 
 
 def fingerprint_forest(forest) -> str:

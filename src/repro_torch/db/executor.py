@@ -102,6 +102,17 @@ retries): expired, the scan stops, keeps what it drained (the result is
 NaN-filled and a row mask kept only when a deadline is set), and
 ``last_mask`` marks the rows that landed.
 
+The mesh (reference ``executor.py:281-287, 396-411``): a scan made with a
+``sharding`` (the store's ``data_sharding()``, a ``db.shards.RowSharding``)
+splits each loaded batch into its ``data``-axis row shards, each on its
+home device, right after the compute stream waits for the batch's pages;
+the stages see ``RowShards``, and a plan's last stage gathers the
+per-shard predictions at the store's device in row order, so the drain
+writes one tensor a batch as it does off-mesh.  Batches are whole
+data-axis units (the query rounds them), and the caller passes the unit
+as ``min_batch_pages``, the floor of the transfer-halving ladder, so a
+halved span still splits evenly.
+
 Tracing (``repro_torch.obs``; the reference's spans, ``executor.py:
 589-803``).  Every scan is one ``scan.execute`` span, and each batch one
 ``scan.batch`` with ``scan.transfer_wait``, ``scan.compute`` and
@@ -267,11 +278,12 @@ class StreamingScanExecutor:
 
     ``injector`` / ``retry_policy`` / ``deadline`` opt the scan into the
     fault plane (an armed injector with no policy gets ``RetryPolicy()``);
-    ``min_batch_pages`` is the floor of the transfer-halving ladder.
-    ``last_mask`` is the row mask of the last ``execute`` that hit its
+    ``min_batch_pages`` is the floor of the transfer-halving ladder, and
+    ``sharding`` splits each batch over a mesh's ``data`` axis (module
+    note).  ``last_mask`` is the row mask of the last ``execute`` that hit its
     deadline (None otherwise)."""
 
-    def __init__(self, stages, *, prefetch_depth: int = 2,
+    def __init__(self, stages, *, sharding=None, prefetch_depth: int = 2,
                  result_key: str | None = "pred",
                  injector: FaultInjector | None = None,
                  retry_policy: RetryPolicy | None = None,
@@ -281,6 +293,7 @@ class StreamingScanExecutor:
             raise ValueError(f"prefetch_depth must be in [1, "
                              f"{MAX_IN_FLIGHT}], got {prefetch_depth}")
         self.stages = stages
+        self.sharding = sharding
         self.prefetch_depth = prefetch_depth
         self.result_key = result_key
         self.injector = injector
@@ -381,6 +394,7 @@ class _Scan:
                  batch_pages: int, stats: ScanStats, scan_span,
                  extras=None, on_batch=None):
         self.stages = executor.stages
+        self.sharding = executor.sharding
         self.result_key = executor.result_key
         self.extras = extras
         self.on_batch = on_batch
@@ -708,7 +722,10 @@ class _Scan:
             def launch():
                 if self.cuda:
                     self.compute_stream.wait_event(self.copied[cur.k])
-                state = {"x": cur.block}
+                x = cur.block
+                if self.sharding is not None:
+                    x = self.sharding.split(x)
+                state = {"x": x}
                 if self.extras is not None:
                     state.update(self.extras(cur.first_page, cur.num_pages))
                 return run_stages(self.stages, state)

@@ -16,6 +16,15 @@ its host wall includes the boundary's synchronise, and on the card it
 carries ``device_s``, the CUDA-event seconds of ``StageReport.seconds``, so
 a trace tells the host's turnaround at the boundary from the stage's device
 time.  The span adds no event and no synchronise of its own.
+
+On a mesh (``dist/sharding.py``) a stage value may be ``RowShards`` (a
+batch's rows over the ``data`` axis, ``db/shards.py``);
+``StageReport.devices`` is the number of mesh positions a stage runs at
+(reference ``operators.py:95-112``), the largest ``Operator.devices`` of
+its operators: the plan gives its mesh operators the mesh's size, and
+every other operator is 1.  A stage over several cards is timed on the
+stream of the first card it finds; positions that share a card run on its
+one stream, so on a one-card mesh the events cover the whole stage.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.db.sparse import CSRPages
+from repro_torch.db.shards import RowShards
 from repro_torch.obs import TRACER
 
 __all__ = ["Operator", "Stage", "StageReport", "split_into_stages",
@@ -36,11 +46,13 @@ __all__ = ["Operator", "Stage", "StageReport", "split_into_stages",
 @dataclasses.dataclass(frozen=True)
 class Operator:
     """One relational operator: ``fn(state) -> state`` over a dict of
-    tensors; ``breaker=True`` ends the pipeline stage after it."""
+    tensors; ``breaker=True`` ends the pipeline stage after it;
+    ``devices`` is the number of mesh positions it runs at."""
 
     name: str
     fn: Callable[[Any], Any]
     breaker: bool = False
+    devices: int = 1
 
 
 @dataclasses.dataclass
@@ -49,14 +61,18 @@ class StageReport:
     operators: tuple[str, ...]
     seconds: float
     materialized_bytes: int
+    devices: int = 1                 # mesh positions the stage runs at
 
 
 def _tensors(state) -> list[torch.Tensor]:
-    """The state's tensors, a CSR page block's three arrays included."""
+    """The state's tensors, a CSR page block's three arrays and a sharded
+    value's shards included."""
     values = state.values() if isinstance(state, dict) else (state,)
     out = []
     for v in values:
-        if isinstance(v, CSRPages):
+        if isinstance(v, RowShards):
+            out.extend(v.tensors())
+        elif isinstance(v, CSRPages):
             out.extend(t for t in v.arrays() if isinstance(t, torch.Tensor))
         elif isinstance(v, torch.Tensor):
             out.append(v)
@@ -103,6 +119,7 @@ class Stage:
             operators=tuple(op.name for op in self.operators),
             seconds=seconds,
             materialized_bytes=sum(t.nbytes for t in _tensors(out)),
+            devices=max(op.devices for op in self.operators),
         )
         return out, report
 

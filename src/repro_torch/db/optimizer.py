@@ -238,11 +238,16 @@ class CostBasedOptimizer:
         n_parts = cell.n_parts or 1
         if cell.plan.startswith("rel"):
             eq_bytes += 3.0 * 4.0 * n_parts * rows    # write+read+fold
-        # no model axis on one device, so no collective term (the
-        # reference's psum over ``model`` arrives with item 12)
+        # on a model mesh the rel plans fold the model-axis partials: one
+        # f32 a row crosses the axis (the reference's psum term)
+        coll = 0.0
+        fplan = getattr(self.engine, "fplan", None)
+        if fplan is not None and fplan.model_axis is not None \
+                and cell.plan.startswith("rel"):
+            coll = 4.0 * rows
         terms = roofline_terms(flops_per_chip=flops,
                                bytes_per_chip=eq_bytes,
-                               coll_bytes_per_chip=0.0, peak=peaks)
+                               coll_bytes_per_chip=coll, peak=peaks)
         cost = terms["step_s_lower_bound"]
         # tier transfer: an off-device scan streams every byte through the
         # host -> device link once a query (disk also pays the file read,
@@ -429,7 +434,9 @@ class CostBasedOptimizer:
 
             def neighbors(cell: _Cell):
                 out = []
-                if cell.plan.startswith("rel") and cell.n_parts:
+                # a model mesh fixes n_parts to its axis: nothing to climb
+                if cell.plan.startswith("rel") and cell.n_parts \
+                        and eng.fplan.model_axis is None:
                     for np_ in (max(1, cell.n_parts // 2),
                                 min(int(forest.num_trees),
                                     cell.n_parts * 2)):

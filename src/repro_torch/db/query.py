@@ -77,8 +77,41 @@ through ``engine.optimizer.decide`` (the result's ``decision``), and in
 ``infer_rows`` through ``decide_rows``; either axis can be pinned while the
 other stays auto, and an explicit ``n_parts`` / ``batch_pages`` wins over
 the decision's.  ``invalidate`` and ``invalidate_dataset`` sweep the
-store's decisions with the plans.  Meshes (ROADMAP queue 1, item 12) have
-no entry point yet.
+store's decisions with the plans.
+
+The mesh (``dist/sharding.py``; reference ``query.py:376-478``): an engine
+runs on its store's ``mesh`` (``fplan`` is its axis mapping), one
+controller over positions it addresses.  The store splits every page
+batch into ``data``-axis row shards (``db/executor.py``), and
+
+  udf        on a mesh with a data axis, ``transform:forest-udf@shard_map``:
+             the forest is replicated over ``data`` (once a card, held by
+             the plan), and each row shard is one ``predict_sum`` at its
+             home, with the CSR gather inside, so a compact tile exists
+             only at the local batch: ``n_data`` launches a batch;
+  rel        on a mesh with a model axis, ``cross-product:psum-agg``: the
+             partition stage pads T to a multiple of ``n_model`` and places
+             tree shard m at the positions (*, m) (``fplan.shard_forest``,
+             kept in the materialized model); position (d, m) runs one
+             ``predict_sum`` over its tree shard and its row shard (fused
+             names sum in-kernel, raw names through their [B_local,
+             T_local] sum), and the ``n_model`` partials of a row shard are
+             folded at its home IN MODEL ORDER: ``n_data * n_model``
+             launches a batch.
+
+The fold is the mesh-less aggregate's sequential partition-order sum over
+the same partials, so a mesh query equals the mesh-less one at
+``n_parts = n_model`` bit for bit (the reference's ``psum`` is proven
+equal to the same fold; an NCCL all-reduce's order would not be).  On a
+model mesh ``n_parts`` is ``n_model`` and an explicit one is ignored; a
+rel query on a mesh with no model axis runs the mesh-less template on
+each row shard.  Phase 2 (``postprocess``) runs once a batch over the
+shards gathered at the store's device (``db/shards.py:map_gathered``), so
+a plan's result is one tensor a batch.  Batches are whole data-axis units
+(``batch_pages`` rounds up), ``infer_rows`` refuses a batch the data axis
+does not divide, plan,
+model and decision keys carry ``mesh_signature``, and
+``QueryResult.mesh_devices`` is the mesh's position count.
 """
 
 from __future__ import annotations
@@ -107,6 +140,9 @@ from repro_torch.db.operators import (Operator, StageReport, run_stages,
 from repro_torch.db.optimizer import (DEFAULT_ALGORITHM, CostBasedOptimizer,
                                       Decision)
 from repro_torch.db.store import TensorBlockStore
+from repro_torch.db.shards import (RowShards, device_of, map_gathered,
+                                   map_shards, place)
+from repro_torch.dist.sharding import ForestShardingPlan, physical, replica
 from repro_torch.kernels.gather import csr_block_to_dense, gather_inverse_map
 from repro_torch.kernels.ops import (FUSED_KERNEL_ALGORITHMS,
                                      KERNEL_ALGORITHMS, default_tree_block,
@@ -149,6 +185,7 @@ class QueryResult:
     #                                   (deadline_s expired mid-scan)
     decision: Decision | None = None  # the optimizer verdict this query
     #                                   ran under ("auto" queries only)
+    mesh_devices: int = 1             # mesh positions (1 off-mesh)
 
     def breakdown(self) -> dict[str, float]:
         return {"partition": self.partition_s, "inference": self.infer_s,
@@ -205,13 +242,17 @@ class ForestQueryEngine:
 
     Each engine owns its model-partition cache (``reuse_cache``) and its
     compiled-plan cache unless the caller passes them in, and its
-    ``optimizer`` (replaceable: tests install tighter budgets)."""
+    ``optimizer`` (replaceable: tests install tighter budgets).  It runs
+    on its store's ``mesh``: the store pads and splits the batches the
+    engine's stages take."""
 
     def __init__(self, store: TensorBlockStore,
                  reuse_cache: ModelReuseCache | None = None,
                  plan_cache: ModelReuseCache | None = None):
         self.store = store
-        self.mesh_id = mesh_signature()
+        self.mesh = store.mesh
+        self.fplan: ForestShardingPlan = store.fplan
+        self.mesh_id = mesh_signature(self.mesh)
         self.cache = reuse_cache if reuse_cache is not None \
             else ModelReuseCache()
         self.plan_cache = plan_cache if plan_cache is not None \
@@ -263,16 +304,34 @@ class ForestQueryEngine:
         return cf, inv_map, int(gather_idx.numel())
 
     @staticmethod
-    def _gather_operator(inv_map: torch.Tensor, f_used: int) -> Operator:
-        """SCAN-side feature gather: CSR page block -> dense compact tile.
-        Not a breaker: it runs in the stage of the kernel it feeds."""
+    def _local_gather(inv_map: torch.Tensor, f_used: int):
+        """CSR page block -> dense compact tile on the block's device, with
+        the inverse map placed there once a card."""
+        maps: dict[torch.device, torch.Tensor] = {}
+
+        def gather(block):
+            dev = physical(device_of(block))
+            inv = maps.get(dev)
+            if inv is None:
+                inv = maps[dev] = place(inv_map, dev)
+            return csr_block_to_dense(block, inv, f_used)
+
+        return gather
+
+    def _gather_operator(self, inv_map: torch.Tensor,
+                         f_used: int) -> Operator:
+        """SCAN-side feature gather: CSR page block -> dense compact tile,
+        shard by shard on a data mesh.  Not a breaker: it runs in the
+        stage of the kernel it feeds."""
+        local = self._local_gather(inv_map, f_used)
 
         def gather(state):
             state = dict(state)
-            state["x"] = csr_block_to_dense(state["x"], inv_map, f_used)
+            state["x"] = map_shards(state["x"], local)
             return state
 
-        return Operator("gather:csr-compact", gather)
+        return Operator("gather:csr-compact", gather,
+                        devices=self.fplan.positions)
 
     # -- model partition stage (the reusable one) ---------------------------
     def _partition_model(self, forest: Forest, algorithm: str,
@@ -285,7 +344,12 @@ class ForestQueryEngine:
         (``_sparse_prepass``), and ``aux["inv_map"]`` / ``aux["f_used"]``
         feed the gather operator.  The kernels' structure tensors come
         from ``kernels.ops``'s per-(depth, device) cache, and the eager
-        oracles build their own."""
+        oracles build their own.
+
+        On a model mesh (``num_parts == n_model``) the tree shards are
+        placed too (``fplan.shard_forest``, kept in ``aux["tree_shards"]``),
+        each with its node records: a view of the whole model's on the
+        store's card, built on its own card elsewhere."""
         with TRACER.span("plan.partition", algorithm=algorithm,
                          num_parts=num_parts, storage_format=storage_format):
             dev = self.store.device
@@ -296,8 +360,21 @@ class ForestQueryEngine:
                     self._sparse_prepass(forest)
             forest_p, true_T = pad_trees(forest, num_parts)
             aux["nodes"] = packed_nodes(forest_p)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            if self.fplan.model_axis is not None:
+                per = forest_p.num_trees // num_parts
+                aux["tree_shards"] = self.fplan.shard_forest(forest_p)
+                for m, reps in enumerate(aux["tree_shards"]):
+                    for shard in reps.values():
+                        if physical(shard.device) == physical(dev):
+                            share_packed_nodes(
+                                shard, aux["nodes"][m * per:(m + 1) * per])
+                        else:
+                            packed_nodes(shard)
+            cards = (self.mesh.physical_devices() if self.mesh is not None
+                     else [dev])
+            for card in cards:
+                if card.type == "cuda":
+                    torch.cuda.synchronize(card)
             return MaterializedModel(forest=forest_p, true_num_trees=true_T,
                                      aux=aux)
 
@@ -309,6 +386,34 @@ class ForestQueryEngine:
         predict_sum, _ = _predict_sum_fn(algorithm)
         meta = dict(model_type=forest.model_type, task=forest.task,
                     num_trees=true_T, base_score=forest.base_score)
+
+        if self.fplan.data_axis is not None:
+            # data parallelism: one launch a row shard, at its home, over
+            # the forest's replica there; the CSR gather runs inside, so
+            # the compact tile exists only at the local batch
+            replicas = self.fplan.replicas(forest)
+            gather = self._local_gather(*sparse_aux) \
+                if sparse_aux is not None else None
+
+            def body(x_local):
+                f = replicas[physical(device_of(x_local))]
+                if gather is not None:
+                    x_local = gather(x_local)
+                return predict_sum(f, x_local)
+
+            def udf_mesh(state):
+                state = dict(state)
+                state["pred"] = map_gathered(
+                    map_shards(state.pop("x"), body),
+                    lambda s: post.postprocess(s, **meta), self.store.device)
+                return state
+
+            return [
+                Operator("scan", lambda s: s),
+                Operator("transform:forest-udf@shard_map", udf_mesh,
+                         devices=self.fplan.positions),
+                Operator("write", lambda s: s, breaker=True),
+            ]
 
         def udf(state):
             state = dict(state)
@@ -332,37 +437,58 @@ class ForestQueryEngine:
         meta = dict(model_type=forest.model_type, task=forest.task,
                     num_trees=mat.true_num_trees,
                     base_score=forest.base_score)
+
+        def postprocess_op(state):
+            state = dict(state)
+            state["pred"] = map_gathered(
+                state.pop("summed"), lambda s: post.postprocess(s, **meta),
+                self.store.device)
+            return state
+
+        if self.fplan.model_axis is not None:
+            return self._rel_mesh_ops(mat, predict_sum, postprocess_op)
+
         per = forest.num_trees // n_parts
         parts = [tree_slice(forest, p * per, per) for p in range(n_parts)]
         for p, part in enumerate(parts):
             share_packed_nodes(part, mat.aux["nodes"][p * per:(p + 1) * per])
+        # the partitions at each card a row shard lives on (on a mesh with
+        # no model axis); off-mesh, or on the store's card, themselves
+        part_sets = {physical(forest.device): parts}
+        if self.fplan.data_axis is not None:
+            for dev in self.fplan.data_devices:
+                dev = physical(dev)
+                if dev not in part_sets:
+                    part_sets[dev] = [replica(p, dev) for p in parts]
+                    for p in part_sets[dev]:
+                        packed_nodes(p)
 
-        def cross_product(state):
-            """CROSS-PRODUCT(tree partition, sample block) -> partials
-            [n_parts, B]: partial[p, b] = sum of partition p's tree scores
-            on sample b, one kernel launch per partition."""
-            x = state["x"]
+        def partials_of(x):
+            """partial[p, b] = sum of partition p's tree scores on sample
+            b, one kernel launch per partition."""
             partials = torch.empty((n_parts, x.shape[0]),
                                    dtype=torch.float32, device=x.device)
-            for p, part in enumerate(parts):
+            for p, part in enumerate(part_sets[physical(x.device)]):
                 partials[p] = predict_sum(part, x)
-            state = dict(state)
-            state["partials"] = partials
-            return state
+            return partials
 
-        def aggregate(state):
-            state = dict(state)
-            partials = state.pop("partials")
+        def fold(partials):
             # sequential fold in partition order, as the reference does
             summed = partials[0]
             for p in range(1, partials.shape[0]):
                 summed = summed + partials[p]
-            state["summed"] = summed
+            return summed
+
+        def cross_product(state):
+            """CROSS-PRODUCT(tree partition, sample block) -> partials
+            [n_parts, B] (a row shard's on a data mesh)."""
+            state = dict(state)
+            state["partials"] = map_shards(state["x"], partials_of)
             return state
 
-        def postprocess_op(state):
+        def aggregate(state):
             state = dict(state)
-            state["pred"] = post.postprocess(state.pop("summed"), **meta)
+            state["summed"] = map_shards(state.pop("partials"), fold)
             return state
 
         ops = [Operator("scan", lambda s: s)]
@@ -371,20 +497,72 @@ class ForestQueryEngine:
             # is its input, not a new materialization boundary
             ops.append(self._gather_operator(mat.aux["inv_map"],
                                              mat.aux["f_used"]))
+        # on a data-only mesh these run shard by shard (positions; 1
+        # off-mesh)
+        dv = self.fplan.positions
         return ops + [
             Operator("cross-product:partial-agg", cross_product,
-                     breaker=True),
-            Operator("aggregate", aggregate, breaker=True),
+                     breaker=True, devices=dv),
+            Operator("aggregate", aggregate, breaker=True, devices=dv),
+            Operator("postprocess", postprocess_op),
+            Operator("write", lambda s: s, breaker=True),
+        ]
+
+    def _rel_mesh_ops(self, mat: MaterializedModel, predict_sum,
+                      postprocess_op):
+        """The relation-centric plan body on a model mesh: position (d, m)
+        runs ONE ``predict_sum`` over tree shard m and row shard d (the
+        CSR gather inside, once a card), and the row shard's ``n_model``
+        partials are folded at its home in model order, the mesh-less
+        aggregate's association (module note)."""
+        fplan = self.fplan
+        shards = mat.aux["tree_shards"]
+        gather = self._local_gather(mat.aux["inv_map"], mat.aux["f_used"]) \
+            if "inv_map" in mat.aux else None
+        grid = [[physical(fplan.position(d, m)) for m in range(fplan.n_model)]
+                for d in range(fplan.n_data)]
+
+        def row_shard(d: int, x_local):
+            home = grid[d][0]
+            tiles: dict[torch.device, Any] = {}
+            summed = None
+            for m, dev in enumerate(grid[d]):
+                tile = tiles.get(dev)
+                if tile is None:
+                    tile = place(x_local, dev)
+                    if gather is not None:
+                        tile = gather(tile)
+                    tiles[dev] = tile
+                part = place(predict_sum(shards[m][dev], tile), home)
+                summed = part if summed is None else summed + part
+            return summed
+
+        def cross_product(state):
+            state = dict(state)
+            x = state.pop("x")
+            if not isinstance(x, RowShards):     # a mesh with no data axis
+                x = RowShards([x])
+            state["summed"] = x.map(row_shard)
+            return state
+
+        return [
+            Operator("scan", lambda s: s),
+            Operator("cross-product:psum-agg", cross_product, breaker=True,
+                     devices=fplan.positions),
             Operator("postprocess", postprocess_op),
             Operator("write", lambda s: s, breaker=True),
         ]
 
     def _resolve_n_parts(self, forest: Forest, algorithm: str,
                          n_parts: int | None) -> int:
-        """Tree-partition count of the rel plans: an explicit ``n_parts``
-        wins; kernel algorithms take one partition per kernel tree tile
+        """Tree-partition count of the rel plans: on a model mesh, the
+        ``model`` axis (one tree shard a position along it; an explicit
+        ``n_parts`` is ignored); else an explicit ``n_parts`` wins; kernel
+        algorithms take one partition per kernel tree tile
         (``ceil(T / default_tree_block)``, sized for the fused or the raw
         kernel it will launch); the eager oracles take ``min(4, T)``."""
+        if self.fplan.model_axis is not None:
+            return self.fplan.n_model
         if n_parts is not None:
             return max(1, int(n_parts))
         if "pallas" not in algorithm:
@@ -551,13 +729,20 @@ class ForestQueryEngine:
         # scan), as a caller on the request path sees it
         deadline = Deadline(deadline_s, start=t_query0) \
             if deadline_s is not None else None
+        unit = self.fplan.n_data
         if batch_pages is None:
             batch_pages = ds.num_pages
             if ds.tier != "device":
+                # in data-axis units, rounded down, so the round-up below
+                # cannot push two buffers past the budget
                 budget = self.store.device_budget_bytes
                 target = budget // 2 if budget else DEFAULT_STREAM_BATCH_BYTES
                 fit = target // max(ds.page_nbytes, 1)
-                batch_pages = min(ds.num_pages, max(1, fit))
+                batch_pages = min(ds.num_pages,
+                                  max(unit, fit // unit * unit))
+        if unit > 1:
+            # whole data units: the store pads num_pages to one
+            batch_pages = min(-(-batch_pages // unit) * unit, ds.num_pages)
         fmt = ds.storage_format
         if fmt == "csr":
             batch_sig = (ds.num_features, ds.pages.capacity, ds.num_pages,
@@ -592,7 +777,9 @@ class ForestQueryEngine:
                 name="stageP:model-partition",
                 operators=("partition-model",), seconds=partition_s,
                 materialized_bytes=sum(
-                    a.nbytes for a in mat.forest.arrays().values()))]
+                    a.nbytes for a in mat.forest.arrays().values()),
+                devices=(self.fplan.positions
+                         if self.fplan.model_axis is not None else 1))]
             if plan == "rel+reuse":
                 # id(mat) ties the entry to THIS materialization; the entry
                 # pins mat so the id cannot be reused while it lives
@@ -606,8 +793,10 @@ class ForestQueryEngine:
         reuse_hit = model_hit or plan_hit
 
         executor = StreamingScanExecutor(
-            qplan.stages, prefetch_depth=prefetch_depth, injector=injector,
-            retry_policy=retry_policy, deadline=deadline)
+            qplan.stages, sharding=self.store.data_sharding(),
+            prefetch_depth=prefetch_depth, injector=injector,
+            retry_policy=retry_policy, deadline=deadline,
+            min_batch_pages=unit)
         predictions, batch_reports, scan = executor.execute(ds, batch_pages)
         reports = prefix + batch_reports
         degraded = None
@@ -642,7 +831,8 @@ class ForestQueryEngine:
             aggregate_s=aggregate_s, write_s=write_s, total_s=total_s,
             reuse_hit=reuse_hit, plan_reuse_hit=plan_hit,
             storage_format=fmt, n_parts=n_parts, tier=ds.tier, scan=scan,
-            degraded=degraded, decision=decision)
+            degraded=degraded, decision=decision,
+            mesh_devices=self.fplan.positions)
 
     def infer_rows(self, forest: Forest, x, *,
                    row_mask: np.ndarray | None = None,
@@ -662,7 +852,11 @@ class ForestQueryEngine:
         ``plan="auto"`` / ``algorithm="auto"`` resolve through the
         optimizer's row-batch decision (``decide_rows``, persisted per
         (model, batch signature)); the serving plane resolves it once, at
-        ``register_model``.  ``algorithm`` None is ``infer``'s."""
+        ``register_model``.  ``algorithm`` None is ``infer``'s.
+
+        On a data mesh ``B`` must divide the ``data`` axis: the batch is
+        split into row shards like a scan batch, and the predictions come
+        back gathered on the store's device."""
         if plan == "auto" or algorithm == "auto":
             dec = self.optimizer.decide_rows(
                 forest, int(getattr(x, "shape", (len(x),))[0]),
@@ -683,6 +877,12 @@ class ForestQueryEngine:
             raise ValueError(f"expected [B, F] rows, got shape "
                              f"{tuple(x.shape)}")
         B, F = x.shape
+        nd = self.fplan.n_data
+        if nd > 1 and B % nd:
+            raise ValueError(f"row batch {B} must divide the mesh data axis "
+                             f"({nd}): pick bucket sizes that are axis "
+                             f"multiples")
+        sharding = self.store.data_sharding()
         mask = None
         if row_mask is not None:
             mask = np.asarray(row_mask, bool)
@@ -709,7 +909,8 @@ class ForestQueryEngine:
                      n_parts, fmt, batch_sig, self.mesh_id, id(mat)),
                     lambda: self._rel_plan(mat, algorithm, n_parts),
                     "rel+reuse-rows", algorithm=algorithm)
-            state, _ = run_stages(qplan.stages, {"x": x})
+            state, _ = run_stages(qplan.stages, {
+                "x": x if sharding is None else sharding.split(x)})
             preds = state["pred"]
             rows_scored = B
             if mask is not None:

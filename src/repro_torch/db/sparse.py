@@ -38,7 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["CSRPages", "csr_from_dense", "paginate_csr",
+__all__ = ["CSRPages", "csr_from_dense", "paginate_csr", "pad_pages",
            "csr_pages_from_dense", "concat_pages", "densify_csr", "LANE"]
 
 #: capacity granularity (the reference's f32 lane)
@@ -188,6 +188,21 @@ def paginate_csr(indptr, indices, values, *, num_rows: int, page_rows: int,
     out_indices.view(-1)[slot] = indices[lo:hi].to(torch.int32)
     out_values.view(-1)[slot] = values[lo:hi].to(torch.float32)
     return out_indptr, out_indices, out_values
+
+
+def pad_pages(pages: CSRPages, pages_multiple: int) -> CSRPages:
+    """``pages`` with EMPTY pages appended up to a multiple of
+    ``pages_multiple`` (a mesh store's data axis); ``pages`` itself when
+    the count divides already.  The padded arrays are tensors on the
+    pages' device (a disk tier's maps are read)."""
+    pad = (-pages.num_pages) % pages_multiple
+    if pad == 0:
+        return pages
+    ip, ix, vl = pages.tensors()
+    fills = ((ip, 0), (ix, pages.n_features), (vl, 0.0))
+    return pages.replace(tuple(
+        torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
+        for a, fill in fills))
 
 
 def csr_pages_from_dense(x, *, page_rows: int, pages_multiple: int = 1,

@@ -58,6 +58,19 @@ call an array (three for CSR); an exhausted read rolls the move back and
 raises ``ScanFault("disk_page_read", rows_completed=0)``.  The scan's own
 sites are the executor's.
 
+The mesh (reference ``store.py:349-366``): a store made with ``mesh=``
+pads every ingest (``put``, ``put_sparse``, ``stream_writer`` /
+``put_stream``, and ``put_result``) to a page count that the mesh's
+``data`` axis divides (``data_axis_size``), so any batch of whole data
+units splits evenly into row shards; ``data_sharding()`` is that split.
+The device tier keeps ONE copy of a table, on the store's device (the home
+of data shard 0 unless ``device`` says otherwise), and the scan places each
+batch's row shards (``db/executor.py``): views where a shard's home is that
+device, as on a mesh of repeated positions, copies elsewhere.  The
+reference keeps a device-tier table sharded over ``data`` and replicated
+over ``model``; on one card the two layouts are the same bytes, and a
+mesh of distinct cards is not measured yet (ROADMAP).
+
 Tracing (``repro_torch.obs``, reference ``store.py:407-475, 637-640,
 952-975``): every ingest is one ``store.put`` (``put``, a
 ``stream_writer``'s ``close`` with ``streamed=True``) or
@@ -84,7 +97,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.db.faults import (FaultInjector, InjectedFault,
                                    RetryPolicy, ScanFault)
-from repro_torch.db.sparse import CSRPages, csr_from_dense, paginate_csr
+from repro_torch.db.sparse import (CSRPages, csr_from_dense, pad_pages,
+                                   paginate_csr)
+from repro_torch.db.shards import RowSharding
+from repro_torch.dist.sharding import Mesh, make_forest_plan
 from repro_torch.obs import METRICS, TRACER
 
 __all__ = ["StoredDataset", "SparseStoredDataset", "TensorBlockStore",
@@ -303,7 +319,10 @@ class TensorBlockStore:
     """Catalog of tiered datasets and pinned models.
 
     ``device``: where queries compute -- the card unless ``"cpu"`` is
-    passed (raises with no card).  ``device_budget_bytes`` /
+    passed (raises with no card).  ``mesh``: a ``dist.sharding.Mesh`` whose
+    ``data`` axis the store pads and shards page batches over (module
+    note); its device type must be the store's, and ``device`` defaults to
+    the home of data shard 0.  ``device_budget_bytes`` /
     ``host_budget_bytes``: soft caps on the device- and host-resident
     totals that steer ``tier="auto"`` ingests down the ladder.
     ``spill_dir``: where disk-tier page files go (a new temporary
@@ -313,13 +332,21 @@ class TensorBlockStore:
     """
 
     def __init__(self, device: str | torch.device | None = None, *,
+                 mesh: Mesh | None = None,
                  default_page_rows: int = 1024,
                  device_budget_bytes: int | None = None,
                  host_budget_bytes: int | None = None,
                  spill_dir: str | None = None,
                  injector: FaultInjector | None = None,
                  retry_policy: RetryPolicy | None = None):
+        self.mesh = mesh
+        self.fplan = make_forest_plan(mesh)
+        if mesh is not None and device is None:
+            device = self.fplan.position(0, 0)
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a store on {self.device} cannot take a mesh "
+                             f"of {mesh.device_type} positions")
         self.default_page_rows = default_page_rows
         self.device_budget_bytes = device_budget_bytes
         self.host_budget_bytes = host_budget_bytes
@@ -337,6 +364,20 @@ class TensorBlockStore:
         self._model_invalidators: list[weakref.ref] = []
         # persisted optimizer decisions (module note)
         self._decisions: dict[tuple, Any] = {}
+
+    # -- the mesh -----------------------------------------------------------
+    @property
+    def data_axis_size(self) -> int:
+        """The mesh's ``data``-axis size (1 off-mesh): every ingest pads its
+        page count to a multiple of it."""
+        return self.fplan.n_data
+
+    def data_sharding(self) -> RowSharding | None:
+        """Row shards of a page batch over ``data``, each on its home
+        device (None off-mesh, or on a mesh with no data axis)."""
+        if self.fplan.data_axis is None:
+            return None
+        return RowSharding(self.fplan.data_devices)
 
     # -- disk-tier spill files ----------------------------------------------
     @property
@@ -543,10 +584,13 @@ class TensorBlockStore:
                                      "with csr=")
                 pages = CSRPages(*paginate_csr(
                     *csr, num_rows=int(num_rows), page_rows=page_rows,
-                    n_features=int(num_features)),
+                    n_features=int(num_features),
+                    pages_multiple=self.data_axis_size),
                     n_features=int(num_features))
             elif num_rows is None:
                 raise ValueError("num_rows is required with pages=")
+            else:
+                pages = pad_pages(pages, self.data_axis_size)
             lab = self._labels(labels, int(num_rows))
             tier = self._resolve_tier(tier, pages.nbytes)
             if self._pages_on(pages, tier):
@@ -575,6 +619,12 @@ class TensorBlockStore:
         scan's result stays in host memory and counts in ``host_nbytes``,
         so a later ``put(tier="auto")`` may cascade differently."""
         data = result[:, None] if result.dim() == 1 else result
+        unit = self.data_axis_size * self.default_page_rows
+        if unit > self.default_page_rows and data.shape[0] % unit:
+            # a mesh store's tables divide its data axis (module note)
+            tail = data.new_full(((-data.shape[0]) % unit, data.shape[1]),
+                                 float("nan"))
+            data = torch.cat([data, tail])
         # by device type: the store's "cuda" carries no index, a result's
         # "cuda:0" does, and the two do not compare equal
         tier = "device"
@@ -846,7 +896,8 @@ class DenseStreamWriter:
         self.task = task
         self.fill = fill
         self.labels = labels
-        self.total_rows = self.num_rows + (-self.num_rows) % self.page_rows
+        unit = store.data_axis_size * self.page_rows
+        self.total_rows = self.num_rows + (-self.num_rows) % unit
         shape = (self.total_rows, int(num_features))
         itemsize = torch.empty(0, dtype=dtype).element_size()
         self.tier = store._resolve_tier(

@@ -39,9 +39,20 @@ g = h = 0.  The level scans run with the fault ladders off: an
 injector-free plan is never reordered or split.
 
 The per-level histograms are host state (``2^level x F x (num_bins + 1)``
-float64, sized by the model, not the data).  With one device the
-reference's mesh rounding and ``shard_forest`` are the identity; meshes
-are refused as elsewhere in the port (``core/reuse.py``).
+float64, sized by the model, not the data).
+
+On a mesh (reference ``train.py:134-140, 178-209, 345``) every pass runs
+over the store's ``data`` axis: batches are whole data units
+(``_mesh_round``, and the halving floor), the executor splits each into
+row shards, and the densify, binning and routing stages run shard by
+shard at each shard's home (the routed frontier gathered at the store's
+device); the hooks take the shards in row order, so the histograms add
+the same rows in the same order and the forest is the mesh-less one bit
+for bit.  The forest lands in the model catalog as one copy on the
+store's device: where the reference lays its tree blocks over ``model``
+here (``shard_forest``), the port's relation-centric plans place them in
+their partition stage and keep them with the plan, so a dropped model's
+shards go with its plans.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from repro_torch.core.train import (TrainConfig, bin_features,
 from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
                                      StreamingScanExecutor)
 from repro_torch.db.operators import Operator, split_into_stages
+from repro_torch.db.shards import map_shards, place, row_offsets, to_host
 from repro_torch.kernels.gather import csr_block_to_dense, gather_inverse_map
 from repro_torch.obs import METRICS, TRACER
 
@@ -102,13 +114,22 @@ class TrainResult:
 def _auto_batch_pages(engine, ds) -> int:
     """``ForestQueryEngine._infer``'s default batch: the whole table on the
     device tier, else half the device budget (or the fixed default) a
-    batch, in whole pages and at least one."""
+    batch, in data-axis units rounded down, and at least one unit."""
     if ds.tier == "device":
         return ds.num_pages
     budget = engine.store.device_budget_bytes
     target = budget // 2 if budget else DEFAULT_STREAM_BATCH_BYTES
+    unit = engine.fplan.n_data
     fit = target // max(ds.page_nbytes, 1)
-    return min(ds.num_pages, max(1, fit))
+    return min(ds.num_pages, max(unit, fit // unit * unit))
+
+
+def _mesh_round(engine, ds, batch_pages: int) -> int:
+    """Page batches in whole data-axis units (``_infer``'s rule)."""
+    nd = engine.fplan.n_data
+    if nd > 1:
+        batch_pages = min(-(-batch_pages // nd) * nd, ds.num_pages)
+    return batch_pages
 
 
 def _source_ops(ds) -> list[Operator]:
@@ -122,7 +143,8 @@ def _source_ops(ds) -> list[Operator]:
 
     def densify(state):
         state = dict(state)
-        state["x"] = csr_block_to_dense(state["x"], inv_full, F)
+        state["x"] = map_shards(state["x"], lambda block: csr_block_to_dense(
+            block, place(inv_full, block.tensors()[0].device), F))
         return state
 
     return [Operator("train:densify-csr", densify)]
@@ -167,14 +189,16 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
 
     def executor(ops, result_key=None):
         return StreamingScanExecutor(split_into_stages(ops),
+                                     sharding=store.data_sharding(),
                                      prefetch_depth=prefetch_depth,
-                                     result_key=result_key)
+                                     result_key=result_key,
+                                     min_batch_pages=engine.fplan.n_data)
 
     with TRACER.span("train.forest", dataset=dataset, model=name,
                      model_type=cfg.model_type, num_trees=cfg.num_trees,
                      tier=tier, storage_format=fmt) as root:
-        src_bp = (batch_pages if batch_pages is not None
-                  else _auto_batch_pages(engine, ds))
+        src_bp = _mesh_round(engine, ds, batch_pages if batch_pages
+                             is not None else _auto_batch_pages(engine, ds))
 
         # -- pass 1: quantile sketch -> bin edges --------------------------
         sketch_used = 0
@@ -184,12 +208,13 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
             sample_parts: list[np.ndarray] = []
 
             def sketch_batch(first: int, n: int, state) -> None:
-                lo = first * R
-                idx = np.arange(lo, min(lo + n * R, N))
-                sel = idx[(idx % stride) == 0] - lo
-                if sel.size:
-                    rows = torch.as_tensor(sel, device=state["x"].device)
-                    sample_parts.append(state["x"][rows].cpu().numpy())
+                for off, xs in row_offsets(state["x"]):
+                    lo = first * R + off
+                    idx = np.arange(lo, min(lo + xs.shape[0], N))
+                    sel = idx[(idx % stride) == 0] - lo
+                    if sel.size:
+                        rows = torch.as_tensor(sel, device=xs.device)
+                        sample_parts.append(xs[rows].cpu().numpy())
 
             with TRACER.span("train.sketch", dataset=dataset,
                              stride=stride):
@@ -213,14 +238,16 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
 
         def bin_op(state):
             state = dict(state)
-            state["bins"] = bin_features(state["x"], edges_t).to(torch.uint8)
+            state["bins"] = map_shards(state["x"], lambda xs: bin_features(
+                xs, place(edges_t, xs.device)).to(torch.uint8))
             return state
 
         def ingest_batch(first: int, n: int, state) -> None:
             lo = first * R
             real = min(lo + n * R, N) - lo
-            if real > 0:
-                writer.write(state["bins"][:real])
+            for off, bins in row_offsets(state["bins"]):
+                if off < real:
+                    writer.write(bins[:real - off])
 
         try:
             with TRACER.span("train.bin_ingest", dataset=dataset,
@@ -236,8 +263,9 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
         bins_ds = writer.close()
         pass_s["bin_ingest"] = time.perf_counter() - t_pass
         total = bins_ds.num_pages * bins_ds.page_rows
-        bins_bp = (batch_pages if batch_pages is not None
-                   else _auto_batch_pages(engine, bins_ds))
+        bins_bp = _mesh_round(engine, bins_ds,
+                              batch_pages if batch_pages is not None
+                              else _auto_batch_pages(engine, bins_ds))
 
         # -- pass 3..: per-level scans over the bins relation ---------------
         def run_scan(node_of, *, route=None, hist=None):
@@ -251,10 +279,18 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
 
                 def route_op(state):
                     state = dict(state)
-                    state["node_of"] = route_level(
-                        state["x"], state["node_of"], feat_t, sbin_t,
-                        dleft_t, term_t, level=level_r,
-                        num_bins=cfg.num_bins)
+                    x, node = state["x"], state["node_of"]
+                    routed = []
+                    for off, xs in row_offsets(x):
+                        d = xs.device
+                        routed.append(route_level(
+                            xs, place(node[off: off + xs.shape[0]], d),
+                            place(feat_t, d), place(sbin_t, d),
+                            place(dleft_t, d), place(term_t, d),
+                            level=level_r, num_bins=cfg.num_bins))
+                    # gathered at the store's device, in row order
+                    state["node_of"] = torch.cat(
+                        [place(r, node.device) for r in routed])
                     return state
 
                 ops.append(Operator("train:route-level", route_op))
@@ -275,9 +311,9 @@ def train_streaming(engine, dataset: str, cfg: TrainConfig, *,
 
             def on_batch(first: int, n: int, state) -> None:
                 lo = first * R
-                nb = (state["node_of"].cpu().numpy() if route is not None
+                nb = (to_host(state["node_of"]) if route is not None
                       else node_of[lo: lo + n * R])
-                bins_np = state["x"].cpu().numpy()
+                bins_np = to_host(state["x"])
                 t_h = time.perf_counter()
                 hist_update(hg, hh, bins_np, nb,
                             g[lo: lo + n * R], h[lo: lo + n * R])

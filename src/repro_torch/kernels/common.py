@@ -389,7 +389,9 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
                          staged: bool) -> torch.Tensor:
     """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]; over
     narrow bf16 records ``forest_<kind>_fused_bf16``) or
-    ``forest_<kind>_raw`` (-> [B, T]) on PyTorch's current stream, in the
+    ``forest_<kind>_raw`` (-> [B, T]) on the current stream of x's card,
+    with that card made current for the launch (a mesh position's kernel
+    runs on its own card whichever card the caller has current), in the
     x mode ``staged`` (``x_staged``'s choice, or the caller's).  Every C
     entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
     depth, block_b, block_t, x_staged, stream) and returns the launch's
@@ -404,11 +406,12 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
         name += "_bf16"
     B, F = x.shape
     T = trees[0].shape[0]
-    out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,
-                      device=x.device)
-    ptrs = [t.data_ptr() for t in (x, *trees, *structure, out)]
-    err = getattr(lib, name)(*ptrs, B, F, T, depth, block_b, block_t,
-                             int(staged),
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(lib, err, name)
+    with torch.cuda.device(x.device):
+        out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,
+                          device=x.device)
+        ptrs = [t.data_ptr() for t in (x, *trees, *structure, out)]
+        err = getattr(lib, name)(
+            *ptrs, B, F, T, depth, block_b, block_t, int(staged),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(lib, err, name)
     return out

@@ -157,9 +157,11 @@ class ForestServeEngine:
             ForestQueryEngine(self.store,
                               reuse_cache=ModelReuseCache(max_plans),
                               plan_cache=ModelReuseCache(max_plans))
-        # the reference rounds each rung up to the mesh data axis; the
-        # port has one device, so the axis is 1
-        self.buckets = tuple(sorted({int(b) for b in buckets if b > 0}))
+        # each rung rounds up to the mesh data axis: infer_rows splits a
+        # row batch into data shards
+        nd = self.qe.fplan.n_data
+        self.buckets = tuple(sorted({-(-int(b) // nd) * nd
+                                     for b in buckets if b > 0}))
         if not self.buckets:
             raise ValueError("bucket ladder must not be empty")
         self.interactive_deadline_s = interactive_deadline_s

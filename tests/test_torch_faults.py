@@ -678,3 +678,78 @@ def test_scanfault_message_is_the_reference():
         str(jfaults.ScanFault("page_dma_in", **kw))
     assert not faults.DegradedReport(rows_scored=4, rows_missing=0,
                                      cause="deadline")
+
+
+# -- the mesh half of the matrix ------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def mesh_env(env):
+    """The port's stores of ``env`` again, on a (2, 4) mesh of eight CPU
+    positions."""
+    from repro_torch.launch.mesh import make_local_mesh
+    *_, tf = env
+    src = env[1].store
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE,
+                             mesh=make_local_mesh(2, 4, devices=["cpu"] * 8))
+    for tier in TIERS:
+        for fmt in ("dense", "csr"):
+            name = f"{fmt}@{tier}"
+            ds = src.get(name)
+            rows = ds.data[:ds.num_rows] if fmt == "dense" else None
+            if fmt == "dense":
+                store.put(name, rows, tier=tier)
+            else:
+                store.put_sparse(name, pages=ds.pages, num_rows=ds.num_rows,
+                                 tier=tier)
+    return ForestQueryEngine(store), tf
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("site", FAULT_SITES)
+def test_mesh_transient_fault_recovers_bit_for_bit(mesh_env, site, fmt):
+    """A transient fault at each site (its 2nd call) under the mesh rel
+    plan on the disk tier: recovered, bit for bit the clean mesh run."""
+    engine, tf = mesh_env
+    algo = FUSED if fmt == "dense" else SPARSE_ALGO
+    kw = dict(algorithm=algo, plan="rel", batch_pages=4)
+    clean = engine.infer(f"{fmt}@disk", tf, **kw)
+    inj = FaultInjector().inject(site, fail_at=2)
+    res = engine.infer(f"{fmt}@disk", tf, injector=inj, retry_policy=FAST,
+                       **kw)
+    assert res.scan.faults_injected == 1
+    if site == "drain_worker":
+        assert res.scan.degraded_to_sync and res.scan.retries == 0
+    else:
+        assert res.scan.retries == 1
+    assert torch.equal(res.predictions, clean.predictions), site
+
+
+def test_mesh_halving_ladder_floor_is_the_data_unit(mesh_env):
+    """Halved spans stay whole data units (2 pages): 4 -> 2 + 2, and an
+    exhausted 2-page span raises instead of halving to one page."""
+    engine, tf = mesh_env
+    kw = dict(algorithm=FUSED, plan="udf", batch_pages=4)
+    clean = engine.infer("dense@host", tf, **kw)
+    inj = FaultInjector().inject("page_dma_in", fail_at=1,
+                                 times=FAST.max_attempts)
+    res = engine.infer("dense@host", tf, injector=inj, retry_policy=FAST,
+                       **kw)
+    assert res.scan.batch_resubmits == 1
+    assert res.scan.batches == clean.scan.batches + 1
+    assert torch.equal(res.predictions, clean.predictions)
+    inj = FaultInjector().inject("page_dma_in", fail_at=1,
+                                 times=3 * FAST.max_attempts)
+    with pytest.raises(ScanFault) as info:
+        engine.infer("dense@host", tf, injector=inj, retry_policy=FAST,
+                     **kw)
+    assert info.value.site == "page_dma_in"
+    assert inj.calls["page_dma_in"] == 2 * FAST.max_attempts
+
+
+def test_mesh_deadline_partial_rows_are_whole_units(mesh_env):
+    engine, tf = mesh_env
+    res = engine.infer("dense@host", tf, algorithm=FUSED, plan="udf",
+                       batch_pages=2, deadline_s=0.0)
+    assert res.degraded is not None and res.degraded.rows_scored == 0
+    assert bool(torch.isnan(res.predictions).all())

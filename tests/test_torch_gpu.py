@@ -1240,3 +1240,114 @@ def test_router_trains_and_routes_on_the_card():
     tiers = router.route(x)
     np.testing.assert_array_equal(tiers, cpu.route(x))
     assert (tiers == y.astype(int)).mean() > 0.8
+
+
+# -- the mesh on the card -------------------------------------------------------
+
+MESH_ALGORITHMS = ("predicated_pallas_fused", "hummingbird_pallas_fused",
+                   "quickscorer_pallas_fused", "predicated_pallas",
+                   "hummingbird_pallas", "quickscorer_pallas")
+
+
+def _mesh_case(device, mesh=None):
+    fe, th, dl, lv = random_forest_arrays(None, T=24, depth=6, F=16,
+                                          seed=31)
+    forest = make_forest(fe, th, lv, default_left=dl, n_features=16,
+                         device=device)
+    x = np.random.default_rng(32).normal(size=(4000, 16)).astype(np.float32)
+    store = TensorBlockStore(device=device, mesh=mesh, default_page_rows=256)
+    store.put("d", x)
+    store.put_sparse("c", x)
+    return forest, ForestQueryEngine(store)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algorithm", MESH_ALGORITHMS)
+@pytest.mark.parametrize("plan", ["udf", "rel"])
+def test_repeated_card_mesh_equals_meshless(plan, algorithm):
+    """Eight positions on cuda:0: every kernel, udf and rel, dense and
+    CSR, bit for bit the mesh-less run at n_parts = n_model, with one
+    launch a data shard (udf) or a position (rel) a batch."""
+    _need_card()
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 4, devices=["cuda:0"] * 8)
+    forest, em = _mesh_case("cuda", mesh)
+    _, es = _mesh_case("cuda")
+    wrappers = {**{f"{k}_pallas_fused": w for k, w in KERNEL_WRAPPERS.items()},
+                **{f"{k}_pallas": w for k, w in RAW_KERNEL_WRAPPERS.items()}}
+    for fmt in ("d", "c"):
+        w = wrappers[algorithm]
+        w.launches = 0
+        got = em.infer(fmt, forest, algorithm=algorithm, plan=plan,
+                       batch_pages=4)
+        torch.cuda.synchronize()
+        per = 2 if plan == "udf" else 8
+        assert w.launches == per * got.scan.batches
+        want = es.infer(fmt, forest, algorithm=algorithm, plan=plan,
+                        batch_pages=4, n_parts=None if plan == "udf" else 4)
+        assert torch.equal(got.predictions, want.predictions), fmt
+
+
+@pytest.mark.gpu
+def test_replicated_pages_are_held_once_on_the_card():
+    """A (2, 4) mesh of one card holds a device-tier table once: the put
+    allocates one padded copy, and a query allocates no replica of it."""
+    _need_card()
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 4, devices=["cuda:0"] * 8)
+    store = TensorBlockStore(mesh=mesh)
+    x = torch.randn((1 << 20, 28), device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ds = store.put("d", x)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    assert ds.nbytes <= grown < ds.nbytes + (4 << 20)
+    fe, th, dl, lv = random_forest_arrays(None, T=16, depth=6, F=28,
+                                          seed=33)
+    forest = make_forest(fe, th, lv, default_left=dl, n_features=28,
+                         device="cuda")
+    engine = ForestQueryEngine(store)
+    engine.infer("d", forest, algorithm="predicated_pallas_fused",
+                 plan="rel")
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.infer("d", forest, algorithm="predicated_pallas_fused",
+                 plan="rel")
+    torch.cuda.synchronize()
+    # a query's working set is its [B] outputs, never a copy of the pages
+    assert torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated() \
+        < ds.nbytes // 2, peak_before
+
+
+@pytest.mark.gpu
+def test_distinct_card_mesh_equals_meshless():
+    """A mesh over distinct cards: each shard computes on its own card."""
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 1) if n < 4 else make_local_mesh(2, 2)
+    forest, em = _mesh_case("cuda:0", mesh)
+    _, es = _mesh_case("cuda:0")
+    for plan in ("udf", "rel"):
+        got = em.infer("d", forest, algorithm="predicated_pallas_fused",
+                       plan=plan)
+        want = es.infer("d", forest, algorithm="predicated_pallas_fused",
+                        plan=plan, n_parts=mesh.shape["model"]
+                        if plan == "rel" else None)
+        assert torch.equal(got.predictions.cpu(), want.predictions.cpu())
+
+
+@pytest.mark.gpu
+def test_make_local_mesh_refuses_more_cards_than_there_are():
+    _need_card()
+    from repro_torch.launch.mesh import make_local_mesh
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match="distinct cards"):
+        make_local_mesh(n + 1, 1)
+    with pytest.raises(ValueError, match="cannot take a mesh"):
+        TensorBlockStore(device="cpu",
+                         mesh=make_local_mesh(1, 1, devices=["cuda:0"]))

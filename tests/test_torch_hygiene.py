@@ -44,13 +44,34 @@ def test_obs_modules_are_stdlib_only(path):
     assert roots <= set(sys.stdlib_module_names) | {"__future__"}, roots
 
 
+DIST_FILES = sorted((ROOT / "src" / "repro_torch" / "dist").glob("*.py")) + [
+    ROOT / "src" / "repro_torch" / "launch" / "mesh.py"]
+
+
+@pytest.mark.parametrize("path", DIST_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in DIST_FILES])
+def test_mesh_modules_import_nothing_of_db(path):
+    """The mesh's axis mapping sits below the database: ``db`` imports
+    ``dist``, never the other way."""
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+        elif isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+    bad = {m for m in mods
+           if m.startswith(("repro_torch.db", "repro_torch.serve"))}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
 def test_query_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch.db.query, repro_torch.kernels.ops, "
             "repro_torch.db.loader, repro_torch.obs, "
             "repro_torch.db.optimizer, repro_torch.launch.roofline, "
             "repro_torch.core.prng, repro_torch.db.train, "
-            "repro_torch.serve.router; "
+            "repro_torch.serve.router, repro_torch.dist.sharding, "
+            "repro_torch.launch.mesh; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

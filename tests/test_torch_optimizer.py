@@ -665,3 +665,58 @@ def test_decision_overrides_round_trip():
                                  batch_pages=None)
     assert dataclasses.asdict(d) == dataclasses.asdict(jopt.Decision(
         **dataclasses.asdict(d)))
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+def _mesh_store(x, shape=(2, 4)) -> TensorBlockStore:
+    from repro_torch.launch.mesh import make_local_mesh
+    store = TensorBlockStore(device="cpu", default_page_rows=64,
+                             mesh=make_local_mesh(*shape,
+                                                  devices=["cpu"] * 8))
+    store.put("ds", x)
+    return store
+
+
+@pytest.mark.parametrize("plan", ["udf", "rel", "rel+reuse"])
+def test_mesh_score_cell_adds_the_reference_collective_term(plan):
+    """On a model mesh rel cells pay ``4 * rows`` collective bytes, as the
+    reference's do (its engine given a model-axis plan)."""
+    from repro.dist.sharding import ForestShardingPlan as JPlan
+    jeng, _ = _engines(tiers=("device",))
+    jeng.fplan = JPlan(mesh=None, data_axis="data", model_axis="model",
+                       n_data=2, n_model=4)
+    eng = ForestQueryEngine(_mesh_store(_rows()))
+    flat = ForestQueryEngine(_store(_rows()))
+    kw = dict(trees=500, depth=8, f_used=28, data_nbytes=112 << 20,
+              num_pages=977, page_rows=1024, peaks=PEAKS, rows=1_000_448)
+    for algorithm in ALL_NAMES:
+        cell = dict(algorithm=algorithm, plan=plan, tier="device",
+                    n_parts=4, batch_pages=None)
+        got = eng.optimizer.score_cell(_Cell(**cell), **kw)
+        assert got == jeng.optimizer.score_cell(jopt._Cell(**cell), **kw)
+        meshless = flat.optimizer.score_cell(_Cell(**cell), **kw)
+        assert got >= meshless
+        assert got == meshless or plan.startswith("rel")
+
+
+def test_mesh_auto_fixes_n_parts_and_keys_by_mesh(setup):
+    from repro_torch.core.reuse import mesh_signature
+    forest, x = setup
+    store = _mesh_store(x)
+    engine = ForestQueryEngine(store)
+    _tight(engine)
+    res = engine.infer("ds", forest, plan="rel+reuse", algorithm="auto")
+    assert res.n_parts == 4 and res.decision.n_parts == 4
+    static = engine.infer("ds", forest, plan="rel+reuse",
+                          algorithm=res.algorithm)
+    assert torch.equal(res.predictions, static.predictions)
+    flat = ForestQueryEngine(_store(x)).infer(
+        "ds", forest, plan="rel+reuse", algorithm=res.algorithm, n_parts=4)
+    assert torch.equal(res.predictions, flat.predictions)
+    (key,) = store.decision_catalog()
+    assert key[3] == mesh_signature(store.mesh) != 1
+    rows = engine.infer_rows(forest, x[:64], plan="auto", algorithm="auto")
+    assert rows.plan != "rel+reuse" or \
+        engine.optimizer.decide_rows(forest, 64).n_parts == 4

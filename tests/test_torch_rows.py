@@ -193,3 +193,30 @@ def test_rel_mean_divides_by_the_true_tree_count():
     # 12 trees of I = 15 nodes and L = 16 leaves: feature, threshold,
     # node_value (4 B), default_left, node_is_leaf (1 B), leaf_value (4 B)
     assert partition.materialized_bytes == 12 * (15 * (3 * 4 + 2) + 16 * 4)
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("plan", ["udf", "rel+reuse"])
+@pytest.mark.parametrize("algorithm", ["predicated_pallas_fused",
+                                       "quickscorer_pallas",
+                                       "predicated"])
+def test_infer_rows_on_a_mesh_equals_meshless(plan, algorithm):
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.db.query import ForestQueryEngine
+    from repro_torch.launch.mesh import make_local_mesh
+    tf = port_forest(_forest(integer_leaves=False))
+    x, mask = _batch(32)
+    store = TensorBlockStore(device="cpu",
+                             mesh=make_local_mesh(4, 2, devices=["cpu"] * 8))
+    engine = ForestQueryEngine(store)
+    _, flat = _port_engine(_rows())
+    kw = dict(row_mask=mask, algorithm=algorithm, plan=plan)
+    got = [engine.infer_rows(tf, x, **kw) for _ in range(2)]
+    want = flat.infer_rows(tf, x, n_parts=None if plan == "udf" else 2, **kw)
+    assert not got[0].plan_reuse_hit and got[1].plan_reuse_hit
+    assert np.array_equal(got[1].predictions.numpy(),
+                          want.predictions.numpy(), equal_nan=True)
+    with pytest.raises(ValueError, match="data axis"):
+        engine.infer_rows(tf, x[:30], algorithm=algorithm, plan=plan)

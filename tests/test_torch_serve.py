@@ -668,3 +668,32 @@ def test_default_priority_is_named_batch_tier():
         priority = next(fl for fl in dataclasses.fields(cls)
                         if fl.name == "priority")
         assert priority.default == TIER_BATCH
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+def test_mesh_buckets_round_to_the_data_axis_and_serve_alike():
+    """Each rung rounds up to the data axis (the reference's rule), and a
+    mesh tenant serves the mesh-less tenant's predictions."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(4, 2, devices=["cpu"] * 8)
+    eng = ForestServeEngine(TensorBlockStore(device="cpu", mesh=mesh),
+                            buckets=(1, 6, 8, 30),
+                            interactive_deadline_s=0.001)
+    assert eng.buckets == (4, 8, 32)
+    flat = _port(buckets=(4, 8, 32), interactive_deadline_s=0.001)
+    jf = _forest("xgboost", 5, trees=9, depth=4)
+    for e in (eng, flat):
+        e.register_model("k", port_forest(jf),
+                         algorithm="predicated_pallas_fused",
+                         plan="rel+reuse")
+    x = _rows(6, 13)
+
+    def serve(e):
+        reqs = [e.submit("k", x[i:i + 1], priority=TIER_BATCH)
+                for i in range(len(x))]
+        e.drain()
+        return np.concatenate([r.wait(5.0) for r in reqs])
+
+    assert np.array_equal(serve(eng), serve(flat))

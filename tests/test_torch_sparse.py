@@ -543,3 +543,49 @@ def test_csr_pages_slice_in_their_own_tier():
         for a, b in zip(out.tensors(), store.get("s-device")
                         .page_slice(1, 2).tensors()):
             assert torch.equal(a, b)
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("tier", TIERS)
+def test_mesh_csr_equals_dense_and_meshless(tier, plan):
+    """CSR pages through the mesh plans: the gather runs in each row shard,
+    and the predictions equal the mesh's dense plane and the mesh-less
+    CSR plane bit for bit."""
+    from repro_torch.launch.mesh import make_local_mesh
+    x = _nan_heavy(seed=4)
+    tf = port_forest(_forest())
+    mesh = make_local_mesh(2, 4, devices=["cpu"] * 8)
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE, mesh=mesh)
+    store.put(f"d-{tier}", x, tier=tier)
+    store.put_sparse(f"s-{tier}", x, tier=tier)
+    assert store.get(f"s-{tier}").num_pages % 2 == 0
+    engine = ForestQueryEngine(store)
+    kw = dict(algorithm="hummingbird_pallas_fused", plan=plan)
+    csr = engine.infer(f"s-{tier}", tf, batch_pages=2, **kw)
+    dense = engine.infer(f"d-{tier}", tf, **kw)
+    flat = ForestQueryEngine(_stores(x)).infer(
+        f"s-{tier}", tf, n_parts=None if plan == "udf" else 4, **kw)
+    assert csr.storage_format == "csr" and csr.mesh_devices == 8
+    assert torch.equal(csr.predictions, dense.predictions)
+    assert torch.equal(csr.predictions, flat.predictions)
+
+
+def test_mesh_pages_handed_over_pad_to_the_data_axis():
+    from repro_torch.launch.mesh import make_local_mesh
+    x = _nan_heavy(seed=5)
+    pages = csr_pages_from_dense(x, page_rows=PAGE)
+    assert pages.num_pages == 5
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE,
+                             mesh=make_local_mesh(4, 2, devices=["cpu"] * 8))
+    ds = store.put_sparse("p", pages=pages, num_rows=N)
+    assert ds.num_pages == 8
+    ip, ix, vl = ds.pages.tensors()
+    assert not ip[5:].any() and (ix[5:] == F).all() and not vl[5:].any()
+    want = ForestQueryEngine(_stores(x)).infer(
+        "s-device", port_forest(_forest()), algorithm="predicated")
+    got = ForestQueryEngine(store).infer("p", port_forest(_forest()),
+                                         algorithm="predicated")
+    assert torch.equal(got.predictions, want.predictions)

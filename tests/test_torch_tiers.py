@@ -532,3 +532,62 @@ def test_write_as_from_an_off_device_result():
         assert out.num_rows == N and out.tier == "device"   # the CPU store
         assert torch.equal(out.data[:, 0], res.predictions)
         assert res.write_s > 0
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+def _mesh_store(x, **kw):
+    from repro_torch.launch.mesh import make_local_mesh
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE,
+                             mesh=make_local_mesh(2, 4, devices=["cpu"] * 8),
+                             **kw)
+    for tier in TIERS:
+        store.put(tier, x, tier=tier)
+    return store
+
+
+@pytest.mark.parametrize("plan", ["udf", "rel", "rel+reuse"])
+@pytest.mark.parametrize("tier", ["host", "disk"])
+def test_mesh_off_device_tiers_bit_identical_to_device(tier, plan):
+    """Host- and disk-tier pages in data-unit batches through the mesh
+    plans: bit for bit the mesh's device tier and the mesh-less one."""
+    x = _rows(6)
+    tf = port_forest(_forest(integer_leaves=False))
+    engine = ForestQueryEngine(_mesh_store(x))
+    kw = dict(algorithm=FUSED, plan=plan)
+    got = engine.infer(tier, tf, batch_pages=1, **kw)
+    dev = engine.infer("device", tf, **kw)
+    flat = ForestQueryEngine(_store(x)).infer(
+        "device", tf, n_parts=None if plan == "udf" else 4, **kw)
+    assert got.tier == tier and got.mesh_devices == 8
+    assert got.scan.batch_pages == 2 and got.scan.batches == 3
+    assert torch.equal(got.predictions, dev.predictions)
+    assert torch.equal(got.predictions, flat.predictions)
+
+
+def test_mesh_default_batch_stays_in_the_budget():
+    """The budget batch is sized in data units rounding down, so two
+    buffers stay within the budget."""
+    x = _rows(5)
+    tf = port_forest(_forest(integer_leaves=False))
+    page = PAGE * 9 * 4
+    budget = 5 * page
+    store = _mesh_store(x, device_budget_bytes=budget)
+    ds = store.put("t", x)
+    assert ds.tier == "host" and ds.num_pages == 6
+    res = ForestQueryEngine(store).infer("t", tf, algorithm=FUSED)
+    assert res.scan.batch_pages == 2 and res.scan.batches == 3
+    assert 2 * res.scan.batch_pages * ds.page_nbytes <= budget
+
+
+def test_mesh_move_keeps_the_padded_layout():
+    x = _rows(7)
+    tf = port_forest(_forest(integer_leaves=False))
+    store = _mesh_store(x)
+    engine = ForestQueryEngine(store)
+    before = engine.infer("disk", tf, algorithm=FUSED, plan="rel")
+    moved = store.move("disk", "device")
+    assert moved.num_pages % 2 == 0
+    after = engine.infer("disk", tf, algorithm=FUSED, plan="rel")
+    assert torch.equal(before.predictions, after.predictions)

@@ -391,3 +391,41 @@ def test_put_model_same_forest_does_not_sweep():
     n_before = len(store.decision_catalog())
     store.put_model("d:model", r.forest, fingerprint=r.fingerprint)
     assert len(store.decision_catalog()) == n_before
+
+
+# -- the mesh half --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("tier", TIERS)
+def test_streamed_mesh_matches_meshless(tier, fmt):
+    """Every pass over a (2, 4) mesh's row shards gives the mesh-less
+    forest bit for bit, and the forest lands in the catalog as one copy
+    on the store's device (the rel plans place its tree shards)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    x, y = _data(seed=7)
+    cfg = TrainConfig(num_trees=4, max_depth=3, num_bins=16)
+    edges = quantile_bin_edges(x, cfg.num_bins)
+    flat, _, _ = _store(tier, fmt=fmt, data=(x, y))
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE,
+                             mesh=make_local_mesh(2, 4, devices=["cpu"] * 8),
+                             **_budgets(tier))
+    put = store.put_sparse if fmt == "csr" else store.put
+    put("d", x, labels=y, tier="auto")
+    assert store.get("d").tier == tier
+    eng = ForestQueryEngine(store)
+    want = ForestQueryEngine(flat).train("d", cfg, edges=edges,
+                                         batch_pages=3).forest
+    res = eng.train("d", cfg, edges=edges, batch_pages=3)
+    assert _same(want, res.forest)
+    assert all(s.batch_pages % 2 == 0 for s in res.scan_stats)
+    assert store.get(res.bins_dataset).num_pages % 2 == 0
+    assert store.get_model(res.model_name) is res.forest
+    assert res.forest.device == store.device
+    assert [lo for lo, _, _ in eng.fplan.forest_shardings(res.forest)] == \
+        [0, 1, 2, 3]
+    # the sketch pass on the mesh keeps the mesh-less sample
+    sketched = eng.train("d", cfg, batch_pages=3)
+    flat_sketch = ForestQueryEngine(flat).train("d", cfg, batch_pages=3)
+    assert np.array_equal(sketched.edges, flat_sketch.edges)
+    assert _same(flat_sketch.forest, sketched.forest)
