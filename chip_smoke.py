@@ -228,6 +228,24 @@ Phases (any failure exits non-zero and prints no result line):
               XGBoost tree (depth 6) trained on the mesh over the 1M cut,
               bit for bit the mesh-less tree.  Prints every wall beside its
               mesh-less wall and their ratio.
+ 15. lm       the LM serving path (repro_torch.models, serve/engine.py,
+              launch/serve.py) on olmo-1b at full width (16 layers, d_model
+              2,048, 16 heads x 128, SwiGLU d_ff 8,192, non-parametric LN,
+              tied embeddings over 50,432 padded ids; random weights drawn
+              on the card from SEED).  In f32 with TF32 off: a 4 x 96
+              prefill, 4 teacher-forced decode steps each within
+              rtol = atol = 1e-3 of lm_prefill over the same prefix, and 4
+              requests through a 2-slot ServeEngine, token for token the
+              single-request greedy loop up to that loop's first near-tie
+              (top-two logits within 1e-3).  In bf16 (the engine's default
+              caches): ServeEngine(slots=8, max_ctx=1024, buckets 128 / 256
+              / 512) serving 16 requests (prompts of 32-500 tokens, 32-128
+              new tokens, from a seed) routed by the forest router on the
+              card; prints stats(), prefill ms a bucket, decode tick ms
+              p50 / p99 beside its byte bound (weights + the whole KV cache
+              once a tick), tokens/s, peak memory and a profile of decode
+              ticks (device busy share, kernels a tick).  Then the CLI
+              (launch/serve.main) at the reduced config on the card.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -338,6 +356,20 @@ MESH_HOST_BATCH_PAGES = 100
 MESH_CSR_ROWS = 65_536
 MESH_TRAIN_DEPTH = 6
 INT8_TENSOR_OPS_PER_S = 1979e12  # dense int8 tensor-core rate
+#: phase 15, the LM serving path: olmo-1b at full width with random
+#: weights from SEED; the f32 checks (a prefill, teacher-forced decode steps
+#: within LM_TOL, an engine of 2 slots against the single-request loop up
+#: to the loop's first near-tie); the bf16 serving run (the engine's
+#: default cache dtype) at its slots, context and prompt buckets
+LM_ARCH = "olmo-1b"
+LM_CHECK_BATCH, LM_CHECK_LEN, LM_CHECK_STEPS = 4, 96, 4
+LM_TOL = 1e-3
+LM_TIE_GAP = 1e-3
+LM_CHECK_REQUESTS, LM_CHECK_NEW = 4, 12
+LM_SLOTS, LM_MAX_CTX, LM_BUCKETS = 8, 1024, (128, 256, 512)
+LM_REQUESTS = 16
+LM_PROMPT_LEN, LM_NEW_TOKENS = (32, 500), (32, 128)
+LM_PROFILE_TICKS = 5
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -2902,6 +2934,232 @@ def mesh_phase(*, forest, big, store, engine, udf_device, udf_device_s: float,
     log(f"[mesh] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def lm_greedy(cfg, params, prompt, bucket: int, max_new: int, ctx: int,
+              gap: float) -> list[int]:
+    """The single-request greedy loop, left-padded into ``bucket`` as the
+    engine pads; it stops before a step whose top-two logits lie within
+    ``gap`` (a near-tie another batch width may flip)."""
+    from repro_torch.models import lm as LM
+
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+    toks[0, bucket - len(prompt):] = torch.as_tensor(prompt)
+    logits, caches = LM.lm_prefill(cfg, params, toks, ctx=ctx)
+    out: list[int] = []
+    while len(out) < max_new:
+        top2 = torch.topk(logits[0], 2).values
+        if float(top2[0] - top2[1]) < gap:
+            break
+        out.append(int(torch.argmax(logits[0])))
+        logits, caches = LM.lm_decode(
+            cfg, params, caches, torch.tensor([[out[-1]]], device="cuda"))
+    return out
+
+
+def tree_leaves(tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_leaves(v)]
+    return [tree]
+
+
+def lm_phase(*, smi: str) -> None:
+    """Phase 15: the LM serving path on olmo-1b at full width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import get_bundle
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.router import ForestRouter, request_features
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    bundle = get_bundle(cfg)
+    log(f"[lm] {cfg.name} at full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
+        f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff} {cfg.mlp_type}, "
+        f"{cfg.norm_type}, vocab {cfg.vocab_size} -> {cfg.vocab_padded}, "
+        f"tied {cfg.tie_embeddings}; on {smi}")
+
+    def on_card(tree, what: str) -> None:
+        off = [t.device for t in tree_leaves(tree) if not t.is_cuda]
+        if off:
+            raise AssertionError(f"{what}: tensors off the card {off[:3]}")
+
+    # -- f32, TF32 off: teacher forcing and the engine against the loop --
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 checks")
+    t0 = time.perf_counter()
+    params = bundle.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 150),
+        dtype=torch.float32)
+    torch.cuda.synchronize()
+    on_card(params, "f32 params")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    log(f"[lm] f32 params: {n_params:,} ({4 * n_params / 1e9:.3f} GB) drawn "
+        f"on the card in {time.perf_counter() - t0:.3f} s")
+
+    B, S, N = LM_CHECK_BATCH, LM_CHECK_LEN, LM_CHECK_STEPS
+    toks = torch.randint(
+        0, cfg.vocab_size, (B, S + N), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 151))
+    t0 = time.perf_counter()
+    logits, caches = LM.lm_prefill(cfg, params, toks[:, :S], ctx=S + N)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if logits.shape != (B, cfg.vocab_padded) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    on_card(caches, "prefill caches")
+    worst = 0.0
+    for i in range(N):
+        want, _ = LM.lm_prefill(cfg, params, toks[:, :S + i + 1])
+        got, caches = LM.lm_decode(cfg, params, caches,
+                                   toks[:, S + i:S + i + 1])
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
+            raise AssertionError(f"decode step {i}: max |err| {err:.3e} past "
+                                 f"rtol = atol = {LM_TOL}")
+    log(f"[lm] f32 prefill {B} x {S} in {prefill_s:.3f} s (first call); "
+        f"{N} teacher-forced decode steps each within rtol = atol = "
+        f"{LM_TOL} of lm_prefill over the same prefix, max |err| "
+        f"{worst:.3e}")
+    del caches, logits
+
+    rng = np.random.default_rng(SEED + 152)
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(20, 64)))
+               for _ in range(LM_CHECK_REQUESTS)]
+    engine = ServeEngine(cfg, params, slots=2, max_ctx=128,
+                         prompt_buckets=(64,), dtype=torch.float32)
+    uids = [engine.submit(q, max_new_tokens=LM_CHECK_NEW) for q in prompts]
+    got = {r.uid: r.tokens for r in engine.run_until_drained()}
+    compared = []
+    for uid, q in zip(uids, prompts):
+        want = lm_greedy(cfg, params, q, 64, LM_CHECK_NEW, 128, LM_TIE_GAP)
+        if got[uid][:len(want)] != want:
+            raise AssertionError(f"request {uid}: engine {got[uid]} against "
+                                 f"the single-request loop {want}")
+        compared.append(len(want))
+    log(f"[lm] f32 engine, {LM_CHECK_REQUESTS} requests through 2 slots: "
+        f"token for token the single-request loop over {sum(compared)} of "
+        f"{LM_CHECK_REQUESTS * LM_CHECK_NEW} steps (per request "
+        f"{compared}; the rest follow a near-tie within {LM_TIE_GAP})")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- bf16 serving ------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 153))
+    router = ForestRouter(seed=SEED, device="cuda")
+    engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_ctx=LM_MAX_CTX,
+                         prompt_buckets=LM_BUCKETS)
+    on_card(params, "bf16 params")
+    on_card(engine.caches, "engine caches")
+    param_bytes = sum(t.nbytes for t in tree_leaves(params))
+    cache_bytes = sum(t.nbytes for name, c in engine.caches.items()
+                      if name != "index" for t in c.values())
+    bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    prefill_ms = {}
+    for b in LM_BUCKETS:
+        x = torch.randint(0, cfg.vocab_size, (1, b), device="cuda")
+        walls = []
+        for _ in range(4):                      # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine._prefill_fn(params, x)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        prefill_ms[b] = 1e3 * float(np.median(walls[1:]))
+    log(f"[lm] bf16 params {param_bytes / 1e9:.3f} GB, KV cache "
+        f"{cache_bytes / 1e9:.3f} GB ({LM_SLOTS} slots x {LM_MAX_CTX} "
+        f"positions); prefill ms a bucket (median of 3, warmed) "
+        + ", ".join(f"{b}: {ms:.3f}" for b, ms in prefill_ms.items()))
+
+    rng = np.random.default_rng(SEED + 154)
+    tiers, budgets, recent = [0, 0], [], []
+    for _ in range(LM_REQUESTS):
+        plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
+        mnt = int(rng.integers(LM_NEW_TOKENS[0], LM_NEW_TOKENS[1] + 1))
+        recent.append(plen)
+        tier = router.route(request_features(
+            plen, mnt, None, len(engine._active),
+            float(np.mean(recent[-8:]))))
+        tiers[tier] += 1
+        budgets.append(mnt)
+        engine.submit(rng.integers(0, cfg.vocab_size, plen),
+                      max_new_tokens=mnt, priority=tier)
+    decode_ms, admit_ms = [], []
+    t0 = time.perf_counter()
+    while engine._queue or engine._active:
+        admits = min(len(engine._free), len(engine._queue))
+        t1 = time.perf_counter()
+        engine.step()
+        (admit_ms if admits else decode_ms).append(
+            1e3 * (time.perf_counter() - t1))
+    serve_s = time.perf_counter() - t0
+    done = engine._done
+    if len(done) != LM_REQUESTS or sorted(len(r.tokens) for r in done) != \
+            sorted(budgets):
+        raise AssertionError(f"{len(done)} of {LM_REQUESTS} requests done, "
+                             f"token counts {[len(r.tokens) for r in done]}")
+    bad = [t for r in done for t in r.tokens
+           if not 0 <= t < cfg.vocab_padded]
+    if bad:
+        raise AssertionError(f"token ids out of range: {bad[:5]}")
+    st = engine.stats()
+    p50, p99 = np.percentile(decode_ms, [50, 99])
+    log(f"[lm] bf16 serving stats {json.dumps(st)}")
+    log(f"[lm] bf16 serving: {LM_REQUESTS} requests ({tiers[0]} interactive, "
+        f"{tiers[1]} batch by the router on the card), {st['tokens']} tokens "
+        f"in {serve_s:.3f} s = {st['tokens'] / serve_s:.1f} tokens/s over "
+        f"{engine.ticks} ticks; decode-only ticks {len(decode_ms)}: p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms; ticks with admissions "
+        f"{len(admit_ms)}: p50 {np.median(admit_ms):.3f} ms; byte bound "
+        f"{bound_ms:.4f} ms a tick (weights + whole KV cache at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), p50 tick at "
+        f"{100 * bound_ms / p50:.2f} % of it; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
+
+    # a profile of decode-only ticks: all slots busy, no admission
+    for _ in range(LM_SLOTS):
+        engine.submit(rng.integers(0, cfg.vocab_size, 100),
+                      max_new_tokens=LM_PROFILE_TICKS + 3)
+    engine.step()                               # admits all, one tick
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_TICKS):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    every, kernels, _ = device_intervals(prof)
+    busy = union_us(every)
+    log(f"[lm] profile of {LM_PROFILE_TICKS} decode ticks (8 slots busy): "
+        f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms = "
+        f"{100 * busy / wall_us:.1f} % (idle {100 - 100 * busy / wall_us:.1f}"
+        f" %), {len(kernels) / LM_PROFILE_TICKS:.1f} kernels a tick")
+    log_device_time(prof, 6)
+    engine.run_until_drained()
+    del engine, params, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the CLI, at the reduced config on the card --------------------------
+    t0 = time.perf_counter()
+    st = serve_cli.main([])
+    log(f"[lm] cli launch.serve.main on the card: {st['requests']} requests "
+        f"served, none dropped, {st['tokens']} tokens in "
+        f"{time.perf_counter() - t0:.3f} s")
+    log(f"[lm] phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3665,6 +3923,17 @@ def main() -> int:
             entry["launches"] += counts14[name_]
         else:
             entry["launches"] += counts14[name_] - counts14[f"{name_}_wide"]
+
+    # -- 15. the LM serving path ---------------------------------------------
+    (_, counts15) = counted(lambda: lm_phase(smi=smi))
+    log(f"[lm] forest kernel launches "
+        f"{ {k: n for k, n in counts15.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts15[name_]
+        else:
+            entry["launches"] += counts15[name_] - counts15[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

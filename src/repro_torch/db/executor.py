@@ -518,6 +518,7 @@ class _Scan:
         first, n = self.pending[0]
         source = self.source
         pages = dict(first_page=first, num_pages=n)
+        self._acquire()
         t0 = time.perf_counter()
         staged = None
         if self.staging is not None:            # the disk tier
@@ -543,6 +544,7 @@ class _Scan:
                 self.resubmitted.add((first, n))
                 self.pending.append((first, n))
                 self._resubmit("disk_page_read", first, n)
+                self._release()
                 return None
         try:
             with TRACER.span("scan.dma_in", parent=self.scan_span, **pages):
@@ -562,11 +564,20 @@ class _Scan:
             self.pending.appendleft((first + n1, n - n1))
             self.pending.appendleft((first, n1))
             self._resubmit("page_dma_in", first, n)
+            self._release()
             return None
         self.pending.popleft()
         self.stats.transfer_issue_s += time.perf_counter() - t0
         if not self.resident:
             self.stats.bytes_streamed += block.nbytes
+        self.loads += 1
+        return _InFlight(first, n, k, block)
+
+    def _acquire(self) -> None:
+        """A page buffer is in flight from when the scan starts to fill it
+        until its batch's stages are done with it: the reader thread's
+        buffer counts while batch i's stages still hold the other, however
+        long its read takes."""
         with self.lock:
             self.live += 1
             self.stats.max_in_flight = max(self.stats.max_in_flight,
@@ -574,8 +585,6 @@ class _Scan:
             if self.live > MAX_IN_FLIGHT:
                 raise RuntimeError(f"{self.live} page buffers in flight "
                                    f"(max {MAX_IN_FLIGHT})")
-        self.loads += 1
-        return _InFlight(first, n, k, block)
 
     def _release(self) -> None:
         with self.lock:

@@ -24,9 +24,12 @@ with that plan (the udf plan's replicas, the partition stage's tree
 shards in ``MaterializedModel.aux``), so it goes when its plan is evicted
 or invalidated.
 
-The LM half of the reference module (``ShardingPlan``, ``make_plan``,
-``param_specs``, ``batch_specs``, ``cache_specs``) is not ported yet
-(ROADMAP queue 1, item 13).
+Of the LM half of the reference module, ``ShardingPlan`` and the mesh-less
+``make_plan(cfg, None)`` that every serving call uses are ported: the plan
+holds no mesh and no specs, and the layers place no constraint under it.
+``make_plan`` with a mesh, the plan's specs, ``param_specs``,
+``batch_specs``, ``cache_specs`` and ``tree_named`` wait for ROADMAP queue 1
+item 13e.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import torch
 from repro_torch.core.forest import tree_slice
 
 __all__ = ["Mesh", "ForestShardingPlan", "make_forest_plan", "physical",
-           "replica"]
+           "replica", "ShardingPlan", "make_plan"]
 
 #: the mesh axes the forest plans read
 AXES = ("data", "model")
@@ -210,3 +213,24 @@ def make_forest_plan(mesh: Mesh | None) -> ForestShardingPlan:
         mesh=mesh, data_axis=data, model_axis=model,
         n_data=mesh.shape["data"] if data else 1,
         n_model=mesh.shape["model"] if model else 1, grid=_grid(mesh))
+
+
+# -- the LM plan --------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    """Sharding policy for one (LM config, mesh).  Mesh-less only: the
+    reference's specs and attention mode arrive with the mesh that reads
+    them (item 13e)."""
+
+    mesh: Any = None
+
+
+def make_plan(cfg, mesh) -> ShardingPlan:
+    """The plan for ``cfg`` on ``mesh``: with no mesh (or one without axes)
+    the reference's mesh-less plan."""
+    if mesh is None or not getattr(mesh, "axis_names", ()):
+        return ShardingPlan()
+    raise NotImplementedError(
+        "the LM on a mesh (make_plan with a mesh, param_specs, batch_specs, "
+        "cache_specs) is ROADMAP queue 1 item 13e, not ported yet")

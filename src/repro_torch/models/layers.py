@@ -1,0 +1,399 @@
+"""Shared transformer building blocks: the dense half (torch).
+
+Mirrors ``repro/models/layers.py:45-401``: norms, QK-norm, RoPE, the three
+MLPs and attention (projection, grouped SDPA, the blockwise attention over
+KV chunks, prefill with its cache, one-token decode).  Every function is a
+plain function over explicit parameter dicts of tensors, in the
+reference's layout (``x @ w`` with ``w: [d_in, d_out]``), so a reference
+parameter tree carries across as a copy (``models/lm.py:
+params_from_arrays``).  The MoE half (``layers.py:404-591``) waits for
+ROADMAP queue 1 item 13b.
+
+Numerics follow the reference's jnp:
+  * every contraction the reference writes with
+    ``preferred_element_type=jnp.float32`` upcasts both operands to f32 and
+    contracts in f32 (``_einsum_f32``); where jnp would promote mixed
+    operands (f32 queries against a bf16 cache), the same cast happens;
+  * masks are ``where(mask, logits, -1e30)`` and the blockwise attention
+    starts its running max at -inf (``exp(-inf - m)`` = 0, not NaN);
+  * gelu is the tanh approximation (``jax.nn.gelu``'s default);
+  * RoPE rotates half-split, its angles in f32.
+
+``attention_decode`` writes the new K/V into the cache tensors it is given
+and returns them: a kept divergence from the reference's functional update
+(``docs/torch_lm.md``; ROADMAP queue 3).  The layers take no sharding
+plan: ``shard`` is the identity without a mesh, and the constraint points
+arrive with the mesh that needs them (item 13e).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import scanctl
+
+__all__ = ["shard", "init_norm", "apply_norm", "rope_freqs", "apply_rope",
+           "init_mlp", "apply_mlp", "AttnSpec", "init_attention",
+           "attention_forward", "attention_forward_with_cache",
+           "attention_decode"]
+
+Params = dict[str, Any]
+
+#: the blockwise attention's padding position (jnp.iinfo(jnp.int32).max)
+_PAD_POSITION = torch.iinfo(torch.int32).max
+
+
+# ---------------------------------------------------------------------------
+# sharding constraint helper
+# ---------------------------------------------------------------------------
+
+
+def shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """Constraint point; the identity when mesh or spec is absent."""
+    if mesh is None or spec is None:
+        return x
+    raise NotImplementedError(
+        "sharding the LM over a mesh is ROADMAP queue 1 item 13e")
+
+
+# ---------------------------------------------------------------------------
+# initializers (an explicit torch.Generator; shapes as the reference's)
+# ---------------------------------------------------------------------------
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, device,
+                scale: float | None = None) -> torch.Tensor:
+    fan_in = shape[0] if len(shape) > 1 else 1
+    s = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (w * s).to(dtype)
+
+
+def init_norm(cfg: ModelConfig, d: int, dtype, *, device=None) -> Params:
+    device = resolve_device(device)
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if cfg.norm_type == "ln":
+        return {"scale": torch.ones(d, dtype=dtype, device=device),
+                "bias": torch.zeros(d, dtype=dtype, device=device)}
+    if cfg.norm_type == "nonparam_ln":
+        return {}
+    raise ValueError(cfg.norm_type)
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+        return (y * p["scale"].float()).to(x.dtype)
+    # (nonparam_)ln
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    if cfg.norm_type == "ln":
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def _rms_head(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-head-dim RMS norm (chameleon / llama4 QK-norm)."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _einsum_f32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum(eq, a, b, preferred_element_type=jnp.float32)``: both
+    operands upcast to f32, contracted in f32."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, *, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x [..., S, H, dh]; positions [..., S] (broadcastable)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)          # [dh/2]
+    ang = positions[..., None].float() * freqs              # [..., S, dh/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs (swiglu / squared-relu / gelu)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(cfg: ModelConfig, gen: torch.Generator, d: int, f: int, dtype,
+             *, device=None) -> Params:
+    device = resolve_device(device)
+    p = {"wi": _dense_init(gen, (d, f), dtype, device),
+         "wo": _dense_init(gen, (f, d), dtype, device)}
+    if cfg.mlp_type == "swiglu":
+        p["wg"] = _dense_init(gen, (d, f), dtype, device)
+    return p
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["wi"]
+    if cfg.mlp_type == "swiglu":
+        h = F.silu(x @ p["wg"]) * h
+    elif cfg.mlp_type == "sq_relu":
+        h = F.relu(h).square()
+    elif cfg.mlp_type == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(cfg.mlp_type)
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Static attention wiring for one layer position."""
+    use_rope: bool = True
+    window: int = 0          # >0: chunked-local (block-diagonal causal)
+    causal: bool = True
+    cross: bool = False      # cross-attention (enc-dec memory)
+
+
+def init_attention(cfg: ModelConfig, gen: torch.Generator, d_in: int, dtype,
+                   *, d_out: int | None = None, device=None) -> Params:
+    device = resolve_device(device)
+    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d_out = d_out if d_out is not None else d_in
+    p = {
+        "wq": _dense_init(gen, (d_in, H * dh), dtype, device),
+        "wk": _dense_init(gen, (d_in, KV * dh), dtype, device),
+        "wv": _dense_init(gen, (d_in, KV * dh), dtype, device),
+        "wo": _dense_init(gen, (H * dh, d_out), dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(H * dh, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(KV * dh, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(KV * dh, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(dh, dtype=dtype, device=device)
+        p["k_norm"] = torch.ones(dh, dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 kv_x: torch.Tensor | None = None):
+    """x [B, S, Din] -> q [B, S, H, dh], k/v [B, Skv, KV, dh]."""
+    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_x = x if kv_x is None else kv_x
+    q = x @ p["wq"]
+    k = kv_x @ p["wk"]
+    v = kv_x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(*x.shape[:-1], H, dh)
+    k = k.reshape(*kv_x.shape[:-1], KV, dh)
+    v = v.reshape(*kv_x.shape[:-1], KV, dh)
+    if cfg.qk_norm:
+        q = _rms_head(q, p["q_norm"])
+        k = _rms_head(k, p["k_norm"])
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, *, kv_groups: int) -> torch.Tensor:
+    """Grouped scaled-dot-product attention.
+
+    q [B, Sq, H, dh] with H = KV * kv_groups; k/v [B, Sk, KV, dh];
+    mask [Sq, Sk] bool (True = attend) or None.  f32 softmax.
+    """
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Sq, KV, kv_groups, dh)
+    logits = _einsum_f32("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(dh)
+    if mask is not None:
+        logits = torch.where(mask[None, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = _einsum_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def _chunked_sdpa(q, k, v, *, kv_groups: int, q_positions, kv_positions,
+                  spec: AttnSpec, chunk: int) -> torch.Tensor:
+    """Flash-style blockwise attention: a loop over KV chunks with running
+    (m, l, acc); never materializes the [Sq, Sk] score matrix.
+
+    q [B, Sq, H, dh]; k/v [B, Sk, KV, dh]; positions give the causal and
+    window masks.  A KV length that is not a multiple of ``chunk`` is
+    padded with position int32-max, which the mask drops.
+    """
+    B, Sq, H, dh = q.shape
+    Sk = k.shape[1]
+    KV = k.shape[2]
+    n_chunks = -(-Sk // chunk)
+    pad = n_chunks * chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.cat([kv_positions, torch.full(
+            (pad,), _PAD_POSITION, dtype=kv_positions.dtype,
+            device=kv_positions.device)])
+    kc = k.reshape(B, n_chunks, chunk, KV, dh).transpose(0, 1)
+    vc = v.reshape(B, n_chunks, chunk, KV, dh).transpose(0, 1)
+    pc = kv_positions.reshape(n_chunks, chunk)
+
+    qg = q.reshape(B, Sq, KV, kv_groups, dh)
+    scale = 1.0 / math.sqrt(dh)
+
+    def body(carry, xs):
+        m, l, acc = carry
+        kj, vj, pj = xs
+        logits = _einsum_f32("bqkgd,bskd->bkgqs", qg, kj) * scale
+        mask = torch.ones((Sq, chunk), dtype=torch.bool, device=q.device)
+        if spec.causal:
+            mask &= q_positions[:, None] >= pj[None, :]
+        if spec.window > 0:  # chunked-local (llama4 iRoPE)
+            mask &= (q_positions[:, None] // spec.window) == \
+                (pj[None, :] // spec.window)
+        mask &= pj[None, :] < _PAD_POSITION  # padding
+        logits = torch.where(mask[None, None, None], logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1)
+        pv = _einsum_f32("bkgqs,bskd->bkgqd", p.to(vj.dtype), vj)
+        acc_new = acc * corr[..., None] + pv
+        return (m_new, l_new, acc_new), None
+
+    stats = dict(dtype=torch.float32, device=q.device)
+    m0 = torch.full((B, KV, kv_groups, Sq), -math.inf, **stats)
+    l0 = torch.zeros((B, KV, kv_groups, Sq), **stats)
+    a0 = torch.zeros((B, KV, kv_groups, Sq, dh), **stats)
+    (m, l, acc), _ = scanctl.scan(body, (m0, l0, a0), (kc, vc, pc))
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh)
+    return out.to(q.dtype)
+
+
+def _positions(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                      spec: AttnSpec, *,
+                      positions: torch.Tensor | None = None,
+                      kv_x: torch.Tensor | None = None,
+                      kv_positions: torch.Tensor | None = None,
+                      attn_chunk: int | None = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill).  x [B, S, D]."""
+    B, S = x.shape[:2]
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _project_qkv(cfg, p, x, kv_x)
+    if positions is None:
+        positions = _positions(S, x.device)
+    if kv_positions is None:
+        kv_positions = (positions if kv_x is None
+                        else _positions(k.shape[1], x.device))
+    if spec.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if not spec.cross:
+            k = apply_rope(k, kv_positions, cfg.rope_theta)
+    out = _chunked_sdpa(q, k, v, kv_groups=H // KV, q_positions=positions,
+                        kv_positions=kv_positions, spec=spec,
+                        chunk=min(attn_chunk or cfg.attn_kv_chunk,
+                                  k.shape[1]))
+    return out.reshape(B, S, H * cfg.head_dim) @ p["wo"]
+
+
+def attention_forward_with_cache(cfg: ModelConfig, p: Params,
+                                 x: torch.Tensor, spec: AttnSpec, *,
+                                 positions: torch.Tensor | None = None,
+                                 ctx: int | None = None,
+                                 attn_chunk: int | None = None):
+    """Prefill: like attention_forward but also emits the {k, v} cache
+    (post-RoPE), zero-padded to ``ctx`` positions for later decode appends."""
+    B, S = x.shape[:2]
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    q, k, v = _project_qkv(cfg, p, x)
+    if positions is None:
+        positions = _positions(S, x.device)
+    if spec.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _chunked_sdpa(q, k, v, kv_groups=H // KV, q_positions=positions,
+                        kv_positions=positions, spec=spec,
+                        chunk=min(attn_chunk or cfg.attn_kv_chunk,
+                                  k.shape[1]))
+    out = out.reshape(B, S, H * cfg.head_dim) @ p["wo"]
+    ctx = ctx or S
+    if ctx > S:
+        k = F.pad(k, (0, 0, 0, 0, 0, ctx - S))
+        v = F.pad(v, (0, 0, 0, 0, 0, ctx - S))
+    return out, {"k": k, "v": v}
+
+
+def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     cache: dict[str, torch.Tensor],
+                     spec: AttnSpec) -> tuple[torch.Tensor, dict]:
+    """One-token decode. x [B, 1, D]; cache {k,v: [B, Sc, KV, dh], index:
+    [] or [B]}.
+
+    Each row b writes its new K/V at ring position ``index[b] mod Sc`` of
+    ``cache``'s own tensors (in place) and attends to positions <=
+    ``index[b]`` (within its window block on windowed layers).  Returns
+    the output and {k, v} (the given tensors) with ``index + 1``.
+    """
+    B = x.shape[0]
+    H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_groups = H // KV
+    Sc = cache["k"].shape[1]
+    # index: [] (lockstep batch) or [B] (continuous batching, per-slot)
+    index = torch.atleast_1d(cache["index"]).expand(B)
+    q, k_new, v_new = _project_qkv(cfg, p, x)
+    pos = index[:, None]
+    if spec.use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        if not spec.cross:
+            k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    k, v = cache["k"], cache["v"]
+    if spec.cross:
+        valid = torch.ones((B, Sc), dtype=torch.bool, device=x.device)
+        new_cache = cache
+    else:
+        slot = index % Sc
+        bix = torch.arange(B, device=x.device)
+        k[bix, slot] = k_new[:, 0].to(k.dtype)
+        v[bix, slot] = v_new[:, 0].to(v.dtype)
+        slots = torch.arange(Sc, device=x.device)
+        valid = slots[None, :] <= index[:, None]
+        if spec.window > 0:  # chunked-local (iRoPE): same window block only
+            valid &= (slots[None, :] // spec.window) == \
+                (index[:, None] // spec.window)
+        new_cache = {"k": k, "v": v, "index": cache["index"] + 1}
+
+    qg = q.reshape(B, 1, KV, kv_groups, dh)
+    logits = _einsum_f32("bqkgd,bskd->bkgqs", qg, k) / math.sqrt(dh)
+    logits = torch.where(valid[:, None, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = _einsum_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+    out = out.reshape(B, 1, H * dh).to(x.dtype)
+    return out @ p["wo"], new_cache

@@ -1,0 +1,290 @@
+"""Decoder-only LM assembly: the dense serving path (torch).
+
+Mirrors ``repro/models/lm.py`` for ``kind="attn"`` layers without MoE (the
+dense and vlm families: yi, olmo, qwen2, minitron, chameleon).  The layer
+pattern within one period is a static list of ``LayerPlan``s; the backbone
+loops over ``num_blocks`` stacked parameter trees (``scanctl.scan``), the
+reference's ``blocks/p{i}/...`` leaves with their leading ``[nB, ...]``
+axis, so a reference parameter tree carries across as a copy
+(``params_from_arrays``).
+
+Entry points: ``lm_prefill`` (stacked KV caches, last-token logits) and
+``lm_decode`` (one token against the caches, which it updates in place and
+returns; ``docs/torch_lm.md``).  Both take the reference's ``splan``; the
+mesh-less plan, the only one until item 13e, places nothing, so neither
+reads it.  ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on
+``cuda`` unless ``device="cpu"`` is passed.
+
+Waiting for later slices (ROADMAP queue 1): the SSD kind, the hybrid
+shared block with LoRA and MoE (item 13b), enc-dec (13c), ``lm_hidden`` /
+``lm_loss`` / ``chunked_xent`` and ``_remat`` (training, 13d).  A config
+that needs any of them is refused by ``require_ported``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import ShardingPlan
+from repro_torch.models import layers as L
+from repro_torch.models import scanctl
+
+__all__ = ["LayerPlan", "make_layer_plans", "require_ported", "init_lm",
+           "params_from_arrays", "full_logits", "lm_prefill", "lm_decode",
+           "init_caches"]
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# layer pattern
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    kind: str                 # "attn" | "ssm"
+    use_moe: bool = False
+    attn: L.AttnSpec | None = None
+
+
+def make_layer_plans(cfg: ModelConfig) -> list[LayerPlan]:
+    """Static per-period-position wiring."""
+    period = cfg.block_period
+    plans = []
+    for i in range(period):
+        if cfg.ssm_layers:
+            plans.append(LayerPlan(kind="ssm"))
+            continue
+        is_global = cfg.global_every > 0 and (i + 1) % cfg.global_every == 0
+        window = 0 if is_global else cfg.attn_window
+        use_rope = cfg.pos_type != "nope" and not (
+            cfg.pos_type == "irope" and is_global)
+        use_moe = (cfg.num_experts > 0
+                   and (i % cfg.moe_every) == (cfg.moe_every - 1))
+        plans.append(LayerPlan(
+            kind="attn", use_moe=use_moe,
+            attn=L.AttnSpec(use_rope=use_rope, window=window,
+                            causal=cfg.causal)))
+    return plans
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Refuse a config whose layers this slice does not port, naming the
+    ROADMAP queue 1 item that brings them."""
+    if cfg.encoder_layers:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are ROADMAP queue 1 item "
+            f"13c, not ported yet")
+    for field, what in (("num_experts", "MoE layers"),
+                        ("ssm_layers", "SSD (Mamba2) layers"),
+                        ("shared_attn_every", "the hybrid shared block")):
+        if getattr(cfg, field):
+            raise NotImplementedError(
+                f"{cfg.name}: {what} are ROADMAP queue 1 item 13b, not "
+                f"ported yet")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_position(cfg: ModelConfig, plan: LayerPlan, gen, dtype,
+                   device) -> Params:
+    D, F = cfg.d_model, cfg.d_ff
+    p: Params = {"norm1": L.init_norm(cfg, D, dtype, device=device),
+                 "attn": L.init_attention(cfg, gen, D, dtype, device=device),
+                 "norm2": L.init_norm(cfg, D, dtype, device=device)}
+    if F > 0:
+        p["mlp"] = L.init_mlp(cfg, gen, D, F, dtype, device=device)
+    return p
+
+
+def init_lm(cfg: ModelConfig, gen: torch.Generator, *,
+            dtype=torch.bfloat16, device=None) -> Params:
+    """Random parameters drawn from ``gen`` (a generator on ``device``):
+    the reference's tree, shapes and scales, each block's leaves stacked
+    on a leading ``[num_blocks]`` axis."""
+    require_ported(cfg)
+    device = resolve_device(device)
+    nB = cfg.num_blocks
+    params: Params = {"blocks": {}}
+    for i, plan in enumerate(make_layer_plans(cfg)):
+        params["blocks"][f"p{i}"] = scanctl.stack(
+            [_init_position(cfg, plan, gen, dtype, device)
+             for _ in range(nB)])
+    params["embed"] = L._dense_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                    dtype, device, scale=0.02)
+    params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype,
+                                       device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._dense_init(
+            gen, (cfg.d_model, cfg.vocab_padded), dtype, device)
+    return params
+
+
+def params_from_arrays(tree, *, device=None, dtype=None) -> Params:
+    """The reference's parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``) as tensors on
+    ``device``, path for path and copied: the same keys, the same stacked
+    ``[nB, ...]`` leaves, the same ``[d_in, d_out]`` weights.  ``dtype``
+    casts every leaf; None keeps each array's (bfloat16 included)."""
+    device = resolve_device(device)
+
+    def one(a) -> torch.Tensor:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":          # ml_dtypes, as jax gives it
+            t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a, copy=True))
+        return t.to(device=device, dtype=dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return one(node)
+
+    return walk(tree)
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _apply_position(cfg: ModelConfig, plan: LayerPlan, p: Params,
+                    h: torch.Tensor, positions, *, cache=None,
+                    decode=False, ctx=None):
+    """One layer (train/prefill: cache=None or "collect"; decode: cache is
+    this layer's cache).  Returns (h, new_cache_or_None)."""
+    new_cache = None
+    n1 = L.apply_norm(cfg, p["norm1"], h)
+    if decode:
+        a, new_cache = L.attention_decode(cfg, p["attn"], n1, cache,
+                                          plan.attn)
+    elif cache == "collect":
+        a, new_cache = L.attention_forward_with_cache(
+            cfg, p["attn"], n1, plan.attn, positions=positions, ctx=ctx)
+    else:
+        a = L.attention_forward(cfg, p["attn"], n1, plan.attn,
+                                positions=positions)
+    h = h + a
+    n2 = L.apply_norm(cfg, p["norm2"], h)
+    m = L.apply_mlp(cfg, p["mlp"], n2) if cfg.d_ff > 0 else 0.0
+    return h + m, new_cache
+
+
+def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
+              positions, *, mode: str,
+              caches: Params | None = None, ctx: int | None = None):
+    """mode: train | prefill | decode.  Returns (h, caches | None): prefill
+    the new stacked caches, decode the given ones, written in place."""
+    require_ported(cfg)
+    plans = make_layer_plans(cfg)
+    collect = mode == "prefill"
+    decode = mode == "decode"
+    index = caches["index"] if decode else None
+
+    def block(hh, xs):
+        p_block = xs["params"]
+        new_caches = {}
+        for i, plan in enumerate(plans):
+            if decode:
+                c = {**xs["caches"][f"p{i}"], "index": index}
+            else:
+                c = "collect" if collect else None
+            hh, nc = _apply_position(cfg, plan, p_block[f"p{i}"], hh,
+                                     positions, cache=c, decode=decode,
+                                     ctx=ctx)
+            if collect:
+                new_caches[f"p{i}"] = {"k": nc["k"], "v": nc["v"]}
+        return hh, (new_caches if collect else None)
+
+    xs: dict[str, Any] = {"params": params["blocks"]}
+    if decode:
+        xs["caches"] = {k: v for k, v in caches.items() if k != "index"}
+    h, ys = scanctl.scan(block, h, xs)
+    return h, (xs["caches"] if decode else ys)
+
+
+# ---------------------------------------------------------------------------
+# head
+# ---------------------------------------------------------------------------
+
+
+def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def full_logits(cfg: ModelConfig, params: Params,
+                h: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] -> f32 [B, S, Vp] -- only for small S (last token)."""
+    return L._einsum_f32("bsd,dv->bsv", h, _lm_head_weight(cfg, params))
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+               *, splan: ShardingPlan | None = None,
+               ctx: int | None = None):
+    """tokens [B, S] -> (last-token logits [B, Vp], caches).
+    ``ctx``: total cache positions (> S for decode appends; serving)."""
+    B, Sq = tokens.shape
+    h = params["embed"][tokens]
+    positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
+    h, caches = _backbone(cfg, params, h, positions, mode="prefill",
+                          ctx=ctx)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    logits = full_logits(cfg, params, h[:, -1:])[:, 0]
+    caches = dict(caches)
+    caches["index"] = torch.tensor(Sq, dtype=torch.int32, device=h.device)
+    return logits, caches
+
+
+def lm_decode(cfg: ModelConfig, params: Params, caches: Params,
+              token: torch.Tensor, *, splan: ShardingPlan | None = None):
+    """token [B, 1] -> (logits [B, Vp], caches).  The K/V tensors of
+    ``caches`` are updated in place and returned (with ``index + 1``): a
+    caller that needs the old caches clones them first."""
+    h = params["embed"][token]
+    h, new_caches = _backbone(cfg, params, h, None, mode="decode",
+                              caches=caches)
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    logits = full_logits(cfg, params, h)[:, 0]
+    out = dict(new_caches)
+    out["index"] = caches["index"] + 1
+    return logits, out
+
+
+# ---------------------------------------------------------------------------
+# cache construction
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, ctx: int,
+                *, dtype=torch.bfloat16, device=None) -> Params:
+    """Zero caches for a [batch] decode stream with ``ctx`` total positions:
+    per attention position ``p{i}`` stacked K/V ``[nB, batch, ctx, KV,
+    dh]`` (windowed layers get the full ctx too; the window masks at
+    attend time) and a scalar int32 ``index``."""
+    require_ported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.num_blocks, batch, ctx, cfg.num_kv_heads, cfg.head_dim)
+    caches: Params = {
+        f"p{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for i in range(len(make_layer_plans(cfg)))}
+    caches["index"] = torch.tensor(0, dtype=torch.int32, device=device)
+    return caches

@@ -41,6 +41,9 @@ SPAN_NAMES = (
     # forest serving plane (serve/forest.py)
     "serve.tick",
     "serve.coalesce",
+    # LM serving engine (serve/engine.py)
+    "serve.prefill",
+    "serve.execute",
     # cost-based optimizer (db/optimizer.py)
     "optimizer.decide",
     "optimizer.autotune",

@@ -1,1 +1,2 @@
-"""The forest serving plane (``forest.py``) and its router (``router.py``)."""
+"""The forest serving plane (``forest.py``), its router (``router.py``)
+and the LM serving engine (``engine.py``)."""

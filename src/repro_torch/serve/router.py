@@ -7,8 +7,8 @@ with a RandomForest through the port's ``predict_proba`` on the forest's
 device and maps P(expensive) above the threshold to the batch tier.
 ``ForestRouter(forest=None)`` trains that RandomForest on
 ``synth_router_trace`` with ``core.train.train_forest``, as the reference
-does.  The LM ``ServeEngine`` the reference router also feeds is not
-ported (ROADMAP queue 1, item 13).
+does.  The LM ``ServeEngine`` (``serve/engine.py``) feeds the same
+``serve.queue_depth`` gauge.
 """
 
 from __future__ import annotations

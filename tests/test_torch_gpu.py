@@ -1351,3 +1351,102 @@ def test_make_local_mesh_refuses_more_cards_than_there_are():
     with pytest.raises(ValueError, match="cannot take a mesh"):
         TensorBlockStore(device="cpu",
                          mesh=make_local_mesh(1, 1, devices=["cuda:0"]))
+
+
+# -- the LM serving path (repro_torch.models, serve/engine.py) ----------------
+
+
+def _lm_case():
+    """Reduced olmo-1b with f32 weights drawn on the CPU, and the same
+    weights as numpy arrays for ``params_from_arrays``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm as LM
+    cfg = reduced(get_config("olmo-1b"))
+    params = LM.init_lm(cfg, torch.Generator().manual_seed(0),
+                        dtype=torch.float32, device="cpu")
+
+    def arrays(node):
+        if isinstance(node, dict):
+            return {k: arrays(v) for k, v in node.items()}
+        return node.numpy()
+    return cfg, params, arrays(params)
+
+
+def _greedy_until_tie(cfg, params, prompt, bucket, max_new, ctx, gap):
+    """The single-request greedy loop; stops where its top-two logits lie
+    within ``gap`` (a near-tie that another batch width may flip)."""
+    from repro_torch.models import lm as LM
+    toks = torch.zeros((1, bucket), dtype=torch.int64, device="cuda")
+    toks[0, bucket - len(prompt):] = torch.as_tensor(prompt)
+    logits, caches = LM.lm_prefill(cfg, params, toks, ctx=ctx)
+    out = []
+    while len(out) < max_new:
+        top2 = torch.topk(logits[0], 2).values
+        if float(top2[0] - top2[1]) < gap:
+            break
+        out.append(int(torch.argmax(logits[0])))
+        logits, caches = LM.lm_decode(
+            cfg, params, caches, torch.tensor([[out[-1]]], device="cuda"))
+    return out
+
+
+@pytest.mark.gpu
+def test_lm_on_cuda_equals_cpu():
+    _need_card()
+    from repro_torch.models import lm as LM
+    cfg, params, arrays = _lm_case()
+    cuda = LM.params_from_arrays(arrays, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 33)))
+    want, wc = LM.lm_prefill(cfg, params, toks[:, :32], ctx=34)
+    got, gc = LM.lm_prefill(cfg, cuda, toks[:, :32].cuda(), ctx=34)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    want, wc = LM.lm_decode(cfg, params, wc, toks[:, 32:])
+    got, gc = LM.lm_decode(cfg, cuda, gc, toks[:, 32:].cuda())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(gc["p0"]["k"].cpu().numpy(),
+                               wc["p0"]["k"].numpy(), rtol=1e-4, atol=1e-4)
+    assert gc["p0"]["k"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_lm_engine_on_cuda_equals_single_request_loop():
+    _need_card()
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import ServeEngine
+    cfg, _, arrays = _lm_case()
+    cuda = LM.params_from_arrays(arrays, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, 12) for _ in range(4)]
+    engine = ServeEngine(cfg, cuda, slots=2, max_ctx=96,
+                         prompt_buckets=(16,), dtype=torch.float32)
+    uids = [engine.submit(p, max_new_tokens=8) for p in prompts]
+    by_uid = {r.uid: r.tokens for r in engine.run_until_drained()}
+    compared = 0
+    for uid, p in zip(uids, prompts):
+        want = _greedy_until_tie(cfg, cuda, p, 16, 8, 96, gap=1e-4)
+        assert by_uid[uid][:len(want)] == want
+        compared += len(want)
+    assert compared >= 8
+
+
+@pytest.mark.gpu
+def test_lm_entry_points_default_to_cuda():
+    _need_card()
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import ServeEngine
+    cfg, _, arrays = _lm_case()
+    params = LM.init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    assert params["embed"].is_cuda
+    assert params["embed"].dtype == torch.bfloat16
+    assert LM.params_from_arrays(arrays)["embed"].is_cuda
+    assert LM.init_caches(cfg, 2, 8)["p0"]["k"].is_cuda
+    engine = ServeEngine(cfg, params)
+    assert engine.device.type == "cuda"
+    assert engine.caches["index"].is_cuda
+    engine.submit(np.arange(5), max_new_tokens=3)
+    (req,) = engine.run_until_drained()
+    assert len(req.tokens) == 3
+    assert all(0 <= t < cfg.vocab_padded for t in req.tokens)

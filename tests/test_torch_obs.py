@@ -66,8 +66,6 @@ PENDING = {
     # the port has no tracing compiler: plan.traces returns as the count of
     # the serving plane's CUDA-graph captures
     "plan.traces": "work left: CUDA graphs",
-    # the LM stack's serving engine (serve/engine.py)
-    "serve.prefill": "13", "serve.execute": "13",
 }
 
 

@@ -21,6 +21,7 @@ The port on the CPU device against itself and against the reference:
 
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -246,6 +247,34 @@ def test_at_most_two_page_buffers_and_depths_agree(tier):
         outs[depth] = out
     assert torch.equal(outs[1], outs[2])
     assert torch.equal(outs[1], torch.nansum(torch.from_numpy(x), dim=1))
+
+
+def test_a_slow_disk_read_still_counts_two_buffers(monkeypatch):
+    """A page buffer is in flight from when the reader starts to fill it:
+    with each disk read far slower than the stages, the stages release
+    batch i's buffer before batch i+1's read ends, and depth 2 still
+    counts two buffers."""
+    ds = _store(_rows(7)).get("disk")
+    read = type(ds).read_pages
+
+    def slow_read(self, block, out):
+        time.sleep(0.05)
+        return read(self, block, out)
+
+    monkeypatch.setattr(type(ds), "read_pages", slow_read)
+
+    def udf(state):
+        state = dict(state)
+        state["pred"] = torch.nansum(state["x"], dim=1)
+        return state
+
+    stages = split_into_stages([Operator("udf", udf),
+                                Operator("write", lambda s: s,
+                                         breaker=True)])
+    for depth in (2, 1):
+        _, _, stats = StreamingScanExecutor(
+            stages, prefetch_depth=depth).execute(ds, 2)
+        assert stats.batches == 3 and stats.max_in_flight == depth
 
 
 def test_one_batch_scan_takes_one_buffer():
