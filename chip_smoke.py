@@ -246,6 +246,28 @@ Phases (any failure exits non-zero and prints no result line):
               once a tick), tokens/s, peak memory and a profile of decode
               ticks (device busy share, kernels a tick).  Then the CLI
               (launch/serve.main) at the reduced config on the card.
+ 16. lm-families  the SSD, hybrid and MoE serving paths, one block a
+              model, each freed before the next: mamba2-2.7b (64 SSD
+              layers) and zamba2-2.7b (54 SSD layers, 9 shared-attention
+              call sites with LoRA) at full width, uncut, and
+              llama4-scout-17b-a16e at full width (d_model 5,120, 16
+              experts, vocab 202,048) cut to 8 layers for bf16 serving and
+              4 (one iRoPE period) for the f32 checks, so that both fit the
+              card.  Each tree's parameter count equals the reference's.
+              In f32 with TF32 off: a 2 x 300 prefill (two SSD chunks, a
+              padded tail), 3 teacher-forced decode steps each within
+              rtol = atol = 1e-3 of lm_prefill over the same prefix
+              (llama4 at capacity_factor = 16, so that no token drops),
+              and 3 requests through a 2-slot ServeEngine, token for token
+              the single-request loop up to its first near-tie.  In bf16:
+              ServeEngine(slots=8, max_ctx=1024, buckets 128 / 256 / 512)
+              serving 8 requests (prompts of 32-500 tokens, 16-64 new
+              tokens, from a seed); prints stats(), prefill ms a bucket,
+              decode tick p50 / p99 beside its byte bound (weights + the
+              whole cache once a tick), tokens/s, peak memory, a profile of
+              5 decode ticks (device busy share, kernels a tick), and for
+              llama4 the bytes the decode's per-token expert-weight
+              gathers copy a tick.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -370,6 +392,23 @@ LM_SLOTS, LM_MAX_CTX, LM_BUCKETS = 8, 1024, (128, 256, 512)
 LM_REQUESTS = 16
 LM_PROMPT_LEN, LM_NEW_TOKENS = (32, 500), (32, 128)
 LM_PROFILE_TICKS = 5
+#: phase 16, the SSD / hybrid / MoE serving paths: the three models and,
+#: for one cut in depth, its (bf16 serving, f32 checks) layers; an arch not
+#: listed runs uncut
+LMF_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "llama4-scout-17b-a16e")
+LMF_LAYERS = {"llama4-scout-17b-a16e": (8, 4)}
+LMF_CHECK_BATCH, LMF_CHECK_LEN, LMF_CHECK_STEPS = 2, 300, 3
+LMF_CHECK_REQUESTS, LMF_CHECK_NEW = 3, 8
+LMF_REQUESTS = 8
+LMF_PROMPT_LEN, LMF_NEW_TOKENS = (32, 500), (16, 64)
+#: phases 15-16: the reference's init_lm tree at each depth run (leaves'
+#: sizes summed over jax.eval_shape of repro.models.get_bundle(cfg).init
+#: on the CPU)
+LM_TREE_PARAMS = {("olmo-1b", 16): 1_177_026_560,
+                  ("mamba2-2.7b", 64): 2_832_074_240,
+                  ("zamba2-2.7b", 54): 2_451_183_520,
+                  ("llama4-scout-17b-a16e", 8): 19_687_758_848,
+                  ("llama4-scout-17b-a16e", 4): 10_879_350_784}
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -2961,53 +3000,42 @@ def tree_leaves(tree) -> list[torch.Tensor]:
     return [tree]
 
 
-def lm_phase(*, smi: str) -> None:
-    """Phase 15: the LM serving path on olmo-1b at full width."""
-    from torch.profiler import ProfilerActivity, profile
+def on_card(tree, what: str) -> None:
+    off = [t.device for t in tree_leaves(tree) if not t.is_cuda]
+    if off:
+        raise AssertionError(f"{what}: tensors off the card {off[:3]}")
 
-    from repro_torch.configs import get_config
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import get_bundle
+
+def lm_tree_params(cfg, params) -> int:
+    """The parameter count of ``params``, held to the reference's tree."""
+    n = sum(t.numel() for t in tree_leaves(params))
+    want = LM_TREE_PARAMS[(cfg.name, cfg.num_layers)]
+    if n != want:
+        raise AssertionError(f"{cfg.name}: {n:,} parameters, the "
+                             f"reference's tree has {want:,}")
+    return n
+
+
+def lm_f32_checks(tag: str, cfg, params, *, batch: int, length: int,
+                  steps: int, requests: int, new: int, seed: int,
+                  tcfg=None) -> None:
+    """In f32 with TF32 off: a ``batch`` x ``length`` prefill and ``steps``
+    teacher-forced decode steps, each within LM_TOL of lm_prefill over the
+    same prefix (run under ``tcfg``: ``cfg`` with what the comparison
+    needs), then ``requests`` prompts through a 2-slot engine, token for
+    token the single-request loop up to its first near-tie."""
     from repro_torch.models import lm as LM
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.router import ForestRouter, request_features
 
-    t_phase = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    bundle = get_bundle(cfg)
-    log(f"[lm] {cfg.name} at full width: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
-        f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff} {cfg.mlp_type}, "
-        f"{cfg.norm_type}, vocab {cfg.vocab_size} -> {cfg.vocab_padded}, "
-        f"tied {cfg.tie_embeddings}; on {smi}")
-
-    def on_card(tree, what: str) -> None:
-        off = [t.device for t in tree_leaves(tree) if not t.is_cuda]
-        if off:
-            raise AssertionError(f"{what}: tensors off the card {off[:3]}")
-
-    # -- f32, TF32 off: teacher forcing and the engine against the loop --
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for the f32 checks")
-    t0 = time.perf_counter()
-    params = bundle.init(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED + 150),
-        dtype=torch.float32)
-    torch.cuda.synchronize()
-    on_card(params, "f32 params")
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    if n_params != cfg.param_count():
-        raise AssertionError(f"{n_params} parameters, the config counts "
-                             f"{cfg.param_count()}")
-    log(f"[lm] f32 params: {n_params:,} ({4 * n_params / 1e9:.3f} GB) drawn "
-        f"on the card in {time.perf_counter() - t0:.3f} s")
-
-    B, S, N = LM_CHECK_BATCH, LM_CHECK_LEN, LM_CHECK_STEPS
+    tcfg = tcfg or cfg
+    B, S, N = batch, length, steps
     toks = torch.randint(
         0, cfg.vocab_size, (B, S + N), device="cuda",
-        generator=torch.Generator(device="cuda").manual_seed(SEED + 151))
+        generator=torch.Generator(device="cuda").manual_seed(seed))
     t0 = time.perf_counter()
-    logits, caches = LM.lm_prefill(cfg, params, toks[:, :S], ctx=S + N)
+    logits, caches = LM.lm_prefill(tcfg, params, toks[:, :S], ctx=S + N)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     if logits.shape != (B, cfg.vocab_padded) or \
@@ -3017,47 +3045,55 @@ def lm_phase(*, smi: str) -> None:
     on_card(caches, "prefill caches")
     worst = 0.0
     for i in range(N):
-        want, _ = LM.lm_prefill(cfg, params, toks[:, :S + i + 1])
-        got, caches = LM.lm_decode(cfg, params, caches,
+        want, _ = LM.lm_prefill(tcfg, params, toks[:, :S + i + 1])
+        got, caches = LM.lm_decode(tcfg, params, caches,
                                    toks[:, S + i:S + i + 1])
         err = float((got - want).abs().max())
         worst = max(worst, err)
         if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
-            raise AssertionError(f"decode step {i}: max |err| {err:.3e} past "
-                                 f"rtol = atol = {LM_TOL}")
-    log(f"[lm] f32 prefill {B} x {S} in {prefill_s:.3f} s (first call); "
+            raise AssertionError(f"{cfg.name} decode step {i}: max |err| "
+                                 f"{err:.3e} past rtol = atol = {LM_TOL}")
+    log(f"{tag} f32 prefill {B} x {S} in {prefill_s:.3f} s (first call); "
         f"{N} teacher-forced decode steps each within rtol = atol = "
         f"{LM_TOL} of lm_prefill over the same prefix, max |err| "
-        f"{worst:.3e}")
-    del caches, logits
+        f"{worst:.3e}, logits up to {float(want.abs().max()):.3f}"
+        + (f" (capacity_factor {tcfg.capacity_factor}: no drops)"
+           if tcfg.capacity_factor != cfg.capacity_factor else ""))
+    del caches, logits, want, got
 
-    rng = np.random.default_rng(SEED + 152)
+    rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(20, 64)))
-               for _ in range(LM_CHECK_REQUESTS)]
+               for _ in range(requests)]
     engine = ServeEngine(cfg, params, slots=2, max_ctx=128,
                          prompt_buckets=(64,), dtype=torch.float32)
-    uids = [engine.submit(q, max_new_tokens=LM_CHECK_NEW) for q in prompts]
-    got = {r.uid: r.tokens for r in engine.run_until_drained()}
+    uids = [engine.submit(q, max_new_tokens=new) for q in prompts]
+    done = {r.uid: r.tokens for r in engine.run_until_drained()}
     compared = []
     for uid, q in zip(uids, prompts):
-        want = lm_greedy(cfg, params, q, 64, LM_CHECK_NEW, 128, LM_TIE_GAP)
-        if got[uid][:len(want)] != want:
-            raise AssertionError(f"request {uid}: engine {got[uid]} against "
-                                 f"the single-request loop {want}")
+        want = lm_greedy(cfg, params, q, 64, new, 128, LM_TIE_GAP)
+        if done[uid][:len(want)] != want:
+            raise AssertionError(f"{cfg.name} request {uid}: engine "
+                                 f"{done[uid]} against the single-request "
+                                 f"loop {want}")
         compared.append(len(want))
-    log(f"[lm] f32 engine, {LM_CHECK_REQUESTS} requests through 2 slots: "
-        f"token for token the single-request loop over {sum(compared)} of "
-        f"{LM_CHECK_REQUESTS * LM_CHECK_NEW} steps (per request "
-        f"{compared}; the rest follow a near-tie within {LM_TIE_GAP})")
-    del engine, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    log(f"{tag} f32 engine, {requests} requests through 2 slots: token for "
+        f"token the single-request loop over {sum(compared)} of "
+        f"{requests * new} steps (per request {compared}; the rest follow a "
+        f"near-tie within {LM_TIE_GAP})")
 
-    # -- bf16 serving ------------------------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    params = bundle.init(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED + 153))
-    router = ForestRouter(seed=SEED, device="cuda")
+
+def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
+                    smi: str) -> None:
+    """``ServeEngine(slots=LM_SLOTS, max_ctx=LM_MAX_CTX, LM_BUCKETS)`` on its
+    default bf16 caches: prefill ms a bucket, then ``script`` ([(prompt,
+    max_new_tokens, priority)]) submitted at once and drained (stats,
+    decode tick p50 / p99 beside the tick's byte bound, tokens/s, peak
+    memory since the caller's reset), then a profile of decode-only ticks
+    with every slot busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import ServeEngine
+
     engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_ctx=LM_MAX_CTX,
                          prompt_buckets=LM_BUCKETS)
     on_card(params, "bf16 params")
@@ -3066,6 +3102,9 @@ def lm_phase(*, smi: str) -> None:
     cache_bytes = sum(t.nbytes for name, c in engine.caches.items()
                       if name != "index" for t in c.values())
     bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    leaves = sorted({f"{leaf} {str(t.dtype)[6:]}"
+                     for name, c in engine.caches.items() if name != "index"
+                     for leaf, t in c.items()})
     prefill_ms = {}
     for b in LM_BUCKETS:
         x = torch.randint(0, cfg.vocab_size, (1, b), device="cuda")
@@ -3077,24 +3116,14 @@ def lm_phase(*, smi: str) -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         prefill_ms[b] = 1e3 * float(np.median(walls[1:]))
-    log(f"[lm] bf16 params {param_bytes / 1e9:.3f} GB, KV cache "
-        f"{cache_bytes / 1e9:.3f} GB ({LM_SLOTS} slots x {LM_MAX_CTX} "
-        f"positions); prefill ms a bucket (median of 3, warmed) "
+    log(f"{tag} bf16 params {param_bytes / 1e9:.3f} GB, caches "
+        f"{cache_bytes / 1e9:.4f} GB ({LM_SLOTS} slots x {LM_MAX_CTX} "
+        f"positions; {', '.join(leaves)}); prefill ms a bucket (median of "
+        f"3, warmed) "
         + ", ".join(f"{b}: {ms:.3f}" for b, ms in prefill_ms.items()))
 
-    rng = np.random.default_rng(SEED + 154)
-    tiers, budgets, recent = [0, 0], [], []
-    for _ in range(LM_REQUESTS):
-        plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
-        mnt = int(rng.integers(LM_NEW_TOKENS[0], LM_NEW_TOKENS[1] + 1))
-        recent.append(plen)
-        tier = router.route(request_features(
-            plen, mnt, None, len(engine._active),
-            float(np.mean(recent[-8:]))))
-        tiers[tier] += 1
-        budgets.append(mnt)
-        engine.submit(rng.integers(0, cfg.vocab_size, plen),
-                      max_new_tokens=mnt, priority=tier)
+    for prompt, mnt, priority in script:
+        engine.submit(prompt, max_new_tokens=mnt, priority=priority)
     decode_ms, admit_ms = [], []
     t0 = time.perf_counter()
     while engine._queue or engine._active:
@@ -3105,9 +3134,10 @@ def lm_phase(*, smi: str) -> None:
             1e3 * (time.perf_counter() - t1))
     serve_s = time.perf_counter() - t0
     done = engine._done
-    if len(done) != LM_REQUESTS or sorted(len(r.tokens) for r in done) != \
-            sorted(budgets):
-        raise AssertionError(f"{len(done)} of {LM_REQUESTS} requests done, "
+    budgets = sorted(mnt for _, mnt, _ in script)
+    if len(done) != len(script) or \
+            sorted(len(r.tokens) for r in done) != budgets:
+        raise AssertionError(f"{len(done)} of {len(script)} requests done, "
                              f"token counts {[len(r.tokens) for r in done]}")
     bad = [t for r in done for t in r.tokens
            if not 0 <= t < cfg.vocab_padded]
@@ -3115,19 +3145,19 @@ def lm_phase(*, smi: str) -> None:
         raise AssertionError(f"token ids out of range: {bad[:5]}")
     st = engine.stats()
     p50, p99 = np.percentile(decode_ms, [50, 99])
-    log(f"[lm] bf16 serving stats {json.dumps(st)}")
-    log(f"[lm] bf16 serving: {LM_REQUESTS} requests ({tiers[0]} interactive, "
-        f"{tiers[1]} batch by the router on the card), {st['tokens']} tokens "
+    log(f"{tag} bf16 serving stats {json.dumps(st)}")
+    log(f"{tag} bf16 serving: {len(script)} requests, {st['tokens']} tokens "
         f"in {serve_s:.3f} s = {st['tokens'] / serve_s:.1f} tokens/s over "
         f"{engine.ticks} ticks; decode-only ticks {len(decode_ms)}: p50 "
         f"{p50:.3f} ms, p99 {p99:.3f} ms; ticks with admissions "
         f"{len(admit_ms)}: p50 {np.median(admit_ms):.3f} ms; byte bound "
-        f"{bound_ms:.4f} ms a tick (weights + whole KV cache at "
+        f"{bound_ms:.4f} ms a tick (weights + the whole cache at "
         f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), p50 tick at "
         f"{100 * bound_ms / p50:.2f} % of it; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
 
     # a profile of decode-only ticks: all slots busy, no admission
+    rng = np.random.default_rng(seed)
     for _ in range(LM_SLOTS):
         engine.submit(rng.integers(0, cfg.vocab_size, 100),
                       max_new_tokens=LM_PROFILE_TICKS + 3)
@@ -3141,15 +3171,71 @@ def lm_phase(*, smi: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     every, kernels, _ = device_intervals(prof)
     busy = union_us(every)
-    log(f"[lm] profile of {LM_PROFILE_TICKS} decode ticks (8 slots busy): "
-        f"wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms = "
-        f"{100 * busy / wall_us:.1f} % (idle {100 - 100 * busy / wall_us:.1f}"
-        f" %), {len(kernels) / LM_PROFILE_TICKS:.1f} kernels a tick")
+    log(f"{tag} profile of {LM_PROFILE_TICKS} decode ticks ({LM_SLOTS} slots "
+        f"busy): wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
+        f" = {100 * busy / wall_us:.1f} % (idle "
+        f"{100 - 100 * busy / wall_us:.1f} %), "
+        f"{len(kernels) / LM_PROFILE_TICKS:.1f} kernels a tick")
     log_device_time(prof, 6)
     engine.run_until_drained()
-    del engine, params, router
+
+
+def free_card() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def lm_phase(*, smi: str) -> None:
+    """Phase 15: the LM serving path on olmo-1b at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import get_bundle
+    from repro_torch.serve.router import ForestRouter, request_features
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    bundle = get_bundle(cfg)
+    log(f"[lm] {cfg.name} at full width: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads x {cfg.head_dim} "
+        f"({cfg.num_kv_heads} KV), d_ff {cfg.d_ff} {cfg.mlp_type}, "
+        f"{cfg.norm_type}, vocab {cfg.vocab_size} -> {cfg.vocab_padded}, "
+        f"tied {cfg.tie_embeddings}; on {smi}")
+
+    t0 = time.perf_counter()
+    params = bundle.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 150),
+        dtype=torch.float32)
+    torch.cuda.synchronize()
+    on_card(params, "f32 params")
+    n = lm_tree_params(cfg, params)
+    log(f"[lm] f32 params: {n:,} ({4 * n / 1e9:.3f} GB) drawn on the card "
+        f"in {time.perf_counter() - t0:.3f} s")
+    lm_f32_checks("[lm]", cfg, params, batch=LM_CHECK_BATCH,
+                  length=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+                  requests=LM_CHECK_REQUESTS, new=LM_CHECK_NEW,
+                  seed=SEED + 151)
+    del params
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 153))
+    router = ForestRouter(seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 154)
+    script, tiers, recent = [], [0, 0], []
+    for _ in range(LM_REQUESTS):
+        plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
+        mnt = int(rng.integers(LM_NEW_TOKENS[0], LM_NEW_TOKENS[1] + 1))
+        recent.append(plen)
+        tier = router.route(request_features(
+            plen, mnt, None, 0, float(np.mean(recent[-8:]))))
+        tiers[tier] += 1
+        script.append((rng.integers(0, cfg.vocab_size, plen), mnt, tier))
+    log(f"[lm] {LM_REQUESTS} requests routed by the forest router on the "
+        f"card: {tiers[0]} interactive, {tiers[1]} batch")
+    lm_bf16_serving("[lm]", cfg, params, script, seed=SEED + 155, smi=smi)
+    del params, router
+    free_card()
 
     # -- the CLI, at the reduced config on the card --------------------------
     t0 = time.perf_counter()
@@ -3158,6 +3244,103 @@ def lm_phase(*, smi: str) -> None:
         f"served, none dropped, {st['tokens']} tokens in "
         f"{time.perf_counter() - t0:.3f} s")
     log(f"[lm] phase wall {time.perf_counter() - t_phase:.3f} s")
+
+
+def lm_family_block(arch: str, *, smi: str) -> None:
+    """Phase 16 for one model: the f32 checks, then bf16 serving."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_bundle
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.router import TIER_BATCH
+
+    t_block = time.perf_counter()
+    tag = f"[lm-families] {arch}"
+    full = get_config(arch)
+    serve_layers, check_layers = LMF_LAYERS.get(
+        arch, (full.num_layers, full.num_layers))
+    cfg = dataclasses.replace(full, num_layers=serve_layers)
+    bundle = get_bundle(cfg)
+    what = (f"{cfg.num_blocks} blocks of {cfg.block_period}: "
+            + ("SSD" if cfg.ssm_layers else "attention"))
+    if cfg.shared_attn_every:
+        what += f" + the shared attention block (LoRA rank " \
+                f"{cfg.shared_attn_lora_rank}, {cfg.num_heads} heads x " \
+                f"{cfg.head_dim}, gelu d_ff {cfg.d_ff})"
+    if cfg.num_experts:
+        what += (f" with MoE every {cfg.moe_every} ({cfg.num_experts} "
+                 f"experts top-{cfg.top_k} + shared, d_ff {cfg.d_ff}), "
+                 f"{cfg.num_heads} heads x {cfg.head_dim} ({cfg.num_kv_heads}"
+                 f" KV), iRoPE window {cfg.attn_window} + global NoPE every "
+                 f"{cfg.global_every}")
+    if cfg.ssm_layers:
+        what += (f"; SSD d_inner {cfg.d_inner}, {cfg.ssm_heads} heads x "
+                 f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv "
+                 f"{cfg.conv_width}, chunk {cfg.ssm_chunk}")
+    log(f"{tag} d_model {cfg.d_model}, {serve_layers} of {full.num_layers} "
+        f"layers ({what}), vocab {cfg.vocab_size} -> {cfg.vocab_padded}; "
+        f"on {smi}")
+
+    ccfg = dataclasses.replace(cfg, num_layers=check_layers)
+    t0 = time.perf_counter()
+    params = bundle.init(
+        ccfg, torch.Generator(device="cuda").manual_seed(SEED + 160),
+        dtype=torch.float32)
+    torch.cuda.synchronize()
+    on_card(params, "f32 params")
+    n = lm_tree_params(ccfg, params)
+    log(f"{tag} f32 params at {check_layers} layers: {n:,} ({4 * n / 1e9:.3f}"
+        f" GB; the config's estimate {ccfg.param_count():,}) drawn on the "
+        f"card in {time.perf_counter() - t0:.3f} s")
+    # teacher forcing compares routed layers only where no token drops
+    tcfg = (dataclasses.replace(ccfg, capacity_factor=float(ccfg.num_experts))
+            if ccfg.num_experts else ccfg)
+    lm_f32_checks(tag, ccfg, params, batch=LMF_CHECK_BATCH,
+                  length=LMF_CHECK_LEN, steps=LMF_CHECK_STEPS,
+                  requests=LMF_CHECK_REQUESTS, new=LMF_CHECK_NEW,
+                  seed=SEED + 161, tcfg=tcfg)
+    del params
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 163))
+    torch.cuda.synchronize()
+    n = lm_tree_params(cfg, params)
+    log(f"{tag} bf16 params: {n:,} drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SEED + 164)
+    script = []
+    for _ in range(LMF_REQUESTS):
+        plen = int(rng.integers(LMF_PROMPT_LEN[0], LMF_PROMPT_LEN[1] + 1))
+        mnt = int(rng.integers(LMF_NEW_TOKENS[0], LMF_NEW_TOKENS[1] + 1))
+        script.append((rng.integers(0, cfg.vocab_size, plen), mnt,
+                       TIER_BATCH))
+    lm_bf16_serving(tag, cfg, params, script, seed=SEED + 165, smi=smi)
+    if cfg.num_experts:
+        moe_layers = sum(p.use_moe for p in LM.make_layer_plans(cfg)) * \
+            cfg.num_blocks
+        item = params["embed"].element_size()
+        gathered = moe_layers * LM_SLOTS * 3 * cfg.d_model * cfg.d_ff * item
+        param_bytes = sum(t.nbytes for t in tree_leaves(params))
+        log(f"{tag} the decode's expert-weight gathers copy {gathered:,} B "
+            f"a tick ({gathered / 1e9:.3f} GB: {moe_layers} MoE layers x "
+            f"{LM_SLOTS} tokens x 3 matrices of {cfg.d_model} x {cfg.d_ff} "
+            f"bf16), {gathered / param_bytes:.2f}x the weights' bytes")
+    del params
+    free_card()
+    log(f"{tag} block wall {time.perf_counter() - t_block:.3f} s")
+
+
+def lm_families_phase(*, smi: str) -> None:
+    """Phase 16: the SSD, hybrid and MoE serving paths, one model at a
+    time."""
+    t_phase = time.perf_counter()
+    for arch in LMF_ARCHS:
+        lm_family_block(arch, smi=smi)
+    log(f"[lm-families] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -3934,6 +4117,17 @@ def main() -> int:
             entry["launches"] += counts15[name_]
         else:
             entry["launches"] += counts15[name_] - counts15[f"{name_}_wide"]
+
+    # -- 16. the SSD, hybrid and MoE serving paths ---------------------------
+    (_, counts16) = counted(lambda: lm_families_phase(smi=smi))
+    log(f"[lm-families] forest kernel launches "
+        f"{ {k: n for k, n in counts16.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts16[name_]
+        else:
+            entry["launches"] += counts16[name_] - counts16[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -1,13 +1,15 @@
-"""Shared transformer building blocks: the dense half (torch).
+"""Shared transformer building blocks (torch).
 
-Mirrors ``repro/models/layers.py:45-401``: norms, QK-norm, RoPE, the three
-MLPs and attention (projection, grouped SDPA, the blockwise attention over
-KV chunks, prefill with its cache, one-token decode).  Every function is a
-plain function over explicit parameter dicts of tensors, in the
-reference's layout (``x @ w`` with ``w: [d_in, d_out]``), so a reference
-parameter tree carries across as a copy (``models/lm.py:
-params_from_arrays``).  The MoE half (``layers.py:404-591``) waits for
-ROADMAP queue 1 item 13b.
+Mirrors ``repro/models/layers.py``: norms, QK-norm, RoPE, the three MLPs,
+attention (projection, grouped SDPA, the blockwise attention over KV
+chunks, prefill with its cache, one-token decode) and the mesh-less MoE
+(top-1 dispatch with capacity at prefill, the per-token expert-weight
+gather at decode, the shared expert).  Every function is a plain function
+over explicit parameter dicts of tensors, in the reference's layout (``x @
+w`` with ``w: [d_in, d_out]``), so a reference parameter tree carries
+across as a copy (``models/lm.py:params_from_arrays``).  The MoE's expert
+parallelism (``shard_map`` / ``all_to_all`` / ``psum``) waits for the LM on
+a mesh, ROADMAP queue 1 item 13e.
 
 Numerics follow the reference's jnp:
   * every contraction the reference writes with
@@ -42,7 +44,7 @@ from repro_torch.models import scanctl
 __all__ = ["shard", "init_norm", "apply_norm", "rope_freqs", "apply_rope",
            "init_mlp", "apply_mlp", "AttnSpec", "init_attention",
            "attention_forward", "attention_forward_with_cache",
-           "attention_decode"]
+           "attention_decode", "init_moe", "apply_moe", "moe_decode"]
 
 Params = dict[str, Any]
 
@@ -397,3 +399,102 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     out = _einsum_f32("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
     out = out.reshape(B, 1, H * dh).to(x.dtype)
     return out @ p["wo"], new_cache
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (llama4): top-1 routing + shared expert, no mesh
+# ---------------------------------------------------------------------------
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator, d: int, f: int, dtype,
+             *, device=None) -> Params:
+    """The reference's leaves and scales.  The expert weights ``(E, d, f)``
+    take their fan-in from ``shape[0] = E``, as the reference's
+    ``_dense_init`` does; the router is f32 whatever ``dtype``."""
+    device = resolve_device(device)
+    E = cfg.num_experts
+    p = {
+        "router": _dense_init(gen, (d, E), torch.float32, device),
+        "wi": _dense_init(gen, (E, d, f), dtype, device),
+        "wg": _dense_init(gen, (E, d, f), dtype, device),
+        "wo": _dense_init(gen, (E, f, d), dtype, device),
+    }
+    if cfg.shared_expert:
+        p["shared"] = init_mlp(dataclasses.replace(cfg, mlp_type="swiglu"),
+                               gen, d, f, dtype, device=device)
+    return p
+
+
+def _route(p: Params, tokens: torch.Tensor):
+    """tokens [T, D] -> (router logits f32 [T, E], softmax probabilities,
+    gate = the largest probability [T])."""
+    logits = tokens.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    return logits, probs, probs.amax(dim=-1)
+
+
+def _moe_dispatch(p: Params, tokens: torch.Tensor, capacity: int):
+    """The reference's ``_moe_dispatch_compute`` without a mesh.
+
+    tokens [T, D] -> (routed expert output [T, D], expert index [T], keep
+    [T]): top-1 by ``argmax(softmax)``, each token's position in its expert
+    the running count of earlier tokens routed there; a token past
+    ``capacity`` goes to the dump row ``E * capacity`` and comes back as 0.
+    """
+    T, D = tokens.shape
+    E = p["router"].shape[1]
+    _, probs, gate = _route(p, tokens)
+    eidx = probs.argmax(dim=-1)                                # [T]
+
+    onehot = F.one_hot(eidx, E).to(torch.int32)                # [T, E]
+    pos = torch.gather(torch.cumsum(onehot, 0) - 1, 1, eidx[:, None])[:, 0]
+    keep = pos < capacity
+    slot = torch.where(keep, eidx * capacity + pos, E * capacity)
+
+    buf = torch.zeros((E * capacity + 1, D), dtype=tokens.dtype,
+                      device=tokens.device)
+    buf[slot] = torch.where(keep[:, None], tokens, 0)
+    buf = buf[:-1].reshape(E, capacity, D)
+
+    h = _einsum_f32("ecd,edf->ecf", buf, p["wi"]).to(tokens.dtype)
+    g = _einsum_f32("ecd,edf->ecf", buf, p["wg"]).to(tokens.dtype)
+    y = _einsum_f32("ecf,efd->ecd", F.silu(g) * h, p["wo"]).to(tokens.dtype)
+    y = torch.cat([y.reshape(E * capacity, D),
+                   torch.zeros((1, D), dtype=y.dtype, device=y.device)], 0)
+    out = y[slot] * (gate * keep)[:, None].to(y.dtype)
+    return out, eidx, keep
+
+
+def _shared_expert(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    return apply_mlp(dataclasses.replace(cfg, mlp_type="swiglu"),
+                     p["shared"], x)
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D]: every token of the batch routed together,
+    capacity ``max(1, int(B * S * capacity_factor / E))``; plus the shared
+    expert.  Expert parallelism over a mesh waits for item 13e."""
+    B, S, D = x.shape
+    cap = max(1, int(B * S * cfg.capacity_factor / cfg.num_experts))
+    out = _moe_dispatch(p, x.reshape(B * S, D), cap)[0].reshape(B, S, D)
+    if cfg.shared_expert:
+        out = out + _shared_expert(cfg, p, x)
+    return out
+
+
+def moe_decode(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Decode-path MoE: ``argmax(logits)`` routing and a per-token gather of
+    the ``[T, D, F]`` expert weights (the reference's mesh-less branch: no
+    capacity, each token runs its own expert), plus the shared expert."""
+    B, S, D = x.shape
+    tokens = x.reshape(B * S, D)
+    logits, _, gate = _route(p, tokens)
+    eidx = logits.argmax(dim=-1)
+    wi, wg, wo = p["wi"][eidx], p["wg"][eidx], p["wo"][eidx]  # [T, D, F]
+    h = torch.einsum("td,tdf->tf", tokens, wi)
+    g = torch.einsum("td,tdf->tf", tokens, wg)
+    y = torch.einsum("tf,tfd->td", F.silu(g) * h, wo)
+    out = (y * gate[:, None].to(y.dtype)).reshape(B, S, D)
+    if cfg.shared_expert:
+        out = out + _shared_expert(cfg, p, x)
+    return out

@@ -1,24 +1,31 @@
-"""Decoder-only LM assembly: the dense serving path (torch).
+"""Decoder-only LM assembly: the serving path (torch).
 
-Mirrors ``repro/models/lm.py`` for ``kind="attn"`` layers without MoE (the
-dense and vlm families: yi, olmo, qwen2, minitron, chameleon).  The layer
-pattern within one period is a static list of ``LayerPlan``s; the backbone
-loops over ``num_blocks`` stacked parameter trees (``scanctl.scan``), the
-reference's ``blocks/p{i}/...`` leaves with their leading ``[nB, ...]``
-axis, so a reference parameter tree carries across as a copy
-(``params_from_arrays``).
+Mirrors ``repro/models/lm.py`` for its four decoder-only families:
 
-Entry points: ``lm_prefill`` (stacked KV caches, last-token logits) and
+  dense / vlm   attn + MLP every layer (yi, olmo, qwen2, minitron, chameleon)
+  moe           llama4 scout / maverick: iRoPE (3 chunked-local RoPE layers
+                + 1 global NoPE a period of 4), MoE every / every other
+                layer with top-1 routing + a shared expert
+  ssm           mamba2: every layer an SSD block, no attention, no MLP
+  hybrid        zamba2: 6 Mamba2 layers a block + ONE SHARED attention block
+                (on concat(hidden, embed0), per-block LoRA deltas)
+
+The layer pattern within one period is a static list of ``LayerPlan``s; the
+backbone loops over ``num_blocks`` stacked parameter trees
+(``scanctl.scan``), the reference's ``blocks/p{i}/...`` (and ``lora/...``)
+leaves with their leading ``[nB, ...]`` axis, so a reference parameter
+tree carries across as a copy (``params_from_arrays``).
+
+Entry points: ``lm_prefill`` (stacked caches, last-token logits) and
 ``lm_decode`` (one token against the caches, which it updates in place and
 returns; ``docs/torch_lm.md``).  Both take the reference's ``splan``; the
 mesh-less plan, the only one until item 13e, places nothing, so neither
 reads it.  ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on
 ``cuda`` unless ``device="cpu"`` is passed.
 
-Waiting for later slices (ROADMAP queue 1): the SSD kind, the hybrid
-shared block with LoRA and MoE (item 13b), enc-dec (13c), ``lm_hidden`` /
-``lm_loss`` / ``chunked_xent`` and ``_remat`` (training, 13d).  A config
-that needs any of them is refused by ``require_ported``.
+Waiting for later slices (ROADMAP queue 1): enc-dec (item 13c), refused by
+``require_ported``; ``lm_hidden`` / ``lm_loss`` / ``chunked_xent`` and
+``_remat`` (training, 13d).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import ShardingPlan
 from repro_torch.models import layers as L
 from repro_torch.models import scanctl
+from repro_torch.models import ssd as S
 
 __all__ = ["LayerPlan", "make_layer_plans", "require_ported", "init_lm",
            "params_from_arrays", "full_logits", "lm_prefill", "lm_decode",
@@ -76,19 +84,12 @@ def make_layer_plans(cfg: ModelConfig) -> list[LayerPlan]:
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Refuse a config whose layers this slice does not port, naming the
+    """Refuse a config whose layers the port does not have yet, naming the
     ROADMAP queue 1 item that brings them."""
     if cfg.encoder_layers:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are ROADMAP queue 1 item "
             f"13c, not ported yet")
-    for field, what in (("num_experts", "MoE layers"),
-                        ("ssm_layers", "SSD (Mamba2) layers"),
-                        ("shared_attn_every", "the hybrid shared block")):
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are ROADMAP queue 1 item 13b, not "
-                f"ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -99,12 +100,41 @@ def require_ported(cfg: ModelConfig) -> None:
 def _init_position(cfg: ModelConfig, plan: LayerPlan, gen, dtype,
                    device) -> Params:
     D, F = cfg.d_model, cfg.d_ff
-    p: Params = {"norm1": L.init_norm(cfg, D, dtype, device=device),
-                 "attn": L.init_attention(cfg, gen, D, dtype, device=device),
-                 "norm2": L.init_norm(cfg, D, dtype, device=device)}
-    if F > 0:
+    p: Params = {"norm1": L.init_norm(cfg, D, dtype, device=device)}
+    if plan.kind == "ssm":
+        p["ssm"] = S.init_ssd(cfg, gen, dtype, device=device)
+        return p
+    p["attn"] = L.init_attention(cfg, gen, D, dtype, device=device)
+    p["norm2"] = L.init_norm(cfg, D, dtype, device=device)
+    if plan.use_moe:
+        p["moe"] = L.init_moe(cfg, gen, D, F, dtype, device=device)
+    elif F > 0:
         p["mlp"] = L.init_mlp(cfg, gen, D, F, dtype, device=device)
     return p
+
+
+def _init_shared_attn(cfg: ModelConfig, gen, dtype, device) -> Params:
+    """Zamba2's shared block over the concat(h, embed0) 2·D stream; its MLP
+    is gelu whatever ``cfg.mlp_type``."""
+    D2 = 2 * cfg.d_model
+    return {
+        "norm1": L.init_norm(cfg, D2, dtype, device=device),
+        "attn": L.init_attention(cfg, gen, D2, dtype, d_out=cfg.d_model,
+                                 device=device),
+        "norm2": L.init_norm(cfg, D2, dtype, device=device),
+        "mlp": {"wi": L._dense_init(gen, (D2, cfg.d_ff), dtype, device),
+                "wo": L._dense_init(gen, (cfg.d_ff, cfg.d_model), dtype,
+                                    device)},
+    }
+
+
+def _init_lora(cfg: ModelConfig, gen, dtype, device) -> Params:
+    """One block's LoRA delta on the shared block's ``wq``: ``a @ b``, with
+    ``b`` zero at init."""
+    D2, r = 2 * cfg.d_model, cfg.shared_attn_lora_rank
+    return {"a": L._dense_init(gen, (D2, r), dtype, device),
+            "b": torch.zeros((r, cfg.num_heads * cfg.head_dim), dtype=dtype,
+                             device=device)}
 
 
 def init_lm(cfg: ModelConfig, gen: torch.Generator, *,
@@ -127,6 +157,10 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = L._dense_init(
             gen, (cfg.d_model, cfg.vocab_padded), dtype, device)
+    if cfg.shared_attn_every:
+        params["shared_attn"] = _init_shared_attn(cfg, gen, dtype, device)
+        params["lora"] = scanctl.stack(
+            [_init_lora(cfg, gen, dtype, device) for _ in range(nB)])
     return params
 
 
@@ -159,13 +193,52 @@ def params_from_arrays(tree, *, device=None, dtype=None) -> Params:
 # ---------------------------------------------------------------------------
 
 
+#: the shared block's attention: RoPE and causal, whatever the config's
+_SHARED_SPEC = L.AttnSpec(use_rope=True, causal=True)
+
+
+def _apply_shared_attn(cfg: ModelConfig, shared: Params, lora: Params,
+                       h: torch.Tensor, e0: torch.Tensor, positions, *,
+                       decode_cache=None, collect=False, ctx=None):
+    """Zamba2's shared block, on concat(h, e0) with this block's LoRA delta
+    on ``wq``: attention and the gelu MLP both read the normed 2·D stream
+    and add to ``h``.  Returns (h, its K/V cache or None)."""
+    cat = torch.cat([h, e0], dim=-1)
+    n1 = L.apply_norm(cfg, shared["norm1"], cat)
+    attn_p = dict(shared["attn"])
+    attn_p["wq"] = attn_p["wq"] + (lora["a"] @ lora["b"]).to(
+        attn_p["wq"].dtype)
+    if decode_cache is not None:
+        a, new_cache = L.attention_decode(cfg, attn_p, n1, decode_cache,
+                                          _SHARED_SPEC)
+    elif collect:
+        a, new_cache = L.attention_forward_with_cache(
+            cfg, attn_p, n1, _SHARED_SPEC, positions=positions, ctx=ctx)
+    else:
+        a, new_cache = L.attention_forward(
+            cfg, attn_p, n1, _SHARED_SPEC, positions=positions), None
+    n2 = L.apply_norm(cfg, shared["norm2"], cat)
+    m = L.apply_mlp(dataclasses.replace(cfg, mlp_type="gelu"),
+                    shared["mlp"], n2)
+    return h + a + m, new_cache
+
+
 def _apply_position(cfg: ModelConfig, plan: LayerPlan, p: Params,
                     h: torch.Tensor, positions, *, cache=None,
                     decode=False, ctx=None):
     """One layer (train/prefill: cache=None or "collect"; decode: cache is
-    this layer's cache).  Returns (h, new_cache_or_None)."""
+    this layer's cache, updated in place).  Returns (h,
+    new_cache_or_None)."""
     new_cache = None
     n1 = L.apply_norm(cfg, p["norm1"], h)
+    if plan.kind == "ssm":
+        if decode:
+            y, new_cache = S.ssd_decode(cfg, p["ssm"], n1, cache)
+        elif cache == "collect":
+            y, new_cache = S.ssd_forward_with_cache(cfg, p["ssm"], n1)
+        else:
+            y = S.ssd_forward(cfg, p["ssm"], n1)
+        return h + y, new_cache
     if decode:
         a, new_cache = L.attention_decode(cfg, p["attn"], n1, cache,
                                           plan.attn)
@@ -177,7 +250,13 @@ def _apply_position(cfg: ModelConfig, plan: LayerPlan, p: Params,
                                 positions=positions)
     h = h + a
     n2 = L.apply_norm(cfg, p["norm2"], h)
-    m = L.apply_mlp(cfg, p["mlp"], n2) if cfg.d_ff > 0 else 0.0
+    if plan.use_moe:
+        m = (L.moe_decode(cfg, p["moe"], n2) if decode
+             else L.apply_moe(cfg, p["moe"], n2))
+    elif cfg.d_ff > 0:
+        m = L.apply_mlp(cfg, p["mlp"], n2)
+    else:
+        m = 0.0
     return h + m, new_cache
 
 
@@ -188,26 +267,43 @@ def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
     the new stacked caches, decode the given ones, written in place."""
     require_ported(cfg)
     plans = make_layer_plans(cfg)
+    # the hybrid's shared block reads the embedding (at decode: the current
+    # token's) beside the hidden stream
+    e0 = h if cfg.shared_attn_every else None
     collect = mode == "prefill"
     decode = mode == "decode"
     index = caches["index"] if decode else None
 
     def block(hh, xs):
         p_block = xs["params"]
+        c_block = xs.get("caches")
         new_caches = {}
+        if cfg.shared_attn_every:
+            dc = {**c_block["shared"], "index": index} if decode else None
+            hh, nc = _apply_shared_attn(cfg, params["shared_attn"],
+                                        xs["lora"], hh, e0, positions,
+                                        decode_cache=dc, collect=collect,
+                                        ctx=ctx)
+            if collect:
+                new_caches["shared"] = {"k": nc["k"], "v": nc["v"]}
         for i, plan in enumerate(plans):
             if decode:
-                c = {**xs["caches"][f"p{i}"], "index": index}
+                c = c_block[f"p{i}"]
+                if plan.kind == "attn":
+                    c = {**c, "index": index}
             else:
                 c = "collect" if collect else None
             hh, nc = _apply_position(cfg, plan, p_block[f"p{i}"], hh,
                                      positions, cache=c, decode=decode,
                                      ctx=ctx)
             if collect:
-                new_caches[f"p{i}"] = {"k": nc["k"], "v": nc["v"]}
+                new_caches[f"p{i}"] = ({"k": nc["k"], "v": nc["v"]}
+                                       if plan.kind == "attn" else nc)
         return hh, (new_caches if collect else None)
 
     xs: dict[str, Any] = {"params": params["blocks"]}
+    if cfg.shared_attn_every:
+        xs["lora"] = params["lora"]
     if decode:
         xs["caches"] = {k: v for k, v in caches.items() if k != "index"}
     h, ys = scanctl.scan(block, h, xs)
@@ -255,9 +351,9 @@ def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def lm_decode(cfg: ModelConfig, params: Params, caches: Params,
               token: torch.Tensor, *, splan: ShardingPlan | None = None):
-    """token [B, 1] -> (logits [B, Vp], caches).  The K/V tensors of
-    ``caches`` are updated in place and returned (with ``index + 1``): a
-    caller that needs the old caches clones them first."""
+    """token [B, 1] -> (logits [B, Vp], caches).  The K/V, conv and state
+    tensors of ``caches`` are updated in place and returned (with ``index +
+    1``): a caller that needs the old caches clones them first."""
     h = params["embed"][token]
     h, new_caches = _backbone(cfg, params, h, None, mode="decode",
                               caches=caches)
@@ -275,16 +371,34 @@ def lm_decode(cfg: ModelConfig, params: Params, caches: Params,
 
 def init_caches(cfg: ModelConfig, batch: int, ctx: int,
                 *, dtype=torch.bfloat16, device=None) -> Params:
-    """Zero caches for a [batch] decode stream with ``ctx`` total positions:
-    per attention position ``p{i}`` stacked K/V ``[nB, batch, ctx, KV,
-    dh]`` (windowed layers get the full ctx too; the window masks at
-    attend time) and a scalar int32 ``index``."""
+    """Zero caches for a [batch] decode stream with ``ctx`` total positions,
+    every leaf stacked on a leading ``[nB]`` axis:
+
+      * an attention position ``p{i}`` and the hybrid's ``shared`` block:
+        K/V ``[nB, batch, ctx, KV, dh]`` in ``dtype`` (windowed layers get
+        the full ctx too; the window masks at attend time);
+      * an SSM position ``p{i}``: ``conv [nB, batch, W-1, C]`` in ``dtype``
+        and ``state [nB, batch, H, P, N]`` in f32, O(1) in ``ctx``;
+
+    and a scalar int32 ``index``."""
     require_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.num_blocks, batch, ctx, cfg.num_kv_heads, cfg.head_dim)
-    caches: Params = {
-        f"p{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                  "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for i in range(len(make_layer_plans(cfg)))}
+    nB = cfg.num_blocks
+    shape = (nB, batch, ctx, cfg.num_kv_heads, cfg.head_dim)
+
+    def kv() -> Params:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    caches: Params = {}
+    for i, plan in enumerate(make_layer_plans(cfg)):
+        if plan.kind == "ssm":
+            caches[f"p{i}"] = {
+                k: t.new_zeros((nB,) + t.shape) for k, t in
+                S.init_ssd_cache(cfg, batch, dtype, device=device).items()}
+        else:
+            caches[f"p{i}"] = kv()
+    if cfg.shared_attn_every:
+        caches["shared"] = kv()
     caches["index"] = torch.tensor(0, dtype=torch.int32, device=device)
     return caches

@@ -1,11 +1,12 @@
 """Registry: one ``ModelBundle`` of entry points per architecture family
 (torch).
 
-Mirrors ``repro/models/registry.py`` for the decoder-only LM bundle: its
-``init``, ``prefill``, ``decode`` and ``init_caches`` are what the serving
-engine calls.  ``loss`` raises until training is ported (ROADMAP queue 1
-item 13d); the enc-dec bundle waits for item 13c and ``input_specs`` (the
-dry-run's stand-ins) for item 13f.
+Mirrors ``repro/models/registry.py`` for the decoder-only LM bundle (the
+dense, vlm, moe, ssm and hybrid families): its ``init``, ``prefill``,
+``decode`` and ``init_caches`` are what the serving engine calls.  ``loss``
+raises until training is ported (ROADMAP queue 1 item 13d); the enc-dec
+bundle waits for item 13c and ``input_specs`` (the dry-run's stand-ins) for
+item 13f.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ _LM_BUNDLE = ModelBundle(init=LM.init_lm, loss=_lm_loss, prefill=_lm_prefill,
 
 
 def get_bundle(cfg: ModelConfig) -> ModelBundle:
-    """The LM bundle; a config this slice does not port raises
-    ``NotImplementedError`` naming its ROADMAP item."""
+    """The LM bundle; an enc-dec config raises ``NotImplementedError``
+    naming ROADMAP queue 1 item 13c."""
     LM.require_ported(cfg)
     return _LM_BUNDLE

@@ -135,8 +135,9 @@ class ServeEngine:
     def _insert_fn(self, cache1, slot: int, length: int,
                    first_token: int) -> None:
         """Copy a batch-1 prefill cache into slot ``slot`` of the engine's
-        caches, in place: every K/V leaf is ``[nB, B, ...]``, so the batch
-        axis is 1."""
+        caches, in place: every leaf (K/V, the SSD conv window and its f32
+        state) is ``[nB, B, ...]``, so the batch axis is 1, and the slot's
+        whole previous cache is overwritten."""
         for name, small in cache1.items():
             if name == "index":
                 continue

@@ -1450,3 +1450,62 @@ def test_lm_entry_points_default_to_cuda():
     (req,) = engine.run_until_drained()
     assert len(req.tokens) == 3
     assert all(0 <= t < cfg.vocab_padded for t in req.tokens)
+
+
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    return tree.to("cuda")
+
+
+LM_FAMILIES = ["mamba2-2.7b", "zamba2-2.7b", "llama4-scout-17b-a16e",
+               "llama4-maverick-400b-a17b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_lm_family_on_cuda_equals_cpu(arch):
+    """The SSD, hybrid and MoE families at ``reduced()`` on the card
+    against the port's CPU run on the same f32 weights: logits and every
+    cache leaf (the SSD conv window and state, the shared K/V) after a prefill of 40 tokens (two SSD chunks, a padded tail) and
+    two decode steps, within 1e-4; the engine on the card against the
+    single-request loop up to its first near-tie."""
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import ServeEngine
+    cfg = reduced(get_config(arch))
+    params = LM.init_lm(cfg, torch.Generator().manual_seed(1),
+                        dtype=torch.float32, device="cpu")
+    cuda = _to_cuda(params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 42)))
+    want, wc = LM.lm_prefill(cfg, params, toks[:, :40], ctx=44)
+    got, gc = LM.lm_prefill(cfg, cuda, toks[:, :40].cuda(), ctx=44)
+    for step in range(3):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        for name, c in wc.items():
+            if name == "index":
+                continue
+            for leaf, t in c.items():
+                assert gc[name][leaf].is_cuda
+                assert gc[name][leaf].dtype == t.dtype
+                np.testing.assert_allclose(gc[name][leaf].cpu().numpy(),
+                                           t.numpy(), rtol=1e-4, atol=1e-4)
+        if step < 2:
+            tok = toks[:, 40 + step:41 + step]
+            want, wc = LM.lm_decode(cfg, params, wc, tok)
+            got, gc = LM.lm_decode(cfg, cuda, gc, tok.cuda())
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (12, 5, 16)]
+    engine = ServeEngine(cfg, cuda, slots=2, max_ctx=64,
+                         prompt_buckets=(16,), dtype=torch.float32)
+    uids = [engine.submit(p, max_new_tokens=6) for p in prompts]
+    by_uid = {r.uid: r.tokens for r in engine.run_until_drained()}
+    compared = 0
+    for uid, p in zip(uids, prompts):
+        want_toks = _greedy_until_tie(cfg, cuda, p, 16, 6, 64, gap=1e-4)
+        assert by_uid[uid][:len(want_toks)] == want_toks
+        compared += len(want_toks)
+    assert compared >= 6

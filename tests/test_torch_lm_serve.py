@@ -11,7 +11,17 @@ On the engines' default bf16 caches under f32 weights (the CLI's dtypes)
 both engines' tokens equal the reference's loop up to its first near-tie.
 One engine tick's spans, events and counters equal the reference engine's.
 The port's CLI runs with ``--device cpu``.
+
+The MoE, SSD and hybrid families (llama4-scout, llama4-maverick, mamba2,
+zamba2, each at two blocks) run through both engines too: token for token
+on f32 caches, and on bf16 caches up to the first near-tie of the port's
+single-request loop; a slot reused over SSD caches leaks nothing of its
+previous request.  Both engines keep the reference's ``max_new_tokens=1``
+behaviour (the request never finishes).
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -297,9 +307,184 @@ def test_engine_device_checks(served):
             ServeEngine(cfg, p)                      # the card by default
     with pytest.raises(ValueError, match="params lie on"):
         ServeEngine(cfg, p, device="meta")
-    moe = reduced(get_config("llama4-scout-17b-a16e"))
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        ServeEngine(moe, p, device="cpu")
     with pytest.raises(ValueError, match="decoder-only"):
         ServeEngine(reduced(get_config("seamless-m4t-large-v2")), p,
                     device="cpu")
+
+
+def test_max_new_tokens_one_never_finishes_in_either_engine(served):
+    """A copied reference defect, kept (``docs/torch_lm.md``): admission
+    leaves ``max_new_tokens - 1 = 0`` tokens to go, the tick skips a slot
+    with none left, and only the tick finishes a request, so a request of
+    one new token holds its slot until ``max_ticks``."""
+    _, cfg, _, _ = served
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 5) for _ in range(2)]
+    seen = []
+    for engine in _engines(served, slots=1, max_ctx=64, prompt_buckets=(8,)):
+        for q in prompts:
+            engine.submit(q, max_new_tokens=1)
+        done = engine.run_until_drained(max_ticks=50)
+        (req,) = engine._active.values()
+        seen.append((len(done), len(engine._active), len(engine._queue),
+                     req.uid, list(req.tokens)))
+    assert seen[0] == seen[1]
+    assert seen[1][:4] == (0, 1, 1, 1) and len(seen[1][4]) == 1
+
+
+# -- the MoE, SSD and hybrid families ------------------------------------------
+
+FAMILIES = ["mamba2-2.7b", "zamba2-2.7b", "llama4-scout-17b-a16e",
+            "llama4-maverick-400b-a17b"]
+TWO_BLOCKS = {"zamba2-2.7b": 12, "llama4-scout-17b-a16e": 8,
+              "llama4-maverick-400b-a17b": 8}
+
+
+@functools.lru_cache(maxsize=None)
+def _family(arch: str):
+    """(reference config, port config, reference f32 weights, the port's
+    copy) at two blocks; the LoRA ``b`` and the SSD's ``A_log`` /
+    ``dt_bias`` / ``D`` drawn at random so that they matter."""
+    changes = {"num_layers": TWO_BLOCKS[arch]} if arch in TWO_BLOCKS else {}
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), **changes)
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+    assert cfg.num_blocks == 2
+    tree = jax.tree_util.tree_map(
+        np.asarray, jget_bundle(jcfg).init(jcfg, KEY, dtype=jnp.float32))
+    r = np.random.default_rng(len(arch))
+
+    def live(node, name=""):
+        if isinstance(node, dict):
+            return {k: live(v, k) for k, v in node.items()}
+        if name in ("b", "A_log", "dt_bias"):
+            return r.normal(0.0, 0.1, node.shape).astype(node.dtype)
+        if name == "D":
+            return r.normal(1.0, 0.3, node.shape).astype(node.dtype)
+        return node
+
+    tree = live(tree)
+    return (jcfg, cfg, jax.tree_util.tree_map(jnp.asarray, tree),
+            LM.params_from_arrays(tree, device="cpu"))
+
+
+def _port_loop(cfg, params, prompt, bucket, max_new, max_ctx, dtype):
+    """The port's single-request greedy loop on the engine's caches: the
+    prefill's cache copied into ``init_caches(1, max_ctx, dtype)`` with a
+    ``[1]`` index, as ``_insert_fn`` leaves one slot.  Returns the tokens
+    and each step's gap between its two largest logits."""
+    toks = np.zeros((1, bucket), np.int64)
+    toks[0, bucket - len(prompt):] = prompt
+    logits, cache1 = LM.lm_prefill(cfg, params, torch.from_numpy(toks),
+                                   ctx=max_ctx)
+    caches = LM.init_caches(cfg, 1, max_ctx, dtype=dtype, device="cpu")
+    for name, c in cache1.items():
+        if name != "index":
+            for leaf, t in c.items():
+                caches[name][leaf].copy_(t)
+    caches["index"] = torch.tensor([bucket], dtype=torch.int32)
+    out, gaps = [], []
+    for step in range(max_new):
+        if step:
+            logits, caches = LM.lm_decode(cfg, params, caches,
+                                          torch.tensor([[out[-1]]]))
+        top2 = torch.topk(logits[0], 2).values
+        out.append(int(torch.argmax(logits[0])))
+        gaps.append(float(top2[0] - top2[1]))
+    return out, gaps
+
+
+def _family_engines(arch, script, *, bf16, **kw):
+    jcfg, cfg, jp, p = _family(arch)
+    out = []
+    for engine in ((JServeEngine(jcfg, jp, **kw),
+                    ServeEngine(cfg, p, device="cpu", **kw)) if bf16 else
+                   (JServeEngine(jcfg, jp, dtype=jnp.float32, **kw),
+                    ServeEngine(cfg, p, dtype=torch.float32, device="cpu",
+                                **kw))):
+        uids = [engine.submit(prompt, **skw) for prompt, skw in script]
+        out.append((engine, uids, engine.run_until_drained()))
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_engine_matches_reference(arch):
+    """f32 caches: both engines finish the same requests in the same order
+    with the same tokens, each the port's single-request loop's."""
+    _, cfg, _, p = _family(arch)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (12, 5, 16, 9)]     # 4 requests through 2 slots
+    (jengine, juids, jdone), (engine, uids, done) = _family_engines(
+        arch, [(q, {"max_new_tokens": 6}) for q in prompts], bf16=False,
+        slots=2, max_ctx=48, prompt_buckets=(16,))
+    assert uids == juids and len(done) == 4
+    assert [(r.uid, r.tokens) for r in done] == \
+        [(r.uid, r.tokens) for r in jdone]
+    assert {k: engine.stats()[k] for k in COUNT_KEYS} == \
+        {k: jengine.stats()[k] for k in COUNT_KEYS}
+    by_uid = {r.uid: r.tokens for r in done}
+    for uid, q in zip(uids, prompts):
+        want, _ = _port_loop(cfg, p, q, 16, 6, 48, torch.float32)
+        assert by_uid[uid] == want, uid
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_engine_matches_reference_on_bf16_caches(arch):
+    """The engines' default bf16 caches under f32 weights (the SSD state
+    stays f32).  The reference's ``conv`` leaf turns f32 on its first tick
+    (``docs/torch_lm.md``, divergence 7), so the engines are held token for
+    token up to the first step whose two largest logits, in the port's
+    single-request loop on bf16 caches, lie within ``TIE`` = 0.02: past
+    one, a bf16 rounding of the conv window may rightly pick the other."""
+    _, cfg, _, p = _family(arch)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in (12, 5, 16, 9)]
+    (jengine, juids, jdone), (engine, uids, done) = _family_engines(
+        arch, [(q, {"max_new_tokens": 6}) for q in prompts], bf16=True,
+        slots=2, max_ctx=48, prompt_buckets=(16,))
+    leaf = "conv" if cfg.ssm_layers else "k"
+    assert engine.caches["p0"][leaf].dtype == torch.bfloat16
+    if cfg.ssm_layers:
+        assert engine.caches["p0"]["state"].dtype == torch.float32
+    assert uids == juids and len(done) == len(jdone) == 4
+    TIE = 0.02
+    mine = {r.uid: r.tokens for r in done}
+    ref = {r.uid: r.tokens for r in jdone}
+    compared = 0
+    for uid, q in zip(uids, prompts):
+        want, gaps = _port_loop(cfg, p, q, 16, 6, 48, torch.bfloat16)
+        n = next((i + 1 for i, g in enumerate(gaps) if g < TIE), len(want))
+        assert mine[uid][:n] == ref[uid][:n] == want[:n], uid
+        compared += n
+    assert compared >= 12, compared
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_reused_slot_leaks_no_ssd_state(arch):
+    """One slot, two requests: the second runs in the slot the first left,
+    its conv window and state overwritten at admission, and generates what
+    it generates in a fresh engine and in the reference's engine."""
+    _, cfg, _, p = _family(arch)
+    rng = np.random.default_rng(10)
+    first, second = (rng.integers(0, cfg.vocab_size, n) for n in (14, 7))
+    kw = dict(slots=1, max_ctx=48, prompt_buckets=(16,))
+    (_, _, jdone), (engine, uids, done) = _family_engines(
+        arch, [(first, {"max_new_tokens": 5}),
+               (second, {"max_new_tokens": 5})], bf16=False, **kw)
+    assert [r.tokens for r in done] == [r.tokens for r in jdone]
+    fresh = ServeEngine(cfg, p, dtype=torch.float32, device="cpu", **kw)
+    fresh.submit(second, max_new_tokens=5)
+    (alone,) = fresh.run_until_drained()
+    assert done[1].uid == uids[1] and done[1].tokens == alone.tokens
+    state = engine.caches["p0"]["state"]
+    assert bool(state.any())                  # the second request's state
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_cli_serves_each_family_on_the_cpu(arch, capsys):
+    """``launch.serve --arch <arch> --device cpu`` at ``reduced()``."""
+    stats = serve_cli.main(["--arch", arch, "--device", "cpu"])
+    assert stats["requests"] == 12
+    assert stats["tier0_interactive"] + stats["tier1_batch"] == 12
+    assert '"requests": 12' in capsys.readouterr().out

@@ -296,8 +296,11 @@ def test_admission_timeout_sheds_to_batch_tier(kind):
         eng._shed_timed_out(eng._get("m"), now + 0.0005)
         order = [r.uid for r in eng._get("m").pending]
         shed = [(r.shed, r.priority) for r in reqs]
-        eng.tick(now=now + 0.0005)      # not due: the interactive one is
-        assert not any(r.done.is_set() for r in reqs)   # younger than 1 ms
+        # not due: the interactive request 1 is younger than 1 ms on its
+        # own clock (the shed above keeps ``now``, read after request 2's
+        # submit, so that both timeout-0 requests are past their budget)
+        eng.tick(now=reqs[1].submitted_at + 0.0005)
+        assert not any(r.done.is_set() for r in reqs)
         eng.tick(now=now + 0.06)        # the batch deadline bounds them
         return order, shed, np.concatenate([r.wait(1.0) for r in reqs])
 
