@@ -268,6 +268,35 @@ Phases (any failure exits non-zero and prints no result line):
               5 decode ticks (device busy share, kernels a tick), and for
               llama4 the bytes the decode's per-token expert-weight
               gathers copy a tick.
+ 17. lm-train  the LM training path (the loss with remat and the chunked
+              cross-entropy, the optimizers, train/trainer.py, checkpoints,
+              TrainLoop, launch/train.py) and the enc-dec model.  (a) In
+              f32 with TF32 off, every config at reduced(): one AdamW
+              make_train_step step on the card from a state_from_arrays
+              state, loss, gnorm, every parameter and mu within 1e-4 of
+              the same step on the CPU; reduced olmo's 2 microbatches
+              within 2e-5 of one batch.  (b) Reduced olmo through
+              TrainLoop (checkpoints every 5 steps in a temporary
+              directory, a failure injected at step 7, a restore, the rest
+              of 12 steps): bit for bit an uninterrupted run on the card;
+              then launch/train.main with --ckpt-dir and --resume.
+              (c) chunked_xent over olmo-1b's 50,432 padded ids and 512
+              tokens against a dense log-softmax loss (loss within 1e-5
+              relative, the gradients of h and w within 1e-4).
+              (d) seamless-m4t-large-v2 at full width (24 + 24 layers,
+              d_model 1,024, vocab 256,256 padded, untied), f32: 8
+              token-by-token decode steps on 2 x 1,024 frames within 1e-3
+              of encdec_prefill over each prefix, and the copied
+              prefill-then-decode defect.  (e) bf16 training at full
+              width, AdamW, the configs' remat ("full"), deterministic
+              steps: olmo-1b on 8 x 1,024 tokens and seamless on 8 x 1,024
+              frames + 8 x 256 decoder tokens (batch_for), 10 steps each
+              through TrainLoop, each model freed before the next: losses
+              and gnorm (finite at every step), step wall p50 / p99
+              without step 0, training tokens/s, model FLOPs a step over
+              the wall against the 989.4 TFLOP/s dense bf16 peak, peak
+              memory, a 2-step profile (busy share, kernels a step, the
+              top 8 kernels) and the step without deterministic mode.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -405,10 +434,30 @@ LMF_PROMPT_LEN, LMF_NEW_TOKENS = (32, 500), (16, 64)
 #: sizes summed over jax.eval_shape of repro.models.get_bundle(cfg).init
 #: on the CPU)
 LM_TREE_PARAMS = {("olmo-1b", 16): 1_177_026_560,
+                  ("seamless-m4t-large-v2", 24): 1_632_358_400,
                   ("mamba2-2.7b", 64): 2_832_074_240,
                   ("zamba2-2.7b", 54): 2_451_183_520,
                   ("llama4-scout-17b-a16e", 8): 19_687_758_848,
                   ("llama4-scout-17b-a16e", 4): 10_879_350_784}
+
+#: phase 17, LM training: (a) one AdamW step of each config at reduced()
+#: on the card against the CPU, in f32 (the default OptimizerConfig, whose
+#: first step moves a parameter by at most 2 x 3e-6), within LMT_TOL;
+#: microbatches within the reference test's 2e-5; (b) TrainLoop's failure,
+#: restore and continuation at reduced olmo, bit for bit; (c) chunked_xent
+#: over olmo's vocabulary against a dense loss; (d) enc-dec decode at full
+#: width within LM_TOL of prefill; (e) bf16 training at full width
+LMT_TOL = 1e-4
+LMT_MICRO_TOL = 2e-5
+LMT_CHECK_BATCH, LMT_CHECK_SEQ = 4, 64
+LMT_LOOP_STEPS, LMT_LOOP_CKPT, LMT_LOOP_FAIL = 12, 5, 7
+LMT_XENT_TOKENS = 512
+LMT_XENT_LOSS_RTOL, LMT_XENT_GRAD_TOL = 1e-5, 1e-4
+LMT_ED_BATCH, LMT_ED_FRAMES, LMT_ED_CTX, LMT_ED_STEPS = 2, 1024, 64, 8
+LMT_ARCHS = ("olmo-1b", "seamless-m4t-large-v2")
+LMT_BATCH, LMT_SEQ, LMT_STEPS = 8, 1024, 10
+LMT_PROFILE_STEPS, LMT_LOOSE_STEPS = 2, 4
+BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core peak
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -3343,6 +3392,485 @@ def lm_families_phase(*, smi: str) -> None:
     log(f"[lm-families] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
+def train_step_flops(cfg, batch: int, seq: int) -> tuple[float, str]:
+    """Model FLOPs of one training step (forward and backward, no
+    recompute): 6 x each token x the matrix parameters it passes through,
+    plus 12 x B x Sq x Sk x H x dh for each attention's two products
+    (forward 4, backward 8; no causal half).  Enc-dec: ``seq`` frames
+    through the encoder, ``seq // dec_len_ratio`` decoder tokens."""
+    D, F, Vp = cfg.d_model, cfg.d_ff, cfg.vocab_padded
+    Hd, KVd = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    attn = 2 * D * Hd + 2 * D * KVd
+    mlp = (3 if cfg.mlp_type == "swiglu" else 2) * D * F
+    B = batch
+    if not cfg.encoder_layers:
+        T, L_ = B * seq, cfg.num_layers
+        flops = 6 * T * (L_ * (attn + mlp) + D * Vp) + \
+            12 * L_ * B * seq * seq * Hd
+        return float(flops), (f"6 x {T} tokens x ({L_} x {attn + mlp:,} + "
+                              f"{D} x {Vp}) + 12 x {L_} x {B} x {seq}^2 x "
+                              f"{Hd}")
+    Sd = max(seq // cfg.dec_len_ratio, 1)
+    Te, Td, Le, Ld = B * seq, B * Sd, cfg.encoder_layers, cfg.num_layers
+    cross_kv = 2 * D * KVd
+    mats = Te * Le * (attn + mlp) + Td * Ld * (attn + (attn - cross_kv)
+                                                + mlp) \
+        + Te * Ld * cross_kv + Td * D * Vp
+    att = 12 * Hd * B * (Le * seq * seq + Ld * Sd * Sd + Ld * Sd * seq)
+    return float(6 * mats + att), (
+        f"6 x ({Te} frames x {Le} x {attn + mlp:,} + {Td} tokens x {Ld} x "
+        f"{2 * attn - cross_kv + mlp:,} + {Te} x {Ld} x {cross_kv:,} + {Td} "
+        f"x {D} x {Vp}) + 12 x {Hd} x {B} x ({Le} x {seq}^2 + {Ld} x "
+        f"{Sd}^2 + {Ld} x {Sd} x {seq})")
+
+
+
+def bits_equal(a, b) -> bool:
+    """Two trees of tensors equal bit for bit, dtype and shape included."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def step_breakdown(cfg, opt, state, batch) -> dict:
+    """One training step taken apart as ``make_train_step`` runs it, each
+    part under CUDA events and its own peak of allocated memory above what
+    was allocated before it: the loss's forward, its backward
+    (``torch.autograd.grad`` over the parameters), the optimizer's
+    update."""
+    from repro_torch.models import get_bundle
+    from repro_torch.train.trainer import deterministic_algorithms
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+
+    tb = {k: (torch.from_numpy(a).cuda() if a.dtype.kind == "f"
+              else torch.from_numpy(a).long().cuda())
+          for k, a in batch.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    out, peaks = {}, {}
+    with deterministic_algorithms():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ev[0].record()
+        leaves = [t.detach().requires_grad_() for t in
+                  tree_leaves(state["params"])]
+        loss = get_bundle(cfg).loss(cfg, tree_unflatten(state["params"], leaves),
+                                    tb, None)
+        ev[1].record()
+        torch.cuda.synchronize()
+        peaks["forward"] = torch.cuda.max_memory_allocated() - base
+        out["saved"] = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        torch.cuda.synchronize()
+        peaks["backward"] = torch.cuda.max_memory_allocated() - base
+        del loss, leaves
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        new = opt.update(tree_unflatten(state["params"], grads),
+                         state["opt"], state["params"], state["step"])
+        ev[3].record()
+        torch.cuda.synchronize()
+        peaks["update"] = torch.cuda.max_memory_allocated() - base
+        out["new_state"] = torch.cuda.memory_allocated() - base
+    del new, grads
+    for i, part in enumerate(("forward", "backward", "update")):
+        out[f"{part}_ms"] = ev[i].elapsed_time(ev[i + 1])
+        out[f"{part}_peak"] = peaks[part]
+    return out
+
+
+def lm_train_parity(*, smi: str) -> None:
+    """Phase 17 (a): one AdamW step of every config at reduced() on the
+    card against the same step on the CPU, from the same state; then
+    reduced olmo's microbatches."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config, reduced
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           state_from_arrays)
+    from repro_torch.train.tree import tree_map
+
+    def host_tree(tree):
+        return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 checks")
+    opt = make_optimizer(OptimizerConfig())
+    shape = ShapeConfig("check", LMT_CHECK_SEQ, LMT_CHECK_BATCH, "train")
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = reduced(get_config(arch))
+        arrays = host_tree(init_state(
+            cfg, opt, torch.Generator().manual_seed(SEED + 170 + i),
+            dtype=torch.float32, device="cpu"))
+        batch = batch_for(cfg, shape, 0, seed=SEED + i)
+        step = make_train_step(cfg, opt)
+        t0 = time.perf_counter()
+        got, gm = step(state_from_arrays(arrays, device="cuda"), batch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want, wm = step(state_from_arrays(arrays, device="cpu"), batch)
+        on_card(got, f"{arch} state")
+        errs = {}
+        for key in ("loss", "gnorm"):
+            g, w = float(gm[key]), float(wm[key])
+            errs[key] = abs(g - w)
+            if not (math.isfinite(g) and abs(g - w) <= LMT_TOL
+                    + LMT_TOL * abs(w)):
+                raise AssertionError(f"{arch} {key}: card {g} against the "
+                                     f"CPU's {w}")
+        for part in ("params", "mu"):
+            a = got["params"] if part == "params" else got["opt"]["mu"]
+            b = want["params"] if part == "params" else want["opt"]["mu"]
+            errs[part] = max(float((x.cpu() - y).abs().max())
+                             for x, y in zip(tree_leaves(a), tree_leaves(b)))
+            if not errs[part] <= LMT_TOL:
+                raise AssertionError(f"{arch} {part}: max |err| "
+                                     f"{errs[part]:.3e} past {LMT_TOL}")
+        log(f"[lm-train] (a) {arch} reduced, one AdamW step on the card "
+            f"against the CPU: loss {float(gm['loss']):.6f} (|err| "
+            f"{errs['loss']:.2e}), gnorm {float(gm['gnorm']):.6f} (|err| "
+            f"{errs['gnorm']:.2e}), params max |err| {errs['params']:.2e}, "
+            f"mu (0.1 x the gradients) {errs['mu']:.2e}; within "
+            f"rtol = atol = {LMT_TOL}; card step {card_s:.3f} s (first "
+            f"call); on {smi}")
+
+    cfg = reduced(get_config("olmo-1b"))
+    sgd = make_optimizer(OptimizerConfig(name="sgd", lr=1e-2, warmup_steps=0,
+                                         grad_clip=1e9))
+    arrays = host_tree(init_state(cfg, sgd, torch.Generator().manual_seed(
+        SEED + 180), dtype=torch.float32, device="cpu"))
+    batch = batch_for(cfg, ShapeConfig("micro", 32, 8, "train"), 0,
+                      seed=SEED)
+    s1, m1 = make_train_step(cfg, sgd, microbatches=1)(
+        state_from_arrays(arrays, device="cuda"), batch)
+    s2, m2 = make_train_step(cfg, sgd, microbatches=2)(
+        state_from_arrays(arrays, device="cuda"), batch)
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(s1["params"]), tree_leaves(s2["params"])))
+    loss_rel = abs(float(m1["loss"]) - float(m2["loss"])) / \
+        abs(float(m1["loss"]))
+    if not (diff < LMT_MICRO_TOL and loss_rel <= 1e-5):
+        raise AssertionError(f"microbatches: params {diff:.3e}, loss "
+                             f"{loss_rel:.3e}")
+    log(f"[lm-train] (a) olmo-1b reduced on the card: 2 microbatches of 4 "
+        f"against one batch of 8: params max |err| {diff:.2e} (limit "
+        f"{LMT_MICRO_TOL}), loss rel err {loss_rel:.2e}; on {smi}")
+
+
+def lm_train_continuation(*, smi: str) -> None:
+    """Phase 17 (b): TrainLoop at reduced olmo on the card: a failure at
+    step LMT_LOOP_FAIL, a restore from the last checkpoint and the rest of
+    the steps, bit for bit an uninterrupted run; then the CLI with a
+    resume."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.checkpoint import latest_step
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.fault import FailureInjector, TrainLoop
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    cfg = reduced(get_config("olmo-1b"))
+    opt = make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=2))
+    dc = DataConfig(seed=SEED + 5, vocab_size=cfg.vocab_size, batch=4,
+                    seq_len=32)
+
+    def fresh():
+        return init_state(cfg, opt, torch.Generator(device="cuda")
+                          .manual_seed(SEED + 190), dtype=torch.float32)
+
+    def loop(ckpt_dir=None, injector=None):
+        return TrainLoop(make_train_step(cfg, opt),
+                         lambda k: synthetic_batch(dc, k), ckpt_dir=ckpt_dir,
+                         ckpt_every=LMT_LOOP_CKPT, injector=injector)
+
+    t0 = time.perf_counter()
+    straight, report = loop().run(fresh(), LMT_LOOP_STEPS)
+    with tempfile.TemporaryDirectory(prefix="lm_ckpt_") as tmp:
+        faulty = loop(tmp, FailureInjector(fail_at=LMT_LOOP_FAIL))
+        try:
+            faulty.run(fresh(), LMT_LOOP_STEPS)
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as exc:
+            if "injected node failure" not in str(exc):
+                raise
+        saved = latest_step(tmp)
+        restored, step = faulty.restore(fresh())
+        on_card(restored, "restored state")
+        resumed, rep2 = faulty.run(restored, LMT_LOOP_STEPS - step,
+                                   start_step=step)
+    if saved != LMT_LOOP_CKPT or step != LMT_LOOP_CKPT:
+        raise AssertionError(f"restored from step {step}, saved {saved}")
+    if not bits_equal(resumed, straight):
+        raise AssertionError("the restored run is not bit for bit the "
+                             "uninterrupted one")
+    if rep2.losses != report.losses[step:]:
+        raise AssertionError(f"losses {rep2.losses} against "
+                             f"{report.losses[step:]}")
+    log(f"[lm-train] (b) olmo-1b reduced, TrainLoop on the card, "
+        f"deterministic: failure at step {LMT_LOOP_FAIL}, restored from the "
+        f"step-{step} checkpoint, {LMT_LOOP_STEPS - step} more steps: every "
+        f"leaf of the state bit for bit the uninterrupted {LMT_LOOP_STEPS}-"
+        f"step run's, losses equal ({report.losses[0]:.6f} -> "
+        f"{report.losses[-1]:.6f}); {time.perf_counter() - t0:.3f} s; on "
+        f"{smi}")
+
+    with tempfile.TemporaryDirectory(prefix="lm_cli_") as tmp:
+        args = ["--arch", "olmo-1b", "--steps", "6", "--batch", "4", "--seq",
+                "64", "--ckpt-dir", tmp, "--ckpt-every", "3"]
+        first = train_cli.main(args)
+        again = train_cli.main(args + ["--resume", "--steps", "2"])
+        last = latest_step(tmp)
+    if last != 8 or not all(math.isfinite(x["last_loss"])
+                            for x in (first, again)):
+        raise AssertionError(f"cli: latest step {last}, {first}, {again}")
+    log(f"[lm-train] (b) cli launch.train.main on the card: 6 steps, loss "
+        f"{first['first_loss']:.4f} -> {first['last_loss']:.4f}, then "
+        f"--resume from step 6 for 2 more (latest checkpoint step {last}); "
+        f"on {smi}")
+
+
+def lm_train_xent(*, smi: str) -> None:
+    """Phase 17 (c): chunked_xent over olmo-1b's padded vocabulary against
+    a dense log-softmax loss, in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm as LM
+
+    cfg = get_config("olmo-1b")
+    V, D, T = cfg.vocab_padded, cfg.d_model, LMT_XENT_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    h = torch.randn((2, T // 2, D), generator=gen, device="cuda")
+    w = torch.randn((D, V), generator=gen, device="cuda") * 0.02
+    labels = torch.randint(0, cfg.vocab_size, (2, T // 2), generator=gen,
+                           device="cuda")
+    labels[:, ::7] = -1
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hc, wc = h.clone().requires_grad_(), w.clone().requires_grad_()
+    loss = LM.chunked_xent(hc, wc, labels)
+    gh, gw = torch.autograd.grad(loss, (hc, wc))
+    torch.cuda.synchronize()
+    chunked_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    hd, wd = h.clone().requires_grad_(), w.clone().requires_grad_()
+    logp = torch.log_softmax(hd @ wd, dim=-1)
+    mask = labels >= 0
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    dense = (nll * mask).sum() / mask.sum()
+    dh, dw = torch.autograd.grad(dense, (hd, wd))
+    torch.cuda.synchronize()
+    dense_peak = torch.cuda.max_memory_allocated() - base
+    loss, dense = loss.detach(), dense.detach()
+    rel = abs(float(loss) - float(dense)) / abs(float(dense))
+    eh, ew = float((gh - dh).abs().max()), float((gw - dw).abs().max())
+    if not (rel <= LMT_XENT_LOSS_RTOL and eh <= LMT_XENT_GRAD_TOL
+            and ew <= LMT_XENT_GRAD_TOL):
+        raise AssertionError(f"chunked_xent: loss rel {rel:.3e}, grad h "
+                             f"{eh:.3e}, grad w {ew:.3e}")
+    log(f"[lm-train] (c) chunked_xent over {T} tokens x {cfg.vocab_size} ids "
+        f"(padded {V}, chunks of 16,384, {int((~mask).sum())} labels -1), "
+        f"f32: loss {float(loss):.6f}, rel err {rel:.2e} against a dense "
+        f"log-softmax (limit {LMT_XENT_LOSS_RTOL}); grad h max |err| "
+        f"{eh:.2e}, grad w {ew:.2e} (limit {LMT_XENT_GRAD_TOL}); peak memory "
+        f"over the inputs {chunked_peak / 1e6:.1f} MB chunked, "
+        f"{dense_peak / 1e6:.1f} MB dense; on {smi}")
+
+
+def lm_train_encdec(*, smi: str) -> None:
+    """Phase 17 (d): seamless-m4t-large-v2 at full width, f32: token-by-
+    token decode against prefill over each prefix, and the copied
+    prefill-then-decode defect."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import get_bundle
+
+    cfg = get_config("seamless-m4t-large-v2")
+    log(f"[lm-train] (d) {cfg.name} at full width: {cfg.encoder_layers} "
+        f"encoder + {cfg.num_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.head_dim}, {cfg.mlp_type} d_ff "
+        f"{cfg.d_ff}, {cfg.norm_type}, vocab {cfg.vocab_size} -> "
+        f"{cfg.vocab_padded} untied; on {smi}")
+    t0 = time.perf_counter()
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 210),
+        dtype=torch.float32)
+    torch.cuda.synchronize()
+    n = lm_tree_params(cfg, params)
+    log(f"[lm-train] (d) f32 params: {n:,} (the config's param_count() "
+        f"{cfg.param_count():,}) drawn on the card in "
+        f"{time.perf_counter() - t0:.3f} s; on {smi}")
+    B, S, N = LMT_ED_BATCH, LMT_ED_FRAMES, LMT_ED_STEPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 211)
+    frames = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (B, N + 1), generator=gen,
+                         device="cuda")
+    caches = ED.init_encdec_caches(cfg, B, LMT_ED_CTX, mem_frames=S,
+                                   dtype=torch.float32)
+    caches["memory"] = ED.encode(cfg, params, frames)
+    worst = 0.0
+    for i in range(N):
+        got, caches = ED.encdec_decode(cfg, params, caches, toks[:, i:i + 1])
+        want, _ = ED.encdec_prefill(cfg, params, frames, toks[:, :i + 1])
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        if not (bool(torch.isfinite(got).all())
+                and torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL)):
+            raise AssertionError(f"enc-dec decode step {i}: max |err| "
+                                 f"{err:.3e} past rtol = atol = {LM_TOL}")
+    on_card(caches, "enc-dec caches")
+    log(f"[lm-train] (d) f32, {B} x {S} frames: {N} decode steps from "
+        f"init_encdec_caches(ctx={LMT_ED_CTX}) with memory = encode(frames),"
+        f" each within rtol = atol = {LM_TOL} of encdec_prefill over the "
+        f"same prefix, max |err| {worst:.3e}, logits up to "
+        f"{float(want.abs().max()):.3f}; on {smi}")
+    del caches
+    _, pc = ED.encdec_prefill(cfg, params, frames, toks[:, :N])
+    after, pc = ED.encdec_decode(cfg, params, pc, toks[:, N:N + 1])
+    full, _ = ED.encdec_prefill(cfg, params, frames, toks)
+    gap = float((after - full).abs().max())
+    if not gap > 10 * LM_TOL:
+        raise AssertionError(f"the prefill-then-decode defect did not show: "
+                             f"gap {gap:.3e}")
+    log(f"[lm-train] (d) the copied defect: prefill over {N} tokens, then "
+        f"one decode (slot {N} % {pc['self']['k'].shape[2]} = 0 overwritten)"
+        f": logits {gap:.3f} (max |err|) off a prefill over {N + 1}, as on "
+        f"the CPU; on {smi}")
+    del params, pc, frames
+    free_card()
+
+
+def lm_train_full(arch: str, *, smi: str) -> None:
+    """Phase 17 (e) for one model: bf16 parameters, AdamW, the config's
+    own remat, deterministic steps, LMT_STEPS steps through TrainLoop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.fault import TrainLoop
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+
+    tag = f"[lm-train] (e) {arch}"
+    cfg = get_config(arch)
+    B, S = LMT_BATCH, LMT_SEQ
+    shape = ShapeConfig("train_1k", S, B, "train")
+    tokens = B * (S // cfg.dec_len_ratio if cfg.encoder_layers else S)
+    flops, formula = train_step_flops(cfg, B, S)
+    opt = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(
+        SEED + 220))
+    torch.cuda.synchronize()
+    n = lm_tree_params(cfg, state["params"])
+    state_bytes = sum(t.nbytes for t in tree_leaves(state))
+    log(f"{tag} bf16 params {n:,}, AdamW state (params bf16 + f32 mu, nu, "
+        f"master) {state_bytes / 1e9:.3f} GB, on the card in "
+        f"{time.perf_counter() - t0:.3f} s; remat {cfg.remat} "
+        f"({cfg.remat_policy}); batch {B} x {S}"
+        + (f" frames + {B} x {S // cfg.dec_len_ratio} decoder tokens"
+           if cfg.encoder_layers else " tokens") + f"; on {smi}")
+    batches = {k: batch_for(cfg, shape, k, seed=SEED)
+               for k in range(LMT_STEPS + LMT_PROFILE_STEPS
+                              + LMT_LOOSE_STEPS)}
+    gnorms = []
+
+    def stepper(step_fn):
+        def run(st, batch):
+            st, m = step_fn(st, batch)
+            gnorms.append(m["gnorm"])
+            return st, m
+        return run
+
+    step = make_train_step(cfg, opt)
+    # the loop holds the only reference to the initial state, so that it
+    # goes after step 0 as every later step's input does
+    start = {"state": state}
+    del state
+    state, report = TrainLoop(stepper(step), batches.__getitem__).run(
+        start.pop("state"), LMT_STEPS)
+    norms = [float(g) for g in gnorms]
+    if not all(math.isfinite(x) for x in report.losses + norms):
+        raise AssertionError(f"{arch}: losses {report.losses}, gnorm {norms}")
+    walls = np.array(report.step_times[1:]) * 1e3
+    p50, p99 = np.percentile(walls, [50, 99])
+    per_s = tokens * len(walls) / (walls.sum() / 1e3)
+    mfu = flops / (p50 / 1e3) / BF16_TENSOR_FLOPS
+    log(f"{tag} {LMT_STEPS} deterministic steps, losses "
+        + " ".join(f"{x:.4f}" for x in report.losses)
+        + "; gnorm " + " ".join(f"{x:.3f}" for x in norms) + f"; on {smi}")
+    log(f"{tag} step wall (steps 1-{LMT_STEPS - 1}) p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms, first step {1e3 * report.step_times[0]:.3f} ms; "
+        f"{per_s:.1f} training tokens/s; model FLOPs a step {flops:.4e} "
+        f"= {formula}; at the p50 wall {flops / (p50 / 1e3) / 1e12:.1f} "
+        f"TFLOP/s = {100 * mfu:.2f} % of the {BF16_TENSOR_FLOPS / 1e12:.1f} "
+        f"TFLOP/s dense bf16 peak; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; on {smi}")
+
+    k0 = LMT_STEPS
+    state_bytes = sum(t.nbytes for t in tree_leaves(state))
+    bd = step_breakdown(cfg, opt, state, batches[k0])
+    log(f"{tag} one step taken apart (CUDA events; memory above the "
+        f"{state_bytes / 1e9:.3f} GB state): forward {bd['forward_ms']:.3f}"
+        f" ms (peak +{bd['forward_peak'] / 1e9:.3f} GB, "
+        f"{bd['saved'] / 1e9:.3f} GB kept for backward), backward "
+        f"{bd['backward_ms']:.3f} ms (peak +{bd['backward_peak'] / 1e9:.3f}"
+        f" GB), optimizer update {bd['update_ms']:.3f} ms (peak "
+        f"+{bd['update_peak'] / 1e9:.3f} GB over the state and the "
+        f"gradients, the new state {bd['new_state'] / 1e9:.3f} GB); on "
+        f"{smi}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for k in range(k0, k0 + LMT_PROFILE_STEPS):
+            state, m = step(state, batches[k])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    every, kernels, _ = device_intervals(prof)
+    busy = union_us(every)
+    log(f"{tag} profile of {LMT_PROFILE_STEPS} steps: wall "
+        f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms = "
+        f"{100 * busy / wall_us:.1f} % (idle {100 - 100 * busy / wall_us:.1f}"
+        f" %), {len(kernels) / LMT_PROFILE_STEPS:.1f} kernels a step; on "
+        f"{smi}")
+    log_device_time(prof, 8)
+
+    loose = make_train_step(cfg, opt, deterministic=False)
+    k0 += LMT_PROFILE_STEPS
+    lw = []
+    for k in range(k0, k0 + LMT_LOOSE_STEPS):
+        t0 = time.perf_counter()
+        state, m = loose(state, batches[k])
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{arch}: loss {float(m['loss'])}")
+        lw.append(1e3 * (time.perf_counter() - t0))
+    lp50 = float(np.median(lw[1:]))
+    log(f"{tag} deterministic mode's cost: {LMT_LOOSE_STEPS - 1} steps "
+        f"without it p50 {lp50:.3f} ms against {p50:.3f} ms with it = "
+        f"{p50 / lp50:.4f}x; on {smi}")
+    del state, m, batches, gnorms
+    free_card()
+
+
+def lm_train_phase(*, smi: str) -> None:
+    """Phase 17: the LM training path (models' loss and remat, the
+    optimizers, train step, checkpoints, TrainLoop, launch/train.py) and
+    the enc-dec model."""
+    t_phase = time.perf_counter()
+    lm_train_parity(smi=smi)
+    lm_train_continuation(smi=smi)
+    lm_train_xent(smi=smi)
+    lm_train_encdec(smi=smi)
+    for arch in LMT_ARCHS:
+        lm_train_full(arch, smi=smi)
+    log(f"[lm-train] phase wall {time.perf_counter() - t_phase:.3f} s; on "
+        f"{smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4128,6 +4656,17 @@ def main() -> int:
             entry["launches"] += counts16[name_]
         else:
             entry["launches"] += counts16[name_] - counts16[f"{name_}_wide"]
+
+    # -- 17. the LM training path and enc-dec ---------------------------------
+    (_, counts17) = counted(lambda: lm_train_phase(smi=smi))
+    log(f"[lm-train] forest kernel launches "
+        f"{ {k: n for k, n in counts17.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts17[name_]
+        else:
+            entry["launches"] += counts17[name_] - counts17[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -209,8 +209,13 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor,
     H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kv_x = x if kv_x is None else kv_x
     q = x @ p["wq"]
-    k = kv_x @ p["wk"]
-    v = kv_x @ p["wv"]
+    if kv_x.dtype != p["wk"].dtype:       # jnp promotes a mixed product
+        dt = torch.promote_types(kv_x.dtype, p["wk"].dtype)
+        k = kv_x.to(dt) @ p["wk"].to(dt)
+        v = kv_x.to(dt) @ p["wv"].to(dt)
+    else:
+        k = kv_x @ p["wk"]
+        v = kv_x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(*x.shape[:-1], H, dh)

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly: the serving path (torch).
+"""Decoder-only LM assembly: the training and serving paths (torch).
 
 Mirrors ``repro/models/lm.py`` for its four decoder-only families:
 
@@ -14,27 +14,31 @@ The layer pattern within one period is a static list of ``LayerPlan``s; the
 backbone loops over ``num_blocks`` stacked parameter trees
 (``scanctl.scan``), the reference's ``blocks/p{i}/...`` (and ``lora/...``)
 leaves with their leading ``[nB, ...]`` axis, so a reference parameter
-tree carries across as a copy (``params_from_arrays``).
+tree carries across as a copy (``params_from_arrays``).  In training with
+``cfg.remat`` each block's body runs under ``torch.utils.checkpoint``
+(``_remat``: the reference's ``jax.checkpoint`` policies).
 
-Entry points: ``lm_prefill`` (stacked caches, last-token logits) and
-``lm_decode`` (one token against the caches, which it updates in place and
-returns; ``docs/torch_lm.md``).  Both take the reference's ``splan``; the
-mesh-less plan, the only one until item 13e, places nothing, so neither
-reads it.  ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on
-``cuda`` unless ``device="cpu"`` is passed.
-
-Waiting for later slices (ROADMAP queue 1): enc-dec (item 13c), refused by
-``require_ported``; ``lm_hidden`` / ``lm_loss`` / ``chunked_xent`` and
-``_remat`` (training, 13d).
+Entry points: ``lm_loss`` (the train-mode backbone and the chunked-vocab
+cross-entropy, which never holds ``[B, S, V]`` logits), ``lm_prefill``
+(stacked caches, last-token logits) and ``lm_decode`` (one token against
+the caches, which it updates in place and returns; ``docs/torch_lm.md``).
+All take the reference's ``splan``; the mesh-less plan, the only one until
+item 13e, places nothing, so none reads it.  ``init_lm``, ``init_caches``
+and ``params_from_arrays`` run on ``cuda`` unless ``device="cpu"`` is
+passed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -43,9 +47,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import scanctl
 from repro_torch.models import ssd as S
 
-__all__ = ["LayerPlan", "make_layer_plans", "require_ported", "init_lm",
-           "params_from_arrays", "full_logits", "lm_prefill", "lm_decode",
-           "init_caches"]
+__all__ = ["LayerPlan", "make_layer_plans", "init_lm", "params_from_arrays",
+           "chunked_xent", "full_logits", "lm_hidden", "lm_loss",
+           "lm_prefill", "lm_decode", "init_caches"]
 
 Params = dict[str, Any]
 
@@ -81,15 +85,6 @@ def make_layer_plans(cfg: ModelConfig) -> list[LayerPlan]:
             attn=L.AttnSpec(use_rope=use_rope, window=window,
                             causal=cfg.causal)))
     return plans
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Refuse a config whose layers the port does not have yet, naming the
-    ROADMAP queue 1 item that brings them."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are ROADMAP queue 1 item "
-            f"13c, not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +137,6 @@ def init_lm(cfg: ModelConfig, gen: torch.Generator, *,
     """Random parameters drawn from ``gen`` (a generator on ``device``):
     the reference's tree, shapes and scales, each block's leaves stacked
     on a leading ``[num_blocks]`` axis."""
-    require_ported(cfg)
     device = resolve_device(device)
     nB = cfg.num_blocks
     params: Params = {"blocks": {}}
@@ -169,7 +163,9 @@ def params_from_arrays(tree, *, device=None, dtype=None) -> Params:
     ``jax.tree_util.tree_map(np.asarray, params)``) as tensors on
     ``device``, path for path and copied: the same keys, the same stacked
     ``[nB, ...]`` leaves, the same ``[d_in, d_out]`` weights.  ``dtype``
-    casts every leaf; None keeps each array's (bfloat16 included)."""
+    casts every leaf; None keeps each array's (bfloat16 included).  Any
+    nested dict of arrays and scalars goes across the same way (a train
+    state: ``train/trainer.py:state_from_arrays``)."""
     device = resolve_device(device)
 
     def one(a) -> torch.Tensor:
@@ -260,12 +256,45 @@ def _apply_position(cfg: ModelConfig, plan: LayerPlan, p: Params,
     return h + m, new_cache
 
 
+def _save_products(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of matrix
+    products without a batch dimension (the ``x @ W`` projections lower to
+    ``aten.mm`` / ``aten.addmm``); recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_products)
+
+
+def _checkpointed(fn, **kw):
+    """``fn`` under a non-reentrant ``torch.utils.checkpoint``."""
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def _remat(cfg: ModelConfig, fn):
+    """Activation-checkpoint policy, the reference's ``jax.checkpoint``:
+    full  recompute everything in backward
+    dots  save the outputs of products without batch dims, recompute the
+          rest (a selective checkpoint over ``_save_products``)
+    none  store everything
+    Values never change, only what backward keeps."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "dots":
+        return _checkpointed(fn, context_fn=_dots_context)
+    return _checkpointed(fn)
+
+
 def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
               positions, *, mode: str,
               caches: Params | None = None, ctx: int | None = None):
     """mode: train | prefill | decode.  Returns (h, caches | None): prefill
     the new stacked caches, decode the given ones, written in place."""
-    require_ported(cfg)
     plans = make_layer_plans(cfg)
     # the hybrid's shared block reads the embedding (at decode: the current
     # token's) beside the hidden stream
@@ -301,12 +330,16 @@ def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
                                        if plan.kind == "attn" else nc)
         return hh, (new_caches if collect else None)
 
+    body = block
+    if cfg.remat and mode == "train":
+        body = _remat(cfg, block)
+
     xs: dict[str, Any] = {"params": params["blocks"]}
     if cfg.shared_attn_every:
         xs["lora"] = params["lora"]
     if decode:
         xs["caches"] = {k: v for k, v in caches.items() if k != "index"}
-    h, ys = scanctl.scan(block, h, xs)
+    h, ys = scanctl.scan(body, h, xs)
     return h, (xs["caches"] if decode else ys)
 
 
@@ -321,6 +354,57 @@ def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["lm_head"]
 
 
+def chunked_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 *, vocab_chunk: int = 16_384) -> torch.Tensor:
+    """Cross-entropy without materializing [B, S, V] logits.
+
+    h [B, S, D]; w [D, V]; labels [B, S] integer (-1 = pad, out of the
+    mean).  Loops over V chunks with a running (max, sumexp, target-logit)
+    triple from (-inf, 0, 0); each chunk's f32 logits come from operands
+    upcast to f32 (``layers._einsum_f32``), the padded tail of the last
+    chunk masked to -inf.  Each chunk runs under a non-reentrant
+    checkpoint, as the reference's body is ``jax.checkpoint``ed, so
+    backward recomputes its logits instead of keeping them.
+    """
+    B, Sq, D = h.shape
+    V = w.shape[1]
+    nc = -(-V // vocab_chunk)
+    pad = nc * vocab_chunk - V
+    if pad:
+        w = F.pad(w, (0, pad))
+    labels = labels.long()
+    labels_safe = labels.clamp_min(0)
+    cols = torch.arange(vocab_chunk, device=h.device)
+
+    def body(m, s, tgt, w_chunk, c: int):
+        logits = L._einsum_f32("bsd,dv->bsv", h, w_chunk)
+        if pad:  # mask the padded vocab tail in the LAST chunk
+            vmask = (c * vocab_chunk + cols) < V
+            logits = torch.where(vmask[None, None], logits, -math.inf)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - m_new) + torch.exp(
+            logits - m_new[..., None]).sum(dim=-1)
+        idx = labels_safe - c * vocab_chunk
+        inb = (idx >= 0) & (idx < vocab_chunk)
+        picked = torch.gather(
+            logits, -1, idx.clamp(0, vocab_chunk - 1)[..., None])[..., 0]
+        tgt = tgt + torch.where(inb, picked, 0.0)
+        return m_new, s, tgt
+
+    stats = dict(dtype=torch.float32, device=h.device)
+    m = torch.full((B, Sq), -math.inf, **stats)
+    s = torch.zeros((B, Sq), **stats)
+    tgt = torch.zeros((B, Sq), **stats)
+    # split: backward joins the chunks' gradients in one copy, where a
+    # slice a chunk would zero-fill a whole [D, V] gradient for each
+    for c, w_chunk in enumerate(w.split(vocab_chunk, dim=1)):
+        m, s, tgt = checkpoint(body, m, s, tgt, w_chunk, c,
+                               use_reentrant=False)
+    nll = (m + torch.log(s.clamp_min(1e-30))) - tgt
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
 def full_logits(cfg: ModelConfig, params: Params,
                 h: torch.Tensor) -> torch.Tensor:
     """[B, S, D] -> f32 [B, S, Vp] -- only for small S (last token)."""
@@ -330,6 +414,24 @@ def full_logits(cfg: ModelConfig, params: Params,
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
+
+
+def lm_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+              *, splan: ShardingPlan | None = None) -> torch.Tensor:
+    """Train-mode backbone: tokens [B, S] -> normed hidden [B, S, D]."""
+    B, Sq = tokens.shape
+    h = params["embed"][tokens]
+    positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
+    h, _ = _backbone(cfg, params, h, positions, mode="train")
+    return L.apply_norm(cfg, params["final_norm"], h)
+
+
+def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            labels: torch.Tensor, *, splan: ShardingPlan | None = None,
+            vocab_chunk: int = 16_384) -> torch.Tensor:
+    h = lm_hidden(cfg, params, tokens, splan=splan)
+    return chunked_xent(h, _lm_head_weight(cfg, params), labels,
+                        vocab_chunk=vocab_chunk)
 
 
 def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -381,7 +483,6 @@ def init_caches(cfg: ModelConfig, batch: int, ctx: int,
         and ``state [nB, batch, H, P, N]`` in f32, O(1) in ``ctx``;
 
     and a scalar int32 ``index``."""
-    require_ported(cfg)
     device = resolve_device(device)
     nB = cfg.num_blocks
     shape = (nB, batch, ctx, cfg.num_kv_heads, cfg.head_dim)

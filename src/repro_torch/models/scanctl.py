@@ -7,7 +7,11 @@ keeps no counterpart of ``UNROLL``.  ``scan`` runs ``body`` once for each
 index of the leading axis of ``xs`` (a nested dict / tuple of tensors) and
 stacks what it returns.  The slices it hands ``body`` are views, so a body
 that writes into one writes into the stacked tensor: the decode path
-updates its caches that way (``models/lm.py``).
+updates its caches that way (``models/lm.py``).  A leaf that requires grad
+(a stacked parameter under training) is split once with ``unbind``, whose
+backward stacks the slices' gradients in one copy; indexing it once a
+step would make each step's backward a zero-filled copy of the whole
+stacked leaf.
 """
 
 from __future__ import annotations
@@ -32,12 +36,30 @@ def _length(tree) -> int | None:
     return tree.shape[0]
 
 
+def _split(tree):
+    """Each tensor of ``tree`` as its leading-axis slices: ``unbind`` where
+    it requires grad, a lazy index (views that accept in-place writes)
+    otherwise."""
+    if isinstance(tree, dict):
+        return {k: _split(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_split(v) for v in tree)
+    return _Rows(tree.unbind(0) if tree.requires_grad else tree)
+
+
+class _Rows:
+    """One leaf's slices: ``rows[i]`` of a tensor or of its unbind."""
+
+    def __init__(self, rows):
+        self.rows = rows
+
+
 def _take(tree, i: int):
     if isinstance(tree, dict):
         return {k: _take(v, i) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_take(v, i) for v in tree)
-    return tree[i]
+    return tree.rows[i]
 
 
 def stack(trees: list):
@@ -55,8 +77,9 @@ def scan(body: Callable[[Any, Any], tuple[Any, Any]], init, xs):
     """``lax.scan(body, init, xs)``: returns (carry, stacked ys), ys None
     when ``body`` returns None for them."""
     carry, ys = init, []
+    parts = _split(xs)
     for i in range(_length(xs) or 0):
-        carry, y = body(carry, _take(xs, i))
+        carry, y = body(carry, _take(parts, i))
         ys.append(y)
     if not ys or ys[0] is None:
         return carry, None

@@ -1509,3 +1509,137 @@ def test_lm_family_on_cuda_equals_cpu(arch):
         assert by_uid[uid][:len(want_toks)] == want_toks
         compared += len(want_toks)
     assert compared >= 6
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_leaves(tree[k])]
+    return [tree]
+
+
+LM_TRAIN_ARCHS = ["olmo-1b", "llama4-scout-17b-a16e", "mamba2-2.7b",
+                  "zamba2-2.7b", "seamless-m4t-large-v2"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_TRAIN_ARCHS)
+def test_lm_train_step_on_cuda_equals_cpu(arch):
+    """One AdamW step at ``reduced()`` on the card against the CPU from
+    the same state (``state_from_arrays``), in f32: loss, gnorm, the new
+    parameters and ``mu`` (0.1 x the gradients) within 1e-4.  The default
+    optimizer's first step moves a parameter by at most 6e-6, so AdamW's
+    ``g / (|g| + eps)`` cannot magnify the gradients' rounding past it."""
+    _need_card()
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           state_from_arrays)
+    cfg = reduced(get_config(arch))
+    opt = make_optimizer(OptimizerConfig())
+    arrays = _host(init_state(cfg, opt, torch.Generator().manual_seed(0),
+                              dtype=torch.float32, device="cpu"))
+    batch = batch_for(cfg, ShapeConfig("t", 48, 2, "train"), 0, seed=1)
+    step = make_train_step(cfg, opt)
+    got, gm = step(state_from_arrays(arrays, device="cuda"), batch)
+    want, wm = step(state_from_arrays(arrays, device="cpu"), batch)
+    for key in ("loss", "gnorm"):
+        np.testing.assert_allclose(float(gm[key]), float(wm[key]),
+                                   rtol=1e-4, atol=1e-4)
+    for part in ("params", "opt"):
+        for a, b in zip(_tree_leaves(got[part]), _tree_leaves(want[part])):
+            assert a.is_cuda and a.dtype == b.dtype
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=0, atol=1e-4)
+    assert int(got["step"]) == 1
+
+
+@pytest.mark.gpu
+def test_lm_train_loop_restores_bit_for_bit_on_cuda(tmp_path):
+    """TrainLoop on the card, deterministic steps: a failure at step 7, a
+    restore from step 5 and 5 more steps equal an uninterrupted 10-step run
+    bit for bit."""
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.fault import FailureInjector, TrainLoop
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state, make_train_step
+    cfg = reduced(get_config("olmo-1b"))
+    opt = make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=2))
+    dc = DataConfig(seed=5, vocab_size=cfg.vocab_size, batch=4, seq_len=32)
+
+    def fresh():
+        return init_state(cfg, opt, torch.Generator(device="cuda")
+                          .manual_seed(0), dtype=torch.float32)
+
+    def loop(ckpt_dir=None, **kw):
+        return TrainLoop(make_train_step(cfg, opt),
+                         lambda k: synthetic_batch(dc, k),
+                         ckpt_dir=ckpt_dir, ckpt_every=5, **kw)
+    straight, _ = loop().run(fresh(), 10)
+    faulty = loop(str(tmp_path), injector=FailureInjector(fail_at=7))
+    with pytest.raises(RuntimeError, match="injected node failure"):
+        faulty.run(fresh(), 10)
+    restored, step = faulty.restore(fresh())
+    assert step == 5 and restored["params"]["embed"].is_cuda
+    resumed, _ = faulty.run(restored, 5, start_step=step)
+    for a, b in zip(_tree_leaves(resumed), _tree_leaves(straight)):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.gpu
+def test_encdec_on_cuda_equals_cpu():
+    """Reduced seamless in f32: prefill and token-by-token decode on the
+    card against the CPU within 1e-4; the self cache stays on the card."""
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import encdec as ED
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    params = ED.init_encdec(cfg, torch.Generator().manual_seed(2),
+                            dtype=torch.float32, device="cpu")
+    cuda = _to_cuda(params)
+    r = np.random.default_rng(3)
+    frames = torch.from_numpy(r.normal(size=(2, 40, cfg.d_model))
+                              .astype(np.float32))
+    toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 6)))
+    want, _ = ED.encdec_prefill(cfg, params, frames, toks)
+    got, _ = ED.encdec_prefill(cfg, cuda, frames.cuda(), toks.cuda())
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    caches = ED.init_encdec_caches(cfg, 2, 8, mem_frames=40,
+                                   dtype=torch.float32)
+    assert caches["self"]["k"].is_cuda
+    caches["memory"] = ED.encode(cfg, cuda, frames.cuda())
+    for i in range(6):
+        got, caches = ED.encdec_decode(cfg, cuda, caches,
+                                       toks[:, i:i + 1].cuda())
+        want, _ = ED.encdec_prefill(cfg, params, frames, toks[:, :i + 1])
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert caches["self"]["k"].is_cuda and int(caches["index"]) == 6
+
+
+@pytest.mark.gpu
+def test_train_entry_points_default_to_cuda():
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state
+    cfg = reduced(get_config("seamless-m4t-large-v2"))
+    state = init_state(cfg, make_optimizer(OptimizerConfig()),
+                       torch.Generator(device="cuda").manual_seed(0))
+    assert all(t.is_cuda for t in _tree_leaves(state))
+    assert state["params"]["embed"].dtype == torch.bfloat16
+    assert state["opt"]["mu"]["embed"].dtype == torch.float32
+    out = train_cli.main(["--arch", "olmo-1b", "--steps", "2", "--batch",
+                          "2", "--seq", "32"])
+    assert np.isfinite(out["last_loss"])

@@ -21,9 +21,10 @@
   * one decode on bf16 caches under f32 weights (the engine's default)
     against the reference's: logits within bf16's epsilon, caches bit for
     bit;
-  * the refusals of what the port does not have yet (enc-dec, the loss,
-    the mesh), and the in-place cache update (a kept divergence, pinned
-    below).
+  * the refusals of what the port does not have yet (the mesh, item 13e:
+    the LM's plan and constraint points, and for the enc-dec family its
+    training step and checkpoint restore), and the in-place cache update
+    (a kept divergence, pinned below).
 """
 
 import dataclasses
@@ -49,7 +50,9 @@ from repro_torch.models import lm as LM
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["olmo-1b", "qwen2-7b", "yi-34b", "minitron-4b", "chameleon-34b"]
-UNPORTED = {"seamless-m4t-large-v2": "13c"}
+#: what of a family still waits, by its ROADMAP queue 1 item: since the
+#: enc-dec model and training landed, the mesh alone
+UNPORTED = {"seamless-m4t-large-v2": "13e"}
 
 
 def _pair(arch: str, **changes):
@@ -514,27 +517,52 @@ def test_init_lm_has_the_reference_tree(arch):
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_are_refused(arch):
+    """The family's bundle is its own (enc-dec: ``models/encdec.py``) and
+    serves its entry points on the CPU; its mesh paths are refused,
+    naming the item."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.train import checkpoint as K
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import jit_train_step
     cfg = configs.reduced(configs.get_config(arch))
     item = UNPORTED[arch]
-    gen = torch.Generator().manual_seed(0)
-    for call in (lambda: get_bundle(cfg),
-                 lambda: LM.init_lm(cfg, gen, device="cpu"),
-                 lambda: LM.init_caches(cfg, 2, 8, device="cpu")):
+    bundle = get_bundle(cfg)
+    assert bundle.init is ED.init_encdec
+    assert bundle.init_caches is ED.init_encdec_caches
+    params = bundle.init(cfg, torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    assert ED.init_encdec_caches(cfg, 2, 8, device="cpu")["index"] == 0
+    mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
+    opt = make_optimizer(OptimizerConfig())
+    for call in (lambda: make_plan(cfg, mesh),
+                 lambda: jit_train_step(cfg, opt, mesh),
+                 lambda: K.restore_checkpoint("unused", params, mesh=mesh)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
 
 
 def test_unported_entry_points_are_refused():
+    """The loss is ported (a finite scalar); the mesh is not."""
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import jit_train_step, make_train_step
     _, cfg, _, p = _params("olmo-1b")
     toks = _t(_tokens(cfg, 1, 4))
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        get_bundle(cfg).loss(cfg, p, {"tokens": toks, "labels": toks},
-                             make_plan(cfg, None))
+    loss = get_bundle(cfg).loss(cfg, p, {"tokens": toks, "labels": toks},
+                                make_plan(cfg, None))
+    assert loss.ndim == 0 and bool(torch.isfinite(loss))
     mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
     with pytest.raises(NotImplementedError, match="item 13e"):
         make_plan(cfg, mesh)
     with pytest.raises(NotImplementedError, match="item 13e"):
         L.shard(toks, "spec", mesh)
+    opt = make_optimizer(OptimizerConfig())
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        jit_train_step(cfg, opt, mesh)
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        make_train_step(cfg, opt, ShardingPlan(mesh=mesh),
+                        grad_compress=True)
+    step_fn, splan = jit_train_step(cfg, opt, None)
+    assert callable(step_fn) and splan == ShardingPlan()
     plan = make_plan(cfg, None)
     assert plan == ShardingPlan()
     assert plan.mesh is None and jmake_plan(cfg, None).mesh is None
