@@ -297,6 +297,36 @@ Phases (any failure exits non-zero and prints no result line):
               the wall against the 989.4 TFLOP/s dense bf16 peak, peak
               memory, a 2-step profile (busy share, kernels a step, the
               top 8 kernels) and the step without deterministic mode.
+ 18. lm-mesh  the LM on a mesh of positions, all on cuda:0 (dist/sharding
+              make_plan / param_specs / tree_named, the constraint checks
+              of models/layers.shard, expert parallelism, the train step's
+              cross-pod compression, restore_checkpoint(mesh=)).  (a) In
+              f32 with TF32 off, every config at reduced(): one AdamW
+              jit_train_step step with grad_compress on (pod 2, data 2,
+              model 2), the card's against the same step on CPU positions
+              from the same state: loss and gnorm within 1e-4, every
+              parameter within 1e-4 where the card's and the CPU's int8
+              gradient levels agree, the elements whose level differs at
+              most 1e-3 of the tree (both counted).  (b) llama4-scout at
+              full width on (data 1, model 4), phase 16's cut: in f32 at 4
+              layers, the EP prefill (per-block dispatch, the all_to_all's
+              order) at capacity_factor 16 (no block drops) and 3 EP
+              decode steps (each position's masked products over its 4
+              local experts, summed in model order) within 1e-3 of the
+              mesh-less paths; at the config's capacity the tokens kept
+              equal the sum over blocks and experts of min(routed,
+              cap_src); then bf16 serving of phase 16's script at 8 layers
+              through ServeEngine on the mesh plan beside its mesh-less
+              twin: tokens/s, decode tick p50 / p99, kernels a tick, busy
+              share, the expert-weight bytes a tick reads, each mesh /
+              twin.  (c) olmo-1b at full width (8 x 1,024, bf16, AdamW,
+              full remat, deterministic) on (2, 2, 2) with grad_compress:
+              step 1's loss bit for bit the mesh-less twin's and every new
+              parameter bit for bit the twin's update over its
+              int8-round-tripped gradients; the step-1 state saved,
+              restored with restore_checkpoint(mesh=) and stepped, bit for
+              bit the unrestored loop; 4 timed steps a side (p50 mesh /
+              twin, peak memory).
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -458,6 +488,32 @@ LMT_ARCHS = ("olmo-1b", "seamless-m4t-large-v2")
 LMT_BATCH, LMT_SEQ, LMT_STEPS = 8, 1024, 10
 LMT_PROFILE_STEPS, LMT_LOOSE_STEPS = 2, 4
 BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core peak
+#: phase 18, the LM on a mesh of positions, all on cuda:0: (a) one f32
+#: AdamW step of each config at reduced() on (pod 2, data 2, model 2) with
+#: grad_compress, held against the port's CPU step on the same positions:
+#: the loss within LMT_TOL, gnorm within LMM_GNORM_RTOL relative and
+#: within 1 / LMM_MISS_GNORM of the card's uncompressed step's gap from
+#: the CPU's (yi-34b's gap is 4.6e-6 relative, under that limit), each leaf's
+#: update new - old within LMM_UPDATE_RTOL of the CPU's largest update of
+#: that leaf wherever the card's and the CPU's int8 gradient levels agree,
+#: the elements where they differ at most LMM_FLIP_SHARE of a tree; the
+#: optimizer LMM_OPT (lr 1e-2 from step 0: a first update of ~1e-2 an
+#: element, 1,000 x that limit), and the card's step without compression
+#: must miss the update limit by LMM_MISS x; (b) llama4-scout at full width
+#: (phase 16's cut) on (data 1, model 4); (c) olmo-1b at full width on the
+#: (2, 2, 2) mesh, LMM_STEPS timed steps a side and LMM_RT_REPS timed int8
+#: round trips of its gradients
+LMM_TRAIN_MESH = (("pod", 2), ("data", 2), ("model", 2))
+LMM_SERVE_MESH = (("data", 1), ("model", 4))
+LMM_FLIP_SHARE = 1e-3
+LMM_OPT = dict(lr=1e-2, warmup_steps=1)
+LMM_UPDATE_RTOL = 1e-3
+LMM_GNORM_RTOL = 1e-5
+LMM_MISS = 100.0
+LMM_MISS_GNORM = 4.0
+LMM_RT_REPS = 5
+LMM_ARCH_EP = "llama4-scout-17b-a16e"
+LMM_STEPS = 4
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -3132,19 +3188,19 @@ def lm_f32_checks(tag: str, cfg, params, *, batch: int, length: int,
 
 
 def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
-                    smi: str) -> None:
+                    smi: str, splan=None) -> dict:
     """``ServeEngine(slots=LM_SLOTS, max_ctx=LM_MAX_CTX, LM_BUCKETS)`` on its
-    default bf16 caches: prefill ms a bucket, then ``script`` ([(prompt,
-    max_new_tokens, priority)]) submitted at once and drained (stats,
-    decode tick p50 / p99 beside the tick's byte bound, tokens/s, peak
-    memory since the caller's reset), then a profile of decode-only ticks
-    with every slot busy."""
+    default bf16 caches (under ``splan`` when given): prefill ms a bucket,
+    then ``script`` ([(prompt, max_new_tokens, priority)]) submitted at
+    once and drained (stats, decode tick p50 / p99 beside the tick's byte
+    bound, tokens/s, peak memory since the caller's reset), then a profile
+    of decode-only ticks with every slot busy.  Returns those numbers."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_ctx=LM_MAX_CTX,
-                         prompt_buckets=LM_BUCKETS)
+                         prompt_buckets=LM_BUCKETS, splan=splan)
     on_card(params, "bf16 params")
     on_card(engine.caches, "engine caches")
     param_bytes = sum(t.nbytes for t in tree_leaves(params))
@@ -3227,6 +3283,10 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
         f"{len(kernels) / LM_PROFILE_TICKS:.1f} kernels a tick")
     log_device_time(prof, 6)
     engine.run_until_drained()
+    return {"tokens_s": st["tokens"] / serve_s, "p50_ms": float(p50),
+            "p99_ms": float(p99), "kernels_tick": len(kernels)
+            / LM_PROFILE_TICKS, "busy": busy / wall_us,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def free_card() -> None:
@@ -3868,6 +3928,397 @@ def lm_train_phase(*, smi: str) -> None:
     for arch in LMT_ARCHS:
         lm_train_full(arch, smi=smi)
     log(f"[lm-train] phase wall {time.perf_counter() - t_phase:.3f} s; on "
+        f"{smi}")
+
+
+def loss_and_grads(cfg, params, batch, splan):
+    """The loss and its gradients over ``params`` as the train step takes
+    them (deterministic on the card)."""
+    from repro_torch.models import get_bundle
+    from repro_torch.train.trainer import deterministic_algorithms
+    from repro_torch.train.tree import tree_leaves as leaves_of
+    from repro_torch.train.tree import tree_unflatten
+
+    dev = leaves_of(params)[0].device
+    tb = {k: (torch.from_numpy(a) if a.dtype.kind == "f"
+              else torch.from_numpy(a).long()).to(dev)
+          for k, a in batch.items()}
+    with deterministic_algorithms(dev.type == "cuda"):
+        leaves = [t.detach().requires_grad_() for t in leaves_of(params)]
+        loss = get_bundle(cfg).loss(cfg, tree_unflatten(params, leaves), tb,
+                                    splan)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def update_excess(new, old, want, same) -> float:
+    """The worst leaf's max |(new - old) - (want - old)| over the elements
+    where ``same``, as a multiple of LMM_UPDATE_RTOL x that leaf's largest
+    update ``want - old``: at most 1 passes."""
+    worst = 0.0
+    for g, o, w, m in zip(new, old, want, same):
+        ref = w - o
+        if bool(m.any()):
+            err = float(((g.cpu() - o) - ref)[m].abs().max())
+            worst = max(worst, err / (LMM_UPDATE_RTOL
+                                      * float(ref.abs().max()) or 1e-30))
+    return worst
+
+
+def lm_mesh_parity(*, smi: str) -> None:
+    """Phase 18 (a): one f32 AdamW step with grad_compress of every config
+    at reduced() on the (pod 2, data 2, model 2) mesh of card positions,
+    against the same step on CPU positions from the same state; the card's
+    step without compression must miss the update limit."""
+    from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config, reduced
+    from repro_torch.dist.compression import quantize_int8
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, jit_train_step,
+                                           state_from_arrays)
+    from repro_torch.train.tree import tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 checks")
+    cards = make_position_mesh(LMM_TRAIN_MESH, "cuda:0")
+    cpus = make_position_mesh(LMM_TRAIN_MESH, "cpu")
+    opt = make_optimizer(OptimizerConfig(**LMM_OPT))
+    shape = ShapeConfig("mesh", LMT_CHECK_SEQ, LMT_CHECK_BATCH, "train")
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = reduced(get_config(arch))
+        arrays = tree_map(lambda t: t.numpy(), init_state(
+            cfg, opt, torch.Generator().manual_seed(SEED + 300 + i),
+            dtype=torch.float32, device="cpu"))
+        batch = batch_for(cfg, shape, 0, seed=SEED + i)
+        step, splan = jit_train_step(cfg, opt, cards, grad_compress=True)
+        t0 = time.perf_counter()
+        got, gm = step(state_from_arrays(arrays, device="cuda"), batch)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        on_card(got, f"{arch} mesh state")
+        plain, pm = jit_train_step(cfg, opt, cards)[0](
+            state_from_arrays(arrays, device="cuda"), batch)
+        want, wm = jit_train_step(cfg, opt, cpus, grad_compress=True)[0](
+            state_from_arrays(arrays, device="cpu"), batch)
+        g, w = float(gm["loss"]), float(wm["loss"])
+        if not (math.isfinite(g) and abs(g - w) <= LMT_TOL
+                + LMT_TOL * abs(w)):
+            raise AssertionError(f"{arch} loss: card {g} against the "
+                                 f"CPU's {w}")
+        g, w = float(gm["gnorm"]), float(wm["gnorm"])
+        gnorm_rel = abs(g - w) / abs(w)
+        plain_rel = abs(float(pm["gnorm"]) - w) / abs(w)
+        if not (math.isfinite(g) and gnorm_rel <= min(
+                LMM_GNORM_RTOL, plain_rel / LMM_MISS_GNORM)):
+            raise AssertionError(f"{arch} gnorm: card {g} against the "
+                                 f"CPU's {w}, the uncompressed step's "
+                                 f"{float(pm['gnorm'])}")
+        _, gc = loss_and_grads(cfg, state_from_arrays(arrays, device="cuda")
+                               ["params"], batch, splan)
+        _, gh = loss_and_grads(cfg, state_from_arrays(arrays, device="cpu")
+                               ["params"], batch, make_plan(cfg, cpus))
+        same = [quantize_int8(x)[0].cpu() == quantize_int8(y)[0]
+                for x, y in zip(tree_leaves(gc), tree_leaves(gh))]
+        flips = sum(int((~m).sum()) for m in same)
+        n = sum(m.numel() for m in same)
+        old = [torch.from_numpy(a) for a in tree_leaves(arrays["params"])]
+        cpu_new = tree_leaves(want["params"])
+        excess = update_excess(tree_leaves(got["params"]), old, cpu_new,
+                               same)
+        plain_excess = update_excess(tree_leaves(plain["params"]), old,
+                                     cpu_new, same)
+        if not (excess <= 1.0 and flips <= LMM_FLIP_SHARE * n):
+            raise AssertionError(f"{arch}: update error {excess:.3e} x the "
+                                 f"limit where the levels agree, {flips} of "
+                                 f"{n:,} levels differ")
+        if not plain_excess > LMM_MISS:
+            raise AssertionError(f"{arch}: the step without compression is "
+                                 f"within {plain_excess:.3e} x the update "
+                                 f"limit: the check cannot see compression")
+        upd = max(float((w - o).abs().max()) for w, o in zip(cpu_new, old))
+        log(f"[lm-mesh] (a) {arch} reduced on (pod 2, data 2, model 2), "
+            f"{splan.attn_mode}, one AdamW step (lr {LMM_OPT['lr']:g} from "
+            f"step 0) with grad_compress on the card against the CPU: loss "
+            f"{float(gm['loss']):.6f} (|err| "
+            f"{abs(float(gm['loss']) - float(wm['loss'])):.2e}), gnorm "
+            f"{float(gm['gnorm']):.6f} (rel err {gnorm_rel:.2e}, limit "
+            f"{LMM_GNORM_RTOL:g} and 1/{LMM_MISS_GNORM:g} of the uncompressed"
+            f" step's {plain_rel:.2e}); "
+            f"update max {upd:.3e}, its error where the int8 levels agree "
+            f"{excess:.3e} x the limit ({LMM_UPDATE_RTOL:g} x each leaf's "
+            f"largest update), the uncompressed step's {plain_excess:.3e} x; "
+            f"{flips} of {n:,} levels differ (limit {LMM_FLIP_SHARE:g} of "
+            f"them); card step {card_s:.3f} s (first call); on {smi}")
+
+
+def lm_mesh_ep(*, smi: str) -> None:
+    """Phase 18 (b): llama4-scout at full width on the (data 1, model 4)
+    mesh: EP decode and no-drop EP prefill against the mesh-less paths in
+    f32, the kept count at the config's capacity, then bf16 serving on the
+    mesh plan beside the mesh-less twin."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.router import TIER_BATCH
+
+    tag = "[lm-mesh] (b) " + LMM_ARCH_EP
+    full = get_config(LMM_ARCH_EP)
+    serve_layers, check_layers = LMF_LAYERS[LMM_ARCH_EP]
+    mesh = make_position_mesh(LMM_SERVE_MESH, "cuda:0")
+    ccfg = dataclasses.replace(full, num_layers=check_layers)
+    bundle = get_bundle(ccfg)
+    params = bundle.init(
+        ccfg, torch.Generator(device="cuda").manual_seed(SEED + 310),
+        dtype=torch.float32)
+    n = lm_tree_params(ccfg, params)
+    E = ccfg.num_experts
+    tcfg = dataclasses.replace(ccfg, capacity_factor=float(E))
+    Bc, Sc, N = LMF_CHECK_BATCH, LMF_CHECK_LEN, LMF_CHECK_STEPS
+    splan = make_plan(ccfg, mesh, decode_batch=Bc)
+    n_model = mesh.shape["model"]
+    toks = torch.randint(
+        0, ccfg.vocab_size, (Bc, Sc + N), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 311))
+    t0 = time.perf_counter()
+    got, _ = LM.lm_prefill(tcfg, params, toks[:, :Sc], splan=splan)
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    want, caches = LM.lm_prefill(tcfg, params, toks[:, :Sc], ctx=Sc + N)
+    pre_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
+        raise AssertionError(f"EP prefill: max |err| {pre_err:.3e}")
+    worst = 0.0
+    for i in range(N):
+        mine = {k: (v if k == "index" else {kk: t.clone()
+                                            for kk, t in v.items()})
+                for k, v in caches.items()}
+        g, _ = LM.lm_decode(ccfg, params, mine, toks[:, Sc + i:Sc + i + 1],
+                            splan=splan)
+        w, caches = LM.lm_decode(ccfg, params, caches,
+                                 toks[:, Sc + i:Sc + i + 1])
+        worst = max(worst, float((g - w).abs().max()))
+        if not torch.allclose(g, w, rtol=LM_TOL, atol=LM_TOL):
+            raise AssertionError(f"EP decode step {i}: max |err| {worst:.3e}")
+    del mine, caches
+    log(f"{tag} f32 at {check_layers} layers ({n:,} params) on (data 1, "
+        f"model 4), {splan.attn_mode}: EP prefill {Bc} x {Sc} at "
+        f"capacity_factor {E:g} (no block drops) within rtol = atol = "
+        f"{LM_TOL} of the mesh-less prefill, max |err| {pre_err:.3e} (EP "
+        f"prefill {ep_s:.3f} s, first call); {N} EP decode steps (each of "
+        f"{n_model} positions' {E // n_model} local experts, summed in model "
+        f"order) within "
+        f"{LM_TOL} of the per-token gather, max |err| {worst:.3e}; on {smi}")
+
+    # the config's own capacity: block by block
+    moe = {k: (v[0] if torch.is_tensor(v) else {kk: t[0]
+                                               for kk, t in v.items()})
+           for k, v in params["blocks"]["p0"]["moe"].items()}
+    x = torch.randn((Bc, Sc, ccfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 312))
+    cap = L.ep_capacity(ccfg, splan, x)
+    _, eidx, keep = L.moe_dispatch_blocks(moe, x, 1, n_model, cap)
+    routed = torch.nn.functional.one_hot(eidx, E).sum(1)
+    want_kept = int(routed.clamp(max=cap).sum())
+    if int(keep.sum()) != want_kept:
+        raise AssertionError(f"kept {int(keep.sum())}, the blocks' "
+                             f"capacity admits {want_kept}")
+    plain_cap = max(1, int(Bc * Sc * ccfg.capacity_factor / E))
+    _, _, plain_keep = L.moe_dispatch_blocks(moe, x, 1, 1, plain_cap)
+    own, _ = LM.lm_prefill(ccfg, params, toks[:, :Sc], splan=splan)
+    if not bool(torch.isfinite(own).all()):
+        raise AssertionError("EP prefill at the config's capacity: "
+                             "non-finite logits")
+    log(f"{tag} at capacity_factor {ccfg.capacity_factor}: {n_model} "
+        f"blocks of {Bc * Sc // n_model} tokens, cap_src {cap} a block and expert, kept "
+        f"{int(keep.sum())} of {keep.numel()} = sum over blocks and experts "
+        f"of min(routed, cap_src); the mesh-less layer (capacity "
+        f"{plain_cap}) keeps {int(plain_keep.sum())}; the EP model's "
+        f"logits finite; on {smi}")
+    del params, moe, x, got, want, own
+    free_card()
+
+    cfg = dataclasses.replace(full, num_layers=serve_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 313))
+    rng = np.random.default_rng(SEED + 314)
+    script = []
+    for _ in range(LMF_REQUESTS):
+        plen = int(rng.integers(LMF_PROMPT_LEN[0], LMF_PROMPT_LEN[1] + 1))
+        mnt = int(rng.integers(LMF_NEW_TOKENS[0], LMF_NEW_TOKENS[1] + 1))
+        script.append((rng.integers(0, cfg.vocab_size, plen), mnt,
+                       TIER_BATCH))
+    splan = make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+    twin = lm_bf16_serving(f"{tag} twin", cfg, params, script,
+                           seed=SEED + 315, smi=smi)
+    torch.cuda.reset_peak_memory_stats()
+    ep = lm_bf16_serving(f"{tag} mesh", cfg, params, script,
+                         seed=SEED + 315, smi=smi, splan=splan)
+    moe_layers = sum(p.use_moe for p in LM.make_layer_plans(cfg)) * \
+        cfg.num_blocks
+    item = params["embed"].element_size()
+    per = 3 * cfg.d_model * cfg.d_ff * item
+    ep_bytes = moe_layers * E * per
+    gather_bytes = moe_layers * LM_SLOTS * per
+    log(f"{tag} bf16 serving on the mesh plan against its mesh-less twin "
+        f"(mesh / twin): tokens/s {ep['tokens_s']:.1f} / "
+        f"{twin['tokens_s']:.1f} = {ep['tokens_s'] / twin['tokens_s']:.3f};"
+        f" decode tick p50 {ep['p50_ms']:.3f} / {twin['p50_ms']:.3f} ms = "
+        f"{ep['p50_ms'] / twin['p50_ms']:.3f}, p99 {ep['p99_ms']:.3f} / "
+        f"{twin['p99_ms']:.3f} ms = {ep['p99_ms'] / twin['p99_ms']:.3f}; "
+        f"kernels a tick {ep['kernels_tick']:.1f} / "
+        f"{twin['kernels_tick']:.1f} = "
+        f"{ep['kernels_tick'] / twin['kernels_tick']:.3f}; busy "
+        f"{100 * ep['busy']:.1f} / {100 * twin['busy']:.1f} %; expert-weight"
+        f" bytes a tick {ep_bytes / 1e9:.3f} GB read in place ({moe_layers} "
+        f"MoE layers x {E} experts x 3 matrices) / {gather_bytes / 1e9:.3f} "
+        f"GB gathered (and copied) for {LM_SLOTS} tokens = "
+        f"{ep_bytes / gather_bytes:.3f}; peak memory {ep['peak_gb']:.3f} / "
+        f"{twin['peak_gb']:.3f} GB; on {smi}")
+    del params
+    free_card()
+
+
+def lm_mesh_train(*, smi: str) -> None:
+    """Phase 18 (c): olmo-1b at full width, bf16, AdamW, full remat,
+    deterministic, on the (pod 2, data 2, model 2) mesh with grad_compress:
+    step 1 against the mesh-less twin, bit for bit; timed steps a side;
+    save, restore_checkpoint(mesh=) and a next step, bit for bit."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.dist.compression import compress_grads_crosspod
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (_place, deterministic_algorithms,
+                                           init_state, jit_train_step,
+                                           make_train_step)
+
+    tag = "[lm-mesh] (c) olmo-1b"
+    cfg = get_config("olmo-1b")
+    mesh = make_position_mesh(LMM_TRAIN_MESH, "cuda:0")
+    shape = ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH, "train")
+    batches = [batch_for(cfg, shape, k, seed=SEED) for k in
+               range(LMM_STEPS + 2)]
+    opt = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(
+        SEED + 320))
+    step, splan = jit_train_step(cfg, opt, mesh, grad_compress=True)
+    new, m = step(state, batches[0])
+    on_card(new, "mesh state")
+    params1 = new["params"]
+    # the twin: the mesh-less gradients, int8-round-tripped, then the update
+    loss, grads = loss_and_grads(cfg, state["params"], batches[0], None)
+    with deterministic_algorithms():
+        twin_params, _ = opt.update(compress_grads_crosspod(grads, None),
+                                    state["opt"], state["params"],
+                                    state["step"])
+    # the mesh step's own work beside the twin's: the int8 round trip of
+    # every gradient (CUDA events) and the two placements of the state
+    # (host wall, synchronized)
+    rt_ms = []
+    for _ in range(LMM_RT_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        sent = compress_grads_crosspod(grads, mesh)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rt_ms.append(ev[0].elapsed_time(ev[1]))
+        del sent
+    n_grads = sum(t.numel() for t in tree_leaves(grads))
+    del grads
+    place_ms = []
+    for _ in range(LMM_RT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _place(state, mesh)
+        torch.cuda.synchronize()
+        place_ms.append(1e3 * (time.perf_counter() - t0))
+    if not bits_equal({"l": m["loss"]}, {"l": loss}):
+        raise AssertionError(f"step 1 loss {float(m['loss'])} against the "
+                             f"twin's {float(loss)}")
+    if not bits_equal(params1, twin_params):
+        raise AssertionError("step 1 params are not the twin's update over "
+                             "its round-tripped gradients")
+    log(f"{tag} full width, bf16, AdamW, remat {cfg.remat_policy}, "
+        f"deterministic, {LMT_BATCH} x {LMT_SEQ} tokens on (pod 2, data 2, "
+        f"model 2), {splan.attn_mode}, grad_compress: step 1 loss "
+        f"{float(m['loss']):.6f} bit for bit the mesh-less twin's; every new "
+        f"parameter bit for bit the twin's update over its int8-round-"
+        f"tripped gradients; on {smi}")
+    del twin_params, state, params1
+
+    state_gb = sum(t.nbytes for t in tree_leaves(new)) / 1e9
+    with tempfile.TemporaryDirectory(prefix="lm_mesh_ckpt_") as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, new, 1)
+        save_s = time.perf_counter() - t0
+        s1, _ = step(new, batches[1])
+        del new
+        t0 = time.perf_counter()
+        restored, at = restore_checkpoint(tmp, s1, mesh=mesh)
+        restore_s = time.perf_counter() - t0
+    on_card(restored, "restored state")
+    r1, _ = step(restored, batches[1])
+    del restored
+    if at != 1 or not bits_equal(r1, s1):
+        raise AssertionError("the restored step is not bit for bit the "
+                             "unrestored one")
+    del r1
+    log(f"{tag} saved the step-1 state ({state_gb:.3f} GB) in {save_s:.3f} "
+        f"s to a temporary directory ({free_gb:.1f} GB free before), "
+        f"restore_checkpoint(mesh=) in {restore_s:.3f} s; the next step "
+        f"from the restore bit for bit the unrestored loop's; on {smi}")
+
+    walls = {"mesh": [], "twin": []}
+    peaks = {}
+    twin_step = make_train_step(cfg, opt)
+    for side, fn in (("mesh", step), ("twin", twin_step)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cur = s1
+        for k in range(2, LMM_STEPS + 2):
+            t0 = time.perf_counter()
+            cur, mk = fn(cur, batches[k])
+            float(mk["loss"])
+            walls[side].append(1e3 * (time.perf_counter() - t0))
+        peaks[side] = torch.cuda.max_memory_allocated() / 1e9
+        del cur
+    mp, tp = np.median(walls["mesh"]), np.median(walls["twin"])
+    rt, pl = float(np.median(rt_ms)), float(np.median(place_ms))
+    log(f"{tag} {LMM_STEPS} steps a side from the same state: step wall p50 "
+        f"mesh {mp:.3f} ms / twin {tp:.3f} ms = {mp / tp:.4f}, walls mesh "
+        + " ".join(f"{w:.1f}" for w in walls["mesh"]) + " twin "
+        + " ".join(f"{w:.1f}" for w in walls["twin"])
+        + f" ms; the mesh's step adds {mp - tp:.3f} ms: the int8 round trip"
+        f" of the {n_grads:,} gradients p50 {rt:.3f} ms (CUDA events, "
+        f"{LMM_RT_REPS} reps: " + " ".join(f"{x:.3f}" for x in rt_ms)
+        + f"), two placements of the state 2 x {pl:.3f} ms (host wall, "
+        f"{LMM_RT_REPS} reps), the rest {mp - tp - rt - 2 * pl:.3f} ms "
+        f"(the shard checks, by difference); peak memory mesh "
+        f"{peaks['mesh']:.3f} GB / twin {peaks['twin']:.3f} GB; on {smi}")
+    del s1
+    free_card()
+
+
+def lm_mesh_phase(*, smi: str) -> None:
+    """Phase 18: the LM on a mesh of positions on the card."""
+    t_phase = time.perf_counter()
+    lm_mesh_parity(smi=smi)
+    lm_mesh_ep(smi=smi)
+    lm_mesh_train(smi=smi)
+    log(f"[lm-mesh] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
 
@@ -4667,6 +5118,17 @@ def main() -> int:
             entry["launches"] += counts17[name_]
         else:
             entry["launches"] += counts17[name_] - counts17[f"{name_}_wide"]
+
+    # -- 18. the LM on a mesh -------------------------------------------------
+    (_, counts18) = counted(lambda: lm_mesh_phase(smi=smi))
+    log(f"[lm-mesh] forest kernel launches "
+        f"{ {k: n for k, n in counts18.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts18[name_]
+        else:
+            entry["launches"] += counts18[name_] - counts18[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

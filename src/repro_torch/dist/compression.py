@@ -6,8 +6,8 @@ accumulated update unbiased (the quantization residual of step k is added
 back into the gradient of step k+1, so the compressed stream's running
 mean converges to the true gradient mean).  Rounding is half to even, as
 ``jnp.round`` rounds, so the codes equal the reference's bit for bit.  The
-trainer would call ``compress_grads_crosspod`` only under a mesh with a
-``pod`` axis (ROADMAP queue 1 item 13e).
+trainer calls ``compress_grads_crosspod`` only under a mesh with a ``pod``
+axis (``train/trainer.py``).
 """
 
 from __future__ import annotations

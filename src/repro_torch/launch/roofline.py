@@ -26,7 +26,7 @@ explicitly.  On CUDA every timed call ends in ``torch.cuda.synchronize``
 host memory -- the rate the host tier's scan sees (its pages are pinned) --
 where the reference times a pageable ``device_put``.
 
-Left out until their module is ported (ROADMAP queue 1, item 13):
+Left out until their module is ported (ROADMAP queue 1, item 13f):
 ``parse_collectives`` and ``model_flops``, which read XLA HLO and the LM
 stack.
 """

@@ -31,7 +31,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan
+from repro_torch.dist.sharding import ShardingPlan, make_plan
 from repro_torch.models import layers as L
 from repro_torch.models import scanctl
 from repro_torch.models.lm import _checkpointed, chunked_xent, full_logits
@@ -95,15 +95,17 @@ def init_encdec(cfg: ModelConfig, gen: torch.Generator, *,
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            splan: ShardingPlan | None = None) -> torch.Tensor:
     """frames [B, S_enc, D] (stub embeddings) -> memory [B, S_enc, D]."""
-    h = frames.to(params["embed"].dtype)
+    splan = splan or make_plan(cfg, None)
+    h = L.shard(frames.to(params["embed"].dtype), splan.hidden, splan.mesh)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
     def body(hh, p):
         n1 = L.apply_norm(cfg, p["norm1"], hh)
         hh = hh + L.attention_forward(cfg, p["attn"], n1, _ENC_SPEC,
-                                      positions=positions)
+                                      splan=splan, positions=positions)
         n2 = L.apply_norm(cfg, p["norm2"], hh)
-        return hh + L.apply_mlp(cfg, p["mlp"], n2), None
+        return L.shard(hh + L.apply_mlp(cfg, p["mlp"], n2), splan.hidden,
+                       splan.mesh), None
 
     h, _ = scanctl.scan(_checkpointed(body) if cfg.remat else body, h,
                         params["enc_blocks"])
@@ -111,7 +113,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
 
 
 def _decoder(cfg: ModelConfig, params: Params, h: torch.Tensor,
-             memory: torch.Tensor, *, mode: str, caches=None):
+             memory: torch.Tensor, splan: ShardingPlan, *, mode: str,
+             caches=None):
     """mode: train | prefill | decode.  Returns (h, caches | None): prefill
     the new stacked self caches, decode the given ones, written in
     place."""
@@ -129,21 +132,26 @@ def _decoder(cfg: ModelConfig, params: Params, h: torch.Tensor,
         if decode:
             a, _ = L.attention_decode(cfg, p["attn"], n1,
                                       {**xs["caches"], "index": index},
-                                      _SELF_SPEC)
+                                      _SELF_SPEC, splan=splan)
         elif collect:
             # no ctx: the cache holds exactly the prefix (the reference's)
             a, new_cache = L.attention_forward_with_cache(
-                cfg, p["attn"], n1, _SELF_SPEC, positions=positions)
+                cfg, p["attn"], n1, _SELF_SPEC, splan=splan,
+                positions=positions)
         else:
             a = L.attention_forward(cfg, p["attn"], n1, _SELF_SPEC,
-                                    positions=positions)
+                                    splan=splan, positions=positions)
         hh = hh + a
         nx = L.apply_norm(cfg, p["norm_x"], hh)
         hh = hh + L.attention_forward(cfg, p["xattn"], nx, _CROSS_SPEC,
-                                      positions=positions, kv_x=memory,
+                                      splan=splan, positions=positions,
+                                      kv_x=memory,
                                       kv_positions=mem_positions)
         n2 = L.apply_norm(cfg, p["norm2"], hh)
-        return hh + L.apply_mlp(cfg, p["mlp"], n2), new_cache
+        hh = L.shard(hh + L.apply_mlp(cfg, p["mlp"], n2),
+                     splan.decode_hidden if decode else splan.hidden,
+                     splan.mesh)
+        return hh, new_cache
 
     body_fn = _checkpointed(body) if (cfg.remat and mode == "train") else body
     xs: dict[str, Any] = {"params": params["dec_blocks"]}
@@ -157,9 +165,10 @@ def encdec_loss(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                 dec_tokens: torch.Tensor, labels: torch.Tensor, *,
                 splan: ShardingPlan | None = None,
                 vocab_chunk: int = 16_384) -> torch.Tensor:
+    splan = splan or make_plan(cfg, None)
     memory = encode(cfg, params, frames, splan=splan)
-    h = params["embed"][dec_tokens]
-    h, _ = _decoder(cfg, params, h, memory, mode="train")
+    h = L.shard(params["embed"][dec_tokens], splan.hidden, splan.mesh)
+    h, _ = _decoder(cfg, params, h, memory, splan, mode="train")
     h = L.apply_norm(cfg, params["final_norm"], h)
     return chunked_xent(h, params["lm_head"], labels,
                         vocab_chunk=vocab_chunk)
@@ -169,9 +178,11 @@ def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                    dec_tokens: torch.Tensor, *,
                    splan: ShardingPlan | None = None):
     """Returns (last-token logits [B, Vp], caches {self, memory, index})."""
+    splan = splan or make_plan(cfg, None)
     memory = encode(cfg, params, frames, splan=splan)
-    h = params["embed"][dec_tokens]
-    h, self_caches = _decoder(cfg, params, h, memory, mode="prefill")
+    h = L.shard(params["embed"][dec_tokens], splan.hidden, splan.mesh)
+    h, self_caches = _decoder(cfg, params, h, memory, splan,
+                              mode="prefill")
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = full_logits(cfg, params, h[:, -1:])[:, 0]
     return logits, {"self": self_caches, "memory": memory,
@@ -186,8 +197,9 @@ def encdec_decode(cfg: ModelConfig, params: Params, caches: Params,
     """token [B, 1] -> (logits [B, Vp], caches).  The self cache's K/V are
     written in place and returned (with ``index + 1``); the memory is
     passed through."""
-    h = params["embed"][token]
-    h, self_caches = _decoder(cfg, params, h, caches["memory"],
+    splan = splan or make_plan(cfg, None)
+    h = L.shard(params["embed"][token], splan.decode_hidden, splan.mesh)
+    h, self_caches = _decoder(cfg, params, h, caches["memory"], splan,
                               mode="decode", caches=caches)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = full_logits(cfg, params, h)[:, 0]

@@ -2,14 +2,27 @@
 
 Mirrors ``repro/models/layers.py``: norms, QK-norm, RoPE, the three MLPs,
 attention (projection, grouped SDPA, the blockwise attention over KV
-chunks, prefill with its cache, one-token decode) and the mesh-less MoE
-(top-1 dispatch with capacity at prefill, the per-token expert-weight
-gather at decode, the shared expert).  Every function is a plain function
-over explicit parameter dicts of tensors, in the reference's layout (``x @
-w`` with ``w: [d_in, d_out]``), so a reference parameter tree carries
-across as a copy (``models/lm.py:params_from_arrays``).  The MoE's expert
-parallelism (``shard_map`` / ``all_to_all`` / ``psum``) waits for the LM on
-a mesh, ROADMAP queue 1 item 13e.
+chunks, prefill with its cache, one-token decode) and the MoE (top-1
+dispatch with capacity at prefill, the per-token expert-weight gather at
+decode, the shared expert, and both expert-parallel paths on a mesh).
+Every function is a plain function over explicit parameter dicts of
+tensors, in the reference's layout (``x @ w`` with ``w: [d_in, d_out]``),
+so a reference parameter tree carries across as a copy
+(``models/lm.py:params_from_arrays``).
+
+On a mesh (``splan`` from ``dist/sharding.make_plan``) the positions stand
+on one device (``docs/torch_lm_mesh.md``): ``shard`` checks a constraint
+as the reference's ``with_sharding_constraint`` does and returns its
+input, and the two MoE paths whose results a mesh changes run block by
+block, one block a position:
+  * ``apply_moe`` (the reference's ``shard_map`` over ``[B -> data axes, S
+    -> model]``): each block routes its own tokens with its own capacity
+    ``cap_src``, and the ``[E, C, D]`` buffers cross the model axis in the
+    ``all_to_all``'s order, so expert shard m runs its E/n experts over the
+    rows of every source block;
+  * ``moe_decode`` with ``cfg.moe_decode_ep``: each model position's masked
+    product over its E/n local experts, at the operands' dtype, summed in
+    model order (the reference's ``psum``).
 
 Numerics follow the reference's jnp:
   * every contraction the reference writes with
@@ -23,9 +36,7 @@ Numerics follow the reference's jnp:
 
 ``attention_decode`` writes the new K/V into the cache tensors it is given
 and returns them: a kept divergence from the reference's functional update
-(``docs/torch_lm.md``; ROADMAP queue 3).  The layers take no sharding
-plan: ``shard`` is the identity without a mesh, and the constraint points
-arrive with the mesh that needs them (item 13e).
+(``docs/torch_lm.md``; ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -39,12 +50,14 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import check_spec
 from repro_torch.models import scanctl
 
 __all__ = ["shard", "init_norm", "apply_norm", "rope_freqs", "apply_rope",
            "init_mlp", "apply_mlp", "AttnSpec", "init_attention",
            "attention_forward", "attention_forward_with_cache",
-           "attention_decode", "init_moe", "apply_moe", "moe_decode"]
+           "attention_decode", "init_moe", "apply_moe", "moe_decode",
+           "moe_dispatch_blocks", "ep_capacity"]
 
 Params = dict[str, Any]
 
@@ -58,11 +71,19 @@ _PAD_POSITION = torch.iinfo(torch.int32).max
 
 
 def shard(x: torch.Tensor, spec, mesh) -> torch.Tensor:
-    """Constraint point; the identity when mesh or spec is absent."""
+    """Constraint point: ``x`` itself.  Under a mesh the spec is checked as
+    the reference's constraint checks it (``ValueError`` for a spec longer
+    than ``x``'s rank, an axis the mesh lacks, an axis used twice); the
+    positions share one device, so nothing moves.  A no-op without a mesh
+    or spec."""
     if mesh is None or spec is None:
         return x
-    raise NotImplementedError(
-        "sharding the LM over a mesh is ROADMAP queue 1 item 13e")
+    check_spec(spec, x.ndim, mesh)
+    return x
+
+
+def _on_mesh(splan) -> bool:
+    return splan is not None and splan.mesh is not None
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +327,7 @@ def _positions(n: int, device) -> torch.Tensor:
 
 
 def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                      spec: AttnSpec, *,
+                      spec: AttnSpec, *, splan=None,
                       positions: torch.Tensor | None = None,
                       kv_x: torch.Tensor | None = None,
                       kv_positions: torch.Tensor | None = None,
@@ -324,6 +345,10 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         if not spec.cross:
             k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if _on_mesh(splan):
+        q = shard(q, splan.qkv, splan.mesh)
+        k = shard(k, splan.kv_ctx, splan.mesh)
+        v = shard(v, splan.kv_ctx, splan.mesh)
     out = _chunked_sdpa(q, k, v, kv_groups=H // KV, q_positions=positions,
                         kv_positions=kv_positions, spec=spec,
                         chunk=min(attn_chunk or cfg.attn_kv_chunk,
@@ -333,6 +358,7 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 def attention_forward_with_cache(cfg: ModelConfig, p: Params,
                                  x: torch.Tensor, spec: AttnSpec, *,
+                                 splan=None,
                                  positions: torch.Tensor | None = None,
                                  ctx: int | None = None,
                                  attn_chunk: int | None = None):
@@ -346,6 +372,10 @@ def attention_forward_with_cache(cfg: ModelConfig, p: Params,
     if spec.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if _on_mesh(splan):
+        q = shard(q, splan.qkv, splan.mesh)
+        k = shard(k, splan.kv_ctx, splan.mesh)
+        v = shard(v, splan.kv_ctx, splan.mesh)
     out = _chunked_sdpa(q, k, v, kv_groups=H // KV, q_positions=positions,
                         kv_positions=positions, spec=spec,
                         chunk=min(attn_chunk or cfg.attn_kv_chunk,
@@ -355,12 +385,15 @@ def attention_forward_with_cache(cfg: ModelConfig, p: Params,
     if ctx > S:
         k = F.pad(k, (0, 0, 0, 0, 0, ctx - S))
         v = F.pad(v, (0, 0, 0, 0, 0, ctx - S))
+    if _on_mesh(splan):
+        k = shard(k, splan.decode_cache, splan.mesh)
+        v = shard(v, splan.decode_cache, splan.mesh)
     return out, {"k": k, "v": v}
 
 
 def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                     cache: dict[str, torch.Tensor],
-                     spec: AttnSpec) -> tuple[torch.Tensor, dict]:
+                     cache: dict[str, torch.Tensor], spec: AttnSpec, *,
+                     splan=None) -> tuple[torch.Tensor, dict]:
     """One-token decode. x [B, 1, D]; cache {k,v: [B, Sc, KV, dh], index:
     [] or [B]}.
 
@@ -395,6 +428,9 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
         if spec.window > 0:  # chunked-local (iRoPE): same window block only
             valid &= (slots[None, :] // spec.window) == \
                 (index[:, None] // spec.window)
+        if _on_mesh(splan):
+            k = shard(k, splan.decode_cache, splan.mesh)
+            v = shard(v, splan.decode_cache, splan.mesh)
         new_cache = {"k": k, "v": v, "index": cache["index"] + 1}
 
     qg = q.reshape(B, 1, KV, kv_groups, dh)
@@ -407,7 +443,7 @@ def attention_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts (llama4): top-1 routing + shared expert, no mesh
+# Mixture of Experts (llama4): top-1 routing + shared expert, EP on a mesh
 # ---------------------------------------------------------------------------
 
 
@@ -438,36 +474,83 @@ def _route(p: Params, tokens: torch.Tensor):
     return logits, probs, probs.amax(dim=-1)
 
 
-def _moe_dispatch(p: Params, tokens: torch.Tensor, capacity: int):
-    """The reference's ``_moe_dispatch_compute`` without a mesh.
+def _experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts over their rows: buf [E, C, D] -> [E, C, D], each
+    product in f32 and cast back, as the reference's
+    ``preferred_element_type=f32`` einsums."""
+    dt = buf.dtype
+    h = _einsum_f32("ecd,edf->ecf", buf, p["wi"]).to(dt)
+    g = _einsum_f32("ecd,edf->ecf", buf, p["wg"]).to(dt)
+    return _einsum_f32("ecf,efd->ecd", F.silu(g) * h, p["wo"]).to(dt)
 
-    tokens [T, D] -> (routed expert output [T, D], expert index [T], keep
-    [T]): top-1 by ``argmax(softmax)``, each token's position in its expert
-    the running count of earlier tokens routed there; a token past
-    ``capacity`` goes to the dump row ``E * capacity`` and comes back as 0.
-    """
-    T, D = tokens.shape
+
+def _ep_blocks(splan, x: torch.Tensor) -> tuple[int, int]:
+    """(data blocks, model blocks) of ``x`` [B, S, D] split as the
+    reference's ``shard_map`` splits it (``[B -> data axes, S -> model]``);
+    an uneven split raises ``ValueError``, as ``shard_map`` does."""
+    n_data, n_model = splan.block_counts()
+    B, S = x.shape[:2]
+    if B % n_data or S % n_model:
+        raise ValueError(
+            f"expert parallelism splits [B, S] = [{B}, {S}] into {n_data} "
+            f"x {n_model} blocks; the blocks must divide it evenly")
+    return n_data, n_model
+
+
+def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
+                        n_model: int, capacity: int):
+    """The reference's ``_moe_dispatch_compute`` over every block at once:
+    one block (``n_data = n_model = 1``) is its mesh-less dispatch, more
+    are its EP ``apply_moe`` body.
+
+    x [B, S, D] is cut into ``n_data x n_model`` blocks (block (d, m) =
+    rows d of B, columns m of S; ``[B, S]`` must divide).  Each block
+    routes its ``t = B/n_data * S/n_model`` tokens on its own: top-1, each
+    token's position in its expert the running count of the block's
+    earlier tokens routed there, ``capacity`` a block and expert.  The
+    blocks' ``[E, C, D]`` buffers then cross the model axis in the
+    ``all_to_all``'s order: within data block d, expert shard m (experts
+    ``m*E/n .. (m+1)*E/n``) takes its experts' rows from every source
+    block, ``[E/n, n * C, D]``; here every shard's rows of every data
+    block are one batched product, a permutation of the block axes away
+    from the positions' own.  The exchange back restores each source's
+    ``[E, C, D]``, whose rows go back to their tokens, weighted by the
+    gate (dropped tokens: 0: a token past ``capacity`` goes to the dump
+    row ``E * C``).
+
+    Returns (out [B, S, D], expert index [blocks, t], keep [blocks, t]),
+    the blocks in (d, m) order."""
+    B, S, D = x.shape
     E = p["router"].shape[1]
+    nd, nm, C = n_data, n_model, capacity
+    b, s = B // nd, S // nm
+    t = b * s
+    blocks = x.reshape(nd, b, nm, s, D).permute(0, 2, 1, 3, 4)
+    tokens = blocks.reshape(nd * nm, t, D)                    # [nb, t, D]
     _, probs, gate = _route(p, tokens)
-    eidx = probs.argmax(dim=-1)                                # [T]
-
-    onehot = F.one_hot(eidx, E).to(torch.int32)                # [T, E]
-    pos = torch.gather(torch.cumsum(onehot, 0) - 1, 1, eidx[:, None])[:, 0]
-    keep = pos < capacity
-    slot = torch.where(keep, eidx * capacity + pos, E * capacity)
-
-    buf = torch.zeros((E * capacity + 1, D), dtype=tokens.dtype,
-                      device=tokens.device)
-    buf[slot] = torch.where(keep[:, None], tokens, 0)
-    buf = buf[:-1].reshape(E, capacity, D)
-
-    h = _einsum_f32("ecd,edf->ecf", buf, p["wi"]).to(tokens.dtype)
-    g = _einsum_f32("ecd,edf->ecf", buf, p["wg"]).to(tokens.dtype)
-    y = _einsum_f32("ecf,efd->ecd", F.silu(g) * h, p["wo"]).to(tokens.dtype)
-    y = torch.cat([y.reshape(E * capacity, D),
-                   torch.zeros((1, D), dtype=y.dtype, device=y.device)], 0)
-    out = y[slot] * (gate * keep)[:, None].to(y.dtype)
-    return out, eidx, keep
+    eidx = probs.argmax(dim=-1)                               # [nb, t]
+    onehot = F.one_hot(eidx, E).to(torch.int32)
+    pos = torch.gather(torch.cumsum(onehot, 1) - 1, 2,
+                       eidx[..., None])[..., 0]
+    keep = pos < C
+    slot = torch.where(keep, eidx * C + pos, E * C)
+    bix = torch.arange(nd * nm, device=x.device)[:, None]
+    buf = torch.zeros((nd * nm, E * C + 1, D), dtype=x.dtype,
+                      device=x.device)
+    buf[bix, slot] = torch.where(keep[..., None], tokens, 0)
+    buf = buf[:, :-1]
+    # the all_to_all: [d, src, dst, E/n, C, D] -> [dst, E/n, d, src, C, D]
+    El = E // nm
+    sent = buf.reshape(nd, nm, nm, El, C, D).permute(2, 3, 0, 1, 4, 5)
+    y = _experts(p, sent.reshape(E, nd * nm * C, D))
+    # and back: [dst, E/n, d, src, C, D] -> [d, src, dst, E/n, C, D]
+    y = y.reshape(nm, El, nd, nm, C, D).permute(2, 3, 0, 1, 4, 5)
+    y = torch.cat([y.reshape(nd * nm, E * C, D),
+                   torch.zeros((nd * nm, 1, D), dtype=y.dtype,
+                               device=y.device)], 1)
+    out = y[bix, slot] * (gate * keep)[..., None].to(y.dtype)
+    out = out.reshape(nd, nm, b, s, D).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, S, D), eidx, keep
 
 
 def _shared_expert(cfg: ModelConfig, p: Params, x: torch.Tensor):
@@ -475,31 +558,98 @@ def _shared_expert(cfg: ModelConfig, p: Params, x: torch.Tensor):
                      p["shared"], x)
 
 
-def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, D] -> [B, S, D]: every token of the batch routed together,
-    capacity ``max(1, int(B * S * capacity_factor / E))``; plus the shared
-    expert.  Expert parallelism over a mesh waits for item 13e."""
-    B, S, D = x.shape
-    cap = max(1, int(B * S * cfg.capacity_factor / cfg.num_experts))
-    out = _moe_dispatch(p, x.reshape(B * S, D), cap)[0].reshape(B, S, D)
+def _ep_model(cfg: ModelConfig, splan) -> bool:
+    """Expert parallelism applies: a mesh with a ``model`` axis that
+    divides the experts."""
+    mesh = splan.mesh if splan is not None else None
+    return (mesh is not None and "model" in mesh.axis_names
+            and cfg.num_experts % int(mesh.shape["model"]) == 0)
+
+
+def ep_capacity(cfg: ModelConfig, splan, x: torch.Tensor) -> int:
+    """The reference's capacity a source block and expert:
+    ``max(1, int(t_local * capacity_factor / E))``."""
+    n_data, n_model = _ep_blocks(splan, x)
+    B, S = x.shape[:2]
+    t_local = (B // n_data) * (S // n_model)
+    return max(1, int(t_local * cfg.capacity_factor / cfg.num_experts))
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+              splan=None) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, D], plus the shared expert, through
+    ``moe_dispatch_blocks``.  Without expert parallelism every token of the
+    batch is one block, capacity ``max(1, int(B * S * capacity_factor /
+    E))``; with it (a mesh whose ``model`` axis divides E), the mesh's
+    blocks at ``ep_capacity``."""
+    if _ep_model(cfg, splan):
+        n_data, n_model = _ep_blocks(splan, x)
+        cap = ep_capacity(cfg, splan, x)
+    else:
+        B, S = x.shape[:2]
+        n_data = n_model = 1
+        cap = max(1, int(B * S * cfg.capacity_factor / cfg.num_experts))
+    out = moe_dispatch_blocks(p, x, n_data, n_model, cap)[0]
     if cfg.shared_expert:
         out = out + _shared_expert(cfg, p, x)
     return out
 
 
-def moe_decode(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Decode-path MoE: ``argmax(logits)`` routing and a per-token gather of
-    the ``[T, D, F]`` expert weights (the reference's mesh-less branch: no
-    capacity, each token runs its own expert), plus the shared expert."""
+def _moe_decode_ep(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   splan) -> torch.Tensor:
+    """The reference's EP decode: every model position takes all tokens
+    (replicated over ``model``), routes them, runs its E/n local experts on
+    every token with the tokens routed elsewhere masked to 0, at the
+    operands' dtype, and the positions' outputs are summed in model order
+    (the ``psum``).  Tokens split over the data axes (``decode_hidden``'s
+    batch entry) must divide them evenly."""
     B, S, D = x.shape
-    tokens = x.reshape(B * S, D)
-    logits, _, gate = _route(p, tokens)
+    n_data, n = splan.block_counts()
+    if splan.decode_hidden[0] is not None and B % n_data:
+        raise ValueError(f"EP decode splits a batch of {B} over {n_data} "
+                         f"data blocks; they must divide it evenly")
+    E = cfg.num_experts
+    El = E // n
+    t = x.reshape(B * S, D)
+    logits = t.float() @ p["router"]
+    gate = torch.softmax(logits, dim=-1).amax(dim=-1)
     eidx = logits.argmax(dim=-1)
-    wi, wg, wo = p["wi"][eidx], p["wg"][eidx], p["wo"][eidx]  # [T, D, F]
-    h = torch.einsum("td,tdf->tf", tokens, wi)
-    g = torch.einsum("td,tdf->tf", tokens, wg)
-    y = torch.einsum("tf,tfd->td", F.silu(g) * h, wo)
-    out = (y * gate[:, None].to(y.dtype)).reshape(B, S, D)
+    locals_ = torch.arange(El, device=x.device)
+    out = None
+    for m in range(n):
+        wi, wg, wo = (p[k][m * El:(m + 1) * El] for k in ("wi", "wg", "wo"))
+        onehot = ((eidx - m * El)[:, None] == locals_).to(t.dtype)  # [T, El]
+        # the reference's "td,edf->tef" as [El, T, F] products over the
+        # weights in place
+        h = torch.matmul(t, wi)
+        g = torch.matmul(t, wg)
+        y = torch.matmul(F.silu(g) * h, wo)                  # [El, T, D]
+        y = (y * onehot.T[..., None]).sum(dim=0)             # [T, D]
+        y = y * gate[:, None].to(y.dtype)
+        out = y if out is None else out + y
+    return out.reshape(B, S, D)
+
+
+def moe_decode(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+               splan=None) -> torch.Tensor:
+    """Decode-path MoE, plus the shared expert.  By default
+    ``argmax(logits)`` routing and a per-token gather of the ``[T, D, F]``
+    expert weights (no capacity, each token runs its own expert); with
+    ``cfg.moe_decode_ep`` on a mesh whose ``model`` axis divides E, the
+    EP-local masked products summed over the model positions
+    (``_moe_decode_ep``), which read each expert's weights in place."""
+    B, S, D = x.shape
+    if cfg.moe_decode_ep and _ep_model(cfg, splan):
+        out = _moe_decode_ep(cfg, p, x, splan)
+    else:
+        tokens = x.reshape(B * S, D)
+        logits, _, gate = _route(p, tokens)
+        eidx = logits.argmax(dim=-1)
+        wi, wg, wo = p["wi"][eidx], p["wg"][eidx], p["wo"][eidx]  # [T, D, F]
+        h = torch.einsum("td,tdf->tf", tokens, wi)
+        g = torch.einsum("td,tdf->tf", tokens, wg)
+        y = torch.einsum("tf,tfd->td", F.silu(g) * h, wo)
+        out = (y * gate[:, None].to(y.dtype)).reshape(B, S, D)
     if cfg.shared_expert:
         out = out + _shared_expert(cfg, p, x)
     return out

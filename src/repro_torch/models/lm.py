@@ -22,10 +22,10 @@ Entry points: ``lm_loss`` (the train-mode backbone and the chunked-vocab
 cross-entropy, which never holds ``[B, S, V]`` logits), ``lm_prefill``
 (stacked caches, last-token logits) and ``lm_decode`` (one token against
 the caches, which it updates in place and returns; ``docs/torch_lm.md``).
-All take the reference's ``splan``; the mesh-less plan, the only one until
-item 13e, places nothing, so none reads it.  ``init_lm``, ``init_caches``
-and ``params_from_arrays`` run on ``cuda`` unless ``device="cpu"`` is
-passed.
+All take the reference's ``splan`` and pass it to every constraint point
+and MoE call the reference does (``docs/torch_lm_mesh.md``).
+``init_lm``, ``init_caches`` and ``params_from_arrays`` run on ``cuda``
+unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan
+from repro_torch.dist.sharding import ShardingPlan, make_plan
 from repro_torch.models import layers as L
 from repro_torch.models import scanctl
 from repro_torch.models import ssd as S
@@ -195,6 +195,7 @@ _SHARED_SPEC = L.AttnSpec(use_rope=True, causal=True)
 
 def _apply_shared_attn(cfg: ModelConfig, shared: Params, lora: Params,
                        h: torch.Tensor, e0: torch.Tensor, positions, *,
+                       splan: ShardingPlan | None = None,
                        decode_cache=None, collect=False, ctx=None):
     """Zamba2's shared block, on concat(h, e0) with this block's LoRA delta
     on ``wq``: attention and the gelu MLP both read the normed 2·D stream
@@ -206,13 +207,15 @@ def _apply_shared_attn(cfg: ModelConfig, shared: Params, lora: Params,
         attn_p["wq"].dtype)
     if decode_cache is not None:
         a, new_cache = L.attention_decode(cfg, attn_p, n1, decode_cache,
-                                          _SHARED_SPEC)
+                                          _SHARED_SPEC, splan=splan)
     elif collect:
         a, new_cache = L.attention_forward_with_cache(
-            cfg, attn_p, n1, _SHARED_SPEC, positions=positions, ctx=ctx)
+            cfg, attn_p, n1, _SHARED_SPEC, splan=splan, positions=positions,
+            ctx=ctx)
     else:
         a, new_cache = L.attention_forward(
-            cfg, attn_p, n1, _SHARED_SPEC, positions=positions), None
+            cfg, attn_p, n1, _SHARED_SPEC, splan=splan,
+            positions=positions), None
     n2 = L.apply_norm(cfg, shared["norm2"], cat)
     m = L.apply_mlp(dataclasses.replace(cfg, mlp_type="gelu"),
                     shared["mlp"], n2)
@@ -220,40 +223,45 @@ def _apply_shared_attn(cfg: ModelConfig, shared: Params, lora: Params,
 
 
 def _apply_position(cfg: ModelConfig, plan: LayerPlan, p: Params,
-                    h: torch.Tensor, positions, *, cache=None,
-                    decode=False, ctx=None):
+                    h: torch.Tensor, splan: ShardingPlan, positions, *,
+                    cache=None, decode=False, ctx=None):
     """One layer (train/prefill: cache=None or "collect"; decode: cache is
     this layer's cache, updated in place).  Returns (h,
     new_cache_or_None)."""
+    mesh = splan.mesh
     new_cache = None
+    hs = splan.decode_hidden if decode else splan.hidden
     n1 = L.apply_norm(cfg, p["norm1"], h)
     if plan.kind == "ssm":
+        n1 = L.shard(n1, splan.hidden, mesh)
         if decode:
             y, new_cache = S.ssd_decode(cfg, p["ssm"], n1, cache)
         elif cache == "collect":
-            y, new_cache = S.ssd_forward_with_cache(cfg, p["ssm"], n1)
+            y, new_cache = S.ssd_forward_with_cache(cfg, p["ssm"], n1,
+                                                    splan=splan)
         else:
-            y = S.ssd_forward(cfg, p["ssm"], n1)
-        return h + y, new_cache
+            y = S.ssd_forward(cfg, p["ssm"], n1, splan=splan)
+        return L.shard(h + y, hs, mesh), new_cache
     if decode:
         a, new_cache = L.attention_decode(cfg, p["attn"], n1, cache,
-                                          plan.attn)
+                                          plan.attn, splan=splan)
     elif cache == "collect":
         a, new_cache = L.attention_forward_with_cache(
-            cfg, p["attn"], n1, plan.attn, positions=positions, ctx=ctx)
+            cfg, p["attn"], n1, plan.attn, splan=splan, positions=positions,
+            ctx=ctx)
     else:
-        a = L.attention_forward(cfg, p["attn"], n1, plan.attn,
+        a = L.attention_forward(cfg, p["attn"], n1, plan.attn, splan=splan,
                                 positions=positions)
-    h = h + a
+    h = L.shard(h + a, hs, mesh)
     n2 = L.apply_norm(cfg, p["norm2"], h)
     if plan.use_moe:
-        m = (L.moe_decode(cfg, p["moe"], n2) if decode
-             else L.apply_moe(cfg, p["moe"], n2))
+        m = (L.moe_decode(cfg, p["moe"], n2, splan=splan) if decode
+             else L.apply_moe(cfg, p["moe"], n2, splan=splan))
     elif cfg.d_ff > 0:
         m = L.apply_mlp(cfg, p["mlp"], n2)
     else:
         m = 0.0
-    return h + m, new_cache
+    return L.shard(h + m, hs, mesh), new_cache
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -291,7 +299,7 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
-              positions, *, mode: str,
+              splan: ShardingPlan, positions, *, mode: str,
               caches: Params | None = None, ctx: int | None = None):
     """mode: train | prefill | decode.  Returns (h, caches | None): prefill
     the new stacked caches, decode the given ones, written in place."""
@@ -311,7 +319,8 @@ def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
             dc = {**c_block["shared"], "index": index} if decode else None
             hh, nc = _apply_shared_attn(cfg, params["shared_attn"],
                                         xs["lora"], hh, e0, positions,
-                                        decode_cache=dc, collect=collect,
+                                        splan=splan, decode_cache=dc,
+                                        collect=collect,
                                         ctx=ctx)
             if collect:
                 new_caches["shared"] = {"k": nc["k"], "v": nc["v"]}
@@ -323,8 +332,8 @@ def _backbone(cfg: ModelConfig, params: Params, h: torch.Tensor,
             else:
                 c = "collect" if collect else None
             hh, nc = _apply_position(cfg, plan, p_block[f"p{i}"], hh,
-                                     positions, cache=c, decode=decode,
-                                     ctx=ctx)
+                                     splan, positions, cache=c,
+                                     decode=decode, ctx=ctx)
             if collect:
                 new_caches[f"p{i}"] = ({"k": nc["k"], "v": nc["v"]}
                                        if plan.kind == "attn" else nc)
@@ -419,10 +428,11 @@ def full_logits(cfg: ModelConfig, params: Params,
 def lm_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
               *, splan: ShardingPlan | None = None) -> torch.Tensor:
     """Train-mode backbone: tokens [B, S] -> normed hidden [B, S, D]."""
+    splan = splan or make_plan(cfg, None)
     B, Sq = tokens.shape
-    h = params["embed"][tokens]
+    h = L.shard(params["embed"][tokens], splan.hidden, splan.mesh)
     positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
-    h, _ = _backbone(cfg, params, h, positions, mode="train")
+    h, _ = _backbone(cfg, params, h, splan, positions, mode="train")
     return L.apply_norm(cfg, params["final_norm"], h)
 
 
@@ -439,10 +449,11 @@ def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                ctx: int | None = None):
     """tokens [B, S] -> (last-token logits [B, Vp], caches).
     ``ctx``: total cache positions (> S for decode appends; serving)."""
+    splan = splan or make_plan(cfg, None)
     B, Sq = tokens.shape
-    h = params["embed"][tokens]
+    h = L.shard(params["embed"][tokens], splan.hidden, splan.mesh)
     positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
-    h, caches = _backbone(cfg, params, h, positions, mode="prefill",
+    h, caches = _backbone(cfg, params, h, splan, positions, mode="prefill",
                           ctx=ctx)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = full_logits(cfg, params, h[:, -1:])[:, 0]
@@ -456,8 +467,9 @@ def lm_decode(cfg: ModelConfig, params: Params, caches: Params,
     """token [B, 1] -> (logits [B, Vp], caches).  The K/V, conv and state
     tensors of ``caches`` are updated in place and returned (with ``index +
     1``): a caller that needs the old caches clones them first."""
-    h = params["embed"][token]
-    h, new_caches = _backbone(cfg, params, h, None, mode="decode",
+    splan = splan or make_plan(cfg, None)
+    h = L.shard(params["embed"][token], splan.decode_hidden, splan.mesh)
+    h, new_caches = _backbone(cfg, params, h, splan, None, mode="decode",
                               caches=caches)
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = full_logits(cfg, params, h)[:, 0]

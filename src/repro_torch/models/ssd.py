@@ -22,8 +22,9 @@ Numerics follow the reference's jnp:
 
 ``ssd_decode`` writes the new conv window and state into the cache tensors
 it is given and returns them, as ``layers.attention_decode`` does with K/V
-(``docs/torch_lm.md``).  The mesh-less path only: the reference's
-``splan`` head-axis constraints wait for ROADMAP queue 1 item 13e.
+(``docs/torch_lm.md``).  Under a mesh plan ``ssd_forward`` checks the
+reference's head-axis constraints (``layers.shard``); the positions share
+one device, so nothing else changes.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import scanctl
-from repro_torch.models.layers import _dense_init, _einsum_f32
+from repro_torch.dist.sharding import P as Pspec
+from repro_torch.dist.sharding import _data_entry
+from repro_torch.models.layers import _dense_init, _einsum_f32, shard
 
 __all__ = ["init_ssd", "ssd_forward", "ssd_forward_with_cache",
            "init_ssd_cache", "ssd_decode"]
@@ -109,10 +112,13 @@ def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
 
 
 def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                chunk: int | None = None, return_cache: bool = False):
+                chunk: int | None = None, return_cache: bool = False,
+                splan=None):
     """Full-sequence SSD.  x [B, S, D] -> [B, S, D]; S is padded up to a
     multiple of the chunk, the pad positions masked by ``dt = -1e9``.
-    ``return_cache`` also returns the decode cache (prefill)."""
+    ``return_cache`` also returns the decode cache (prefill).  ``splan``
+    pins the head axis to the mesh's ``model`` axis, as the reference's
+    constraints do."""
     B, S_true, _ = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P_ = cfg.ssm_headdim
@@ -141,6 +147,15 @@ def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     dt = _softplus(dt.float() + p["dt_bias"])              # [B, S, H]
     A = -torch.exp(p["A_log"])                             # [H]
     dA = dt * A                                            # [B, S, H]
+
+    if splan is not None and splan.mesh is not None:
+        da = _data_entry(splan.data_axes)
+        model, mesh = splan.model_axis, splan.mesh
+        xs = shard(xs, Pspec(da, None, model, None), mesh)
+        z = shard(z, Pspec(da, None, model), mesh)
+        B_ = shard(B_, Pspec(da, None, None), mesh)
+        C_ = shard(C_, Pspec(da, None, None), mesh)
+        dA = shard(dA, Pspec(da, None, model), mesh)
 
     def chunked(t, tail):
         t = t.reshape((B, nC, Q) + tail)
@@ -186,8 +201,9 @@ def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
 
 
 def ssd_forward_with_cache(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                           chunk: int | None = None):
-    return ssd_forward(cfg, p, x, chunk=chunk, return_cache=True)
+                           chunk: int | None = None, splan=None):
+    return ssd_forward(cfg, p, x, chunk=chunk, return_cache=True,
+                       splan=splan)
 
 
 def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, *,

@@ -19,6 +19,12 @@ Where the reference's mechanics are JAX's, the port's are eager PyTorch:
     one copy, where the reference reads each active slot's index on its
     own.
 
+``splan=make_plan(cfg, mesh, decode_batch=slots)`` serves through a mesh
+plan: every prefill and decode runs under it (the MoE's EP paths on a
+mesh whose ``model`` axis divides the experts), on the mesh's one device,
+which must be the engine's.  The engine prefills one request at a time
+(B = 1), so an EP model's serving mesh has ``data`` = 1.
+
 The engine is per-pod and shares nothing but the process-global
 ``serve.queue_depth`` gauge, which the forest router reads.
 """
@@ -35,7 +41,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan, make_plan, physical
+from repro_torch.dist.sharding import (Mesh, ShardingPlan, lm_device,
+                                       make_plan, physical)
 from repro_torch.models import lm as LM
 from repro_torch.models.registry import get_bundle
 from repro_torch.obs import METRICS, MetricsRegistry, TRACER
@@ -104,6 +111,11 @@ class ServeEngine:
         self.max_ctx = max_ctx
         self.buckets = tuple(b for b in prompt_buckets if b < max_ctx)
         self.splan = splan or make_plan(cfg, None)
+        if isinstance(self.splan.mesh, Mesh) and \
+                lm_device(self.splan.mesh) != physical(self.device):
+            raise ValueError(f"the plan's mesh stands on "
+                             f"{lm_device(self.splan.mesh)}, the engine "
+                             f"runs on {self.device}")
         self.bundle = get_bundle(cfg)
         self.caches = LM.init_caches(cfg, slots, max_ctx, dtype=dtype,
                                      device=self.device)

@@ -1,4 +1,4 @@
-"""Checkpointing (torch), the reference's on-disk layout without a mesh.
+"""Checkpointing (torch), the reference's on-disk layout.
 
 Mirrors ``repro/train/checkpoint.py``:
   * ``<dir>/step_%08d/`` holds one ``.npy`` a leaf, named by the leaf's
@@ -15,8 +15,10 @@ numpy has no bfloat16: a bf16 leaf is saved as its 16 bits in an array of
 2-byte void items with dtype ``"bfloat16"`` in the manifest, the bits the
 reference's ``np.save`` writes for one, and restored bit for bit (a
 reference-written one too, which the reference itself cannot restore).
-Restoring onto a mesh (the reference's reshard-on-restore) is ROADMAP
-queue 1 item 13e.
+``restore_checkpoint(mesh=)`` is the reference's reshard on restore: every
+leaf is placed by its ``param_specs`` spec over the CURRENT mesh (which may
+differ from the one that saved), on the mesh's one device
+(``dist/sharding.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import NamedSharding, param_specs
 from repro_torch.train.tree import tree_flatten_with_path
 
 Params = Any
@@ -91,13 +94,10 @@ def _load(path: str, dtype: str) -> torch.Tensor:
 def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
                        step: int | None = None) -> tuple[Params, int]:
     """Restore into the structure of ``like`` (a state tree of tensors):
-    each leaf onto ``like``'s leaf's device and dtype.  Returns (state,
-    step).  A leaf of another shape raises ``ValueError``, a missing one
-    ``KeyError``; a mesh raises ``NotImplementedError`` (item 13e)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "restoring a checkpoint onto a mesh is ROADMAP queue 1 item "
-            "13e, not ported yet")
+    each leaf in ``like``'s leaf's dtype, onto ``like``'s leaf's device, or
+    with ``mesh`` placed by the leaf's ``param_specs`` spec over it.
+    Returns (state, step).  A leaf of another shape raises ``ValueError``,
+    a missing one ``KeyError``."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -106,6 +106,8 @@ def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
         manifest = json.load(fh)
 
     flat_like = _flatten(like)
+    flat_specs = _flatten(param_specs(like, mesh)) if mesh is not None \
+        else {}
     leaves_by_name = {}
     for name, meta in manifest["leaves"].items():
         want = flat_like.get(name)
@@ -116,7 +118,11 @@ def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                 f"model {tuple(want.shape)}")
-        leaves_by_name[name] = t.to(device=want.device, dtype=want.dtype)
+        if mesh is not None:
+            leaves_by_name[name] = NamedSharding(
+                mesh, flat_specs[name]).place(t.to(want.dtype))
+        else:
+            leaves_by_name[name] = t.to(device=want.device, dtype=want.dtype)
 
     def rebuild(node, prefix: tuple):
         if isinstance(node, dict):

@@ -17,7 +17,8 @@ Stragglers appear as slow steps: the loop keeps an EWMA of step time
 ``straggler_factor`` x the EWMA once three steps have run, calling
 ``on_straggler``.  ``FailureInjector`` raises at a chosen step to simulate
 a node loss.  Reading a step's loss (``float``) is the step's one
-synchronise.  Restoring onto a mesh is ROADMAP queue 1 item 13e.
+synchronise.  ``restore(mesh=)`` reshards onto the current mesh, as the
+reference's elastic restart does.
 """
 
 from __future__ import annotations
@@ -106,7 +107,7 @@ class TrainLoop:
                                  stragglers=stragglers)
 
     def restore(self, like: Any, *, mesh=None) -> tuple[Any, int]:
-        """Restart: the latest checkpoint onto ``like``'s devices and
-        dtypes."""
+        """Restart: the latest checkpoint in ``like``'s dtypes, onto its
+        devices, or resharded onto ``mesh``."""
         assert self.ckpt_dir is not None
         return restore_checkpoint(self.ckpt_dir, like, mesh=mesh)

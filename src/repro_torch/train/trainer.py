@@ -1,8 +1,7 @@
 """Train step assembly: loss -> grad -> (accumulate) -> clip -> update
 (torch).
 
-Mirrors ``repro/train/trainer.py`` without a mesh.  ``make_train_step``
-returns a function ``(state, batch) -> (state, metrics)`` with the
+Mirrors ``repro/train/trainer.py``.  ``make_train_step`` returns a function ``(state, batch) -> (state, metrics)`` with the
 reference's functional contract: it writes nothing into the state it is
 given, and the new state is new tensors.  Gradients come from
 ``torch.autograd.grad`` over detached aliases of the parameters that
@@ -18,10 +17,18 @@ backward and the MoE's scatters then sum in a fixed order.  Ops that have
 no deterministic CUDA kernel (the SSD families' float ``cumsum``) warn
 instead of raising (``docs/torch_lm_train.md``).
 
-Entry points run on ``cuda`` unless ``device="cpu"`` is passed.  Under a
-mesh (``jit_train_step(mesh=...)``, cross-pod gradient compression) they
-raise ``NotImplementedError`` naming ROADMAP queue 1 item 13e; the
-dry-run's ``state_shapes`` waits for item 13f.
+On a mesh (a plan from ``make_plan(cfg, mesh)``) the loss runs under the
+plan (the MoE's per-block dispatch, ``models/layers.py``), and with
+``grad_compress`` and a ``pod`` axis every floating gradient makes the
+int8 round trip of ``dist/compression.compress_grads_crosspod`` between
+accumulation and the update, as the reference's step does before its
+cross-pod all-reduce.  ``jit_train_step(cfg, opt, mesh)`` places the state
+by ``param_specs`` / ``tree_named`` on the mesh's one device, in and out;
+it compiles nothing and donates nothing: eager PyTorch has no donation,
+and the step keeps its functional contract (``docs/torch_lm_mesh.md``).
+
+Entry points run on ``cuda`` unless ``device="cpu"`` is passed.  The
+dry-run's ``state_shapes`` waits for ROADMAP queue 1 item 13f.
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan, make_plan
+from repro_torch.dist.compression import compress_grads_crosspod
+from repro_torch.dist.sharding import (ShardingPlan, make_plan, param_specs,
+                                       tree_named)
 from repro_torch.models.lm import params_from_arrays
 from repro_torch.models.registry import get_bundle
 from repro_torch.train.optimizer import Optimizer
@@ -46,10 +55,6 @@ __all__ = ["TrainState", "init_state", "state_from_arrays",
            "make_train_step", "jit_train_step", "deterministic_algorithms"]
 
 Params = Any
-
-_MESH_ITEM = ("training on a mesh ({what}) is ROADMAP queue 1 item 13e, "
-              "not ported yet")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -125,13 +130,13 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     """(state, batch) -> (state, metrics {loss, gnorm}); the state is left
     as it was given.  ``vocab_chunk`` is accepted and unused, as in the
     reference: the loss keeps its default chunk of 16,384.
-    ``grad_compress`` acts only under a mesh with a ``pod`` axis, which is
-    item 13e: without one it is a no-op, as in the reference."""
+    ``grad_compress`` acts only under a mesh with a ``pod`` axis (the int8
+    round trip of every floating gradient before the update); without one
+    it is a no-op, as in the reference."""
     del vocab_chunk
     splan = splan or make_plan(cfg, None)
-    if splan.mesh is not None:
-        raise NotImplementedError(_MESH_ITEM.format(
-            what="make_train_step, compress_grads_crosspod"))
+    compress = (grad_compress and splan.mesh is not None
+                and "pod" in splan.mesh.axis_names)
     bundle = get_bundle(cfg)
 
     def loss_and_grads(params, batch):
@@ -163,6 +168,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
                     losses.append(l)
                 grads = tree_map(lambda g: g / microbatches, acc)
                 loss = torch.stack(losses).mean()
+            if compress:
+                grads = compress_grads_crosspod(grads, splan.mesh)
             new_params, new_opt = opt.update(grads, state["opt"], params,
                                              state["step"])
         metrics = {"loss": loss, "gnorm": new_opt.pop("gnorm")}
@@ -172,11 +179,32 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     return step_fn
 
 
+def _place(state: dict, mesh) -> dict:
+    """The state laid out as the reference's shardings lay it out: params
+    and optimizer state by ``param_specs``, the step replicated."""
+    def put(specs, tree):
+        return tree_map(lambda sh, t: sh.place(t),
+                        tree_named(mesh, specs), tree)
+    return {"params": put(param_specs(state["params"], mesh),
+                          state["params"]),
+            "opt": put(param_specs(state["opt"], mesh), state["opt"]),
+            "step": tree_named(mesh, param_specs(state["step"], mesh))
+            .place(state["step"])}
+
+
 def jit_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None, **kw):
-    """``(step_fn, splan)``: the mesh-less step, with no ``jit`` (eager
-    PyTorch compiles nothing).  A mesh raises ``NotImplementedError``
-    naming item 13e."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM.format(what="jit_train_step"))
-    splan = make_plan(cfg, None)
-    return make_train_step(cfg, opt, splan, **kw), splan
+    """``(step_fn, splan)``, with no ``jit`` (eager PyTorch compiles
+    nothing).  With a mesh the step places its input and output state by
+    ``param_specs`` / ``tree_named``, as the reference's in / out
+    shardings do, and donates nothing: the state it is given stays as it
+    was."""
+    splan = make_plan(cfg, mesh)
+    step_fn = make_train_step(cfg, opt, splan, **kw)
+    if mesh is None:
+        return step_fn, splan
+
+    def placed(state, batch):
+        new, metrics = step_fn(_place(state, mesh), batch)
+        return _place(new, mesh), metrics
+
+    return placed, splan

@@ -1643,3 +1643,78 @@ def test_train_entry_points_default_to_cuda():
     out = train_cli.main(["--arch", "olmo-1b", "--steps", "2", "--batch",
                           "2", "--seq", "32"])
     assert np.isfinite(out["last_loss"])
+
+
+# -- the LM on a mesh of card positions (dist/sharding.py's LM half) ----------
+
+
+@pytest.mark.gpu
+def test_lm_mesh_ep_on_cuda_equals_cpu():
+    """llama4-scout at ``reduced()`` on a (data 2, model 4) mesh of card
+    positions against the same mesh of CPU positions, in f32: the EP
+    prefill at the config's capacity (drops included) and one EP decode
+    step, logits within 1e-4."""
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+    from repro_torch.models import lm as LM
+    cfg = reduced(get_config("llama4-scout-17b-a16e"))
+    pairs = (("data", 2), ("model", 4))
+    params = get_bundle(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                  dtype=torch.float32, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 17),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        splan = make_plan(cfg, make_position_mesh(pairs, dev),
+                          decode_batch=2)
+        p = LM.params_from_arrays(_host(params), device=dev)
+        t = toks.to(dev)
+        pre, caches = LM.lm_prefill(cfg, p, t[:, :16], splan=splan, ctx=20)
+        dec, _ = LM.lm_decode(cfg, p, caches, t[:, 16:], splan=splan)
+        out[dev] = (pre.cpu(), dec.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_mesh_train_step_on_cuda_is_the_twin_over_compressed_grads():
+    """olmo at ``reduced()`` on (pod 2, data 2, model 2) card positions with
+    ``grad_compress``: the loss bit for bit the mesh-less step's, the new
+    parameters bit for bit the twin's update over its int8-round-tripped
+    gradients."""
+    _need_card()
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.dist.compression import compress_grads_crosspod
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (deterministic_algorithms,
+                                           init_state, jit_train_step)
+    from repro_torch.train.tree import tree_unflatten
+    cfg = reduced(get_config("olmo-1b"))
+    opt = make_optimizer(OptimizerConfig())
+    state = init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+                       dtype=torch.float32)
+    batch = batch_for(cfg, ShapeConfig("t", 64, 4, "train"), 0, seed=1)
+    mesh = make_position_mesh((("pod", 2), ("data", 2), ("model", 2)),
+                              "cuda:0")
+    step, _ = jit_train_step(cfg, opt, mesh, grad_compress=True)
+    new, m = step(state, batch)
+    with deterministic_algorithms():
+        leaves = [t.detach().requires_grad_() for t in
+                  _tree_leaves(state["params"])]
+        tb = {k: torch.from_numpy(v).long().cuda() for k, v in batch.items()}
+        loss = get_bundle(cfg).loss(
+            cfg, tree_unflatten(state["params"], leaves), tb, None)
+        grads = tree_unflatten(state["params"],
+                               list(torch.autograd.grad(loss, leaves)))
+        want, _ = opt.update(compress_grads_crosspod(grads, None),
+                             state["opt"], state["params"], state["step"])
+    assert torch.equal(m["loss"], loss.detach())
+    for a, b in zip(_tree_leaves(new["params"]), _tree_leaves(want)):
+        assert a.is_cuda and torch.equal(a, b)

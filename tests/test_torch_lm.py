@@ -21,9 +21,11 @@
   * one decode on bf16 caches under f32 weights (the engine's default)
     against the reference's: logits within bf16's epsilon, caches bit for
     bit;
-  * the refusals of what the port does not have yet (the mesh, item 13e:
-    the LM's plan and constraint points, and for the enc-dec family its
-    training step and checkpoint restore), and the in-place cache update
+  * the mesh entry points on a one-device mesh (the LM's plan and
+    constraint points, and for the enc-dec family its training step and
+    checkpoint restore; ``tests/test_torch_lm_mesh.py`` holds them against
+    the reference's), the refusal of what the port does not have yet (an
+    LM mesh over distinct cards, item 13g), and the in-place cache update
     (a kept divergence, pinned below).
 """
 
@@ -51,8 +53,8 @@ KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["olmo-1b", "qwen2-7b", "yi-34b", "minitron-4b", "chameleon-34b"]
 #: what of a family still waits, by its ROADMAP queue 1 item: since the
-#: enc-dec model and training landed, the mesh alone
-UNPORTED = {"seamless-m4t-large-v2": "13e"}
+#: mesh landed, only a mesh over distinct cards
+UNPORTED = {"seamless-m4t-large-v2": "13g"}
 
 
 def _pair(arch: str, **changes):
@@ -515,52 +517,91 @@ def test_init_lm_has_the_reference_tree(arch):
     assert abs(float(params["embed"].float().std()) - 0.02) < 0.002
 
 
+def _cards_mesh() -> Mesh:
+    """Two distinct cards as positions: a plan over them, checked without
+    a card."""
+    return Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
+                ("data", "model"))
+
+
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_are_refused(arch):
+def test_unported_families_are_refused(arch, tmp_path):
     """The family's bundle is its own (enc-dec: ``models/encdec.py``) and
-    serves its entry points on the CPU; its mesh paths are refused,
-    naming the item."""
+    serves its entry points on the CPU.  On a one-device mesh its plan,
+    its training step and a restore run; a mesh over distinct cards is
+    refused, naming the item."""
     from repro_torch.models import encdec as ED
     from repro_torch.train import checkpoint as K
+    from repro_torch.train.data import batch_for
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
-    from repro_torch.train.trainer import jit_train_step
+    from repro_torch.train.trainer import init_state, jit_train_step
+    from repro_torch.train.tree import tree_leaves
     cfg = configs.reduced(configs.get_config(arch))
     item = UNPORTED[arch]
     bundle = get_bundle(cfg)
     assert bundle.init is ED.init_encdec
     assert bundle.init_caches is ED.init_encdec_caches
-    params = bundle.init(cfg, torch.Generator().manual_seed(0),
-                         dtype=torch.float32, device="cpu")
     assert ED.init_encdec_caches(cfg, 2, 8, device="cpu")["index"] == 0
     mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
     opt = make_optimizer(OptimizerConfig())
-    for call in (lambda: make_plan(cfg, mesh),
-                 lambda: jit_train_step(cfg, opt, mesh),
-                 lambda: K.restore_checkpoint("unused", params, mesh=mesh)):
+    state = init_state(cfg, opt, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    assert make_plan(cfg, mesh).attn_mode == "tp"
+    batch = batch_for(cfg, configs.ShapeConfig("m", 16, 2, "train"), 0)
+    step, _ = jit_train_step(cfg, opt, mesh)
+    new, m = step(state, batch)
+    _, want = jit_train_step(cfg, opt, None)[0](state, batch)
+    assert float(m["loss"]) == float(want["loss"])
+    K.save_checkpoint(str(tmp_path), new, 1)
+    got, _ = K.restore_checkpoint(str(tmp_path), state, mesh=mesh)
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(new)))
+    for call in (lambda: make_plan(cfg, _cards_mesh()),
+                 lambda: jit_train_step(cfg, opt, _cards_mesh()),
+                 lambda: K.restore_checkpoint(str(tmp_path), state,
+                                              mesh=_cards_mesh())):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
 
 
 def test_unported_entry_points_are_refused():
-    """The loss is ported (a finite scalar); the mesh is not."""
+    """The loss is ported (a finite scalar), and so is the mesh on one
+    device: the plan, ``shard``'s checks, the placed train step and the
+    cross-pod compression's call site.  A mesh over distinct cards is
+    refused (item 13g)."""
+    from repro_torch.dist.sharding import P
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
-    from repro_torch.train.trainer import jit_train_step, make_train_step
+    from repro_torch.train.trainer import (init_state, jit_train_step,
+                                           make_train_step)
     _, cfg, _, p = _params("olmo-1b")
     toks = _t(_tokens(cfg, 1, 4))
     loss = get_bundle(cfg).loss(cfg, p, {"tokens": toks, "labels": toks},
                                 make_plan(cfg, None))
     assert loss.ndim == 0 and bool(torch.isfinite(loss))
     mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        make_plan(cfg, mesh)
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        L.shard(toks, "spec", mesh)
+    plan = make_plan(cfg, mesh)
+    assert plan.mesh is mesh and plan.attn_mode == "tp"
+    assert plan.hidden == P("data", None, "model")
+    assert L.shard(toks, P("data"), mesh) is toks
+    with pytest.raises(ValueError, match="not in the mesh"):
+        L.shard(toks, P("pod"), mesh)
     opt = make_optimizer(OptimizerConfig())
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        jit_train_step(cfg, opt, mesh)
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        make_train_step(cfg, opt, ShardingPlan(mesh=mesh),
-                        grad_compress=True)
+    state = init_state(cfg, opt, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    batch = {"tokens": toks.numpy(), "labels": toks.numpy()}
+    step_fn, splan = jit_train_step(cfg, opt, mesh)
+    assert splan == plan
+    pods = Mesh(np.array(["cpu"] * 8, object).reshape(2, 2, 2),
+                ("pod", "data", "model"))
+    _, plain = make_train_step(cfg, opt)(state, batch)
+    _, mesh_m = step_fn(state, batch)
+    _, pod_m = make_train_step(cfg, opt, make_plan(cfg, pods),
+                               grad_compress=True)(state, batch)
+    assert float(mesh_m["loss"]) == float(plain["loss"]) == \
+        float(pod_m["loss"])
+    assert float(pod_m["gnorm"]) != float(plain["gnorm"])   # compressed
+    with pytest.raises(NotImplementedError, match="item 13g"):
+        make_plan(cfg, _cards_mesh())
     step_fn, splan = jit_train_step(cfg, opt, None)
     assert callable(step_fn) and splan == ShardingPlan()
     plan = make_plan(cfg, None)

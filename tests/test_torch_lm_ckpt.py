@@ -10,7 +10,8 @@ fault-tolerant loop (``repro_torch.train.fault``) on the CPU.
     cannot restore its own: pinned below);
   * the atomic ``.tmp`` rename, ``latest_step`` skipping a ``.tmp``, a
     shape mismatch raising ``ValueError``, a missing leaf ``KeyError``,
-    a restore onto the ``like`` leaf's dtype, a mesh raising (item 13e);
+    a restore onto the ``like`` leaf's dtype, a restore onto a one-device
+    mesh and one over distinct cards raising (item 13g);
   * the reference's ``tests/test_checkpoint.py`` claims on the port: a
     round trip, train 10 straight == train 5, restore, train 5, and a
     failure injected at step 7 recovered from step 5 to the same state,
@@ -31,6 +32,7 @@ import torch
 from repro.train import checkpoint as JK
 from repro.train import fault as JF
 from repro_torch import configs
+from repro_torch.dist.sharding import Mesh
 from repro_torch.train import checkpoint as K
 from repro_torch.train import fault as F
 from repro_torch.train.data import DataConfig, synthetic_batch
@@ -176,9 +178,17 @@ def test_restore_refusals_and_casts(tmp_path):
         K.restore_checkpoint(str(tmp_path), {"w": torch.zeros((2, 2))})
     with pytest.raises(KeyError, match="checkpoint missing leaf y"):
         K.restore_checkpoint(str(tmp_path), {"y": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 13e"):
+    # onto a one-device mesh: each leaf placed by its spec; a mesh over
+    # distinct cards is refused (item 13g)
+    mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
+    got, _ = K.restore_checkpoint(str(tmp_path), {"w": torch.ones((3, 3))},
+                                  mesh=mesh)
+    assert torch.equal(got["w"], torch.zeros((3, 3)))
+    cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
+                 ("data", "model"))
+    with pytest.raises(NotImplementedError, match="item 13g"):
         K.restore_checkpoint(str(tmp_path), {"w": torch.zeros((3, 3))},
-                             mesh=object())
+                             mesh=cards)
     got, _ = K.restore_checkpoint(
         str(tmp_path), {"x": torch.zeros(4, dtype=torch.bfloat16)})
     assert got["x"].dtype == torch.bfloat16 and got["x"].tolist() == \

@@ -183,12 +183,12 @@ def test_apply_moe_matches_reference(cf, drops, shared):
     x = np.random.default_rng(2).normal(size=(B, S_, 64)).astype(np.float32)
     cap = max(1, int(B * S_ * cf / cfg.num_experts))
     tokens = x.reshape(B * S_, 64)
-    _, eidx, keep = L._moe_dispatch(p, _t(tokens), cap)
+    routed, eidx, keep = (t[0] for t in L.moe_dispatch_blocks(
+        p, _t(tokens)[None], 1, 1, cap))
     jeidx, jkeep = _ref_routing(jp, tokens, cap)
     assert eidx.tolist() == jeidx.tolist()
     assert keep.tolist() == jkeep.tolist()
     assert (not bool(keep.all())) == drops
-    routed = L._moe_dispatch(p, _t(tokens), cap)[0]
     jrouted = JL._moe_dispatch_compute(jp, jnp.asarray(tokens), cap,
                                        ep_axis=None)
     _close_to_scale(routed, jrouted)

@@ -242,7 +242,8 @@ def test_moe_dropped_tokens_get_zero_gradient():
                    cfg.d_ff, torch.float32, device="cpu")
     tokens = torch.randn(40, cfg.d_model, generator=torch.Generator()
                          .manual_seed(1)).requires_grad_()
-    out, eidx, keep = L._moe_dispatch(p, tokens, 3)
+    out, eidx, keep = (t[0] for t in L.moe_dispatch_blocks(
+        p, tokens[None], 1, 1, 3))
     assert int((~keep).sum()) >= 10                      # drops happen
     (g,) = torch.autograd.grad((out * torch.randn_like(out)).sum(),
                                (tokens,))

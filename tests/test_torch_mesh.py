@@ -521,4 +521,11 @@ def test_refusals():
     with pytest.raises(ValueError, match="cannot take a mesh"):
         TensorBlockStore("meta", mesh=cpu_mesh(2, 4))
     with pytest.raises(ValueError, match="axes"):
-        Mesh(["cpu"] * 2, ("pod",))
+        Mesh(["cpu"] * 2, ("rows",))
+    # a pod axis is the LM's: the forest plans and the store refuse it
+    pods = Mesh(np.array(["cpu"] * 8, object).reshape(2, 2, 2),
+                ("pod", "data", "model"))
+    with pytest.raises(ValueError, match="pod axis"):
+        make_forest_plan(pods)
+    with pytest.raises(ValueError, match="pod axis"):
+        TensorBlockStore("cpu", mesh=pods)
