@@ -327,6 +327,24 @@ Phases (any failure exits non-zero and prints no result line):
               restored with restore_checkpoint(mesh=) and stepped, bit for
               bit the unrestored loop; 4 timed steps a side (p50 mesh /
               twin, peak memory).
+ 19. dryrun   the dry-run tools (launch/hlo_cost.analyze, dryrun,
+              hillclimb).  (a) Phase 18 (c)'s olmo-1b step, counted once
+              on cuda:0 positions and once on meta: FLOPs and the
+              collective record equal, and every aten op's count and
+              bytes equal or the difference explained in DRY_DEVICE_OPS;
+              timed steps (wall p50), a profile (device time and kernels
+              a step), the H100 roofline terms and the count's bound as a
+              share of the device time (raising past 1), the counted peak
+              of live bytes beside max_memory_allocated.  (b) llama4-scout
+              at phase 16's cut (8 layers, 8 slots x 1,024 positions,
+              bf16): one decode call of the EP path on (data 1, model 4)
+              and of the mesh-less gather, each counted on the card and
+              on meta (the psum's bytes included) and profiled; each
+              memory bound against its device time and the two ranked.
+              (c) The CLIs on meta at production shapes: olmo-1b's four
+              shapes on both meshes, every status ok or skipped, and the
+              hillclimb example (llama4-scout decode_32k, moe_decode_ep
+              true and false) under the H100 table.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -471,13 +489,22 @@ LM_TREE_PARAMS = {("olmo-1b", 16): 1_177_026_560,
                   ("llama4-scout-17b-a16e", 4): 10_879_350_784}
 
 #: phase 17, LM training: (a) one AdamW step of each config at reduced()
-#: on the card against the CPU, in f32 (the default OptimizerConfig, whose
-#: first step moves a parameter by at most 2 x 3e-6), within LMT_TOL;
+#: on the card against the CPU, in f32, with phase 18's optimizer LMM_OPT
+#: (lr 1e-2 from step 0: a first update of ~1e-2 an element): loss, gnorm
+#: and mu (0.1 x the clipped gradients) within LMT_TOL, each leaf's update
+#: new - old within LMM_UPDATE_RTOL of the CPU's largest update of that
+#: leaf wherever the CPU's gradient is 0 or at least LMT_G_FLOOR in size
+#: (the first update lr g / (|g| + eps) moves by at most lr eps / g^2 = 100
+#: a unit of gradient error there; under it, a rounding-sized gradient
+#: error moves the update past the limit), those under it at most
+#: LMT_SMALL_G_SHARE of a tree (6.4 % in reduced llama4-scout's, the most);
 #: microbatches within the reference test's 2e-5; (b) TrainLoop's failure,
 #: restore and continuation at reduced olmo, bit for bit; (c) chunked_xent
 #: over olmo's vocabulary against a dense loss; (d) enc-dec decode at full
 #: width within LM_TOL of prefill; (e) bf16 training at full width
 LMT_TOL = 1e-4
+LMT_G_FLOOR = 1e-6
+LMT_SMALL_G_SHARE = 0.1
 LMT_MICRO_TOL = 2e-5
 LMT_CHECK_BATCH, LMT_CHECK_SEQ = 4, 64
 LMT_LOOP_STEPS, LMT_LOOP_CKPT, LMT_LOOP_FAIL = 12, 5, 7
@@ -514,6 +541,20 @@ LMM_MISS_GNORM = 4.0
 LMM_RT_REPS = 5
 LMM_ARCH_EP = "llama4-scout-17b-a16e"
 LMM_STEPS = 4
+
+#: phase 19, the dry-run tools (launch/hlo_cost, dryrun, hillclimb) on the
+#: card: (a) phase 18 (c)'s olmo-1b step counted on the card and on meta,
+#: DRY_STEPS timed steps and DRY_PROFILE_STEPS profiled; (b) one decode
+#: call of llama4-scout at phase 16's cut, EP on LMM_SERVE_MESH and the
+#: mesh-less gather, counted on both, DRY_TICKS profiled calls a side; (c)
+#: the CLIs on meta at production shapes: DRY_CLI_ARCH's cells on both
+#: meshes and DRY_HILLCLIMB's.  DRY_DEVICE_OPS lists the aten ops whose
+#: count or bytes the card and meta may differ by, with why (an unlisted
+#: difference fails the phase); none has been found on an H100
+DRY_STEPS, DRY_PROFILE_STEPS, DRY_TICKS = 3, 2, 5
+DRY_DEVICE_OPS: dict[str, str] = {}
+DRY_CLI_ARCH = "olmo-1b"
+DRY_HILLCLIMB = ("llama4-scout-17b-a16e", "decode_32k")
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -3544,9 +3585,9 @@ def step_breakdown(cfg, opt, state, batch) -> dict:
 
 
 def lm_train_parity(*, smi: str) -> None:
-    """Phase 17 (a): one AdamW step of every config at reduced() on the
-    card against the same step on the CPU, from the same state; then
-    reduced olmo's microbatches."""
+    """Phase 17 (a): one AdamW step (lr 1e-2 from step 0) of every config
+    at reduced() on the card against the same step on the CPU, from the
+    same state; then reduced olmo's microbatches."""
     from repro_torch.configs import ARCH_IDS, ShapeConfig, get_config, reduced
     from repro_torch.train.data import batch_for
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
@@ -3559,7 +3600,7 @@ def lm_train_parity(*, smi: str) -> None:
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for the f32 checks")
-    opt = make_optimizer(OptimizerConfig())
+    opt = make_optimizer(OptimizerConfig(**LMM_OPT))
     shape = ShapeConfig("check", LMT_CHECK_SEQ, LMT_CHECK_BATCH, "train")
     for i, arch in enumerate(ARCH_IDS):
         cfg = reduced(get_config(arch))
@@ -3582,21 +3623,37 @@ def lm_train_parity(*, smi: str) -> None:
                     + LMT_TOL * abs(w)):
                 raise AssertionError(f"{arch} {key}: card {g} against the "
                                      f"CPU's {w}")
-        for part in ("params", "mu"):
-            a = got["params"] if part == "params" else got["opt"]["mu"]
-            b = want["params"] if part == "params" else want["opt"]["mu"]
-            errs[part] = max(float((x.cpu() - y).abs().max())
-                             for x, y in zip(tree_leaves(a), tree_leaves(b)))
-            if not errs[part] <= LMT_TOL:
-                raise AssertionError(f"{arch} {part}: max |err| "
-                                     f"{errs[part]:.3e} past {LMT_TOL}")
-        log(f"[lm-train] (a) {arch} reduced, one AdamW step on the card "
-            f"against the CPU: loss {float(gm['loss']):.6f} (|err| "
-            f"{errs['loss']:.2e}), gnorm {float(gm['gnorm']):.6f} (|err| "
-            f"{errs['gnorm']:.2e}), params max |err| {errs['params']:.2e}, "
-            f"mu (0.1 x the gradients) {errs['mu']:.2e}; within "
-            f"rtol = atol = {LMT_TOL}; card step {card_s:.3f} s (first "
-            f"call); on {smi}")
+        errs["mu"] = max(float((x.cpu() - y).abs().max()) for x, y in
+                         zip(tree_leaves(got["opt"]["mu"]),
+                             tree_leaves(want["opt"]["mu"])))
+        if not errs["mu"] <= LMT_TOL:
+            raise AssertionError(f"{arch} mu: max |err| {errs['mu']:.3e} "
+                                 f"past {LMT_TOL}")
+        # the CPU's clipped gradients: mu after one step is 0.1 x them
+        grads = [m / 0.1 for m in tree_leaves(want["opt"]["mu"])]
+        held = [(g == 0) | (g.abs() >= LMT_G_FLOOR) for g in grads]
+        small = sum(int((~m).sum()) for m in held)
+        n = sum(m.numel() for m in held)
+        old = [torch.from_numpy(a) for a in tree_leaves(arrays["params"])]
+        cpu_new = tree_leaves(want["params"])
+        excess = update_excess(tree_leaves(got["params"]), old, cpu_new,
+                               held)
+        if not (excess <= 1.0 and small <= LMT_SMALL_G_SHARE * n):
+            raise AssertionError(f"{arch}: update error {excess:.3e} x the "
+                                 f"limit; {small} of {n:,} gradients under "
+                                 f"{LMT_G_FLOOR:g}")
+        upd = max(float((w - o).abs().max()) for w, o in zip(cpu_new, old))
+        log(f"[lm-train] (a) {arch} reduced, one AdamW step (lr "
+            f"{LMM_OPT['lr']:g} from step 0) on the card against the CPU: "
+            f"loss {float(gm['loss']):.6f} (|err| {errs['loss']:.2e}), gnorm "
+            f"{float(gm['gnorm']):.6f} (|err| {errs['gnorm']:.2e}), mu (0.1 "
+            f"x the gradients) max |err| {errs['mu']:.2e}, within rtol = "
+            f"atol = {LMT_TOL}; update max {upd:.3e}, its error "
+            f"{excess:.3e} x the limit ({LMM_UPDATE_RTOL:g} x each leaf's "
+            f"largest update) where the gradient is 0 or >= "
+            f"{LMT_G_FLOOR:g} ({small} of {n:,} under it, limit "
+            f"{LMT_SMALL_G_SHARE:g} of them); card step {card_s:.3f} s "
+            f"(first call); on {smi}")
 
     cfg = reduced(get_config("olmo-1b"))
     sgd = make_optimizer(OptimizerConfig(name="sgd", lr=1e-2, warmup_steps=0,
@@ -4319,6 +4376,295 @@ def lm_mesh_phase(*, smi: str) -> None:
     lm_mesh_ep(smi=smi)
     lm_mesh_train(smi=smi)
     log(f"[lm-mesh] phase wall {time.perf_counter() - t_phase:.3f} s; on "
+        f"{smi}")
+
+
+def count_diff(card: dict, meta: dict, what: str) -> list[str]:
+    """The card's and meta's counts of one call: FLOPs and the collective
+    record must be equal (raises otherwise); each aten op whose count or
+    bytes differ is returned as a line, and one not in DRY_DEVICE_OPS
+    raises."""
+    for k in ("flops", "collective_bytes", "collective_wire_bytes",
+              "collective_counts"):
+        if card[k] != meta[k]:
+            raise AssertionError(f"{what}: {k} card {card[k]} against meta "
+                                 f"{meta[k]}")
+    lines, unknown = [], []
+    a, b = card["by_op"], meta["by_op"]
+    for op in sorted(set(a) | set(b)):
+        ca, cb = a.get(op, {}), b.get(op, {})
+        if (ca.get("count"), ca.get("bytes")) == (cb.get("count"),
+                                                  cb.get("bytes")):
+            continue
+        lines.append(f"{op}: card {ca.get('count', 0)} ops / "
+                     f"{ca.get('bytes', 0):,} B, meta {cb.get('count', 0)} "
+                     f"ops / {cb.get('bytes', 0):,} B ("
+                     + DRY_DEVICE_OPS.get(op, "UNEXPLAINED") + ")")
+        if op not in DRY_DEVICE_OPS:
+            unknown.append(op)
+    if unknown:
+        raise AssertionError(f"{what}: the card and meta differ by "
+                             f"{unknown}: " + "; ".join(lines))
+    return lines
+
+
+def device_time(run, n: int) -> tuple[float, float]:
+    """``run()`` ``n`` times under a CUDA-only profiler: (device time, the
+    union of every kernel and copy span, ms a run; kernels and copies a
+    run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    every, _, _ = device_intervals(prof)
+    if not every:
+        raise AssertionError("the profiler saw no device time")
+    return union_us(every) / 1e3 / n, len(every) / n
+
+
+def bound_line(cost: dict, positions: int, device_ms: float,
+               what: str) -> str:
+    """The H100 roofline terms of a count (per position, as the dry-run
+    reports them) and the whole call's bound (every position on one
+    card: max of FLOPs over the bf16 peak and bytes over HBM) as a share
+    of its measured device time; a share past 1 raises."""
+    from repro_torch.launch.mesh import H100
+    from repro_torch.launch.roofline import roofline_terms
+
+    terms = roofline_terms(flops_per_chip=cost["flops"] / positions,
+                           bytes_per_chip=cost["bytes"] / positions,
+                           coll_bytes_per_chip=cost["collective_bytes"]
+                           / positions, peak=H100)
+    compute_ms = 1e3 * cost["flops"] / H100["peak_flops_bf16"]
+    memory_ms = 1e3 * cost["bytes"] / H100["hbm_bandwidth"]
+    bound = max(compute_ms, memory_ms)
+    share = bound / device_ms
+    if share > 1.0:
+        raise AssertionError(f"{what}: the counted bound {bound:.3f} ms "
+                             f"beats the measured {device_ms:.3f} ms")
+    return (f"H100 terms a position ({positions}): compute "
+            f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+            f"{terms['collective_s'] * 1e3:.4f} ms, dominant "
+            f"{terms['dominant']}; on one card the call's bound "
+            f"{bound:.3f} ms (compute {compute_ms:.3f}, memory "
+            f"{memory_ms:.3f}) = {100 * share:.1f} % of its {device_ms:.3f} "
+            f"ms of device time")
+
+
+def dryrun_train(*, smi: str) -> None:
+    """Phase 19 (a): phase 18 (c)'s olmo-1b step counted on the card and on
+    meta; timed and profiled steps; the count's bound against them."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state, jit_train_step
+
+    tag = "[dryrun] (a) olmo-1b"
+    cfg = get_config("olmo-1b")
+    shape = ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH, "train")
+    batches = [batch_for(cfg, shape, k, seed=SEED)
+               for k in range(1 + DRY_STEPS + DRY_PROFILE_STEPS)]
+    opt = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
+    positions = int(np.prod([n for _, n in LMM_TRAIN_MESH]))
+    counts, steps = {}, {}
+    for dev in ("meta", "cuda:0"):
+        mesh = make_position_mesh(LMM_TRAIN_MESH, dev)
+        step, _ = jit_train_step(cfg, opt, mesh, grad_compress=True)
+        gen = (torch.Generator() if dev == "meta"
+               else torch.Generator(device="cuda"))
+        state = init_state(cfg, opt, gen.manual_seed(SEED + 190),
+                           device=dev)
+        if dev != "meta":
+            on_card(state, "state")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        counts[dev] = hlo_cost.analyze(step, state, batches[0])
+        if dev != "meta":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        count_s = time.perf_counter() - t0
+        steps[dev] = (step, state, count_s)
+    card, meta = counts["cuda:0"], counts["meta"]
+    diff = count_diff(card, meta, "olmo-1b step")
+    log(f"{tag} full width, bf16 + f32 AdamW, remat {cfg.remat_policy}, "
+        f"deterministic, {LMT_BATCH} x {LMT_SEQ} tokens on (pod 2, data 2, "
+        f"model 2), grad_compress: one step counted on the card "
+        f"({steps['cuda:0'][2]:.3f} s) and on meta ({steps['meta'][2]:.3f} "
+        f"s): FLOPs {card['flops']:.6e} equal, collectives "
+        f"{card['collective_counts']} {card['collective_bytes']:,.0f} B "
+        f"(wire {card['collective_wire_bytes']:,.0f} B) equal; bytes card "
+        f"{card['bytes']:,.0f} / meta {meta['bytes']:,.0f}, ops card "
+        f"{card['ops']} / meta {meta['ops']}"
+        + ("; differing ops: " + "; ".join(diff) if diff else
+           "; every op's count and bytes equal") + f"; on {smi}")
+    step, state, _ = steps["cuda:0"]
+    del steps
+    walls = []
+    for k in range(1, 1 + DRY_STEPS):
+        t0 = time.perf_counter()
+        _, m = step(state, batches[k])
+        float(m["loss"])
+        walls.append(1e3 * (time.perf_counter() - t0))
+        del m
+    it = iter(batches[1 + DRY_STEPS:])
+    dev_ms, launches = device_time(lambda: step(state, next(it)),
+                                   DRY_PROFILE_STEPS)
+    log(f"{tag} {DRY_STEPS} timed steps: wall p50 {np.median(walls):.3f} ms "
+        f"(" + " ".join(f"{w:.1f}" for w in walls) + f" ms); profile of "
+        f"{DRY_PROFILE_STEPS} steps: device time {dev_ms:.3f} ms a step, "
+        f"{launches:.1f} kernels and copies a step (the count: "
+        f"{card['ops']} aten ops); "
+        + bound_line(card, positions, dev_ms, "olmo-1b step")
+        + f"; peak live bytes counted {card['peak_live_bytes'] / 1e9:.3f} GB"
+        f" (meta {meta['peak_live_bytes'] / 1e9:.3f} GB) against "
+        f"max_memory_allocated {peak / 1e9:.3f} GB of the counted step; on "
+        f"{smi}")
+    del state, step
+    free_card()
+
+
+def dryrun_decode(*, smi: str) -> None:
+    """Phase 19 (b): llama4-scout at phase 16's cut: one decode call of the
+    EP path on (data 1, model 4) and of the mesh-less gather, each counted
+    on the card and on meta and profiled; the counts' bounds and ranking
+    against the card's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.mesh import H100, make_position_mesh
+    from repro_torch.models import lm as LM
+
+    tag = "[dryrun] (b) " + LMM_ARCH_EP
+    cfg = dataclasses.replace(get_config(LMM_ARCH_EP),
+                              num_layers=LMF_LAYERS[LMM_ARCH_EP][0])
+    n_model = dict(LMM_SERVE_MESH)["model"]
+    trees = {}
+    for dev in ("meta", "cuda"):
+        gen = (torch.Generator() if dev == "meta"
+               else torch.Generator(device="cuda"))
+        params = LM.init_lm(cfg, gen.manual_seed(SEED + 191), device=dev)
+        caches = LM.init_caches(cfg, LM_SLOTS, LM_MAX_CTX, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (LM_SLOTS, 1),
+                            generator=torch.Generator().manual_seed(
+                                SEED + 192)).to(dev)
+        mesh = make_position_mesh(LMM_SERVE_MESH,
+                                  "meta" if dev == "meta" else "cuda:0")
+        trees[dev] = (params, caches, tok, mesh)
+    res = {}
+    for side in ("ep", "gather"):
+        counts = {}
+        for dev, (params, caches, tok, mesh) in trees.items():
+            splan = (make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+                     if side == "ep" else None)
+            counts[dev] = hlo_cost.analyze(LM.lm_decode, cfg, params, caches,
+                                           tok, splan=splan)
+        card, meta = counts["cuda"], counts["meta"]
+        diff = count_diff(card, meta, f"{side} decode")
+        params, caches, tok, mesh = trees["cuda"]
+        splan = (make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+                 if side == "ep" else None)
+        dev_ms, launches = device_time(lambda: LM.lm_decode(
+            cfg, params, caches, tok, splan=splan), DRY_TICKS)
+        res[side] = (card, dev_ms)
+        positions = n_model if side == "ep" else 1
+        log(f"{tag} {side}, {cfg.num_layers} layers, {LM_SLOTS} slots x "
+            f"{LM_MAX_CTX} positions, bf16: one decode call counted on the "
+            f"card and on meta: FLOPs {card['flops']:.6e} equal, "
+            f"collectives {card['collective_counts']} "
+            f"{card['collective_bytes']:,.0f} B equal, bytes "
+            f"{card['bytes']:,.0f} / {meta['bytes']:,.0f}, ops {card['ops']}"
+            f" / {meta['ops']}"
+            + ("; differing ops: " + "; ".join(diff) if diff else
+               "; every op's count and bytes equal")
+            + f"; {DRY_TICKS} profiled calls: device time {dev_ms:.3f} ms a "
+            f"call, {launches:.1f} kernels and copies a call; "
+            + bound_line(card, positions, dev_ms, f"{side} decode")
+            + f"; on {smi}")
+    (ep, ep_ms), (ga, ga_ms) = res["ep"], res["gather"]
+    mem = {k: 1e3 * c["bytes"] / H100["hbm_bandwidth"]
+           for k, (c, _) in res.items()}
+    same = (mem["ep"] < mem["gather"]) == (ep_ms < ga_ms)
+    log(f"{tag} EP / gather: counted memory_s {mem['ep']:.3f} / "
+        f"{mem['gather']:.3f} ms = {mem['ep'] / mem['gather']:.3f}, measured"
+        f" device time {ep_ms:.3f} / {ga_ms:.3f} ms = {ep_ms / ga_ms:.3f}: "
+        f"the counts rank the two "
+        + ("as the card does" if same else "AGAINST the card") + f"; on "
+        f"{smi}")
+    del trees, res
+    free_card()
+
+
+def dryrun_cli(*, smi: str) -> None:
+    """Phase 19 (c): the CLIs on meta at production shapes: the dry-run of
+    DRY_CLI_ARCH's four shapes on both meshes, and the hillclimb example
+    (DRY_HILLCLIMB with moe_decode_ep true and false)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import dryrun, hillclimb
+
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        out = Path(tmp) / "dryrun.jsonl"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = dryrun.main(["--arch", DRY_CLI_ARCH, "--both-meshes",
+                              "--out", str(out)])
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in out.read_text().splitlines()]
+    bad = [r for r in recs if r["status"] not in ("ok", "skipped")]
+    if rc or bad or len(recs) != 8:
+        raise AssertionError(f"dryrun rc {rc}, {len(recs)} records, "
+                             f"failed {[(r['shape'], r['mesh']) for r in bad]}")
+    for r in recs:
+        if r["status"] == "skipped":
+            log(f"[dryrun] (c) {r['arch']} {r['shape']} {r['mesh']}: "
+                f"skipped")
+            continue
+        ma = r["memory_analysis"]
+        log(f"[dryrun] (c) {r['arch']} {r['shape']} {r['mesh']} "
+            f"({r['attn_mode']}): counted on {r['devices']} "
+            + (f"(results off meta: {r['ops_off_device']}) "
+               if r["ops_off_device"] else "") + f"in "
+            f"{r['trace_s']} s; H100 compute {r['compute_s']:.4f} s, memory "
+            f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s, "
+            f"dominant {r['dominant']}, useful {r['useful_flops_ratio']:.3f},"
+            f" roofline_fraction {r['roofline_fraction']:.4f}; arguments "
+            f"{ma['argument_size_in_bytes'] / 1e9:.3f} GB + temp "
+            f"{ma['temp_size_in_bytes'] / 1e9:.3f} GB a position")
+    log(f"[dryrun] (c) python -m repro_torch.launch.dryrun --arch "
+        f"{DRY_CLI_ARCH} --both-meshes: {len(recs)} records in {wall:.3f} "
+        f"s, every status ok or skipped; on {smi}")
+    arch, shape = DRY_HILLCLIMB
+    for ep in ("true", "false"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = hillclimb.main(["--arch", arch, "--shape", shape, "--set",
+                                 f"moe_decode_ep={ep}", "--tag",
+                                 f"moe_decode_ep={ep}"])
+        last = buf.getvalue().strip().splitlines()[-1]
+        if rc or "status\": \"ok" not in buf.getvalue():
+            raise AssertionError(f"hillclimb rc {rc}: {last}")
+        log(f"[dryrun] (c) hillclimb {arch} {shape}: {last} ("
+            f"{time.perf_counter() - t0:.3f} s)")
+
+
+def dryrun_phase(*, smi: str) -> None:
+    """Phase 19: the dry-run tools' counts against the card."""
+    t_phase = time.perf_counter()
+    dryrun_train(smi=smi)
+    dryrun_decode(smi=smi)
+    dryrun_cli(smi=smi)
+    log(f"[dryrun] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
 
@@ -5129,6 +5475,17 @@ def main() -> int:
             entry["launches"] += counts18[name_]
         else:
             entry["launches"] += counts18[name_] - counts18[f"{name_}_wide"]
+
+    # -- 19. the dry-run tools ----------------------------------------------
+    (_, counts19) = counted(lambda: dryrun_phase(smi=smi))
+    log(f"[dryrun] forest kernel launches "
+        f"{ {k: n for k, n in counts19.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts19[name_]
+        else:
+            entry["launches"] += counts19[name_] - counts19[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -24,6 +24,7 @@ CONFIG = ModelConfig(
     mlp_type="swiglu",
     norm_type="rmsnorm",
     qk_norm=True,
-    moe_decode_ep=True,   # §Perf: EP-local+psum decode beats weight gathers 6.5x
+    moe_decode_ep=True,   # EP-local + psum decode; its cost against the
+                          # weight gather is measured in PERF.md §6
     source="hf:meta-llama/Llama-4-Maverick-17B-128E",
 )

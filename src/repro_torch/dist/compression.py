@@ -12,9 +12,13 @@ axis (``train/trainer.py``).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.train.tree import tree_map
+from repro_torch.dist.collectives import record_collective, recording
+from repro_torch.dist.sharding import NamedSharding, param_specs
+from repro_torch.train.tree import tree_leaves, tree_map
 
 __all__ = [
     "quantize_int8",
@@ -64,9 +68,25 @@ def compress_with_error_feedback(grads, ef):
     return (tree_map(lambda t: t[0], flat), tree_map(lambda t: t[1], flat))
 
 
+def _record_crosspod(grads, mesh) -> None:
+    """The cross-pod all-reduce, as ``dist/collectives`` records it: over
+    ``pod``, each position's shard (``param_specs``'s layout) of every
+    floating leaf's int8 levels, and its f32 scale."""
+    specs = tree_leaves(tree_map(lambda s: (s,), param_specs(grads, mesh)))
+    for g, (spec,) in zip(tree_leaves(grads), specs):
+        if not g.is_floating_point():
+            continue
+        shard = math.prod(NamedSharding(mesh, spec).shard_shape(g.shape))
+        record_collective("all-reduce", shard + 4,
+                          group=int(mesh.shape["pod"]), members=mesh.size)
+
+
 def compress_grads_crosspod(grads, mesh):
     """Stateless int8 round trip of every floating leaf, applied before the
-    cross-pod all-reduce."""
-    del mesh  # policy hook: per-axis treatment if pods ever differ
+    cross-pod all-reduce (recorded here, on a mesh with a ``pod`` axis,
+    while a recorder is set: ``launch/hlo_cost.analyze`` sets one)."""
+    if (mesh is not None and "pod" in getattr(mesh, "axis_names", ())
+            and recording()):
+        _record_crosspod(grads, mesh)
     return tree_map(lambda g: _roundtrip(g) if g.is_floating_point() else g,
                     grads)

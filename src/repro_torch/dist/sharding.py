@@ -330,6 +330,11 @@ class NamedSharding:
             parts.append((axes, n, dim // n))
         return parts
 
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        """The shape of one position's shard of ``shape`` (every split is
+        even), as jax's ``NamedSharding.shard_shape``."""
+        return tuple(n for _, _, n in self._parts(shape))
+
     def devices_indices_map(self, shape) -> dict[tuple, tuple]:
         parts = self._parts(shape)
         names = tuple(self.mesh.axis_names)

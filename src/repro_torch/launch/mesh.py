@@ -2,8 +2,9 @@
 
 ``make_local_mesh`` gives a ``(data, model)`` mesh, ``make_production_mesh``
 the reference's production shapes, ``make_position_mesh`` any axes with
-every position on one device.  The reference's TPU constants table is
-not ported: no TPU number enters the port.
+every position on one device.  ``H100`` is the dry-run's hardware table,
+the counterpart of the reference's TPU table (whose numbers do not enter
+the port): one NVIDIA H100 SXM, under the reference's key names.
 """
 
 from __future__ import annotations
@@ -13,7 +14,22 @@ import torch
 
 from repro_torch.dist.sharding import Mesh
 
-__all__ = ["make_local_mesh", "make_position_mesh", "make_production_mesh"]
+__all__ = ["make_local_mesh", "make_position_mesh", "make_production_mesh",
+           "H100"]
+
+#: one NVIDIA H100 SXM, the roofline's peaks (``roofline_terms(peak=)``)
+H100 = {
+    # FLOP/s: dense bf16 tensor cores (NVIDIA H100 SXM data sheet, 989.4
+    # TFLOP/s without sparsity)
+    "peak_flops_bf16": 989.4e12,
+    # B/s: HBM3 (NVIDIA H100 SXM data sheet, 3.35 TB/s)
+    "hbm_bandwidth": 3.35e12,
+    # B/s each way: NVLink 4 (NVIDIA H100 SXM data sheet, 900 GB/s
+    # bidirectional)
+    "ici_bandwidth": 450e9,
+    # bytes: HBM capacity (NVIDIA H100 SXM data sheet, 80 GB)
+    "hbm_bytes": 80e9,
+}
 
 
 def _grid(shape: tuple[int, ...], axes: tuple[str, ...], devices) -> Mesh:

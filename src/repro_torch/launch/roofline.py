@@ -26,20 +26,66 @@ explicitly.  On CUDA every timed call ends in ``torch.cuda.synchronize``
 host memory -- the rate the host tier's scan sees (its pages are pinned) --
 where the reference times a pageable ``device_put``.
 
-Left out until their module is ported (ROADMAP queue 1, item 13f):
-``parse_collectives`` and ``model_flops``, which read XLA HLO and the LM
-stack.
+The dry-run's half: ``model_flops`` (6 N D useful FLOPs a step, as the
+reference's) and ``CollectiveStats``, the per-kind collective record with
+the reference's two conventions.  The reference's ``parse_collectives``
+reads them out of compiled HLO text, which the port has none of: its
+counterpart is the record ``launch/hlo_cost.analyze`` keeps of the
+collectives the port's own code performs (``record_collective``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable
 
 import numpy as np
 import torch
 
-__all__ = ["roofline_terms", "calibrate_peaks", "resolve_peaks"]
+__all__ = ["CollectiveStats", "model_flops", "roofline_terms",
+           "calibrate_peaks", "resolve_peaks"]
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Collective traffic by kind, two conventions:
+
+    operand bytes  what each member CONTRIBUTES (all-gather: its shard;
+                   all-reduce: the full buffer; reduce-scatter: the full
+                   input; all-to-all / permute: the local buffer);
+    wire bytes     a ring algorithm's estimate of what crosses each
+                   member's links (all-reduce ~2x the buffer, etc.).
+    """
+    counts: dict[str, int]
+    bytes_by_kind: dict[str, int]       # operand-bytes convention
+    wire_bytes_by_kind: dict[str, int]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+    @property
+    def total_wire_bytes(self) -> int:
+        return sum(self.wire_bytes_by_kind.values())
+
+    @property
+    def total_count(self) -> int:
+        return sum(self.counts.values())
+
+
+def model_flops(cfg, shape) -> float:
+    """6 N D (dense) / 6 N_active D (MoE) useful-model FLOPs a step;
+    prefill 2 N D (forward only), decode 2 N x global_batch (one token a
+    stream)."""
+    n_active = cfg.active_param_count()
+    tokens = shape.seq_len * shape.global_batch
+    if shape.kind == "train":
+        return 6.0 * n_active * tokens
+    if shape.kind == "prefill":
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * shape.global_batch
+
 
 #: one calibrated table per device, measured once per process
 _CALIBRATED: dict[str, dict] = {}

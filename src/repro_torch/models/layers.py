@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.collectives import exchange, record_collective
 from repro_torch.dist.sharding import check_spec
 from repro_torch.models import scanctl
 
@@ -529,7 +530,10 @@ def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
     tokens = blocks.reshape(nd * nm, t, D)                    # [nb, t, D]
     _, probs, gate = _route(p, tokens)
     eidx = probs.argmax(dim=-1)                               # [nb, t]
-    onehot = F.one_hot(eidx, E).to(torch.int32)
+    # one-hot as a comparison: F.one_hot dispatches other ops on each
+    # device (a value check on the CPU, a scatter on CUDA), this the same
+    onehot = (eidx[..., None] == torch.arange(E, device=x.device)).to(
+        torch.int32)
     pos = torch.gather(torch.cumsum(onehot, 1) - 1, 2,
                        eidx[..., None])[..., 0]
     keep = pos < C
@@ -542,9 +546,13 @@ def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
     # the all_to_all: [d, src, dst, E/n, C, D] -> [dst, E/n, d, src, C, D]
     El = E // nm
     sent = buf.reshape(nd, nm, nm, El, C, D).permute(2, 3, 0, 1, 4, 5)
+    if nm > 1:
+        sent = exchange(sent, "all-to-all", group=nm, members=nd * nm)
     y = _experts(p, sent.reshape(E, nd * nm * C, D))
     # and back: [dst, E/n, d, src, C, D] -> [d, src, dst, E/n, C, D]
     y = y.reshape(nm, El, nd, nm, C, D).permute(2, 3, 0, 1, 4, 5)
+    if nm > 1:
+        y = exchange(y, "all-to-all", group=nm, members=nd * nm)
     y = torch.cat([y.reshape(nd * nm, E * C, D),
                    torch.zeros((nd * nm, 1, D), dtype=y.dtype,
                                device=y.device)], 1)
@@ -627,6 +635,10 @@ def _moe_decode_ep(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y = (y * onehot.T[..., None]).sum(dim=0)             # [T, D]
         y = y * gate[:, None].to(y.dtype)
         out = y if out is None else out + y
+    # the psum over model: every position's [tokens on its data block, D]
+    local = B * S // (n_data if splan.decode_hidden[0] is not None else 1)
+    record_collective("all-reduce", local * D * out.element_size(),
+                      group=n, members=n_data * n)
     return out.reshape(B, S, D)
 
 

@@ -28,7 +28,8 @@ it compiles nothing and donates nothing: eager PyTorch has no donation,
 and the step keeps its functional contract (``docs/torch_lm_mesh.md``).
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed.  The
-dry-run's ``state_shapes`` waits for ROADMAP queue 1 item 13f.
+dry-run's ``state_shapes`` is ``init_state`` on ``meta``: every leaf's
+shape and dtype, nothing allocated.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from repro_torch.models.registry import get_bundle
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["TrainState", "init_state", "state_from_arrays",
+__all__ = ["TrainState", "init_state", "state_shapes", "state_from_arrays",
            "make_train_step", "jit_train_step", "deterministic_algorithms"]
 
 Params = Any
@@ -74,6 +75,15 @@ def init_state(cfg: ModelConfig, opt: Optimizer, gen: torch.Generator, *,
     params = get_bundle(cfg).init(cfg, gen, dtype=dtype, device=device)
     return {"params": params, "opt": opt.init(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def state_shapes(cfg: ModelConfig, opt: Optimizer, *,
+                 dtype=torch.bfloat16) -> dict:
+    """The abstract state for the dry-run: ``init_state`` on ``meta``,
+    which allocates nothing.  The draws take a CPU generator (a ``meta``
+    one cannot be made) that draws nothing on ``meta``."""
+    return init_state(cfg, opt, torch.Generator(), dtype=dtype,
+                      device="meta")
 
 
 def state_from_arrays(tree, *, device=None) -> dict:

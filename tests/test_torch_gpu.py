@@ -1718,3 +1718,54 @@ def test_lm_mesh_train_step_on_cuda_is_the_twin_over_compressed_grads():
     assert torch.equal(m["loss"], loss.detach())
     for a, b in zip(_tree_leaves(new["params"]), _tree_leaves(want)):
         assert a.is_cuda and torch.equal(a, b)
+
+
+# -- the dry-run's count on the card (launch/hlo_cost.py) -----------------------
+
+
+def _count_step(arch: str, device: str, pairs):
+    """``hlo_cost.analyze`` of one AdamW train step at ``reduced()`` on a
+    mesh of ``device`` positions (``pairs``), from a state made on the
+    CPU."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import init_state, jit_train_step
+    cfg = reduced(get_config(arch))
+    opt = make_optimizer(OptimizerConfig())
+    state = init_state(cfg, opt, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    state = _to_device(state, device)
+    batch = batch_for(cfg, ShapeConfig("t", 64, 4, "train"), 0, seed=1)
+    step, _ = jit_train_step(cfg, opt, make_position_mesh(pairs, device),
+                             grad_compress=True)
+    return analyze(step, state, batch)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama4-scout-17b-a16e",
+                                  "mamba2-2.7b", "seamless-m4t-large-v2"])
+def test_dryrun_count_on_cuda_equals_meta(arch):
+    """One compressed train step at ``reduced()`` on (pod 2, data 2, model
+    2) positions, counted on the card and on meta: FLOPs, bytes, ops, the
+    peak of live bytes, every op's count and the collective record equal
+    (llama4's EP all_to_alls, forward and the backward's transposes, which
+    the card's autograd thread records)."""
+    _need_card()
+    pairs = (("pod", 2), ("data", 2), ("model", 2))
+    card = _count_step(arch, "cuda:0", pairs)
+    meta = _count_step(arch, "meta", pairs)
+    assert "cuda:0" in card["devices"]
+    for k in ("flops", "bytes", "ops", "peak_live_bytes", "by_op",
+              "collective_bytes", "collective_counts"):
+        assert card[k] == meta[k], k
+    if arch.startswith("llama4"):
+        assert card["collective_counts"]["all-to-all"] > 0
