@@ -556,6 +556,29 @@ DRY_DEVICE_OPS: dict[str, str] = {}
 DRY_CLI_ARCH = "olmo-1b"
 DRY_HILLCLIMB = ("llama4-scout-17b-a16e", "decode_32k")
 
+#: phase 20, LM serving over positions that own their shards, every
+#: position on cuda:0: (a) olmo-1b on LMS_MESH_A (tp): f32 prefill and
+#: LMS_CHECK steps teacher-forced against the held-once path on the same
+#: mesh, then LMS_REQUESTS bf16 requests through LM_SLOTS x LM_MAX_CTX on
+#: both engines, tokens equal up to a near-tie (where a request parts,
+#: the first argmax of the replays that differs, a route or the token,
+#: has the held-once run's top two within LMS_TIE_GAP); (b) llama4-scout
+#: on LMS_MESH_B (EP): one MoE layer's EP prefill (kept sets) and decode
+#: in f32 against the held-once layer, LMS_LAYERS_B_F32 layers f32 as (a),
+#: then phase 16's 8-layer cut served in bf16 on both engines, as (a);
+#: (c) LMS_ARCH_C cut to LMS_LAYERS_C layers on LMS_MESH_C (cp),
+#: f32 prefill and decode against held-once; (d) (a)'s f32 check on
+#: distinct cards when the machine has two or more
+LMS_MESH_A = (("data", 2), ("model", 4))
+LMS_MESH_B = (("data", 1), ("model", 4))
+LMS_MESH_C = (("data", 2), ("model", 8))
+LMS_ARCH_C, LMS_LAYERS_C = "qwen2-7b", 4
+LMS_LAYERS_B_F32 = 4                   # one global NoPE layer, three local
+LMS_CHECK = (2, 64, 4)                 # batch, prefix, decode steps
+LMS_MOE_TOKENS = (2, 256)              # the MoE layer's [B, S]
+LMS_REQUESTS, LMS_PROMPT_LEN, LMS_NEW_TOKENS = 8, (32, 200), (8, 24)
+LMS_TIE_GAP = 0.125
+
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
 REPLACES = {
@@ -572,6 +595,17 @@ RAW_REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def fresh_engine(store):
+    """A ``ForestQueryEngine`` over ``store`` with caches of its own: each
+    phase's first-query checks and cold timings count from empty caches,
+    where an engine built without caches shares the process-global ones
+    (``core/reuse.global_caches``)."""
+    from repro_torch.core.reuse import ModelReuseCache
+    from repro_torch.db.query import ForestQueryEngine
+    return ForestQueryEngine(store, reuse_cache=ModelReuseCache(),
+                             plan_cache=ModelReuseCache())
 
 
 def nvidia_smi_line() -> str:
@@ -1295,7 +1329,6 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
     (GB/s)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
 
     launches: dict[str, int] = {}
@@ -1330,8 +1363,8 @@ def tiers_phase(*, forest, big, store, engine, counted, only, smi: str,
             f"(set-up); budgets {TIER_BUDGET} B, default batch "
             f"{batch_pages} pages of {table.page_rows} rows = {batches} "
             f"batches")
-        engines = {"host": ForestQueryEngine(host_store),
-                   "disk": ForestQueryEngine(disk_store)}
+        engines = {"host": fresh_engine(host_store),
+                   "disk": fresh_engine(disk_store)}
         refs = {}
         for plan, algorithm, f in (("udf", "predicated_pallas_fused",
                                     forest),
@@ -1519,7 +1552,6 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     from repro_torch.core.forest import (compact_forest, make_forest,
                                          tree_slice)
     from repro_torch.core.postprocess import predict_proba
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.sparse import (concat_pages, csr_from_dense,
                                        densify_csr, paginate_csr)
     from repro_torch.db.store import TensorBlockStore
@@ -1652,7 +1684,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     log(f"[sparse] epsilon: {EPSILON_ROWS} x {EPSILON_F} f32 dense, "
         f"{eps.nbytes} B on the device tier, {time.perf_counter() - t0:.3f} "
         f"s set-up")
-    engine = ForestQueryEngine(store)
+    engine = fresh_engine(store)
     for algorithm in ("predicated_pallas_fused", "hummingbird_pallas_fused",
                       "quickscorer_pallas_fused"):
         query(engine, "epsilon", f, "udf", algorithm,
@@ -1749,7 +1781,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
             out.append(preds)
         return out
 
-    engine = ForestQueryEngine(dev_store)
+    engine = fresh_engine(dev_store)
     want = bosch(engine, "dense", "device", "dense")
     bosch(engine, "csr", "device", "csr", want)
     log("[sparse] bosch device tier: CSR == dense bit for bit, every query")
@@ -1757,7 +1789,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     try:
         host_store = TensorBlockStore(device="cuda",
                                       device_budget_bytes=TIER_BUDGET)
-        host_engine = ForestQueryEngine(host_store)
+        host_engine = fresh_engine(host_store)
         for fmt in ("dense", "csr"):
             t0 = time.perf_counter()
             if fmt == "dense":
@@ -1800,7 +1832,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
         if ds.tier != "disk" or len(os.listdir(spill)) != 3:
             raise AssertionError("[sparse] the CSR table is not three spill "
                                  "files on the disk tier")
-        bosch(ForestQueryEngine(disk_store), "csr", "disk", "csr", want)
+        bosch(fresh_engine(disk_store), "csr", "disk", "csr", want)
         disk_store.drop("csr")
         if os.listdir(spill):
             raise AssertionError("[sparse] drop left a spill file")
@@ -1839,7 +1871,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
         f"{ds.pages.capacity}; dense would be {CRITEO_ROWS * CRITEO_F * 4} "
         f"B); F_used {gather_idx.numel()}; "
         f"{time.perf_counter() - t0:.3f} s set-up")
-    engine = ForestQueryEngine(store)
+    engine = fresh_engine(store)
     inv = gather_inverse_map(gather_idx, CRITEO_F, device="cuda")
     block = ds.page_slice(0, CRITEO_BATCH_PAGES)
     gather_ms = cuda_ms(lambda: csr_block_to_dense(block, inv,
@@ -1865,7 +1897,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     dstore = TensorBlockStore(device="cuda")
     dstore.put("criteo_head", dense_head)
     del dense_head
-    dengine = ForestQueryEngine(dstore)
+    dengine = fresh_engine(dstore)
     for algorithm, want in head.items():
         r = query(dengine, "criteo_head", f, "udf", algorithm,
                   f"criteo dense head udf {algorithm}", n_rows=chunk)
@@ -1921,7 +1953,6 @@ def load_phase(*, counted, only, smi: str, tally) -> None:
     from repro_torch.core.forest import make_forest
     from repro_torch.core.postprocess import postprocess
     from repro_torch.db import loader as ld
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.kernels.ops import predicated_pallas_fused
 
@@ -2009,7 +2040,7 @@ def load_phase(*, counted, only, smi: str, tally) -> None:
             raise AssertionError("[load] the CSV did not land on the card")
         store = TensorBlockStore(device="cuda")
         store.put("higgs_csv", rows)
-        engine = ForestQueryEngine(store)
+        engine = fresh_engine(store)
         for trees in LOAD_TREES:
             external_against_in_database(
                 f"higgs {trees} trees", rows, t_csv,
@@ -2154,7 +2185,6 @@ def serve_phase(*, rows: np.ndarray, forest, big, counted, only, smi: str,
     record."""
     from repro_torch.core.forest import make_forest
     from repro_torch.core.postprocess import predict_proba
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.obs import METRICS, TRACER
     from repro_torch.serve.forest import ForestServeEngine
@@ -2349,7 +2379,7 @@ def serve_phase(*, rows: np.ndarray, forest, big, counted, only, smi: str,
     # -- 4. per-request baseline: put one row, infer, read back -------------
     f_pred = tenants["udf-pred"][0]
     bstore = TensorBlockStore(device="cuda")
-    bengine = ForestQueryEngine(bstore)
+    bengine = fresh_engine(bstore)
     bstore.put("req", rows[:1])
     bengine.infer("req", f_pred, algorithm="predicated_pallas_fused")
     for rate in SERVE_RATES_HZ[:3]:
@@ -2468,7 +2498,6 @@ def optimizer_phase(*, counted, only, smi: str, tally,
     launches to the kernels' record."""
     from repro_torch.core.forest import make_forest
     from repro_torch.db.optimizer import CUDA_ALGORITHMS, DEFAULT_PLANS
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.launch import roofline
     from repro_torch.obs import METRICS
@@ -2518,7 +2547,7 @@ def optimizer_phase(*, counted, only, smi: str, tally,
         for ri, rows in enumerate(OPT_ROWS):
             name = f"q{trees}x{rows}"
             store.put(name, card_rows(rows, FEATURES, seed=SEED + 62 + ri))
-            static_eng = ForestQueryEngine(store)
+            static_eng = fresh_engine(store)
             walls, static_counts = {}, {}
             for alg, plan in cells:
                 def runs():
@@ -2536,7 +2565,7 @@ def optimizer_phase(*, counted, only, smi: str, tally,
                 static_counts[(alg, plan)] = counts[kernel_name(alg)] // \
                     len(out)
                 del out
-            auto_eng = ForestQueryEngine(store)
+            auto_eng = fresh_engine(store)
             predicted = {(c.algorithm, c.plan): c.predicted_s for c in
                          auto_eng.optimizer.scored_cells(name, forest)}
             before = opt_counters()
@@ -2625,7 +2654,7 @@ def optimizer_phase(*, counted, only, smi: str, tally,
     astore = TensorBlockStore(device="cuda", device_budget_bytes=TIER_BUDGET)
     astore.put("adv", card_rows(ADVICE_ROWS, FEATURES, seed=SEED + 65),
                tier="host")
-    aeng = ForestQueryEngine(astore)
+    aeng = fresh_engine(astore)
     c0 = opt_counters()
 
     def advised():
@@ -2762,7 +2791,6 @@ def train_phase(*, counted, only, smi: str, tally) -> None:
     each counted run's launches to the kernels' record."""
     from repro_torch.core import train as train_mod
     from repro_torch.core.train import TrainConfig, train_forest
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.serve.router import ForestRouter, synth_router_trace
 
@@ -2778,8 +2806,8 @@ def train_phase(*, counted, only, smi: str, tally) -> None:
     dev = TensorBlockStore()
     dev.put("higgs", x, labels=y, tier="device")
     del x, y
-    engines = {"host": ForestQueryEngine(host),
-               "device": ForestQueryEngine(dev)}
+    engines = {"host": fresh_engine(host),
+               "device": fresh_engine(dev)}
     runs = (("xgboost", "host", dict(), TRAIN_BATCH_PAGES),
             ("lightgbm", "device", dict(), None),
             ("randomforest", "device", dict(colsample=0.5), None))
@@ -2930,7 +2958,6 @@ def mesh_phase(*, forest, big, store, engine, udf_device, udf_device_s: float,
     counted run's launches to the kernels' record."""
     from repro_torch.core.train import TrainConfig
     from repro_torch.db.faults import FaultInjector, RetryPolicy
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -2952,7 +2979,7 @@ def mesh_phase(*, forest, big, store, engine, udf_device, udf_device_s: float,
     if not mds.nbytes <= grown < mds.nbytes + (64 << 20):
         raise AssertionError(f"[mesh] the table is not held once: "
                              f"{grown} B for {mds.nbytes} B")
-    mengine = ForestQueryEngine(mstore)
+    mengine = fresh_engine(mstore)
 
     def same(a, b, what: str) -> None:
         if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
@@ -3055,7 +3082,7 @@ def mesh_phase(*, forest, big, store, engine, udf_device, udf_device_s: float,
     hds = mhost.put("higgs_1m", src.data[:CUT_ROWS], tier="host")
     kw = dict(plan="udf", algorithm="predicated_pallas_fused")
     dev1m = run(mengine, "higgs_1m", forest, 2, nd, "mesh udf 1M", **kw)
-    host = run(ForestQueryEngine(mhost), "higgs_1m", forest, 2, nd,
+    host = run(fresh_engine(mhost), "higgs_1m", forest, 2, nd,
                "mesh host udf", batch_pages=MESH_HOST_BATCH_PAGES, **kw)
     st = host[1].scan
     if hds.tier != "host" or host[1].tier != "host":
@@ -3141,8 +3168,12 @@ def lm_greedy(cfg, params, prompt, bucket: int, max_new: int, ctx: int,
 
 
 def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a tree; a value held as pieces by the positions of a
+    mesh (``Sharded``) gives every position's piece."""
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in tree_leaves(v)]
+    if hasattr(tree, "pieces"):
+        return list(tree.pieces.values())
     return [tree]
 
 
@@ -3229,24 +3260,26 @@ def lm_f32_checks(tag: str, cfg, params, *, batch: int, length: int,
 
 
 def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
-                    smi: str, splan=None) -> dict:
+                    smi: str, splan=None, probe=None) -> dict:
     """``ServeEngine(slots=LM_SLOTS, max_ctx=LM_MAX_CTX, LM_BUCKETS)`` on its
     default bf16 caches (under ``splan`` when given): prefill ms a bucket,
     then ``script`` ([(prompt, max_new_tokens, priority)]) submitted at
     once and drained (stats, decode tick p50 / p99 beside the tick's byte
     bound, tokens/s, peak memory since the caller's reset), then a profile
-    of decode-only ticks with every slot busy.  Returns those numbers."""
+    of decode-only ticks with every slot busy, and ``probe(engine)`` with
+    those slots still busy.  Returns those numbers and each request's
+    tokens, in submission order."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_ctx=LM_MAX_CTX,
                          prompt_buckets=LM_BUCKETS, splan=splan)
-    on_card(params, "bf16 params")
+    on_card(engine.params, "bf16 params")
     on_card(engine.caches, "engine caches")
-    param_bytes = sum(t.nbytes for t in tree_leaves(params))
-    cache_bytes = sum(t.nbytes for name, c in engine.caches.items()
-                      if name != "index" for t in c.values())
+    param_bytes = sum(t.nbytes for t in tree_leaves(engine.params))
+    cache_bytes = sum(t.nbytes for t in tree_leaves(
+        {k: c for k, c in engine.caches.items() if k != "index"}))
     bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     leaves = sorted({f"{leaf} {str(t.dtype)[6:]}"
                      for name, c in engine.caches.items() if name != "index"
@@ -3258,7 +3291,7 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
         for _ in range(4):                      # the first warms up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            engine._prefill_fn(params, x)
+            engine._prefill_fn(engine.params, x)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         prefill_ms[b] = 1e3 * float(np.median(walls[1:]))
@@ -3290,6 +3323,7 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
     if bad:
         raise AssertionError(f"token ids out of range: {bad[:5]}")
     st = engine.stats()
+    script_tokens = [r.tokens for r in sorted(done, key=lambda r: r.uid)]
     p50, p99 = np.percentile(decode_ms, [50, 99])
     log(f"{tag} bf16 serving stats {json.dumps(st)}")
     log(f"{tag} bf16 serving: {len(script)} requests, {st['tokens']} tokens "
@@ -3323,8 +3357,10 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
         f"{100 - 100 * busy / wall_us:.1f} %), "
         f"{len(kernels) / LM_PROFILE_TICKS:.1f} kernels a tick")
     log_device_time(prof, 6)
+    if probe is not None:
+        probe(engine)
     engine.run_until_drained()
-    return {"tokens_s": st["tokens"] / serve_s, "p50_ms": float(p50),
+    return {"tokens": script_tokens, "tokens_s": st["tokens"] / serve_s, "p50_ms": float(p50),
             "p99_ms": float(p99), "kernels_tick": len(kernels)
             / LM_PROFILE_TICKS, "busy": busy / wall_us,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -4668,6 +4704,514 @@ def dryrun_phase(*, smi: str) -> None:
         f"{smi}")
 
 
+def lms_script(cfg, seed: int) -> list:
+    """Phase 20's serving script: (prompt, max_new_tokens, tier)."""
+    from repro_torch.serve.router import TIER_BATCH
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(LMS_REQUESTS):
+        plen = int(rng.integers(LMS_PROMPT_LEN[0], LMS_PROMPT_LEN[1] + 1))
+        mnt = int(rng.integers(LMS_NEW_TOKENS[0], LMS_NEW_TOKENS[1] + 1))
+        out.append((rng.integers(0, cfg.vocab_size, plen), mnt, TIER_BATCH))
+    return out
+
+
+def lms_resident(engine, what: str) -> str:
+    """Each position's resident bytes (its pieces of the parameters and
+    the slot caches) against what the specs give it; raises if a position
+    holds other than its spec's share."""
+    from repro_torch.dist.sharding import (NamedSharding, cache_specs,
+                                           own_spec, param_specs)
+
+    mesh = engine.splan.mesh
+
+    def spec_bytes(tree, specs) -> int:
+        total = 0
+        for leaf, spec in zip(tree_values(tree), tree_values(specs)):
+            shape = NamedSharding(mesh, own_spec(spec, leaf.shape, mesh)) \
+                .shard_shape(leaf.shape)
+            total += int(np.prod(shape)) * leaf.first.element_size()
+        return total
+
+    held = {pos: 0 for pos in np.ndindex(*mesh.devices.shape)}
+    for leaf in tree_values(engine.params) + tree_values(engine.caches):
+        for pos, t in leaf.pieces.items():
+            held[pos] += t.nbytes
+    want = spec_bytes(engine.params, param_specs(engine.params, mesh)) + \
+        spec_bytes(engine.caches, cache_specs(engine.caches, engine.splan))
+    if set(held.values()) != {want}:
+        raise AssertionError(f"{what}: positions hold "
+                             f"{sorted(set(held.values()))} bytes, the "
+                             f"specs give {want}")
+    whole = sum(int(np.prod(leaf.shape)) * leaf.first.element_size()
+                for leaf in tree_values(engine.params))
+    return (f"each of {mesh.size} positions holds {want / 1e9:.4f} GB "
+            f"(its pieces of the parameters and slot caches), equal to "
+            f"what the specs give; the whole parameter tree is "
+            f"{whole / 1e9:.3f} GB")
+
+
+def tree_values(tree) -> list:
+    """A tree's leaves as they are (a ``Sharded`` stays whole)."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_values(tree[k])]
+    return [tree]
+
+
+class ListRecorder:
+    """A collective recorder that keeps each record."""
+
+    def __init__(self):
+        self.records: list[tuple] = []
+
+    def collective(self, kind, nbytes, group, members):
+        self.records.append((kind, int(nbytes), int(group), int(members)))
+
+
+def lms_recorded(run) -> tuple[list, int]:
+    """``run()`` under a ``ListRecorder``: its records and the bytes the
+    collectives moved across positions."""
+    from repro_torch.dist import collectives as C
+
+    rec = ListRecorder()
+    prev = C.set_recorder(rec)
+    moved = C.moved_bytes()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        C.set_recorder(prev)
+    return rec.records, C.moved_bytes() - moved
+
+
+def lms_bytes(records: list) -> str:
+    """Records summed by kind: count and operand bytes (each member's
+    result buffer, over the members)."""
+    by: dict[str, list] = {}
+    for kind, nbytes, _, members in records:
+        e = by.setdefault(kind, [0, 0])
+        e[0] += 1
+        e[1] += nbytes * members
+    return ", ".join(f"{k} x{n} {b / 1e6:.3f} MB" for k, (n, b) in
+                     sorted(by.items())) or "none"
+
+
+def lms_place(params, mesh) -> dict:
+    """``params`` placed by ``param_specs`` as pieces over ``mesh``, leaf
+    by leaf IN PLACE, each whole leaf dropped once its pieces exist (a
+    tree and its pieces need not fit side by side); returns ``params``."""
+    from repro_torch.dist.sharding import param_specs, shard_tensor
+
+    def place(node, spec_node):
+        for k in sorted(node):
+            if isinstance(node[k], dict):
+                place(node[k], spec_node[k])
+            else:
+                node[k] = shard_tensor(node[k], mesh, spec_node[k])
+    place(params, param_specs(params, mesh))
+    free_card()
+    return params
+
+
+def lms_teacher(tag: str, cfg, params, mesh, *, seed: int,
+                held_mesh=None, consume: bool = False) -> str:
+    """f32 prefill and LMS_CHECK decode steps teacher-forced on the
+    held-once plan over ``held_mesh`` (default ``mesh``), then on an
+    own-shards plan over ``mesh`` with the same weights, each within
+    LM_TOL of the held-once logits; returns the summary.  ``consume``
+    places ``params`` in place (``lms_place``): the whole tree is gone
+    after."""
+    from repro_torch.dist.sharding import make_plan, shard_params
+    from repro_torch.models import lm as LM
+
+    B, S, N = LMS_CHECK
+    held = make_plan(cfg, held_mesh or mesh, decode_batch=B)
+    own = make_plan(cfg, mesh, decode_batch=B, own_shards=True)
+    toks = torch.randint(
+        0, cfg.vocab_size, (B, S + N), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))
+    ctx = S + 2 * N
+    want, wc = LM.lm_prefill(cfg, params, toks[:, :S], splan=held, ctx=ctx)
+    wants = [want]
+    for i in range(N):
+        want, wc = LM.lm_decode(cfg, params, wc, toks[:, S + i:S + i + 1],
+                                splan=held)
+        wants.append(want)
+    del wc
+    t0 = time.perf_counter()
+    pieces = lms_place(params, mesh) if consume else \
+        shard_params(params, own)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, gc_ = LM.lm_prefill(cfg, pieces, toks[:, :S], splan=own, ctx=ctx)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    errs = []
+    for i, want in enumerate(wants):
+        if i:
+            got, gc_ = LM.lm_decode(cfg, pieces, gc_,
+                                    toks[:, S + i - 1:S + i], splan=own)
+        errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
+            what = "prefill" if not i else f"decode step {i - 1}"
+            raise AssertionError(f"{tag} own-shards {what}: max |err| "
+                                 f"{errs[-1]:.3e}")
+    seq = gc_["p0"]["k"].spec
+    scale = max(float(w.abs().max()) for w in wants)
+    del pieces, gc_, wants
+    return (f"f32 {own.attn_mode} prefill {B} x {S} and {N} teacher-forced "
+            f"decode steps within rtol = atol = {LM_TOL} of the held-once "
+            f"path on the same weights, max |err| prefill {errs[0]:.3e}, "
+            f"decode {max(errs[1:]):.3e} (logits up to {scale:.3f}); cache "
+            f"spec {seq}; placement {place_s:.3f} s, own-shards prefill "
+            f"{prefill_s:.3f} s (first call)")
+
+
+def lms_replay(cfg, params, splan, prompt, tokens: list) -> list:
+    """The request replayed alone as the engine runs it (its prompt
+    left-padded to its bucket, then one token a decode), teacher-forced
+    on ``tokens``.  For the prefill and each decode: (the router logits
+    of each MoE call, host f32 ``[tokens, E]``, in call order; the top
+    two LM logits and their ids)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LM
+    from repro_torch.serve.engine import _bucket
+
+    calls: list = []
+    route = L._route
+
+    def spy(p, x):
+        out = route(p, x)
+        calls.append(out[0].detach().float().reshape(
+            -1, out[0].shape[-1]).cpu())
+        return out
+
+    b = _bucket(len(prompt), LM_BUCKETS)
+    toks = torch.zeros((1, b), dtype=torch.int64, device="cuda")
+    toks[0, b - len(prompt):] = torch.as_tensor(prompt)
+    steps = []
+    L._route = spy
+    try:
+        logits, caches = LM.lm_prefill(cfg, params, toks, splan=splan,
+                                       ctx=LM_MAX_CTX)
+        for t in [None] + list(tokens):
+            if t is not None:
+                logits, caches = LM.lm_decode(
+                    cfg, params, caches, torch.tensor([[t]], device="cuda"),
+                    splan=splan)
+            top = torch.topk(logits[0].float(), 2)
+            steps.append((list(calls), top.values.cpu(), top.indices.cpu()))
+            calls.clear()
+    finally:
+        L._route = route
+    del caches
+    return steps
+
+
+def lms_first_flip(held: list, own: list):
+    """The first route that differs between two replays of a request
+    (steps in order, MoE calls in layer order, tokens in order): (step,
+    call, token, the held-once router's top-two margin there), or None.
+    The own-shards path routes each call once a position: a prefill's
+    calls are its blocks, a decode's repeat the same tokens."""
+    for k, ((hc, _, _), (oc, _, _)) in enumerate(zip(held, own)):
+        n = len(oc) // max(len(hc), 1)
+        for j, h in enumerate(hc):
+            o = torch.cat(oc[j * n:(j + 1) * n]) if k == 0 else oc[j * n]
+            bad = (h.argmax(-1) != o.argmax(-1)).nonzero().flatten()
+            if len(bad):
+                top = torch.topk(h[bad[0]], 2).values
+                return k, j, int(bad[0]), float(top[0] - top[1])
+    return None
+
+
+def lms_tokens_agree(tag: str, script, got: list, want: list, replay_held,
+                     replay_own=None) -> str:
+    """The own-shards engine's tokens against the held-once engine's: each
+    request equal, or parting only at a near-tie.  Where request i parts
+    at step k, ``replay_held(i, k)`` (and, for an MoE model,
+    ``replay_own(i, k)``) replay it alone teacher-forced on the held-once
+    engine's tokens (``lms_replay``); the first argmax that differs
+    between the replays, a route (``lms_first_flip``) or else the token at
+    step k, must have the held-once replay's top two within LMS_TIE_GAP:
+    a bf16 rounding decided it, and all that follows it may differ."""
+    equal, ties, flips = 0, [], []
+    for i, ((prompt, _, _), g, w) in enumerate(zip(script, got, want)):
+        if g == w:
+            equal += 1
+            continue
+        k = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b) \
+            if any(a != b for a, b in zip(g, w)) else min(len(g), len(w))
+        held = replay_held(i, k)
+        flip = lms_first_flip(held, replay_own(i, k)) if replay_own else None
+        if flip is not None:
+            step, call, tok, gap = flip
+            if gap >= LMS_TIE_GAP:
+                raise AssertionError(
+                    f"{tag} request with prompt {len(prompt)}: own-shards "
+                    f"tokens {g} part from the held-once engine's {w} at "
+                    f"step {k}; the first route that differs (step {step}, "
+                    f"MoE call {call}, token {tok}) has the held-once "
+                    f"router's top two {gap:.4f} apart")
+            flips.append((k, step, call, round(gap, 5)))
+            continue
+        top2 = held[k][1]
+        gap = float(top2[0] - top2[1])
+        if gap >= LMS_TIE_GAP:
+            raise AssertionError(f"{tag} request with prompt {len(prompt)}:"
+                                 f" own-shards tokens {g} part from the "
+                                 f"held-once engine's {w} at step {k}, where "
+                                 f"its top-two logits are {gap:.4f} apart")
+        ties.append((k, round(gap, 4)))
+    return (f"{equal} of {len(script)} requests token for token the "
+            f"held-once engine's"
+            + (f"; {len(ties)} part after a near-tie of the logits (step, "
+               f"top-two gap) {ties}" if ties else "")
+            + (f"; {len(flips)} part after a route near-tie (parting step, "
+               f"then the first differing route's step, MoE call and the "
+               f"held-once router's top-two gap) {flips}" if flips else "")
+            + f", every gap below {LMS_TIE_GAP}")
+
+
+def lm_spmd_olmo(*, smi: str) -> None:
+    """Phase 20 (a) and (d): olmo-1b at full width over own shards."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_local_mesh, make_position_mesh
+    from repro_torch.models import get_bundle
+
+    tag = "[lm-spmd] (a) olmo-1b"
+    cfg = get_config("olmo-1b")
+    mesh = make_position_mesh(LMS_MESH_A, "cuda:0")
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 400),
+        dtype=torch.float32)
+    log(f"{tag} on (data 2, model 4), every position on cuda:0 with its "
+        f"own pieces: " + lms_teacher(tag, cfg, params, mesh,
+                                      seed=SEED + 401) + f"; on {smi}")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = make_local_mesh(1, n)
+        log(f"[lm-spmd] (d) olmo-1b on {n} distinct cards (data 1, model "
+            f"{n}): " + lms_teacher("[lm-spmd] (d)", cfg, params, cards,
+                                    seed=SEED + 401, held_mesh=mesh)
+            + f"; on {smi}")
+    else:
+        log(f"[lm-spmd] (d) skipped: {n} card on this machine, distinct "
+            f"cards need two or more (make_local_mesh(1, n))")
+    del params
+    free_card()
+
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 402))
+    script = lms_script(cfg, SEED + 403)
+    held = make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+    own = make_plan(cfg, mesh, decode_batch=LM_SLOTS, own_shards=True)
+    torch.cuda.reset_peak_memory_stats()
+    twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
+                           seed=SEED + 404, smi=smi, splan=held)
+    seen = {}
+
+    def probe(engine):
+        records, moved = lms_recorded(engine.step)
+        seen["tick"] = (lms_bytes(records), moved)
+        seen["resident"] = lms_resident(engine, tag)
+
+    torch.cuda.reset_peak_memory_stats()
+    mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
+                           seed=SEED + 404, smi=smi, splan=own, probe=probe)
+    agree = lms_tokens_agree(
+        tag, script, mine["tokens"], twin["tokens"],
+        lambda i, k: lms_replay(cfg, params, held, script[i][0],
+                                twin["tokens"][i][:k]))
+    log(f"{tag} bf16 engines, own shards / held once: {agree}; decode tick "
+        f"p50 {mine['p50_ms']:.3f} / {twin['p50_ms']:.3f} ms, p99 "
+        f"{mine['p99_ms']:.3f} / {twin['p99_ms']:.3f} ms; kernels a tick "
+        f"{mine['kernels_tick']:.1f} / {twin['kernels_tick']:.1f}; busy "
+        f"{100 * mine['busy']:.1f} / {100 * twin['busy']:.1f} %; tokens/s "
+        f"{mine['tokens_s']:.1f} / {twin['tokens_s']:.1f}; peak memory "
+        f"{mine['peak_gb']:.3f} / {twin['peak_gb']:.3f} GB; on {smi}")
+    log(f"{tag} collectives a decode tick ({LM_SLOTS} slots busy): "
+        f"{seen['tick'][0]}; {seen['tick'][1] / 1e6:.3f} MB moved across "
+        f"positions; {seen['resident']}")
+    del params
+    free_card()
+
+
+def lm_spmd_ep(*, smi: str) -> None:
+    """Phase 20 (b): llama4-scout at full width over own shards, EP."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import (P, make_plan, shard_params,
+                                           shard_tensor)
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+    from repro_torch.models import layers as L
+    from repro_torch.models import positions as PS
+
+    tag = "[lm-spmd] (b) " + LMM_ARCH_EP
+    full = get_config(LMM_ARCH_EP)
+    mesh = make_position_mesh(LMS_MESH_B, "cuda:0")
+    B, S = LMS_MOE_TOKENS
+    held = make_plan(full, mesh, decode_batch=B)
+    own = make_plan(full, mesh, decode_batch=B, own_shards=True)
+    moe = L.init_moe(full, torch.Generator(device="cuda").manual_seed(
+        SEED + 410), full.d_model, full.d_ff, torch.float32, device="cuda")
+    routed = {k: v for k, v in moe.items() if k != "shared"}
+    pieces = shard_params({"moe": moe}, own)["moe"]
+    x = torch.randn((B, S, full.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 411))
+    cap = L.ep_capacity(full, held, x)
+    want_rec, _ = lms_recorded(lambda: L.moe_dispatch_blocks(
+        routed, x, 1, 4, cap))
+    _, eidx, keep = L.moe_dispatch_blocks(routed, x, 1, 4, cap)
+    xs = shard_tensor(x, mesh, P("data", None, None))
+    rec, moved = lms_recorded(lambda: PS.moe_prefill(full, pieces, xs, own))
+    if rec != want_rec:
+        raise AssertionError(f"{tag} EP prefill records {rec}, held-once "
+                             f"{want_rec}")
+    out, routes = PS.moe_prefill(full, pieces, xs, own, with_routes=True)
+    for pos, (e, k) in routes.items():
+        m = pos[1]
+        if not (torch.equal(e, eidx[m]) and torch.equal(k, keep[m])):
+            raise AssertionError(f"{tag} EP prefill block {m}: the kept set "
+                                 f"differs from the held-once path's")
+    want = L.moe_dispatch_blocks(routed, x, 1, 4, cap)[0]
+    got = C.gather_to(out, "cuda")
+    scale = float(want.abs().max())
+    pre_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL * scale):
+        raise AssertionError(f"{tag} EP prefill: max |err| {pre_err:.3e}")
+    xd = x[:, :1]
+    want = L.moe_decode(full, moe, xd, splan=held)
+    drec, dmoved = lms_recorded(lambda: PS.moe_layer(
+        full, own, pieces, shard_tensor(xd, mesh, own.decode_hidden),
+        own.decode_hidden, decode=True))
+    got = C.gather_to(PS.moe_layer(
+        full, own, pieces, shard_tensor(xd, mesh, own.decode_hidden),
+        own.decode_hidden, decode=True), "cuda")
+    dscale = float(want.abs().max())
+    dec_err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL * dscale):
+        raise AssertionError(f"{tag} EP decode: max |err| {dec_err:.3e}")
+    log(f"{tag} one MoE layer in f32 on (data 1, model 4), own pieces: EP "
+        f"prefill of {B} x {S} tokens at cap_src {cap}: each block's kept "
+        f"set and expert indices equal to the held-once path's (kept "
+        f"{int(keep.sum())} of {keep.numel()}), output within rtol "
+        f"{LM_TOL}, atol {LM_TOL} x {scale:.1f} (max |err| {pre_err:.3e}); "
+        f"its records {lms_bytes(rec)} equal the held-once path's, "
+        f"{moved / 1e6:.3f} MB moved across positions; EP decode of {B} "
+        f"tokens within rtol {LM_TOL}, atol {LM_TOL} x {dscale:.1f} (max "
+        f"|err| {dec_err:.3e}), collectives {lms_bytes(drec)}, "
+        f"{dmoved / 1e6:.3f} MB moved; on {smi}")
+    del moe, routed, pieces, x, xs, out, got, want
+    free_card()
+
+    cfg = dataclasses.replace(full, num_layers=LMS_LAYERS_B_F32)
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 415),
+        dtype=torch.float32)
+    log(f"{tag} cut to {LMS_LAYERS_B_F32} layers on (data 1, model 4): "
+        + lms_teacher(tag, cfg, params, mesh, seed=SEED + 416, consume=True)
+        + f"; on {smi}")
+    del params
+    free_card()
+
+    serve_layers = LMF_LAYERS[LMM_ARCH_EP][0]
+    cfg = dataclasses.replace(full, num_layers=serve_layers)
+    held = make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+    own = make_plan(cfg, mesh, decode_batch=LM_SLOTS, own_shards=True)
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 412))
+    script = lms_script(cfg, SEED + 413)
+    # the held-once engine first, on the same weights and script: its
+    # tokens are what the own-shards engine is held to, and each request's
+    # replay on it is kept, because the whole tree and its pieces do not
+    # fit side by side
+    torch.cuda.reset_peak_memory_stats()
+    twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
+                           seed=SEED + 414, smi=smi, splan=held)
+    free_card()
+    t0 = time.perf_counter()
+    replays = [lms_replay(cfg, params, held, prompt, w[:-1])
+               for (prompt, _, _), w in zip(script, twin["tokens"])]
+    replay_s = time.perf_counter() - t0
+    lms_place(params, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+
+    def probe(engine):
+        x = torch.randint(0, cfg.vocab_size, (1, LM_BUCKETS[0]),
+                          device="cuda")
+        rec, moved = lms_recorded(
+            lambda: engine._prefill_fn(engine.params, x))
+        seen["prefill"] = (lms_bytes(rec), moved)
+        rec, moved = lms_recorded(engine.step)
+        seen["tick"] = (lms_bytes(rec), moved)
+        seen["resident"] = lms_resident(engine, tag)
+
+    mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
+                           seed=SEED + 414, smi=smi, splan=own, probe=probe)
+    agree = lms_tokens_agree(
+        tag, script, mine["tokens"], twin["tokens"],
+        lambda i, k: replays[i],
+        lambda i, k: lms_replay(cfg, params, own, script[i][0],
+                                twin["tokens"][i][:k]))
+    log(f"{tag} bf16 at {serve_layers} layers, own shards / held once: "
+        f"{agree} (the held-once replays {replay_s:.3f} s); decode tick p50 "
+        f"{mine['p50_ms']:.3f} / {twin['p50_ms']:.3f} ms, p99 "
+        f"{mine['p99_ms']:.3f} / {twin['p99_ms']:.3f} ms; kernels a tick "
+        f"{mine['kernels_tick']:.1f} / {twin['kernels_tick']:.1f}; busy "
+        f"{100 * mine['busy']:.1f} / {100 * twin['busy']:.1f} %; tokens/s "
+        f"{mine['tokens_s']:.1f} / {twin['tokens_s']:.1f}; peak memory "
+        f"{mine['peak_gb']:.3f} / {twin['peak_gb']:.3f} GB; collectives of a "
+        f"{LM_BUCKETS[0]}-token prefill {seen['prefill'][0]} "
+        f"({seen['prefill'][1] / 1e6:.3f} MB moved across positions), of a "
+        f"decode tick {seen['tick'][0]} ({seen['tick'][1] / 1e6:.3f} MB "
+        f"moved); {seen['resident']}; on {smi}")
+    del params, replays
+    free_card()
+
+
+def lm_spmd_cp(*, smi: str) -> None:
+    """Phase 20 (c): a cp config at full width, cut in depth, over own
+    shards on (data 2, model 8)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+
+    cfg = dataclasses.replace(get_config(LMS_ARCH_C),
+                              num_layers=LMS_LAYERS_C)
+    tag = f"[lm-spmd] (c) {LMS_ARCH_C} cut to {LMS_LAYERS_C} layers"
+    mesh = make_position_mesh(LMS_MESH_C, "cuda:0")
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 420),
+        dtype=torch.float32)
+    log(f"{tag} ({cfg.num_heads} heads / {cfg.num_kv_heads} KV) on (data 2,"
+        f" model 8), 16 positions on cuda:0: "
+        + lms_teacher(tag, cfg, params, mesh, seed=SEED + 421)
+        + f"; on {smi}")
+    del params
+    free_card()
+
+
+def lm_spmd_phase(*, smi: str) -> None:
+    """Phase 20: LM serving over positions that own their shards."""
+    t_phase = time.perf_counter()
+    lm_spmd_olmo(smi=smi)
+    lm_spmd_ep(smi=smi)
+    lm_spmd_cp(smi=smi)
+    log(f"[lm-spmd] phase wall {time.perf_counter() - t_phase:.3f} s; on "
+        f"{smi}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4681,7 +5225,6 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch.core.forest import make_forest, tree_slice
     from repro_torch.core.postprocess import predict_proba
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.kernels import _build
     from repro_torch.kernels.forest_hummingbird import (
@@ -4976,7 +5519,7 @@ def main() -> int:
     log(f"[path] store.put('higgs', {HIGGS_ROWS} x {FEATURES} f32): "
         f"{ds.num_pages} pages of {ds.page_rows} rows, {ds.nbytes} B on "
         f"{ds.data.device}, {time.perf_counter() - t0:.3f} s set-up")
-    engine = ForestQueryEngine(store)
+    engine = fresh_engine(store)
     sample = ds.data[:COMPARE_ROWS]
     oracle = predict_proba(forest, sample, algorithm="predicated")
     torch.cuda.synchronize()
@@ -5486,6 +6029,17 @@ def main() -> int:
             entry["launches"] += counts19[name_]
         else:
             entry["launches"] += counts19[name_] - counts19[f"{name_}_wide"]
+
+    # -- 20. LM serving over positions that own their shards --------------------
+    (_, counts20) = counted(lambda: lm_spmd_phase(smi=smi))
+    log(f"[lm-spmd] forest kernel launches "
+        f"{ {k: n for k, n in counts20.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts20[name_]
+        else:
+            entry["launches"] += counts20[name_] - counts20[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -95,7 +95,6 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.forest import make_forest
-    from repro_torch.db.query import ForestQueryEngine
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.kernels import _build
 
@@ -122,7 +121,7 @@ def main() -> int:
     table = host.put("higgs", rows)
     if table.tier != "host" or not table.data.is_pinned():
         raise AssertionError(f"the table landed on {table.tier}")
-    engine = ForestQueryEngine(host)
+    engine = cs.fresh_engine(host)
     queries = {"udf": (forest, "predicated_pallas_fused"),
                "rel+reuse": (big, "predicated_pallas")}
 
@@ -195,12 +194,12 @@ def main() -> int:
         if disk.put("higgs", rows).tier != "disk":
             raise AssertionError("the disk store's table is not on disk")
         series("+disk")
-        disk_engine = ForestQueryEngine(disk)
+        disk_engine = cs.fresh_engine(disk)
         query("udf", eng=disk_engine)          # the reader thread's copies
         trace(6, "udf")
         device = TensorBlockStore(device="cuda")
         device.put("higgs", rows)
-        on_card = ForestQueryEngine(device)
+        on_card = cs.fresh_engine(device)
         for plan in queries:
             query(plan, eng=on_card)
         torch.cuda.synchronize()

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["aggregate_raw", "postprocess", "predict_proba"]
+__all__ = ["aggregate_raw", "postprocess", "predict_proba", "predict_label"]
 
 
 def aggregate_raw(raw: torch.Tensor) -> torch.Tensor:
@@ -52,3 +52,13 @@ def predict_proba(forest, x: torch.Tensor, *, algorithm: str = "predicated",
         num_trees=int(num_trees if num_trees is not None
                       else forest.num_trees),
         base_score=forest.base_score)
+
+
+def predict_label(forest, x: torch.Tensor, *, algorithm: str = "predicated",
+                  num_trees: int | None = None) -> torch.Tensor:
+    """``predict_proba``'s output as labels: ``p >= 0.5`` as int32 for
+    classification, ``p`` itself for regression (the reference's)."""
+    p = predict_proba(forest, x, algorithm=algorithm, num_trees=num_trees)
+    if forest.task == "classification":
+        return (p >= 0.5).to(torch.int32)
+    return p

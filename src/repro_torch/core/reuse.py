@@ -19,8 +19,11 @@ import hashlib
 import time
 from typing import Any, Callable
 
+import torch
+
 __all__ = ["MaterializedModel", "ModelReuseCache", "fingerprint_forest",
-           "mesh_signature"]
+           "mesh_signature", "GLOBAL_CACHE", "GLOBAL_PLAN_CACHE",
+           "global_caches"]
 
 
 def mesh_signature(mesh=None) -> tuple | int:
@@ -113,3 +116,34 @@ class ModelReuseCache:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+
+#: the process-global default caches (reference ``repro/core/reuse.py``),
+#: one a pod: every ``ForestQueryEngine`` built without its own caches
+#: shares them (``global_caches``), so a second engine over the same store
+#: and forest reuses the first one's partitioned model and compiled plan.
+#: Plan entries pin device memory too (a udf plan its padded forest copy, a
+#: rel plan its ``MaterializedModel``), so the plan cache gets the model
+#: cache's slot budget, not more.
+GLOBAL_CACHE = ModelReuseCache()
+GLOBAL_PLAN_CACHE = ModelReuseCache(max_entries=32)
+
+#: a card's pair of process-global caches, made on first use
+_CARD_CACHES: dict[str, tuple[ModelReuseCache, ModelReuseCache]] = {}
+
+
+def global_caches(device) -> tuple[ModelReuseCache, ModelReuseCache]:
+    """The process-global (model, plan) caches of engines whose store lies
+    on ``device``: ``GLOBAL_CACHE`` / ``GLOBAL_PLAN_CACHE`` on the CPU, a
+    pair of the same sizes for each card.  An entry holds tensors on the
+    device it was built for and its key does not name the device (the
+    reference runs one device kind), so the port keeps one pair a device."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return GLOBAL_CACHE, GLOBAL_PLAN_CACHE
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if str(dev) not in _CARD_CACHES:
+        _CARD_CACHES[str(dev)] = (ModelReuseCache(),
+                                  ModelReuseCache(max_entries=32))
+    return _CARD_CACHES[str(dev)]

@@ -130,7 +130,8 @@ from repro_torch.core import postprocess as post
 from repro_torch.core.forest import (Forest, compact_forest, pad_trees,
                                      tree_slice)
 from repro_torch.core.reuse import (MaterializedModel, ModelReuseCache,
-                                    fingerprint_forest, mesh_signature)
+                                    fingerprint_forest, global_caches,
+                                    mesh_signature)
 from repro_torch.db.executor import (DEFAULT_STREAM_BATCH_BYTES, ScanStats,
                                      StreamingScanExecutor)
 from repro_torch.db.faults import (Deadline, DegradedReport, FaultInjector,
@@ -240,8 +241,13 @@ def _predict_sum_fn(algorithm: str):
 class ForestQueryEngine:
     """Executes forest-inference queries against a TensorBlockStore.
 
-    Each engine owns its model-partition cache (``reuse_cache``) and its
-    compiled-plan cache unless the caller passes them in, and its
+    Its model-partition cache (``reuse_cache``) and compiled-plan cache
+    default to the process-global ones of its store's device
+    (``core/reuse.global_caches``: ``GLOBAL_CACHE`` / ``GLOBAL_PLAN_CACHE``
+    on the CPU), as the reference's default to its ``GLOBAL_CACHE`` /
+    ``GLOBAL_PLAN_CACHE``, so engines over the same store and forest share
+    a partitioned model and a plan; a caller that wants caches of its own
+    passes them.  Each engine has its own
     ``optimizer`` (replaceable: tests install tighter budgets).  It runs
     on its store's ``mesh``: the store pads and splits the batches the
     engine's stages take."""
@@ -253,10 +259,10 @@ class ForestQueryEngine:
         self.mesh = store.mesh
         self.fplan: ForestShardingPlan = store.fplan
         self.mesh_id = mesh_signature(self.mesh)
-        self.cache = reuse_cache if reuse_cache is not None \
-            else ModelReuseCache()
+        shared = global_caches(store.device)
+        self.cache = reuse_cache if reuse_cache is not None else shared[0]
         self.plan_cache = plan_cache if plan_cache is not None \
-            else ModelReuseCache()
+            else shared[1]
         # id -> content fingerprint, dropped when the Forest is collected
         self._fingerprints: dict[int, str] = {}
         store.register_invalidator(self.invalidate_dataset)

@@ -1,10 +1,32 @@
-"""The collective record: where the port's own code would exchange data.
+"""Collectives: the moves between positions, and their record.
 
-The port runs every position of a mesh on one device, so no collective
-runs; the points where a mesh would run one (the EP ``all_to_all`` and
-its exchange back, the EP decode's ``psum``, the cross-pod all-reduce of
-the int8 levels and scales) call ``record_collective`` or ``exchange``
-here.  Both do nothing unless a recorder is set: ``launch/hlo_cost``'s
+Two kinds of caller use this module.
+
+A plan held once (every position on one device, one copy of each value)
+runs no collective: the points where a mesh would run one (the EP
+``all_to_all`` and its exchange back, the EP decode's ``psum``, the
+cross-pod all-reduce of the int8 levels and scales) call
+``record_collective`` or ``exchange`` here, which record it and move
+nothing.
+
+A plan whose positions own their shards (``dist/sharding.Sharded``) moves
+every byte that crosses positions through the functions below, over the
+pieces of a ``Sharded`` along named mesh axes: ``all_gather``,
+``reduce_scatter``, ``psum``, ``all_to_all``, ``broadcast`` and
+``relayout`` (a value moved from one spec to another by those moves and
+local slices).  Each copies the pieces it takes from other positions onto
+the receiving position's device (a real copy where two positions share a
+device), folds partial sums in ascending position along the axes (the
+order the forest plan's fold over ``model`` takes; not NCCL's ring
+order), and records itself once with ``record_collective``: its kind in
+the HLO's names, each member's result bytes, the group size and every
+position of the mesh as members.  ``moved_bytes`` counts the bytes that
+crossed positions.  The controller's read-back (``gather_to``) is an
+output copy, not a collective, and is not recorded.  There is no
+``torch.distributed`` process group: one controller addresses every
+position, as the reference's single-controller jax does.
+
+Recording does nothing unless a recorder is set: ``launch/hlo_cost``'s
 ``CostMode`` sets itself while it counts and clears itself after.  The
 slot is one per process, not per thread, so autograd's device thread
 records the backward's exchanges too.
@@ -16,7 +38,11 @@ from typing import Any
 
 import torch
 
-__all__ = ["set_recorder", "recording", "record_collective", "exchange"]
+from repro_torch.dist.sharding import P, Sharded, coord, group, own_spec
+
+__all__ = ["set_recorder", "recording", "record_collective", "exchange",
+           "all_gather", "reduce_scatter", "psum", "all_to_all",
+           "broadcast", "relayout", "gather_to", "moved_bytes"]
 
 #: the active recorder: an object with ``collective(kind, nbytes, group,
 #: members)``, or None
@@ -77,3 +103,227 @@ def exchange(x: torch.Tensor, kind: str, *, group: int,
     if not recording():
         return x
     return _Exchange.apply(x, kind, group, members)
+
+
+# -- moves between positions that own their shards ------------------------------
+
+#: bytes copied from one position's piece to another position since import
+_moved = 0
+
+
+def moved_bytes() -> int:
+    """The bytes the functions below have copied across positions."""
+    return _moved
+
+
+def _recv(t: torch.Tensor, src: tuple, dst: tuple, device) -> torch.Tensor:
+    """``t`` (position ``src``'s) as position ``dst`` receives it: on
+    ``dst``'s device, counted when it crosses positions."""
+    global _moved
+    if src != dst:
+        _moved += t.numel() * t.element_size()
+    return t.to(device)
+
+
+def _record(kind: str, x: Sharded, out_piece: torch.Tensor, axes) -> None:
+    mesh = x.mesh
+    record_collective(kind, out_piece.numel() * out_piece.element_size(),
+                      group=_size(mesh, axes), members=mesh.size)
+
+
+def _size(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= int(mesh.shape[a])
+    return n
+
+
+def _set_entry(spec: P, dim: int, axes: tuple) -> P:
+    entries = list(spec)
+    entries[dim] = None if not axes else (axes if len(axes) > 1
+                                          else axes[0])
+    return P(*entries)
+
+
+def _dim(x: Sharded, dim: int) -> int:
+    return dim % x.ndim
+
+
+def all_gather(x: Sharded, dim: int) -> Sharded:
+    """Make dimension ``dim`` whole at every position: each position
+    concatenates its group's pieces along ``dim`` in position order.  A
+    dimension no axis splits comes back as ``x`` itself."""
+    dim = _dim(x, dim)
+    axes = x.entry(dim)
+    if not axes:
+        return x
+    if _size(x.mesh, axes) == 1:            # each piece is whole already
+        return Sharded(x.mesh, _set_entry(x.spec, dim, ()), x.pieces)
+    out = {}
+    for pos in x.pieces:
+        dev = x.mesh.devices[pos]
+        out[pos] = torch.cat([_recv(x.pieces[q], q, pos, dev)
+                              for q in group(x.mesh, pos, axes)], dim)
+    y = Sharded(x.mesh, _set_entry(x.spec, dim, ()), out)
+    _record("all-gather", x, y.first, axes)
+    return y
+
+
+def _fold(parts: list[torch.Tensor]) -> torch.Tensor:
+    acc = parts[0].clone() if len(parts) == 1 else parts[0] + parts[1]
+    for t in parts[2:]:
+        acc = acc + t
+    return acc
+
+
+def psum(x: Sharded, axes) -> Sharded:
+    """``x`` holds partial sums along ``axes`` (each position one term of
+    the whole value's sum, under the same spec): every position gets the
+    sum, folded in ascending position along ``axes``."""
+    axes = tuple(a for a in axes if a)
+    if _size(x.mesh, axes) == 1:
+        return x
+    out = {}
+    for pos in x.pieces:
+        dev = x.mesh.devices[pos]
+        out[pos] = _fold([_recv(x.pieces[q], q, pos, dev)
+                          for q in group(x.mesh, pos, axes)])
+    y = Sharded(x.mesh, x.spec, out)
+    _record("all-reduce", x, y.first, axes)
+    return y
+
+
+def reduce_scatter(x: Sharded, axes, dim: int) -> Sharded:
+    """The sum of ``x``'s partials along ``axes`` (as ``psum``), each
+    position keeping only its slice of dimension ``dim`` (``axes`` added,
+    minor, to the dimension's entry): each position folds its slice of
+    every member's partial in ascending position."""
+    axes = tuple(a for a in axes if a)
+    dim = _dim(x, dim)
+    n = _size(x.mesh, axes)
+    full = x.entry(dim) + axes
+    spec = _set_entry(x.spec, dim, full)
+    if n == 1:                              # one term: the sum itself
+        return Sharded(x.mesh, spec, x.pieces)
+    step = x.first.shape[dim] // n
+    out = {}
+    for pos in x.pieces:
+        dev = x.mesh.devices[pos]
+        k = coord(x.mesh, pos, axes)
+        out[pos] = _fold([_recv(x.pieces[q].narrow(dim, k * step, step), q,
+                                pos, dev)
+                          for q in group(x.mesh, pos, axes)])
+    y = Sharded(x.mesh, spec, out)
+    _record("reduce-scatter", x, y.first, axes)
+    return y
+
+
+def all_to_all(x: Sharded, split_dim: int, concat_dim: int) -> Sharded:
+    """Move the axes that split ``concat_dim`` onto ``split_dim`` (added,
+    minor, to its entry): the position at index j along those axes takes
+    slice j of ``split_dim`` from every member and concatenates them along
+    ``concat_dim`` in position order.  The exchange of the EP dispatch,
+    the turn from a hidden dimension split to a sequence split."""
+    split_dim, concat_dim = _dim(x, split_dim), _dim(x, concat_dim)
+    axes = x.entry(concat_dim)
+    n = _size(x.mesh, axes)
+    spec = _set_entry(_set_entry(x.spec, concat_dim, ()), split_dim,
+                      x.entry(split_dim) + axes)
+    if n == 1:                              # nothing to exchange
+        return Sharded(x.mesh, spec, x.pieces)
+    step = x.first.shape[split_dim] // n
+    out = {}
+    for pos in x.pieces:
+        dev = x.mesh.devices[pos]
+        k = coord(x.mesh, pos, axes)
+        out[pos] = torch.cat([_recv(x.pieces[q].narrow(split_dim, k * step,
+                                                       step), q, pos, dev)
+                              for q in group(x.mesh, pos, axes)],
+                             concat_dim)
+    y = Sharded(x.mesh, spec, out)
+    _record("all-to-all", x, y.first, axes)
+    return y
+
+
+def broadcast(x: Sharded, axes, src: int = 0) -> Sharded:
+    """Every position takes the piece of the member at index ``src`` of
+    its group along ``axes`` (a copy, the source's own included)."""
+    axes = tuple(a for a in axes if a)
+    if _size(x.mesh, axes) == 1:
+        return x
+    out = {}
+    for pos in x.pieces:
+        q = group(x.mesh, pos, axes)[src]
+        out[pos] = _recv(x.pieces[q], q, pos,
+                         x.mesh.devices[pos]).clone()
+    y = Sharded(x.mesh, x.spec, out)
+    _record("collective-permute", x, y.first, axes)
+    return y
+
+
+def relayout(x: Sharded, spec) -> Sharded:
+    """``x`` under ``spec`` (``own_spec``'s rule for uneven dimensions), in
+    three steps: a dimension whose axes are needed neither there nor on a
+    dimension no axis splits yet is gathered whole; an axis set that
+    leaves one dimension for another moves by ``all_to_all``; a dimension
+    that gains axes (minor to the ones it keeps) is sliced where it lies,
+    which moves nothing.  The FSDP gather of a weight over ``data`` is
+    the first step, the turn of a hidden dimension split into a sequence
+    split the second."""
+    want = own_spec(spec, x.shape, x.mesh)
+    need = [tuple(e if isinstance(e, tuple) else ((e,) if e else ()))
+            for e in want]
+
+    def have() -> list[tuple]:
+        return [x.entry(d) for d in range(x.ndim)]
+
+    def mover(d: int, cur: list) -> int | None:
+        for e in range(x.ndim):
+            if e != d and need[e] == cur[d] and not cur[e]:
+                return e
+        return None
+
+    cur = have()
+    for d in range(x.ndim):
+        if cur[d] and need[d][:len(cur[d])] != cur[d] and \
+                mover(d, cur) is None:
+            x = all_gather(x, d)
+            cur = have()
+    for d in range(x.ndim):
+        if cur[d] and need[d][:len(cur[d])] != cur[d]:
+            x = all_to_all(x, mover(d, cur), d)
+            cur = have()
+    for d in range(x.ndim):
+        add = need[d][len(cur[d]):]
+        if add:
+            step = x.first.shape[d] // _size(x.mesh, add)
+            x = x.map(lambda pos, t, d=d, add=add, step=step: t.narrow(
+                d, coord(x.mesh, pos, add) * step, step),
+                spec=_set_entry(x.spec, d, need[d]))
+    return x
+
+
+def gather_to(x: Sharded, device) -> torch.Tensor:
+    """The whole value on ``device`` (the controller's read-back): each
+    dimension's pieces concatenated in position order, one piece a slice
+    (replicated copies read once)."""
+    mesh = x.mesh
+    # the pieces of distinct slices: the positions at index 0 along every
+    # axis that splits nothing
+    split = [a for d in range(x.ndim) for a in x.entry(d)]
+    keep = [q for q in x.pieces
+            if all(q[mesh.axis_names.index(a)] == 0
+                   for a in mesh.axis_names if a not in split)]
+
+    def build(dim: int, chosen: list[tuple]) -> torch.Tensor:
+        if dim == x.ndim:
+            return x.pieces[chosen[0]].to(device)
+        axes = x.entry(dim)
+        if not axes:
+            return build(dim + 1, chosen)
+        n = _size(mesh, axes)
+        return torch.cat([build(dim + 1, [q for q in chosen
+                                          if coord(mesh, q, axes) == k])
+                          for k in range(n)], dim)
+
+    return build(0, keep)

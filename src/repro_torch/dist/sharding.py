@@ -29,17 +29,21 @@ refuse it (the reference's read only ``data`` and ``model`` and would
 silently replicate over ``pod``).
 
 The LM (``ShardingPlan``, ``make_plan``, ``param_specs``, ``batch_specs``,
-``cache_specs``, ``tree_named``) runs on a mesh of positions on ONE
-physical device: parameters, caches and activations are held once there,
-the specs are data that ``models/layers.shard`` checks as the reference's
-constraint checks them, and what a mesh changes in the results (the MoE's
-per-block dispatch and expert exchange, the EP decode's per-shard sum, the
+``cache_specs``, ``tree_named``) runs in one of two ways.  A plan that is
+HELD ONCE (the default on a mesh of positions on one device) keeps
+parameters, caches and activations once on that device: the specs are
+data that ``models/layers.shard`` checks as the reference's constraint
+checks them, and what a mesh changes in the results (the MoE's per-block
+dispatch and expert exchange, the EP decode's per-shard sum, the
 cross-pod gradient compression) runs block by block in the layers and the
-trainer.  An LM mesh over distinct cards raises ``NotImplementedError``
-(ROADMAP queue 1 item 13g).  ``P`` is the port's PartitionSpec: a tuple
-of entries, each None, an axis name or a tuple of names; the spec
-functions accept any object with ``.shape`` and ``.axis_names``, as the
-reference's do (``docs/torch_lm_mesh.md``).
+trainer.  A plan whose positions OWN THEIR SHARDS (``own_shards=True``,
+the default over distinct devices) holds every value as a ``Sharded``:
+one piece a position, the ``devices_indices_map`` slice of the value on
+that position's device, exchanged only through ``dist/collectives.py``
+(``models/positions.py`` runs the LM's prefill and decode so).  ``P`` is
+the port's PartitionSpec: a tuple of entries, each None, an axis name or
+a tuple of names; the spec functions accept any object with ``.shape``
+and ``.axis_names``, as the reference's do (``docs/torch_lm_mesh.md``).
 """
 
 from __future__ import annotations
@@ -56,13 +60,17 @@ from repro_torch.train.tree import tree_map, tree_map_with_path
 __all__ = ["Mesh", "ForestShardingPlan", "make_forest_plan", "physical",
            "replica", "P", "NamedSharding", "ShardingPlan", "make_plan",
            "lm_device", "param_specs", "batch_specs", "cache_specs",
-           "tree_named"]
+           "tree_named", "Sharded", "own_spec", "place_tree",
+           "shard_params", "shard_caches", "zeros_sharded", "group",
+           "distinct_devices"]
 
 #: the mesh axes: ``pod`` (the LM's cross-pod data axis), ``data``, ``model``
 AXES = ("pod", "data", "model")
 
-#: the ROADMAP item an LM mesh over distinct cards waits for
-DISTINCT_CARDS_ITEM = "13g"
+#: the ROADMAP items what an own-shards plan does not run yet waits for:
+#: training, checkpoints and restore; the SSD, hybrid and enc-dec families
+TRAIN_ITEM = "13h"
+FAMILIES_ITEM = "13i"
 
 
 def physical(device: torch.device | str) -> torch.device:
@@ -287,17 +295,166 @@ def check_spec(spec: P, ndim: int, mesh) -> None:
             used.append(a)
 
 
+def distinct_devices(mesh) -> bool:
+    """Whether a port ``Mesh``'s positions stand on more than one device
+    (any other mesh-like object: False)."""
+    return isinstance(mesh, Mesh) and len(mesh.physical_devices()) > 1
+
+
 def lm_device(mesh) -> torch.device:
-    """The one physical device an LM mesh's positions stand on.  Positions
-    over distinct cards raise ``NotImplementedError``: they need real
-    collectives (ROADMAP queue 1 item 13g)."""
+    """The one physical device a held-once plan's positions stand on.
+    Positions over distinct devices raise ``ValueError``: only a plan
+    whose positions own their shards spans them (``make_plan(...,
+    own_shards=True)``, the default there)."""
     devs = mesh.physical_devices()
     if len(devs) != 1:
-        raise NotImplementedError(
-            f"the LM over distinct cards ({[str(d) for d in devs]}) is "
-            f"ROADMAP queue 1 item {DISTINCT_CARDS_ITEM}, not ported yet; "
-            f"place every position on one device")
+        raise ValueError(
+            f"a held-once LM plan stands on one device, not "
+            f"{[str(d) for d in devs]}; over distinct devices every "
+            f"position owns its shards (make_plan(..., own_shards=True))")
     return devs[0]
+
+
+def refuse_training(what: str) -> None:
+    """Raise the refusal of ``what`` (a training or restore call) on
+    positions that own their shards."""
+    raise NotImplementedError(
+        f"{what} over positions that own their shards is ROADMAP queue 1 "
+        f"item {TRAIN_ITEM}, not ported yet; train on a held-once plan")
+
+
+# -- values whose positions own their shards ---------------------------------
+
+def _axes_size(mesh, axes) -> int:
+    return int(np.prod([int(mesh.shape[a]) for a in axes] or [1]))
+
+
+def own_spec(spec, shape, mesh) -> P:
+    """The spec a value of ``shape`` is held under when its positions own
+    their shards: ``spec`` padded with None to the rank, after
+    ``check_spec``'s checks, and every entry whose axes do not divide its
+    dimension evenly dropped, so that the dimension is replicated over
+    them (the uneven-split rule: a B = 1 batch over ``data`` = 2 is held
+    whole at both data positions, where the reference's ``jit`` pads it;
+    the values are the same)."""
+    shape = tuple(int(n) for n in shape)
+    check_spec(spec, len(shape), mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return P(*(e if e is not None and n % _axes_size(mesh, _entry_axes(e))
+               == 0 else None for n, e in zip(shape, spec)))
+
+
+def group(mesh, pos: tuple, axes) -> list[tuple]:
+    """The positions that differ from ``pos`` only along ``axes``, in the
+    order of their index over ``axes`` (the first axis major): the members
+    of one collective, and the order every fold over them takes."""
+    names = tuple(mesh.axis_names)
+    dims = [names.index(a) for a in axes]
+    out = []
+    for k in np.ndindex(*[mesh.devices.shape[d] for d in dims]):
+        q = list(pos)
+        for d, i in zip(dims, k):
+            q[d] = int(i)
+        out.append(tuple(q))
+    return out
+
+
+def coord(mesh, pos: tuple, axes) -> int:
+    """``pos``'s index over ``axes`` (the first axis major)."""
+    names = tuple(mesh.axis_names)
+    k = 0
+    for a in axes:
+        k = k * int(mesh.shape[a]) + pos[names.index(a)]
+    return k
+
+
+class Sharded:
+    """A value held by the positions of ``mesh``, each position owning its
+    piece: ``pieces[pos]`` (``pos`` a grid index, in ``np.ndindex`` order)
+    is the ``devices_indices_map`` slice of the whole value under ``spec``
+    (``own_spec``'s: full rank, every entry dividing its dimension), on
+    that position's device.  No whole copy of a sharded dimension exists
+    anywhere; pieces cross positions only through ``dist/collectives``."""
+
+    __slots__ = ("mesh", "spec", "pieces")
+
+    def __init__(self, mesh, spec, pieces: dict):
+        self.mesh = mesh
+        self.spec = P(*spec)
+        self.pieces = pieces
+
+    @property
+    def first(self) -> torch.Tensor:
+        return next(iter(self.pieces.values()))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.first.dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.first.ndim
+
+    def entry(self, dim: int) -> tuple[str, ...]:
+        """The axes that split dimension ``dim``."""
+        return _entry_axes(self.spec[dim])
+
+    def parts(self, dim: int) -> int:
+        return _axes_size(self.mesh, self.entry(dim))
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """The whole value's shape."""
+        return tuple(n * self.parts(d) for d, n in enumerate(self.first.shape))
+
+    def offset(self, pos: tuple, dim: int) -> int:
+        """Where ``pos``'s piece starts along ``dim`` in the whole value."""
+        return coord(self.mesh, pos, self.entry(dim)) * \
+            self.pieces[pos].shape[dim]
+
+    def map(self, fn, spec=None) -> "Sharded":
+        """``fn(pos, piece)`` at every position: a position's own work on
+        its own piece, under ``spec`` (default: this one's)."""
+        return Sharded(self.mesh, self.spec if spec is None else spec,
+                       {q: fn(q, t) for q, t in self.pieces.items()})
+
+    def __repr__(self) -> str:
+        return (f"Sharded({tuple(self.shape)}, {self.spec!r}, "
+                f"{len(self.pieces)} pieces of {tuple(self.first.shape)})")
+
+
+def _piece_index(mesh, spec: P, shape, pos: tuple) -> tuple:
+    idx = []
+    for dim, entry in zip(shape, spec):
+        axes = _entry_axes(entry)
+        step = dim // _axes_size(mesh, axes)
+        k = coord(mesh, pos, axes)
+        idx.append(slice(k * step, (k + 1) * step))
+    return tuple(idx)
+
+
+def shard_tensor(t: torch.Tensor, mesh, spec) -> Sharded:
+    """``t`` cut by ``own_spec(spec)``: each position a copy of its slice
+    on its own device (a replicated dimension copied whole to each)."""
+    spec = own_spec(spec, t.shape, mesh)
+    pieces = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        pos = tuple(int(i) for i in pos)
+        sl = t[_piece_index(mesh, spec, t.shape, pos)]
+        pieces[pos] = sl.to(device=mesh.devices[pos], copy=True)
+    return Sharded(mesh, spec, pieces)
+
+
+def zeros_sharded(shape, dtype, mesh, spec) -> Sharded:
+    """Zeros of ``shape`` held as pieces by ``own_spec(spec)``, each
+    allocated on its position's device (no whole value is made)."""
+    spec = own_spec(spec, shape, mesh)
+    local = tuple(int(n) // _axes_size(mesh, _entry_axes(e))
+                  for n, e in zip(shape, spec))
+    return Sharded(mesh, spec, {
+        tuple(int(i) for i in pos): torch.zeros(local, dtype=dtype,
+                                                device=mesh.devices[pos])
+        for pos in np.ndindex(*mesh.devices.shape)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,8 +462,9 @@ class NamedSharding:
     """A placement: ``spec`` over ``mesh``.  ``devices_indices_map`` says
     which index slices each position holds, as jax's
     ``NamedSharding.devices_indices_map`` does, keyed by the position's
-    index in the grid; ``place`` puts a tensor on the mesh's one device,
-    held once for every position."""
+    index in the grid.  ``place`` puts a tensor on the mesh's one device,
+    held once for every position; over a mesh of distinct devices it
+    returns a ``Sharded``, each position its own slice."""
 
     mesh: Any
     spec: P
@@ -354,9 +512,12 @@ class NamedSharding:
             out[tuple(int(i) for i in pos)] = tuple(idx)
         return out
 
-    def place(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` on the mesh's device (itself where it lies), after the
-        checks a placement makes of its shape (no index map is built)."""
+    def place(self, t: torch.Tensor):
+        """On one device: ``t`` there (itself where it lies), held once,
+        after the checks a placement makes of its shape (no index map is
+        built).  Over distinct devices: ``shard_tensor``, a ``Sharded``."""
+        if distinct_devices(self.mesh):
+            return shard_tensor(t, self.mesh, self.spec)
         self._parts(t.shape)
         dev = lm_device(self.mesh)
         return t if physical(t.device) == dev else t.to(dev)
@@ -378,6 +539,7 @@ class ShardingPlan:
     kv_ctx: P = P()                  # full-context K/V       [B, Sk, KV, dh]
     decode_cache: P = P()            # decode-time K/V cache  [B, Sc, KV, dh]
     ssm_state: P = P()               # SSD recurrent state    [B, H, P, N]
+    own_shards: bool = False         # positions hold their own pieces
 
     def block_counts(self) -> tuple[int, int]:
         """(data blocks: the product of the data axes, model blocks)."""
@@ -392,18 +554,35 @@ def _data_entry(data_axes: tuple):
     return data_axes[0] if len(data_axes) == 1 else data_axes
 
 
-def make_plan(cfg, mesh, decode_batch: int | None = None) -> ShardingPlan:
+def make_plan(cfg, mesh, decode_batch: int | None = None, *,
+              own_shards: bool | None = None) -> ShardingPlan:
     """The plan for ``cfg`` on ``mesh`` (the reference's rules): head
     tensor parallelism (``tp``) when both head counts divide the model
     axis, else context parallelism (``cp``); decode replicates a batch
     smaller than the data axes (``decode_batch``) and shards the cache's
     sequence over every axis; SSD heads over ``model`` when they divide.
     No mesh (or one without axes) gives the mesh-less plan; ``mesh`` may be
-    any object with ``.shape`` / ``.axis_names``, and a port ``Mesh`` over
-    distinct cards raises (``lm_device``)."""
+    any object with ``.shape`` / ``.axis_names``.
+
+    ``own_shards``: whether every position holds its own pieces (a port
+    ``Mesh`` only).  None means: over distinct devices yes, on a mesh of
+    positions on one device no (held once); True asks for own shards on
+    repeated positions too.  An own-shards plan serves the dense and MoE
+    decoder-only families; the SSD, hybrid and enc-dec families raise
+    ``NotImplementedError`` naming ROADMAP item 13i."""
     if mesh is None or not getattr(mesh, "axis_names", ()):
         return ShardingPlan()
-    if isinstance(mesh, Mesh):
+    own = distinct_devices(mesh) if own_shards is None else bool(own_shards)
+    if own:
+        if not isinstance(mesh, Mesh):
+            raise ValueError("positions own their shards only on a port "
+                             "Mesh")
+        if cfg.ssm_layers or cfg.shared_attn_every or cfg.encoder_layers:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}) over positions that own their "
+                f"shards is ROADMAP queue 1 item {FAMILIES_ITEM}, not ported "
+                f"yet; serve it on a held-once plan")
+    elif isinstance(mesh, Mesh):
         lm_device(mesh)
     axis_names = tuple(mesh.axis_names)
     model = "model" if "model" in axis_names else None
@@ -447,7 +626,7 @@ def make_plan(cfg, mesh, decode_batch: int | None = None) -> ShardingPlan:
         mesh=mesh, attn_mode=attn_mode, data_axes=data_axes,
         model_axis=model, hidden=hidden, decode_hidden=decode_hidden,
         qkv=qkv, kv_ctx=kv_ctx, decode_cache=decode_cache,
-        ssm_state=ssm_state)
+        ssm_state=ssm_state, own_shards=own)
 
 
 def _shape(leaf) -> tuple:
@@ -525,3 +704,23 @@ def cache_specs(caches, plan: ShardingPlan):
 def tree_named(mesh, spec_tree):
     """Spec tree -> tree of placements (``NamedSharding``)."""
     return tree_map(lambda s: NamedSharding(mesh, s), spec_tree)
+
+
+def place_tree(tree, spec_tree, mesh):
+    """Every leaf of ``tree`` cut by its spec into pieces that the mesh's
+    positions own (``shard_tensor``); a ``Sharded`` leaf stays as it is."""
+    return tree_map(lambda s, t: t if isinstance(t, Sharded)
+                    else shard_tensor(t, mesh, s), spec_tree, tree)
+
+
+def shard_params(params, splan: ShardingPlan):
+    """A parameter tree placed by ``param_specs`` over the plan's mesh,
+    each position owning its pieces (FSDP over ``data``, the last dim over
+    ``model``, the MoE experts over ``model``)."""
+    return place_tree(params, param_specs(params, splan.mesh), splan.mesh)
+
+
+def shard_caches(caches, splan: ShardingPlan):
+    """A decode-cache tree placed by ``cache_specs``: K/V by
+    ``decode_cache``, the ``index`` replicated (one copy a position)."""
+    return place_tree(caches, cache_specs(caches, splan), splan.mesh)

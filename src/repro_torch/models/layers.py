@@ -498,6 +498,45 @@ def _ep_blocks(splan, x: torch.Tensor) -> tuple[int, int]:
     return n_data, n_model
 
 
+def _dispatch(p: Params, tokens: torch.Tensor, capacity: int):
+    """Route blocks of tokens ``[nb, t, D]`` each on its own (top-1, each
+    token's place in its expert the running count of its block's earlier
+    tokens routed there) and scatter each block's kept tokens into its
+    ``[E, C, D]`` buffer, ``C = capacity`` (a token past it goes to the dump
+    row ``E * C``, which is cut off).  Returns (buf ``[nb, E, C, D]``,
+    expert index ``[nb, t]``, keep, slot, gate)."""
+    nb, t, D = tokens.shape
+    E, C = p["router"].shape[1], capacity
+    _, probs, gate = _route(p, tokens)
+    eidx = probs.argmax(dim=-1)                               # [nb, t]
+    # one-hot as a comparison: F.one_hot dispatches other ops on each
+    # device (a value check on the CPU, a scatter on CUDA), this the same
+    onehot = (eidx[..., None] == torch.arange(E, device=tokens.device)).to(
+        torch.int32)
+    pos = torch.gather(torch.cumsum(onehot, 1) - 1, 2,
+                       eidx[..., None])[..., 0]
+    keep = pos < C
+    slot = torch.where(keep, eidx * C + pos, E * C)
+    bix = torch.arange(nb, device=tokens.device)[:, None]
+    buf = torch.zeros((nb, E * C + 1, D), dtype=tokens.dtype,
+                      device=tokens.device)
+    buf[bix, slot] = torch.where(keep[..., None], tokens, 0)
+    return buf[:, :-1].reshape(nb, E, C, D), eidx, keep, slot, gate
+
+
+def _combine(y: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
+             keep: torch.Tensor) -> torch.Tensor:
+    """Each block's expert rows ``y [nb, E, C, D]`` back to its tokens
+    (``_dispatch``'s slots), weighted by the gate; a dropped token gets 0.
+    Returns ``[nb, t, D]``."""
+    nb, E, C, D = y.shape
+    y = torch.cat([y.reshape(nb, E * C, D),
+                   torch.zeros((nb, 1, D), dtype=y.dtype, device=y.device)],
+                  1)
+    bix = torch.arange(nb, device=y.device)[:, None]
+    return y[bix, slot] * (gate * keep)[..., None].to(y.dtype)
+
+
 def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
                         n_model: int, capacity: int):
     """The reference's ``_moe_dispatch_compute`` over every block at once:
@@ -506,18 +545,15 @@ def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
 
     x [B, S, D] is cut into ``n_data x n_model`` blocks (block (d, m) =
     rows d of B, columns m of S; ``[B, S]`` must divide).  Each block
-    routes its ``t = B/n_data * S/n_model`` tokens on its own: top-1, each
-    token's position in its expert the running count of the block's
-    earlier tokens routed there, ``capacity`` a block and expert.  The
-    blocks' ``[E, C, D]`` buffers then cross the model axis in the
-    ``all_to_all``'s order: within data block d, expert shard m (experts
+    routes its ``t = B/n_data * S/n_model`` tokens on its own
+    (``_dispatch``, ``capacity`` a block and expert).  The blocks'
+    ``[E, C, D]`` buffers then cross the model axis in the ``all_to_all``'s
+    order: within data block d, expert shard m (experts
     ``m*E/n .. (m+1)*E/n``) takes its experts' rows from every source
     block, ``[E/n, n * C, D]``; here every shard's rows of every data
     block are one batched product, a permutation of the block axes away
     from the positions' own.  The exchange back restores each source's
-    ``[E, C, D]``, whose rows go back to their tokens, weighted by the
-    gate (dropped tokens: 0: a token past ``capacity`` goes to the dump
-    row ``E * C``).
+    ``[E, C, D]``, whose rows go back to their tokens (``_combine``).
 
     Returns (out [B, S, D], expert index [blocks, t], keep [blocks, t]),
     the blocks in (d, m) order."""
@@ -525,24 +561,9 @@ def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
     E = p["router"].shape[1]
     nd, nm, C = n_data, n_model, capacity
     b, s = B // nd, S // nm
-    t = b * s
     blocks = x.reshape(nd, b, nm, s, D).permute(0, 2, 1, 3, 4)
-    tokens = blocks.reshape(nd * nm, t, D)                    # [nb, t, D]
-    _, probs, gate = _route(p, tokens)
-    eidx = probs.argmax(dim=-1)                               # [nb, t]
-    # one-hot as a comparison: F.one_hot dispatches other ops on each
-    # device (a value check on the CPU, a scatter on CUDA), this the same
-    onehot = (eidx[..., None] == torch.arange(E, device=x.device)).to(
-        torch.int32)
-    pos = torch.gather(torch.cumsum(onehot, 1) - 1, 2,
-                       eidx[..., None])[..., 0]
-    keep = pos < C
-    slot = torch.where(keep, eidx * C + pos, E * C)
-    bix = torch.arange(nd * nm, device=x.device)[:, None]
-    buf = torch.zeros((nd * nm, E * C + 1, D), dtype=x.dtype,
-                      device=x.device)
-    buf[bix, slot] = torch.where(keep[..., None], tokens, 0)
-    buf = buf[:, :-1]
+    buf, eidx, keep, slot, gate = _dispatch(
+        p, blocks.reshape(nd * nm, b * s, D), C)
     # the all_to_all: [d, src, dst, E/n, C, D] -> [dst, E/n, d, src, C, D]
     El = E // nm
     sent = buf.reshape(nd, nm, nm, El, C, D).permute(2, 3, 0, 1, 4, 5)
@@ -553,10 +574,7 @@ def moe_dispatch_blocks(p: Params, x: torch.Tensor, n_data: int,
     y = y.reshape(nm, El, nd, nm, C, D).permute(2, 3, 0, 1, 4, 5)
     if nm > 1:
         y = exchange(y, "all-to-all", group=nm, members=nd * nm)
-    y = torch.cat([y.reshape(nd * nm, E * C, D),
-                   torch.zeros((nd * nm, 1, D), dtype=y.dtype,
-                               device=y.device)], 1)
-    out = y[bix, slot] * (gate * keep)[..., None].to(y.dtype)
+    out = _combine(y.reshape(nd * nm, E, C, D), slot, gate, keep)
     out = out.reshape(nd, nm, b, s, D).permute(0, 2, 1, 3, 4)
     return out.reshape(B, S, D), eidx, keep
 
@@ -603,37 +621,52 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return out
 
 
-def _moe_decode_ep(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   splan) -> torch.Tensor:
-    """The reference's EP decode: every model position takes all tokens
-    (replicated over ``model``), routes them, runs its E/n local experts on
-    every token with the tokens routed elsewhere masked to 0, at the
-    operands' dtype, and the positions' outputs are summed in model order
-    (the ``psum``).  Tokens split over the data axes (``decode_hidden``'s
-    batch entry) must divide them evenly."""
-    B, S, D = x.shape
+def _ep_decode_blocks(splan, B: int) -> tuple[int, int]:
+    """(data blocks, model blocks) of the EP decode over a batch of ``B``:
+    a batch split over the data axes (``decode_hidden``'s batch entry)
+    must divide them evenly (``ValueError``)."""
     n_data, n = splan.block_counts()
     if splan.decode_hidden[0] is not None and B % n_data:
         raise ValueError(f"EP decode splits a batch of {B} over {n_data} "
                          f"data blocks; they must divide it evenly")
-    E = cfg.num_experts
-    El = E // n
+    return n_data, n
+
+
+def _ep_decode_shard(t: torch.Tensor, eidx: torch.Tensor, gate: torch.Tensor,
+                    wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor,
+                    m: int) -> torch.Tensor:
+    """Model position ``m``'s part of the EP decode: its local experts
+    (``wi`` / ``wg`` / ``wo``, ``[E/n, ...]``) on every token ``t [T, D]``
+    routed to ``eidx`` (the tokens routed elsewhere masked to 0), at the
+    operands' dtype, weighted by the gate.  Returns ``[T, D]``."""
+    El = wi.shape[0]
+    onehot = ((eidx - m * El)[:, None] == torch.arange(
+        El, device=t.device)).to(t.dtype)                  # [T, El]
+    # the reference's "td,edf->tef" as [El, T, F] products over the
+    # weights in place
+    h = torch.matmul(t, wi)
+    g = torch.matmul(t, wg)
+    y = torch.matmul(F.silu(g) * h, wo)                      # [El, T, D]
+    y = (y * onehot.T[..., None]).sum(dim=0)                 # [T, D]
+    return y * gate[:, None].to(y.dtype)
+
+
+def _moe_decode_ep(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   splan) -> torch.Tensor:
+    """The reference's EP decode: every model position takes all tokens
+    (replicated over ``model``), routes them, runs its E/n local experts on
+    every token (``_ep_decode_shard``), and the positions' outputs are
+    summed in model order (the ``psum``)."""
+    B, S, D = x.shape
+    n_data, n = _ep_decode_blocks(splan, B)
+    El = cfg.num_experts // n
     t = x.reshape(B * S, D)
-    logits = t.float() @ p["router"]
-    gate = torch.softmax(logits, dim=-1).amax(dim=-1)
+    logits, _, gate = _route(p, t)
     eidx = logits.argmax(dim=-1)
-    locals_ = torch.arange(El, device=x.device)
     out = None
     for m in range(n):
-        wi, wg, wo = (p[k][m * El:(m + 1) * El] for k in ("wi", "wg", "wo"))
-        onehot = ((eidx - m * El)[:, None] == locals_).to(t.dtype)  # [T, El]
-        # the reference's "td,edf->tef" as [El, T, F] products over the
-        # weights in place
-        h = torch.matmul(t, wi)
-        g = torch.matmul(t, wg)
-        y = torch.matmul(F.silu(g) * h, wo)                  # [El, T, D]
-        y = (y * onehot.T[..., None]).sum(dim=0)             # [T, D]
-        y = y * gate[:, None].to(y.dtype)
+        y = _ep_decode_shard(t, eidx, gate, *(
+            p[k][m * El:(m + 1) * El] for k in ("wi", "wg", "wo")), m)
         out = y if out is None else out + y
     # the psum over model: every position's [tokens on its data block, D]
     local = B * S // (n_data if splan.decode_hidden[0] is not None else 1)

@@ -23,7 +23,9 @@ cross-entropy, which never holds ``[B, S, V]`` logits), ``lm_prefill``
 (stacked caches, last-token logits) and ``lm_decode`` (one token against
 the caches, which it updates in place and returns; ``docs/torch_lm.md``).
 All take the reference's ``splan`` and pass it to every constraint point
-and MoE call the reference does (``docs/torch_lm_mesh.md``).
+and MoE call the reference does (``docs/torch_lm_mesh.md``); under a plan
+whose positions own their shards, prefill and decode run
+``models/positions.py`` and training is refused (ROADMAP item 13h).
 ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on ``cuda``
 unless ``device="cpu"`` is passed.
 """
@@ -42,8 +44,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan, make_plan
+from repro_torch.dist.sharding import (ShardingPlan, make_plan,
+                                       refuse_training)
 from repro_torch.models import layers as L
+from repro_torch.models import positions as PS
 from repro_torch.models import scanctl
 from repro_torch.models import ssd as S
 
@@ -429,6 +433,8 @@ def lm_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
               *, splan: ShardingPlan | None = None) -> torch.Tensor:
     """Train-mode backbone: tokens [B, S] -> normed hidden [B, S, D]."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        refuse_training("the LM's loss")
     B, Sq = tokens.shape
     h = L.shard(params["embed"][tokens], splan.hidden, splan.mesh)
     positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
@@ -448,8 +454,13 @@ def lm_prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                *, splan: ShardingPlan | None = None,
                ctx: int | None = None):
     """tokens [B, S] -> (last-token logits [B, Vp], caches).
-    ``ctx``: total cache positions (> S for decode appends; serving)."""
+    ``ctx``: total cache positions (> S for decode appends; serving).
+    Under a plan whose positions own their shards ``params`` is a tree of
+    ``Sharded`` (``dist/sharding.shard_params``), the logits come back to
+    ``tokens``' device and the caches are ``Sharded``."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        return PS.prefill(cfg, params, tokens, splan, ctx)
     B, Sq = tokens.shape
     h = L.shard(params["embed"][tokens], splan.hidden, splan.mesh)
     positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
@@ -468,6 +479,8 @@ def lm_decode(cfg: ModelConfig, params: Params, caches: Params,
     tensors of ``caches`` are updated in place and returned (with ``index +
     1``): a caller that needs the old caches clones them first."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        return PS.decode(cfg, params, caches, token, splan)
     h = L.shard(params["embed"][token], splan.decode_hidden, splan.mesh)
     h, new_caches = _backbone(cfg, params, h, splan, None, mode="decode",
                               caches=caches)

@@ -21,9 +21,17 @@ Where the reference's mechanics are JAX's, the port's are eager PyTorch:
 
 ``splan=make_plan(cfg, mesh, decode_batch=slots)`` serves through a mesh
 plan: every prefill and decode runs under it (the MoE's EP paths on a
-mesh whose ``model`` axis divides the experts), on the mesh's one device,
-which must be the engine's.  The engine prefills one request at a time
-(B = 1), so an EP model's serving mesh has ``data`` = 1.
+mesh whose ``model`` axis divides the experts).  A held-once plan runs on
+the mesh's one device, which must be the engine's.  Under a plan whose
+positions own their shards the engine's device is the controller (one of
+the mesh's devices): the parameters are placed by ``param_specs`` (a tree
+already placed is kept), the slot caches are allocated as pieces by
+``cache_specs``, a prefilled request is copied into the pieces that own
+its slot (every copy of a replicated piece, and every position's copy of
+the ``index`` vector), and a tick runs every position and reads back its
+next tokens and the index in one copy, as the held-once engine does.  The
+engine prefills one request at a time (B = 1), so an EP model's serving
+mesh has ``data`` = 1.
 
 The engine is per-pod and shares nothing but the process-global
 ``serve.queue_depth`` gauge, which the forest router reads.
@@ -41,9 +49,13 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (Mesh, ShardingPlan, lm_device,
-                                       make_plan, physical)
+from repro_torch.dist.sharding import (Mesh, P, Sharded, ShardingPlan,
+                                       cache_specs, lm_device, make_plan,
+                                       physical, shard_params, shard_tensor,
+                                       zeros_sharded)
 from repro_torch.models import lm as LM
+from repro_torch.models import positions as PS
+from repro_torch.train.tree import tree_map
 from repro_torch.models.registry import get_bundle
 from repro_torch.obs import METRICS, MetricsRegistry, TRACER
 from repro_torch.serve.router import (QUEUE_DEPTH_METRIC, TIER_BATCH,
@@ -101,26 +113,37 @@ class ServeEngine:
         if cfg.encoder_layers:
             raise ValueError("the engine serves decoder-only LMs")
         self.device = resolve_device(device)
-        params_device = _first_leaf(params).device
-        if physical(params_device) != physical(self.device):
-            raise ValueError(f"params lie on {params_device}, the engine "
-                             f"runs on {self.device}")
+        self.splan = splan or make_plan(cfg, None)
+        self.own = self.splan.own_shards
+        if self.own:
+            if physical(self.device) not in \
+                    self.splan.mesh.physical_devices():
+                raise ValueError(f"the engine's device {self.device} is "
+                                 f"none of the plan's mesh's")
+            params = shard_params(params, self.splan)
+        else:
+            params_device = _first_leaf(params).device
+            if physical(params_device) != physical(self.device):
+                raise ValueError(f"params lie on {params_device}, the "
+                                 f"engine runs on {self.device}")
         self.cfg = cfg
         self.params = params
         self.slots = slots
         self.max_ctx = max_ctx
         self.buckets = tuple(b for b in prompt_buckets if b < max_ctx)
-        self.splan = splan or make_plan(cfg, None)
-        if isinstance(self.splan.mesh, Mesh) and \
+        if not self.own and isinstance(self.splan.mesh, Mesh) and \
                 lm_device(self.splan.mesh) != physical(self.device):
             raise ValueError(f"the plan's mesh stands on "
                              f"{lm_device(self.splan.mesh)}, the engine "
                              f"runs on {self.device}")
         self.bundle = get_bundle(cfg)
-        self.caches = LM.init_caches(cfg, slots, max_ctx, dtype=dtype,
-                                     device=self.device)
-        self.caches["index"] = torch.zeros(slots, dtype=torch.int32,
-                                           device=self.device)
+        if self.own:
+            self.caches = self._own_caches(dtype)
+        else:
+            self.caches = LM.init_caches(cfg, slots, max_ctx, dtype=dtype,
+                                         device=self.device)
+            self.caches["index"] = torch.zeros(slots, dtype=torch.int32,
+                                               device=self.device)
         self._free = list(range(slots))
         self._active: dict[int, Request] = {}
         self._queue: deque[Request] = deque()
@@ -138,6 +161,44 @@ class ServeEngine:
         self._queue_wait_h = self.metrics.histogram("serve.queue_wait_s")
         self._e2e_h = self.metrics.histogram("serve.e2e_latency_s")
 
+    def _own_caches(self, dtype) -> Params:
+        """The slot caches as pieces by ``cache_specs``, each allocated on
+        its position's device, and the ``[slots]`` index replicated."""
+        mesh = self.splan.mesh
+        like = LM.init_caches(self.cfg, self.slots, self.max_ctx,
+                              dtype=dtype, device="meta")
+        like["index"] = torch.zeros(self.slots, dtype=torch.int32,
+                                    device="meta")
+        caches = tree_map(lambda spec, t: zeros_sharded(
+            t.shape, t.dtype, mesh, spec), cache_specs(like, self.splan),
+            like)
+        caches["index"] = shard_tensor(
+            torch.zeros(self.slots, dtype=torch.int32, device=self.device),
+            mesh, P())
+        return caches
+
+    def _insert_own(self, cache1, slot: int, length: int) -> None:
+        """``_insert_fn`` over pieces: each position that owns slot
+        ``slot`` copies row 0 of its own piece of the prefill's cache (the
+        same plan holds the same blocks of every other dimension, and a
+        one-row batch is held whole at every data position)."""
+        for name, small in cache1.items():
+            if name == "index":
+                continue
+            for leaf, src in small.items():
+                dst: Sharded = self.caches[name][leaf]
+                if tuple(src.spec)[2:] != tuple(dst.spec)[2:] or \
+                        src.parts(1) != 1:
+                    raise ValueError(f"a prefill cache under {src.spec!r} "
+                                     f"does not fit slots under "
+                                     f"{dst.spec!r}")
+                for pos, t in dst.pieces.items():
+                    lo = dst.offset(pos, 1)
+                    if lo <= slot < lo + t.shape[1]:
+                        t[:, slot - lo].copy_(src.pieces[pos][:, 0])
+        for t in self.caches["index"].pieces.values():
+            t[slot] = length
+
     # ------------------------------------------------------------------
     def _prefill_fn(self, params, tokens):
         """One left-padded prompt batch -> (logits, caches at max_ctx)."""
@@ -150,6 +211,10 @@ class ServeEngine:
         caches, in place: every leaf (K/V, the SSD conv window and its f32
         state) is ``[nB, B, ...]``, so the batch axis is 1, and the slot's
         whole previous cache is overwritten."""
+        if self.own:
+            self._insert_own(cache1, slot, length)
+            self._cur_tokens[slot, 0] = first_token
+            return
         for name, small in cache1.items():
             if name == "index":
                 continue
@@ -241,7 +306,9 @@ class ServeEngine:
             nxt = torch.argmax(logits, dim=-1)
             self._cur_tokens = nxt[:, None]
             # the next tokens and the [slots] index vector, in one copy
-            host = torch.cat([nxt, self.caches["index"].to(nxt.dtype)])
+            index = (PS.cache_index(self.caches, nxt.device) if self.own
+                     else self.caches["index"])
+            host = torch.cat([nxt, index.to(nxt.dtype)])
             host = host.cpu().numpy()
             nxt_np, idx_np = host[:self.slots], host[self.slots:]
         self.ticks += 1

@@ -18,7 +18,9 @@ reference-written one too, which the reference itself cannot restore).
 ``restore_checkpoint(mesh=)`` is the reference's reshard on restore: every
 leaf is placed by its ``param_specs`` spec over the CURRENT mesh (which may
 differ from the one that saved), on the mesh's one device
-(``dist/sharding.py``).
+(``dist/sharding.py``).  A mesh over distinct devices raises
+``NotImplementedError`` naming ROADMAP item 13h: a state held as pieces
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import NamedSharding, param_specs
+from repro_torch.dist.sharding import (NamedSharding, distinct_devices,
+                                       param_specs, refuse_training)
 from repro_torch.train.tree import tree_flatten_with_path
 
 Params = Any
@@ -98,6 +101,8 @@ def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
     with ``mesh`` placed by the leaf's ``param_specs`` spec over it.
     Returns (state, step).  A leaf of another shape raises ``ValueError``,
     a missing one ``KeyError``."""
+    if distinct_devices(mesh):
+        refuse_training("restore_checkpoint(mesh=) over distinct devices")
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")

@@ -26,6 +26,8 @@ cross-pod all-reduce.  ``jit_train_step(cfg, opt, mesh)`` places the state
 by ``param_specs`` / ``tree_named`` on the mesh's one device, in and out;
 it compiles nothing and donates nothing: eager PyTorch has no donation,
 and the step keeps its functional contract (``docs/torch_lm_mesh.md``).
+A plan whose positions own their shards (the default over distinct
+devices) raises ``NotImplementedError`` naming ROADMAP item 13h.
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed.  The
 dry-run's ``state_shapes`` is ``init_state`` on ``meta``: every leaf's
@@ -46,7 +48,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.compression import compress_grads_crosspod
 from repro_torch.dist.sharding import (ShardingPlan, make_plan, param_specs,
-                                       tree_named)
+                                       refuse_training, tree_named)
 from repro_torch.models.lm import params_from_arrays
 from repro_torch.models.registry import get_bundle
 from repro_torch.train.optimizer import Optimizer
@@ -145,6 +147,8 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     it is a no-op, as in the reference."""
     del vocab_chunk
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        refuse_training("make_train_step")
     compress = (grad_compress and splan.mesh is not None
                 and "pod" in splan.mesh.axis_names)
     bundle = get_bundle(cfg)
@@ -209,6 +213,8 @@ def jit_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None, **kw):
     shardings do, and donates nothing: the state it is given stays as it
     was."""
     splan = make_plan(cfg, mesh)
+    if splan.own_shards:
+        refuse_training("jit_train_step")
     step_fn = make_train_step(cfg, opt, splan, **kw)
     if mesh is None:
         return step_fn, splan

@@ -24,6 +24,7 @@ from repro_torch.core.forest import pad_trees
 from repro_torch.kernels.ops import FUSED_KERNEL_ALGORITHMS as TFUSED
 from repro_torch.kernels.ref import REFERENCES, ref_naive
 
+from conftest import random_forest_arrays
 from test_torch_forest import port_forest, ref_and_port
 
 BACKENDS = ["naive", "predicated", "compiled", "hummingbird", "quickscorer"]
@@ -128,6 +129,38 @@ def test_postprocess_matches_reference(rng, model_type, task):
     with pytest.raises(ValueError):
         tpost.postprocess(torch.from_numpy(summed), model_type="nope",
                           num_trees=1)
+
+
+@pytest.mark.parametrize("model_type,task", [
+    ("xgboost", "classification"), ("lightgbm", "regression"),
+    ("randomforest", "classification"), ("randomforest", "regression")])
+def test_predict_label_matches_reference(rng, model_type, task):
+    """Labels equal the reference's: ``p >= 0.5`` as int32 for
+    classification, ``p`` for regression (within 1e-6).  RandomForest's
+    mean may land 1 ulp off the reference's (ROADMAP queue 3, kept
+    divergence 1), which can flip a label only for a probability within
+    1 ulp of 0.5: the inputs are held away from it, and the test checks
+    that they are.  Leaves in [0, 1) put a RandomForest's mean on both
+    sides of 0.5, leaves in [-0.5, 0.5) a boosted sum's sigmoid."""
+    fe, th, dl, _ = random_forest_arrays(rng, T=6, depth=4, F=11, seed=32)
+    lv = np.random.default_rng(33).random((6, 16)).astype(np.float32)
+    if model_type != "randomforest":
+        lv -= np.float32(0.5)
+    jf = jmake_forest(fe, th, lv, default_left=dl, n_features=11,
+                      model_type=model_type, task=task)
+    tf = port_forest(jf)
+    x = np.random.default_rng(32).normal(size=(64, 11)).astype(np.float32)
+    p = np.asarray(jpost.predict_proba(jf, jnp.asarray(x)))
+    want = np.asarray(jpost.predict_label(jf, jnp.asarray(x)))
+    got = tpost.predict_label(tf, torch.from_numpy(x)).numpy()
+    if task == "classification":
+        assert np.abs(p - 0.5).min() > 1e-6
+        assert got.dtype == np.int32 == want.dtype
+        assert np.array_equal(got, want)
+        assert 0 < int(got.sum()) < got.size        # both labels occur
+    else:
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
 def test_predict_proba_matches_reference(rng):

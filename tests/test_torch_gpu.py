@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from repro_torch.core.forest import make_forest
+from repro_torch.core.reuse import ModelReuseCache
 from repro_torch.db.query import ForestQueryEngine
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.kernels.forest_hummingbird import (hummingbird_fused_plain,
@@ -287,7 +288,9 @@ def test_infer_rows_on_the_card_matches_cpu(plan, algorithm):
                           integer_leaves=True, device=device)
         forest = dataclasses.replace(forest, task="regression")
         mask = np.arange(32) < 27
-        engine = ForestQueryEngine(TensorBlockStore(device=device))
+        engine = ForestQueryEngine(TensorBlockStore(device=device),
+                                   reuse_cache=ModelReuseCache(),
+                                   plan_cache=ModelReuseCache())
         first = engine.infer_rows(forest, x, row_mask=mask,
                                   algorithm=algorithm, plan=plan)
         again = engine.infer_rows(forest, x, row_mask=mask,
@@ -1718,6 +1721,67 @@ def test_lm_mesh_train_step_on_cuda_is_the_twin_over_compressed_grads():
     assert torch.equal(m["loss"], loss.detach())
     for a, b in zip(_tree_leaves(new["params"]), _tree_leaves(want)):
         assert a.is_cuda and torch.equal(a, b)
+
+
+def _spmd_against_held_once(cfg, own_mesh, held_mesh):
+    """f32 prefill and two decode steps of ``cfg`` on an own-shards plan
+    over ``own_mesh`` and a held-once plan over ``held_mesh``, on the same
+    weights: (own logits, held-once logits) of each call."""
+    from repro_torch.dist.sharding import make_plan, shard_params
+    from repro_torch.models import get_bundle
+    from repro_torch.models import lm as LM
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        dtype=torch.float32)
+    held = make_plan(cfg, held_mesh, decode_batch=2)
+    own = make_plan(cfg, own_mesh, decode_batch=2, own_shards=True)
+    pieces = shard_params(params, own)
+    toks = torch.randint(0, cfg.vocab_size, (2, 18), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(1))
+    w, wc = LM.lm_prefill(cfg, params, toks[:, :16], splan=held, ctx=24)
+    g, gc = LM.lm_prefill(cfg, pieces, toks[:, :16], splan=own, ctx=24)
+    out = [(g, w)]
+    for i in range(2):
+        t = toks[:, 16 + i:17 + i]
+        w, wc = LM.lm_decode(cfg, params, wc, t, splan=held)
+        g, gc = LM.lm_decode(cfg, pieces, gc, t, splan=own)
+        out.append((g, w))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-7b"])
+def test_lm_spmd_on_card_positions_matches_held_once(arch):
+    """``chip_smoke.py`` phase 20 (a) at a reduced width whose MLP and
+    embedding are sharded (d_model 256): eight ``cuda:0`` positions that
+    own their pieces (olmo tp, qwen2 cp) against the held-once path on the
+    same mesh, f32 logits within 1e-4."""
+    _need_card()
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_position_mesh
+    cfg = reduced(get_config(arch), d_model=256, vocab=2048)
+    mesh = make_position_mesh((("data", 2), ("model", 4)), "cuda:0")
+    for g, w in _spmd_against_held_once(cfg, mesh, mesh):
+        assert g.is_cuda
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_lm_spmd_on_distinct_cards_matches_held_once():
+    """Phase 20 (d): the same olmo over distinct cards ``make_local_mesh(1,
+    n)``, each card's positions owning their pieces and exchanging them by
+    peer copies, against the held-once path on one card."""
+    _need_card()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_local_mesh, make_position_mesh
+    cfg = reduced(get_config("olmo-1b"), d_model=256, vocab=2048)
+    held = make_position_mesh((("data", 1), ("model", n)), "cuda:0")
+    for g, w in _spmd_against_held_once(cfg, make_local_mesh(1, n), held):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 # -- the dry-run's count on the card (launch/hlo_cost.py) -----------------------

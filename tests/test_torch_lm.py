@@ -24,9 +24,10 @@
   * the mesh entry points on a one-device mesh (the LM's plan and
     constraint points, and for the enc-dec family its training step and
     checkpoint restore; ``tests/test_torch_lm_mesh.py`` holds them against
-    the reference's), the refusal of what the port does not have yet (an
-    LM mesh over distinct cards, item 13g), and the in-place cache update
-    (a kept divergence, pinned below).
+    the reference's), the refusal of what the port does not have yet
+    (training and restore over positions that own their shards, item 13h;
+    the enc-dec family there, item 13i), and the in-place cache update (a
+    kept divergence, pinned below).
 """
 
 import dataclasses
@@ -53,8 +54,9 @@ KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["olmo-1b", "qwen2-7b", "yi-34b", "minitron-4b", "chameleon-34b"]
 #: what of a family still waits, by its ROADMAP queue 1 item: since the
-#: mesh landed, only a mesh over distinct cards
-UNPORTED = {"seamless-m4t-large-v2": "13g"}
+#: LM serves over positions that own their shards, the enc-dec family
+#: there
+UNPORTED = {"seamless-m4t-large-v2": "13i"}
 
 
 def _pair(arch: str, **changes):
@@ -528,8 +530,9 @@ def _cards_mesh() -> Mesh:
 def test_unported_families_are_refused(arch, tmp_path):
     """The family's bundle is its own (enc-dec: ``models/encdec.py``) and
     serves its entry points on the CPU.  On a one-device mesh its plan,
-    its training step and a restore run; a mesh over distinct cards is
-    refused, naming the item."""
+    its training step and a restore run; over distinct cards its plan and
+    training step are refused naming the family's item, and a restore
+    naming the training item (13h)."""
     from repro_torch.models import encdec as ED
     from repro_torch.train import checkpoint as K
     from repro_torch.train.data import batch_for
@@ -556,19 +559,22 @@ def test_unported_families_are_refused(arch, tmp_path):
     got, _ = K.restore_checkpoint(str(tmp_path), state, mesh=mesh)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(got), tree_leaves(new)))
-    for call in (lambda: make_plan(cfg, _cards_mesh()),
-                 lambda: jit_train_step(cfg, opt, _cards_mesh()),
-                 lambda: K.restore_checkpoint(str(tmp_path), state,
-                                              mesh=_cards_mesh())):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for call, want in ((lambda: make_plan(cfg, _cards_mesh()), item),
+                       (lambda: jit_train_step(cfg, opt, _cards_mesh()),
+                        item),
+                       (lambda: K.restore_checkpoint(
+                           str(tmp_path), state, mesh=_cards_mesh()),
+                        "13h")):
+        with pytest.raises(NotImplementedError, match=f"item {want}"):
             call()
 
 
 def test_unported_entry_points_are_refused():
     """The loss is ported (a finite scalar), and so is the mesh on one
     device: the plan, ``shard``'s checks, the placed train step and the
-    cross-pod compression's call site.  A mesh over distinct cards is
-    refused (item 13g)."""
+    cross-pod compression's call site.  Over distinct cards the plan's
+    positions own their shards, and training there is refused (item
+    13h)."""
     from repro_torch.dist.sharding import P
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
     from repro_torch.train.trainer import (init_state, jit_train_step,
@@ -600,8 +606,10 @@ def test_unported_entry_points_are_refused():
     assert float(mesh_m["loss"]) == float(plain["loss"]) == \
         float(pod_m["loss"])
     assert float(pod_m["gnorm"]) != float(plain["gnorm"])   # compressed
-    with pytest.raises(NotImplementedError, match="item 13g"):
-        make_plan(cfg, _cards_mesh())
+    own = make_plan(cfg, _cards_mesh())
+    assert own.own_shards and own.hidden == plan.hidden
+    with pytest.raises(NotImplementedError, match="item 13h"):
+        jit_train_step(cfg, opt, _cards_mesh())
     step_fn, splan = jit_train_step(cfg, opt, None)
     assert callable(step_fn) and splan == ShardingPlan()
     plan = make_plan(cfg, None)

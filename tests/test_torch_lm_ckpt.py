@@ -11,7 +11,7 @@ fault-tolerant loop (``repro_torch.train.fault``) on the CPU.
   * the atomic ``.tmp`` rename, ``latest_step`` skipping a ``.tmp``, a
     shape mismatch raising ``ValueError``, a missing leaf ``KeyError``,
     a restore onto the ``like`` leaf's dtype, a restore onto a one-device
-    mesh and one over distinct cards raising (item 13g);
+    mesh and one over distinct cards raising (item 13h);
   * the reference's ``tests/test_checkpoint.py`` claims on the port: a
     round trip, train 10 straight == train 5, restore, train 5, and a
     failure injected at step 7 recovered from step 5 to the same state,
@@ -179,14 +179,14 @@ def test_restore_refusals_and_casts(tmp_path):
     with pytest.raises(KeyError, match="checkpoint missing leaf y"):
         K.restore_checkpoint(str(tmp_path), {"y": torch.zeros(1)})
     # onto a one-device mesh: each leaf placed by its spec; a mesh over
-    # distinct cards is refused (item 13g)
+    # distinct cards is refused (item 13h: a state held as pieces)
     mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
     got, _ = K.restore_checkpoint(str(tmp_path), {"w": torch.ones((3, 3))},
                                   mesh=mesh)
     assert torch.equal(got["w"], torch.zeros((3, 3)))
     cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
                  ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 13g"):
+    with pytest.raises(NotImplementedError, match="item 13h"):
         K.restore_checkpoint(str(tmp_path), {"w": torch.zeros((3, 3))},
                              mesh=cards)
     got, _ = K.restore_checkpoint(

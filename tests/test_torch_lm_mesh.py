@@ -37,9 +37,13 @@ states cross by ``params_from_arrays`` / ``state_from_arrays``.
     ``restore_checkpoint(mesh=)`` of the reference's checkpoint bit for
     bit the reference's own reshard;
   * the port alone: ``shard``'s checks, an LM mesh over distinct cards
-    raising ``NotImplementedError`` naming item 13g, the production
-    meshes, the placed and undonated ``jit_train_step``, a serving engine
-    on a mesh plan against the single-request loop under that plan.
+    giving a plan whose positions own their shards, with training and
+    restore there raising ``NotImplementedError`` naming item 13h and the
+    SSD / hybrid / enc-dec families 13i, the production meshes, the
+    placed and undonated ``jit_train_step``, a serving engine on a mesh
+    plan against the single-request loop under that plan.  Serving over
+    own shards is ``tests/test_torch_lm_spmd.py``, which starts this file
+    as a script with the ``spmd`` part.
 """
 
 from __future__ import annotations
@@ -71,6 +75,8 @@ RUN_MESH = (("data", 2), ("model", 4))
 TRAIN_MESH = (("pod", 2), ("data", 2), ("model", 2))
 FWD_ARCHS = ["olmo-1b", "qwen2-7b", "mamba2-2.7b", "zamba2-2.7b",
              "seamless-m4t-large-v2"]
+#: the configs ``tests/test_torch_lm_spmd.py`` holds against the reference
+SPMD_ARCHS = ["olmo-1b", "qwen2-7b", SCOUT]
 B, S, CTX = 2, 16, 20
 ED_FRAMES, ED_TOKENS = 16, 4
 TRAIN_SHAPE = (64, 4)            # (seq, batch): the EP blocks divide
@@ -156,7 +162,9 @@ def _reference_main(out_path: str, part: str) -> None:
     (the specs, the placements, forward and decode of three configs, the
     pinned local-mesh defect), ``forward-moe`` (the other three, and
     llama4-scout's MoE layer) or one train step of ``olmo-1b`` or
-    ``SCOUT``.  The parts run as four processes at once."""
+    ``SCOUT``.  The parts run as four processes at once.  ``spmd`` is
+    the part ``tests/test_torch_lm_spmd.py`` starts: forward and decode of
+    olmo (tp), qwen2 (cp) and llama4-scout (EP), and the MoE layer."""
     import jax
     from jax.sharding import Mesh as JMesh
 
@@ -176,6 +184,8 @@ def _reference_main(out_path: str, part: str) -> None:
     elif part == "forward-moe":
         _reference_forward(out, key, run_mesh, None,
                            FWD_ARCHS[3:] + [SCOUT], seed=1)
+    elif part == "spmd":
+        _reference_forward(out, key, run_mesh, None, SPMD_ARCHS, seed=2)
     else:
         _reference_train(out, key, part, train_mesh,
                          os.path.join(os.path.dirname(out_path), "ckpt"))
@@ -425,7 +435,8 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.dist import compression as C  # noqa: E402
 from repro_torch.dist.sharding import (Mesh, NamedSharding, P,  # noqa: E402
                                        ShardingPlan, batch_specs,
-                                       cache_specs, make_plan, param_specs,
+                                       cache_specs, distinct_devices,
+                                       make_plan, param_specs,
                                        tree_named)
 from repro_torch.launch.mesh import (make_local_mesh,  # noqa: E402
                                      make_position_mesh,
@@ -561,22 +572,41 @@ def test_shard_checks_as_the_reference_constraint():
 
 
 def test_lm_mesh_over_distinct_cards_raises_13g(tmp_path):
-    """A fake two-card grid, checked without a card."""
+    """A fake two-card grid, checked without a card: its plan's positions
+    own their shards (ROADMAP item 13g's serving half), and what is not
+    ported over own shards yet raises naming its item: training and
+    restore 13h, the SSD / hybrid / enc-dec families 13i.  A held-once
+    plan cannot span the two cards."""
     cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
                  ("data", "model"))
     cfg = configs.reduced(configs.get_config("olmo-1b"))
     opt = make_optimizer(OptimizerConfig())
+    plan = make_plan(cfg, cards)
+    assert plan.own_shards and plan.mesh is cards
+    held = make_plan(cfg, make_position_mesh((("data", 1), ("model", 2)),
+                                             "cpu"))
+    assert dataclasses.replace(plan, mesh=held.mesh, own_shards=False) == \
+        held
+    assert distinct_devices(cards)
     K.save_checkpoint(str(tmp_path), {"w": torch.zeros(2)}, 1)
-    for call in (lambda: make_plan(cfg, cards),
-                 lambda: jit_train_step(cfg, opt, cards),
-                 lambda: NamedSharding(cards, P()).place(torch.zeros(1)),
+    for call in (lambda: jit_train_step(cfg, opt, cards),
+                 lambda: make_train_step(cfg, opt, plan),
+                 lambda: LM.lm_loss(cfg, {}, torch.zeros((1, 2)),
+                                    torch.zeros((1, 2)), splan=plan),
                  lambda: K.restore_checkpoint(str(tmp_path),
                                               {"w": torch.zeros(2)},
                                               mesh=cards)):
-        with pytest.raises(NotImplementedError, match="item 13g"):
+        with pytest.raises(NotImplementedError, match="item 13h"):
             call()
+    for arch in ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="item 13i"):
+            make_plan(configs.reduced(configs.get_config(arch)), cards)
+    with pytest.raises(ValueError, match="held-once"):
+        make_plan(cfg, cards, own_shards=False)
     one_card = Mesh([[torch.device("cuda", 0)] * 2], ("data", "model"))
     assert make_plan(cfg, one_card).mesh is one_card
+    assert not make_plan(cfg, one_card).own_shards
+    assert make_plan(cfg, one_card, own_shards=True).own_shards
 
 
 def test_production_meshes():

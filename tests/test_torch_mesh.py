@@ -207,7 +207,8 @@ def _engine(mesh, tier="device", x=None, **kw):
     if x is not None:
         store.put("dense", x, tier=tier)
         store.put_sparse("csr", x, tier=tier)
-    return ForestQueryEngine(store)
+    return ForestQueryEngine(store, reuse_cache=ModelReuseCache(),
+                             plan_cache=ModelReuseCache())
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from repro.obs import MetricsRegistry as JRegistry
 from repro.obs import Tracer as JTracer
 from repro.obs import names as jnames
 from repro_torch.db import loader
+from repro_torch.core.reuse import ModelReuseCache
 from repro_torch.db.executor import StreamingScanExecutor
 from repro_torch.db.operators import Operator, split_into_stages
 from repro_torch.db.query import ForestQueryEngine
@@ -335,7 +336,8 @@ def _stores(x, fmt: str):
             else:
                 s.put(tier, x, tier=tier)
     return (JEngine(jstore, reuse_cache=JCache(), plan_cache=JCache()),
-            ForestQueryEngine(store))
+            ForestQueryEngine(store, reuse_cache=ModelReuseCache(),
+                              plan_cache=ModelReuseCache()))
 
 
 @pytest.fixture(scope="module")

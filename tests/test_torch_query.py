@@ -15,7 +15,8 @@ from repro.core.forest import make_forest as jmake_forest
 from repro.core.reuse import ModelReuseCache as JCache
 from repro.db.query import ForestQueryEngine as JEngine
 from repro.db.store import TensorBlockStore as JStore
-from repro_torch.core.reuse import ModelReuseCache, mesh_signature
+from repro_torch.core.reuse import (GLOBAL_CACHE, GLOBAL_PLAN_CACHE,
+                                    ModelReuseCache, mesh_signature)
 from repro_torch.db.executor import MAX_IN_FLIGHT, StreamingScanExecutor
 from repro_torch.db.query import ForestQueryEngine
 from repro_torch.db.store import TensorBlockStore
@@ -49,8 +50,13 @@ def _forest(*, integer_leaves, seed=3, T=10, depth=5):
 
 
 def _port_engine(x, **kw):
+    """A store holding ``x`` as ``"t"`` and an engine over it, with caches
+    of its own unless ``kw`` passes some (the tests count its hits and
+    entries from empty caches)."""
     store = TensorBlockStore(device="cpu", default_page_rows=PAGE)
     store.put("t", x)
+    kw.setdefault("reuse_cache", ModelReuseCache())
+    kw.setdefault("plan_cache", ModelReuseCache())
     return store, ForestQueryEngine(store, **kw)
 
 
@@ -94,6 +100,33 @@ def test_repeated_query_hits_plan_cache_and_drop_sweeps():
     assert store.drop("t") == 1 and len(engine.plan_cache) == 0
     store.put("t", x)
     assert not engine.infer("t", tf, **kw).plan_reuse_hit
+
+
+@pytest.mark.parametrize("plan", ["udf", "rel+reuse"])
+def test_a_second_engine_reuses_the_first_ones_model_and_plan(plan):
+    """Engines built without caches share the process-global ones, in both
+    packages: over one store and forest, the second engine's first query
+    hits the model and the plan the first one built (the reference's
+    ``GLOBAL_CACHE`` / ``GLOBAL_PLAN_CACHE``; the port's on the CPU).  The
+    forest's leaves are drawn for this test alone, so the first engine's
+    first query misses."""
+    x = _rows(21)
+    jf = _forest(integer_leaves=False, seed=2100 + len(plan))
+    kw = dict(algorithm="predicated_pallas", plan=plan)
+    jstore = JStore(default_page_rows=PAGE)
+    jstore.put("t", x)
+    store = TensorBlockStore(device="cpu", default_page_rows=PAGE)
+    store.put("t", x)
+    tf = port_forest(jf)
+    for make, s, f in ((JEngine, jstore, jf), (ForestQueryEngine, store, tf)):
+        first, second = make(s), make(s)
+        a, b = first.infer("t", f, **kw), second.infer("t", f, **kw)
+        assert not a.plan_reuse_hit and b.plan_reuse_hit
+        assert b.reuse_hit and (plan == "udf" or not a.reuse_hit)
+        assert second.cache is first.cache
+        assert second.plan_cache is first.plan_cache
+    assert ForestQueryEngine(store).cache is GLOBAL_CACHE
+    assert ForestQueryEngine(store).plan_cache is GLOBAL_PLAN_CACHE
 
 
 def test_invalidate_sweeps_one_model():

@@ -18,6 +18,7 @@ import pytest
 from repro.core.reuse import ModelReuseCache as JCache
 from repro.db.query import ForestQueryEngine as JEngine
 from repro.db.store import TensorBlockStore as JStore
+from repro_torch.core.reuse import ModelReuseCache
 from repro_torch.db.query import ForestQueryEngine
 from repro_torch.db.store import TensorBlockStore
 
@@ -45,7 +46,8 @@ def test_rel_infer_matches_reference(plan, algorithm, n_parts,
     jengine = JEngine(jstore, reuse_cache=JCache(), plan_cache=JCache())
     store = TensorBlockStore(device="cpu", default_page_rows=PAGE)
     store.put("t", x)
-    engine = ForestQueryEngine(store)
+    engine = ForestQueryEngine(store, reuse_cache=ModelReuseCache(),
+                               plan_cache=ModelReuseCache())
     tf = port_forest(jf)
     kw = dict(algorithm=algorithm, plan=plan, n_parts=n_parts)
     wants = [jengine.infer("t", jf, **kw) for _ in range(2)]
