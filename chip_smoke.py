@@ -568,7 +568,14 @@ DRY_HILLCLIMB = ("llama4-scout-17b-a16e", "decode_32k")
 #: then phase 16's 8-layer cut served in bf16 on both engines, as (a);
 #: (c) LMS_ARCH_C cut to LMS_LAYERS_C layers on LMS_MESH_C (cp),
 #: f32 prefill and decode against held-once; (d) (a)'s f32 check on
-#: distinct cards when the machine has two or more
+#: distinct cards when the machine has two or more; (e) mamba2-2.7b
+#: (``cp``: no attention heads) and (f) zamba2-2.7b (``tp``) at full width
+#: on LMS_MESH_A: f32 as (a), then LMS_REQUESTS bf16 requests of
+#: LMS_FAM_PROMPT_LEN / LMS_FAM_NEW_TOKENS through both engines as (a),
+#: prefill timed at LMS_FAM_TIMED only; (g) seamless-m4t-large-v2 at full
+#: width on LMS_MESH_A: ``encdec_prefill`` of LMS_ED_CHECK[0] x
+#: DECODE_MEMORY_FRAMES seeded frames and LMS_ED_CHECK[1] decoder tokens,
+#: then LMS_ED_CHECK[2] decode steps, f32, against the held-once path
 LMS_MESH_A = (("data", 2), ("model", 4))
 LMS_MESH_B = (("data", 1), ("model", 4))
 LMS_MESH_C = (("data", 2), ("model", 8))
@@ -578,6 +585,11 @@ LMS_CHECK = (2, 64, 4)                 # batch, prefix, decode steps
 LMS_MOE_TOKENS = (2, 256)              # the MoE layer's [B, S]
 LMS_REQUESTS, LMS_PROMPT_LEN, LMS_NEW_TOKENS = 8, (32, 200), (8, 24)
 LMS_TIE_GAP = 0.125
+LMS_FAMILIES = ("mamba2-2.7b", "zamba2-2.7b")
+LMS_FAM_PROMPT_LEN, LMS_FAM_NEW_TOKENS = (32, 120), (4, 8)
+LMS_FAM_TIMED = (128,)                 # the buckets whose prefill is timed
+LMS_ED_CHECK = (2, 64, 4)              # batch, decoder prefix, decode steps
+LMS_F32_REQUESTS, LMS_F32_NEW = 2, 4   # (e) / (f)'s f32 engines
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -3260,9 +3272,11 @@ def lm_f32_checks(tag: str, cfg, params, *, batch: int, length: int,
 
 
 def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
-                    smi: str, splan=None, probe=None) -> dict:
+                    smi: str, splan=None, probe=None,
+                    timed=LM_BUCKETS) -> dict:
     """``ServeEngine(slots=LM_SLOTS, max_ctx=LM_MAX_CTX, LM_BUCKETS)`` on its
-    default bf16 caches (under ``splan`` when given): prefill ms a bucket,
+    default bf16 caches (under ``splan`` when given): prefill ms a bucket
+    of ``timed``,
     then ``script`` ([(prompt, max_new_tokens, priority)]) submitted at
     once and drained (stats, decode tick p50 / p99 beside the tick's byte
     bound, tokens/s, peak memory since the caller's reset), then a profile
@@ -3285,7 +3299,7 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
                      for name, c in engine.caches.items() if name != "index"
                      for leaf, t in c.items()})
     prefill_ms = {}
-    for b in LM_BUCKETS:
+    for b in timed:
         x = torch.randint(0, cfg.vocab_size, (1, b), device="cuda")
         walls = []
         for _ in range(4):                      # the first warms up
@@ -4704,15 +4718,16 @@ def dryrun_phase(*, smi: str) -> None:
         f"{smi}")
 
 
-def lms_script(cfg, seed: int) -> list:
+def lms_script(cfg, seed: int, prompt_len=LMS_PROMPT_LEN,
+               new_tokens=LMS_NEW_TOKENS) -> list:
     """Phase 20's serving script: (prompt, max_new_tokens, tier)."""
     from repro_torch.serve.router import TIER_BATCH
 
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(LMS_REQUESTS):
-        plen = int(rng.integers(LMS_PROMPT_LEN[0], LMS_PROMPT_LEN[1] + 1))
-        mnt = int(rng.integers(LMS_NEW_TOKENS[0], LMS_NEW_TOKENS[1] + 1))
+        plen = int(rng.integers(prompt_len[0], prompt_len[1] + 1))
+        mnt = int(rng.integers(new_tokens[0], new_tokens[1] + 1))
         out.append((rng.integers(0, cfg.vocab_size, plen), mnt, TIER_BATCH))
     return out
 
@@ -4858,7 +4873,7 @@ def lms_teacher(tag: str, cfg, params, mesh, *, seed: int,
             what = "prefill" if not i else f"decode step {i - 1}"
             raise AssertionError(f"{tag} own-shards {what}: max |err| "
                                  f"{errs[-1]:.3e}")
-    seq = gc_["p0"]["k"].spec
+    seq = ", ".join(f"{k} {t.spec}" for k, t in gc_["p0"].items())
     scale = max(float(w.abs().max()) for w in wants)
     del pieces, gc_, wants
     return (f"f32 {own.attn_mode} prefill {B} x {S} and {N} teacher-forced "
@@ -4874,7 +4889,7 @@ def lms_replay(cfg, params, splan, prompt, tokens: list) -> list:
     left-padded to its bucket, then one token a decode), teacher-forced
     on ``tokens``.  For the prefill and each decode: (the router logits
     of each MoE call, host f32 ``[tokens, E]``, in call order; the top
-    two LM logits and their ids)."""
+    two LM logits and their ids; all the LM logits, host f32)."""
     from repro_torch.models import layers as L
     from repro_torch.models import lm as LM
     from repro_torch.serve.engine import _bucket
@@ -4902,7 +4917,8 @@ def lms_replay(cfg, params, splan, prompt, tokens: list) -> list:
                     cfg, params, caches, torch.tensor([[t]], device="cuda"),
                     splan=splan)
             top = torch.topk(logits[0].float(), 2)
-            steps.append((list(calls), top.values.cpu(), top.indices.cpu()))
+            steps.append((list(calls), top.values.cpu(), top.indices.cpu(),
+                          logits[0].float().cpu()))
             calls.clear()
     finally:
         L._route = route
@@ -4916,7 +4932,7 @@ def lms_first_flip(held: list, own: list):
     call, token, the held-once router's top-two margin there), or None.
     The own-shards path routes each call once a position: a prefill's
     calls are its blocks, a decode's repeat the same tokens."""
-    for k, ((hc, _, _), (oc, _, _)) in enumerate(zip(held, own)):
+    for k, ((hc, *_), (oc, *_)) in enumerate(zip(held, own)):
         n = len(oc) // max(len(hc), 1)
         for j, h in enumerate(hc):
             o = torch.cat(oc[j * n:(j + 1) * n]) if k == 0 else oc[j * n]
@@ -4928,7 +4944,7 @@ def lms_first_flip(held: list, own: list):
 
 
 def lms_tokens_agree(tag: str, script, got: list, want: list, replay_held,
-                     replay_own=None) -> str:
+                     replay_own=None, replay_f32=None) -> str:
     """The own-shards engine's tokens against the held-once engine's: each
     request equal, or parting only at a near-tie.  Where request i parts
     at step k, ``replay_held(i, k)`` (and, for an MoE model,
@@ -4936,7 +4952,12 @@ def lms_tokens_agree(tag: str, script, got: list, want: list, replay_held,
     engine's tokens (``lms_replay``); the first argmax that differs
     between the replays, a route (``lms_first_flip``) or else the token at
     step k, must have the held-once replay's top two within LMS_TIE_GAP:
-    a bf16 rounding decided it, and all that follows it may differ."""
+    a bf16 rounding decided it, and all that follows it may differ.
+    ``replay_f32(i, k)`` (the held-once path over the same weights upcast
+    to f32, replayed as ``replay_held``) widens the token's limit to twice
+    the held-once bf16 replay's own largest logit error against it at
+    step k, where that is larger: each path's bf16 logits are that far
+    from the f32 ones, so a gap below it is a rounding's to decide."""
     equal, ties, flips = 0, [], []
     for i, ((prompt, _, _), g, w) in enumerate(zip(script, got, want)):
         if g == w:
@@ -4959,20 +4980,31 @@ def lms_tokens_agree(tag: str, script, got: list, want: list, replay_held,
             continue
         top2 = held[k][1]
         gap = float(top2[0] - top2[1])
-        if gap >= LMS_TIE_GAP:
+        limit, err = LMS_TIE_GAP, None
+        if replay_f32 is not None:
+            err = float((held[k][3] - replay_f32(i, k)[k][3]).abs().max())
+            limit = max(LMS_TIE_GAP, 2 * err)
+        if gap >= limit:
             raise AssertionError(f"{tag} request with prompt {len(prompt)}:"
                                  f" own-shards tokens {g} part from the "
                                  f"held-once engine's {w} at step {k}, where "
-                                 f"its top-two logits are {gap:.4f} apart")
-        ties.append((k, round(gap, 4)))
+                                 f"its top-two logits are {gap:.4f} apart "
+                                 f"(limit {limit:.4f})")
+        ties.append((k, round(gap, 4)) if err is None
+                    else (k, round(gap, 4), round(err, 4)))
     return (f"{equal} of {len(script)} requests token for token the "
             f"held-once engine's"
             + (f"; {len(ties)} part after a near-tie of the logits (step, "
-               f"top-two gap) {ties}" if ties else "")
+               f"top-two gap"
+               + (", the held-once bf16 replay's largest |logit - f32 "
+                  "logit| there; limit the larger of twice it and "
+                  f"{LMS_TIE_GAP}" if replay_f32 is not None else "")
+               + f") {ties}" if ties else "")
             + (f"; {len(flips)} part after a route near-tie (parting step, "
                f"then the first differing route's step, MoE call and the "
                f"held-once router's top-two gap) {flips}" if flips else "")
-            + f", every gap below {LMS_TIE_GAP}")
+            + (f", every gap below {LMS_TIE_GAP}" if replay_f32 is None
+               else ", every gap below its limit"))
 
 
 def lm_spmd_olmo(*, smi: str) -> None:
@@ -5202,12 +5234,245 @@ def lm_spmd_cp(*, smi: str) -> None:
     free_card()
 
 
+def lms_f32_engines(tag: str, cfg, params, mesh, script) -> str:
+    """Both engines in f32 through 2 slots on the first LMS_F32_REQUESTS
+    prompts of ``script`` (LMS_F32_NEW tokens each): the own-shards
+    engine's tokens equal to the held-once engine's up to a near-tie
+    under LMS_TIE_GAP (``lms_tokens_agree`` on the held-once f32
+    replay)."""
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.serve.engine import ServeEngine
+
+    reqs = [(prompt, LMS_F32_NEW, tier)
+            for prompt, _, tier in script[:LMS_F32_REQUESTS]]
+    tokens = {}
+    for own in (False, True):
+        engine = ServeEngine(
+            cfg, params, slots=2, max_ctx=LM_MAX_CTX, prompt_buckets=LM_BUCKETS,
+            splan=make_plan(cfg, mesh, decode_batch=2, own_shards=own),
+            dtype=torch.float32)
+        uids = [engine.submit(p, max_new_tokens=n, priority=t)
+                for p, n, t in reqs]
+        done = {r.uid: r.tokens for r in engine.run_until_drained()}
+        tokens[own] = [done[u] for u in uids]
+        del engine
+        free_card()
+    held = make_plan(cfg, mesh, decode_batch=2)
+    return lms_tokens_agree(
+        f"{tag} f32 engines", reqs, tokens[True], tokens[False],
+        lambda i, k: lms_replay(cfg, params, held, reqs[i][0],
+                                tokens[False][i][:k]))
+
+
+def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
+    """Phase 20 (e) / (f): an SSD or hybrid config at full width over own
+    shards, f32 against the held-once path (teacher-forced, and both
+    engines on two requests), then both bf16 engines."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import get_bundle
+    from repro_torch.train.tree import tree_map
+
+    tag = f"[lm-spmd] ({part}) {arch}"
+    cfg = get_config(arch)
+    mesh = make_position_mesh(LMS_MESH_A, "cuda:0")
+    held = make_plan(cfg, mesh, decode_batch=LM_SLOTS)
+    own = make_plan(cfg, mesh, decode_batch=LM_SLOTS, own_shards=True)
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(seed),
+        dtype=torch.float32)
+    log(f"{tag} at full width ({cfg.num_layers} layers, SSD d_inner "
+        f"{cfg.d_inner}, {cfg.ssm_heads} heads x {cfg.ssm_headdim}, state "
+        f"{cfg.ssm_state}"
+        + (f"; the shared block every {cfg.shared_attn_every}, {cfg.num_heads}"
+           f" heads, LoRA rank {cfg.shared_attn_lora_rank}"
+           if cfg.shared_attn_every else "")
+        + f") on (data 2, model 4), every position on cuda:0 with its own "
+        f"pieces; plan {own.attn_mode}, hidden {own.hidden}, ssm_state "
+        f"{own.ssm_state}: "
+        + lms_teacher(tag, cfg, params, mesh, seed=seed + 1) + f"; on {smi}")
+    script = lms_script(cfg, seed + 3, LMS_FAM_PROMPT_LEN, LMS_FAM_NEW_TOKENS)
+    log(f"{tag} f32 engines, own shards / held once, 2 slots: "
+        + lms_f32_engines(tag, cfg, params, mesh, script) + f"; on {smi}")
+    del params
+    free_card()
+
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(seed + 2))
+    torch.cuda.reset_peak_memory_stats()
+    twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
+                           seed=seed + 4, smi=smi, splan=held,
+                           timed=LMS_FAM_TIMED)
+    seen = {}
+
+    def probe(engine):
+        records, moved = lms_recorded(engine.step)
+        seen["tick"] = (lms_bytes(records), moved)
+        seen["resident"] = lms_resident(engine, tag)
+
+    torch.cuda.reset_peak_memory_stats()
+    mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
+                           seed=seed + 4, smi=smi, splan=own, probe=probe,
+                           timed=LMS_FAM_TIMED)
+    # a 64-layer random SSD stack turns bf16 roundings into logit
+    # differences of bf16's own size between any two summation orders
+    # (PERF.md §6), so a token's near-tie is measured against the
+    # held-once bf16 path's own error (its f32 replay on the same weights)
+    upcast = {}
+
+    def replay_f32(i, k):
+        if "params" not in upcast:
+            upcast["params"] = tree_map(lambda t: t.float(), params)
+        return lms_replay(cfg, upcast["params"], held, script[i][0],
+                          twin["tokens"][i][:k])
+
+    agree = lms_tokens_agree(
+        tag, script, mine["tokens"], twin["tokens"],
+        lambda i, k: lms_replay(cfg, params, held, script[i][0],
+                                twin["tokens"][i][:k]), replay_f32=replay_f32)
+    upcast.clear()
+    log(f"{tag} bf16 engines, own shards / held once: {agree}; decode tick "
+        f"p50 {mine['p50_ms']:.3f} / {twin['p50_ms']:.3f} ms, p99 "
+        f"{mine['p99_ms']:.3f} / {twin['p99_ms']:.3f} ms; kernels a tick "
+        f"{mine['kernels_tick']:.1f} / {twin['kernels_tick']:.1f}; busy "
+        f"{100 * mine['busy']:.1f} / {100 * twin['busy']:.1f} %; tokens/s "
+        f"{mine['tokens_s']:.1f} / {twin['tokens_s']:.1f}; peak memory "
+        f"{mine['peak_gb']:.3f} / {twin['peak_gb']:.3f} GB; on {smi}")
+    log(f"{tag} collectives a decode tick ({LM_SLOTS} slots busy): "
+        f"{seen['tick'][0]}; {seen['tick'][1] / 1e6:.3f} MB moved across "
+        f"positions; {seen['resident']}")
+    del params
+    free_card()
+
+
+def lms_tick_profile(step) -> tuple[int, float]:
+    """(kernels, device busy share of the wall) of one ``step()`` under a
+    CUDA-only profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    every, kernels, _ = device_intervals(prof)
+    return len(kernels), union_us(every) / wall_us
+
+
+def lm_spmd_encdec(*, seed: int, smi: str) -> None:
+    """Phase 20 (g): seamless-m4t-large-v2 at full width over own shards:
+    ``encdec_prefill`` on seeded frames and LMS_ED_CHECK decode steps in
+    f32 against the held-once path, then each path's decode tick."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import make_plan, shard_params
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import get_bundle
+
+    cfg = get_config("seamless-m4t-large-v2")
+    tag = f"[lm-spmd] (g) {cfg.name}"
+    mesh = make_position_mesh(LMS_MESH_A, "cuda:0")
+    B, S, N = LMS_ED_CHECK
+    frames_n = ED.DECODE_MEMORY_FRAMES
+    held = make_plan(cfg, mesh, decode_batch=B)
+    own = make_plan(cfg, mesh, decode_batch=B, own_shards=True)
+    params = get_bundle(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(seed),
+        dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    frames = torch.randn((B, frames_n, cfg.d_model), device="cuda",
+                         generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + N), device="cuda",
+                         generator=gen)
+
+    def run(p, splan):
+        """Prefill and N teacher-forced decode steps: (logits of each, the
+        caches, the prefill's wall, each decode's wall in ms)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = ED.encdec_prefill(cfg, p, frames, toks[:, :S],
+                                           splan=splan)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        outs, ticks = [logits], []
+        for i in range(N):
+            t0 = time.perf_counter()
+            logits, caches = ED.encdec_decode(cfg, p, caches,
+                                              toks[:, S + i:S + i + 1],
+                                              splan=splan)
+            torch.cuda.synchronize()
+            ticks.append(1e3 * (time.perf_counter() - t0))
+            outs.append(logits)
+        return outs, caches, prefill_s, ticks
+
+    last = toks[:, S + N - 1:S + N]
+    wants, wc, held_pre, held_ticks = run(params, held)
+    held_prof = lms_tick_profile(lambda: ED.encdec_decode(
+        cfg, params, wc, last, splan=held))
+    del wc
+    t0 = time.perf_counter()
+    pieces = shard_params(params, own)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    gots, gc_, own_pre, own_ticks = run(pieces, own)
+    errs = []
+    for i, (got, want) in enumerate(zip(gots, wants)):
+        errs.append(float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=LM_TOL, atol=LM_TOL):
+            what = "prefill" if not i else f"decode step {i - 1}"
+            raise AssertionError(f"{tag} own-shards {what}: max |err| "
+                                 f"{errs[-1]:.3e}")
+    scale = max(float(w.abs().max()) for w in wants)
+    rec, moved = lms_recorded(lambda: ED.encdec_decode(
+        cfg, pieces, gc_, last, splan=own))
+    own_prof = lms_tick_profile(lambda: ED.encdec_decode(
+        cfg, pieces, gc_, last, splan=own))
+    resident = lms_resident(SimpleNamespace(splan=own, params=pieces,
+                                            caches=gc_), tag)
+    specs = {k: gc_[k].spec for k in ("memory", "index")}
+    specs["self k"] = gc_["self"]["k"].spec
+    log(f"{tag} at full width ({cfg.encoder_layers} + {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads, vocab "
+        f"{cfg.vocab_padded}) on (data 2, model 4), every position on "
+        f"cuda:0 with its own pieces ({own.attn_mode}): encdec_prefill of "
+        f"{B} x {frames_n} seeded frames and {S} decoder tokens, then {N} "
+        f"teacher-forced decode steps, f32, within rtol = atol = {LM_TOL} "
+        f"of the held-once path on the same weights, max |err| prefill "
+        f"{errs[0]:.3e}, decode {max(errs[1:]):.3e} (logits up to "
+        f"{scale:.3f}); cache specs {specs}; placement {place_s:.3f} s; "
+        f"prefill own / held once {own_pre:.3f} / {held_pre:.3f} s (first "
+        f"call); decode tick p50 {np.median(own_ticks):.3f} / "
+        f"{np.median(held_ticks):.3f} ms, p99 "
+        f"{np.percentile(own_ticks, 99):.3f} / "
+        f"{np.percentile(held_ticks, 99):.3f} ms (of {N}, the first "
+        f"included); kernels a tick {own_prof[0]} / {held_prof[0]}; busy "
+        f"{100 * own_prof[1]:.1f} / {100 * held_prof[1]:.1f} %; on {smi}")
+    log(f"{tag} collectives a decode tick ({B} rows, the "
+        f"{frames_n}-frame memory): {lms_bytes(rec)}; {moved / 1e6:.3f} MB "
+        f"moved across positions; {resident}")
+    del params, pieces, gc_, wants, gots
+    free_card()
+
+
 def lm_spmd_phase(*, smi: str) -> None:
     """Phase 20: LM serving over positions that own their shards."""
     t_phase = time.perf_counter()
-    lm_spmd_olmo(smi=smi)
-    lm_spmd_ep(smi=smi)
-    lm_spmd_cp(smi=smi)
+    parts = (("a", lambda: lm_spmd_olmo(smi=smi)),
+             ("b", lambda: lm_spmd_ep(smi=smi)),
+             ("c", lambda: lm_spmd_cp(smi=smi)),
+             ("e", lambda: lm_spmd_family(LMS_FAMILIES[0], "e",
+                                          seed=SEED + 430, smi=smi)),
+             ("f", lambda: lm_spmd_family(LMS_FAMILIES[1], "f",
+                                          seed=SEED + 440, smi=smi)),
+             ("g", lambda: lm_spmd_encdec(seed=SEED + 450, smi=smi)))
+    for part, run in parts:
+        t0 = time.perf_counter()
+        run()
+        log(f"[lm-spmd] ({part}) wall {time.perf_counter() - t0:.3f} s")
     log(f"[lm-spmd] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 

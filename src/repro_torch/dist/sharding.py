@@ -67,10 +67,9 @@ __all__ = ["Mesh", "ForestShardingPlan", "make_forest_plan", "physical",
 #: the mesh axes: ``pod`` (the LM's cross-pod data axis), ``data``, ``model``
 AXES = ("pod", "data", "model")
 
-#: the ROADMAP items what an own-shards plan does not run yet waits for:
-#: training, checkpoints and restore; the SSD, hybrid and enc-dec families
+#: the ROADMAP item what an own-shards plan does not run yet waits for:
+#: training, checkpoints and restore
 TRAIN_ITEM = "13h"
-FAMILIES_ITEM = "13i"
 
 
 def physical(device: torch.device | str) -> torch.device:
@@ -567,9 +566,9 @@ def make_plan(cfg, mesh, decode_batch: int | None = None, *,
     ``own_shards``: whether every position holds its own pieces (a port
     ``Mesh`` only).  None means: over distinct devices yes, on a mesh of
     positions on one device no (held once); True asks for own shards on
-    repeated positions too.  An own-shards plan serves the dense and MoE
-    decoder-only families; the SSD, hybrid and enc-dec families raise
-    ``NotImplementedError`` naming ROADMAP item 13i."""
+    repeated positions too.  An own-shards plan serves every family
+    (``models/positions.py``); training over it is refused
+    (``refuse_training``)."""
     if mesh is None or not getattr(mesh, "axis_names", ()):
         return ShardingPlan()
     own = distinct_devices(mesh) if own_shards is None else bool(own_shards)
@@ -577,11 +576,6 @@ def make_plan(cfg, mesh, decode_batch: int | None = None, *,
         if not isinstance(mesh, Mesh):
             raise ValueError("positions own their shards only on a port "
                              "Mesh")
-        if cfg.ssm_layers or cfg.shared_attn_every or cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}) over positions that own their "
-                f"shards is ROADMAP queue 1 item {FAMILIES_ITEM}, not ported "
-                f"yet; serve it on a held-once plan")
     elif isinstance(mesh, Mesh):
         lm_device(mesh)
     axis_names = tuple(mesh.axis_names)
@@ -722,5 +716,7 @@ def shard_params(params, splan: ShardingPlan):
 
 def shard_caches(caches, splan: ShardingPlan):
     """A decode-cache tree placed by ``cache_specs``: K/V by
-    ``decode_cache``, the ``index`` replicated (one copy a position)."""
+    ``decode_cache``, the SSD ``state`` by ``ssm_state``, the ``conv``
+    window and the enc-dec ``memory`` by their rows, the ``index``
+    replicated (one copy a position)."""
     return place_tree(caches, cache_specs(caches, splan), splan.mesh)

@@ -20,6 +20,11 @@ self cache in place and returns it, as ``lm.lm_decode`` does.
 ``encdec_prefill`` copies a reference defect (``docs/torch_lm_train.md``):
 its self caches hold exactly the prefix (no free position), so a decode
 after it writes ring slot ``index % Sc = 0`` over the first token's K/V.
+
+Under a plan whose positions own their shards ``encode``,
+``encdec_prefill`` and ``encdec_decode`` run ``models/positions.py``
+(parameters and caches as ``Sharded``, the logits back on the tokens'
+device); the loss there is refused (ROADMAP item 13h).
 """
 
 from __future__ import annotations
@@ -31,8 +36,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import ShardingPlan, make_plan
+from repro_torch.dist.sharding import (ShardingPlan, make_plan,
+                                       refuse_training)
 from repro_torch.models import layers as L
+from repro_torch.models import positions as PS
 from repro_torch.models import scanctl
 from repro_torch.models.lm import _checkpointed, chunked_xent, full_logits
 
@@ -96,6 +103,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            splan: ShardingPlan | None = None) -> torch.Tensor:
     """frames [B, S_enc, D] (stub embeddings) -> memory [B, S_enc, D]."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        return PS.encode(cfg, params, frames, splan)
     h = L.shard(frames.to(params["embed"].dtype), splan.hidden, splan.mesh)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
 
@@ -166,6 +175,8 @@ def encdec_loss(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                 splan: ShardingPlan | None = None,
                 vocab_chunk: int = 16_384) -> torch.Tensor:
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        refuse_training("the enc-dec loss")
     memory = encode(cfg, params, frames, splan=splan)
     h = L.shard(params["embed"][dec_tokens], splan.hidden, splan.mesh)
     h, _ = _decoder(cfg, params, h, memory, splan, mode="train")
@@ -179,6 +190,8 @@ def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                    splan: ShardingPlan | None = None):
     """Returns (last-token logits [B, Vp], caches {self, memory, index})."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        return PS.encdec_prefill(cfg, params, frames, dec_tokens, splan)
     memory = encode(cfg, params, frames, splan=splan)
     h = L.shard(params["embed"][dec_tokens], splan.hidden, splan.mesh)
     h, self_caches = _decoder(cfg, params, h, memory, splan,
@@ -198,6 +211,8 @@ def encdec_decode(cfg: ModelConfig, params: Params, caches: Params,
     written in place and returned (with ``index + 1``); the memory is
     passed through."""
     splan = splan or make_plan(cfg, None)
+    if splan.own_shards:
+        return PS.encdec_decode(cfg, params, caches, token, splan)
     h = L.shard(params["embed"][token], splan.decode_hidden, splan.mesh)
     h, self_caches = _decoder(cfg, params, h, caches["memory"], splan,
                               mode="decode", caches=caches)

@@ -55,7 +55,7 @@ from repro_torch.dist.sharding import check_spec
 from repro_torch.models import scanctl
 
 __all__ = ["shard", "init_norm", "apply_norm", "rope_freqs", "apply_rope",
-           "init_mlp", "apply_mlp", "AttnSpec", "init_attention",
+           "init_mlp", "apply_mlp", "mlp_hidden", "AttnSpec", "init_attention",
            "attention_forward", "attention_forward_with_cache",
            "attention_decode", "init_moe", "apply_moe", "moe_decode",
            "moe_dispatch_blocks", "ep_capacity"]
@@ -178,6 +178,12 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d: int, f: int, dtype,
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return mlp_hidden(cfg, p, x) @ p["wo"]
+
+
+def mlp_hidden(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The MLP's activation before ``wo`` (``wi`` / ``wg``, then the
+    nonlinearity)."""
     h = x @ p["wi"]
     if cfg.mlp_type == "swiglu":
         h = F.silu(x @ p["wg"]) * h
@@ -187,7 +193,7 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(cfg.mlp_type)
-    return h @ p["wo"]
+    return h
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ cross-entropy, which never holds ``[B, S, V]`` logits), ``lm_prefill``
 the caches, which it updates in place and returns; ``docs/torch_lm.md``).
 All take the reference's ``splan`` and pass it to every constraint point
 and MoE call the reference does (``docs/torch_lm_mesh.md``); under a plan
-whose positions own their shards, prefill and decode run
+whose positions own their shards, prefill and decode of every family run
 ``models/positions.py`` and training is refused (ROADMAP item 13h).
 ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on ``cuda``
 unless ``device="cpu"`` is passed.

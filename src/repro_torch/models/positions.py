@@ -3,16 +3,17 @@
 The reference's LM on a mesh runs each device on its own shards: XLA
 partitions the program at every ``with_sharding_constraint`` and the two
 ``shard_map``s exchange explicitly.  This module is that program for a
-plan with ``own_shards`` (``dist/sharding.make_plan``), the dense and MoE
-decoder-only families, prefill and decode.  Every value is a ``Sharded``:
-each position computes its own piece from its own pieces
-(``Sharded.map``), and every byte that crosses positions goes through
-``dist/collectives`` (``relayout``, ``all_gather``, ``reduce_scatter``,
-``psum``, ``all_to_all``), which records it.
+plan with ``own_shards`` (``dist/sharding.make_plan``): the decoder-only
+families (dense, MoE, SSD, hybrid) and the enc-dec, prefill and decode.
+Every value is a ``Sharded``: each position computes its own piece from
+its own pieces (``Sharded.map``), and every byte that crosses positions
+goes through ``dist/collectives`` (``relayout``, ``all_gather``,
+``reduce_scatter``, ``psum``, ``all_to_all``), which records it.
 
 At each of the reference's constraint points a value is moved to the
 plan's spec (``hidden``, ``qkv``, ``kv_ctx``, ``decode_hidden``,
-``decode_cache``) under the uneven-split rule of ``own_spec``:
+``decode_cache``, ``ssm_state``) under the uneven-split rule of
+``own_spec``:
 
   * parameters are held by ``param_specs`` (FSDP over ``data`` on the dim
     before the last, the last dim over ``model``, experts over
@@ -21,7 +22,10 @@ plan's spec (``hidden``, ``qkv``, ``kv_ctx``, ``decode_hidden``,
   * ``tp``: each model position projects its own heads (the weight's
     column block), attends over them, and the output projection's
     partials (the weight's row block) are reduce-scattered over ``model``
-    onto the hidden spec's d_model split; at decode they are summed;
+    onto the hidden spec's d_model split; at decode they are summed.
+    Every such row-parallel product forms its partials in f32 and rounds
+    their sum once to the model dtype (``_row_parallel``), as the
+    held-once product accumulates in f32 and rounds once;
   * ``cp``: each model position holds its own sequence block, projects
     it with the whole weight and all-gathers K/V over ``model`` every
     layer;
@@ -37,12 +41,33 @@ plan's spec (``hidden``, ``qkv``, ``kv_ctx``, ``decode_hidden``,
     own token block, and its ``[E, C, D]`` buffer crosses the model axis
     in two ``all_to_all``s around the local experts' product; EP decode
     (``moe_decode``): each model position runs its E/n experts on every
-    token and the outputs are summed over ``model``.
+    token and the outputs are summed over ``model``;
+  * the SSD (``_ssd``): the scan runs along the sequence, so each
+    position takes its rows' whole sequence (an all-gather over
+    ``model`` under ``cp``, the d_model gather under ``tp``), projects
+    them with its column block of ``in_proj`` and all-gathers the
+    projection (the blocks cut across ``z | x B C | dt``), then convolves
+    and scans its own heads (the plan's ``ssm_state``: heads over
+    ``model``) with all of B and C; the gated norm over d_inner sums each
+    position's sum of squares over ``model`` in ascending position, and
+    ``out_proj``'s row-block partials are reduced onto the hidden spec;
+  * the hybrid's shared block (``_shared_layer``): concat(h, e0) of the
+    two streams made whole in d_model (a concat of d-split pieces is not
+    a piece of the concat), ``wq``'s column block plus the block's LoRA
+    ``a`` (whole) times ``b``'s column block, then attention and the gelu
+    MLP as above;
+  * the enc-dec (``encode``, ``encdec_prefill``, ``encdec_decode``): the
+    encoder's non-causal and the decoder's causal self-attention as
+    above; cross-attention projects each position's heads from the
+    memory, which every position holds for its rows whole (the ``memory``
+    cache spec: data rows, whole over ``model``).
 
-The KV caches are stacked ``[nB, ...]`` pieces, written in place at the
-positions that own each row's ring slot; a replicated piece is written at
-every position that holds it.  Logits come back to the controller (the
-device of the token tensor) in one gather.
+The caches are stacked ``[nB, ...]`` pieces by ``cache_specs``: K/V
+written in place at the positions that own each row's ring slot, the
+SSD ``conv`` window (whole over ``model``) at every position that holds
+its rows, the f32 ``state`` at the position of its heads; a replicated
+piece is written at every position that holds it.  Logits come back to
+the controller (the device of the token tensor) in one gather.
 """
 
 from __future__ import annotations
@@ -60,10 +85,11 @@ from repro_torch.dist.sharding import (P, Sharded, ShardingPlan, coord,
                                        own_spec, shard_tensor)
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.models import ssd as SSD
 from repro_torch.train.tree import tree_map
 
-__all__ = ["prefill", "decode", "moe_layer", "moe_prefill", "moe_decode",
-           "cache_index"]
+__all__ = ["prefill", "decode", "encode", "encdec_prefill", "encdec_decode",
+           "moe_layer", "moe_prefill", "moe_decode", "cache_index"]
 
 Params = dict[str, Any]
 
@@ -121,6 +147,17 @@ def _reduce_to(partial: Sharded, spec, axes) -> Sharded:
     return C.relayout(C.psum(partial, axes), spec)
 
 
+def _row_parallel(t: Sharded, w: Sharded, spec, M, dtype) -> Sharded:
+    """``t [b, s, K] @ w [K, N]`` summed over ``M``, under ``spec``: each
+    position's slice of K against its row block of ``w`` (both already
+    so), the partial products in f32, their sum (reduce-scattered onto
+    ``spec``'s split, or all-reduced) rounded once to ``dtype``, as the
+    held-once product accumulates in f32 and rounds once."""
+    part = _local(lambda pos, a, b: a.float() @ b.float(),
+                  P(t.spec[0], t.spec[1], None), t, w)
+    return _reduce_to(part, spec, (M,)).map(lambda pos, y: y.to(dtype))
+
+
 def _norm(cfg, p: Params, x: Sharded) -> Sharded:
     """A norm over d_model, on rows that hold it whole, with the scale and
     bias gathered whole at every position (``param_specs`` splits a
@@ -136,6 +173,12 @@ def _whole_d(x: Sharded) -> Sharded:
     return C.relayout(x, P(x.spec[0], x.spec[1], None))
 
 
+def _add(h: Sharded, y: Sharded) -> Sharded:
+    """The residual ``h + y`` at every position (``y`` under ``h``'s
+    spec)."""
+    return _local(lambda pos, u, w: u + w, h.spec, h, y)
+
+
 # -- dense MLP -----------------------------------------------------------------
 
 
@@ -148,11 +191,9 @@ def _mlp(cfg: ModelConfig, p: Params, x: Sharded, spec, M) -> Sharded:
           and _split_by(p["wi"], 1, M))
     if tp:
         w = {k: _cols(v, M) for k, v in p.items() if k != "wo"}
-        w["wo"] = _rows(p["wo"], M)
-        part = _local(lambda pos, t, *ws: L.apply_mlp(
-            cfg, dict(zip(w, ws)), t), P(x.spec[0], x.spec[1], None),
-            x, *w.values())
-        return _reduce_to(part, spec, (M,))
+        h = _local(lambda pos, t, *ws: L.mlp_hidden(cfg, dict(zip(w, ws)), t),
+                   P(x.spec[0], x.spec[1], M), x, *w.values())
+        return _row_parallel(h, _rows(p["wo"], M), spec, M, x.dtype)
     w = {k: _whole(v) for k, v in p.items()}
     y = _local(lambda pos, t, *ws: L.apply_mlp(cfg, dict(zip(w, ws)), t),
                x.spec, x, *w.values())
@@ -162,10 +203,13 @@ def _mlp(cfg: ModelConfig, p: Params, x: Sharded, spec, M) -> Sharded:
 # -- attention -------------------------------------------------------------------
 
 
-def _qkv(cfg: ModelConfig, p: Params, x: Sharded, heads: bool, M):
+def _qkv(cfg: ModelConfig, p: Params, x: Sharded, heads: bool, M,
+         kv: Sharded | None = None):
     """Each position's q / k / v ``[b, s, H(/n), dh]``: its own heads
     (``heads``: the column block of ``wq`` / ``wk`` / ``wv`` and their
-    biases) or all of them (the whole weights)."""
+    biases) or all of them (the whole weights).  K / V project ``kv``
+    (cross-attention's memory, its rows those of ``x``) where given, in
+    the dtype jnp promotes a mixed product to."""
     H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pick = (lambda w: C.relayout(w, P(*((None,) * (w.ndim - 1)), M))) \
         if heads else _whole
@@ -176,16 +220,22 @@ def _qkv(cfg: ModelConfig, p: Params, x: Sharded, heads: bool, M):
     w.update({k: _whole(p[k]) for k in ("q_norm", "k_norm")
               if cfg.qk_norm})
     n = x.mesh.shape[M] if heads else 1
-    spec = P(x.spec[0], x.spec[1], M if heads else None, None)
+    kv = x if kv is None else kv
+    specs = [P(s.spec[0], s.spec[1], M if heads else None, None)
+             for s in (x, kv, kv)]
 
     def one(pos, t, *ws):
         ww = dict(zip(w, ws))
         out = []
         for name, count in (("q", H), ("k", KV), ("v", KV)):
-            y = t @ ww[f"w{name}"]
+            src, wt = (t if name == "q" else kv.pieces[pos]), ww[f"w{name}"]
+            if name != "q" and src.dtype != wt.dtype:
+                dt = torch.promote_types(src.dtype, wt.dtype)
+                src, wt = src.to(dt), wt.to(dt)
+            y = src @ wt
             if cfg.qkv_bias:
                 y = y + ww[f"b{name}"]
-            y = y.reshape(*t.shape[:-1], count // n, dh)
+            y = y.reshape(*src.shape[:-1], count // n, dh)
             if cfg.qk_norm and name != "v":
                 y = L._rms_head(y, ww[f"{name}_norm"])
             out.append(y)
@@ -194,7 +244,7 @@ def _qkv(cfg: ModelConfig, p: Params, x: Sharded, heads: bool, M):
     outs = {pos: one(pos, x.pieces[pos], *(v.pieces[pos]
                                            for v in w.values()))
             for pos in x.pieces}
-    return tuple(Sharded(x.mesh, spec, {q: o[i] for q, o in outs.items()})
+    return tuple(Sharded(x.mesh, specs[i], {q: o[i] for q, o in outs.items()})
                  for i in range(3))
 
 
@@ -204,18 +254,17 @@ def _out_proj(cfg: ModelConfig, p: Params, o: Sharded, heads: bool, spec,
     ``wo``'s row block, summed over ``model``; all heads against the
     whole ``wo``."""
     if heads:
-        part = _local(lambda pos, t, w: t @ w, P(o.spec[0], o.spec[1], None),
-                      o, _rows(p["wo"], M))
-        return _reduce_to(part, spec, (M,))
+        return _row_parallel(o, _rows(p["wo"], M), spec, M, o.dtype)
     y = _local(lambda pos, t, w: t @ w, P(o.spec[0], o.spec[1], None), o,
                _whole(p["wo"]))
     return C.relayout(y, spec)
 
 
 def _attn_prefill(cfg, splan, p, x: Sharded, spec: L.AttnSpec, S: int,
-                  ctx: int):
+                  ctx: int | None):
     """x: the normed rows (d_model whole).  Returns (out under ``hidden``,
-    the K/V cache at ``ctx`` under ``decode_cache``)."""
+    the K/V cache at ``ctx`` under ``decode_cache``; None without a
+    ``ctx``: the encoder keeps none)."""
     M = splan.model_axis
     heads = splan.attn_mode == "tp" and M is not None
     H, KV, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -245,6 +294,8 @@ def _attn_prefill(cfg, splan, p, x: Sharded, spec: L.AttnSpec, S: int,
 
     o = _local(attend, P(q.spec[0], q.spec[1], q.spec[2]), q, k, v)
     out = _out_proj(cfg, p, o, heads, splan.hidden, M)
+    if ctx is None:
+        return out, None
     pad = ctx - S
     cache = {}
     for name, t in (("k", k), ("v", v)):
@@ -454,13 +505,185 @@ def moe_layer(cfg, splan, p, x: Sharded, spec, *, decode: bool) -> Sharded:
     return out
 
 
+# -- the SSD (mamba2, zamba2) ---------------------------------------------------------
+
+#: the SSD's vector leaves, gathered whole where a position uses them
+_SSD_SMALL = ("conv_w", "conv_b", "A_log", "D", "dt_bias", "norm")
+
+
+def _ssd_split(splan: ShardingPlan) -> bool:
+    """Whether the SSD heads are split over ``model`` (the plan's
+    ``ssm_state``: where the axis divides the heads)."""
+    M = splan.model_axis
+    return M is not None and splan.ssm_state[1] == M
+
+
+def _ssd_share(cfg, splan, pos) -> tuple[slice, slice]:
+    """Position ``pos``'s share of an SSD layer: its slice of d_inner (its
+    heads' z, x, norm and ``out_proj`` rows) and of the heads; all of them
+    where the heads are not split."""
+    M = splan.model_axis
+    n = int(splan.mesh.shape[M]) if _ssd_split(splan) else 1
+    m = coord(splan.mesh, pos, (M,)) if n > 1 else 0
+    dl, hl = cfg.d_inner // n, cfg.ssm_heads // n
+    return slice(m * dl, (m + 1) * dl), slice(m * hl, (m + 1) * hl)
+
+
+def _conv_share(cfg, t: torch.Tensor, ds: slice) -> torch.Tensor:
+    """The conv channels a share reads of ``t [..., d_inner + 2N]``: its x
+    channels, then all of B and C (one group)."""
+    return torch.cat([t[..., ds], t[..., cfg.d_inner:]], -1)
+
+
+def _ssd(cfg, splan, p: Params, x: Sharded, spec, cache=None):
+    """The SSD block on normed rows ``x [B, S, D]`` (d_model whole), the
+    output under ``spec``.  Each position takes its rows' whole sequence,
+    projects them with its column block of ``in_proj`` and all-gathers
+    the projection, then convolves and scans its share of the heads
+    (``_ssd_share``; ``ssd._scan_heads`` / ``ssd._step_heads``), gates and
+    normalises them (``_ssd_out``).  Prefill (``cache`` None): returns
+    (out, ``{conv, state}`` under the cache specs); decode writes the conv
+    window (whole channels, at every position holding its rows) and its
+    heads' state into ``cache`` and returns (out, None)."""
+    mesh, M = splan.mesh, splan.model_axis
+    split = _ssd_split(splan)
+    x = C.relayout(x, P(x.spec[0], None, None))
+    w = _cols(p["in_proj"], M)
+    proj = C.all_gather(_local(lambda pos, t, ww: t @ ww,
+                               P(x.spec[0], None, w.spec[1]), x, w), 2)
+    small = {k: _whole(p[k]) for k in _SSD_SMALL}
+    S_true, W = x.shape[1], cfg.conv_width
+    Q = min(cfg.ssm_chunk, S_true)
+    S_pad = -(-S_true // Q) * Q
+    if cache is not None and cache["state"].entry(1) != \
+            ((M,) if split else ()):
+        raise ValueError(f"an SSD state under {cache['state'].spec!r} for "
+                         f"a plan whose ssm_state is {splan.ssm_state!r}")
+    ys, zs, conv, state = {}, {}, {}, {}
+    for pos, t in proj.pieces.items():
+        ds, hs = _ssd_share(cfg, splan, pos)
+        ws = {k: v.pieces[pos] for k, v in small.items()}
+        local = {"conv_w": _conv_share(cfg, ws["conv_w"], ds),
+                 "conv_b": _conv_share(cfg, ws["conv_b"], ds),
+                 **{k: ws[k][hs] for k in ("A_log", "D", "dt_bias")}}
+        if cache is not None:
+            z, xBC, dt = SSD._split_proj(cfg, t[:, 0])
+            c, st = cache["conv"].pieces[pos], cache["state"].pieces[pos]
+            hist = torch.cat(SSD._promoted(c, xBC[:, None]), dim=1)
+            y, new = SSD._step_heads(cfg, local, _conv_share(cfg, hist, ds),
+                                     dt[:, hs], st, x.dtype)
+            c.copy_(hist[:, 1:])
+            st.copy_(new)
+            ys[pos], zs[pos] = y[:, None], z[:, None, ds]
+            continue
+        if S_pad != S_true:
+            t = F.pad(t, (0, 0, 0, S_pad - S_true))
+        z, xBC, dt = SSD._split_proj(cfg, t)
+        y, state[pos] = SSD._scan_heads(cfg, local, _conv_share(cfg, xBC, ds),
+                                        dt[..., hs], S_true=S_true, Q=Q)
+        ys[pos], zs[pos] = y[:, :S_true], z[:, :S_true, ds]
+        conv[pos] = xBC[:, S_true - (W - 1):S_true] if W > 1 else xBC[:, :0]
+    share = P(x.spec[0], None, M if split else None)
+    out = _ssd_out(cfg, splan, p, Sharded(mesh, share, ys),
+                   Sharded(mesh, share, zs), small["norm"], spec)
+    if cache is not None:
+        return out, None
+    b = x.spec[0]
+    return out, {
+        "conv": C.relayout(Sharded(mesh, P(b, None, None), conv),
+                           P(splan.decode_hidden[0], None, None)),
+        "state": C.relayout(Sharded(mesh, P(b, share[2], None, None), state),
+                            splan.ssm_state)}
+
+
+def _ssd_out(cfg, splan, p: Params, y: Sharded, z: Sharded, norm: Sharded,
+             spec) -> Sharded:
+    """``rmsnorm(y * silu(z)) @ out_proj`` under ``spec``.  Heads split:
+    each position's sum of squares over its d_inner slice is summed over
+    ``model`` in ascending position before the rsqrt, and its rows of
+    ``out_proj`` give partials reduced onto ``spec``; otherwise each
+    position runs ``ssd._gated_rmsnorm`` and the whole ``out_proj``."""
+    M = splan.model_axis
+    if not _ssd_split(splan):
+        o = _local(lambda pos, yy, zz, nn: SSD._gated_rmsnorm(yy, zz, nn),
+                   y.spec, y, z, norm)
+        out = _local(lambda pos, t, w: t @ w, P(o.spec[0], o.spec[1], None),
+                     o, _whole(p["out_proj"]))
+        return C.relayout(out, spec)
+    g = _local(lambda pos, yy, zz: (yy * F.silu(zz)).float(), y.spec, y, z)
+    ss = C.psum(g.map(lambda pos, t: (t * t).sum(-1, keepdim=True),
+                      spec=P(g.spec[0], g.spec[1], None)), (M,))
+
+    def gate(pos, t, s, nn):
+        ds, _ = _ssd_share(cfg, splan, pos)
+        t = t * torch.rsqrt(s / cfg.d_inner + 1e-6)
+        return (t * nn[ds].float()).to(y.dtype)
+
+    o = _local(gate, y.spec, g, ss, norm)
+    return _row_parallel(o, _rows(p["out_proj"], M), spec, M, y.dtype)
+
+
+def _ssm_layer(cfg, splan, p: Params, h: Sharded, *, cache=None):
+    """One SSD layer: h + ssd(norm1(h)) under the hidden spec.  Prefill
+    (``cache`` None): returns (h, its ``{conv, state}``); decode: writes
+    ``cache`` in place, returns (h, None)."""
+    h = C.relayout(h, splan.hidden if cache is None else splan.decode_hidden)
+    x = _norm(cfg, p["norm1"], _whole_d(h))
+    y, new_cache = _ssd(cfg, splan, p["ssm"], x, h.spec, cache)
+    return _add(h, y), new_cache
+
+
+# -- the hybrid's shared block (zamba2) -----------------------------------------------
+
+
+def _lora_wq(wq: Sharded, lora: Params, heads: bool, M) -> Sharded:
+    """The shared block's ``wq`` plus this block's LoRA delta ``a @ b``
+    (in ``wq``'s dtype) as each position uses it: its column block, ``wq``'s
+    plus ``a`` (whole) times ``b``'s (``heads``), or the whole sum."""
+    pick = (lambda w: _cols(w, M)) if heads else _whole
+    w, b = pick(wq), pick(lora["b"])
+    return _local(lambda pos, ww, aa, bb: ww + (aa @ bb).to(ww.dtype),
+                  w.spec, w, _whole(lora["a"]), b)
+
+
+def _shared_layer(cfg, splan, shared: Params, lora: Params, h: Sharded,
+                  e0: Sharded, *, S: int, ctx: int, cache=None, index=None):
+    """Zamba2's shared block on concat(h, e0), ``e0`` the embedding output
+    with d_model whole: both streams whole in d_model before the concat,
+    attention over this block's LoRA-modified ``wq``, the gelu MLP, both
+    added to ``h``.  Prefill: returns (h, its K/V cache); decode: writes
+    ``cache`` in place, returns (h, None)."""
+    decode = cache is not None
+    M = splan.model_axis
+    h = C.relayout(h, splan.decode_hidden if decode else splan.hidden)
+    hw = _whole_d(h)
+    cat = _local(lambda pos, a, b: torch.cat([a, b], dim=-1), hw.spec, hw,
+                 C.relayout(e0, hw.spec))
+    heads = M is not None and (M in cache["k"].entry(2) if decode
+                               else splan.attn_mode == "tp")
+    attn = dict(shared["attn"])
+    attn["wq"] = _lora_wq(attn["wq"], lora, heads, M)
+    x = _norm(cfg, shared["norm1"], cat)
+    if decode:
+        a = _attn_decode(cfg, splan, attn, x, cache, index, LM._SHARED_SPEC)
+        new_cache = None
+    else:
+        a, new_cache = _attn_prefill(cfg, splan, attn, x, LM._SHARED_SPEC,
+                                     S, ctx)
+    x = _norm(cfg, shared["norm2"], cat)
+    m = _mlp(dataclasses.replace(cfg, mlp_type="gelu"), shared["mlp"], x,
+             h.spec, M)
+    return _add(_add(h, C.relayout(a, h.spec)), m), new_cache
+
+
 # -- the backbone and the entry points ---------------------------------------------
 
 
-def _layer(cfg, splan, plan, p, h: Sharded, *, S: int, ctx: int,
+def _layer(cfg, splan, plan, p, h: Sharded, *, S: int, ctx: int | None,
            cache=None, index=None):
     """One attention layer.  Prefill (``cache`` None): returns (h, its
-    K/V cache); decode: writes ``cache`` in place, returns (h, None)."""
+    K/V cache, None without a ``ctx``); decode: writes ``cache`` in place,
+    returns (h, None)."""
     decode = cache is not None
     hs = splan.decode_hidden if decode else splan.hidden
     h = C.relayout(h, hs)
@@ -471,7 +694,7 @@ def _layer(cfg, splan, plan, p, h: Sharded, *, S: int, ctx: int,
     else:
         a, new_cache = _attn_prefill(cfg, splan, p["attn"], x, plan.attn, S,
                                      ctx)
-    h = _local(lambda pos, u, w: u + w, h.spec, h, C.relayout(a, h.spec))
+    h = _add(h, C.relayout(a, h.spec))
     x = _norm(cfg, p["norm2"], _whole_d(h))
     if plan.use_moe:
         m = moe_layer(cfg, splan, p["moe"], x, h.spec, decode=decode)
@@ -479,7 +702,7 @@ def _layer(cfg, splan, plan, p, h: Sharded, *, S: int, ctx: int,
         m = _mlp(cfg, p["mlp"], x, h.spec, splan.model_axis)
     else:
         return h, new_cache
-    return _local(lambda pos, u, w: u + w, h.spec, h, m), new_cache
+    return _add(h, m), new_cache
 
 
 def _embed(params: Params, tokens: Sharded, spec, M) -> Sharded:
@@ -506,12 +729,67 @@ def _head(cfg, params, h: Sharded, M) -> Sharded:
                   P(x.spec[0], None, w.spec[1]), x, w)
 
 
+def _logits(cfg, params, h: Sharded, M, device, *, last: bool):
+    """The f32 logits ``[B, Vp]`` of ``h``'s last row (``last``; else its
+    one row), gathered to ``device`` (the controller)."""
+    if last:
+        h = C.relayout(h, P(h.spec[0], None, h.spec[2]))
+        h = h.map(lambda pos, t: t[:, -1:])
+    h = C.relayout(h, P(h.spec[0], None, None))
+    return C.gather_to(_head(cfg, params, h, M), device)[:, 0]
+
+
+def _stack(mesh, per_block: list[Params]) -> Params:
+    """Per-block cache trees (``{name: {leaf: Sharded}}``) stacked on a
+    leading ``[nB]`` axis, piece by piece."""
+    out: Params = {}
+    for name, leaves in per_block[0].items():
+        out[name] = {}
+        for leaf, first in leaves.items():
+            parts = [blk[name][leaf] for blk in per_block]
+            out[name][leaf] = Sharded(
+                mesh, P(None, *first.spec),
+                {pos: torch.stack([x.pieces[pos] for x in parts])
+                 for pos in first.pieces})
+    return out
+
+
 def _check(params: Params) -> None:
-    """Own-shards plans exist only for the dense and MoE families
-    (``make_plan`` refuses the others); the parameters must be pieces."""
+    """The parameters must be pieces (``dist/sharding.shard_params``)."""
     if not isinstance(params["embed"], Sharded):
         raise TypeError("positions that own their shards take parameters "
                         "placed as pieces (dist/sharding.shard_params)")
+
+
+def _backbone(cfg, splan, params: Params, h: Sharded, *, S: int, ctx,
+              caches=None, index=None):
+    """Every block: the hybrid's shared block first (on concat(h, e0),
+    ``e0`` the embedding output ``h``), then each position of the period,
+    an SSD or an attention layer.  Prefill (``caches`` None): returns (h,
+    the caches stacked by block); decode: writes ``caches``' pieces in
+    place, returns (h, None)."""
+    decode = caches is not None
+    plans = LM.make_layer_plans(cfg)
+    e0 = _whole_d(h) if cfg.shared_attn_every else None
+    per_block: list[Params] = []
+    for i in range(cfg.num_blocks):
+        pb = _block(params["blocks"], i)
+        cb = _block(caches, i) if decode else {}
+        new: Params = {}
+        if cfg.shared_attn_every:
+            h, new["shared"] = _shared_layer(
+                cfg, splan, params["shared_attn"], _block(params["lora"], i),
+                h, e0, S=S, ctx=ctx, cache=cb.get("shared"), index=index)
+        for j, plan in enumerate(plans):
+            c = cb.get(f"p{j}")
+            if plan.kind == "ssm":
+                h, new[f"p{j}"] = _ssm_layer(cfg, splan, pb[f"p{j}"], h,
+                                             cache=c)
+            else:
+                h, new[f"p{j}"] = _layer(cfg, splan, plan, pb[f"p{j}"], h,
+                                         S=S, ctx=ctx, cache=c, index=index)
+        per_block.append(new)
+    return h, (None if decode else _stack(splan.mesh, per_block))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -523,32 +801,10 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     _check(params)
     mesh, M = splan.mesh, splan.model_axis
     B, S = tokens.shape
-    ctx = ctx or S
-    da = _entry(splan.data_axes)
-    toks = shard_tensor(tokens, mesh, P(da, None))
+    toks = shard_tensor(tokens, mesh, P(_entry(splan.data_axes), None))
     h = _embed(params, toks, splan.hidden, M)
-    plans = LM.make_layer_plans(cfg)
-    per_block: list[dict] = []
-    for i in range(cfg.num_blocks):
-        pb = _block(params["blocks"], i)
-        caches = {}
-        for j, plan in enumerate(plans):
-            h, caches[f"p{j}"] = _layer(cfg, splan, plan, pb[f"p{j}"], h,
-                                        S=S, ctx=ctx)
-        per_block.append(caches)
-    last = C.relayout(h, P(h.spec[0], None, h.spec[2]))
-    last = C.relayout(last.map(lambda pos, t: t[:, -1:],
-                               spec=last.spec), P(h.spec[0], None, None))
-    logits = C.gather_to(_head(cfg, params, last, M), tokens.device)[:, 0]
-    out: Params = {}
-    for j in range(len(plans)):
-        out[f"p{j}"] = {}
-        for name in ("k", "v"):
-            parts = [blk[f"p{j}"][name] for blk in per_block]
-            out[f"p{j}"][name] = Sharded(
-                mesh, P(None, *parts[0].spec),
-                {pos: torch.stack([x.pieces[pos] for x in parts])
-                 for pos in parts[0].pieces})
+    h, out = _backbone(cfg, splan, params, h, S=S, ctx=ctx or S)
+    logits = _logits(cfg, params, h, M, tokens.device, last=True)
     out["index"] = shard_tensor(torch.tensor(S, dtype=torch.int32), mesh,
                                 P())
     return logits, out
@@ -558,26 +814,139 @@ def decode(cfg: ModelConfig, params: Params, caches: Params,
            token: torch.Tensor, splan: ShardingPlan):
     """``lm_decode`` on positions that own their shards: ``caches`` as
     ``prefill`` returns them (or an engine's slot caches), token ``[B, 1]``
-    on the controller.  The K/V pieces are written in place; returns
-    (logits ``[B, Vp]`` on the controller, the caches with every
-    position's ``index`` copy advanced)."""
+    on the controller.  The K/V, conv and state pieces are written in
+    place; returns (logits ``[B, Vp]`` on the controller, the caches with
+    every position's ``index`` copy advanced)."""
     _check(params)
     mesh, M = splan.mesh, splan.model_axis
     index = caches["index"]
     toks = shard_tensor(token, mesh, P(splan.decode_hidden[0], None))
     h = _embed(params, toks, splan.decode_hidden, M)
-    plans = LM.make_layer_plans(cfg)
-    for i in range(cfg.num_blocks):
-        pb = _block(params["blocks"], i)
-        cb = _block({k: v for k, v in caches.items() if k != "index"}, i)
-        for j, plan in enumerate(plans):
-            h, _ = _layer(cfg, splan, plan, pb[f"p{j}"], h, S=1, ctx=0,
-                          cache=cb[f"p{j}"], index=index)
-    h = C.relayout(h, P(h.spec[0], None, None))
-    logits = C.gather_to(_head(cfg, params, h, M), token.device)[:, 0]
+    h, _ = _backbone(cfg, splan, params, h, S=1, ctx=0, index=index,
+                     caches={k: v for k, v in caches.items() if k != "index"})
+    logits = _logits(cfg, params, h, M, token.device, last=False)
     out = dict(caches)
     out["index"] = index.map(lambda pos, t: t + 1)
     return logits, out
+
+
+# -- the enc-dec (seamless) ------------------------------------------------------
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+           splan: ShardingPlan) -> Sharded:
+    """``encdec.encode`` on positions that own their shards: frames ``[B,
+    S_enc, D]`` on the controller, cut by the data axes -> the memory with
+    each position's rows whole (``[b, S_enc, D]``)."""
+    from repro_torch.models import encdec as ED
+    _check(params)
+    mesh = splan.mesh
+    x = shard_tensor(frames.to(params["embed"].dtype), mesh,
+                     P(_entry(splan.data_axes), None, None))
+    h = C.relayout(x, splan.hidden)
+    plan = LM.LayerPlan(kind="attn", attn=ED._ENC_SPEC)
+    for i in range(cfg.encoder_layers):
+        h, _ = _layer(cfg, splan, plan, _block(params["enc_blocks"], i), h,
+                      S=frames.shape[1], ctx=None)
+    mem = _norm(cfg, params["enc_norm"], _whole_d(h))
+    return C.relayout(mem, P(mem.spec[0], None, None))
+
+
+def _cross_attn(cfg, splan, p: Params, x: Sharded, mem: Sharded,
+                spec) -> Sharded:
+    """Cross-attention of rows ``x`` (d_model whole) into the memory
+    (non-causal, no RoPE), the output under ``spec``: under ``tp`` each
+    position projects its own heads from both and its partials of ``wo``
+    are reduced; otherwise all heads of its rows."""
+    from repro_torch.models import encdec as ED
+    M = splan.model_axis
+    heads = splan.attn_mode == "tp" and M is not None
+    mem = C.relayout(mem, P(x.spec[0], None, None))
+    q, k, v = _qkv(cfg, p, x, heads, M, kv=mem)
+    Sm = mem.shape[1]
+
+    def attend(pos, qq, kk, vv):
+        lo = q.offset(pos, 1)
+        return L._chunked_sdpa(
+            qq, kk, vv, kv_groups=cfg.num_heads // cfg.num_kv_heads,
+            q_positions=torch.arange(lo, lo + qq.shape[1], dtype=torch.int32,
+                                     device=qq.device),
+            kv_positions=torch.arange(Sm, dtype=torch.int32,
+                                      device=qq.device),
+            spec=ED._CROSS_SPEC, chunk=min(cfg.attn_kv_chunk, Sm)
+        ).reshape(*qq.shape[:2], -1)
+
+    o = _local(attend, P(q.spec[0], q.spec[1], q.spec[2]), q, k, v)
+    return _out_proj(cfg, p, o, heads, spec, M)
+
+
+def _dec_layer(cfg, splan, p: Params, h: Sharded, mem: Sharded, *, S: int,
+               cache=None, index=None):
+    """One decoder layer: causal self-attention (prefill: its cache holds
+    exactly the prefix, as the reference's does), cross-attention into
+    ``mem``, the MLP.  Prefill: returns (h, its K/V cache); decode: writes
+    ``cache`` in place, returns (h, None)."""
+    from repro_torch.models import encdec as ED
+    decode = cache is not None
+    M = splan.model_axis
+    h = C.relayout(h, splan.decode_hidden if decode else splan.hidden)
+    x = _norm(cfg, p["norm1"], _whole_d(h))
+    if decode:
+        a = _attn_decode(cfg, splan, p["attn"], x, cache, index,
+                         ED._SELF_SPEC)
+        new_cache = None
+    else:
+        a, new_cache = _attn_prefill(cfg, splan, p["attn"], x, ED._SELF_SPEC,
+                                     S, S)
+    h = _add(h, C.relayout(a, h.spec))
+    x = _norm(cfg, p["norm_x"], _whole_d(h))
+    h = _add(h, _cross_attn(cfg, splan, p["xattn"], x, mem, h.spec))
+    x = _norm(cfg, p["norm2"], _whole_d(h))
+    return _add(h, _mlp(cfg, p["mlp"], x, h.spec, M)), new_cache
+
+
+def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+                   dec_tokens: torch.Tensor, splan: ShardingPlan):
+    """``encdec_prefill`` on positions that own their shards: frames and
+    decoder tokens on the controller.  Returns (last-token logits ``[B,
+    Vp]`` on the controller, caches ``{self: K/V [L, ...] by
+    decode_cache, memory by its rows (the cache spec), index}``)."""
+    mesh, M = splan.mesh, splan.model_axis
+    mem = encode(cfg, params, frames, splan)
+    S = dec_tokens.shape[1]
+    toks = shard_tensor(dec_tokens, mesh, P(_entry(splan.data_axes), None))
+    h = _embed(params, toks, splan.hidden, M)
+    per_layer = []
+    for i in range(cfg.num_layers):
+        h, kv = _dec_layer(cfg, splan, _block(params["dec_blocks"], i), h,
+                           mem, S=S)
+        per_layer.append({"self": kv})
+    logits = _logits(cfg, params, h, M, dec_tokens.device, last=True)
+    caches = _stack(mesh, per_layer)
+    caches["memory"] = C.relayout(mem, P(splan.decode_hidden[0], None, None))
+    caches["index"] = shard_tensor(torch.tensor(S, dtype=torch.int32), mesh,
+                                   P())
+    return logits, caches
+
+
+def encdec_decode(cfg: ModelConfig, params: Params, caches: Params,
+                  token: torch.Tensor, splan: ShardingPlan):
+    """``encdec_decode`` on positions that own their shards: the self K/V
+    pieces written in place, the memory read as it is held; returns
+    (logits ``[B, Vp]`` on the controller, the caches with ``index``
+    advanced)."""
+    _check(params)
+    mesh, M = splan.mesh, splan.model_axis
+    index = caches["index"]
+    toks = shard_tensor(token, mesh, P(splan.decode_hidden[0], None))
+    h = _embed(params, toks, splan.decode_hidden, M)
+    for i in range(cfg.num_layers):
+        h, _ = _dec_layer(cfg, splan, _block(params["dec_blocks"], i), h,
+                          caches["memory"], S=1,
+                          cache=_block(caches["self"], i), index=index)
+    logits = _logits(cfg, params, h, M, token.device, last=False)
+    return logits, {"self": caches["self"], "memory": caches["memory"],
+                    "index": index.map(lambda pos, t: t + 1)}
 
 
 def cache_index(caches: Params, device) -> torch.Tensor:

@@ -22,7 +22,9 @@ Numerics follow the reference's jnp:
 
 ``ssd_decode`` writes the new conv window and state into the cache tensors
 it is given and returns them, as ``layers.attention_decode`` does with K/V
-(``docs/torch_lm.md``).  Under a mesh plan ``ssd_forward`` checks the
+(``docs/torch_lm.md``).  The scan and the recurrent step run over whatever
+heads their inputs hold (``_scan_heads``, ``_step_heads``): the whole
+layer here, a position's heads over own shards (``models/positions.py``).  Under a mesh plan ``ssd_forward`` checks the
 reference's head-axis constraints (``layers.shard``); the positions share
 one device, so nothing else changes.
 """
@@ -111,27 +113,23 @@ def _promoted(*ts: torch.Tensor) -> list[torch.Tensor]:
     return [t.to(dt) for t in ts]
 
 
-def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                chunk: int | None = None, return_cache: bool = False,
+def _scan_heads(cfg: ModelConfig, p: Params, xBC_raw: torch.Tensor,
+                dt: torch.Tensor, *, S_true: int, Q: int, z=None,
                 splan=None):
-    """Full-sequence SSD.  x [B, S, D] -> [B, S, D]; S is padded up to a
-    multiple of the chunk, the pad positions masked by ``dt = -1e9``.
-    ``return_cache`` also returns the decode cache (prefill).  ``splan``
-    pins the head axis to the mesh's ``model`` axis, as the reference's
-    constraints do."""
-    B, S_true, _ = x.shape
-    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    P_ = cfg.ssm_headdim
-    Q = min(chunk or cfg.ssm_chunk, S_true)
-    S = -(-S_true // Q) * Q                       # pad S up to a Q multiple
-    if S != S_true:
-        x = F.pad(x, (0, 0, 0, S - S_true))
+    """The conv, dt and the chunked scan over the heads that ``dt [B, S,
+    h]`` holds (S a multiple of Q, padded past ``S_true``): ``xBC_raw [B,
+    S, h * P + 2N]`` their x channels, then B and C; ``p``'s ``conv_w`` /
+    ``conv_b`` those channels' and ``A_log`` / ``D`` / ``dt_bias`` those
+    heads'.  Returns (y ``[B, S, h * P]`` before the gate, the final state
+    ``[B, h, P, N]``).  ``splan`` (with ``z``) checks the reference's
+    head-axis constraints."""
+    B, S, _ = xBC_raw.shape
+    N, P_ = cfg.ssm_state, cfg.ssm_headdim
+    H = dt.shape[-1]
+    di = H * P_
     nC = S // Q
-
-    proj = x @ p["in_proj"]
-    z, xBC_raw, dt = _split_proj(cfg, proj)
     if S != S_true:  # pad positions: dt=0 => no state update, no output
-        smask = (torch.arange(S, device=x.device) < S_true)[None, :, None]
+        smask = (torch.arange(S, device=dt.device) < S_true)[None, :, None]
         dt = torch.where(smask, dt, -1e9)           # softplus(-1e9) == 0
 
     # causal depthwise conv over S (width W), SiLU
@@ -152,7 +150,7 @@ def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         da = _data_entry(splan.data_axes)
         model, mesh = splan.model_axis, splan.mesh
         xs = shard(xs, Pspec(da, None, model, None), mesh)
-        z = shard(z, Pspec(da, None, model), mesh)
+        shard(z, Pspec(da, None, model), mesh)
         B_ = shard(B_, Pspec(da, None, None), mesh)
         C_ = shard(C_, Pspec(da, None, None), mesh)
         dA = shard(dA, Pspec(da, None, model), mesh)
@@ -187,14 +185,36 @@ def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
         y = (y_diag + y_off).to(xraw.dtype) + xraw * Dh.to(xraw.dtype)
         return state, y
 
-    state0 = torch.zeros((B, H, P_, N), dtype=torch.float32, device=x.device)
+    state0 = torch.zeros((B, H, P_, N), dtype=torch.float32,
+                         device=xBC_raw.device)
     final_state, ys = scanctl.scan(body, state0,
                                    (xs_c, x_raw_c, B_c, C_c, dA_c))
-    y = ys.permute(1, 0, 2, 3, 4).reshape(B, S, di)
+    return ys.permute(1, 0, 2, 3, 4).reshape(B, S, di), final_state
+
+
+def ssd_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
+                chunk: int | None = None, return_cache: bool = False,
+                splan=None):
+    """Full-sequence SSD.  x [B, S, D] -> [B, S, D]; S is padded up to a
+    multiple of the chunk, the pad positions masked by ``dt = -1e9``.
+    ``return_cache`` also returns the decode cache (prefill).  ``splan``
+    pins the head axis to the mesh's ``model`` axis, as the reference's
+    constraints do."""
+    S_true = x.shape[1]
+    Q = min(chunk or cfg.ssm_chunk, S_true)
+    S = -(-S_true // Q) * Q                       # pad S up to a Q multiple
+    if S != S_true:
+        x = F.pad(x, (0, 0, 0, S - S_true))
+
+    proj = x @ p["in_proj"]
+    z, xBC_raw, dt = _split_proj(cfg, proj)
+    y, final_state = _scan_heads(cfg, p, xBC_raw, dt, S_true=S_true, Q=Q,
+                                 z=z, splan=splan)
     out = _gated_rmsnorm(y, z, p["norm"]) @ p["out_proj"]
     out = out[:, :S_true]
     if not return_cache:
         return out
+    W = cfg.conv_width
     conv_cache = (xBC_raw[:, S_true - (W - 1):S_true, :] if W > 1
                   else xBC_raw[:, :0, :])
     return out, {"conv": conv_cache, "state": final_state}
@@ -220,17 +240,17 @@ def init_ssd_cache(cfg: ModelConfig, batch: int, dtype, *,
     }
 
 
-def ssd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-               cache: dict) -> tuple[torch.Tensor, dict]:
-    """One-token recurrent step.  x [B, 1, D].  The new conv window and
-    state are written into ``cache``'s own tensors (the window cast to the
-    cache's dtype), which are returned."""
-    B = x.shape[0]
-    di, N, H, P_ = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    proj = x[:, 0] @ p["in_proj"]
-    z, xBC, dt = _split_proj(cfg, proj)
-
-    hist = torch.cat(_promoted(cache["conv"], xBC[:, None]), dim=1)
+def _step_heads(cfg: ModelConfig, p: Params, hist: torch.Tensor,
+                dt: torch.Tensor, state: torch.Tensor, dtype):
+    """One recurrent step over the heads that ``dt [B, h]`` holds:
+    ``hist [B, W, h * P + 2N]`` the conv window of their x channels and B
+    and C, the new column last; ``p`` as ``_scan_heads``'; ``state [B, h,
+    P, N]`` f32.  Returns (y ``[B, h * P]`` in ``dtype`` before the gate,
+    the new state)."""
+    B = hist.shape[0]
+    N, P_ = cfg.ssm_state, cfg.ssm_headdim
+    H = dt.shape[-1]
+    di = H * P_
     conv = torch.einsum("bwc,wc->bc", *_promoted(hist, p["conv_w"]))
     xBC_a = F.silu(conv + p["conv_b"])
 
@@ -241,11 +261,22 @@ def ssd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     A = -torch.exp(p["A_log"])
     dA = torch.exp(dt * A)                                         # [B, H]
 
-    state = cache["state"] * dA[:, :, None, None] + \
+    state = state * dA[:, :, None, None] + \
         torch.einsum("bhp,bn,bh->bhpn", xt.float(), Bt.float(), dt)
-    y = torch.einsum("bhpn,bn->bhp", state, Ct.float()).to(x.dtype)
+    y = torch.einsum("bhpn,bn->bhp", state, Ct.float()).to(dtype)
     y = y + xt * p["D"][None, :, None].to(xt.dtype)
-    y = y.reshape(B, di)
+    return y.reshape(B, di), state
+
+
+def ssd_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+               cache: dict) -> tuple[torch.Tensor, dict]:
+    """One-token recurrent step.  x [B, 1, D].  The new conv window and
+    state are written into ``cache``'s own tensors (the window cast to the
+    cache's dtype), which are returned."""
+    proj = x[:, 0] @ p["in_proj"]
+    z, xBC, dt = _split_proj(cfg, proj)
+    hist = torch.cat(_promoted(cache["conv"], xBC[:, None]), dim=1)
+    y, state = _step_heads(cfg, p, hist, dt, cache["state"], x.dtype)
     out = _gated_rmsnorm(y, z, p["norm"]) @ p["out_proj"]
     cache["conv"].copy_(hist[:, 1:])
     cache["state"].copy_(state)

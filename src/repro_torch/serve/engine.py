@@ -163,7 +163,10 @@ class ServeEngine:
 
     def _own_caches(self, dtype) -> Params:
         """The slot caches as pieces by ``cache_specs``, each allocated on
-        its position's device, and the ``[slots]`` index replicated."""
+        its position's device (K/V and the hybrid's ``shared`` K/V by
+        ``decode_cache``, the SSD ``conv`` window by its rows, its f32
+        ``state`` by ``ssm_state``), and the ``[slots]`` index
+        replicated."""
         mesh = self.splan.mesh
         like = LM.init_caches(self.cfg, self.slots, self.max_ctx,
                               dtype=dtype, device="meta")
@@ -179,9 +182,10 @@ class ServeEngine:
 
     def _insert_own(self, cache1, slot: int, length: int) -> None:
         """``_insert_fn`` over pieces: each position that owns slot
-        ``slot`` copies row 0 of its own piece of the prefill's cache (the
-        same plan holds the same blocks of every other dimension, and a
-        one-row batch is held whole at every data position)."""
+        ``slot`` copies row 0 of its own piece of every leaf of the
+        prefill's cache (K/V, the SSD conv window and state, the shared
+        K/V; the same plan holds the same blocks of every other dimension,
+        and a one-row batch is held whole at every data position)."""
         for name, small in cache1.items():
             if name == "index":
                 continue

@@ -1751,12 +1751,14 @@ def _spmd_against_held_once(cfg, own_mesh, held_mesh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-7b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-7b", "mamba2-2.7b",
+                                  "zamba2-2.7b"])
 def test_lm_spmd_on_card_positions_matches_held_once(arch):
-    """``chip_smoke.py`` phase 20 (a) at a reduced width whose MLP and
-    embedding are sharded (d_model 256): eight ``cuda:0`` positions that
-    own their pieces (olmo tp, qwen2 cp) against the held-once path on the
-    same mesh, f32 logits within 1e-4."""
+    """``chip_smoke.py`` phase 20 (a), (e) and (f) at a reduced width whose
+    MLP, SSD and embedding weights are sharded (d_model 256): eight
+    ``cuda:0`` positions that own their pieces (olmo tp, qwen2 cp, the SSD
+    heads over model, zamba2's shared block) against the held-once path on
+    the same mesh, f32 logits within 1e-4."""
     _need_card()
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch.mesh import make_position_mesh

@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_ab.py",
-                             "chip_tiers_probe.py")]
+                             "chip_tiers_probe.py", "chip_ssd_bf16_probe.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -25,9 +25,9 @@
     constraint points, and for the enc-dec family its training step and
     checkpoint restore; ``tests/test_torch_lm_mesh.py`` holds them against
     the reference's), the refusal of what the port does not have yet
-    (training and restore over positions that own their shards, item 13h;
-    the enc-dec family there, item 13i), and the in-place cache update (a
-    kept divergence, pinned below).
+    (training and restore over positions that own their shards, item 13h,
+    the enc-dec family's too), and the in-place cache update (a kept
+    divergence, pinned below).
 """
 
 import dataclasses
@@ -53,10 +53,10 @@ from repro_torch.models import lm as LM
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["olmo-1b", "qwen2-7b", "yi-34b", "minitron-4b", "chameleon-34b"]
-#: what of a family still waits, by its ROADMAP queue 1 item: since the
-#: LM serves over positions that own their shards, the enc-dec family
-#: there
-UNPORTED = {"seamless-m4t-large-v2": "13i"}
+#: what of a family still waits, by its ROADMAP queue 1 item: since every
+#: family serves over positions that own their shards, the enc-dec
+#: family's training there
+UNPORTED = {"seamless-m4t-large-v2": "13h"}
 
 
 def _pair(arch: str, **changes):
@@ -530,9 +530,9 @@ def _cards_mesh() -> Mesh:
 def test_unported_families_are_refused(arch, tmp_path):
     """The family's bundle is its own (enc-dec: ``models/encdec.py``) and
     serves its entry points on the CPU.  On a one-device mesh its plan,
-    its training step and a restore run; over distinct cards its plan and
-    training step are refused naming the family's item, and a restore
-    naming the training item (13h)."""
+    its training step and a restore run; over distinct cards its plan's
+    positions own their shards, and its training step and a restore are
+    refused naming the family's item (13h)."""
     from repro_torch.models import encdec as ED
     from repro_torch.train import checkpoint as K
     from repro_torch.train.data import batch_for
@@ -559,8 +559,8 @@ def test_unported_families_are_refused(arch, tmp_path):
     got, _ = K.restore_checkpoint(str(tmp_path), state, mesh=mesh)
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(got), tree_leaves(new)))
-    for call, want in ((lambda: make_plan(cfg, _cards_mesh()), item),
-                       (lambda: jit_train_step(cfg, opt, _cards_mesh()),
+    assert make_plan(cfg, _cards_mesh()).own_shards
+    for call, want in ((lambda: jit_train_step(cfg, opt, _cards_mesh()),
                         item),
                        (lambda: K.restore_checkpoint(
                            str(tmp_path), state, mesh=_cards_mesh()),

@@ -37,13 +37,13 @@ states cross by ``params_from_arrays`` / ``state_from_arrays``.
     ``restore_checkpoint(mesh=)`` of the reference's checkpoint bit for
     bit the reference's own reshard;
   * the port alone: ``shard``'s checks, an LM mesh over distinct cards
-    giving a plan whose positions own their shards, with training and
-    restore there raising ``NotImplementedError`` naming item 13h and the
-    SSD / hybrid / enc-dec families 13i, the production meshes, the
-    placed and undonated ``jit_train_step``, a serving engine on a mesh
-    plan against the single-request loop under that plan.  Serving over
-    own shards is ``tests/test_torch_lm_spmd.py``, which starts this file
-    as a script with the ``spmd`` part.
+    giving a plan whose positions own their shards for every family,
+    with training and restore there raising ``NotImplementedError`` naming
+    item 13h, the production meshes, the placed and undonated
+    ``jit_train_step``, a serving engine on a mesh plan against the
+    single-request loop under that plan.  Serving over own shards is
+    ``tests/test_torch_lm_spmd.py``, which starts this file as a script
+    with the ``spmd`` and ``spmd-families`` parts.
 """
 
 from __future__ import annotations
@@ -77,6 +77,15 @@ FWD_ARCHS = ["olmo-1b", "qwen2-7b", "mamba2-2.7b", "zamba2-2.7b",
              "seamless-m4t-large-v2"]
 #: the configs ``tests/test_torch_lm_spmd.py`` holds against the reference
 SPMD_ARCHS = ["olmo-1b", "qwen2-7b", SCOUT]
+#: and its SSD / hybrid / enc-dec configs (``spmd-families``, prefill and
+#: ``FAMILY_STEPS`` decode steps at ``FAMILY_S`` tokens, a chunk multiple
+#: plus a padded chunk at ``reduced()``'s ``ssm_chunk`` 32); the ``:cp``
+#: name is mamba2 with no attention heads, as at full width, whose plan
+#: is ``cp`` (the sequence over ``model``), where ``reduced()``'s 4 heads
+#: give ``tp``
+SPMD_FAMILIES = ["mamba2-2.7b", "mamba2-2.7b:cp", "zamba2-2.7b",
+                 "seamless-m4t-large-v2"]
+FAMILY_S, FAMILY_CTX, FAMILY_STEPS = 40, 44, 2
 B, S, CTX = 2, 16, 20
 ED_FRAMES, ED_TOKENS = 16, 4
 TRAIN_SHAPE = (64, 4)            # (seq, batch): the EP blocks divide
@@ -105,6 +114,16 @@ UPDATE_RTOL = 1e-3
 #: the gap between the compressed and uncompressed gnorm (olmo: 4.5e-5
 #: relative); the test shows the uncompressed step falls outside it
 GNORM_RTOL = 1e-5
+
+
+def family_config(configs_module, name: str):
+    """A ``SPMD_FAMILIES`` name's config at ``reduced()`` size, from
+    either package's ``configs``."""
+    arch, _, variant = name.partition(":")
+    cfg = configs_module.reduced(configs_module.get_config(arch))
+    if variant == "cp":
+        cfg = dataclasses.replace(cfg, num_heads=0, num_kv_heads=0)
+    return cfg
 
 
 def _entry(e):
@@ -162,9 +181,11 @@ def _reference_main(out_path: str, part: str) -> None:
     (the specs, the placements, forward and decode of three configs, the
     pinned local-mesh defect), ``forward-moe`` (the other three, and
     llama4-scout's MoE layer) or one train step of ``olmo-1b`` or
-    ``SCOUT``.  The parts run as four processes at once.  ``spmd`` is
-    the part ``tests/test_torch_lm_spmd.py`` starts: forward and decode of
-    olmo (tp), qwen2 (cp) and llama4-scout (EP), and the MoE layer."""
+    ``SCOUT``.  The parts run as four processes at once.  ``spmd`` and
+    ``spmd-families`` are the parts ``tests/test_torch_lm_spmd.py``
+    starts, at once: forward and decode of olmo (tp), qwen2 (cp) and
+    llama4-scout (EP), and the MoE layer; prefill and ``FAMILY_STEPS``
+    decode steps of ``SPMD_FAMILIES``."""
     import jax
     from jax.sharding import Mesh as JMesh
 
@@ -186,6 +207,9 @@ def _reference_main(out_path: str, part: str) -> None:
                            FWD_ARCHS[3:] + [SCOUT], seed=1)
     elif part == "spmd":
         _reference_forward(out, key, run_mesh, None, SPMD_ARCHS, seed=2)
+    elif part == "spmd-families":
+        _reference_forward(out, key, run_mesh, None, SPMD_FAMILIES, seed=3,
+                           seq=(FAMILY_S, FAMILY_CTX), steps=FAMILY_STEPS)
     else:
         _reference_train(out, key, part, train_mesh,
                          os.path.join(os.path.dirname(out_path), "ckpt"))
@@ -236,10 +260,12 @@ def _reference_specs(out: dict, key) -> None:
 
 
 def _reference_forward(out: dict, key, run_mesh, train_mesh, archs,
-                       *, seed: int) -> None:
-    """Prefill and one decode step of ``archs`` on (2, 4); with
-    ``train_mesh`` also the placements and the local-mesh defect, with
-    llama4-scout among ``archs`` its MoE layer alone."""
+                       *, seed: int, seq=(S, CTX), steps: int = 1) -> None:
+    """Prefill of ``seq`` = (tokens, cache positions) and ``steps``
+    decode steps of ``archs`` (``family_config`` names) on (2, 4), step i
+    > 0 saved under ``decode{i + 1}``; with ``train_mesh`` also the
+    placements and the local-mesh defect, with llama4-scout among
+    ``archs`` its MoE layer alone."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as JP
@@ -275,7 +301,7 @@ def _reference_forward(out: dict, key, run_mesh, train_mesh, archs,
     # -- forward and decode on (2, 4) ---------------------------------------
     r = np.random.default_rng(seed)
     for arch in archs:
-        cfg = jconfigs.reduced(jconfigs.get_config(arch))
+        cfg = family_config(jconfigs, arch)
         params = init(cfg)
         _put_tree(out, f"w/{arch}", jax.tree_util.tree_map(np.asarray,
                                                             params))
@@ -283,7 +309,7 @@ def _reference_forward(out: dict, key, run_mesh, train_mesh, archs,
         if cfg.encoder_layers:
             frames = r.normal(size=(B, ED_FRAMES, cfg.d_model)).astype(
                 np.float32)
-            toks = r.integers(0, cfg.vocab_size, (B, ED_TOKENS + 1))
+            toks = r.integers(0, cfg.vocab_size, (B, ED_TOKENS + steps))
             out[f"in/{arch}/frames"] = frames
             pre = jax.jit(lambda p, f, t: JED.encdec_prefill(
                 cfg, p, f, t, splan=splan))
@@ -291,21 +317,23 @@ def _reference_forward(out: dict, key, run_mesh, train_mesh, archs,
             dec = jax.jit(lambda p, c, t: JED.encdec_decode(
                 cfg, p, c, t, splan=splan))
         else:
-            toks = r.integers(0, cfg.vocab_size, (B, S + 1))
+            toks = r.integers(0, cfg.vocab_size, (B, seq[0] + steps))
             pre = jax.jit(lambda p, t: JLM.lm_prefill(
-                cfg, p, t, splan=splan, ctx=CTX))
-            logits, caches = pre(params, toks[:, :S])
+                cfg, p, t, splan=splan, ctx=seq[1]))
+            logits, caches = pre(params, toks[:, :seq[0]])
             dec = jax.jit(lambda p, c, t: JLM.lm_decode(
                 cfg, p, c, t, splan=splan))
-        n = ED_TOKENS if cfg.encoder_layers else S
+        n = ED_TOKENS if cfg.encoder_layers else seq[0]
         out[f"in/{arch}/tokens"] = toks.astype(np.int32)
         out[f"out/{arch}/prefill"] = np.asarray(logits)
         _put_tree(out, f"out/{arch}/caches",
                   jax.tree_util.tree_map(np.asarray, caches))
-        logits, caches = dec(params, caches, toks[:, n:n + 1])
-        out[f"out/{arch}/decode"] = np.asarray(logits)
-        _put_tree(out, f"out/{arch}/decode_caches",
-                  jax.tree_util.tree_map(np.asarray, caches))
+        for i in range(steps):
+            name = "decode" if i == 0 else f"decode{i + 1}"
+            logits, caches = dec(params, caches, toks[:, n + i:n + i + 1])
+            out[f"out/{arch}/{name}"] = np.asarray(logits)
+            _put_tree(out, f"out/{arch}/{name}_caches",
+                      jax.tree_util.tree_map(np.asarray, caches))
 
     if SCOUT in archs:
         _reference_moe(out, init, r, run_mesh)
@@ -573,10 +601,10 @@ def test_shard_checks_as_the_reference_constraint():
 
 def test_lm_mesh_over_distinct_cards_raises_13g(tmp_path):
     """A fake two-card grid, checked without a card: its plan's positions
-    own their shards (ROADMAP item 13g's serving half), and what is not
-    ported over own shards yet raises naming its item: training and
-    restore 13h, the SSD / hybrid / enc-dec families 13i.  A held-once
-    plan cannot span the two cards."""
+    own their shards (ROADMAP items 13g and 13i: serving, every family),
+    and what is not ported over own shards yet raises naming its item:
+    training and restore 13h.  A held-once plan cannot span the two
+    cards."""
     cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
                  ("data", "model"))
     cfg = configs.reduced(configs.get_config("olmo-1b"))
@@ -599,8 +627,8 @@ def test_lm_mesh_over_distinct_cards_raises_13g(tmp_path):
         with pytest.raises(NotImplementedError, match="item 13h"):
             call()
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="item 13i"):
-            make_plan(configs.reduced(configs.get_config(arch)), cards)
+        assert make_plan(configs.reduced(configs.get_config(arch)),
+                         cards).own_shards
     with pytest.raises(ValueError, match="held-once"):
         make_plan(cfg, cards, own_shards=False)
     one_card = Mesh([[torch.device("cuda", 0)] * 2], ("data", "model"))

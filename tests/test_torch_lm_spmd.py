@@ -3,24 +3,31 @@
 moves, ``models/positions.py``, ``ServeEngine`` on such a plan).
 
 The reference's half is ``tests/test_torch_lm_mesh.py`` run as a script
-with its ``spmd`` part (8 forced host devices, ~30 s), started when the
-module starts; the port runs on a (data 2, model 4) grid of eight
-``"cpu"`` positions with ``make_plan(..., own_shards=True)``, each
-position holding its own pieces.  It checks:
+with its ``spmd`` and ``spmd-families`` parts, two processes on 8 forced
+host devices each (~25 s), started at once when the module starts; the
+port runs on a (data 2, model 4) grid of eight ``"cpu"`` positions with
+``make_plan(..., own_shards=True)``, each position holding its own
+pieces.  It checks:
 
   * own-shards prefill and one decode step of olmo (tp), qwen2 (cp) and
     llama4-scout (EP) within 1e-5 of the reference (caches gathered from
-    their pieces);
+    their pieces); prefill and two decode steps of mamba2 (tp at
+    ``reduced()``, and ``cp`` with no attention heads, as at full width),
+    zamba2 and seamless, logits and every cache leaf;
   * the EP MoE layer with capacity drops (the kept set equal to the
     reference's) and the EP decode;
   * the port alone: the collectives against plain tensors (the fold in
-    ascending position), a wider olmo / qwen2 whose weights are sharded
-    (FSDP, the tp MLP, flash-decoding) against the held-once path, each
-    piece's slice equal to ``devices_indices_map`` with no position
-    holding a whole sharded leaf, the EP collective records equal to the
-    held-once path's and every byte moved across positions recorded, the
-    engine token for token the held-once engine and the single-request
-    loop, and the refusals (13h, 13i).
+    ascending position), a wider olmo / qwen2 / minitron / llama4-maverick
+    whose weights are sharded (FSDP, the tp MLP, flash-decoding) and the
+    three families with every leaf split, on (1, 4) and (2, 2, 2), against
+    the held-once path, each piece's slice equal to
+    ``devices_indices_map`` with no position holding a whole sharded leaf
+    (the families' caches too), the SSD gate's sum of squares folded in
+    ascending position, the EP collective records equal to the held-once
+    path's and every byte moved across positions recorded (an SSD, a
+    hybrid and an enc-dec prefill and tick too), the engine token for
+    token the held-once engine and the single-request loop (mamba2 and
+    zamba2 too), and the refusals (13h).
 """
 
 from __future__ import annotations
@@ -35,8 +42,11 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_lm_mesh import (B, CTX, REF_TIMEOUT_S, RUN_MESH, S, SCOUT,
-                                SPMD_ARCHS, _close, _close_to_scale, _tree)
+from test_torch_lm_mesh import (B, CTX, ED_FRAMES, ED_TOKENS, FAMILY_CTX,
+                                FAMILY_S, FAMILY_STEPS, REF_TIMEOUT_S,
+                                RUN_MESH, S, SCOUT, SPMD_ARCHS,
+                                SPMD_FAMILIES, TRAIN_MESH, _close,
+                                _close_to_scale, _tree, family_config)
 
 from repro_torch import configs
 from repro_torch.dist import collectives as C
@@ -45,6 +55,7 @@ from repro_torch.dist.sharding import (Mesh, NamedSharding, P, Sharded,
                                        param_specs, shard_caches,
                                        shard_params, shard_tensor)
 from repro_torch.launch.mesh import make_position_mesh
+from repro_torch.models import encdec as ED
 from repro_torch.models import get_bundle
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
@@ -57,6 +68,10 @@ SCRIPT = ROOT / "tests" / "test_torch_lm_mesh.py"
 #: a wider reduced model: its large leaves pass param_specs' size floor,
 #: so they are sharded (FSDP over data, the last dim over model)
 WIDE = dict(d_model=256, vocab=2048)
+#: the reference's parts this module reads, run as processes at once
+PARTS = ("spmd", "spmd-families")
+#: the held-once comparisons of the families with every leaf split
+SPLIT_MESHES = ((("data", 1), ("model", 4)), TRAIN_MESH)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,28 +82,36 @@ def _reference_proc(tmp_path_factory):
                JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    with open(out / "err", "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, str(SCRIPT), str(out / "spmd.npz"), "spmd"],
-            env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL, stderr=err)
-    yield out, proc
-    if proc.poll() is None:
-        proc.kill()
-    proc.wait()
+    procs = {}
+    for part in PARTS:
+        with open(out / f"{part}.err", "w") as err:
+            procs[part] = subprocess.Popen(
+                [sys.executable, str(SCRIPT), str(out / f"{part}.npz"),
+                 part], env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL,
+                stderr=err)
+    yield out, procs
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
 
 
 @pytest.fixture(scope="module")
 def reference(_reference_proc):
-    out, proc = _reference_proc
-    try:
-        proc.wait(timeout=REF_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        pytest.fail(f"the reference's spmd part ran past {REF_TIMEOUT_S} s")
-    if proc.returncode != 0:
-        pytest.fail("the reference's spmd part failed:\n"
-                    + (out / "err").read_text()[-4000:])
-    with np.load(out / "spmd.npz") as z:
-        return dict(z)
+    out, procs = _reference_proc
+    got: dict = {}
+    for part, proc in procs.items():
+        try:
+            proc.wait(timeout=REF_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pytest.fail(f"the reference's {part} part ran past "
+                        f"{REF_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            pytest.fail(f"the reference's {part} part failed:\n"
+                        + (out / f"{part}.err").read_text()[-4000:])
+        with np.load(out / f"{part}.npz") as z:
+            got.update(z)
+    return got
 
 
 def _mesh(pairs=RUN_MESH):
@@ -103,6 +126,49 @@ def _own(cfg, pairs=RUN_MESH, decode_batch=B):
 def _gather(tree):
     return tree_map(lambda x: C.gather_to(x, "cpu")
                     if isinstance(x, Sharded) else x, tree)
+
+
+def _close_tree(got, want, **tol) -> None:
+    """Every leaf of ``got`` (pieces gathered) within tolerance of
+    ``want``'s, path for path."""
+    got = tree_flatten_with_path(_gather(got))
+    want = tree_flatten_with_path(want)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        _close(g, w, **tol)
+
+
+def _family_run(cfg, p, splan, toks, frames=None, *, ctx=FAMILY_CTX):
+    """Prefill then ``FAMILY_STEPS`` teacher-forced decode steps of a
+    family config under ``splan``: [(logits, caches)] after each, the
+    caches gathered from their pieces (an enc-dec prefill reads
+    ``ED_TOKENS`` tokens of ``toks`` after ``frames``, a decoder-only one
+    all but the last ``FAMILY_STEPS``)."""
+    if cfg.encoder_layers:
+        n = ED_TOKENS
+        logits, caches = ED.encdec_prefill(cfg, p, frames, toks[:, :n],
+                                           splan=splan)
+        step = lambda c, t: ED.encdec_decode(cfg, p, c, t,  # noqa: E731
+                                             splan=splan)
+    else:
+        n = toks.shape[1] - FAMILY_STEPS
+        logits, caches = LM.lm_prefill(cfg, p, toks[:, :n], splan=splan,
+                                       ctx=ctx)
+        step = lambda c, t: LM.lm_decode(cfg, p, c, t,  # noqa: E731
+                                         splan=splan)
+    out = [(logits, _snapshot(caches))]
+    for i in range(FAMILY_STEPS):
+        logits, caches = step(caches, toks[:, n + i:n + i + 1])
+        out.append((logits, _snapshot(caches)))
+    return out
+
+
+def _snapshot(tree):
+    """A copy of a cache tree (pieces gathered): the next decode writes
+    the caches in place."""
+    return tree_map(lambda x: (C.gather_to(x, "cpu")
+                               if isinstance(x, Sharded) else x).clone(),
+                    tree)
 
 
 # -- against the reference ----------------------------------------------------------
@@ -135,6 +201,40 @@ def test_own_shards_prefill_and_decode_match_reference(reference, arch):
     for (path, g), (_, w) in zip(tree_flatten_with_path(_gather(caches)),
                                  tree_flatten_with_path(want)):
         _close(g, w, **tol)
+
+
+@pytest.mark.parametrize("name", SPMD_FAMILIES)
+def test_own_shards_families_match_reference(reference, name):
+    """mamba2 (``tp`` on ``reduced()``'s 4 heads; ``:cp`` with none, as at
+    full width, so its sequence is split over ``model`` and each SSD
+    layer gathers it), zamba2 (the shared block, LoRA) and seamless (the
+    encoder, cross-attention, the memory) on (2, 4): prefill (40 tokens: a
+    chunk and a padded one) and two decode steps, logits and every cache
+    leaf (conv, state, K/V, shared, self, memory, index) within 1e-5 of
+    the reference."""
+    cfg = family_config(configs, name)
+    splan = _own(cfg)
+    assert splan.own_shards
+    assert splan.attn_mode == ("cp" if name.endswith(":cp") else "tp")
+    assert splan.ssm_state[1] == ("model" if cfg.ssm_layers else None)
+    if name.endswith(":cp"):
+        assert splan.hidden == P("data", "model", None)
+    p = shard_params(LM.params_from_arrays(_tree(reference, f"w/{name}"),
+                                           device="cpu"), splan)
+    toks = torch.from_numpy(reference[f"in/{name}/tokens"]).long()
+    frames = (torch.from_numpy(reference[f"in/{name}/frames"])
+              if cfg.encoder_layers else None)
+    got = _family_run(cfg, p, splan, toks, frames)
+    names = {path[-1] for path, _ in tree_flatten_with_path(got[0][1])}
+    assert names == ({"memory", "index", "k", "v"} if cfg.encoder_layers
+                     else {"conv", "state", "index"}
+                     | ({"k", "v"} if cfg.shared_attn_every else set()))
+    for i, (logits, caches) in enumerate(got):
+        key = ("prefill", "decode", *(f"decode{j + 1}"
+                                      for j in range(1, FAMILY_STEPS)))[i]
+        _close(logits, reference[f"out/{name}/{key}"])
+        _close_tree(caches, _tree(reference, f"out/{name}/"
+                                  + ("caches" if i == 0 else f"{key}_caches")))
 
 
 def _scout_moe(reference):
@@ -218,14 +318,18 @@ def test_collectives_move_pieces_and_fold_in_position_order():
 @pytest.mark.parametrize("arch,pairs,decode_batch", [
     ("olmo-1b", RUN_MESH, 2), ("qwen2-7b", RUN_MESH, 2),
     ("olmo-1b", RUN_MESH, 1), ("qwen2-7b", RUN_MESH, 1),
-    ("olmo-1b", (("pod", 2), ("data", 2), ("model", 2)), 4)])
+    ("olmo-1b", (("pod", 2), ("data", 2), ("model", 2)), 4),
+    ("minitron-4b", RUN_MESH, 2), ("minitron-4b", RUN_MESH, 1),
+    ("llama4-maverick-400b-a17b", RUN_MESH, 2),
+    ("llama4-maverick-400b-a17b", RUN_MESH, 1)])
 def test_wide_own_shards_match_held_once(arch, pairs, decode_batch):
     """At d_model 256 the MLP, embedding and (for qwen2) attention weights
     are sharded: FSDP gathers, the tp MLP's reduce-scatter, the cp K/V
-    gather.  decode_batch 1 < data: the cache's sequence is split over
-    every axis and the decode merges the positions' (max, sum, output).
-    Logits and caches within 1e-5 of the held-once path after prefill and
-    two decode steps."""
+    gather (minitron: ``cp`` with one KV head), llama4-maverick's EP
+    prefill and its shared expert.  decode_batch 1 < data: the cache's
+    sequence is split over every axis and the decode merges the
+    positions' (max, sum, output).  Logits and caches within 1e-5 of the
+    held-once path after prefill and two decode steps."""
     cfg = configs.reduced(configs.get_config(arch), **WIDE)
     p = get_bundle(cfg).init(cfg, torch.Generator().manual_seed(5),
                              dtype=torch.float32, device="cpu")
@@ -297,6 +401,173 @@ def test_sharded_norms_match_held_once(arch, monkeypatch):
     for (path, g), (_, w) in zip(tree_flatten_with_path(_gather(gc)),
                                  tree_flatten_with_path(wc)):
         _close(g, w)
+
+
+def _family(name: str, seed: int):
+    """A family config (zamba2 at two blocks, so that the LoRA and the
+    shared caches go by block) and its f32 parameters on the CPU."""
+    cfg = family_config(configs, name)
+    if cfg.shared_attn_every:
+        cfg = dataclasses.replace(cfg, num_layers=2 * cfg.block_period)
+    return cfg, get_bundle(cfg).init(cfg, torch.Generator().manual_seed(seed),
+                                     dtype=torch.float32, device="cpu")
+
+
+def _family_inputs(cfg, seed: int):
+    """Tokens (and an enc-dec's frames) for ``_family_run``."""
+    gen = torch.Generator().manual_seed(seed)
+    n = ED_TOKENS if cfg.encoder_layers else FAMILY_S
+    toks = torch.randint(0, cfg.vocab_size, (B, n + FAMILY_STEPS),
+                         generator=gen)
+    frames = (torch.randn(B, ED_FRAMES, cfg.d_model, generator=gen)
+              if cfg.encoder_layers else None)
+    return toks, frames
+
+
+@pytest.mark.parametrize("name,pairs,decode_batch", [
+    (name, pairs, db) for name in SPMD_FAMILIES for pairs in SPLIT_MESHES
+    for db in (1, 2)])
+def test_families_with_every_leaf_split_match_held_once(
+        name, pairs, decode_batch, monkeypatch):
+    """With ``param_specs``' size floor at 1 every leaf of rank 2 or more
+    is split (``in_proj``, the conv and the SSD's vectors, ``out_proj``,
+    the LoRA, the shared and cross-attention weights, the norms), as the
+    full-width ones are: the SSD's column block and projection gather, the
+    summed gate norm, the LoRA column block, cross-attention's heads, all
+    against the held-once path on (1, 4) and (2, 2, 2), decode batch 1
+    (the state's batch replicated, the K/V sequence over every axis) and
+    2: logits and every cache leaf within 1e-5 after prefill and two
+    decode steps."""
+    from repro_torch.dist import sharding
+    monkeypatch.setattr(sharding, "_MIN_SHARD_SIZE", 1)
+    cfg, p = _family(name, 11)
+    mesh = _mesh(pairs)
+    held = make_plan(cfg, mesh, decode_batch=decode_batch)
+    own = make_plan(cfg, mesh, decode_batch=decode_batch, own_shards=True)
+    pieces = shard_params(p, own)
+    whole = [path for path, v in tree_flatten_with_path(pieces)
+             if v.ndim >= 2 and not any(v.entry(d) for d in range(v.ndim))]
+    assert not whole
+    toks, frames = _family_inputs(cfg, 12)
+    want = _family_run(cfg, p, held, toks, frames)
+    got = _family_run(cfg, pieces, own, toks, frames)
+    for (gl, gc), (wl, wc) in zip(got, want):
+        _close(gl, wl)
+        _close_tree(gc, wc)
+
+
+@pytest.mark.parametrize("name,pairs", [
+    (name, pairs) for name in ("mamba2-2.7b:cp", "zamba2-2.7b")
+    for pairs in ((("data", 2), ("model", 3)), (("data", 4),))])
+def test_families_on_meshes_that_split_no_heads_match_held_once(
+        name, pairs, monkeypatch):
+    """A model axis that divides neither the SSD nor the attention heads
+    (3), or none at all: the plan is ``cp``, ``ssm_state`` splits no
+    heads, and every position scans all the heads with the whole
+    ``in_proj`` / ``out_proj`` (``_ssd_out``'s held-once norm), zamba2's
+    shared block on its sequence block; logits and every cache leaf
+    within 1e-5 of the held-once path (the size floor at 1)."""
+    from repro_torch.dist import sharding
+    monkeypatch.setattr(sharding, "_MIN_SHARD_SIZE", 1)
+    cfg, p = _family(name, 11)
+    mesh = _mesh(pairs)
+    held = make_plan(cfg, mesh, decode_batch=2)
+    own = make_plan(cfg, mesh, decode_batch=2, own_shards=True)
+    assert own.attn_mode == "cp" and own.ssm_state[1] is None
+    toks, frames = _family_inputs(cfg, 12)
+    want = _family_run(cfg, p, held, toks, frames)
+    got = _family_run(cfg, shard_params(p, own), own, toks, frames)
+    for (gl, gc), (wl, wc) in zip(got, want):
+        _close(gl, wl)
+        _close_tree(gc, wc)
+
+
+@pytest.mark.parametrize("name", SPMD_FAMILIES)
+def test_family_cache_pieces_are_the_devices_indices_map_slices(name):
+    """The own-shards caches of each family, after prefill and in the
+    engine's slots: every piece is its position's ``devices_indices_map``
+    slice under ``own_spec`` of its ``cache_specs`` spec (the SSD ``conv``
+    window by its rows, whole over ``model``; the f32 ``state`` by
+    ``ssm_state``, heads over ``model``; the shared and self K/V by
+    ``decode_cache``; the memory by its rows), and no position holds a
+    whole copy of a leaf its spec splits."""
+    cfg, p = _family(name, 13)
+    splan = _own(cfg)
+    pieces = shard_params(p, splan)
+    toks, frames = _family_inputs(cfg, 14)
+    if cfg.encoder_layers:
+        _, caches = ED.encdec_prefill(cfg, pieces, frames,
+                                      toks[:, :ED_TOKENS], splan=splan)
+        trees = [caches]
+    else:
+        _, caches = LM.lm_prefill(cfg, pieces, toks[:, :FAMILY_S],
+                                  splan=splan, ctx=FAMILY_CTX)
+        from repro_torch.serve.engine import ServeEngine
+        eng = ServeEngine(cfg, pieces, slots=4, max_ctx=48,
+                          prompt_buckets=(16,), splan=splan,
+                          dtype=torch.float32, device="cpu")
+        trees = [caches, eng.caches]
+    mesh = splan.mesh
+    split = 0
+    for tree in trees:
+        specs = tree_flatten_with_path(cache_specs(tree, splan))
+        for (path, x), (_, spec) in zip(tree_flatten_with_path(tree), specs):
+            whole_value = C.gather_to(x, "cpu")
+            assert x.spec == own_spec(spec, whole_value.shape, mesh), path
+            slices = NamedSharding(mesh, x.spec).devices_indices_map(
+                whole_value.shape)
+            assert list(slices) == list(x.pieces)
+            for pos, idx in slices.items():
+                assert torch.equal(x.pieces[pos], whole_value[idx]), path
+            if any(x.entry(d) for d in range(x.ndim)):
+                split += 1
+                assert all(q.numel() < whole_value.numel()
+                           for q in x.pieces.values()), path
+    assert split >= 2
+    if cfg.ssm_layers:
+        assert caches["p0"]["state"].entry(2) == ("model",)
+        assert caches["p0"]["conv"].entry(1) == ("data",)
+        assert not caches["p0"]["conv"].entry(3)
+    if cfg.encoder_layers:
+        assert caches["memory"].spec == P("data", None, None)
+
+
+def test_ssd_gate_sums_squares_in_position_order():
+    """The gated norm over d_inner with the heads split: each position's
+    sum of squares of its slice, summed over ``model`` in ascending
+    position before the rsqrt, then its rows of ``out_proj`` reduce-
+    scattered onto the hidden spec, folded in ascending position: bit for
+    bit that fold computed by hand (a summation order of its own, within
+    1e-6 of the held-once ``_gated_rmsnorm`` over the whole d_inner)."""
+    from repro_torch.models import ssd as SSD
+    cfg = configs.reduced(configs.get_config("zamba2-2.7b"))
+    splan = make_plan(cfg, _mesh((("data", 1), ("model", 4))), decode_batch=2,
+                      own_shards=True)
+    gen = torch.Generator().manual_seed(15)
+    di, D = cfg.d_inner, cfg.d_model
+    y, z = (torch.randn(2, 8, di, generator=gen) for _ in range(2))
+    p = {"norm": 1 + 0.1 * torch.randn(di, generator=gen),
+         "out_proj": torch.randn(di, D, generator=gen) / 8}
+    pieces = shard_params(p, splan)
+    mesh = splan.mesh
+    share = P(None, None, "model")
+    got = C.gather_to(PS._ssd_out(
+        cfg, splan, pieces, shard_tensor(y, mesh, share),
+        shard_tensor(z, mesh, share), PS._whole(pieces["norm"]),
+        splan.hidden), "cpu")
+    g = (y * torch.nn.functional.silu(z)).float().chunk(4, dim=-1)
+    ss = None
+    for part in g:
+        t = (part * part).sum(-1, keepdim=True)
+        ss = t if ss is None else ss + t
+    rows = p["out_proj"].chunk(4, dim=0)
+    want = None
+    for part, norm, w in zip(g, p["norm"].chunk(4), rows):
+        t = (part * torch.rsqrt(ss / di + 1e-6) * norm) @ w
+        want = t if want is None else want + t
+    assert torch.equal(got, want)
+    held = SSD._gated_rmsnorm(y, z, p["norm"]) @ p["out_proj"]
+    torch.testing.assert_close(got, held, rtol=1e-6, atol=1e-6)
 
 
 def test_pieces_are_the_devices_indices_map_slices():
@@ -421,17 +692,59 @@ def test_ep_records_equal_held_once_and_every_move_is_recorded():
         assert moved == sum(_CROSSING[k](r, g, n) for k, r, g, n in got) > 0
 
 
+@pytest.mark.parametrize("name", ["mamba2-2.7b:cp", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
+def test_family_moves_are_recorded(name, monkeypatch):
+    """With every leaf split (the size floor at 1), over an own-shards
+    prefill and decode step of the SSD under ``cp`` (the sequence gathered
+    for the scan, the projection gathered, the gate's all-reduce,
+    ``out_proj``'s reduce-scatter onto the sequence), the hybrid under
+    ``tp`` (the concat's d_model gathers, the LoRA's column blocks) and
+    the enc-dec (the memory, cross-attention), and over one engine tick
+    of the first two, the bytes the collectives moved across positions
+    are the recorded collectives' crossing bytes: no move went
+    unrecorded."""
+    from repro_torch.dist import sharding
+    from repro_torch.serve.engine import ServeEngine
+    monkeypatch.setattr(sharding, "_MIN_SHARD_SIZE", 1)
+    cfg, p = _family(name, 16)
+    splan = _own(cfg)
+    pieces = shard_params(p, splan)
+    toks, frames = _family_inputs(cfg, 17)
+    got, moved = _recorded(lambda: _family_run(cfg, pieces, splan, toks,
+                                               frames))
+    kinds = {r[0] for r in got}
+    assert {"all-gather", "all-reduce", "reduce-scatter",
+            "all-to-all"} <= kinds
+    assert moved == sum(_CROSSING[k](r, g, n) for k, r, g, n in got) > 0
+    if cfg.encoder_layers:
+        return
+    eng = ServeEngine(cfg, pieces, slots=2, max_ctx=48, prompt_buckets=(16,),
+                      splan=make_plan(cfg, splan.mesh, decode_batch=2,
+                                      own_shards=True),
+                      dtype=torch.float32, device="cpu")
+    eng.submit(np.arange(5) % cfg.vocab_size, max_new_tokens=3)
+    eng.step()                                   # the admission's prefill
+    got, moved = _recorded(eng.step)             # a decode tick
+    assert {r[0] for r in got} >= {"all-gather", "all-reduce"}
+    assert moved == sum(_CROSSING[k](r, g, n) for k, r, g, n in got) > 0
+
+
 @pytest.mark.parametrize("arch,pairs,slots", [
     ("olmo-1b", RUN_MESH, 4), ("qwen2-7b", RUN_MESH, 1),
-    (SCOUT, (("data", 1), ("model", 4)), 2)])
+    (SCOUT, (("data", 1), ("model", 4)), 2),
+    ("mamba2-2.7b", RUN_MESH, 4), ("mamba2-2.7b:cp", RUN_MESH, 1),
+    ("zamba2-2.7b", RUN_MESH, 4), ("zamba2-2.7b", RUN_MESH, 1)])
 def test_own_shards_engine_matches_held_once_and_loop(arch, pairs, slots):
     """The same script through a held-once and an own-shards engine: the
     same tokens, shed flags and finishing order; and each request's
     tokens the single-request greedy loop's under the own-shards plan.
-    qwen2 with one slot on data = 2 decodes by flash-decoding."""
+    qwen2 and zamba2 with one slot on data = 2 decode by flash-decoding;
+    mamba2's and zamba2's slots hold SSD conv / state pieces (one slot:
+    the state's batch replicated over data), zamba2's the shared K/V."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.router import TIER_BATCH, TIER_INTERACTIVE
-    cfg = configs.reduced(configs.get_config(arch))
+    cfg = family_config(configs, arch)
     p = get_bundle(cfg).init(cfg, torch.Generator().manual_seed(3),
                              dtype=torch.float32, device="cpu")
     mesh = _mesh(pairs)
@@ -452,8 +765,9 @@ def test_own_shards_engine_matches_held_once_and_loop(arch, pairs, slots):
         runs.append(([q.uid for q in done], {q.uid: (q.tokens, q.shed)
                                               for q in done}, uids))
         if own:
-            k = eng.caches["p0"]["k"]
-            assert isinstance(k, Sharded) and len(k.pieces) == mesh.size
+            for leaf in eng.caches["p0"].values():
+                assert isinstance(leaf, Sharded)
+                assert len(leaf.pieces) == mesh.size
             pieces = eng.params
     assert runs[0] == runs[1]
     splan = make_plan(cfg, mesh, decode_batch=slots, own_shards=True)
@@ -474,7 +788,9 @@ def test_own_shards_engine_matches_held_once_and_loop(arch, pairs, slots):
 
 def test_own_shards_refusals_name_13h_and_13i():
     """On repeated positions with ``own_shards=True``: training and
-    restore raise naming 13h, the SSD / hybrid / enc-dec families 13i; a
+    restore raise naming 13h (the LM's and the enc-dec's loss too); the
+    SSD, hybrid and enc-dec families, refused under 13i before it was
+    ported, get an own-shards plan (nothing raises naming 13i); a
     held-once path is never run instead."""
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
     from repro_torch.train.trainer import make_train_step
@@ -489,9 +805,21 @@ def test_own_shards_refusals_name_13h_and_13i():
         with pytest.raises(NotImplementedError, match="item 13h"):
             call()
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="item 13i"):
-            make_plan(configs.reduced(configs.get_config(arch)), _mesh(),
-                      own_shards=True)
+        fam, mesh = configs.reduced(configs.get_config(arch)), _mesh()
+        plan = make_plan(fam, mesh, own_shards=True)
+        assert plan.own_shards and plan.attn_mode == "tp"
+        assert plan.ssm_state == P("data", "model" if fam.ssm_layers
+                                   else None, None, None)
+        assert plan == dataclasses.replace(make_plan(fam, mesh),
+                                           own_shards=True)
+    ed = configs.reduced(configs.get_config("seamless-m4t-large-v2"))
+    for call in (lambda: ED.encdec_loss(ed, {}, toks, toks, toks,
+                                        splan=_own(ed)),
+                 lambda: get_bundle(ed).loss(
+                     ed, {}, {"frames": toks, "tokens": toks,
+                              "labels": toks}, _own(ed))):
+        with pytest.raises(NotImplementedError, match="item 13h"):
+            call()
     # a placement over distinct devices (two CPU indices, which torch
     # keeps apart) is a Sharded, never a held copy; on one device it is
     # the held-once tensor
