@@ -345,6 +345,27 @@ Phases (any failure exits non-zero and prints no result line):
               shapes on both meshes, every status ok or skipped, and the
               hillclimb example (llama4-scout decode_32k, moe_decode_ep
               true and false) under the H100 table.
+ 20. lm-spmd  LM serving over positions that own their shards, all on
+              cuda:0 (models/positions.py): (a) olmo-1b, (b) llama4-scout
+              (EP), (c) qwen2-7b (cp), (d) distinct cards when there are
+              two, (e) mamba2-2.7b and (f) zamba2-2.7b cut to
+              LMS_FAM_LAYERS, (g) seamless-m4t-large-v2: f32 against the
+              held-once path, both engines' tokens up to a near-tie, tick
+              p50 / p99, kernels a tick, bytes moved (the constants'
+              comment says each part's gates).
+ 21. lm-spmd-train  LM training over positions that own their shards,
+              all on cuda:0 (train/trainer.py, dist/collectives' transposes,
+              the optimizers over pieces, checkpoints as pieces): (a)
+              olmo-1b at full width, an f32 AdamW step at 4 layers against
+              the held-once step (loss, gnorm, each leaf's update), then
+              bf16 steps at full depth beside the held-once step: p50 /
+              p99, kernels a step, busy share, bytes moved a step, peak
+              memory, each position's resident state; (b) qwen2 (cp),
+              llama4-scout (EP, Adafactor), mamba2, zamba2 and seamless at
+              reduced() as (a)'s check; (c) the int8 round trip bit for
+              bit that of the gathered gradients; (d) TrainLoop's failure,
+              restore as pieces and continuation bit for bit, the save
+              restored onto (2, 2, 2) as pieces and held once.
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
@@ -570,9 +591,9 @@ DRY_HILLCLIMB = ("llama4-scout-17b-a16e", "decode_32k")
 #: f32 prefill and decode against held-once; (d) (a)'s f32 check on
 #: distinct cards when the machine has two or more; (e) mamba2-2.7b
 #: (``cp``: no attention heads) and (f) zamba2-2.7b (``tp``) at full width
-#: on LMS_MESH_A: f32 as (a), then LMS_REQUESTS bf16 requests of
-#: LMS_FAM_PROMPT_LEN / LMS_FAM_NEW_TOKENS through both engines as (a),
-#: prefill timed at LMS_FAM_TIMED only; (g) seamless-m4t-large-v2 at full
+#: cut to LMS_FAM_LAYERS on LMS_MESH_A: f32 as (a), then LMS_REQUESTS bf16
+#: requests of LMS_FAM_PROMPT_LEN / LMS_FAM_NEW_TOKENS through both engines
+#: as (a), prefill timed at LMS_FAM_TIMED only; (g) seamless-m4t-large-v2 at full
 #: width on LMS_MESH_A: ``encdec_prefill`` of LMS_ED_CHECK[0] x
 #: DECODE_MEMORY_FRAMES seeded frames and LMS_ED_CHECK[1] decoder tokens,
 #: then LMS_ED_CHECK[2] decode steps, f32, against the held-once path
@@ -590,6 +611,37 @@ LMS_FAM_PROMPT_LEN, LMS_FAM_NEW_TOKENS = (32, 120), (4, 8)
 LMS_FAM_TIMED = (128,)                 # the buckets whose prefill is timed
 LMS_ED_CHECK = (2, 64, 4)              # batch, decoder prefix, decode steps
 LMS_F32_REQUESTS, LMS_F32_NEW = 2, 4   # (e) / (f)'s f32 engines
+#: (e) / (f)'s depth: mamba2-2.7b's 64 layers and zamba2-2.7b's 54 cut to
+#: these (zamba2's 18 keep 3 shared blocks), to make room for phase 21
+LMS_FAM_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 18}
+
+#: phase 21, LM training over positions that own their shards, every
+#: position on cuda:0: (a) olmo-1b at full width on LMP_MESH: one f32
+#: AdamW step (LMM_OPT) cut to LMP_F32_LAYERS layers, own shards against
+#: the held-once step on the same mesh from the same state, on
+#: LMT_CHECK_BATCH x LMT_CHECK_SEQ tokens (loss, gnorm and each leaf's
+#: gradient within LMP_RTOL relative, a gradient of its leaf's largest;
+#: each leaf's update within LMM_UPDATE_RTOL of its largest update of the
+#: held-once optimizer fed the own-shards gradients: ``lmp_update_check``
+#: says why), then the bf16 step at full depth on LMT_BATCH x
+#: LMT_SEQ tokens, LMP_STEPS steps timed a side (own shards, then held
+#: once), the first steps' losses within LMP_BF16_RTOL; (b) each of
+#: LMP_FAMILIES at reduced() on LMP_MESH, one f32 step checked as (a)'s
+#: with its optimizer; (c) reduced olmo's gradients on LMM_TRAIN_MESH:
+#: the int8 round trip of the own-shards gradients bit for bit
+#: compress_grads_crosspod of the gathered ones; (d) TrainLoop over own
+#: shards at reduced olmo (phase 17's LMT_LOOP_*), deterministic, a
+#: failure, a restore as pieces and the continuation bit for bit the
+#: uninterrupted run; its last save restored onto LMM_TRAIN_MESH as pieces
+#: and held once, bit for bit
+LMP_MESH = (("data", 2), ("model", 4))
+LMP_F32_LAYERS = 4
+LMP_RTOL = 1e-4
+LMP_BF16_RTOL = 1e-2
+LMP_STEPS = 4
+LMP_FAMILIES = (("qwen2-7b", "adamw"), ("llama4-scout-17b-a16e", "adafactor"),
+                ("mamba2-2.7b", "adamw"), ("zamba2-2.7b", "adamw"),
+                ("seamless-m4t-large-v2", "adamw"))
 
 KINDS = ("predicated", "hummingbird", "quickscorer")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/forest_{k}.cu" for k in KINDS}
@@ -4306,9 +4358,9 @@ def lm_mesh_train(*, smi: str) -> None:
                                               save_checkpoint)
     from repro_torch.train.data import batch_for
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
-    from repro_torch.train.trainer import (_place, deterministic_algorithms,
+    from repro_torch.train.trainer import (deterministic_algorithms,
                                            init_state, jit_train_step,
-                                           make_train_step)
+                                           make_train_step, place_state)
 
     tag = "[lm-mesh] (c) olmo-1b"
     cfg = get_config("olmo-1b")
@@ -4348,7 +4400,7 @@ def lm_mesh_train(*, smi: str) -> None:
     for _ in range(LMM_RT_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _place(state, mesh)
+        place_state(state, mesh)
         torch.cuda.synchronize()
         place_ms.append(1e3 * (time.perf_counter() - t0))
     if not bits_equal({"l": m["loss"]}, {"l": loss}):
@@ -5265,9 +5317,12 @@ def lms_f32_engines(tag: str, cfg, params, mesh, script) -> str:
 
 
 def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
-    """Phase 20 (e) / (f): an SSD or hybrid config at full width over own
-    shards, f32 against the held-once path (teacher-forced, and both
-    engines on two requests), then both bf16 engines."""
+    """Phase 20 (e) / (f): an SSD or hybrid config at full width, cut to
+    LMS_FAM_LAYERS, over own shards, f32 against the held-once path
+    (teacher-forced, and both engines on two requests), then both bf16
+    engines."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import make_plan
     from repro_torch.launch.mesh import make_position_mesh
@@ -5275,14 +5330,15 @@ def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
     from repro_torch.train.tree import tree_map
 
     tag = f"[lm-spmd] ({part}) {arch}"
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=LMS_FAM_LAYERS[arch])
     mesh = make_position_mesh(LMS_MESH_A, "cuda:0")
     held = make_plan(cfg, mesh, decode_batch=LM_SLOTS)
     own = make_plan(cfg, mesh, decode_batch=LM_SLOTS, own_shards=True)
     params = get_bundle(cfg).init(
         cfg, torch.Generator(device="cuda").manual_seed(seed),
         dtype=torch.float32)
-    log(f"{tag} at full width ({cfg.num_layers} layers, SSD d_inner "
+    log(f"{tag} at full width cut to {cfg.num_layers} layers (SSD d_inner "
         f"{cfg.d_inner}, {cfg.ssm_heads} heads x {cfg.ssm_headdim}, state "
         f"{cfg.ssm_state}"
         + (f"; the shared block every {cfg.shared_attn_every}, {cfg.num_heads}"
@@ -5475,6 +5531,391 @@ def lm_spmd_phase(*, smi: str) -> None:
         log(f"[lm-spmd] ({part}) wall {time.perf_counter() - t0:.3f} s")
     log(f"[lm-spmd] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
+
+
+def lmp_update_check(tag: str, cfg, opt, mesh, *, seed: int) -> str:
+    """Phase 21 (a) / (b)'s f32 check, from one state (drawn on the CPU
+    from ``seed``) on the card: the own-shards step against the held-once
+    step on ``mesh``, loss and gnorm within LMP_RTOL relative; the
+    own-shards gradients (reduced over positions, gathered) each leaf
+    within LMP_RTOL of its largest held-once gradient; the step's new
+    parameters (gathered) each leaf within LMM_UPDATE_RTOL of its largest
+    update of the held-once optimizer fed those gradients (a first AdamW
+    update is lr g / (|g| + eps): fed the held-once gradients instead, a
+    rounding-sized difference of a gradient near 0 moves it by up to 2
+    lr); returns the summary."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.trainer import (_whole_grads,
+                                           deterministic_algorithms,
+                                           init_state, jit_train_step,
+                                           make_train_step, place_state,
+                                           state_from_arrays)
+    from repro_torch.train.trainer import loss_and_grads as step_grads
+    from repro_torch.train.tree import tree_leaves as flat
+    from repro_torch.train.tree import tree_map, tree_unflatten
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 checks")
+    arrays = tree_map(lambda t: t.numpy(), init_state(
+        cfg, opt, torch.Generator().manual_seed(seed), dtype=torch.float32,
+        device="cpu"))
+    batch = batch_for(cfg, ShapeConfig("check", LMT_CHECK_SEQ,
+                                       LMT_CHECK_BATCH, "train"), 0,
+                      seed=seed)
+    held = make_plan(cfg, mesh)
+    _, wm = make_train_step(cfg, opt, held)(
+        state_from_arrays(arrays, device="cuda"), batch)
+    _, want_g = loss_and_grads(cfg, state_from_arrays(arrays, device="cuda")
+                               ["params"], batch, held)
+    want_g = [g.cpu() for g in flat(want_g)]
+    step, own = jit_train_step(cfg, opt, mesh, own_shards=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, gm = step(state_from_arrays(arrays, device="cuda"), batch)
+    torch.cuda.synchronize()
+    own_s = time.perf_counter() - t0
+    on_card(got, f"{tag} own-shards state")
+    new = [C.gather_to(x, "cpu") for x in flat(got["params"])]
+    del got
+    errs = {}
+    for key in ("loss", "gnorm"):
+        g, w = float(gm[key]), float(wm[key])
+        errs[key] = abs(g - w) / abs(w)
+        if not (math.isfinite(g) and errs[key] <= LMP_RTOL):
+            raise AssertionError(f"{tag} {key}: own shards {g} against held "
+                                 f"once {w}")
+    placed = place_state(state_from_arrays(arrays, device="cuda"), mesh,
+                         own_shards=True)
+    tb = {k: (torch.from_numpy(a) if a.dtype.kind == "f"
+              else torch.from_numpy(a).long()).cuda() for k, a in batch.items()}
+    with deterministic_algorithms():
+        _, grads = step_grads(cfg, placed["params"], tb, own)
+        grads = [C.gather_to(g, "cpu") for g in flat(_whole_grads(
+            grads, own, compress=False))]
+    del placed
+    g_err = max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                 1e-30)
+                for g, w in zip(grads, want_g))
+    if not g_err <= LMP_RTOL:
+        raise AssertionError(f"{tag}: a leaf's gradient {g_err:.3e} of its "
+                             f"largest off the held-once one's")
+    old = state_from_arrays(arrays, device="cpu")
+    ref, _ = opt.update(tree_unflatten(old["params"], grads), old["opt"],
+                        old["params"], old["step"])
+    ref = flat(ref)
+    old = [torch.from_numpy(a) for a in flat(arrays["params"])]
+    excess = update_excess(new, old, ref,
+                           [torch.ones_like(o, dtype=torch.bool)
+                            for o in old])
+    if not excess <= 1.0:
+        raise AssertionError(f"{tag}: update error {excess:.3e} x the "
+                             f"limit")
+    upd = max(float((w - o).abs().max()) for w, o in zip(ref, old))
+    free_card()
+    return (f"one f32 {opt.cfg.name} step (lr {opt.cfg.lr:g} from step 0), "
+            f"{own.attn_mode}, own shards against held once on the same "
+            f"mesh: loss {float(gm['loss']):.6f} (rel err "
+            f"{errs['loss']:.2e}), gnorm {float(gm['gnorm']):.6f} (rel err "
+            f"{errs['gnorm']:.2e}), each leaf's gradient within "
+            f"{g_err:.2e} of its largest (limit {LMP_RTOL:g} for all "
+            f"three); update max {upd:.3e}, its error {excess:.3e} x the "
+            f"limit ({LMM_UPDATE_RTOL:g} x each leaf's largest update of "
+            f"the held-once optimizer on the own-shards gradients); own "
+            f"step {own_s:.3f} s (first call)")
+
+
+def lmp_resident(state, mesh) -> str:
+    """Each position's bytes of the own-shards state (parameter and
+    optimizer pieces) against what ``param_specs`` gives it; raises if a
+    position holds another share."""
+    from repro_torch.dist.sharding import NamedSharding, own_spec, param_specs
+
+    want = 0
+    for part in ("params", "opt"):
+        for leaf, spec in zip(tree_values(state[part]),
+                              tree_values(param_specs(state[part], mesh))):
+            shape = NamedSharding(mesh, own_spec(spec, leaf.shape, mesh)) \
+                .shard_shape(leaf.shape)
+            want += int(np.prod(shape)) * leaf.first.element_size()
+    held = {pos: 0 for pos in np.ndindex(*mesh.devices.shape)}
+    for leaf in tree_values(state["params"]) + tree_values(state["opt"]):
+        for pos, t in leaf.pieces.items():
+            held[pos] += t.nbytes
+    if set(held.values()) != {want}:
+        raise AssertionError(f"positions hold {sorted(set(held.values()))} "
+                             f"bytes of state, the specs give {want}")
+    whole = sum(int(np.prod(x.shape)) * x.first.element_size()
+                for x in tree_values(state["params"])
+                + tree_values(state["opt"]))
+    return (f"each of {mesh.size} positions holds {want / 1e9:.4f} GB of "
+            f"parameter and optimizer pieces, what the specs give; the whole"
+            f" state is {whole / 1e9:.3f} GB")
+
+
+def lmp_timed(step, state, batches, *, tag: str) -> tuple:
+    """LMP_STEPS steps from ``state``: (the state after, their walls in
+    ms, their losses, the peak memory in GB)."""
+    walls, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(LMP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batches[k])
+        losses.append(float(m["loss"]))
+        walls.append(1e3 * (time.perf_counter() - t0))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    return state, walls, losses, torch.cuda.max_memory_allocated() / 1e9
+
+
+def lm_spmd_train_olmo(*, smi: str) -> None:
+    """Phase 21 (a): olmo-1b over own shards on LMP_MESH: the f32 check at
+    LMP_F32_LAYERS layers, then bf16 steps at full depth beside the
+    held-once step."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, jit_train_step,
+                                           make_train_step, place_state)
+
+    tag = "[lm-spmd-train] (a) olmo-1b"
+    full = get_config("olmo-1b")
+    mesh = make_position_mesh(LMP_MESH, "cuda:0")
+    cut = dataclasses.replace(full, num_layers=LMP_F32_LAYERS)
+    log(f"{tag} f32 at {LMP_F32_LAYERS} layers on (data 2, model 4), every "
+        f"position on cuda:0 with its own pieces, {LMT_CHECK_BATCH} x "
+        f"{LMT_CHECK_SEQ} tokens: "
+        + lmp_update_check(tag, cut, make_optimizer(OptimizerConfig(
+            **LMM_OPT)), mesh, seed=SEED + 500) + f"; on {smi}")
+
+    opt = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
+    shape = ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH, "train")
+    batches = [batch_for(full, shape, k, seed=SEED) for k in
+               range(LMP_STEPS + 2)]
+    step, own = jit_train_step(full, opt, mesh, own_shards=True)
+    state = init_state(full, opt, torch.Generator(device="cuda").manual_seed(
+        SEED + 501))
+    placed = place_state(state, mesh, own_shards=True)
+    del state
+    free_card()
+    on_card(placed, f"{tag} placed state")
+    resident = lmp_resident(placed, mesh)
+    placed, walls, losses, peak = lmp_timed(step, placed, batches, tag=tag)
+    records, moved = lms_recorded(lambda: step(placed, batches[LMP_STEPS]))
+    kernels, busy = lms_tick_profile(lambda: step(placed,
+                                                  batches[LMP_STEPS + 1]))
+    del placed
+    free_card()
+    held_step = make_train_step(full, opt, make_plan(full, mesh))
+    state = init_state(full, opt, torch.Generator(device="cuda").manual_seed(
+        SEED + 501))
+    state, hwalls, hlosses, hpeak = lmp_timed(held_step, state, batches,
+                                              tag=tag)
+    hkernels, hbusy = lms_tick_profile(lambda: held_step(
+        state, batches[LMP_STEPS + 1]))
+    del state
+    free_card()
+    gap = abs(losses[0] - hlosses[0]) / abs(hlosses[0])
+    if not gap <= LMP_BF16_RTOL:
+        raise AssertionError(f"{tag} bf16 step 0 loss {losses[0]} against "
+                             f"the held-once {hlosses[0]}")
+    p50, p99 = np.percentile(walls[1:], [50, 99])
+    hp50, hp99 = np.percentile(hwalls[1:], [50, 99])
+    log(f"{tag} bf16 at full depth ({full.num_layers} layers, remat "
+        f"{full.remat_policy}), AdamW, deterministic, {LMT_BATCH} x "
+        f"{LMT_SEQ} tokens, {LMP_STEPS} steps a side from the same state, "
+        f"own shards / held once: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + " / "
+        + " ".join(f"{x:.4f}" for x in hlosses)
+        + f" (step 0 rel gap {gap:.2e}, limit {LMP_BF16_RTOL:g}); step wall "
+        f"(steps 1-{LMP_STEPS - 1}) p50 {p50:.3f} / {hp50:.3f} ms = "
+        f"{p50 / hp50:.3f}, p99 {p99:.3f} / {hp99:.3f} ms, first step "
+        f"{walls[0]:.3f} / {hwalls[0]:.3f} ms; kernels a step {kernels} / "
+        f"{hkernels}; busy {100 * busy:.1f} / {100 * hbusy:.1f} %; peak "
+        f"memory {peak:.3f} / {hpeak:.3f} GB; on {smi}")
+    log(f"{tag} collectives a step (forward, backward and the gradients' "
+        f"sums): {lms_bytes(records)}; {moved / 1e6:.3f} MB moved across "
+        f"positions; {resident}")
+
+
+def lm_spmd_train_families(*, smi: str) -> None:
+    """Phase 21 (b): each of LMP_FAMILIES at reduced() on LMP_MESH, one f32
+    step over own shards against the held-once step."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+
+    mesh = make_position_mesh(LMP_MESH, "cuda:0")
+    for i, (arch, name) in enumerate(LMP_FAMILIES):
+        cfg = reduced(get_config(arch))
+        opt = make_optimizer(OptimizerConfig(name=name, **LMM_OPT))
+        tag = f"[lm-spmd-train] (b) {arch}"
+        log(f"{tag} reduced on (data 2, model 4): "
+            + lmp_update_check(tag, cfg, opt, mesh, seed=SEED + 510 + i)
+            + f"; on {smi}")
+
+
+def lm_spmd_train_compress(*, smi: str) -> None:
+    """Phase 21 (c): reduced olmo's own-shards gradients on LMM_TRAIN_MESH,
+    their int8 round trip bit for bit that of the gathered gradients."""
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.compression import compress_grads_crosspod
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (_whole_grads, init_state,
+                                           make_train_step, place_state)
+    from repro_torch.train.trainer import loss_and_grads as step_grads
+    from repro_torch.train.tree import tree_flatten_with_path
+
+    tag = "[lm-spmd-train] (c) olmo-1b"
+    cfg = reduced(get_config("olmo-1b"))
+    mesh = make_position_mesh(LMM_TRAIN_MESH, "cuda:0")
+    own = make_plan(cfg, mesh, own_shards=True)
+    opt = make_optimizer(OptimizerConfig(**LMM_OPT))
+    state = place_state(init_state(
+        cfg, opt, torch.Generator(device="cuda").manual_seed(SEED + 520),
+        dtype=torch.float32), mesh, own_shards=True)
+    batch = batch_for(cfg, ShapeConfig("check", LMT_CHECK_SEQ,
+                                       LMT_CHECK_BATCH, "train"), 0,
+                      seed=SEED + 520)
+    tb = {k: torch.from_numpy(a).long().cuda() for k, a in batch.items()}
+    _, grads = step_grads(cfg, state["params"], tb, own)
+    grads = _whole_grads(grads, own, compress=True)
+    sent = compress_grads_crosspod(grads, mesh)
+    whole = {"/".join(p): C.gather_to(g, "cuda")
+             for p, g in tree_flatten_with_path(grads)}
+    want = compress_grads_crosspod(whole, None)
+    n = 0
+    for path, g in tree_flatten_with_path(sent):
+        got = C.gather_to(g, "cuda")
+        if not bits_equal({"g": got}, {"g": want["/".join(path)]}):
+            raise AssertionError(f"{tag}: {'/'.join(path)} round trip is not "
+                                 f"bit for bit the gathered gradients'")
+        n += got.numel()
+    records, _ = lms_recorded(lambda: make_train_step(
+        cfg, opt, own, grad_compress=True)(state, batch))
+    int8 = sorted(g.first.numel() + 4 for g in tree_values(grads))
+    pod = sorted(r[1] for r in records if r[0] == "all-reduce"
+                 and r[2] == mesh.shape["pod"] and r[1] in set(int8))
+    if pod != int8:
+        raise AssertionError(f"{tag}: the compressed step's cross-pod "
+                             f"all-reduces carry {pod} bytes, the int8 "
+                             f"levels and scales {int8}")
+    log(f"{tag} reduced on (pod 2, data 2, model 2), f32: the own-shards "
+        f"gradients' int8 round trip (each leaf's scale the pmax of its "
+        f"distinct slices' max-abs), {len(whole)} leaves and {n:,} "
+        f"elements, bit for bit compress_grads_crosspod of the gathered "
+        f"gradients; the compressed step's {len(pod)} cross-pod "
+        f"all-reduces recorded at the int8 levels and an f32 scale "
+        f"({sum(pod):,} B a position); all its collectives "
+        f"{lms_bytes(records)}; on {smi}")
+    del state, grads, sent, whole, want
+    free_card()
+
+
+def lm_spmd_train_loop(*, smi: str) -> None:
+    """Phase 21 (d): TrainLoop over own shards at reduced olmo on the
+    card: a failure, the restore as pieces and the continuation bit for
+    bit the uninterrupted run; the last save restored onto LMM_TRAIN_MESH
+    as pieces and held once."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.dist import collectives as C
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.checkpoint import latest_step, restore_checkpoint
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.fault import FailureInjector, TrainLoop
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, make_train_step,
+                                           place_state)
+
+    tag = "[lm-spmd-train] (d) olmo-1b"
+    cfg = reduced(get_config("olmo-1b"))
+    mesh = make_position_mesh(LMP_MESH, "cuda:0")
+    own = make_plan(cfg, mesh, own_shards=True)
+    opt = make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=2))
+    dc = DataConfig(seed=SEED + 5, vocab_size=cfg.vocab_size, batch=4,
+                    seq_len=32)
+
+    def fresh():
+        return place_state(init_state(
+            cfg, opt, torch.Generator(device="cuda").manual_seed(SEED + 530),
+            dtype=torch.float32), mesh, own_shards=True)
+
+    def loop(ckpt_dir=None, injector=None):
+        return TrainLoop(make_train_step(cfg, opt, own),
+                         lambda k: synthetic_batch(dc, k), ckpt_dir=ckpt_dir,
+                         ckpt_every=LMT_LOOP_CKPT, injector=injector)
+
+    t0 = time.perf_counter()
+    straight, report = loop().run(fresh(), LMT_LOOP_STEPS)
+    with tempfile.TemporaryDirectory(prefix="lm_spmd_ckpt_") as tmp:
+        faulty = loop(tmp, FailureInjector(fail_at=LMT_LOOP_FAIL))
+        try:
+            faulty.run(fresh(), LMT_LOOP_STEPS)
+            raise AssertionError("the injected failure did not fire")
+        except RuntimeError as exc:
+            if "injected node failure" not in str(exc):
+                raise
+        saved = latest_step(tmp)
+        restored, step = faulty.restore(fresh(), mesh=mesh, own_shards=True)
+        on_card(restored, f"{tag} restored state")
+        resumed, rep2 = faulty.run(restored, LMT_LOOP_STEPS - step,
+                                   start_step=step)
+        onto = make_position_mesh(LMM_TRAIN_MESH, "cuda:0")
+        pieces, at = restore_checkpoint(tmp, straight, mesh=onto,
+                                        own_shards=True)
+        held, _ = restore_checkpoint(tmp, straight, mesh=onto)
+    if saved != LMT_LOOP_CKPT or step != LMT_LOOP_CKPT:
+        raise AssertionError(f"restored from step {step}, saved {saved}")
+    if not bits_equal(resumed, straight):
+        raise AssertionError("the restored run is not bit for bit the "
+                             "uninterrupted one")
+    if rep2.losses != report.losses[step:]:
+        raise AssertionError(f"losses {rep2.losses} against "
+                             f"{report.losses[step:]}")
+    gathered = {k: C.gather_to(x, "cuda") for k, x in
+                enumerate(tree_values(resumed))}
+    if at != LMT_LOOP_STEPS or not (
+            bits_equal({k: C.gather_to(x, "cuda") for k, x in
+                        enumerate(tree_values(pieces))}, gathered)
+            and bits_equal(dict(enumerate(tree_values(held))), gathered)):
+        raise AssertionError("the save restored onto (2, 2, 2) is not bit "
+                             "for bit the saved state")
+    log(f"{tag} reduced, TrainLoop over own shards on (data 2, model 4), "
+        f"deterministic: failure at step {LMT_LOOP_FAIL}, restored as pieces"
+        f" from the step-{step} checkpoint, {LMT_LOOP_STEPS - step} more "
+        f"steps: every piece bit for bit the uninterrupted "
+        f"{LMT_LOOP_STEPS}-step run's, losses equal ({report.losses[0]:.6f}"
+        f" -> {report.losses[-1]:.6f}); the step-{at} save restored onto "
+        f"(pod 2, data 2, model 2) as pieces and held once, both bit for "
+        f"bit the saved state; {time.perf_counter() - t0:.3f} s; on {smi}")
+    del straight, resumed, restored, pieces, held
+    free_card()
+
+
+def lm_spmd_train_phase(*, smi: str) -> None:
+    """Phase 21: LM training over positions that own their shards."""
+    t_phase = time.perf_counter()
+    for part, run in (("a", lm_spmd_train_olmo),
+                      ("b", lm_spmd_train_families),
+                      ("c", lm_spmd_train_compress),
+                      ("d", lm_spmd_train_loop)):
+        t0 = time.perf_counter()
+        run(smi=smi)
+        log(f"[lm-spmd-train] ({part}) wall {time.perf_counter() - t0:.3f} s")
+    log(f"[lm-spmd-train] phase wall {time.perf_counter() - t_phase:.3f} s; "
+        f"on {smi}")
 
 
 def main() -> int:
@@ -6305,6 +6746,17 @@ def main() -> int:
             entry["launches"] += counts20[name_]
         else:
             entry["launches"] += counts20[name_] - counts20[f"{name_}_wide"]
+
+    # -- 21. LM training over positions that own their shards ---------------
+    (_, counts21) = counted(lambda: lm_spmd_train_phase(smi=smi))
+    log(f"[lm-spmd-train] forest kernel launches "
+        f"{ {k: n for k, n in counts21.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts21[name_]
+        else:
+            entry["launches"] += counts21[name_] - counts21[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

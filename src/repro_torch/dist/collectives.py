@@ -26,6 +26,23 @@ output copy, not a collective, and is not recorded.  There is no
 ``torch.distributed`` process group: one controller addresses every
 position, as the reference's single-controller jax does.
 
+Autograd runs back through every move (``_Move``): its backward is the
+move's transpose, run through this module, so it records itself and
+counts its bytes as the forward does: all-gather <-> reduce-scatter,
+all-to-all <-> all-to-all with the dimensions swapped, psum <-> psum,
+broadcast <-> a sum onto the source.  The rule that keeps gradients
+exact: a forward value is either a piece of the whole value (``Sharded``'s
+contract) or, just before a ``psum`` / ``reduce_scatter``, one partial
+term of it; a COTANGENT is always partial: each position's cotangent
+covers only the uses made at that position.  So the transpose of a move
+that made copies (a gather, a psum's result) sums its copies'
+cotangents once, a local slice's transpose (``relayout``'s narrow, plain
+autograd) zero-fills without a sum, and a parameter leaf replicated over
+some axes takes the sum of its copies' gradients over those axes once,
+at the end (``train/trainer.py``).  A loss read from one position's copy
+seeds that copy alone, so no gradient comes out a group's size too
+large.
+
 Recording does nothing unless a recorder is set: ``launch/hlo_cost``'s
 ``CostMode`` sets itself while it counts and clears itself after.  The
 slot is one per process, not per thread, so autograd's device thread
@@ -41,7 +58,7 @@ import torch
 from repro_torch.dist.sharding import P, Sharded, coord, group, own_spec
 
 __all__ = ["set_recorder", "recording", "record_collective", "exchange",
-           "all_gather", "reduce_scatter", "psum", "all_to_all",
+           "all_gather", "reduce_scatter", "psum", "pmax", "all_to_all",
            "broadcast", "relayout", "gather_to", "moved_bytes"]
 
 #: the active recorder: an object with ``collective(kind, nbytes, group,
@@ -125,9 +142,11 @@ def _recv(t: torch.Tensor, src: tuple, dst: tuple, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _record(kind: str, x: Sharded, out_piece: torch.Tensor, axes) -> None:
+def _record(kind: str, x: Sharded, out_piece: torch.Tensor, axes,
+            nbytes: int | None = None) -> None:
     mesh = x.mesh
-    record_collective(kind, out_piece.numel() * out_piece.element_size(),
+    record_collective(kind, out_piece.numel() * out_piece.element_size()
+                      if nbytes is None else nbytes,
                       group=_size(mesh, axes), members=mesh.size)
 
 
@@ -149,24 +168,68 @@ def _dim(x: Sharded, dim: int) -> int:
     return dim % x.ndim
 
 
+class _Move(torch.autograd.Function):
+    """A move whose backward is its transpose: ``fwd`` over the pieces in
+    forward, ``bwd`` over the cotangent pieces in backward, both moves of
+    this module (each records itself and counts its bytes).  Every piece
+    is an input and every result piece an output; ``box`` receives the
+    result's spec."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, box, mesh, spec, keys, *pieces):
+        y = fwd(Sharded(mesh, spec, dict(zip(keys, pieces))))
+        box["spec"] = y.spec
+        ctx.bwd, ctx.out = bwd, (mesh, y.spec, keys)
+        return tuple(y.pieces[k] for k in keys)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, spec, keys = ctx.out
+        g = ctx.bwd(Sharded(mesh, spec, dict(zip(keys, grads))))
+        return (None,) * 6 + tuple(g.pieces[k] for k in keys)
+
+
+def _move(fwd, bwd, x: Sharded) -> Sharded:
+    """``fwd(x)``; where autograd records (a piece requires grad), through
+    ``_Move``, whose backward runs ``bwd`` on the cotangents."""
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in x.pieces.values())):
+        return fwd(x)
+    keys, box = list(x.pieces), {}
+    out = _Move.apply(fwd, bwd, box, x.mesh, x.spec, keys,
+                      *x.pieces.values())
+    return Sharded(x.mesh, box["spec"], dict(zip(keys, out)))
+
+
 def all_gather(x: Sharded, dim: int) -> Sharded:
     """Make dimension ``dim`` whole at every position: each position
     concatenates its group's pieces along ``dim`` in position order.  A
-    dimension no axis splits comes back as ``x`` itself."""
+    dimension no axis splits comes back as ``x`` itself.  Transpose: the
+    reduce-scatter of the cotangents onto the same split."""
     dim = _dim(x, dim)
-    axes = x.entry(dim)
+    return _gather(x, dim, x.entry(dim))
+
+
+def _gather(x: Sharded, dim: int, axes: tuple) -> Sharded:
+    """Gather ``axes``, the minor end of ``dim``'s entry, leaving the
+    axes before them on the dimension."""
     if not axes:
         return x
+    keep = x.entry(dim)[:len(x.entry(dim)) - len(axes)]
     if _size(x.mesh, axes) == 1:            # each piece is whole already
-        return Sharded(x.mesh, _set_entry(x.spec, dim, ()), x.pieces)
-    out = {}
-    for pos in x.pieces:
-        dev = x.mesh.devices[pos]
-        out[pos] = torch.cat([_recv(x.pieces[q], q, pos, dev)
-                              for q in group(x.mesh, pos, axes)], dim)
-    y = Sharded(x.mesh, _set_entry(x.spec, dim, ()), out)
-    _record("all-gather", x, y.first, axes)
-    return y
+        return Sharded(x.mesh, _set_entry(x.spec, dim, keep), x.pieces)
+
+    def fwd(v: Sharded) -> Sharded:
+        out = {}
+        for pos in v.pieces:
+            dev = v.mesh.devices[pos]
+            out[pos] = torch.cat([_recv(v.pieces[q], q, pos, dev)
+                                  for q in group(v.mesh, pos, axes)], dim)
+        y = Sharded(v.mesh, _set_entry(v.spec, dim, keep), out)
+        _record("all-gather", v, y.first, axes)
+        return y
+
+    return _move(fwd, lambda g: reduce_scatter(g, axes, dim), x)
 
 
 def _fold(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -176,18 +239,47 @@ def _fold(parts: list[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
-def psum(x: Sharded, axes) -> Sharded:
+def psum(x: Sharded, axes, *, wire_bytes: int | None = None) -> Sharded:
     """``x`` holds partial sums along ``axes`` (each position one term of
     the whole value's sum, under the same spec): every position gets the
-    sum, folded in ascending position along ``axes``."""
+    sum, folded in ascending position along ``axes``.  Transpose: the
+    psum of the cotangents (each copy of the sum was used on its own).
+    ``wire_bytes``: what each member's result carries on the wire, where
+    the record should say so (the cross-pod all-reduce of int8 levels and
+    a scale, ``train/trainer.py``); the move itself is the values'."""
+    axes = tuple(a for a in axes if a)
+    if _size(x.mesh, axes) == 1:
+        return x
+
+    def fwd(v: Sharded) -> Sharded:
+        out = {}
+        for pos in v.pieces:
+            dev = v.mesh.devices[pos]
+            out[pos] = _fold([_recv(v.pieces[q], q, pos, dev)
+                              for q in group(v.mesh, pos, axes)])
+        y = Sharded(v.mesh, v.spec, out)
+        _record("all-reduce", v, y.first, axes, wire_bytes)
+        return y
+
+    return _move(fwd, lambda g: psum(g, axes), x)
+
+
+def pmax(x: Sharded, axes) -> Sharded:
+    """The elementwise max of ``x``'s pieces over ``axes`` at every
+    position, folded in ascending position (the int8 round trip's global
+    scale); no gradient."""
     axes = tuple(a for a in axes if a)
     if _size(x.mesh, axes) == 1:
         return x
     out = {}
     for pos in x.pieces:
         dev = x.mesh.devices[pos]
-        out[pos] = _fold([_recv(x.pieces[q], q, pos, dev)
-                          for q in group(x.mesh, pos, axes)])
+        parts = [_recv(x.pieces[q], q, pos, dev).detach()
+                 for q in group(x.mesh, pos, axes)]
+        acc = parts[0]
+        for t in parts[1:]:
+            acc = torch.maximum(acc, t)
+        out[pos] = acc
     y = Sharded(x.mesh, x.spec, out)
     _record("all-reduce", x, y.first, axes)
     return y
@@ -197,25 +289,29 @@ def reduce_scatter(x: Sharded, axes, dim: int) -> Sharded:
     """The sum of ``x``'s partials along ``axes`` (as ``psum``), each
     position keeping only its slice of dimension ``dim`` (``axes`` added,
     minor, to the dimension's entry): each position folds its slice of
-    every member's partial in ascending position."""
+    every member's partial in ascending position.  Transpose: the
+    all-gather of the cotangents over ``axes``."""
     axes = tuple(a for a in axes if a)
     dim = _dim(x, dim)
     n = _size(x.mesh, axes)
-    full = x.entry(dim) + axes
-    spec = _set_entry(x.spec, dim, full)
+    spec = _set_entry(x.spec, dim, x.entry(dim) + axes)
     if n == 1:                              # one term: the sum itself
         return Sharded(x.mesh, spec, x.pieces)
-    step = x.first.shape[dim] // n
-    out = {}
-    for pos in x.pieces:
-        dev = x.mesh.devices[pos]
-        k = coord(x.mesh, pos, axes)
-        out[pos] = _fold([_recv(x.pieces[q].narrow(dim, k * step, step), q,
-                                pos, dev)
-                          for q in group(x.mesh, pos, axes)])
-    y = Sharded(x.mesh, spec, out)
-    _record("reduce-scatter", x, y.first, axes)
-    return y
+
+    def fwd(v: Sharded) -> Sharded:
+        step = v.first.shape[dim] // n
+        out = {}
+        for pos in v.pieces:
+            dev = v.mesh.devices[pos]
+            k = coord(v.mesh, pos, axes)
+            out[pos] = _fold([_recv(v.pieces[q].narrow(dim, k * step, step),
+                                    q, pos, dev)
+                              for q in group(v.mesh, pos, axes)])
+        y = Sharded(v.mesh, spec, out)
+        _record("reduce-scatter", v, y.first, axes)
+        return y
+
+    return _move(fwd, lambda g: _gather(g, dim, axes), x)
 
 
 def all_to_all(x: Sharded, split_dim: int, concat_dim: int) -> Sharded:
@@ -223,42 +319,65 @@ def all_to_all(x: Sharded, split_dim: int, concat_dim: int) -> Sharded:
     minor, to its entry): the position at index j along those axes takes
     slice j of ``split_dim`` from every member and concatenates them along
     ``concat_dim`` in position order.  The exchange of the EP dispatch,
-    the turn from a hidden dimension split to a sequence split."""
+    the turn from a hidden dimension split to a sequence split.
+    Transpose: the all-to-all that moves those axes back."""
     split_dim, concat_dim = _dim(x, split_dim), _dim(x, concat_dim)
-    axes = x.entry(concat_dim)
+    return _exchange(x, split_dim, concat_dim, x.entry(concat_dim))
+
+
+def _exchange(x: Sharded, to_dim: int, from_dim: int, axes: tuple) -> Sharded:
+    """Move ``axes``, the minor end of ``from_dim``'s entry, onto the
+    minor end of ``to_dim``'s."""
     n = _size(x.mesh, axes)
-    spec = _set_entry(_set_entry(x.spec, concat_dim, ()), split_dim,
-                      x.entry(split_dim) + axes)
+    keep = x.entry(from_dim)[:len(x.entry(from_dim)) - len(axes)]
+    spec = _set_entry(_set_entry(x.spec, from_dim, keep), to_dim,
+                      x.entry(to_dim) + axes)
     if n == 1:                              # nothing to exchange
         return Sharded(x.mesh, spec, x.pieces)
-    step = x.first.shape[split_dim] // n
-    out = {}
-    for pos in x.pieces:
-        dev = x.mesh.devices[pos]
-        k = coord(x.mesh, pos, axes)
-        out[pos] = torch.cat([_recv(x.pieces[q].narrow(split_dim, k * step,
-                                                       step), q, pos, dev)
-                              for q in group(x.mesh, pos, axes)],
-                             concat_dim)
-    y = Sharded(x.mesh, spec, out)
-    _record("all-to-all", x, y.first, axes)
-    return y
+
+    def fwd(v: Sharded) -> Sharded:
+        step = v.first.shape[to_dim] // n
+        out = {}
+        for pos in v.pieces:
+            dev = v.mesh.devices[pos]
+            k = coord(v.mesh, pos, axes)
+            out[pos] = torch.cat([_recv(v.pieces[q].narrow(to_dim, k * step,
+                                                           step), q, pos,
+                                        dev)
+                                  for q in group(v.mesh, pos, axes)],
+                                 from_dim)
+        y = Sharded(v.mesh, spec, out)
+        _record("all-to-all", v, y.first, axes)
+        return y
+
+    return _move(fwd, lambda g: _exchange(g, from_dim, to_dim, axes), x)
 
 
 def broadcast(x: Sharded, axes, src: int = 0) -> Sharded:
     """Every position takes the piece of the member at index ``src`` of
-    its group along ``axes`` (a copy, the source's own included)."""
+    its group along ``axes`` (a copy, the source's own included).
+    Transpose: the group's cotangents summed onto the source (a psum),
+    zero at the other members."""
     axes = tuple(a for a in axes if a)
     if _size(x.mesh, axes) == 1:
         return x
-    out = {}
-    for pos in x.pieces:
-        q = group(x.mesh, pos, axes)[src]
-        out[pos] = _recv(x.pieces[q], q, pos,
-                         x.mesh.devices[pos]).clone()
-    y = Sharded(x.mesh, x.spec, out)
-    _record("collective-permute", x, y.first, axes)
-    return y
+
+    def fwd(v: Sharded) -> Sharded:
+        out = {}
+        for pos in v.pieces:
+            q = group(v.mesh, pos, axes)[src]
+            out[pos] = _recv(v.pieces[q], q, pos,
+                             v.mesh.devices[pos]).clone()
+        y = Sharded(v.mesh, v.spec, out)
+        _record("collective-permute", v, y.first, axes)
+        return y
+
+    def bwd(g: Sharded) -> Sharded:
+        return psum(g, axes).map(
+            lambda pos, t: t if coord(g.mesh, pos, axes) == src
+            else torch.zeros_like(t))
+
+    return _move(fwd, bwd, x)
 
 
 def relayout(x: Sharded, spec) -> Sharded:
@@ -269,7 +388,9 @@ def relayout(x: Sharded, spec) -> Sharded:
     that gains axes (minor to the ones it keeps) is sliced where it lies,
     which moves nothing.  The FSDP gather of a weight over ``data`` is
     the first step, the turn of a hidden dimension split into a sequence
-    split the second."""
+    split the second.  The slice's transpose is plain autograd's: the
+    cotangent zero-filled into the position's piece, no sum (a cotangent
+    is partial; the module docstring)."""
     want = own_spec(spec, x.shape, x.mesh)
     need = [tuple(e if isinstance(e, tuple) else ((e,) if e else ()))
             for e in want]

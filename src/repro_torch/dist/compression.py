@@ -8,6 +8,14 @@ mean converges to the true gradient mean).  Rounding is half to even, as
 ``jnp.round`` rounds, so the codes equal the reference's bit for bit.  The
 trainer calls ``compress_grads_crosspod`` only under a mesh with a ``pod``
 axis (``train/trainer.py``).
+
+Over positions that own their shards the gradients are ``Sharded`` and
+already reduced; the reference quantizes each whole reduced leaf with one
+scale, its max-abs, so each leaf's scale is the max of its pieces' max-abs
+over the positions that hold distinct slices (``collectives.pmax``) and
+every piece makes the round trip with it: bit for bit
+``compress_grads_crosspod`` of the gathered gradients.  The trainer
+records the cross-pod all-reduce itself, at the int8 bytes.
 """
 
 from __future__ import annotations
@@ -16,8 +24,9 @@ import math
 
 import torch
 
+from repro_torch.dist import collectives as C
 from repro_torch.dist.collectives import record_collective, recording
-from repro_torch.dist.sharding import NamedSharding, param_specs
+from repro_torch.dist.sharding import NamedSharding, Sharded, param_specs
 from repro_torch.train.tree import tree_leaves, tree_map
 
 __all__ = [
@@ -45,6 +54,21 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def _roundtrip(x: torch.Tensor) -> torch.Tensor:
     q, s = quantize_int8(x)
     return dequantize_int8(q, s).to(x.dtype)
+
+
+def _roundtrip_pieces(x: Sharded) -> Sharded:
+    """``_roundtrip`` of the whole value ``x`` holds, piece by piece: the
+    scale from the max-abs of every distinct slice (``pmax`` over the axes
+    that split ``x``)."""
+    top = C.pmax(x.map(lambda pos, t: t.float().abs().max()),
+                 tuple(a for d in range(x.ndim) for a in x.entry(d)))
+
+    def one(pos, t):
+        scale = top.pieces[pos].clamp_min(1e-12) / 127.0
+        q = torch.round(t.float() / scale).clamp(-127, 127).to(torch.int8)
+        return dequantize_int8(q, scale).to(t.dtype)
+
+    return x.map(one)
 
 
 def init_error_feedback(grads):
@@ -84,7 +108,13 @@ def _record_crosspod(grads, mesh) -> None:
 def compress_grads_crosspod(grads, mesh):
     """Stateless int8 round trip of every floating leaf, applied before the
     cross-pod all-reduce (recorded here, on a mesh with a ``pod`` axis,
-    while a recorder is set: ``launch/hlo_cost.analyze`` sets one)."""
+    while a recorder is set: ``launch/hlo_cost.analyze`` sets one).
+    ``Sharded`` leaves make it piece by piece with the whole leaf's scale
+    (the trainer records their all-reduce)."""
+    leaves = tree_leaves(grads)
+    if leaves and isinstance(leaves[0], Sharded):
+        return tree_map(lambda g: _roundtrip_pieces(g)
+                        if g.dtype.is_floating_point else g, grads)
     if (mesh is not None and "pod" in getattr(mesh, "axis_names", ())
             and recording()):
         _record_crosspod(grads, mesh)

@@ -40,7 +40,8 @@ trainer.  A plan whose positions OWN THEIR SHARDS (``own_shards=True``,
 the default over distinct devices) holds every value as a ``Sharded``:
 one piece a position, the ``devices_indices_map`` slice of the value on
 that position's device, exchanged only through ``dist/collectives.py``
-(``models/positions.py`` runs the LM's prefill and decode so).  ``P`` is
+(``models/positions.py`` runs the LM's prefill, decode and loss so, and
+``train/`` its step, optimizer state and checkpoints).  ``P`` is
 the port's PartitionSpec: a tuple of entries, each None, an axis name or
 a tuple of names; the spec functions accept any object with ``.shape``
 and ``.axis_names``, as the reference's do (``docs/torch_lm_mesh.md``).
@@ -66,10 +67,6 @@ __all__ = ["Mesh", "ForestShardingPlan", "make_forest_plan", "physical",
 
 #: the mesh axes: ``pod`` (the LM's cross-pod data axis), ``data``, ``model``
 AXES = ("pod", "data", "model")
-
-#: the ROADMAP item what an own-shards plan does not run yet waits for:
-#: training, checkpoints and restore
-TRAIN_ITEM = "13h"
 
 
 def physical(device: torch.device | str) -> torch.device:
@@ -312,14 +309,6 @@ def lm_device(mesh) -> torch.device:
             f"{[str(d) for d in devs]}; over distinct devices every "
             f"position owns its shards (make_plan(..., own_shards=True))")
     return devs[0]
-
-
-def refuse_training(what: str) -> None:
-    """Raise the refusal of ``what`` (a training or restore call) on
-    positions that own their shards."""
-    raise NotImplementedError(
-        f"{what} over positions that own their shards is ROADMAP queue 1 "
-        f"item {TRAIN_ITEM}, not ported yet; train on a held-once plan")
 
 
 # -- values whose positions own their shards ---------------------------------
@@ -566,9 +555,8 @@ def make_plan(cfg, mesh, decode_batch: int | None = None, *,
     ``own_shards``: whether every position holds its own pieces (a port
     ``Mesh`` only).  None means: over distinct devices yes, on a mesh of
     positions on one device no (held once); True asks for own shards on
-    repeated positions too.  An own-shards plan serves every family
-    (``models/positions.py``); training over it is refused
-    (``refuse_training``)."""
+    repeated positions too.  An own-shards plan serves and trains every
+    family (``models/positions.py``, ``train/trainer.py``)."""
     if mesh is None or not getattr(mesh, "axis_names", ()):
         return ShardingPlan()
     own = distinct_devices(mesh) if own_shards is None else bool(own_shards)

@@ -22,9 +22,9 @@ its self caches hold exactly the prefix (no free position), so a decode
 after it writes ring slot ``index % Sc = 0`` over the first token's K/V.
 
 Under a plan whose positions own their shards ``encode``,
-``encdec_prefill`` and ``encdec_decode`` run ``models/positions.py``
-(parameters and caches as ``Sharded``, the logits back on the tokens'
-device); the loss there is refused (ROADMAP item 13h).
+``encdec_prefill``, ``encdec_decode`` and ``encdec_loss`` run
+``models/positions.py`` (parameters and caches as ``Sharded``, the logits
+and the loss back on the tokens' device).
 """
 
 from __future__ import annotations
@@ -36,8 +36,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (ShardingPlan, make_plan,
-                                       refuse_training)
+from repro_torch.dist.sharding import ShardingPlan, make_plan
 from repro_torch.models import layers as L
 from repro_torch.models import positions as PS
 from repro_torch.models import scanctl
@@ -176,7 +175,8 @@ def encdec_loss(cfg: ModelConfig, params: Params, frames: torch.Tensor,
                 vocab_chunk: int = 16_384) -> torch.Tensor:
     splan = splan or make_plan(cfg, None)
     if splan.own_shards:
-        refuse_training("the enc-dec loss")
+        return PS.encdec_loss(cfg, params, frames, dec_tokens, labels, splan,
+                              vocab_chunk=vocab_chunk)
     memory = encode(cfg, params, frames, splan=splan)
     h = L.shard(params["embed"][dec_tokens], splan.hidden, splan.mesh)
     h, _ = _decoder(cfg, params, h, memory, splan, mode="train")

@@ -24,8 +24,8 @@ cross-entropy, which never holds ``[B, S, V]`` logits), ``lm_prefill``
 the caches, which it updates in place and returns; ``docs/torch_lm.md``).
 All take the reference's ``splan`` and pass it to every constraint point
 and MoE call the reference does (``docs/torch_lm_mesh.md``); under a plan
-whose positions own their shards, prefill and decode of every family run
-``models/positions.py`` and training is refused (ROADMAP item 13h).
+whose positions own their shards, prefill, decode and the loss of every
+family run ``models/positions.py``.
 ``init_lm``, ``init_caches`` and ``params_from_arrays`` run on ``cuda``
 unless ``device="cpu"`` is passed.
 """
@@ -44,8 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.sharding import (ShardingPlan, make_plan,
-                                       refuse_training)
+from repro_torch.dist.sharding import ShardingPlan, make_plan
 from repro_torch.models import layers as L
 from repro_torch.models import positions as PS
 from repro_torch.models import scanctl
@@ -367,18 +366,12 @@ def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["lm_head"]
 
 
-def chunked_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-                 *, vocab_chunk: int = 16_384) -> torch.Tensor:
-    """Cross-entropy without materializing [B, S, V] logits.
-
-    h [B, S, D]; w [D, V]; labels [B, S] integer (-1 = pad, out of the
-    mean).  Loops over V chunks with a running (max, sumexp, target-logit)
-    triple from (-inf, 0, 0); each chunk's f32 logits come from operands
-    upcast to f32 (``layers._einsum_f32``), the padded tail of the last
-    chunk masked to -inf.  Each chunk runs under a non-reentrant
-    checkpoint, as the reference's body is ``jax.checkpoint``ed, so
-    backward recomputes its logits instead of keeping them.
-    """
+def _xent_stats(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                *, vocab_chunk: int, col0: int = 0):
+    """The running (max, sumexp, target-logit) triple ``[B, S]`` of
+    ``chunked_xent`` over the columns of ``w [D, V]``, which are the
+    vocabulary's ids ``col0 .. col0 + V`` (a position's column block over
+    own shards; labels outside them add no target)."""
     B, Sq, D = h.shape
     V = w.shape[1]
     nc = -(-V // vocab_chunk)
@@ -397,8 +390,8 @@ def chunked_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         m_new = torch.maximum(m, logits.amax(dim=-1))
         s = s * torch.exp(m - m_new) + torch.exp(
             logits - m_new[..., None]).sum(dim=-1)
-        idx = labels_safe - c * vocab_chunk
-        inb = (idx >= 0) & (idx < vocab_chunk)
+        idx = labels_safe - (col0 + c * vocab_chunk)
+        inb = (idx >= 0) & (idx < min(vocab_chunk, V - c * vocab_chunk))
         picked = torch.gather(
             logits, -1, idx.clamp(0, vocab_chunk - 1)[..., None])[..., 0]
         tgt = tgt + torch.where(inb, picked, 0.0)
@@ -413,8 +406,25 @@ def chunked_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     for c, w_chunk in enumerate(w.split(vocab_chunk, dim=1)):
         m, s, tgt = checkpoint(body, m, s, tgt, w_chunk, c,
                                use_reentrant=False)
+    return m, s, tgt
+
+
+def chunked_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 *, vocab_chunk: int = 16_384) -> torch.Tensor:
+    """Cross-entropy without materializing [B, S, V] logits.
+
+    h [B, S, D]; w [D, V]; labels [B, S] integer (-1 = pad, out of the
+    mean).  Loops over V chunks with a running (max, sumexp, target-logit)
+    triple from (-inf, 0, 0) (``_xent_stats``); each chunk's f32 logits
+    come from operands upcast to f32 (``layers._einsum_f32``), the padded
+    tail of the last chunk masked to -inf.  Each chunk runs under a
+    non-reentrant checkpoint, as the reference's body is
+    ``jax.checkpoint``ed, so backward recomputes its logits instead of
+    keeping them.
+    """
+    m, s, tgt = _xent_stats(h, w, labels, vocab_chunk=vocab_chunk)
     nll = (m + torch.log(s.clamp_min(1e-30))) - tgt
-    mask = (labels >= 0).float()
+    mask = (labels.long() >= 0).float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
@@ -431,10 +441,11 @@ def full_logits(cfg: ModelConfig, params: Params,
 
 def lm_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
               *, splan: ShardingPlan | None = None) -> torch.Tensor:
-    """Train-mode backbone: tokens [B, S] -> normed hidden [B, S, D]."""
+    """Train-mode backbone: tokens [B, S] -> normed hidden [B, S, D] (over
+    own shards a ``Sharded``, d_model whole at every position)."""
     splan = splan or make_plan(cfg, None)
     if splan.own_shards:
-        refuse_training("the LM's loss")
+        return PS.hidden(cfg, params, tokens, splan)
     B, Sq = tokens.shape
     h = L.shard(params["embed"][tokens], splan.hidden, splan.mesh)
     positions = torch.arange(Sq, dtype=torch.int32, device=h.device)
@@ -445,6 +456,12 @@ def lm_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def lm_loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             labels: torch.Tensor, *, splan: ShardingPlan | None = None,
             vocab_chunk: int = 16_384) -> torch.Tensor:
+    """The mean next-token cross-entropy of ``tokens`` against ``labels``
+    (-1 out of the mean); over own shards ``positions.loss``, the loss on
+    the tokens' device."""
+    if splan is not None and splan.own_shards:
+        return PS.loss(cfg, params, tokens, labels, splan,
+                       vocab_chunk=vocab_chunk)
     h = lm_hidden(cfg, params, tokens, splan=splan)
     return chunked_xent(h, _lm_head_weight(cfg, params), labels,
                         vocab_chunk=vocab_chunk)

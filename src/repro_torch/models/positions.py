@@ -88,8 +88,9 @@ from repro_torch.models import lm as LM
 from repro_torch.models import ssd as SSD
 from repro_torch.train.tree import tree_map
 
-__all__ = ["prefill", "decode", "encode", "encdec_prefill", "encdec_decode",
-           "moe_layer", "moe_prefill", "moe_decode", "cache_index"]
+__all__ = ["prefill", "decode", "hidden", "loss", "encode", "encdec_prefill",
+           "encdec_decode", "encdec_loss", "moe_layer", "moe_prefill",
+           "moe_decode", "cache_index"]
 
 Params = dict[str, Any]
 
@@ -107,6 +108,14 @@ def _local(fn, spec, *xs) -> Sharded:
         pos: fn(pos, *(x.pieces[pos] if isinstance(x, Sharded) else x
                        for x in xs))
         for pos in lead.pieces})
+
+
+def _batch(tokens: torch.Tensor, splan: ShardingPlan) -> Sharded:
+    """``[B, ...]`` ids (or frames) on the controller, cut by the data
+    axes: each position its rows."""
+    return shard_tensor(tokens, splan.mesh,
+                        P(_entry(splan.data_axes),
+                          *((None,) * (tokens.ndim - 1))))
 
 
 def _block(tree, i: int):
@@ -535,16 +544,18 @@ def _conv_share(cfg, t: torch.Tensor, ds: slice) -> torch.Tensor:
     return torch.cat([t[..., ds], t[..., cfg.d_inner:]], -1)
 
 
-def _ssd(cfg, splan, p: Params, x: Sharded, spec, cache=None):
+def _ssd(cfg, splan, p: Params, x: Sharded, spec, cache=None, *,
+         collect: bool = True):
     """The SSD block on normed rows ``x [B, S, D]`` (d_model whole), the
     output under ``spec``.  Each position takes its rows' whole sequence,
     projects them with its column block of ``in_proj`` and all-gathers
     the projection, then convolves and scans its share of the heads
     (``_ssd_share``; ``ssd._scan_heads`` / ``ssd._step_heads``), gates and
     normalises them (``_ssd_out``).  Prefill (``cache`` None): returns
-    (out, ``{conv, state}`` under the cache specs); decode writes the conv
-    window (whole channels, at every position holding its rows) and its
-    heads' state into ``cache`` and returns (out, None)."""
+    (out, ``{conv, state}`` under the cache specs; None without
+    ``collect``, the training forward); decode writes the conv window
+    (whole channels, at every position holding its rows) and its heads'
+    state into ``cache`` and returns (out, None)."""
     mesh, M = splan.mesh, splan.model_axis
     split = _ssd_split(splan)
     x = C.relayout(x, P(x.spec[0], None, None))
@@ -586,7 +597,7 @@ def _ssd(cfg, splan, p: Params, x: Sharded, spec, cache=None):
     share = P(x.spec[0], None, M if split else None)
     out = _ssd_out(cfg, splan, p, Sharded(mesh, share, ys),
                    Sharded(mesh, share, zs), small["norm"], spec)
-    if cache is not None:
+    if cache is not None or not collect:
         return out, None
     b = x.spec[0]
     return out, {
@@ -623,13 +634,15 @@ def _ssd_out(cfg, splan, p: Params, y: Sharded, z: Sharded, norm: Sharded,
     return _row_parallel(o, _rows(p["out_proj"], M), spec, M, y.dtype)
 
 
-def _ssm_layer(cfg, splan, p: Params, h: Sharded, *, cache=None):
+def _ssm_layer(cfg, splan, p: Params, h: Sharded, *, cache=None,
+               collect: bool = True):
     """One SSD layer: h + ssd(norm1(h)) under the hidden spec.  Prefill
-    (``cache`` None): returns (h, its ``{conv, state}``); decode: writes
-    ``cache`` in place, returns (h, None)."""
+    (``cache`` None): returns (h, its ``{conv, state}``, None without
+    ``collect``); decode: writes ``cache`` in place, returns (h, None)."""
     h = C.relayout(h, splan.hidden if cache is None else splan.decode_hidden)
     x = _norm(cfg, p["norm1"], _whole_d(h))
-    y, new_cache = _ssd(cfg, splan, p["ssm"], x, h.spec, cache)
+    y, new_cache = _ssd(cfg, splan, p["ssm"], x, h.spec, cache,
+                        collect=collect)
     return _add(h, y), new_cache
 
 
@@ -715,16 +728,21 @@ def _embed(params: Params, tokens: Sharded, spec, M) -> Sharded:
     return C.relayout(h, spec)
 
 
+def _head_weight(cfg, params: Params) -> Sharded:
+    """``lm_head`` ``[D, V]``, or the tied embedding's pieces transposed:
+    the head's gradient lands in the embedding's own pieces beside the
+    lookup's."""
+    if not cfg.tie_embeddings:
+        return params["lm_head"]
+    e = params["embed"]
+    return e.map(lambda pos, t: t.T, spec=P(e.spec[1], e.spec[0]))
+
+
 def _head(cfg, params, h: Sharded, M) -> Sharded:
     """f32 logits ``[B, 1, V]`` of rows ``h [B, 1, D]`` (d_model whole):
     each model position's block of the vocabulary."""
     x = _norm(cfg, params["final_norm"], h)
-    if cfg.tie_embeddings:
-        e = params["embed"]
-        w = e.map(lambda pos, t: t.T, spec=P(e.spec[1], e.spec[0]))
-    else:
-        w = params["lm_head"]
-    w = _cols(w, M)
+    w = _cols(_head_weight(cfg, params), M)
     return _local(lambda pos, t, ww: L._einsum_f32("bsd,dv->bsv", t, ww),
                   P(x.spec[0], None, w.spec[1]), x, w)
 
@@ -761,21 +779,36 @@ def _check(params: Params) -> None:
                         "placed as pieces (dist/sharding.shard_params)")
 
 
+def _remat(cfg, fn):
+    """``fn(h)`` (a ``Sharded`` in and out) under ``cfg``'s remat policy,
+    as ``models/lm._remat`` wraps the held-once block: one checkpoint
+    over every position's work, whose recompute runs the block's moves
+    again.  The pieces go in as tensors."""
+    def on_pieces(mesh, spec, keys, *pieces):
+        return fn(Sharded(mesh, spec, dict(zip(keys, pieces))))
+
+    run = LM._remat(cfg, on_pieces)
+    if run is on_pieces:
+        return fn
+    return lambda h: run(h.mesh, h.spec, list(h.pieces), *h.pieces.values())
+
+
 def _backbone(cfg, splan, params: Params, h: Sharded, *, S: int, ctx,
-              caches=None, index=None):
+              caches=None, index=None, train: bool = False):
     """Every block: the hybrid's shared block first (on concat(h, e0),
     ``e0`` the embedding output ``h``), then each position of the period,
     an SSD or an attention layer.  Prefill (``caches`` None): returns (h,
     the caches stacked by block); decode: writes ``caches``' pieces in
-    place, returns (h, None)."""
+    place, returns (h, None); ``train``: builds no cache, each block under
+    ``cfg``'s remat policy, returns (h, None)."""
     decode = caches is not None
     plans = LM.make_layer_plans(cfg)
     e0 = _whole_d(h) if cfg.shared_attn_every else None
     per_block: list[Params] = []
-    for i in range(cfg.num_blocks):
+
+    def block(i: int, h: Sharded, new: Params) -> Sharded:
         pb = _block(params["blocks"], i)
         cb = _block(caches, i) if decode else {}
-        new: Params = {}
         if cfg.shared_attn_every:
             h, new["shared"] = _shared_layer(
                 cfg, splan, params["shared_attn"], _block(params["lora"], i),
@@ -784,12 +817,20 @@ def _backbone(cfg, splan, params: Params, h: Sharded, *, S: int, ctx,
             c = cb.get(f"p{j}")
             if plan.kind == "ssm":
                 h, new[f"p{j}"] = _ssm_layer(cfg, splan, pb[f"p{j}"], h,
-                                             cache=c)
+                                             cache=c, collect=not train)
             else:
                 h, new[f"p{j}"] = _layer(cfg, splan, plan, pb[f"p{j}"], h,
                                          S=S, ctx=ctx, cache=c, index=index)
+        return h
+
+    for i in range(cfg.num_blocks):
+        if train:
+            h = _remat(cfg, lambda hh, i=i: block(i, hh, {}))(h)
+            continue
+        new: Params = {}
+        h = block(i, h, new)
         per_block.append(new)
-    return h, (None if decode else _stack(splan.mesh, per_block))
+    return h, (None if decode or train else _stack(splan.mesh, per_block))
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -801,7 +842,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     _check(params)
     mesh, M = splan.mesh, splan.model_axis
     B, S = tokens.shape
-    toks = shard_tensor(tokens, mesh, P(_entry(splan.data_axes), None))
+    toks = _batch(tokens, splan)
     h = _embed(params, toks, splan.hidden, M)
     h, out = _backbone(cfg, splan, params, h, S=S, ctx=ctx or S)
     logits = _logits(cfg, params, h, M, tokens.device, last=True)
@@ -830,24 +871,107 @@ def decode(cfg: ModelConfig, params: Params, caches: Params,
     return logits, out
 
 
+# -- the training forward and the loss ------------------------------------------
+
+
+def _xent(cfg, splan, norm: Params, h: Sharded, w: Sharded,
+          labels: torch.Tensor, *, vocab_chunk: int,
+          device) -> torch.Tensor:
+    """``chunked_xent`` of the final-normed rows of ``h`` against ``w [D,
+    V]`` over positions: the rows with d_model and the sequence whole,
+    each model position scanning its own column block of the vocabulary
+    (``_cols``) for its running (max, sumexp, target) triple
+    (``lm._xent_stats``), the triples all-gathered over ``model`` and
+    merged in ascending position; the masked mean's numerator and
+    denominator summed over the axes that split the batch.  Returns the
+    loss on ``device`` (the controller), read from the first position's
+    copy."""
+    M = splan.model_axis
+    x = _norm(cfg, norm, C.relayout(h, P(h.spec[0], None, None)))
+    w = _cols(w, M)
+    lab = _batch(labels, splan)
+    split = M is not None and w.entry(1) == (M,)
+
+    def stats(pos, t, ww, lb):
+        st = torch.stack(LM._xent_stats(t, ww, lb, vocab_chunk=vocab_chunk,
+                                        col0=w.offset(pos, 1)))
+        return st[None] if split else st           # [(1,) 3, b, S]
+
+    tri = _local(stats, P(M, None, x.spec[0], None) if split
+                 else P(None, x.spec[0], None), x, w, lab)
+    if split:
+        tri = C.all_gather(tri, 0)
+
+    def nll_sums(pos, st, lb):
+        if split:                                  # ascending position
+            m = st[:, 0].amax(dim=0)
+            s = t = None
+            for j in range(st.shape[0]):
+                sj = st[j, 1] * torch.exp(st[j, 0] - m)
+                s = sj if s is None else s + sj
+                t = st[j, 2] if t is None else t + st[j, 2]
+        else:
+            m, s, t = st[0], st[1], st[2]
+        nll = (m + torch.log(s.clamp_min(1e-30))) - t
+        mask = (lb >= 0).float()
+        return torch.stack([(nll * mask).sum(), mask.sum()])
+
+    sums = C.psum(_local(nll_sums, P(None), tri, lab), x.entry(0))
+    loss = sums.map(lambda pos, v: v[0] / v[1].clamp_min(1.0), spec=P())
+    return C.gather_to(loss, device)
+
+
+def _train_forward(cfg, params: Params, tokens: torch.Tensor,
+                   splan: ShardingPlan) -> Sharded:
+    """The embedding and the train-mode backbone (no caches, each block
+    under ``cfg``'s remat policy): ``h`` under the hidden spec."""
+    _check(params)
+    h = _embed(params, _batch(tokens, splan), splan.hidden,
+               splan.model_axis)
+    return _backbone(cfg, splan, params, h, S=tokens.shape[1], ctx=None,
+                     train=True)[0]
+
+
+def hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           splan: ShardingPlan) -> Sharded:
+    """``lm_hidden`` on positions that own their shards: the train-mode
+    backbone and the final norm, the rows with d_model whole (``[B, S,
+    D]`` under ``[data axes, None, None]``)."""
+    h = _train_forward(cfg, params, tokens, splan)
+    return _norm(cfg, params["final_norm"], _whole_d(h))
+
+
+def loss(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+         labels: torch.Tensor, splan: ShardingPlan, *,
+         vocab_chunk: int = 16_384) -> torch.Tensor:
+    """``lm_loss`` on positions that own their shards: the train-mode
+    backbone and ``_xent``; tokens and labels ``[B, S]`` on the
+    controller, the loss a scalar there."""
+    h = _train_forward(cfg, params, tokens, splan)
+    return _xent(cfg, splan, params["final_norm"], h,
+                 _head_weight(cfg, params), labels, vocab_chunk=vocab_chunk,
+                 device=tokens.device)
+
+
 # -- the enc-dec (seamless) ------------------------------------------------------
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
-           splan: ShardingPlan) -> Sharded:
+           splan: ShardingPlan, *, train: bool = False) -> Sharded:
     """``encdec.encode`` on positions that own their shards: frames ``[B,
     S_enc, D]`` on the controller, cut by the data axes -> the memory with
-    each position's rows whole (``[b, S_enc, D]``)."""
+    each position's rows whole (``[b, S_enc, D]``); ``train``: each layer
+    under ``cfg``'s remat policy."""
     from repro_torch.models import encdec as ED
     _check(params)
-    mesh = splan.mesh
-    x = shard_tensor(frames.to(params["embed"].dtype), mesh,
-                     P(_entry(splan.data_axes), None, None))
+    x = _batch(frames.to(params["embed"].dtype), splan)
     h = C.relayout(x, splan.hidden)
     plan = LM.LayerPlan(kind="attn", attn=ED._ENC_SPEC)
     for i in range(cfg.encoder_layers):
-        h, _ = _layer(cfg, splan, plan, _block(params["enc_blocks"], i), h,
-                      S=frames.shape[1], ctx=None)
+        def layer(hh, i=i):
+            return _layer(cfg, splan, plan, _block(params["enc_blocks"], i),
+                          hh, S=frames.shape[1], ctx=None)[0]
+        h = (_remat(cfg, layer) if train else layer)(h)
     mem = _norm(cfg, params["enc_norm"], _whole_d(h))
     return C.relayout(mem, P(mem.spec[0], None, None))
 
@@ -881,11 +1005,11 @@ def _cross_attn(cfg, splan, p: Params, x: Sharded, mem: Sharded,
 
 
 def _dec_layer(cfg, splan, p: Params, h: Sharded, mem: Sharded, *, S: int,
-               cache=None, index=None):
+               cache=None, index=None, train: bool = False):
     """One decoder layer: causal self-attention (prefill: its cache holds
     exactly the prefix, as the reference's does), cross-attention into
     ``mem``, the MLP.  Prefill: returns (h, its K/V cache); decode: writes
-    ``cache`` in place, returns (h, None)."""
+    ``cache`` in place, returns (h, None); ``train``: returns (h, None)."""
     from repro_torch.models import encdec as ED
     decode = cache is not None
     M = splan.model_axis
@@ -897,7 +1021,7 @@ def _dec_layer(cfg, splan, p: Params, h: Sharded, mem: Sharded, *, S: int,
         new_cache = None
     else:
         a, new_cache = _attn_prefill(cfg, splan, p["attn"], x, ED._SELF_SPEC,
-                                     S, S)
+                                     S, None if train else S)
     h = _add(h, C.relayout(a, h.spec))
     x = _norm(cfg, p["norm_x"], _whole_d(h))
     h = _add(h, _cross_attn(cfg, splan, p["xattn"], x, mem, h.spec))
@@ -914,7 +1038,7 @@ def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     mesh, M = splan.mesh, splan.model_axis
     mem = encode(cfg, params, frames, splan)
     S = dec_tokens.shape[1]
-    toks = shard_tensor(dec_tokens, mesh, P(_entry(splan.data_axes), None))
+    toks = _batch(dec_tokens, splan)
     h = _embed(params, toks, splan.hidden, M)
     per_layer = []
     for i in range(cfg.num_layers):
@@ -927,6 +1051,26 @@ def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     caches["index"] = shard_tensor(torch.tensor(S, dtype=torch.int32), mesh,
                                    P())
     return logits, caches
+
+
+def encdec_loss(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+                dec_tokens: torch.Tensor, labels: torch.Tensor,
+                splan: ShardingPlan, *,
+                vocab_chunk: int = 16_384) -> torch.Tensor:
+    """``encdec_loss`` on positions that own their shards: the encoder and
+    the decoder in train mode (no caches, each layer under ``cfg``'s remat
+    policy), ``lm_head`` by column blocks in ``_xent``; the loss a scalar
+    on the controller."""
+    M = splan.model_axis
+    mem = encode(cfg, params, frames, splan, train=True)
+    h = _embed(params, _batch(dec_tokens, splan), splan.hidden, M)
+    for i in range(cfg.num_layers):
+        def layer(hh, i=i):
+            return _dec_layer(cfg, splan, _block(params["dec_blocks"], i), hh,
+                              mem, S=dec_tokens.shape[1], train=True)[0]
+        h = _remat(cfg, layer)(h)
+    return _xent(cfg, splan, params["final_norm"], h, params["lm_head"],
+                 labels, vocab_chunk=vocab_chunk, device=dec_tokens.device)
 
 
 def encdec_decode(cfg: ModelConfig, params: Params, caches: Params,

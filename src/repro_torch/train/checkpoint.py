@@ -17,10 +17,15 @@ reference's ``np.save`` writes for one, and restored bit for bit (a
 reference-written one too, which the reference itself cannot restore).
 ``restore_checkpoint(mesh=)`` is the reference's reshard on restore: every
 leaf is placed by its ``param_specs`` spec over the CURRENT mesh (which may
-differ from the one that saved), on the mesh's one device
-(``dist/sharding.py``).  A mesh over distinct devices raises
-``NotImplementedError`` naming ROADMAP item 13h: a state held as pieces
-is not ported yet.
+differ from the one that saved): held once on the mesh's one device, or,
+where the positions own their shards (``make_plan``'s rule: by default
+over distinct devices; ``own_shards=True`` on repeated positions), as
+pieces, each copied from the host to its own position
+(``dist/sharding.shard_tensor``).  A state held as pieces (``Sharded``
+leaves) saves in the same layout: one whole ``.npy`` a leaf, filled on
+the host from each distinct slice, read once from the position that
+holds its first copy; no whole leaf is built on a device.  So a
+checkpoint crosses both packages and every mesh.
 """
 
 from __future__ import annotations
@@ -33,8 +38,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.dist.sharding import (NamedSharding, distinct_devices,
-                                       param_specs, refuse_training)
+from repro_torch.dist.sharding import (NamedSharding, Sharded, coord,
+                                       distinct_devices, param_specs,
+                                       shard_tensor)
 from repro_torch.train.tree import tree_flatten_with_path
 
 Params = Any
@@ -49,12 +55,37 @@ def _flatten(tree) -> dict[str, Any]:
             for path, leaf in tree_flatten_with_path(tree)}
 
 
-def _to_host(leaf) -> tuple[np.ndarray, str]:
-    t = torch.as_tensor(leaf).detach().cpu()
+def _host(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A host tensor as the array ``np.save`` writes, and its dtype's
+    name (bf16 as its 16 bits in 2-byte void items)."""
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2"), _BF16
     host = t.numpy()
     return host, str(host.dtype)
+
+
+def _to_host(leaf) -> tuple[np.ndarray, str]:
+    if isinstance(leaf, Sharded):
+        return _pieces_to_host(leaf)
+    return _host(torch.as_tensor(leaf).detach().cpu())
+
+
+def _pieces_to_host(x: Sharded) -> tuple[np.ndarray, str]:
+    """The whole value of ``x`` in one host buffer: each distinct slice
+    copied once, from the position at index 0 along every axis that
+    splits nothing of ``x``."""
+    mesh = x.mesh
+    names = tuple(mesh.axis_names)
+    split = [a for d in range(x.ndim) for a in x.entry(d)]
+    buf = torch.empty(x.shape, dtype=x.dtype)
+    for pos, t in x.pieces.items():
+        if any(pos[names.index(a)] for a in names if a not in split):
+            continue
+        idx = tuple(slice(coord(mesh, pos, x.entry(d)) * n,
+                          (coord(mesh, pos, x.entry(d)) + 1) * n)
+                    for d, n in enumerate(t.shape))
+        buf[idx] = t.detach().cpu()
+    return _host(buf)
 
 
 def save_checkpoint(ckpt_dir: str, state: Params, step: int) -> str:
@@ -95,14 +126,17 @@ def _load(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
+                       own_shards: bool | None = None,
                        step: int | None = None) -> tuple[Params, int]:
-    """Restore into the structure of ``like`` (a state tree of tensors):
-    each leaf in ``like``'s leaf's dtype, onto ``like``'s leaf's device, or
-    with ``mesh`` placed by the leaf's ``param_specs`` spec over it.
-    Returns (state, step).  A leaf of another shape raises ``ValueError``,
-    a missing one ``KeyError``."""
-    if distinct_devices(mesh):
-        refuse_training("restore_checkpoint(mesh=) over distinct devices")
+    """Restore into the structure of ``like`` (a state tree of tensors or
+    ``Sharded`` leaves): each leaf in ``like``'s leaf's dtype, onto
+    ``like``'s leaf's device, or with ``mesh`` placed by the leaf's
+    ``param_specs`` spec over it: held once on its one device, or as
+    pieces where its positions own their shards (``own_shards``;
+    default: over distinct devices).  Returns (state, step).  A leaf of
+    another shape raises ``ValueError``, a missing one ``KeyError``."""
+    own = mesh is not None and (distinct_devices(mesh) if own_shards is None
+                                else bool(own_shards))
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -123,7 +157,10 @@ def restore_checkpoint(ckpt_dir: str, like: Params, *, mesh=None,
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {tuple(t.shape)} vs "
                 f"model {tuple(want.shape)}")
-        if mesh is not None:
+        if own:
+            leaves_by_name[name] = shard_tensor(t.to(want.dtype), mesh,
+                                                flat_specs[name])
+        elif mesh is not None:
             leaves_by_name[name] = NamedSharding(
                 mesh, flat_specs[name]).place(t.to(want.dtype))
         else:

@@ -18,7 +18,9 @@ Stragglers appear as slow steps: the loop keeps an EWMA of step time
 ``on_straggler``.  ``FailureInjector`` raises at a chosen step to simulate
 a node loss.  Reading a step's loss (``float``) is the step's one
 synchronise.  ``restore(mesh=)`` reshards onto the current mesh, as the
-reference's elastic restart does.
+reference's elastic restart does: held once, or as pieces where the
+mesh's positions own their shards.  A state of pieces (``Sharded``
+leaves) runs, saves and restores as a whole one does.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import dataclasses
 import time
 from typing import Any, Callable
 
+from repro_torch.dist.sharding import Sharded
 from repro_torch.train.checkpoint import restore_checkpoint, save_checkpoint
 
 __all__ = ["FailureInjector", "TrainLoop", "LoopReport"]
@@ -74,8 +77,9 @@ class TrainLoop:
 
     def run(self, state: Any, num_steps: int, *,
             start_step: int | None = None) -> tuple[Any, LoopReport]:
+        at = state["step"]
         step = int(start_step) if start_step is not None \
-            else int(state["step"])
+            else int(at.first if isinstance(at, Sharded) else at)
         losses, times, stragglers = [], [], []
         ewma = None
         end = step + num_steps
@@ -106,8 +110,11 @@ class TrainLoop:
                                  losses=losses, step_times=times,
                                  stragglers=stragglers)
 
-    def restore(self, like: Any, *, mesh=None) -> tuple[Any, int]:
+    def restore(self, like: Any, *, mesh=None,
+                own_shards: bool | None = None) -> tuple[Any, int]:
         """Restart: the latest checkpoint in ``like``'s dtypes, onto its
-        devices, or resharded onto ``mesh``."""
+        devices, or resharded onto ``mesh`` (as pieces where its positions
+        own their shards: ``restore_checkpoint``)."""
         assert self.ckpt_dir is not None
-        return restore_checkpoint(self.ckpt_dir, like, mesh=mesh)
+        return restore_checkpoint(self.ckpt_dir, like, mesh=mesh,
+                                  own_shards=own_shards)

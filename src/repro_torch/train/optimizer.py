@@ -23,6 +23,21 @@ Copied quirks of the reference (``docs/torch_lm_train.md``):
     [D]``; its update-clipping RMS is over the whole leaf;
   * the bias corrections ``beta ** t`` and the schedule are f32 scalars
     on the parameters' device.
+
+Over positions that own their shards (``dist/sharding.Sharded`` leaves:
+the parameters, the gradients as the train step reduces them, the state
+and the step) each position updates its own piece with its own copy of
+the step's scalars.  ``global_norm`` sums the squares of distinct slices
+only (a replicated piece counts once, at the position that holds its
+first copy), each position folding its leaves in tree order, and the
+positions' sums are psummed (``dist/collectives``).  Adafactor's row and
+column means and its whole-leaf RMS sum each position's partial over the
+axes that split the reduced dimension.  The state is held by
+``param_specs`` of the state tree (``_hold``), as the reference's
+shardings hold it; a leaf whose state spec differs from its parameter's
+(a stacked ``[nB, D]`` leaf: the state may split ``nB``; Adafactor's
+``vr`` / ``vc``) is moved to the gradient's spec for the update and back.
+No position holds a whole sharded leaf.
 """
 
 from __future__ import annotations
@@ -33,6 +48,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.dist import collectives as C
+from repro_torch.dist.sharding import P, Sharded, param_specs
 from repro_torch.train.tree import tree_leaves, tree_map, tree_map_with_path
 
 Params = Any
@@ -67,15 +84,86 @@ class Optimizer:
     # update(grads, state, params, step) -> (new_params, new_state)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _sharded(tree) -> bool:
+    leaves = tree_leaves(tree)
+    return bool(leaves) and isinstance(leaves[0], Sharded)
+
+
+def _first_copy(x: Sharded, pos: tuple) -> bool:
+    """Whether ``pos`` holds the first copy of its slice: index 0 along
+    every axis that splits nothing of ``x``."""
+    split = tuple(a for d in range(x.ndim) for a in x.entry(d))
+    names = tuple(x.mesh.axis_names)
+    return all(pos[names.index(a)] == 0 for a in names if a not in split)
+
+
+def global_norm(tree):
+    """The f32 norm of every leaf together; over ``Sharded`` leaves a
+    ``Sharded`` scalar, the same at every position."""
+    if _sharded(tree):
+        leaves = tree_leaves(tree)
+        mesh = leaves[0].mesh
+        part = {}
+        for pos in leaves[0].pieces:
+            acc = None
+            for x in leaves:
+                t = x.pieces[pos].float()
+                v = t.square().sum() if _first_copy(x, pos) else \
+                    t.new_zeros(())
+                acc = v if acc is None else acc + v
+            part[pos] = acc
+        return C.psum(Sharded(mesh, P(), part), mesh.axis_names).map(
+            lambda pos, t: torch.sqrt(t))
     leaves = [x.float().square().sum() for x in tree_leaves(tree)]
     return torch.sqrt(sum(leaves))
 
 
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
+    if isinstance(norm, Sharded):
+        scale = norm.map(lambda pos, n: torch.clamp_max(
+            max_norm / n.clamp_min(1e-12), 1.0))
+        return tree_map(lambda x: x.map(lambda pos, t: (
+            t.float() * scale.pieces[pos]).to(t.dtype)), tree), norm
     scale = torch.clamp_max(max_norm / norm.clamp_min(1e-12), 1.0)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
+
+
+def _scalars(fn, step):
+    """``fn(step)``'s scalars, at every position of a ``Sharded`` step
+    (``{pos: scalars}``), else once (``{None: scalars}``)."""
+    if isinstance(step, Sharded):
+        return {pos: fn(t) for pos, t in step.pieces.items()}
+    return {None: fn(step)}
+
+
+def _leafwise(fn, at: dict, spec_of, *leaves):
+    """``fn(scalars, *pieces)`` (a tuple) at every position of a leaf's
+    pieces, each ``Sharded`` input moved to ``spec_of``'s spec first, or
+    once on plain tensors; returns the tuple of outputs (``Sharded`` under
+    that spec)."""
+    if not isinstance(leaves[0], Sharded):
+        return fn(at[None], *leaves)
+    spec = spec_of.spec
+    moved = [C.relayout(x, spec) if isinstance(x, Sharded) else x
+             for x in leaves]
+    outs = {pos: fn(at[pos], *(x.pieces[pos] if isinstance(x, Sharded)
+                               else x for x in moved))
+            for pos in spec_of.pieces}
+    n = len(next(iter(outs.values())))
+    return tuple(Sharded(spec_of.mesh, spec, {pos: o[i]
+                                              for pos, o in outs.items()})
+                 for i in range(n))
+
+
+def _hold(tree):
+    """A tree of ``Sharded`` leaves moved to ``param_specs`` of the tree
+    (the reference's shardings of a state); plain tensors as they are."""
+    if not _sharded(tree):
+        return tree
+    mesh = tree_leaves(tree)[0].mesh
+    return tree_map(lambda x, spec: C.relayout(x, spec), tree,
+                    param_specs(tree, mesh))
 
 
 def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
@@ -118,26 +206,31 @@ def _adamw(cfg: OptimizerConfig) -> Optimizer:
 
     def update(grads, state, params, step):
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-        lr = lr_schedule(cfg, step)
-        t = step.float() + 1.0
-        c1 = 1.0 - cfg.beta1 ** t
-        c2 = 1.0 - cfg.beta2 ** t
 
-        def one(path, g, mu, nu, master):
-            g = g.float()
-            mu = cfg.beta1 * mu + (1 - cfg.beta1) * g
-            nu = cfg.beta2 * nu + (1 - cfg.beta2) * g * g
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
-            if _decayable(path):
-                upd = upd + cfg.weight_decay * master
-            master = master - lr * upd
-            return mu, nu, master
+        def scalars(st):
+            t = st.float() + 1.0
+            return (lr_schedule(cfg, st), 1.0 - cfg.beta1 ** t,
+                    1.0 - cfg.beta2 ** t)
 
-        mu, nu, master = _unzip(tree_map_with_path(
-            one, grads, state["mu"], state["nu"], state["master"]), 3)
-        new_params = tree_map(lambda m, p: m.to(p.dtype), master, params)
-        return new_params, {"mu": mu, "nu": nu, "master": master,
-                            "gnorm": gnorm}
+        at = _scalars(scalars, step)
+
+        def one(path, g, mu, nu, master, p):
+            def piece(sc, g, mu, nu, master, p):
+                lr, c1, c2 = sc
+                g = g.float()
+                mu = cfg.beta1 * mu + (1 - cfg.beta1) * g
+                nu = cfg.beta2 * nu + (1 - cfg.beta2) * g * g
+                upd = (mu / c1) / (torch.sqrt(nu / c2) + cfg.eps)
+                if _decayable(path):
+                    upd = upd + cfg.weight_decay * master
+                master = master - lr * upd
+                return mu, nu, master, master.to(p.dtype)
+            return _leafwise(piece, at, g, g, mu, nu, master, p)
+
+        mu, nu, master, new_params = _unzip(tree_map_with_path(
+            one, grads, state["mu"], state["nu"], state["master"], params), 4)
+        new = _hold({"mu": mu, "nu": nu, "master": master})
+        return new_params, {**new, "gnorm": gnorm}
 
     return Optimizer(cfg, init, update)
 
@@ -145,6 +238,22 @@ def _adamw(cfg: OptimizerConfig) -> Optimizer:
 # ---------------------------------------------------------------------------
 # Adafactor (factored second moment; state ~= params/row + params/col)
 # ---------------------------------------------------------------------------
+
+
+def _mean(x: Sharded, dims: tuple, keepdim: bool = False) -> Sharded:
+    """``x``'s mean over ``dims``: each position's sum over its slice,
+    psummed over the axes that split those dimensions, over their whole
+    length."""
+    dims = tuple(d % x.ndim for d in dims)
+    n = math.prod(x.shape[d] for d in dims)
+    axes = tuple(a for d in dims for a in x.entry(d))
+    entries = tuple(x.spec)
+    if keepdim:
+        spec = P(*(None if d in dims else e for d, e in enumerate(entries)))
+    else:
+        spec = P(*(e for d, e in enumerate(entries) if d not in dims))
+    part = x.map(lambda pos, t: t.sum(dim=dims, keepdim=keepdim), spec=spec)
+    return C.psum(part, axes).map(lambda pos, t: t / n)
 
 
 def _adafactor(cfg: OptimizerConfig) -> Optimizer:
@@ -161,6 +270,8 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
 
     def update(grads, state, params, step):
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        if _sharded(grads):
+            return _adafactor_sharded(cfg, grads, gnorm, state, params, step)
         lr = lr_schedule(cfg, step)
         t = step.float() + 1.0
         beta2t = 1.0 - torch.pow(t, -cfg.decay_rate)
@@ -199,6 +310,63 @@ def _adafactor(cfg: OptimizerConfig) -> Optimizer:
     return Optimizer(cfg, init, update)
 
 
+def _adafactor_sharded(cfg: OptimizerConfig, grads, gnorm, state, params,
+                       step):
+    """Adafactor's update over ``Sharded`` leaves: each position's piece
+    with its rows' ``vr`` and its columns' ``vc`` (the means psummed over
+    the axes that split the reduced dimension), the RMS clip over the
+    whole leaf likewise."""
+    def scalars(st):
+        t = st.float() + 1.0
+        return lr_schedule(cfg, st), 1.0 - torch.pow(t, -cfg.decay_rate)
+
+    at = _scalars(scalars, step)
+
+    def decay(sc, a, b):
+        return (sc[1] * a + (1 - sc[1]) * b,)
+
+    def one(path, g, p, v):
+        g2 = g.map(lambda pos, t: t.float() * t.float() + cfg.epsilon1)
+        if g.ndim >= 2:
+            row, col = _mean(g2, (-1,)), _mean(g2, (-2,))
+            vr = _leafwise(decay, at, row, v["vr"], row)[0]
+            vc = _leafwise(decay, at, col, v["vc"], col)[0]
+            vrm = _mean(vr, (-1,), keepdim=True)
+
+            def precond(pos, t):
+                r, rm, c = vr.pieces[pos], vrm.pieces[pos], vc.pieces[pos]
+                pre = (r[..., None] / rm[..., None].clamp_min(cfg.epsilon1)
+                       ) * c[..., None, :]
+                return t.float() / torch.sqrt(pre.clamp_min(cfg.epsilon1))
+
+            upd = g.map(precond)
+            new_v = {"vr": vr, "vc": vc}
+        else:
+            vv = _leafwise(decay, at, g2, v["v"], g2)[0]
+            upd = g.map(lambda pos, t: t.float() / torch.sqrt(
+                vv.pieces[pos].clamp_min(cfg.epsilon1)))
+            new_v = {"v": vv}
+        # update clipping (Shazeer & Stern RMS rule), over the whole leaf
+        ms = _mean(upd.map(lambda pos, t: t.square()), tuple(range(g.ndim)))
+
+        pp = C.relayout(p, g.spec)
+
+        def piece(pos, u):
+            u = u / torch.sqrt(ms.pieces[pos] + 1e-30).clamp_min(1.0)
+            pf = pp.pieces[pos].float()
+            if _decayable(path):
+                u = u + cfg.weight_decay * pf
+            return (pf - at[pos][0] * u).to(pp.dtype)
+
+        return upd.map(piece), new_v
+
+    flat = tree_map_with_path(
+        lambda path, g, p: one(path, g, p, _at(state["v"], path)),
+        grads, params)
+    new_params, new_v = _unzip(flat, 2)
+    return new_params, {**_hold({"v": new_v}), "gnorm": gnorm}
+
+
 def _at(tree, path: tuple):
     for k in path:
         tree = tree[k]
@@ -211,10 +379,10 @@ def _sgd(cfg: OptimizerConfig) -> Optimizer:
 
     def update(grads, state, params, step):
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-        lr = lr_schedule(cfg, step)
-        new_params = tree_map(
-            lambda p, g: (p.float() - lr * g.float()).to(p.dtype),
-            params, grads)
+        at = _scalars(lambda st: lr_schedule(cfg, st), step)
+        new_params = tree_map(lambda p, g: _leafwise(
+            lambda lr, p, g: ((p.float() - lr * g.float()).to(p.dtype),),
+            at, g, p, g)[0], params, grads)
         return new_params, {"gnorm": gnorm}
 
     return Optimizer(cfg, init, update)

@@ -26,8 +26,20 @@ cross-pod all-reduce.  ``jit_train_step(cfg, opt, mesh)`` places the state
 by ``param_specs`` / ``tree_named`` on the mesh's one device, in and out;
 it compiles nothing and donates nothing: eager PyTorch has no donation,
 and the step keeps its functional contract (``docs/torch_lm_mesh.md``).
-A plan whose positions own their shards (the default over distinct
-devices) raises ``NotImplementedError`` naming ROADMAP item 13h.
+
+Over positions that own their shards (the default over distinct devices,
+or ``own_shards=True``) the state is ``Sharded`` pieces: the parameters
+and the optimizer state by ``param_specs``, the step a copy a position.
+The step takes ``requires_grad`` aliases of every piece and runs the loss
+through ``models/positions.py``; autograd runs back through every move
+(``dist/collectives``), so a leaf's gradient pieces come back reduced over
+``data`` where the leaf is FSDP-split (the all-gather's transpose), and
+the copies of a replicated piece are summed over the axes that do not
+split it, ``pod`` last (the cross-pod all-reduce, recorded at int8 bytes
+under ``grad_compress``).  Microbatches accumulate piece by piece; the
+int8 round trip takes each leaf's scale over its distinct slices; the
+optimizer updates each piece.  The loss and ``gnorm`` come back to the
+controller (the first position's device).
 
 Entry points run on ``cuda`` unless ``device="cpu"`` is passed.  The
 dry-run's ``state_shapes`` is ``init_state`` on ``meta``: every leaf's
@@ -46,16 +58,18 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as C
 from repro_torch.dist.compression import compress_grads_crosspod
-from repro_torch.dist.sharding import (ShardingPlan, make_plan, param_specs,
-                                       refuse_training, tree_named)
+from repro_torch.dist.sharding import (P, Sharded, ShardingPlan, make_plan,
+                                       param_specs, place_tree, tree_named)
 from repro_torch.models.lm import params_from_arrays
 from repro_torch.models.registry import get_bundle
 from repro_torch.train.optimizer import Optimizer
 from repro_torch.train.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["TrainState", "init_state", "state_shapes", "state_from_arrays",
-           "make_train_step", "jit_train_step", "deterministic_algorithms"]
+           "loss_and_grads", "make_train_step", "jit_train_step",
+           "place_state", "deterministic_algorithms"]
 
 Params = Any
 
@@ -134,6 +148,69 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def _whole_grads(grads, splan: ShardingPlan, *, compress: bool):
+    """Own-shards gradient pieces summed over the copies of each leaf:
+    over the axes that split nothing of it, ``pod`` last (the cross-pod
+    all-reduce; under ``compress`` recorded at the int8 bytes it carries,
+    each piece's levels and an f32 scale)."""
+    names = tuple(splan.mesh.axis_names)
+
+    def one(g: Sharded) -> Sharded:
+        split = {a for d in range(g.ndim) for a in g.entry(d)}
+        g = C.psum(g, tuple(a for a in names
+                            if a not in split and a != "pod"))
+        if "pod" in names and "pod" not in split:
+            g = C.psum(g, ("pod",), wire_bytes=g.first.numel() + 4
+                       if compress and g.dtype.is_floating_point else None)
+        return g
+
+    return tree_map(one, grads)
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch: dict,
+                   splan: ShardingPlan | None = None):
+    """The loss and its gradients over ``params`` (``batch`` tensors on
+    the controller), as the train step takes them.  Over own shards the
+    gradients are ``Sharded`` by the parameters' specs, each piece the
+    position's share: reduced over ``data`` where the leaf is split
+    there, partial over the axes that split nothing of it (the step sums
+    those: ``_whole_grads``)."""
+    splan = splan or make_plan(cfg, None)
+    loss_fn = get_bundle(cfg).loss
+    if not splan.own_shards:
+        leaves = [t.detach().requires_grad_(True)
+                  for t in tree_leaves(params)]
+        loss = loss_fn(cfg, tree_unflatten(params, leaves), batch, splan)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten(params, grads)
+    aliases = [x.map(lambda pos, t: t.detach().requires_grad_(True))
+               for x in tree_leaves(params)]
+    loss = loss_fn(cfg, tree_unflatten(params, aliases), batch, splan)
+    flat = [t for x in aliases for t in x.pieces.values()]
+    got = iter(torch.autograd.grad(loss, flat, allow_unused=True))
+    grads = []
+    for x in aliases:
+        pieces = {}
+        for pos, t in x.pieces.items():
+            g = next(got)
+            pieces[pos] = torch.zeros_like(t) if g is None else g
+        grads.append(Sharded(x.mesh, x.spec, pieces))
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def _each(x, fn, *rest):
+    """``fn`` of a tensor (and ``rest``'s), or of each position's pieces of
+    a ``Sharded``: the accumulation of microbatches piece by piece."""
+    if isinstance(x, Sharded):
+        return x.map(lambda pos, t: fn(t, *(r.pieces[pos] for r in rest)))
+    return fn(x, *rest)
+
+
+def _controller(state: dict) -> torch.device:
+    step = state["step"]
+    return (step.first if isinstance(step, Sharded) else step).device
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
                     splan: ShardingPlan | None = None, *,
                     microbatches: int = 1, grad_compress: bool = False,
@@ -144,83 +221,90 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
     reference: the loss keeps its default chunk of 16,384.
     ``grad_compress`` acts only under a mesh with a ``pod`` axis (the int8
     round trip of every floating gradient before the update); without one
-    it is a no-op, as in the reference."""
+    it is a no-op, as in the reference.  Under a plan whose positions own
+    their shards the state is pieces (``place_state``) and stays so."""
     del vocab_chunk
     splan = splan or make_plan(cfg, None)
-    if splan.own_shards:
-        refuse_training("make_train_step")
+    own = splan.own_shards
     compress = (grad_compress and splan.mesh is not None
                 and "pod" in splan.mesh.axis_names)
-    bundle = get_bundle(cfg)
-
-    def loss_and_grads(params, batch):
-        leaves = [t.detach().requires_grad_(True)
-                  for t in tree_leaves(params)]
-        loss = bundle.loss(cfg, tree_unflatten(params, leaves), batch, splan)
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten(params, grads)
 
     def step_fn(state, batch):
         params = state["params"]
-        device = state["step"].device
+        device = _controller(state)
         with deterministic_algorithms(deterministic and
                                       device.type == "cuda"):
             batch = _to_device(batch, device)
             if microbatches <= 1:
-                loss, grads = loss_and_grads(params, batch)
+                loss, grads = loss_and_grads(cfg, params, batch, splan)
             else:
-                acc = tree_map(lambda x: torch.zeros_like(
-                    x, dtype=torch.float32), params)
+                acc = tree_map(lambda x: _each(x, lambda t: torch.zeros_like(
+                    t, dtype=torch.float32)), params)
                 losses = []
                 for i in range(microbatches):
                     mb = {k: x.reshape((microbatches,
                                         x.shape[0] // microbatches)
                                        + x.shape[1:])[i]
                           for k, x in batch.items()}
-                    l, g = loss_and_grads(params, mb)
-                    acc = tree_map(lambda a, b: a + b.float(), acc, g)
+                    l, g = loss_and_grads(cfg, params, mb, splan)
+                    acc = tree_map(lambda a, b: _each(
+                        a, lambda t, u: t + u.float(), b), acc, g)
                     losses.append(l)
-                grads = tree_map(lambda g: g / microbatches, acc)
+                grads = tree_map(lambda g: _each(g, lambda t: t / microbatches),
+                                 acc)
                 loss = torch.stack(losses).mean()
+            if own:
+                grads = _whole_grads(grads, splan, compress=compress)
             if compress:
                 grads = compress_grads_crosspod(grads, splan.mesh)
             new_params, new_opt = opt.update(grads, state["opt"], params,
                                              state["step"])
-        metrics = {"loss": loss, "gnorm": new_opt.pop("gnorm")}
-        return ({"params": new_params, "opt": new_opt,
-                 "step": state["step"] + 1}, metrics)
+        gnorm = new_opt.pop("gnorm")
+        if own:
+            gnorm = C.gather_to(gnorm, device)
+            nxt = state["step"].map(lambda pos, t: t + 1)
+        else:
+            nxt = state["step"] + 1
+        return ({"params": new_params, "opt": new_opt, "step": nxt},
+                {"loss": loss, "gnorm": gnorm})
 
     return step_fn
 
 
-def _place(state: dict, mesh) -> dict:
+def place_state(state: dict, mesh, *, own_shards: bool = False) -> dict:
     """The state laid out as the reference's shardings lay it out: params
-    and optimizer state by ``param_specs``, the step replicated."""
-    def put(specs, tree):
-        return tree_map(lambda sh, t: sh.place(t),
-                        tree_named(mesh, specs), tree)
-    return {"params": put(param_specs(state["params"], mesh),
-                          state["params"]),
-            "opt": put(param_specs(state["opt"], mesh), state["opt"]),
-            "step": tree_named(mesh, param_specs(state["step"], mesh))
-            .place(state["step"])}
+    and optimizer state by ``param_specs``, the step replicated.  Held
+    once: each leaf on the mesh's one device (``NamedSharding.place``);
+    ``own_shards``: each leaf as pieces (``place_tree``; a ``Sharded``
+    leaf stays as it is)."""
+    def put(tree):
+        specs = param_specs(tree, mesh)
+        if own_shards:
+            return place_tree(tree, specs, mesh)
+        return tree_map(lambda sh, t: sh.place(t), tree_named(mesh, specs),
+                        tree)
+    return {"params": put(state["params"]), "opt": put(state["opt"]),
+            "step": put(state["step"])}
 
 
-def jit_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None, **kw):
+def jit_train_step(cfg: ModelConfig, opt: Optimizer, mesh=None, *,
+                   own_shards: bool | None = None, **kw):
     """``(step_fn, splan)``, with no ``jit`` (eager PyTorch compiles
     nothing).  With a mesh the step places its input and output state by
-    ``param_specs`` / ``tree_named``, as the reference's in / out
+    ``param_specs`` (``place_state``), as the reference's in / out
     shardings do, and donates nothing: the state it is given stays as it
-    was."""
-    splan = make_plan(cfg, mesh)
-    if splan.own_shards:
-        refuse_training("jit_train_step")
+    was.  ``own_shards`` is ``make_plan``'s: by default pieces over
+    distinct devices, held once on one device; True asks for pieces on
+    repeated positions."""
+    splan = make_plan(cfg, mesh, own_shards=own_shards)
     step_fn = make_train_step(cfg, opt, splan, **kw)
     if mesh is None:
         return step_fn, splan
+    own = splan.own_shards
 
     def placed(state, batch):
-        new, metrics = step_fn(_place(state, mesh), batch)
-        return _place(new, mesh), metrics
+        new, metrics = step_fn(place_state(state, mesh, own_shards=own),
+                               batch)
+        return place_state(new, mesh, own_shards=own), metrics
 
     return placed, splan

@@ -1786,6 +1786,38 @@ def test_lm_spmd_on_distinct_cards_matches_held_once():
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama4-scout-17b-a16e",
+                                  "mamba2-2.7b"])
+def test_lm_spmd_train_step_on_card_positions_matches_held_once(arch):
+    """``chip_smoke.py`` phase 21 (b) at reduced(): one f32 AdamW step over
+    eight ``cuda:0`` positions that own their pieces against the held-once
+    step on the same mesh from the same state, loss and gnorm within 1e-4
+    relative, the new state pieces on the card."""
+    _need_card()
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.dist.sharding import Sharded, make_plan
+    from repro_torch.launch.mesh import make_position_mesh
+    from repro_torch.train.data import batch_for
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.trainer import (init_state, jit_train_step,
+                                           make_train_step)
+    cfg = reduced(get_config(arch))
+    mesh = make_position_mesh((("data", 2), ("model", 4)), "cuda:0")
+    opt = make_optimizer(OptimizerConfig(lr=1e-2, warmup_steps=1))
+    state = init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(0),
+                       dtype=torch.float32)
+    batch = batch_for(cfg, ShapeConfig("m", 32, 4, "train"), 0)
+    _, want = make_train_step(cfg, opt, make_plan(cfg, mesh))(state, batch)
+    new, got = jit_train_step(cfg, opt, mesh, own_shards=True)[0](state,
+                                                                   batch)
+    for key in ("loss", "gnorm"):
+        assert abs(float(got[key]) - float(want[key])) <= \
+            1e-4 * abs(float(want[key])), key
+    leaves = _tree_leaves(new["params"])
+    assert all(isinstance(x, Sharded) and x.first.is_cuda for x in leaves)
+
+
 # -- the dry-run's count on the card (launch/hlo_cost.py) -----------------------
 
 

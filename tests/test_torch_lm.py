@@ -24,10 +24,10 @@
   * the mesh entry points on a one-device mesh (the LM's plan and
     constraint points, and for the enc-dec family its training step and
     checkpoint restore; ``tests/test_torch_lm_mesh.py`` holds them against
-    the reference's), the refusal of what the port does not have yet
-    (training and restore over positions that own their shards, item 13h,
-    the enc-dec family's too), and the in-place cache update (a kept
-    divergence, pinned below).
+    the reference's), the same over two distinct (CPU-index) devices,
+    whose positions own their shards (``tests/test_torch_lm_spmd_train.py``
+    holds that path), and the in-place cache update (a kept divergence,
+    pinned below).
 """
 
 import dataclasses
@@ -53,10 +53,9 @@ from repro_torch.models import lm as LM
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=1e-5, atol=1e-5)
 DENSE = ["olmo-1b", "qwen2-7b", "yi-34b", "minitron-4b", "chameleon-34b"]
-#: what of a family still waits, by its ROADMAP queue 1 item: since every
-#: family serves over positions that own their shards, the enc-dec
-#: family's training there
-UNPORTED = {"seamless-m4t-large-v2": "13h"}
+#: the family whose bundle is its own (``models/encdec.py``): once the
+#: last to be ported over positions that own their shards
+OWN_BUNDLE = ("seamless-m4t-large-v2",)
 
 
 def _pair(arch: str, **changes):
@@ -526,13 +525,23 @@ def _cards_mesh() -> Mesh:
                 ("data", "model"))
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def _two_devices() -> Mesh:
+    """Two distinct devices the CPU runs (torch keeps ``cpu:0`` and
+    ``cpu:1`` apart): a plan over them owns its shards by default."""
+    return Mesh([[torch.device("cpu", 0), torch.device("cpu", 1)]],
+                ("data", "model"))
+
+
+@pytest.mark.parametrize("arch", OWN_BUNDLE)
 def test_unported_families_are_refused(arch, tmp_path):
     """The family's bundle is its own (enc-dec: ``models/encdec.py``) and
     serves its entry points on the CPU.  On a one-device mesh its plan,
-    its training step and a restore run; over distinct cards its plan's
-    positions own their shards, and its training step and a restore are
-    refused naming the family's item (13h)."""
+    its training step and a restore run; over distinct devices its plan's
+    positions own their shards, and its training step and a restore run
+    there too (nothing is refused any longer): the same loss and the
+    restored pieces the saved leaves bit for bit."""
+    from repro_torch.dist.collectives import gather_to
+    from repro_torch.dist.sharding import Sharded
     from repro_torch.models import encdec as ED
     from repro_torch.train import checkpoint as K
     from repro_torch.train.data import batch_for
@@ -540,7 +549,6 @@ def test_unported_families_are_refused(arch, tmp_path):
     from repro_torch.train.trainer import init_state, jit_train_step
     from repro_torch.train.tree import tree_leaves
     cfg = configs.reduced(configs.get_config(arch))
-    item = UNPORTED[arch]
     bundle = get_bundle(cfg)
     assert bundle.init is ED.init_encdec
     assert bundle.init_caches is ED.init_encdec_caches
@@ -560,21 +568,25 @@ def test_unported_families_are_refused(arch, tmp_path):
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves(got), tree_leaves(new)))
     assert make_plan(cfg, _cards_mesh()).own_shards
-    for call, want in ((lambda: jit_train_step(cfg, opt, _cards_mesh()),
-                        item),
-                       (lambda: K.restore_checkpoint(
-                           str(tmp_path), state, mesh=_cards_mesh()),
-                        "13h")):
-        with pytest.raises(NotImplementedError, match=f"item {want}"):
-            call()
+    two = _two_devices()
+    step, splan = jit_train_step(cfg, opt, two)
+    assert splan.own_shards
+    own, om = step(state, batch)
+    assert abs(float(om["loss"]) - float(want["loss"])) <= \
+        1e-5 * abs(float(want["loss"]))
+    assert all(isinstance(x, Sharded) for x in tree_leaves(own))
+    pieces, at = K.restore_checkpoint(str(tmp_path), state, mesh=two)
+    assert at == 1
+    assert all(isinstance(x, Sharded) and torch.equal(gather_to(x, "cpu"), w)
+               for x, w in zip(tree_leaves(pieces), tree_leaves(new)))
 
 
 def test_unported_entry_points_are_refused():
     """The loss is ported (a finite scalar), and so is the mesh on one
     device: the plan, ``shard``'s checks, the placed train step and the
-    cross-pod compression's call site.  Over distinct cards the plan's
-    positions own their shards, and training there is refused (item
-    13h)."""
+    cross-pod compression's call site.  Over distinct devices the plan's
+    positions own their shards, and the train step runs there too (the
+    loss the held-once step's within 1e-5; nothing is refused)."""
     from repro_torch.dist.sharding import P
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
     from repro_torch.train.trainer import (init_state, jit_train_step,
@@ -608,8 +620,11 @@ def test_unported_entry_points_are_refused():
     assert float(pod_m["gnorm"]) != float(plain["gnorm"])   # compressed
     own = make_plan(cfg, _cards_mesh())
     assert own.own_shards and own.hidden == plan.hidden
-    with pytest.raises(NotImplementedError, match="item 13h"):
-        jit_train_step(cfg, opt, _cards_mesh())
+    step_fn, splan = jit_train_step(cfg, opt, _two_devices())
+    assert splan.own_shards
+    _, own_m = step_fn(state, batch)
+    assert abs(float(own_m["loss"]) - float(plain["loss"])) <= \
+        1e-5 * abs(float(plain["loss"]))
     step_fn, splan = jit_train_step(cfg, opt, None)
     assert callable(step_fn) and splan == ShardingPlan()
     plan = make_plan(cfg, None)

@@ -11,7 +11,7 @@ fault-tolerant loop (``repro_torch.train.fault``) on the CPU.
   * the atomic ``.tmp`` rename, ``latest_step`` skipping a ``.tmp``, a
     shape mismatch raising ``ValueError``, a missing leaf ``KeyError``,
     a restore onto the ``like`` leaf's dtype, a restore onto a one-device
-    mesh and one over distinct cards raising (item 13h);
+    mesh and one over two distinct (CPU-index) devices as pieces;
   * the reference's ``tests/test_checkpoint.py`` claims on the port: a
     round trip, train 10 straight == train 5, restore, train 5, and a
     failure injected at step 7 recovered from step 5 to the same state,
@@ -178,17 +178,21 @@ def test_restore_refusals_and_casts(tmp_path):
         K.restore_checkpoint(str(tmp_path), {"w": torch.zeros((2, 2))})
     with pytest.raises(KeyError, match="checkpoint missing leaf y"):
         K.restore_checkpoint(str(tmp_path), {"y": torch.zeros(1)})
-    # onto a one-device mesh: each leaf placed by its spec; a mesh over
-    # distinct cards is refused (item 13h: a state held as pieces)
+    # onto a one-device mesh: each leaf placed by its spec; over distinct
+    # devices (two CPU indices, which torch keeps apart) as pieces, each
+    # its position's copy
+    from repro_torch.dist.sharding import Sharded
     mesh = Mesh([["cpu"] * 2] * 2, ("data", "model"))
     got, _ = K.restore_checkpoint(str(tmp_path), {"w": torch.ones((3, 3))},
                                   mesh=mesh)
     assert torch.equal(got["w"], torch.zeros((3, 3)))
-    cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
-                 ("data", "model"))
-    with pytest.raises(NotImplementedError, match="item 13h"):
-        K.restore_checkpoint(str(tmp_path), {"w": torch.zeros((3, 3))},
-                             mesh=cards)
+    two = Mesh([[torch.device("cpu", 0), torch.device("cpu", 1)]],
+               ("data", "model"))
+    got, _ = K.restore_checkpoint(str(tmp_path), {"x": torch.ones(4)},
+                                  mesh=two)
+    assert isinstance(got["x"], Sharded) and len(got["x"].pieces) == 2
+    assert all(torch.equal(t, torch.arange(4.0))
+               for t in got["x"].pieces.values())
     got, _ = K.restore_checkpoint(
         str(tmp_path), {"x": torch.zeros(4, dtype=torch.bfloat16)})
     assert got["x"].dtype == torch.bfloat16 and got["x"].tolist() == \

@@ -36,14 +36,19 @@ states cross by ``params_from_arrays`` / ``state_from_arrays``.
     ``compress_grads_crosspod`` bit for bit on the same arrays;
     ``restore_checkpoint(mesh=)`` of the reference's checkpoint bit for
     bit the reference's own reshard;
+  * over own shards on (2, 2, 2) (``make_plan(..., own_shards=True)``):
+    the same compressed step of olmo and llama4-scout within the limits
+    above, and the reference's checkpoint restored as pieces, gathered bit
+    for bit;
   * the port alone: ``shard``'s checks, an LM mesh over distinct cards
     giving a plan whose positions own their shards for every family,
-    with training and restore there raising ``NotImplementedError`` naming
-    item 13h, the production meshes, the placed and undonated
+    training and restore running over two distinct (CPU-index) devices,
+    the production meshes, the placed and undonated
     ``jit_train_step``, a serving engine on a mesh plan against the
     single-request loop under that plan.  Serving over own shards is
     ``tests/test_torch_lm_spmd.py``, which starts this file as a script
-    with the ``spmd`` and ``spmd-families`` parts.
+    with the ``spmd`` and ``spmd-families`` parts; training over own
+    shards against the held-once step ``tests/test_torch_lm_spmd_train.py``.
 """
 
 from __future__ import annotations
@@ -601,10 +606,14 @@ def test_shard_checks_as_the_reference_constraint():
 
 def test_lm_mesh_over_distinct_cards_raises_13g(tmp_path):
     """A fake two-card grid, checked without a card: its plan's positions
-    own their shards (ROADMAP items 13g and 13i: serving, every family),
-    and what is not ported over own shards yet raises naming its item:
-    training and restore 13h.  A held-once plan cannot span the two
-    cards."""
+    own their shards (ROADMAP items 13g and 13i: serving, every family).
+    Training and restore over own shards (13h) run: over two distinct
+    devices the CPU runs (``cpu:0``, ``cpu:1``), the placed step, the
+    plain step and the loss give the held-once numbers, and a restore
+    gives pieces.  A held-once plan cannot span the two cards."""
+    from repro_torch.dist.collectives import gather_to
+    from repro_torch.dist.sharding import Sharded
+    from repro_torch.train.trainer import init_state, place_state
     cards = Mesh([[torch.device("cuda", 0), torch.device("cuda", 1)]],
                  ("data", "model"))
     cfg = configs.reduced(configs.get_config("olmo-1b"))
@@ -616,16 +625,31 @@ def test_lm_mesh_over_distinct_cards_raises_13g(tmp_path):
     assert dataclasses.replace(plan, mesh=held.mesh, own_shards=False) == \
         held
     assert distinct_devices(cards)
-    K.save_checkpoint(str(tmp_path), {"w": torch.zeros(2)}, 1)
-    for call in (lambda: jit_train_step(cfg, opt, cards),
-                 lambda: make_train_step(cfg, opt, plan),
-                 lambda: LM.lm_loss(cfg, {}, torch.zeros((1, 2)),
-                                    torch.zeros((1, 2)), splan=plan),
-                 lambda: K.restore_checkpoint(str(tmp_path),
-                                              {"w": torch.zeros(2)},
-                                              mesh=cards)):
-        with pytest.raises(NotImplementedError, match="item 13h"):
-            call()
+    two = Mesh([[torch.device("cpu", 0), torch.device("cpu", 1)]],
+               ("data", "model"))
+    state = init_state(cfg, opt, torch.Generator().manual_seed(0),
+                       dtype=torch.float32, device="cpu")
+    batch = batch_for(cfg, configs.ShapeConfig("m", 16, 2, "train"), 0)
+    _, want = make_train_step(cfg, opt, held)(state, batch)
+    own = make_plan(cfg, two)
+    assert own.own_shards
+    for got in (jit_train_step(cfg, opt, two)[0](state, batch)[1],
+                make_train_step(cfg, opt, own)(
+                    place_state(state, two, own_shards=True), batch)[1]):
+        for key in ("loss", "gnorm"):
+            assert abs(float(got[key]) - float(want[key])) <= \
+                1e-5 * abs(float(want[key])), key
+    toks = torch.from_numpy(batch["tokens"]).long()
+    pieces = place_state(state, two, own_shards=True)["params"]
+    loss = LM.lm_loss(cfg, pieces, toks, torch.from_numpy(
+        batch["labels"]).long(), splan=own)
+    assert abs(float(loss) - float(want["loss"])) <= \
+        1e-5 * abs(float(want["loss"]))
+    K.save_checkpoint(str(tmp_path), {"w": torch.arange(4.0)}, 1)
+    got, _ = K.restore_checkpoint(str(tmp_path), {"w": torch.zeros(4)},
+                                  mesh=two)
+    assert isinstance(got["w"], Sharded)
+    assert torch.equal(gather_to(got["w"], "cpu"), torch.arange(4.0))
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
         assert make_plan(configs.reduced(configs.get_config(arch)),
                          cards).own_shards
@@ -973,6 +997,79 @@ def test_mesh_train_step_matches_reference(reference, arch):
     assert abs(float(pm["gnorm"]) - want_gnorm) > GNORM_RTOL * want_gnorm
     assert _update_excess(tree_leaves(plain["params"]), old, want_params,
                           same) > 100.0
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", SCOUT])
+def test_own_shards_train_step_matches_reference(reference, arch):
+    """The same compressed AdamW step over positions that own their
+    shards (``jit_train_step(..., own_shards=True)``) on (pod 2, data 2,
+    model 2), within ``test_mesh_train_step_matches_reference``'s limits:
+    the loss, gnorm within GNORM_RTOL, each leaf's update within
+    UPDATE_RTOL where the int8 levels of the own-shards gradients (reduced
+    over positions, then gathered) and the reference's agree, the elements
+    where they do not at most LEVEL_FLIPS_MAX.  The new state is pieces."""
+    from repro_torch.dist.collectives import gather_to
+    from repro_torch.dist.sharding import Sharded
+    from repro_torch.train.trainer import (_whole_grads, loss_and_grads,
+                                           place_state)
+    ref = _ref(reference)
+    cfg = configs.reduced(configs.get_config(arch))
+    opt = make_optimizer(OptimizerConfig(**TRAIN_OPT))
+    state = state_from_arrays(_tree(ref, f"state/{arch}"), device="cpu")
+    batch = batch_for(cfg, configs.ShapeConfig("mesh", *TRAIN_SHAPE,
+                                               "train"), 0, seed=0)
+    mesh = make_position_mesh(TRAIN_MESH, "cpu")
+    step, splan = jit_train_step(cfg, opt, mesh, own_shards=True,
+                                 grad_compress=True)
+    assert splan.own_shards and splan.data_axes == ("pod", "data")
+    new, metrics = step(state, batch)
+    assert all(isinstance(x, Sharded) for x in tree_leaves(new))
+    _close(metrics["loss"], ref[f"train/{arch}/loss"], rtol=1e-5, atol=1e-6)
+    want_gnorm = float(ref[f"train/{arch}/gnorm"])
+    assert abs(float(metrics["gnorm"]) - want_gnorm) <= \
+        GNORM_RTOL * want_gnorm
+    placed = place_state(state, mesh, own_shards=True)
+    _, grads = loss_and_grads(cfg, placed["params"], {
+        k: torch.from_numpy(v).long() for k, v in batch.items()}, splan)
+    grads = _whole_grads(grads, splan, compress=True)
+    levels = [C.quantize_int8(gather_to(g, "cpu"))[0].numpy()
+              for g in tree_leaves(grads)]
+    want_levels = [x for _, x in tree_flatten_with_path(
+        _tree(ref, f"train/{arch}/levels"))]
+    want_params = [x for _, x in tree_flatten_with_path(
+        _tree(ref, f"train/{arch}/params"))]
+    old = [_np(t) for t in tree_leaves(state["params"])]
+    same = [lv == wl for lv, wl in zip(levels, want_levels)]
+    assert sum(int((~m).sum()) for m in same) <= LEVEL_FLIPS_MAX
+    got = [gather_to(x, "cpu") for x in tree_leaves(new["params"])]
+    assert _update_excess(got, old, want_params, same) <= 1.0
+
+
+def test_restore_checkpoint_onto_own_shards_bit_for_bit(reference):
+    """The reference's checkpoint restored onto (2, 2, 2) positions that
+    own their shards: each leaf pieces by its ``param_specs`` spec, each
+    piece its position's ``devices_indices_map`` slice, gathered bit for
+    bit the reference's own reshard."""
+    from repro_torch.dist.collectives import gather_to
+    from repro_torch.dist.sharding import Sharded
+    ref = _ref(reference)
+    want = _tree(ref, "restored")
+    like = state_from_arrays(want, device="cpu")
+    mesh = make_position_mesh(TRAIN_MESH, "cpu")
+    got, step = K.restore_checkpoint(os.path.join(ref["#dir"], "ckpt"),
+                                     tree_map(torch.zeros_like, like),
+                                     mesh=mesh, own_shards=True)
+    assert step == 1
+    specs = tree_flatten_with_path(param_specs(like, mesh))
+    for (path, x), (_, w), (_, spec) in zip(tree_flatten_with_path(got),
+                                            tree_flatten_with_path(want),
+                                            specs):
+        assert isinstance(x, Sharded) and x.mesh is mesh, path
+        whole = gather_to(x, "cpu")
+        assert _np(whole).tobytes() == np.asarray(w).tobytes(), path
+        for pos, idx in NamedSharding(mesh, x.spec).devices_indices_map(
+                whole.shape).items():
+            assert torch.equal(x.pieces[pos], whole[idx]), path
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", SCOUT])

@@ -27,7 +27,9 @@ pieces.  It checks:
     path's and every byte moved across positions recorded (an SSD, a
     hybrid and an enc-dec prefill and tick too), the engine token for
     token the held-once engine and the single-request loop (mamba2 and
-    zamba2 too), and the refusals (13h).
+    zamba2 too), and the loss of both bundles, once refused (13h), now
+    running.  Training over own shards is
+    ``tests/test_torch_lm_spmd_train.py``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,17 @@ WIDE = dict(d_model=256, vocab=2048)
 PARTS = ("spmd", "spmd-families")
 #: the held-once comparisons of the families with every leaf split
 SPLIT_MESHES = ((("data", 1), ("model", 4)), TRAIN_MESH)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for the module: the own-shards path runs many
+    small ops a step, which one thread runs faster than several, and
+    parallel test workers then do not contend for the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -787,23 +800,31 @@ def test_own_shards_engine_matches_held_once_and_loop(arch, pairs, slots):
 
 
 def test_own_shards_refusals_name_13h_and_13i():
-    """On repeated positions with ``own_shards=True``: training and
-    restore raise naming 13h (the LM's and the enc-dec's loss too); the
-    SSD, hybrid and enc-dec families, refused under 13i before it was
-    ported, get an own-shards plan (nothing raises naming 13i); a
-    held-once path is never run instead."""
+    """On repeated positions with ``own_shards=True``: the train step, the
+    LM's and the enc-dec's loss (each bundle's too) and ``lm_hidden``,
+    refused under 13h before it was ported, run and give the held-once
+    values within 1e-5;
+    the SSD, hybrid and enc-dec families, refused under 13i before it was
+    ported, get an own-shards plan; a held-once path is never run
+    instead (whole parameters raise ``TypeError``)."""
     from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
     from repro_torch.train.trainer import make_train_step
     cfg = configs.reduced(configs.get_config("olmo-1b"))
     splan = _own(cfg)
     opt = make_optimizer(OptimizerConfig())
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    for call in (lambda: make_train_step(cfg, opt, splan),
-                 lambda: LM.lm_loss(cfg, {}, toks, toks, splan=splan),
+    assert callable(make_train_step(cfg, opt, splan))
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 4), generator=gen)
+    p = get_bundle(cfg).init(cfg, torch.Generator().manual_seed(0),
+                             dtype=torch.float32, device="cpu")
+    want = float(LM.lm_loss(cfg, p, toks, toks))
+    pieces = shard_params(p, splan)
+    for call in (lambda: LM.lm_loss(cfg, pieces, toks, toks, splan=splan),
                  lambda: get_bundle(cfg).loss(
-                     cfg, {}, {"tokens": toks, "labels": toks}, splan)):
-        with pytest.raises(NotImplementedError, match="item 13h"):
-            call()
+                     cfg, pieces, {"tokens": toks, "labels": toks}, splan)):
+        assert abs(float(call()) - want) <= 1e-5 * abs(want)
+    _close(C.gather_to(LM.lm_hidden(cfg, pieces, toks, splan=splan), "cpu"),
+           LM.lm_hidden(cfg, p, toks).detach().numpy())
     for arch in ("mamba2-2.7b", "zamba2-2.7b", "seamless-m4t-large-v2"):
         fam, mesh = configs.reduced(configs.get_config(arch)), _mesh()
         plan = make_plan(fam, mesh, own_shards=True)
@@ -813,13 +834,17 @@ def test_own_shards_refusals_name_13h_and_13i():
         assert plan == dataclasses.replace(make_plan(fam, mesh),
                                            own_shards=True)
     ed = configs.reduced(configs.get_config("seamless-m4t-large-v2"))
-    for call in (lambda: ED.encdec_loss(ed, {}, toks, toks, toks,
+    ep = get_bundle(ed).init(ed, torch.Generator().manual_seed(1),
+                             dtype=torch.float32, device="cpu")
+    frames = torch.randn(2, 8, ed.d_model, generator=gen)
+    want = float(ED.encdec_loss(ed, ep, frames, toks, toks))
+    epieces = shard_params(ep, _own(ed))
+    for call in (lambda: ED.encdec_loss(ed, epieces, frames, toks, toks,
                                         splan=_own(ed)),
                  lambda: get_bundle(ed).loss(
-                     ed, {}, {"frames": toks, "tokens": toks,
-                              "labels": toks}, _own(ed))):
-        with pytest.raises(NotImplementedError, match="item 13h"):
-            call()
+                     ed, epieces, {"frames": frames, "tokens": toks,
+                                   "labels": toks}, _own(ed))):
+        assert abs(float(call()) - want) <= 1e-5 * abs(want)
     # a placement over distinct devices (two CPU indices, which torch
     # keeps apart) is a Sharded, never a held copy; on one device it is
     # the held-once tensor
@@ -830,7 +855,7 @@ def test_own_shards_refusals_name_13h_and_13i():
     assert isinstance(placed, Sharded) and placed.first.shape == (4, 1)
     assert torch.equal(placed.pieces[(0, 1)], t[:, 1:])
     assert NamedSharding(_mesh(), P("data")).place(t) is t
-    with pytest.raises(TypeError):
-        LM.lm_prefill(cfg, get_bundle(cfg).init(
-            cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
-            device="cpu"), toks, splan=splan)
+    for call in (lambda: LM.lm_prefill(cfg, p, toks, splan=splan),
+                 lambda: LM.lm_loss(cfg, p, toks, toks, splan=splan)):
+        with pytest.raises(TypeError):
+            call()
