@@ -344,7 +344,15 @@ Phases (any failure exits non-zero and prints no result line):
               (c) The CLIs on meta at production shapes: olmo-1b's four
               shapes on both meshes, every status ok or skipped, and the
               hillclimb example (llama4-scout decode_32k, moe_decode_ep
-              true and false) under the H100 table.
+              true and false) under the H100 table.  (d), run after phase
+              21 whose measurements it reads: phase 21 (a)'s own-shards
+              olmo-1b step and phase 20 (a)'s own-shards decode call,
+              built by launch/dryrun.build_cell(own_shards=True), each
+              counted once on cuda:0 positions and once on meta: equal op
+              for op (DRY_DEVICE_OPS' rule), the collective records equal
+              kind for kind, and on the card moved_bytes() across the
+              counted call equal to the records' received_bytes; the
+              count's H100 terms beside the measured step and tick.
  20. lm-spmd  LM serving over positions that own their shards, all on
               cuda:0 (models/positions.py): (a) olmo-1b, (b) llama4-scout
               (EP), (c) qwen2-7b (cp), (d) distinct cards when there are
@@ -576,6 +584,12 @@ DRY_STEPS, DRY_PROFILE_STEPS, DRY_TICKS = 3, 2, 5
 DRY_DEVICE_OPS: dict[str, str] = {}
 DRY_CLI_ARCH = "olmo-1b"
 DRY_HILLCLIMB = ("llama4-scout-17b-a16e", "decode_32k")
+#: phase 19 (d): phase 21 (a)'s step (LMT_BATCH x LMT_SEQ on LMP_MESH) and
+#: phase 20 (a)'s decode call (LM_SLOTS x LM_MAX_CTX on LMS_MESH_A), both
+#: olmo-1b bf16 at full width over own shards; DRY_SPMD_MEASURED holds
+#: what phases 20 (a) and 21 (a) measured of them ("decode", "train")
+DRY_SPMD_ARCH = "olmo-1b"
+DRY_SPMD_MEASURED: dict[str, dict] = {}
 
 #: phase 20, LM serving over positions that own their shards, every
 #: position on cuda:0: (a) olmo-1b on LMS_MESH_A (tp): f32 prefill and
@@ -612,8 +626,9 @@ LMS_FAM_TIMED = (128,)                 # the buckets whose prefill is timed
 LMS_ED_CHECK = (2, 64, 4)              # batch, decoder prefix, decode steps
 LMS_F32_REQUESTS, LMS_F32_NEW = 2, 4   # (e) / (f)'s f32 engines
 #: (e) / (f)'s depth: mamba2-2.7b's 64 layers and zamba2-2.7b's 54 cut to
-#: these (zamba2's 18 keep 3 shared blocks), to make room for phase 21
-LMS_FAM_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 18}
+#: these (zamba2's 6 keep one shared block), to make room for phases 21
+#: and 19 (d)
+LMS_FAM_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
 
 #: phase 21, LM training over positions that own their shards, every
 #: position on cuda:0: (a) olmo-1b at full width on LMP_MESH: one f32
@@ -3429,6 +3444,7 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
     return {"tokens": script_tokens, "tokens_s": st["tokens"] / serve_s, "p50_ms": float(p50),
             "p99_ms": float(p99), "kernels_tick": len(kernels)
             / LM_PROFILE_TICKS, "busy": busy / wall_us,
+            "device_ms": busy / 1e3 / LM_PROFILE_TICKS,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -4760,6 +4776,114 @@ def dryrun_cli(*, smi: str) -> None:
             f"{time.perf_counter() - t0:.3f} s)")
 
 
+def dryrun_spmd(*, smi: str) -> None:
+    """Phase 19 (d): phase 21 (a)'s own-shards olmo-1b step and phase 20
+    (a)'s own-shards decode call, built by ``launch/dryrun.build_cell`` on
+    cuda:0 positions and on meta and counted on each: op for op, the
+    records kind for kind, ``moved_bytes`` against the records; the
+    count's H100 terms beside what phases 20 (a) and 21 (a) measured."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import H100, make_position_mesh
+    from repro_torch.launch.roofline import roofline_terms
+
+    t_part = time.perf_counter()
+    cells = (("train", "21 (a)", ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH,
+                                              "train"), LMP_MESH),
+             ("decode", "20 (a)", ShapeConfig("decode_1k", LM_MAX_CTX,
+                                               LM_SLOTS, "decode"),
+              LMS_MESH_A))
+    for what, src, shape, pairs in cells:
+        tag = f"[dryrun] (d) {DRY_SPMD_ARCH} {what}"
+        positions = int(np.prod([n for _, n in pairs]))
+        counts = {}
+        for dev in ("meta", "cuda:0"):
+            mesh = make_position_mesh(pairs, dev)
+            fn, args, cfg, _, splan, _ = build_cell(
+                DRY_SPMD_ARCH, shape, mesh, own_shards=True)
+            if dev != "meta":
+                off = [t.device for a in args for x in tree_values(a)
+                       for t in (x.pieces.values() if hasattr(x, "pieces")
+                                 else [x]) if not t.is_cuda]
+                if off:
+                    raise AssertionError(f"{tag}: arguments off the card "
+                                         f"{off[:3]}")
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            moved = C.moved_bytes()
+            with hlo_cost.CostMode(held=args) as mode:
+                fn(*args)
+            if dev != "meta":
+                torch.cuda.synchronize()
+            counts[dev] = (mode.summary(), mode.records,
+                           C.moved_bytes() - moved,
+                           time.perf_counter() - t0)
+            del fn, args, mode
+            free_card()
+        (card, recs, moved, card_s), (meta, meta_recs, _, meta_s) = \
+            counts["cuda:0"], counts["meta"]
+        diff = count_diff(card, meta, f"{what} over own shards")
+        if recs != meta_recs:
+            raise AssertionError(f"{tag}: the card's collective records "
+                                 f"differ from meta's")
+        for k in ("collective_bytes_by_kind",
+                  "collective_wire_bytes_by_kind"):
+            if card[k] != meta[k]:
+                raise AssertionError(f"{tag}: {k} card {card[k]} against "
+                                     f"meta {meta[k]}")
+        want_moved = sum(C.received_bytes(*r) for r in recs)
+        if moved != want_moved:
+            raise AssertionError(f"{tag}: moved_bytes {moved} against the "
+                                 f"records' received bytes {want_moved}")
+        terms = roofline_terms(
+            flops_per_chip=card["flops"] / positions,
+            bytes_per_chip=card["bytes"] / positions,
+            coll_bytes_per_chip=card["collective_bytes"] / positions,
+            peak=H100)
+        copy_ms = 1e3 * 2 * moved / H100["hbm_bandwidth"]
+        one_card_ms = max(1e3 * card["flops"] / H100["peak_flops_bf16"],
+                          1e3 * card["bytes"] / H100["hbm_bandwidth"])
+        by_kind = ", ".join(
+            f"{k} x{card['collective_counts'][k] // positions} "
+            f"{v / positions / 1e6:.3f} MB (wire "
+            f"{card['collective_wire_bytes_by_kind'][k] / positions / 1e6:.3f}"
+            f" MB)" for k, v in sorted(card["collective_bytes_by_kind"]
+                                        .items()))
+        got = DRY_SPMD_MEASURED.get(what)
+        unit = {"train": "step", "decode": "tick"}[what]
+        seen = (f"phase {src} measured: wall p50 {got['p50_ms']:.3f} ms, "
+                f"device time {got['device_ms']:.3f} ms, "
+                f"{got['kernels']:.1f} kernels a {unit}; the one-card bound "
+                f"{100 * one_card_ms / got['device_ms']:.1f} % of that device "
+                f"time" if got else f"phase {src} not measured in this run")
+        log(f"{tag}, bf16 at full width, {shape.global_batch} x "
+            f"{shape.seq_len} on {dict(pairs)} ({splan.attn_mode}), over own "
+            f"shards: counted on cuda:0 positions ({card_s:.3f} s) and on "
+            f"meta ({meta_s:.3f} s): ops {card['ops']} / {meta['ops']}, "
+            f"FLOPs {card['flops']:.6e} equal"
+            + ("; differing ops: " + "; ".join(diff) if diff else
+               "; every op's count and bytes equal")
+            + f"; the collective records equal kind for kind "
+            f"({len(recs)} moves), a position: {by_kind}; moved_bytes "
+            f"{moved:,} B = the records' received bytes (all-gather, "
+            f"all-to-all and reduce-scatter their ring wire bytes, a psum's "
+            f"fold (g - 1) r where the ring moves 2r (g - 1) / g; gather_to "
+            f"adds none); on {smi}")
+        log(f"{tag} H100 terms a position ({positions}): compute "
+            f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+            f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+            f"{terms['collective_s'] * 1e3:.4f} ms (NVLink rate), dominant "
+            f"{terms['dominant']}; on this one card every move is a copy "
+            f"within HBM, so the whole call's bound is max(FLOPs / bf16 peak"
+            f", bytes / HBM rate) = {one_card_ms:.3f} ms, the copies "
+            f"already in its bytes ({copy_ms:.3f} ms of HBM time to read "
+            f"and write {moved / 1e6:.3f} MB); {seen}; on {smi}")
+    log(f"[dryrun] (d) part wall {time.perf_counter() - t_part:.3f} s; on "
+        f"{smi}")
+
+
 def dryrun_phase(*, smi: str) -> None:
     """Phase 19: the dry-run tools' counts against the card."""
     t_phase = time.perf_counter()
@@ -5120,6 +5244,9 @@ def lm_spmd_olmo(*, smi: str) -> None:
     log(f"{tag} collectives a decode tick ({LM_SLOTS} slots busy): "
         f"{seen['tick'][0]}; {seen['tick'][1] / 1e6:.3f} MB moved across "
         f"positions; {seen['resident']}")
+    DRY_SPMD_MEASURED["decode"] = {"p50_ms": mine["p50_ms"],
+                                   "device_ms": mine["device_ms"],
+                                   "kernels": mine["kernels_tick"]}
     del params
     free_card()
 
@@ -5402,9 +5529,9 @@ def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
     free_card()
 
 
-def lms_tick_profile(step) -> tuple[int, float]:
+def lms_tick_profile(step, out: dict | None = None) -> tuple[int, float]:
     """(kernels, device busy share of the wall) of one ``step()`` under a
-    CUDA-only profiler."""
+    CUDA-only profiler; ``out`` (if given) receives its ``device_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5414,6 +5541,8 @@ def lms_tick_profile(step) -> tuple[int, float]:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     every, kernels, _ = device_intervals(prof)
+    if out is not None:
+        out["device_ms"] = union_us(every) / 1e3
     return len(kernels), union_us(every) / wall_us
 
 
@@ -5709,8 +5838,10 @@ def lm_spmd_train_olmo(*, smi: str) -> None:
     resident = lmp_resident(placed, mesh)
     placed, walls, losses, peak = lmp_timed(step, placed, batches, tag=tag)
     records, moved = lms_recorded(lambda: step(placed, batches[LMP_STEPS]))
+    prof: dict = {}
     kernels, busy = lms_tick_profile(lambda: step(placed,
-                                                  batches[LMP_STEPS + 1]))
+                                                  batches[LMP_STEPS + 1]),
+                                     prof)
     del placed
     free_card()
     held_step = make_train_step(full, opt, make_plan(full, mesh))
@@ -5743,6 +5874,9 @@ def lm_spmd_train_olmo(*, smi: str) -> None:
     log(f"{tag} collectives a step (forward, backward and the gradients' "
         f"sums): {lms_bytes(records)}; {moved / 1e6:.3f} MB moved across "
         f"positions; {resident}")
+    DRY_SPMD_MEASURED["train"] = {"p50_ms": float(p50),
+                                  "device_ms": prof["device_ms"],
+                                  "kernels": float(kernels)}
 
 
 def lm_spmd_train_families(*, smi: str) -> None:
@@ -6757,6 +6891,17 @@ def main() -> int:
             entry["launches"] += counts21[name_]
         else:
             entry["launches"] += counts21[name_] - counts21[f"{name_}_wide"]
+
+    # -- 19 (d). the dry-run over own shards, after phases 20 and 21 -------
+    (_, counts19d) = counted(lambda: dryrun_spmd(smi=smi))
+    log(f"[dryrun] (d) forest kernel launches "
+        f"{ {k: n for k, n in counts19d.items() if n} }")
+    for entry in record:
+        name_ = entry["name"]
+        if name_.endswith("_wide"):
+            entry["launches"] += counts19d[name_]
+        else:
+            entry["launches"] += counts19d[name_] - counts19d[f"{name_}_wide"]
     record.extend(bf16_record)
 
     log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")

@@ -59,7 +59,8 @@ from repro_torch.dist.sharding import P, Sharded, coord, group, own_spec
 
 __all__ = ["set_recorder", "recording", "record_collective", "exchange",
            "all_gather", "reduce_scatter", "psum", "pmax", "all_to_all",
-           "broadcast", "relayout", "gather_to", "moved_bytes"]
+           "broadcast", "relayout", "gather_to", "moved_bytes",
+           "received_bytes"]
 
 #: the active recorder: an object with ``collective(kind, nbytes, group,
 #: members)``, or None
@@ -131,6 +132,29 @@ _moved = 0
 def moved_bytes() -> int:
     """The bytes the functions below have copied across positions."""
     return _moved
+
+
+def received_bytes(kind: str, nbytes: int, group: int, members: int) -> int:
+    """What ``moved_bytes`` counts for one move of this module, from its
+    record (``kind``, each member's result bytes ``nbytes``, ``group``,
+    ``members``): the bytes every member takes from the other members of
+    its group.  An all-gather and an all-to-all take ``(g - 1) / g`` of
+    the result and a reduce-scatter ``g - 1`` slices of it: the ring's
+    wire bytes, as the record states them.  A ``psum`` / ``pmax`` folds
+    every other member's whole term, ``(g - 1) r``, where a ring moves
+    ``2 r (g - 1) / g``.  A broadcast copies ``r`` to each member but the
+    source.  A psum recorded at ``wire_bytes`` moves its values, not
+    those bytes, and ``gather_to`` moves nothing by this count."""
+    r, g = int(nbytes), int(group)
+    if kind in ("all-gather", "all-to-all"):
+        per = r * (g - 1) // g
+    elif kind in ("reduce-scatter", "all-reduce"):
+        per = r * (g - 1)
+    elif kind == "collective-permute":
+        return members // g * (g - 1) * r
+    else:
+        raise ValueError(f"unknown collective kind {kind!r}")
+    return members * per
 
 
 def _recv(t: torch.Tensor, src: tuple, dst: tuple, device) -> torch.Tensor:

@@ -50,6 +50,7 @@ and ``.axis_names``, as the reference's do (``docs/torch_lm_mesh.md``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -332,19 +333,28 @@ def own_spec(spec, shape, mesh) -> P:
                == 0 else None for n, e in zip(shape, spec)))
 
 
-def group(mesh, pos: tuple, axes) -> list[tuple]:
+def group(mesh, pos: tuple, axes) -> tuple[tuple, ...]:
     """The positions that differ from ``pos`` only along ``axes``, in the
     order of their index over ``axes`` (the first axis major): the members
-    of one collective, and the order every fold over them takes."""
-    names = tuple(mesh.axis_names)
+    of one collective, and the order every fold over them takes.  Kept
+    per (grid shape, axis names, position, axes): every move asks for
+    it at every position, and on a production mesh the enumeration would
+    cost more than the move's own bookkeeping."""
+    return _group(tuple(mesh.devices.shape), tuple(mesh.axis_names),
+                  tuple(int(i) for i in pos), tuple(axes))
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _group(shape: tuple, names: tuple, pos: tuple,
+           axes: tuple) -> tuple[tuple, ...]:
     dims = [names.index(a) for a in axes]
     out = []
-    for k in np.ndindex(*[mesh.devices.shape[d] for d in dims]):
+    for k in np.ndindex(*[shape[d] for d in dims]):
         q = list(pos)
         for d, i in zip(dims, k):
             q[d] = int(i)
         out.append(tuple(q))
-    return out
+    return tuple(out)
 
 
 def coord(mesh, pos: tuple, axes) -> int:

@@ -21,10 +21,28 @@ the roofline terms under the ``H100`` table (``docs/torch_dryrun.md``):
                                    live bytes less the arguments, /
                                    positions (an estimate).
 
+Two programs can be counted.  By default the step is HELD ONCE: one copy
+of every value, the mesh's blocks run one after another, and nothing moves
+between positions, so the collective keys hold only the EP exchanges and
+the cross-pod all-reduce that step records.  With ``own_shards`` (``--own-
+shards``) every position owns its shards (``dist/sharding.Sharded``) and
+runs its own piece of the step, and every byte that crosses positions
+goes through ``dist/collectives``, which records it: the port's
+counterpart of the reference's partitioned program, whose collectives
+XLA's partitioner inserts.  The collective keys are then the recorded
+moves / positions under the reference's operand and ring-wire
+conventions (``launch/hlo_cost.CostMode.collective``).  The default stays
+held once because the own-shards count's wall grows with positions x
+group size: every position runs its own ops, and every fold and
+concatenation of a move runs once a position (olmo-1b ``decode_32k`` on
+the (16, 16) mesh counts about 1.1M ops; ``docs/torch_dryrun.md``).
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun.jsonl
-  ... add --multi-pod for the (pod=2, data=16, model=16) mesh.
+  ... add --multi-pod for the (pod=2, data=16, model=16) mesh, --mesh 2x4
+  (DxM or PxDxM) for another mesh of meta positions, --own-shards for
+  the partitioned program.
 
 No ``--keep-hlo`` (there is no HLO), no ``--unroll`` (eager runs every
 layer; nothing is counted once for a loop), and no ``XLA_FLAGS``.
@@ -42,19 +60,23 @@ import traceback
 
 import torch
 
-from repro_torch.configs import ARCH_IDS, SHAPES, get_config
-from repro_torch.dist.sharding import (NamedSharding, P, batch_specs,
-                                       cache_specs, make_plan, param_specs)
+from repro_torch.configs import ARCH_IDS, SHAPES, ShapeConfig, get_config
+from repro_torch.dist.sharding import (AXES, Mesh, NamedSharding, P, Sharded,
+                                       batch_specs, cache_specs, make_plan,
+                                       param_specs, physical, shard_caches,
+                                       shard_params)
 from repro_torch.launch import hlo_cost
-from repro_torch.launch.mesh import H100, make_production_mesh
+from repro_torch.launch.mesh import (H100, make_position_mesh,
+                                    make_production_mesh)
 from repro_torch.launch.roofline import model_flops, roofline_terms
 from repro_torch.models.registry import get_bundle, input_specs
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
-from repro_torch.train.trainer import make_train_step, state_shapes
-from repro_torch.train.tree import tree_leaves, tree_map
+from repro_torch.train.trainer import (init_state, make_train_step,
+                                       place_state, state_shapes)
+from repro_torch.train.tree import tree_leaves, tree_map, tree_map_with_path
 
 __all__ = ["LONG_OK", "ADAFACTOR_ARCHS", "cell_skip_reason", "build_cell",
-           "position_bytes", "run_cell", "main"]
+           "position_bytes", "run_cell", "meta_mesh", "main"]
 
 # long_500k needs sub-quadratic attention: runnable for SSM/hybrid and the
 # chunked-local iRoPE MoE archs; skipped (and recorded) for pure
@@ -79,45 +101,98 @@ def cell_skip_reason(arch: str, shape_name: str) -> str | None:
 def position_bytes(tree, specs, mesh) -> int:
     """One position's bytes of ``tree`` laid out by ``specs`` on ``mesh``:
     each leaf's shard (every split even, which the placement checks), its
-    elements times their size."""
-    return sum(math.prod(NamedSharding(mesh, spec).shard_shape(t.shape))
-               * t.element_size() for t, (spec,) in
-               zip(tree_leaves(tree),
-                   tree_leaves(tree_map(lambda s: (s,), specs))))
+    elements times their size.  A ``Sharded`` leaf is held by its own spec
+    (``own_spec`` of ``specs``'), so its shard is its piece."""
+    total = 0
+    for t, (spec,) in zip(tree_leaves(tree),
+                          tree_leaves(tree_map(lambda s: (s,), specs))):
+        if isinstance(t, Sharded):
+            spec, t = t.spec, torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta")
+        total += math.prod(NamedSharding(mesh, spec).shard_shape(t.shape)) \
+            * t.element_size()
+    return total
 
 
-def build_cell(arch: str, shape_name: str, mesh, *,
+def _held_bytes(tree) -> int:
+    """The bytes every position holds of ``tree`` together: a tensor's
+    once (held once), a ``Sharded`` leaf's every piece."""
+    return sum(sum(p.numel() * p.element_size() for p in t.pieces.values())
+               if isinstance(t, Sharded) else t.numel() * t.element_size()
+               for t in tree_leaves(tree))
+
+
+def _inputs(cfg, shape, device, gen: torch.Generator):
+    """``input_specs``' tree on ``device``: meta as it is; on a real device
+    seeded from ``gen``: token ids uniform over the vocabulary, frames
+    normal, the decode caches empty (zeros, index 0)."""
+    specs = input_specs(cfg, shape)
+    if device.type == "meta":
+        return specs
+
+    def one(path, t):
+        if path[0] == "caches":
+            return torch.zeros(t.shape, dtype=t.dtype, device=device)
+        if not t.dtype.is_floating_point:
+            return torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                                 device=device, generator=gen)
+        return torch.randn(t.shape, dtype=t.dtype, device=device,
+                           generator=gen)
+
+    return tree_map_with_path(one, specs)
+
+
+def build_cell(arch: str, shape_name, mesh, *,
                opt_name: str | None = None, vocab_chunk: int = 16_384,
-               overrides=None, microbatches: int = 1):
+               overrides=None, microbatches: int = 1,
+               own_shards: bool = False):
     """(fn, args, cfg, shape, splan, specs) for one cell: ``fn(*args)`` is
-    the cell's step, its arguments meta tensors (the state from
-    ``state_shapes``, the batch from ``input_specs``, parameters from
-    ``init`` on meta), ``specs`` their layout on ``mesh``."""
+    the cell's step, ``specs`` its arguments' layout on ``mesh``.
+    ``shape_name`` names one of ``SHAPES``, or is a ``ShapeConfig`` of its
+    own.  On a mesh of meta positions the arguments are meta tensors (the
+    state from ``state_shapes``, the batch from ``input_specs``,
+    parameters from ``init`` on meta); on a mesh of positions on a real
+    device (the CPU tests, the card) they are made there from seed 0
+    (``init_state`` / ``init``, ``_inputs``), the same step on values.
+    With ``own_shards`` the plan's positions own their shards: the state,
+    the parameters and the caches are ``Sharded`` pieces on their
+    positions' devices (``place_state``, ``shard_params``,
+    ``shard_caches``), and the batch and the decode token stay whole on
+    the controller, which the steps cut themselves."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    shape = SHAPES[shape_name]
+    shape = (shape_name if isinstance(shape_name, ShapeConfig)
+             else SHAPES[shape_name])
     bundle = get_bundle(cfg)
-    specs = input_specs(cfg, shape)
+    device = physical(mesh.devices.flat[0])
+    gen = torch.Generator(device=device if device.type == "cuda"
+                          else "cpu").manual_seed(0)
+    specs = _inputs(cfg, shape, device, gen)
 
     if shape.kind == "train":
-        splan = make_plan(cfg, mesh)
+        splan = make_plan(cfg, mesh, own_shards=own_shards)
         opt = make_optimizer(OptimizerConfig(
             name=opt_name or ("adafactor" if arch in ADAFACTOR_ARCHS
                               else "adamw")))
         step = make_train_step(cfg, opt, splan, vocab_chunk=vocab_chunk,
                                microbatches=microbatches)
-        state = state_shapes(cfg, opt)
+        state = (state_shapes(cfg, opt) if device.type == "meta" else
+                 init_state(cfg, opt, gen, device=device))
         st_specs = {"params": param_specs(state["params"], mesh),
                     "opt": param_specs(state["opt"], mesh), "step": P()}
+        if own_shards:
+            state = place_state(state, mesh, own_shards=True)
         bspecs = {k: batch_specs(splan)[k] for k in specs}
         return step, (state, specs), cfg, shape, splan, (st_specs, bspecs)
 
     splan = make_plan(cfg, mesh, decode_batch=(
-        shape.global_batch if shape.kind == "decode" else None))
-    params = bundle.init(cfg, torch.Generator(), dtype=torch.bfloat16,
-                         device="meta")
+        shape.global_batch if shape.kind == "decode" else None),
+        own_shards=own_shards)
+    params = bundle.init(cfg, gen, dtype=torch.bfloat16, device=device)
     p_specs = param_specs(params, mesh)
+    if own_shards:
+        params = shard_params(params, splan)
 
     if shape.kind == "prefill":
         def fn(params, batch):
@@ -128,35 +203,47 @@ def build_cell(arch: str, shape_name: str, mesh, *,
     # decode
     def fn(params, caches, token):
         return bundle.decode(cfg, params, caches, token, splan)
-    c_specs = cache_specs(specs["caches"], splan)
+    caches = specs["caches"]
+    c_specs = cache_specs(caches, splan)
+    if own_shards:
+        caches = shard_caches(caches, splan)
     n_data = splan.block_counts()[0]
     tok_spec = (P(None, None) if shape.global_batch < n_data
                 else batch_specs(splan)["tokens"])
-    return (fn, (params, specs["caches"], specs["token"]), cfg, shape,
+    return (fn, (params, caches, specs["token"]), cfg, shape,
             splan, (p_specs, c_specs, tok_spec))
 
 
-def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+def run_cell(arch: str, shape_name, *, multi_pod: bool = False,
              opt_name=None, vocab_chunk=16_384, overrides=None,
-             microbatches: int = 1) -> dict:
-    """Count one cell's step on the production mesh, every position on
-    meta; return the reference's dry-run record (module docstring)."""
-    rec: dict = {"arch": arch, "shape": shape_name,
-                 "mesh": "2x16x16" if multi_pod else "16x16",
-                 "device": "meta"}
-    skip = cell_skip_reason(arch, shape_name)
+             microbatches: int = 1, own_shards: bool = False,
+             mesh=None) -> dict:
+    """Count one cell's step on the production mesh (or ``mesh``, a mesh
+    of meta positions), every position on meta; return the reference's
+    dry-run record (module docstring).  ``shape_name`` as ``build_cell``
+    takes it; ``own_shards``: count the step over positions that own
+    their shards (``build_cell``)."""
+    rec: dict = {"arch": arch, "shape": getattr(shape_name, "name",
+                                               shape_name),
+                 "mesh": ("2x16x16" if multi_pod else "16x16")
+                 if mesh is None else
+                 "x".join(str(n) for n in mesh.devices.shape),
+                 "device": "meta", "own_shards": bool(own_shards)}
+    skip = cell_skip_reason(arch, rec["shape"])
     if skip:
         rec["status"] = "skipped"
         rec["reason"] = skip
         return rec
-    n_chips = 512 if multi_pod else 256
     try:
-        mesh = make_production_mesh(multi_pod, devices=["meta"] * n_chips)
+        if mesh is None:
+            mesh = make_production_mesh(
+                multi_pod, devices=["meta"] * (512 if multi_pod else 256))
+        n_chips = mesh.size
         t0 = time.perf_counter()
         fn, args, cfg, shape, splan, specs = build_cell(
             arch, shape_name, mesh, opt_name=opt_name,
             vocab_chunk=vocab_chunk, overrides=overrides,
-            microbatches=microbatches)
+            microbatches=microbatches, own_shards=own_shards)
         cost = hlo_cost.analyze(fn, *args)
         trace_s = time.perf_counter() - t0
 
@@ -165,8 +252,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         coll_bytes = cost["collective_bytes"] / n_chips
         arg_pos = sum(position_bytes(a, s, mesh)
                       for a, s in zip(args, specs))
-        arg_all = sum(t.numel() * t.element_size()
-                      for a in args for t in tree_leaves(a))
+        arg_all = sum(_held_bytes(a) for a in args)
         terms = roofline_terms(flops_per_chip=flops_dev,
                                bytes_per_chip=bytes_dev,
                                coll_bytes_per_chip=coll_bytes, peak=H100)
@@ -214,6 +300,16 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def meta_mesh(text: str) -> Mesh:
+    """``--mesh``: ``DxM`` a (data, model) mesh, ``PxDxM`` a (pod, data,
+    model) one, every position on meta."""
+    sizes = [int(n) for n in text.lower().split("x")]
+    if len(sizes) not in (2, 3) or min(sizes) < 1:
+        raise ValueError(f"--mesh takes DxM or PxDxM, got {text!r}")
+    return make_position_mesh(tuple(zip(AXES[3 - len(sizes):], sizes)),
+                              "meta")
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -221,6 +317,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM meta positions in place of the "
+                         "production mesh(es)")
+    ap.add_argument("--own-shards", action="store_true",
+                    help="count the step over positions that own their "
+                         "shards (the partitioned program's collectives)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--optimizer", default=None)
     ap.add_argument("--vocab-chunk", type=int, default=16_384)
@@ -229,17 +331,20 @@ def main(argv: list[str] | None = None) -> int:
     archs = ARCH_IDS if (args.all or args.arch is None) else [args.arch]
     shapes = list(SHAPES) if (args.all or args.shape is None) \
         else [args.shape]
-    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+    meshes = ([(False, meta_mesh(args.mesh))] if args.mesh else
+              [(False, None), (True, None)] if args.both_meshes else
+              [(args.multi_pod, None)])
 
     out = open(args.out, "a") if args.out else None
     failed = 0
     try:
         for arch in archs:
             for shape in shapes:
-                for mp in meshes:
+                for mp, mesh in meshes:
                     rec = run_cell(arch, shape, multi_pod=mp,
                                    opt_name=args.optimizer,
-                                   vocab_chunk=args.vocab_chunk)
+                                   vocab_chunk=args.vocab_chunk,
+                                   own_shards=args.own_shards, mesh=mesh)
                     line = json.dumps(rec)
                     print(line[:400] + ("..." if len(line) > 400 else ""),
                           flush=True)

@@ -42,15 +42,23 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--tag", default="baseline")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM or PxDxM meta positions in place of the "
+                         "production mesh")
+    ap.add_argument("--own-shards", action="store_true",
+                    help="count the step over positions that own their "
+                         "shards (a non-zero collective term)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
-    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun import meta_mesh, run_cell
     overrides = dict(parse_override(kv) for kv in args.set)
     rec = run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
                    opt_name=args.optimizer, vocab_chunk=args.vocab_chunk,
                    overrides=overrides or None,
-                   microbatches=args.microbatches)
+                   microbatches=args.microbatches,
+                   own_shards=args.own_shards,
+                   mesh=meta_mesh(args.mesh) if args.mesh else None)
     rec["tag"] = args.tag
     rec["overrides"] = overrides
     rec["vocab_chunk"] = args.vocab_chunk

@@ -26,36 +26,46 @@ device thread):
   peak_live_bytes  the peak of the bytes held live during the call: the
                    arguments' storages and every storage an op made,
                    each storage once (views share one), released when
-                   the last tensor over it goes;
+                   the last tensor over it goes (one held in a reference
+                   cycle when Python's cyclic collector frees it, whose
+                   timing can move the peak by that storage);
   collective_*     what the port's own code records with
                    ``dist/collectives.record_collective`` (this mode is its
-                   recorder while it counts) at the points where a mesh would
-                   exchange data (the EP ``all_to_all`` and its exchange
-                   back, the EP decode's ``psum``, the cross-pod all-reduce
-                   of the int8 levels and scales), with the reference's
-                   two conventions per kind (``roofline.CollectiveStats``).
-                   The tensor- and data-parallel collectives that XLA's
-                   partitioner inserts have no counterpart in the port.
+                   recorder while it counts), with the reference's two
+                   conventions per kind (``roofline.CollectiveStats``).  A
+                   held-once step records only the points where a mesh
+                   would exchange data (the EP ``all_to_all`` and its
+                   exchange back, the EP decode's ``psum``, the cross-pod
+                   all-reduce of the int8 levels and scales); a step over
+                   positions that own their shards records every move
+                   between them, the counterpart of the collectives XLA's
+                   partitioner inserts.
 
 Every figure is the whole call's: the positions of a mesh all run on one
 device, so the dry-run divides by the positions for a per-position figure
 (``launch/dryrun.py``).  On ``device="meta"`` tensors nothing is allocated
 and nothing computed, which makes a full-width step countable in seconds;
 the count never reads a tensor's value, and the mode changes no result.
+On meta the mode keeps each op's result by signature (the op, its
+arguments' shapes, strides, dtypes and values; ``memo``): an op that
+neither views nor mutates is then run once a signature, and its later
+calls, every other position's on a mesh, get fresh meta tensors of the
+same shape, each counted as the op it is.
 """
 
 from __future__ import annotations
 
+import functools
+import weakref
 from collections import defaultdict
 from typing import Any, Callable
 
 import torch
-from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.dist.collectives import set_recorder
+from repro_torch.dist.sharding import Sharded
 from repro_torch.launch.roofline import CollectiveStats
 
 __all__ = ["CostMode", "analyze"]
@@ -74,29 +84,126 @@ _GATHERS = {aten.index, aten.index_select, aten.embedding, aten.gather}
 
 
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of ``tree`` (nested lists, tuples and dicts, as an aten
+    op's arguments and results are), in order, a ``Sharded`` leaf's
+    pieces each.  A walk of its own: ``torch.utils._pytree`` costs a
+    sixth of a production-mesh count, run twice an op."""
+    out: list[torch.Tensor] = []
+    _walk(tree, out)
+    return out
+
+
+def _walk(x, out: list) -> None:
+    # a module function, not a closure: a closure that calls itself is a
+    # reference cycle, which would keep an op's result alive past the
+    # dispatch, and torch then hands a factory op's result back detached
+    # (one more op counted)
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for y in x:
+            _walk(y, out)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _walk(y, out)
+    elif isinstance(x, Sharded):
+        out.extend(x.pieces.values())
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _NotMeta(Exception):
+    """An argument that keeps an op's meta result from being kept."""
+
+
+_MEMOABLE: dict = {}
+
+
+def _memoable(func) -> bool:
+    """Whether ``func``'s result is a function of its arguments' metadata
+    alone: no view, no mutation, no result aliasing an argument."""
+    ok = _MEMOABLE.get(func)
+    if ok is None:
+        schema = func._schema
+        ok = not (func.is_view or schema.is_mutable or any(
+            r.alias_info is not None for r in schema.returns))
+        _MEMOABLE[func] = ok
+    return ok
+
+
+def _sig(x):
+    """A hashable signature of an op's argument; raises ``_NotMeta`` for a
+    tensor off meta or a value that cannot be hashed."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "meta":
+            raise _NotMeta
+        return (x.shape, x.stride(), x.dtype, x.storage_offset())
+    if isinstance(x, (list, tuple)):
+        return (type(x), tuple(_sig(y) for y in x))
+    if isinstance(x, dict):
+        return tuple((k, _sig(v)) for k, v in x.items())
+    try:
+        hash(x)
+    except TypeError:
+        raise _NotMeta from None
+    return x
+
+
+def _shell(out, args, kwargs):
+    """What ``_remake`` needs to make ``out`` again: each result's shape,
+    stride, dtype and storage bytes; False where it cannot (a result that
+    is not fresh meta tensors, or one sharing an argument's storage)."""
+    outs = [out] if isinstance(out, torch.Tensor) else out
+    if not isinstance(outs, (list, tuple)) or not outs or not all(
+            isinstance(t, torch.Tensor) and t.device.type == "meta"
+            and t.storage_offset() == 0 for t in outs):
+        return False
+    seen = {t.untyped_storage()._cdata for t in _tensors((args, kwargs))}
+    shells = []
+    for t in outs:
+        s = t.untyped_storage()
+        if s._cdata in seen:
+            return False
+        seen.add(s._cdata)
+        shells.append((tuple(t.shape), t.stride(), t.dtype, s.nbytes()))
+    return (isinstance(out, torch.Tensor), type(out), shells)
+
+
+def _remake(shell):
+    """Fresh meta tensors as ``_shell`` described them (None where one
+    would hold other storage bytes than the op's own result did)."""
+    single, kind, shells = shell
+    outs = []
+    for shape, stride, dtype, nbytes in shells:
+        t = torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+        if t.untyped_storage().nbytes() != nbytes:
+            return None
+        outs.append(t)
+    return outs[0] if single else kind(outs)
+
+
 class CostMode(TorchDispatchMode):
     """Counts every aten op dispatched while it is active (see the module
     docstring); ``summary()`` gives ``analyze``'s record.  ``held`` are
-    trees of tensors live for the whole call (the arguments): their
-    storages count towards ``peak_live_bytes`` from the start."""
+    trees of tensors live for the whole call (the arguments, a
+    ``Sharded``'s pieces included): their storages count towards
+    ``peak_live_bytes`` from the start.  ``memo=False`` runs every meta
+    kernel (``_memo_key``), the count the kept results must equal."""
 
-    def __init__(self, held: Any = ()) -> None:
+    def __init__(self, held: Any = (), *, memo: bool = True) -> None:
         super().__init__()
+        self._memo: dict | None = {} if memo else None
         self.flops = 0.0
         self.bytes = 0.0
         self.ops = 0
         self.by_op: dict[str, list] = defaultdict(lambda: [0, 0, 0.0])
         self.ops_by_device: dict[str, set[str]] = defaultdict(set)
         self.collectives = CollectiveStats({}, {}, {})
+        self.records: list[tuple] = []
         self._held: set[int] = set()
-        self._live: dict[int, tuple[StorageWeakRef, int]] = {}
+        self._live: dict[int, tuple[weakref.ref, int]] = {}
         self._held_bytes = 0
         self._live_bytes = 0
         for t in _tensors(held):
@@ -112,38 +219,45 @@ class CostMode(TorchDispatchMode):
 
     def __exit__(self, *exc):
         set_recorder(self._prev_recorder)
+        self._live.clear()                    # no callbacks after the count
         return super().__exit__(*exc)
 
     # -- the live storages ----------------------------------------------------
-    def _sweep(self) -> None:
-        gone = [k for k, (ref, _) in self._live.items() if ref.expired()]
-        for k in gone:
-            self._live_bytes -= self._live.pop(k)[1]
+    def _freed(self, key: int, ref: weakref.ref) -> None:
+        """A counted storage went (its weak reference's callback)."""
+        entry = self._live.get(key)
+        if entry is not None and entry[0] is ref:
+            del self._live[key]
+            self._live_bytes -= entry[1]
 
     def _made(self, outs: list[torch.Tensor]) -> None:
+        # a storage's Python object lives as long as the storage does (torch
+        # preserves it), so a weak reference to it says when the storage
+        # goes, and the live total is exact after every op without a sweep
+        # of every live storage (which made a long count quadratic)
         for t in outs:
             s = t.untyped_storage()
             k = s._cdata
-            if k in self._held:
-                continue
-            entry = self._live.get(k)
-            if entry is not None:
-                if not entry[0].expired():
-                    continue                  # a storage already counted
-                self._live_bytes -= entry[1]  # a freed storage's address
-            self._live[k] = (StorageWeakRef(s), s.nbytes())
-            self._live_bytes += s.nbytes()
-        # storages freed since the last sweep only raise the total: sweep
-        # them out before the total may set a new peak
-        if self._held_bytes + self._live_bytes > self.peak_live_bytes:
-            self._sweep()
-            self.peak_live_bytes = max(self.peak_live_bytes,
-                                       self._held_bytes + self._live_bytes)
+            if k in self._held or k in self._live:
+                continue                      # a storage already counted
+            n = s.nbytes()
+            self._live[k] = (weakref.ref(s, functools.partial(self._freed,
+                                                              k)), n)
+            self._live_bytes += n
+        total = self._held_bytes + self._live_bytes
+        if total > self.peak_live_bytes:
+            self.peak_live_bytes = total
 
     # -- the dispatch ---------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        key = self._memo_key(func, args, kwargs)
+        shell = None if key is None else self._memo.get(key)
+        out = _remake(shell) if shell else None
+        if out is None:
+            out = func(*args, **kwargs)
+            if key is not None and shell is None:
+                self._memo[key] = _shell(out, args, kwargs)
         packet = func._overloadpacket
         name = str(packet).removeprefix("aten.")
         rec = self.by_op[name]
@@ -172,13 +286,31 @@ class CostMode(TorchDispatchMode):
             self._made(outs)
         return out
 
+    # -- meta results kept by signature -----------------------------------------
+    def _memo_key(self, func, args, kwargs):
+        """The key under which a meta op's result is kept: the op and its
+        arguments' shapes, strides, dtypes and values, when every tensor
+        is on meta and the op neither views nor mutates (None
+        otherwise).  A position's op on meta is the same op at every
+        other position of the mesh, so a production-mesh count runs
+        each meta kernel (shape inference, in Python for most ops) once a
+        signature and not once a position."""
+        if self._memo is None or not _memoable(func):
+            return None
+        try:
+            return (func, _sig(args), _sig(kwargs))
+        except _NotMeta:
+            return None
+
     def collective(self, kind: str, nbytes: int, group: int,
                    members: int) -> None:
         """One collective over ``members`` positions in groups of
         ``group``, each member's result buffer ``nbytes``: the reference's
         operand and ring-wire conventions (``hlo_cost.analyze``), summed
-        over the members."""
+        over the members; the record itself kept in ``records``, in call
+        order."""
         r, g = int(nbytes), max(int(group), 1)
+        self.records.append((kind, r, int(group), int(members)))
         if kind == "all-gather":
             op_b, wire = r // g, r * (g - 1) // g
         elif kind == "all-reduce":
@@ -206,6 +338,7 @@ class CostMode(TorchDispatchMode):
             "collective_wire_bytes": float(c.total_wire_bytes),
             "collective_counts": dict(c.counts),
             "collective_bytes_by_kind": dict(c.bytes_by_kind),
+            "collective_wire_bytes_by_kind": dict(c.wire_bytes_by_kind),
             "ops": self.ops,
             "peak_live_bytes": self.peak_live_bytes,
             "devices": sorted(self.ops_by_device),

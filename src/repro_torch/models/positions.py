@@ -846,8 +846,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     h = _embed(params, toks, splan.hidden, M)
     h, out = _backbone(cfg, splan, params, h, S=S, ctx=ctx or S)
     logits = _logits(cfg, params, h, M, tokens.device, last=True)
-    out["index"] = shard_tensor(torch.tensor(S, dtype=torch.int32), mesh,
-                                P())
+    out["index"] = shard_tensor(torch.full((), S, dtype=torch.int32,
+                                           device=tokens.device), mesh, P())
     return logits, out
 
 
@@ -1048,8 +1048,9 @@ def encdec_prefill(cfg: ModelConfig, params: Params, frames: torch.Tensor,
     logits = _logits(cfg, params, h, M, dec_tokens.device, last=True)
     caches = _stack(mesh, per_layer)
     caches["memory"] = C.relayout(mem, P(splan.decode_hidden[0], None, None))
-    caches["index"] = shard_tensor(torch.tensor(S, dtype=torch.int32), mesh,
-                                   P())
+    caches["index"] = shard_tensor(torch.full((), S, dtype=torch.int32,
+                                              device=dec_tokens.device),
+                                   mesh, P())
     return logits, caches
 
 

@@ -54,8 +54,8 @@ FLOPS_RTOL = 1e-3
 
 def _reference_costs(out_path: str) -> None:
     """The reference's COST_CELLS lowered and compiled on a (2, 4)
-    ``jax.sharding.Mesh``: ``hlo_cost.analyze`` of the compiled HLO and
-    the compiled argument bytes."""
+    ``jax.sharding.Mesh``: ``hlo_cost.analyze`` of the compiled HLO (its
+    FLOPs and its collectives by kind) and the compiled argument bytes."""
     import jax
     from jax.sharding import Mesh as JMesh
 
@@ -74,6 +74,9 @@ def _reference_costs(out_path: str) -> None:
         out[f"{arch}/{shape}"] = {
             "flops": cost["flops"],
             "collective_bytes": cost["collective_bytes"],
+            "collective_wire_bytes": cost["collective_wire_bytes"],
+            "collective_bytes_by_kind": cost["collective_bytes_by_kind"],
+            "collective_counts": cost["collective_counts"],
             "argument_size_in_bytes":
                 compiled.memory_analysis().argument_size_in_bytes}
     Path(out_path).write_text(json.dumps(out))
@@ -291,8 +294,11 @@ def test_counted_flops_and_argument_bytes_match_reference(
 
 def test_partitioner_collectives_have_no_counterpart(_reference_procs):
     """The reference's olmo-1b train_4k moves ~1.26e12 collective bytes a
-    chip on (2, 4), all inserted by XLA's partitioner; the port performs
-    none of them (only EP and cross-pod exchanges are recorded)."""
+    chip on (2, 4), all inserted by XLA's partitioner; the port's
+    held-once step, the dry-run's default, performs none of them (only EP
+    and cross-pod exchanges are recorded).  Counted over positions that
+    own their shards (``own_shards=True``), the step records its moves:
+    ``tests/test_torch_dryrun_spmd.py``."""
     want = _ref(_reference_procs, "costs")["olmo-1b/train_4k"]
     assert want["collective_bytes"] > 1e12
     cost, *_ = _port_cell("olmo-1b", "train_4k")

@@ -1867,3 +1867,57 @@ def test_dryrun_count_on_cuda_equals_meta(arch):
         assert card[k] == meta[k], k
     if arch.startswith("llama4"):
         assert card["collective_counts"]["all-to-all"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama4-scout-17b-a16e",
+                                  "mamba2-2.7b", "zamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
+def test_dryrun_own_shards_count_on_cuda_equals_meta(arch, kind):
+    """``launch/dryrun.build_cell(..., own_shards=True)`` at ``reduced()``
+    on (data 2, model 4) positions, 4 x 64 tokens, counted on ``cuda:0``
+    positions and on meta (the cyclic collector off): every key of the
+    count and every collective record equal, and on the card the bytes
+    the moves copied equal to the records' ``received_bytes``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import ShapeConfig, get_config, reduced
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.hlo_cost import CostMode
+    from repro_torch.launch.mesh import make_local_mesh
+    _need_card()
+    full = get_config(arch)
+    red = reduced(full)
+    over = {f.name: getattr(red, f.name) for f in dataclasses.fields(red)
+            if getattr(red, f.name) != getattr(full, f.name)}
+    got = {}
+    gc.disable()
+    try:
+        for dev in ("cuda:0", "meta"):
+            fn, args, *_ = build_cell(
+                arch, ShapeConfig("t", 64, 4, kind),
+                make_local_mesh(2, 4, devices=[dev] * 8), overrides=over,
+                own_shards=True)
+            moved = C.moved_bytes()
+            with CostMode(held=args) as mode:
+                fn(*args)
+            torch.cuda.synchronize()
+            got[dev] = (mode.summary(), mode.records,
+                        C.moved_bytes() - moved)
+    finally:
+        gc.enable()
+    (card, recs, moved), (meta, meta_recs, _) = got["cuda:0"], got["meta"]
+    # a train step may make one CPU tensor on both (torch 2.11's checkpoint
+    # stashes the CPU RNG state); every other result lies on its device
+    assert "cuda:0" in card["devices"] and "meta" in meta["devices"]
+    assert card["ops_by_device"].get("cpu") == \
+        meta["ops_by_device"].get("cpu")
+    for k in ("flops", "bytes", "ops", "by_op", "peak_live_bytes",
+              "collective_bytes_by_kind", "collective_wire_bytes_by_kind",
+              "collective_counts"):
+        assert card[k] == meta[k], k
+    assert recs == meta_recs and recs
+    assert moved == sum(C.received_bytes(*r) for r in recs)
