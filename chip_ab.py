@@ -20,6 +20,13 @@ overhead lines (untraced and traced medians, their ratio), then each
 side's mean per kernel and per run, and the change / parent ratio; a side
 whose script has no such line (a parent without phase 8b, 9, 10 or the
 bf16 tiles) shows "n/a".  Any run that fails makes the script exit non-zero.
+
+    python3 chip_ab.py PARENT_DIR --forest-only
+
+runs each side's ``chip_smoke.main()`` with its LM and dry-run phases
+(15-21 and 19 (d), which chip_smoke.py names in ``LM_PHASES``) replaced by
+no-ops: the forest phases alone, about a third of a whole run, for
+changes the LM phases do not reach.
 """
 
 from __future__ import annotations
@@ -55,9 +62,27 @@ LOAD_RATIO = re.compile(r"\[load\] ratio (.+?): external ([0-9.]+) s .* / "
                         r"in-database ([0-9.]+) s .*?= ([0-9.]+)")
 
 
-def run(root: Path, log: Path) -> dict:
-    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
-                          capture_output=True, text=True, timeout=1500)
+#: run a side's chip_smoke.main() with the phases its ``LM_PHASES``
+#: names (or, for a script that names none, ``{names}``: this side's)
+#: replaced by no-ops; a name the script does not define fails the run
+FOREST_ONLY = ("import sys, chip_smoke as c\n"
+               "names = getattr(c, 'LM_PHASES', {names!r})\n"
+               "missing = [n for n in names if not hasattr(c, n)]\n"
+               "if missing:\n"
+               "    sys.exit(f'chip_smoke.py has no phase {{missing}}')\n"
+               "for n in names:\n"
+               "    setattr(c, n, lambda **kw: None)\n"
+               "sys.exit(c.main())\n")
+
+
+def run(root: Path, log: Path, forest_only: bool = False) -> dict:
+    if forest_only:
+        from chip_smoke import LM_PHASES
+        cmd = [sys.executable, "-c", FOREST_ONLY.format(names=LM_PHASES)]
+    else:
+        cmd = [sys.executable, "chip_smoke.py"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=1500)
     log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
@@ -114,13 +139,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/ab"))
+    ap.add_argument("--forest-only", action="store_true",
+                    help="skip chip_smoke.py's LM and dry-run phases")
     args = ap.parse_args()
     here = Path(__file__).resolve().parent
     args.out.mkdir(parents=True, exist_ok=True)
     runs = []
     for n, side in enumerate(ORDER):
         root = args.parent.resolve() if side == "parent" else here
-        res = run(root, args.out / f"{n}-{side}.log")
+        res = run(root, args.out / f"{n}-{side}.log", args.forest_only)
         runs.append((side, res))
         print(f"[ab] run {n} {side}: {res.get('report')}", flush=True)
         print(f"[ab] run {n} {side}: kernels ms {json.dumps(res['kernels'])}"

@@ -15,8 +15,11 @@ Phases (any failure exits non-zero and prints no result line):
               -0.0 leaves, all bit for bit: predicated and HummingBird at
               1, 3 and 5, QuickScorer at 1, 3, 5 and 6 (the first depth
               whose top node clears a whole 32-leaf word); then the wide
-              rows: at F = 968, 1,185, 2,000, 4,096 and 10,000 every
-              kernel, fused and raw, in the wide-row x mode and (where a
+              rows: at F = 968, 1,185, 2,000, 4,096 and 10,000 the
+              feature-major transpose (forest_transpose_rows) bit for bit
+              its plain version, and every kernel, fused and raw, in the
+              wide-row x mode (wide-tiled for fused predicated and both
+              HummingBird kernels) and (where a
               32-sample tile fits) staged, at depth 8 on 16,421 rows with
               NaN rows, and from 1,185 up the shallower depths with -0.0
               leaves likewise, all bit for bit; then the three fused
@@ -114,7 +117,10 @@ Phases (any failure exits non-zero and prints no result line):
               predicated_pallas twice (the repeat hits both caches) and
               with the raw HummingBird and QuickScorer kernels, each held
               against the eager oracle; the wide-row kernels timed at that
-              shape.  Bosch (1,184,000 x 968, 81 % missing) dense and as
+              shape, each line with its design (the wide-tiled kernels'
+              tiles and the transpose's share of their ms), and the
+              transpose beside its plain version and x.t().contiguous().
+              Bosch (1,184,000 x 968, 81 % missing) dense and as
               CSR on the device tier, both on the pinned host tier (256 MiB
               device budget) and the CSR copy on the disk tier: udf with
               the fused predicated and HummingBird kernels, rel+reuse
@@ -377,8 +383,11 @@ Phases (any failure exits non-zero and prints no result line):
 The last lines are the kernels' JSON record (each kernel twice: staged x,
 timed at the HIGGS shapes, and ``<name>_wide``, timed at the Epsilon
 shape; each fused kernel a third time as ``<name>_bf16``, over bf16 tree
-tiles at the HIGGS shapes), the nvidia-smi line, and {"ok": true,
-"device": {...}}.
+tiles at the HIGGS shapes; and ``feature_major_wide``, the transpose
+before each wide-tiled launch, timed at the Epsilon shape beside
+``x.t().contiguous()``), the nvidia-smi line, and {"ok": true,
+"device": {...}}.  A wide-tiled call over more than XT_CHUNK_BYTES of x
+launches its kernel and the transpose once a chunk, and counts each.
 
 It imports nothing of the JAX package.  The forests' weights and the tables
 are random, made from SEED on the card, at the published shapes (depth-8
@@ -750,6 +759,13 @@ def pinned_bytes() -> str:
 def bits(t: torch.Tensor) -> torch.Tensor:
     """A float tensor's bits, so that equality is bit for bit."""
     return t.contiguous().view(torch.int32)
+
+
+def nan_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the entries that are not NaN in both (a
+    copied NaN is no error; a NaN on one side only makes it NaN)."""
+    both = got.isnan() & want.isnan()
+    return float(torch.where(both, 0.0, (got - want).abs()).max())
 
 
 def cuda_ms(fn, *, warmup: int, reps: int) -> float:
@@ -1634,7 +1650,10 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     from repro_torch.db.sparse import (concat_pages, csr_from_dense,
                                        densify_csr, paginate_csr)
     from repro_torch.db.store import TensorBlockStore
-    from repro_torch.kernels.common import X_STAGED_MAX_F
+    from repro_torch.kernels.common import (WIDE_ROWS, X_STAGED_MAX_F,
+                                            feature_major,
+                                            feature_major_plain, wide_ldx,
+                                            wide_tiled, x_staged, xt_chunks)
     from repro_torch.kernels.forest_hummingbird import (
         hummingbird_fused_plain, hummingbird_raw_plain)
     from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
@@ -1714,6 +1733,23 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
                 f"stages x up to "
                 f"{'where a tile fits' if limit is None else limit}")
 
+    def launches_of(name, f, r, dataset):
+        """Kernel launches a query makes: one a batch and partition, or,
+        for a wide-tiled kernel in the wide-row mode, one a chunk of each
+        batch (``xt_chunks``).  A batch's x is its whole pages, as wide as
+        the forest's features (dense) or the ones it uses (CSR, the
+        gather's compact tile)."""
+        kind, variant = name.rsplit("_", 1)
+        fused, s = variant == "fused", r.scan
+        F = (compact_forest(f)[1].numel() if r.storage_format == "csr"
+             else f.n_features)
+        if not wide_tiled(kind, fused) or x_staged(kind, F, DEPTH, fused):
+            return r.n_parts * s.batches
+        pages = [min(s.batch_pages, dataset.num_pages - i * s.batch_pages)
+                 for i in range(s.batches)]
+        return r.n_parts * sum(len(xt_chunks(n * dataset.page_rows, F))
+                               for n in pages)
+
     def query(engine, dataset, f, plan, algorithm, label, *, n_rows,
               oracle=None, **kw):
         """One counted query: exact launches, finite predictions of the
@@ -1724,7 +1760,8 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
         r, c = counted(lambda: engine.infer(dataset, f, plan=plan,
                                             algorithm=algorithm, **kw))
         s = r.scan
-        only(c, name, r.n_parts * s.batches, f"[sparse] {label}")
+        only(c, name, launches_of(name, f, r, engine.store.get(dataset)),
+             f"[sparse] {label}")
         tally(c)
         preds = r.predictions
         if tuple(preds.shape) != (n_rows,) or not bool(
@@ -1779,9 +1816,33 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
         query(engine, "epsilon", big, "rel+reuse", algorithm,
               f"epsilon rel+reuse {algorithm}", n_rows=EPSILON_ROWS,
               oracle=big_oracle)
-    # the wide-row kernels' record numbers, at the Epsilon shape
+    # the wide-row kernels' and the transpose's record numbers, at the
+    # Epsilon shape
     record = {}
     part = tree_slice(big, 0, 16)
+    transpose_ms = cuda_ms(lambda: feature_major(eps.data), warmup=1,
+                           reps=3)
+    got, want = feature_major(eps.data), feature_major_plain(eps.data)
+    plain_ms = cuda_ms(lambda: feature_major_plain(eps.data), warmup=1,
+                       reps=3)
+    library_ms = cuda_ms(lambda: eps.data.t().contiguous(), warmup=1,
+                         reps=3)
+    B = eps.data.shape[0]
+    nbytes = 4 * EPSILON_F * (B + wide_ldx(B))
+    err = nan_err(got, want)
+    log(f"[sparse] timing feature-major transpose: {B} rows x {EPSILON_F} "
+        f"features -> {tuple(got.shape)}: kernel {transpose_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library (x.t().contiguous()) "
+        f"{library_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms by bytes ({nbytes} B read and written), max_abs_err {err!r}: "
+        f"{'ok' if torch.equal(bits(got), bits(want)) else 'FAIL'}; on {smi}")
+    if not torch.equal(bits(got), bits(want)):
+        raise AssertionError("[sparse] the transpose at the Epsilon shape")
+    record["feature_major_wide"] = dict(
+        max_abs_err=err, ms=transpose_ms, plain_ms=plain_ms,
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=library_ms)
+    del got, want
     for kind in KINDS:
         for fused in (True, False):
             variant = "fused" if fused else "raw"
@@ -1790,6 +1851,15 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
             wrapper = (KERNEL_WRAPPERS if fused
                        else RAW_KERNEL_WRAPPERS)[kind]
             ms = cuda_ms(lambda: wrapper(*args, **tiles), warmup=1, reps=3)
+            if wide_tiled(kind, fused):
+                design = (f"wide-tiled: {WIDE_ROWS}-row blocks, "
+                          f"{tiles['block_b'] // 32} warps over "
+                          f"{tiles['block_t']}-tree tiles, feature-major x; "
+                          f"the transpose {transpose_ms:.4f} ms = "
+                          f"{transpose_ms / ms:.1%} of the kernel ms")
+            else:
+                design = (f"row-major: {tiles['block_b']}-thread blocks, "
+                          f"{tiles['block_t']}-tree tiles, no transpose")
             got = wrapper(*args, **tiles)
             want, plain_ms = timed_plain((plain if fused
                                           else raw_plain)[kind], args,
@@ -1801,7 +1871,8 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
             bound_ms, bound_by, parts = bound(kind, B, EPSILON_F, T,
                                               raw=not fused)
             log(f"[sparse] timing {kind} {variant} wide-row x: {B} rows x "
-                f"{EPSILON_F} features x {T} trees, tiles {tiles}: kernel "
+                f"{EPSILON_F} features x {T} trees, tiles {tiles} "
+                f"({design}): kernel "
                 f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms by {bound_by} ({parts}), max_abs_err "
                 f"{err!r}: {'ok' if ok else 'FAIL'}; on {smi}")
@@ -1993,8 +2064,9 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
 
 def register_report(text: str) -> dict[bool, set]:
     """ptxas's register lines of one library, split by the kernels' node
-    record: {False: the f32 instantiations', True: the bf16 ones'} (the
-    record is the last template argument, ``NARROW``)."""
+    record: {False: the f32 instantiations' (and the transpose's), True:
+    the bf16 ones'} (the record is the last template argument,
+    ``NARROW``: a mangled name whose template arguments end ``Lb1E``)."""
     import re
 
     out: dict[bool, set] = {False: set(), True: set()}
@@ -2002,7 +2074,7 @@ def register_report(text: str) -> dict[bool, set]:
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            narrow = re.search(r"ELb[01]ELb[01]ELb1EE", m.group(1)) is not None
+            narrow = re.search(r"Lb1EEEv", m.group(1)) is not None
         elif "registers" in ln and narrow is not None:
             out[narrow].add(ln.split(":", 1)[1].strip())
             narrow = None
@@ -6052,6 +6124,13 @@ def lm_spmd_train_phase(*, smi: str) -> None:
         f"on {smi}")
 
 
+#: the phases that launch no forest kernel (15-21 and 19 (d)), by their
+#: functions' names: ``chip_ab.py --forest-only`` runs main() without them
+LM_PHASES = ("lm_phase", "lm_families_phase", "lm_train_phase",
+             "lm_mesh_phase", "dryrun_phase", "lm_spmd_phase",
+             "lm_spmd_train_phase", "dryrun_spmd")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -6067,6 +6146,8 @@ def main() -> int:
     from repro_torch.core.postprocess import predict_proba
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.kernels import _build
+    from repro_torch.kernels.common import (feature_major,
+                                            feature_major_plain, wide_tiled)
     from repro_torch.kernels.forest_hummingbird import (
         hummingbird_fused_plain, hummingbird_raw_plain)
     from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
@@ -6094,8 +6175,9 @@ def main() -> int:
         before; return its result and the counts just after: each
         wrapper's launches under its name, those in the wide-row x mode
         also under ``<name>_wide``, a fused kernel's over bf16 tree tiles
-        also under ``<name>_bf16``."""
-        for w in wrappers.values():
+        also under ``<name>_bf16``; the feature-major transpose's under
+        ``feature_major`` and ``feature_major_wide``."""
+        for w in (*wrappers.values(), feature_major):
             w.launches = w.wide_launches = 0
         for w in KERNEL_WRAPPERS.values():
             w.bf16_launches = 0
@@ -6106,14 +6188,26 @@ def main() -> int:
                        for name, w in wrappers.items()})
         counts.update({f"{kind}_fused_bf16": w.bf16_launches
                        for kind, w in KERNEL_WRAPPERS.items()})
+        counts["feature_major"] = feature_major.launches
+        counts["feature_major_wide"] = feature_major.wide_launches
         return out, counts
 
     def only(counts: dict, name: str, want: int, what: str) -> None:
+        """Exactly ``want`` launches of ``name``'s kernel and no other
+        kernel's, but for the transpose before each of its wide-tiled
+        launches."""
         if counts[name] != want or want == 0:
             raise AssertionError(f"{what}: {counts[name]} {name} launches, "
                                  f"expected {want}")
+        kind, variant = name.rsplit("_", 1)
+        transposes = (counts[f"{name}_wide"]
+                      if wide_tiled(kind, variant == "fused") else 0)
+        if counts["feature_major"] != transposes:
+            raise AssertionError(f"{what}: {counts['feature_major']} "
+                                 f"transposes, expected {transposes}")
         stray = {k: n for k, n in counts.items()
-                 if k not in (name, f"{name}_wide", f"{name}_bf16") and n}
+                 if k not in (name, f"{name}_wide", f"{name}_bf16",
+                              "feature_major", "feature_major_wide") and n}
         if stray:
             raise AssertionError(f"{what}: other kernels launched {stray}")
 
@@ -6265,6 +6359,7 @@ def main() -> int:
     # where a 32-sample x tile fits, staged, at depth 8 with integer
     # leaves; then the shallower depths with -0.0 leaves, wide mode
     wide_err = {f"{k}_{v}_wide": 0.0 for k in KINDS for v in ("fused", "raw")}
+    wide_err["feature_major_wide"] = 0.0
 
     def hold_wide(kind, f, x, fused, staged, depth, what):
         try:
@@ -6297,6 +6392,17 @@ def main() -> int:
     for F in WIDE_CHECK_F:
         x_wide = card_rows(CHECK_ROWS, F, seed=SEED + 4, missing=0.05,
                            nan_every=16)
+        # the wide-tiled kernels' feature-major operand
+        got, want = feature_major(x_wide), feature_major_plain(x_wide)
+        ok = torch.equal(bits(got), bits(want))
+        wide_err["feature_major_wide"] = max(
+            wide_err["feature_major_wide"], nan_err(got, want))
+        log(f"[kernels] feature-major x (forest_transpose_rows) F={F}, "
+            f"{CHECK_ROWS} rows -> {tuple(got.shape)}: bit for bit "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the transpose disagrees at F={F}")
+        del got, want
         fe, th, dl, lv = make_forest_arrays(
             np.random.default_rng(SEED + 5), integer_leaves=True,
             features=F)
@@ -6457,6 +6563,9 @@ def main() -> int:
     for kind in KINDS:
         expect.update({f"{kind}_fused": 2, f"{kind}_fused_bf16": 2,
                        f"{kind}_fused_wide": 1})
+    # one transpose before each wide-tiled launch at the Epsilon shape
+    expect["feature_major"] = expect["feature_major_wide"] = sum(
+        wide_tiled(kind, True) for kind in KINDS)
     if {k: n for k, n in counts.items() if n} != expect:
         raise AssertionError(f"bf16 path launches {counts}, expected "
                              f"{expect}")
@@ -6726,6 +6835,20 @@ def main() -> int:
                 max_abs_err=max(wide_err[name_], w["max_abs_err"]),
                 ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
                 bound_by=w["bound_by"], library_ms=None))
+    # the transpose before each wide-tiled launch: part of the wide-row
+    # mode of the fused predicated and HummingBird kernels and raw
+    # HummingBird
+    if not counts9["feature_major_wide"]:
+        raise AssertionError("feature_major_wide: no launch on phase 9's path")
+    w = wide["feature_major_wide"]
+    record.append(dict(
+        name="feature_major_wide", route="cuda",
+        source="src/repro_torch/kernels/csrc/forest_common.cuh",
+        replaces=REPLACES["predicated"],
+        launches=counts9["feature_major_wide"],
+        max_abs_err=max(wide_err["feature_major_wide"], w["max_abs_err"]),
+        ms=w["ms"], plain_ms=w["plain_ms"], bound_ms=w["bound_ms"],
+        bound_by=w["bound_by"], library_ms=w["library_ms"]))
 
     # -- 10. external loads against in-database inference -------------------
     counts10: dict[str, int] = {}

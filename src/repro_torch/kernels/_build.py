@@ -90,6 +90,8 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.forest_error_string.argtypes = [ctypes.c_int]
     lib.forest_error_string.restype = ctypes.c_char_p
+    lib.forest_transpose_rows.argtypes = [_P, _P, _LL, _I, _P]
+    lib.forest_transpose_rows.restype = ctypes.c_int
     _LOADED[name] = lib
     return lib
 

@@ -56,13 +56,23 @@ threads (512 samples) there, and its 16-tree launches walk 4-tree tiles.
 Two x modes (``x_staged``, the one place that decides).  STAGED: the
 block's whole x tile sits in shared memory, feature-major, as above.  Up
 to ``X_STAGED_MAX_F`` features it is the faster mode (conflict-free
-shared loads of a short row).  Past it (predicated), or where even a
-32-sample tile does not fit (every kernel), they run the WIDE-ROW mode: x
-is not staged, each thread reads its row from global memory through the
-read-only path, and the tile is sized from the trees alone, as at a
-narrow F: wide rows no longer shrink the block to one warp and one tree
-(a 1600-tree rel plan of the predicated kernel at Bosch's 968 features
-would otherwise take 1600 one-tree launches), and no width is refused.
+shared loads of a short row).  Past it, or where even a 32-sample tile
+does not fit (every kernel), they run the WIDE-ROW mode: x is not staged
+and the tile is sized from the trees alone, as at a narrow F: wide rows
+no longer shrink the block to one warp and one tree (a 1600-tree rel
+plan of the predicated kernel at Bosch's 968 features would otherwise
+take 1600 one-tree launches), and no width is refused.  The raw
+predicated and QuickScorer kernels read each thread's row from row-major
+global x there.  The fused kernels of predicated and HummingBird and raw
+HummingBird run the WIDE-TILED layout instead (``wide_tiled``): a block
+owns ``WIDE_ROWS`` = 32 rows and its BB / 32 warps walk different trees
+of each tile, writing their scores to an out tile of 32 rows that the
+block then adds in tree order (fused) or writes out (raw), so the rows
+in flight are an eighth of 256-row blocks' (34 MB at 2,000 features for
+one block an SM, inside the 50 MB L2).  Their x is feature-major,
+[F, ldx] with ldx = the rows rounded up to 32 (``wide_ldx``), which
+``launch_forest_kernel`` writes with ``forest_transpose_rows`` before the
+launch, ``XT_CHUNK_BYTES`` of x at a time at most.
 """
 
 from __future__ import annotations
@@ -76,9 +86,11 @@ __all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
            "pack_narrow_nodes", "unpack_narrow_nodes", "narrow_record",
            "record_bytes", "block_heuristics", "tile_smem_bytes",
            "tree_buffers", "smem_budget", "launch_forest_kernel",
-           "rows_per_thread", "x_staged", "resolve_staged", "count_launch",
+           "rows_per_thread", "x_staged", "resolve_staged",
            "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH",
-           "QS_ROWS_PER_THREAD", "X_STAGED_MAX_F", "NARROW_MAX_FEATURES"]
+           "QS_ROWS_PER_THREAD", "X_STAGED_MAX_F", "NARROW_MAX_FEATURES",
+           "WIDE_ROWS", "XT_CHUNK_BYTES", "wide_tiled", "wide_ldx",
+           "xt_chunks", "feature_major", "feature_major_plain"]
 
 #: dynamic shared memory one H100 block may use (bytes)
 SMEM_BLOCK_MAX = 232_448
@@ -93,6 +105,13 @@ MAX_BLOCK_B = 256
 MAX_BLOCK_T = 64
 #: samples a QuickScorer thread scores (csrc/forest_quickscorer.cu: kRows)
 QS_ROWS_PER_THREAD = 4
+#: samples a block of the wide-tiled layout owns, one a lane of every warp
+#: (csrc/forest_common.cuh: kWideRows)
+WIDE_ROWS = 32
+#: most bytes of feature-major x one wide-tiled launch transposes at a
+#: time: wider launches run their rows in chunks of at most this much, so
+#: the transposed copy adds at most 1 GiB to the launch's memory peak
+XT_CHUNK_BYTES = 1 << 30
 #: widest forest the narrow node record can name: 15 feature bits
 NARROW_MAX_FEATURES = 1 << 15
 #: node-record bytes: the f32 record, the narrow (bf16) one; a leaf takes
@@ -100,13 +119,15 @@ NARROW_MAX_FEATURES = 1 << 15
 WIDE_RECORD_BYTES, NARROW_RECORD_BYTES = 8, 4
 #: widest F at which each (kernel, fused) stages x in shared memory, wider
 #: rows running the wide-row mode; None: wherever a 32-sample staged tile
-#: fits one block.  Each limit is the widest width at which chip_smoke.py
-#: phase 9 timed the staged mode faster, at depth 8 on an H100 (PERF.md
-#: section 6): predicated fused is staged-faster at 768 features and wide-
-#: faster at 968, predicated raw at 400 and 512; HummingBird and
-#: QuickScorer stay faster staged for as long as a tile fits
-X_STAGED_MAX_F = {("predicated", True): 768, ("predicated", False): 400,
-                  ("hummingbird", True): None, ("hummingbird", False): None,
+#: fits one block.  Each limit is the widest of chip_smoke.py phase 9's
+#: widths at which the staged mode timed faster, at depth 8 on an H100
+#: (PERF.md section 6; chip_wide_probe.py times the same loop for the
+#: wide-tiled kernels): predicated fused is staged-faster at 400 features
+#: and wide-faster at 512, predicated raw the same; HummingBird fused and
+#: raw staged-faster at 28 and wide-faster at 200; QuickScorer stays
+#: faster staged for as long as a tile fits
+X_STAGED_MAX_F = {("predicated", True): 400, ("predicated", False): 400,
+                  ("hummingbird", True): 28, ("hummingbird", False): 28,
                   ("quickscorer", True): None, ("quickscorer", False): None}
 
 
@@ -211,6 +232,73 @@ def rows_per_thread(kind: str) -> int:
     return QS_ROWS_PER_THREAD if kind == "quickscorer" else 1
 
 
+def wide_tiled(kind: str, fused: bool) -> bool:
+    """Whether this kernel's wide-row mode runs the wide-tiled layout
+    (32-row blocks, warps over trees, feature-major x): the fused
+    predicated and HummingBird kernels and raw HummingBird."""
+    return kind == "hummingbird" or (kind == "predicated" and fused)
+
+
+def wide_ldx(rows: int) -> int:
+    """Rows of a feature of the wide-tiled layout's feature-major x: the
+    launch's rows rounded up to a whole ``WIDE_ROWS`` (zeros past them)."""
+    return -(-rows // WIDE_ROWS) * WIDE_ROWS
+
+
+def xt_chunks(rows: int, F: int):
+    """(first row, rows) of each chunk a wide-tiled launch over ``rows``
+    rows of F features transposes and scores in turn: as many whole
+    ``WIDE_ROWS`` as ``XT_CHUNK_BYTES`` holds (at least one block's), the
+    last chunk the rest."""
+    step = max(WIDE_ROWS, XT_CHUNK_BYTES // (4 * F) // WIDE_ROWS * WIDE_ROWS)
+    return [(r0, min(step, rows - r0)) for r0 in range(0, rows, step)]
+
+
+def feature_major_plain(x: torch.Tensor) -> torch.Tensor:
+    """The transpose kernel's function: [B, F] -> [F, wide_ldx(B)], x
+    transposed and zeros past row B."""
+    B, F = x.shape
+    xt = torch.zeros((F, wide_ldx(B)), dtype=x.dtype, device=x.device)
+    xt[:, :B] = x.t()
+    return xt
+
+
+def _transpose(lib, x: torch.Tensor, r0: int, n: int,
+               xt: torch.Tensor) -> torch.Tensor:
+    """Rows r0 .. r0 + n of x, feature-major, written by
+    ``forest_transpose_rows`` into the front of the scratch ``xt`` on the
+    current stream of x's card: [F, wide_ldx(n)]."""
+    F = x.shape[1]
+    err = lib.forest_transpose_rows(
+        x.data_ptr() + r0 * F * x.element_size(), xt.data_ptr(), n, F,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "forest_transpose_rows")
+    feature_major.launches += 1
+    feature_major.wide_launches += 1
+    return xt.view(-1)[:F * wide_ldx(n)].view(F, wide_ldx(n))
+
+
+def feature_major(x: torch.Tensor) -> torch.Tensor:
+    """The wide-tiled kernels' x operand, [F, wide_ldx(B)] f32: for a CPU
+    tensor the plain version, for a CUDA tensor the transpose kernel (one
+    launch over all B rows; the kernel wrappers transpose chunk by
+    chunk).  ``.launches`` counts the transpose's launches, the kernel
+    wrappers' included; ``.wide_launches`` the same, as every one feeds a
+    wide-row launch."""
+    if x.device.type == "cpu":
+        return feature_major_plain(x)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() != 2:
+        raise ValueError("feature_major: x must be contiguous [B, F] f32")
+    with torch.cuda.device(x.device):
+        xt = torch.empty((x.shape[1], wide_ldx(x.shape[0])),
+                         dtype=torch.float32, device=x.device)
+        return _transpose(_build.load("forest_predicated"), x, 0,
+                          x.shape[0], xt)
+
+
+feature_major.launches = feature_major.wide_launches = 0
+
+
 def smem_budget(kind: str) -> int:
     """Shared memory the tiling may give one block of this kernel."""
     return SMEM_BLOCK_MAX if kind == "hummingbird" else SMEM_BUDGET
@@ -229,14 +317,19 @@ def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
     """Dynamic shared memory of one block, as the CUDA layout lays it out
     (``fused=False``: the raw [B, T] kernel, with its out tile;
     ``buffers``: tree tiles held, ``tree_buffers``; ``staged=False``: the
-    wide-row mode, no x tile; ``record``: node-record bytes, a leaf half
-    of it).  ``block_b`` counts threads; the tile holds
-    ``rows_per_thread(kind)`` samples for each."""
+    wide-row mode, no x tile, and where ``wide_tiled`` an out tile of
+    ``WIDE_ROWS`` rows, fused kernels too; ``record``: node-record bytes,
+    a leaf half of it).  ``block_b`` counts threads; the tile holds
+    ``rows_per_thread(kind)`` samples for each (staged and row-major)."""
     L = 1 << depth
     rows = block_b * rows_per_thread(kind)
     tree = (_align16(record * block_t * L)
             + _align16(record // 2 * block_t * L))
-    out_tile = 0 if fused else _align16(4 * rows * (block_t + 1))
+    if not staged and wide_tiled(kind, fused):
+        out_rows = WIDE_ROWS
+    else:
+        out_rows = 0 if fused else rows
+    out_tile = _align16(4 * out_rows * (block_t + 1))
     x_tile = _align16(4 * F * rows) if staged else 0
     return (x_tile + buffers * tree
             + _align16(_extra_bytes(kind, depth, block_b)) + out_tile)
@@ -262,8 +355,9 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
                      record: int = WIDE_RECORD_BYTES) -> tuple[int, int]:
     """(BB, BT) for one fused (or, ``fused=False``, raw) kernel launch over
     T trees: BB threads, a multiple of 32 up to 256 (no more than B
-    samples need at ``rows_per_thread`` a thread), BT a power of two up to
-    64.  The sample tile shrinks (down to 32 samples) until it fits
+    samples need at ``rows_per_thread`` a thread; 256 in the wide-tiled
+    layout, whose warps share 32 rows), BT a power of two up to 64.  The
+    sample tile shrinks (down to 32 samples) until it fits
     ``smem_budget`` beside one tree, then the tree tile until the block's
     shared memory fits.  ``one_tile``: size the tile for launches of
     exactly BT trees (one tree partition each), which hold one tree
@@ -284,7 +378,10 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
 
     budget = smem_budget(kind)
     per = rows_per_thread(kind)
-    bb = min(MAX_BLOCK_B, max(32, -(-B // (32 * per)) * 32))
+    if not staged and wide_tiled(kind, fused):
+        bb = MAX_BLOCK_B        # warps over trees: any B takes them all
+    else:
+        bb = min(MAX_BLOCK_B, max(32, -(-B // (32 * per)) * 32))
     bt = 1
     while bt * 2 <= min(T, MAX_BLOCK_T):
         bt *= 2
@@ -307,10 +404,12 @@ def resolve_staged(kind: str, x: torch.Tensor, depth: int, fused: bool,
         if staged is None else bool(staged)
 
 
-def count_launch(wrapper, staged: bool, narrow: bool = False) -> None:
+def _count_launch(wrapper, staged: bool, narrow: bool = False) -> None:
     """One launch of ``wrapper``'s kernel: ``.launches`` counts every
     launch, ``.wide_launches`` those in the wide-row x mode,
-    ``.bf16_launches`` (fused wrappers) those over narrow bf16 records."""
+    ``.bf16_launches`` (fused wrappers) those over narrow bf16 records.
+    ``launch_forest_kernel`` calls it at each launch, so a wide-tiled call
+    over more than ``XT_CHUNK_BYTES`` of x counts one launch a chunk."""
     wrapper.launches += 1
     wrapper.wide_launches += not staged
     if narrow:
@@ -386,7 +485,7 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
                          trees: tuple[torch.Tensor, torch.Tensor],
                          structure: tuple[torch.Tensor, ...], *, depth: int,
                          block_b: int, block_t: int, fused: bool,
-                         staged: bool) -> torch.Tensor:
+                         staged: bool, counter) -> torch.Tensor:
     """Check the inputs, then launch ``forest_<kind>_fused`` (-> [B]; over
     narrow bf16 records ``forest_<kind>_fused_bf16``) or
     ``forest_<kind>_raw`` (-> [B, T]) on the current stream of x's card,
@@ -396,22 +495,47 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
     entry point takes (x, nodes, leaf_value, *structure, out, B, F, T,
     depth, block_b, block_t, x_staged, stream) and returns the launch's
     CUDA error; a nonzero one raises.  B need not be a multiple of
-    block_b: the kernel masks rows past B and writes none of them."""
+    block_b: the kernel masks rows past B and writes none of them.  A
+    ``wide_tiled`` kernel in the wide-row mode takes feature-major x:
+    ``forest_transpose_rows`` writes it into one scratch tensor on the same
+    stream, chunk by chunk (``xt_chunks``), and the entry point runs on
+    each chunk (x = its [F, wide_ldx(rows)], B = its rows, out from the
+    chunk's first row).  Each launch of the entry point counts on
+    ``counter``, the calling wrapper (``_count_launch``), and each transpose
+    on ``feature_major``."""
     check_kernel_inputs(kind, x, *trees, depth=depth, block_b=block_b,
                         block_t=block_t, fused=fused, staged=staged,
                         structure=structure)
     lib = _build.load(f"forest_{kind}")
     name = f"forest_{kind}_{'fused' if fused else 'raw'}"
-    if trees[0].dim() == 2:
+    narrow = trees[0].dim() == 2
+    if narrow:
         name += "_bf16"
     B, F = x.shape
     T = trees[0].shape[0]
     with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,
                           device=x.device)
-        ptrs = [t.data_ptr() for t in (x, *trees, *structure, out)]
-        err = getattr(lib, name)(
-            *ptrs, B, F, T, depth, block_b, block_t, int(staged),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(lib, err, name)
+        tree_ptrs = [t.data_ptr() for t in (*trees, *structure)]
+        if staged or not wide_tiled(kind, fused):
+            err = getattr(lib, name)(
+                x.data_ptr(), *tree_ptrs, out.data_ptr(), B, F, T, depth,
+                block_b, block_t, int(staged), stream)
+            _build.check(lib, err, name)
+            _count_launch(counter, staged, narrow)
+            return out
+        chunks = xt_chunks(B, F)
+        if not chunks:
+            return out
+        xt = torch.empty(F * wide_ldx(chunks[0][1]), dtype=torch.float32,
+                         device=x.device)
+        per_row = out.stride(0) * out.element_size()
+        for r0, n in chunks:
+            xc = _transpose(lib, x, r0, n, xt)
+            err = getattr(lib, name)(
+                xc.data_ptr(), *tree_ptrs, out.data_ptr() + r0 * per_row, n,
+                F, T, depth, block_b, block_t, 0, stream)
+            _build.check(lib, err, name)
+            _count_launch(counter, False, narrow)
     return out

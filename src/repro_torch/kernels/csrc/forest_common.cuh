@@ -16,12 +16,20 @@
 //     over f put a warp's 32 stores on 2-3 banks); its strided global
 //     reads hit the x rows' lines in L1 once fetched;
 //   * in the WIDE-ROW mode (STAGED false, kernels/common.py:x_staged) x is
-//     not staged: each thread reads its row's features from row-major
-//     global x through the read-only path (``node_x``), with 64-bit offsets.
-//     Shared memory then holds only the tree tiles, the kernel's extra and
-//     the raw out tile, so the block is sized as at a narrow F whatever F
-//     is.  Every kernel is instantiated for both modes; the STAGED one is
-//     the code of the narrow path;
+//     not staged.  The raw predicated and both QuickScorer kernels read
+//     each thread's row from row-major global x through the read-only path
+//     (``global_row`` / ``row_at``), with 64-bit offsets, in blocks sized
+//     as at a narrow F.  The fused kernels
+//     and raw HummingBird run the WIDE-TILED layout instead
+//     (``run_wide_tiles``): a block owns kWideRows = 32 rows, one a lane,
+//     and its warps walk different trees of each tile, so that few rows
+//     are in flight on the card while every tree reads them again (132
+//     SMs x 32 rows x 4 F bytes a block: 34 MB at 2,000 features, inside
+//     the 50 MB L2, where 256-row blocks held 270 MB);
+//     and x arrives feature-major, [F][ldx] with ldx = the launch's rows
+//     rounded up to 32 (``forest_transpose_rows``, run by the launch
+//     wrapper), so that a warp's load of one feature of its 32 rows is one
+//     aligned 128-byte line;
 //   * trees arrive as one 8-byte record per node (``kernels/common.py:
 //     pack_nodes``): {threshold bits, feature << 1 | default_left}, heap
 //     slots 1..I of a [T][L] array (slot 0 unused, so a tree's records
@@ -43,7 +51,9 @@
 //     together, and the second block on the SM walks while one stages;
 //   * FUSED: each thread keeps its samples' sums in registers and writes
 //     [B] once.  No atomics, and the summation order (tree 0, 1, 2, ... in
-//     sequence) is fixed from run to run;
+//     sequence) is fixed from run to run.  Wide-tiled, the warps write their
+//     trees' scores to the out tile and the block's first warp then adds
+//     the tile's columns tree by tree: the same order;
 //   * RAW: tree scores go to a shared [rows][BT + 1] out tile (the +1
 //     keeps a warp's column writes on 32 banks), and the block then writes
 //     the tile's rows of BT floats with consecutive threads on consecutive
@@ -61,6 +71,8 @@
 namespace forest {
 
 constexpr int kMaxBlock = 256;
+// Rows a block of the wide-tiled layout owns: one a lane of every warp.
+constexpr int kWideRows = 32;
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
@@ -108,7 +120,10 @@ __device__ inline float leaf_f32(uint16_t v) {
 //     nodes  Node   [BT][L]     packed node records (record_bytes each)
 //     leaf   Leaf   [BT][L]     (record_bytes / 2 each)
 //   extra                       kernel-specific (structure tensors, ...)
-//   out    float  [rows][BT+1]  raw kernels only
+//   out    float  [out_rows][BT+1]  raw kernels (out_rows = rows) and the
+//                               wide-tiled layout (out_rows = kWideRows);
+//                               none (out_rows = 0) in the fused kernels'
+//                               staged and row-major modes
 // kernels/common.py:tile_smem_bytes mirrors this layout.
 struct TileLayout {
   size_t x, nodes[2], leaf[2], extra, out, total;
@@ -117,7 +132,7 @@ struct TileLayout {
 __host__ __device__ inline TileLayout tile_layout(int rows, int bt, int F,
                                                   int L, int buffers,
                                                   size_t extra_bytes,
-                                                  bool fused,
+                                                  int out_rows,
                                                   int record_bytes) {
   const size_t node_bytes = align16(size_t(record_bytes) * bt * L);
   const size_t leaf_bytes = align16(size_t(record_bytes / 2) * bt * L);
@@ -136,7 +151,7 @@ __host__ __device__ inline TileLayout tile_layout(int rows, int bt, int F,
   }
   s.extra = at;
   s.out = s.extra + align16(extra_bytes);
-  s.total = s.out + (fused ? 0 : align16(sizeof(float) * rows * (bt + 1)));
+  s.total = s.out + align16(sizeof(float) * out_rows * (bt + 1));
   return s;
 }
 
@@ -331,18 +346,144 @@ __device__ inline void run_tiles(const TileRefs<Node, Leaf>& s,
   }
 }
 
-// Ask for the dynamic shared memory, launch block_b threads a block, one
-// block per ROWS_PER_THREAD * block_b samples, and report the launch error.
-template <int ROWS_PER_THREAD = 1, typename Kernel, typename... Args>
-inline int launch_kernel(Kernel kernel, long long B, int block_b,
-                         size_t smem, cudaStream_t stream, Args... args) {
+// ---- the wide-tiled layout ------------------------------------------------
+
+// Rows of the feature-major x of a launch over B rows: B rounded up to a
+// whole number of warps, so that every block's column run is one aligned
+// 128-byte line of each feature.
+__host__ __device__ inline long long wide_ldx(long long B) {
+  return (B + kWideRows - 1) / kWideRows * kWideRows;
+}
+
+// Node n's feature of the lane's row, from feature-major x: ``col`` is
+// x + (the lane's row), ``ldx`` the rows of a feature.  The narrow record
+// holds twice the feature in (n & 0xFFFE).
+__device__ inline float col_at(const float* __restrict__ col, int2 n,
+                               long long ldx) {
+  return __ldg(col + node_feature(n) * ldx);
+}
+__device__ inline float col_at(const float* __restrict__ col, uint32_t n,
+                               long long ldx) {
+  return __ldg(col + (long long)((n & 0xFFFEu) >> 1) * ldx);
+}
+
+// The tree loop of the wide-tiled layout.  The block owns kWideRows rows
+// from b0; ``walk(nodes_s, leaf_s)`` has each warp score its own trees of
+// the staged tile for all of them, writing s.out[r * (bt + 1) + t].  After
+// a barrier, FUSED: the block's first warp adds the tile's scores into its
+// lane's row sum, tree 0, 1, 2, ... in sequence (the order of one thread
+// that walked every tree), and the sums go to out[b0 + r] at the end; RAW:
+// the block writes the tile's rows to out[(b0 + r) * T + t0 + t].  The
+// barrier at the top of the next tile frees the out tile again.
+template <bool FUSED, typename Node, typename Leaf, typename Walk>
+__device__ inline void run_wide_tiles(const TileRefs<Node, Leaf>& s,
+                                      const Node* __restrict__ nodes,
+                                      const Leaf* __restrict__ leaf_value,
+                                      float* __restrict__ out, long long b0,
+                                      long long B, int T, int bt, int L,
+                                      Walk walk) {
+  const int n_tiles = T / bt, nbuf = tree_buffers(T, bt);
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  stage_tree_tile(s, 0, nodes, leaf_value, 0, bt, L);
+  cp_async_commit();
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j % nbuf;
+    cp_async_wait_all();
+    __syncthreads();
+    if (nbuf == 2 && j + 1 < n_tiles) {
+      stage_tree_tile(s, (j + 1) & 1, nodes, leaf_value, (j + 1) * bt, bt,
+                      L);
+      cp_async_commit();
+    }
+    walk(buf ? s.nodes[1] : s.nodes[0], buf ? s.leaf[1] : s.leaf[0]);
+    __syncthreads();
+    if constexpr (FUSED) {
+      if (threadIdx.x < kWideRows) {
+        const float* row = s.out + lane * (bt + 1);
+        for (int t = 0; t < bt; ++t) acc += row[t];
+      }
+    } else {
+      const long long t0 = (long long)j * bt;
+      for (int k = threadIdx.x; k < kWideRows * bt; k += blockDim.x) {
+        const int r = k / bt, c = k - r * bt;
+        const long long row = b0 + r;
+        if (row < B) out[row * T + t0 + c] = s.out[r * (bt + 1) + c];
+      }
+    }
+    if (nbuf == 1 && j + 1 < n_tiles) {
+      __syncthreads();
+      stage_tree_tile(s, 0, nodes, leaf_value, (j + 1) * bt, bt, L);
+      cp_async_commit();
+    }
+  }
+  if constexpr (FUSED) {
+    if (threadIdx.x < kWideRows && b0 + lane < B) out[b0 + lane] = acc;
+  }
+}
+
+// Rows of x a block of the transpose takes.
+constexpr int kTransposeRows = 128;
+
+// xt[f * ldx + b] = x[b * F + f] for the rows b < rows, zeros for rows <=
+// b < ldx = wide_ldx(rows): R x 32 (rows x features) tiles through shared
+// memory, R = kTransposeRows, so that the reads (along f) and the writes
+// (along b) are both coalesced; each thread keeps R / 8 loads in flight.
+// Rows go on grid.x, features on grid.y.
+__global__ void __launch_bounds__(256) transpose_rows_kernel(
+    const float* __restrict__ x, float* __restrict__ xt, long long rows,
+    int F, long long ldx) {
+  constexpr int R = kTransposeRows;
+  __shared__ float tile[R][33];
+  const long long b0 = (long long)blockIdx.x * R;
+  const int f0 = blockIdx.y * 32;
+  const int f = f0 + threadIdx.x;
+#pragma unroll
+  for (int k = threadIdx.y; k < R; k += 8) {
+    const long long b = b0 + k;
+    tile[k][threadIdx.x] = b < rows && f < F ? x[b * F + f] : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = threadIdx.y; k < 32; k += 8) {
+#pragma unroll
+    for (int c = 0; c < R; c += 32) {
+      const long long b = b0 + c + threadIdx.x;
+      if (f0 + k < F && b < ldx) {
+        xt[(long long)(f0 + k) * ldx + b] = tile[c + threadIdx.x][k];
+      }
+    }
+  }
+}
+
+inline int transpose_rows(const float* x, float* xt, long long rows, int F,
+                          cudaStream_t stream) {
+  const long long ldx = wide_ldx(rows);
+  const dim3 grid(unsigned((ldx + kTransposeRows - 1) / kTransposeRows),
+                  unsigned((F + 31) / 32));
+  transpose_rows_kernel<<<grid, dim3(32, 8), 0, stream>>>(x, xt, rows, F,
+                                                          ldx);
+  return int(cudaGetLastError());
+}
+
+// (launch_rows: one block per ``rows`` samples, whatever block_b is.)
+template <typename Kernel, typename... Args>
+inline int launch_rows(Kernel kernel, long long B, long long rows,
+                       int block_b, size_t smem, cudaStream_t stream,
+                       Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const long long rows = (long long)ROWS_PER_THREAD * block_b;
   const unsigned grid = unsigned((B + rows - 1) / rows);
   kernel<<<grid, block_b, smem, stream>>>(args...);
   return int(cudaGetLastError());
+}
+
+template <int ROWS_PER_THREAD = 1, typename Kernel, typename... Args>
+inline int launch_kernel(Kernel kernel, long long B, int block_b,
+                         size_t smem, cudaStream_t stream, Args... args) {
+  return launch_rows(kernel, B, (long long)ROWS_PER_THREAD * block_b,
+                     block_b, smem, stream, args...);
 }
 
 }  // namespace forest
@@ -369,6 +510,16 @@ inline int launch_kernel(Kernel kernel, long long B, int block_b,
     FOREST_DISPATCH_DEPTH(depth, FN, FUSED, true, NARROW, __VA_ARGS__)    \
   }                                                                       \
   FOREST_DISPATCH_DEPTH(depth, FN, FUSED, false, NARROW, __VA_ARGS__)
+
+// The wide-tiled layout's feature-major x of ``rows`` rows of row-major x
+// (the launch wrapper calls it before the kernel, on the same stream).  At
+// 128 rows a block it moved 2.61 TB/s of reads and writes at 100,352 x
+// 2,000 on an H100, against 2.36 at 32 rows a block (PERF.md section 6).
+extern "C" int forest_transpose_rows(const float* x, float* xt,
+                                     long long rows, int F,
+                                     cudaStream_t stream) {
+  return forest::transpose_rows(x, xt, rows, F, stream);
+}
 
 extern "C" const char* forest_error_string(int err) {
   return cudaGetErrorString(cudaError_t(err));

@@ -41,9 +41,16 @@
 //   4. two quad shuffles give every lane of a quad the leaves of its rows,
 //      and lane t of the quad scores row (t >> 1) * 16 + (t & 1) * 8 + g.
 // C^T, the S tiles and the x tile leave room for one 256-thread block an
-// SM (kernels/common.py:smem_budget).  Wide rows (STAGED false): step 1
-// gathers the row's node features from global x (read-only loads of the
-// lane's own row) instead of the staged tile; steps 2-4 are unchanged.
+// SM (kernels/common.py:smem_budget).  Wide rows (STAGED false), fused
+// and raw: the wide-tiled layout (forest_common.cuh) -- a block of 32
+// rows, its warps over trees, each warp running steps 1-4 for the same 32
+// rows against its own trees; step 1 reads feature-major x, so a node's
+// feature of the 32 rows is one 128-byte line (1,020 bytes a row-tree at
+// depth 8, where row-major rows took ~160 of their 250 sectors, ~5 KB),
+// and the rows in flight (~34 MB at 2,000 features) stay in L2 while
+// every tree reads them; steps 2-4 are unchanged.  Over row-major x the
+// same kernel took 4.3x the time of the transpose and the kernel, raw
+// (16 trees) 2.1x (chip_wide_probe.py at 100,352 x 2,000 on an H100).
 // bf16 tree tiles (NARROW, fused only): step 1 reads 4-byte records and
 // the exit leaf is a 2-byte load shifted to f32; C^T, S and the mma are
 // the same.
@@ -102,7 +109,133 @@ __device__ inline void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
+// Steps 1-4 for one tree and a warp's 32 rows: ``x_of(n)`` is node n's
+// feature of row ``lane`` (step 1); returns the exit leaf of the row this
+// lane scores, warp row (tq >> 1) * 16 + (tq & 1) * 8 + g (step 4).
+template <int DEPTH, typename Node, typename XOf>
+__device__ __forceinline__ int hb_exit_leaf(const Node* tree,
+                                            unsigned char* s_tile,
+                                            const unsigned char* ct_s,
+                                            const int32_t* d_s, int lane,
+                                            XOf x_of) {
+  using H = Hb<DEPTH>;
+  const int g = lane >> 2, tq = lane & 3;
+  // 1. S: byte i of the row = go_left(node i), zero past I
+#pragma unroll
+  for (int c = 0; c < H::CH; ++c) {
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t bits = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = c * 16 + q * 4 + j;
+        if (i < H::I) {
+          const Node n = tree[i + 1];
+          bits |= uint32_t(go_left(x_of(n), n)) << (8 * j);
+        }
+      }
+      w[q] = bits;
+    }
+    *reinterpret_cast<uint4*>(s_tile + swizzled<DEPTH>(lane, c)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __syncwarp();
+  // 2. A fragments: matrix lane >> 3 of each x4 is (rows +0 / +8,
+  // chunk 2ks / 2ks + 1)
+  uint32_t a[2][H::KS][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int ks = 0; ks < H::KS; ++ks) {
+      const int r = mt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+      ldmatrix_x4(a[mt][ks],
+                  s_tile + swizzled<DEPTH>(r, 2 * ks + (lane >> 4)));
+    }
+  }
+  __syncwarp();  // the S tile is free for the next tree
+  // 3. P = S.C, H::NG n-tiles at a time (2 * H::NG independent
+  // accumulators per k-step); keep the leaf where P == D
+  int hit[2][2] = {{-1, -1}, {-1, -1}};  // [m-tile][row g / g + 8]
+#pragma unroll 1
+  for (int n0 = 0; n0 < H::NT; n0 += H::NG) {
+    int p[H::NG][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < H::KS; ++ks) {
+      uint32_t bf[H::NG][2];
+      if constexpr (H::NG == 1) {
+        ldmatrix_x2(bf[0], ct_s + swizzled<DEPTH>(n0 * 8 + (lane & 7),
+                                                  2 * ks + ((lane >> 3) & 1)));
+      } else {
+        // matrix lane >> 3 of each x4: (n-tile +0 / +1, chunk 2ks / 2ks + 1)
+#pragma unroll
+        for (int j = 0; j < H::NG; j += 2) {
+          uint32_t r4[4];
+          const int nt = n0 + j + (lane >> 4);
+          ldmatrix_x4(r4, ct_s + swizzled<DEPTH>(nt * 8 + (lane & 7),
+                                                 2 * ks + ((lane >> 3) & 1)));
+          bf[j][0] = r4[0];
+          bf[j][1] = r4[1];
+          bf[j + 1][0] = r4[2];
+          bf[j + 1][1] = r4[3];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < H::NG; ++j) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_s8(p[j][mt], a[mt][ks], bf[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < H::NG; ++j) {
+      const int l0 = (n0 + j) * 8 + 2 * tq;
+      const int2 d = *reinterpret_cast<const int2*>(d_s + l0);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (p[j][mt][0] == d.x) hit[mt][0] = l0;
+        if (p[j][mt][1] == d.y) hit[mt][0] = l0 + 1;
+        if (p[j][mt][2] == d.x) hit[mt][1] = l0;
+        if (p[j][mt][3] == d.y) hit[mt][1] = l0 + 1;
+      }
+    }
+  }
+  // 4. the quad's lanes share their hits; lane tq takes its row's
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = hit[mt][h];
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      hit[mt][h] = v;
+    }
+  }
+  return max(0, tq == 0   ? hit[0][0]
+                : tq == 1 ? hit[0][1]
+                : tq == 2 ? hit[1][0]
+                          : hit[1][1]);
+}
+
+// C^T and D into shared memory (cp.async; the caller commits).
+template <int DEPTH>
+__device__ inline void stage_structure(unsigned char* ct_s, int32_t* d_s,
+                                       const int8_t* __restrict__ ct,
+                                       const int32_t* __restrict__ dcount) {
+  using H = Hb<DEPTH>;
+  for (int k = threadIdx.x; k < H::NP * H::CH; k += blockDim.x) {
+    const int n = k / H::CH;
+    cp_async16(ct_s + swizzled<DEPTH>(n, k - n * H::CH), ct + size_t(k) * 16);
+  }
+  for (int k = threadIdx.x; k < H::NP; k += blockDim.x) {
+    cp_async4(d_s + k, dcount + k, true);
+  }
+}
+
+// The staged mode: a warp scores its own 32 rows of the block's 256
+// against every tree of the tile.
+template <int DEPTH, bool FUSED, bool NARROW>
 __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
     const float* __restrict__ x,
     const typename Record<NARROW>::Node* __restrict__ nodes,
@@ -115,8 +248,9 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x;
   const auto s = tile_refs<NARROW>(
-      smem, tile_layout(bb, bt, STAGED ? F : 0, H::L, tree_buffers(T, bt),
-                        hb_extra_bytes(DEPTH, bb), FUSED, sizeof(Node)));
+      smem, tile_layout(bb, bt, F, H::L, tree_buffers(T, bt),
+                        hb_extra_bytes(DEPTH, bb), FUSED ? 0 : bb,
+                        sizeof(Node)));
   unsigned char* ct_s = s.extra;
   int32_t* d_s = reinterpret_cast<int32_t*>(ct_s + align16(H::NP * H::KP));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -124,128 +258,23 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
                           align16(4 * H::NP) + warp * 32 * H::KP;
   const long long b0 = (long long)blockIdx.x * bb;
 
-  for (int k = threadIdx.x; k < H::NP * H::CH; k += bb) {
-    const int n = k / H::CH;
-    cp_async16(ct_s + swizzled<DEPTH>(n, k - n * H::CH), ct + size_t(k) * 16);
-  }
-  for (int k = threadIdx.x; k < H::NP; k += bb) {
-    cp_async4(d_s + k, dcount + k, true);
-  }
-  if constexpr (STAGED) stage_x_async(s.x, x, b0, B, F, bb);
+  stage_structure<DEPTH>(ct_s, d_s, ct, dcount);
+  stage_x_async(s.x, x, b0, B, F, bb);
 
   const int g = lane >> 2, tq = lane & 3;
   // the row of the block this lane scores (step 4 above)
   const int row = warp * 32 + (tq >> 1) * 16 + (tq & 1) * 8 + g;
   // the row whose predicates this lane builds (step 1)
-  const float* xb = STAGED ? s.x + warp * 32 + lane
-                           : global_row(x, b0 + warp * 32 + lane, B, F);
+  const float* xb = s.x + warp * 32 + lane;
   float acc = 0.f;
 
   run_tiles<FUSED>(
       s, nodes, leaf_value, out, b0, B, T, bt, H::L,
       [&](const Node* nd, const Leaf* lv) {
         for (int t = 0; t < bt; ++t) {
-          const Node* tree = nd + t * H::L;
-          // 1. S: byte i of the row = go_left(node i), zero past I
-#pragma unroll
-          for (int c = 0; c < H::CH; ++c) {
-            uint32_t w[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              uint32_t bits = 0;
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                const int i = c * 16 + q * 4 + j;
-                if (i < H::I) {
-                  const Node n = tree[i + 1];
-                  bits |= uint32_t(go_left(node_x<STAGED>(xb, n, bb), n))
-                          << (8 * j);
-                }
-              }
-              w[q] = bits;
-            }
-            *reinterpret_cast<uint4*>(s_tile + swizzled<DEPTH>(lane, c)) =
-                make_uint4(w[0], w[1], w[2], w[3]);
-          }
-          __syncwarp();
-          // 2. A fragments: matrix lane >> 3 of each x4 is (rows +0 / +8,
-          // chunk 2ks / 2ks + 1)
-          uint32_t a[2][H::KS][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-            for (int ks = 0; ks < H::KS; ++ks) {
-              const int r = mt * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-              ldmatrix_x4(a[mt][ks],
-                          s_tile + swizzled<DEPTH>(r, 2 * ks + (lane >> 4)));
-            }
-          }
-          __syncwarp();  // the S tile is free for the next tree
-          // 3. P = S.C, H::NG n-tiles at a time (2 * H::NG independent
-          // accumulators per k-step); keep the leaf where P == D
-          int hit[2][2] = {{-1, -1}, {-1, -1}};  // [m-tile][row g / g + 8]
-#pragma unroll 1
-          for (int n0 = 0; n0 < H::NT; n0 += H::NG) {
-            int p[H::NG][2][4] = {};
-#pragma unroll
-            for (int ks = 0; ks < H::KS; ++ks) {
-              uint32_t bf[H::NG][2];
-              if constexpr (H::NG == 1) {
-                ldmatrix_x2(bf[0], ct_s + swizzled<DEPTH>(
-                                       n0 * 8 + (lane & 7),
-                                       2 * ks + ((lane >> 3) & 1)));
-              } else {
-                // matrix lane >> 3 of each x4: (n-tile +0 / +1, chunk
-                // 2ks / 2ks + 1)
-#pragma unroll
-                for (int j = 0; j < H::NG; j += 2) {
-                  uint32_t r4[4];
-                  const int nt = n0 + j + (lane >> 4);
-                  ldmatrix_x4(r4, ct_s + swizzled<DEPTH>(
-                                      nt * 8 + (lane & 7),
-                                      2 * ks + ((lane >> 3) & 1)));
-                  bf[j][0] = r4[0];
-                  bf[j][1] = r4[1];
-                  bf[j + 1][0] = r4[2];
-                  bf[j + 1][1] = r4[3];
-                }
-              }
-#pragma unroll
-              for (int j = 0; j < H::NG; ++j) {
-#pragma unroll
-                for (int mt = 0; mt < 2; ++mt) {
-                  mma_s8(p[j][mt], a[mt][ks], bf[j]);
-                }
-              }
-            }
-#pragma unroll
-            for (int j = 0; j < H::NG; ++j) {
-              const int l0 = (n0 + j) * 8 + 2 * tq;
-              const int2 d = *reinterpret_cast<const int2*>(d_s + l0);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                if (p[j][mt][0] == d.x) hit[mt][0] = l0;
-                if (p[j][mt][1] == d.y) hit[mt][0] = l0 + 1;
-                if (p[j][mt][2] == d.x) hit[mt][1] = l0;
-                if (p[j][mt][3] == d.y) hit[mt][1] = l0 + 1;
-              }
-            }
-          }
-          // 4. the quad's lanes share their hits; lane tq takes its row's
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              int v = hit[mt][h];
-              v = max(v, __shfl_xor_sync(0xffffffffu, v, 1));
-              v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
-              hit[mt][h] = v;
-            }
-          }
-          const int leaf = max(0, tq == 0   ? hit[0][0]
-                                  : tq == 1 ? hit[0][1]
-                                  : tq == 2 ? hit[1][0]
-                                            : hit[1][1]);
+          const int leaf = hb_exit_leaf<DEPTH>(
+              nd + t * H::L, s_tile, ct_s, d_s, lane,
+              [&](Node n) { return node_x<true>(xb, n, bb); });
           const float v = __fadd_rn(leaf_f32(lv[t * H::L + leaf]), 0.f);
           if constexpr (FUSED) {
             acc += v;
@@ -259,6 +288,50 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_kernel(
   }
 }
 
+// The wide-tiled mode (forest_common.cuh): the block's 32 rows, one a lane
+// of every warp; warp w scores trees w, w + W, ... of each tile, building
+// S from feature-major x: one 128-byte line a node.
+template <int DEPTH, bool FUSED, bool NARROW>
+__global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_wide_kernel(
+    const float* __restrict__ x,
+    const typename Record<NARROW>::Node* __restrict__ nodes,
+    const typename Record<NARROW>::Leaf* __restrict__ leaf_value,
+    const int8_t* __restrict__ ct, const int32_t* __restrict__ dcount,
+    float* __restrict__ out, long long B, int F, int T, int bt) {
+  using H = Hb<DEPTH>;
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bb = blockDim.x, nw = bb >> 5;
+  const auto s = tile_refs<NARROW>(
+      smem, tile_layout(kWideRows, bt, 0, H::L, tree_buffers(T, bt),
+                        hb_extra_bytes(DEPTH, bb), kWideRows, sizeof(Node)));
+  unsigned char* ct_s = s.extra;
+  int32_t* d_s = reinterpret_cast<int32_t*>(ct_s + align16(H::NP * H::KP));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* s_tile = reinterpret_cast<unsigned char*>(d_s) +
+                          align16(4 * H::NP) + warp * 32 * H::KP;
+  const long long b0 = (long long)blockIdx.x * kWideRows;
+  const long long ldx = wide_ldx(B);
+
+  stage_structure<DEPTH>(ct_s, d_s, ct, dcount);
+
+  const int g = lane >> 2, tq = lane & 3;
+  float* out_row = s.out + ((tq >> 1) * 16 + (tq & 1) * 8 + g) * (bt + 1);
+  const float* xb = x + b0 + lane;
+
+  run_wide_tiles<FUSED>(
+      s, nodes, leaf_value, out, b0, B, T, bt, H::L,
+      [&](const Node* nd, const Leaf* lv) {
+        for (int t = warp; t < bt; t += nw) {
+          const int leaf = hb_exit_leaf<DEPTH>(
+              nd + t * H::L, s_tile, ct_s, d_s, lane,
+              [&](Node n) { return col_at(xb, n, ldx); });
+          out_row[t] = __fadd_rn(leaf_f32(lv[t * H::L + leaf]), 0.f);
+        }
+      });
+}
+
 template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
 int launch_hummingbird(const float* x,
                        const typename Record<NARROW>::Node* nodes,
@@ -266,14 +339,25 @@ int launch_hummingbird(const float* x,
                        const int8_t* ct, const int32_t* dcount, float* out,
                        long long B, int F, int T, int block_b, int block_t,
                        cudaStream_t stream) {
-  const size_t smem =
-      tile_layout(block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
-                  tree_buffers(T, block_t), hb_extra_bytes(DEPTH, block_b),
-                  FUSED, sizeof(typename Record<NARROW>::Node))
-          .total;
-  return launch_kernel(hummingbird_kernel<DEPTH, FUSED, STAGED, NARROW>, B,
-                       block_b, smem, stream, x, nodes, leaf_value, ct,
-                       dcount, out, B, F, T, block_t);
+  const int record = sizeof(typename Record<NARROW>::Node);
+  const size_t extra = hb_extra_bytes(DEPTH, block_b);
+  if constexpr (STAGED) {
+    const size_t smem = tile_layout(block_b, block_t, F, 1 << DEPTH,
+                                    tree_buffers(T, block_t), extra,
+                                    FUSED ? 0 : block_b, record)
+                            .total;
+    return launch_kernel(hummingbird_kernel<DEPTH, FUSED, NARROW>, B,
+                         block_b, smem, stream, x, nodes, leaf_value, ct,
+                         dcount, out, B, F, T, block_t);
+  } else {
+    const size_t smem = tile_layout(kWideRows, block_t, 0, 1 << DEPTH,
+                                    tree_buffers(T, block_t), extra,
+                                    kWideRows, record)
+                            .total;
+    return launch_rows(hummingbird_wide_kernel<DEPTH, FUSED, NARROW>, B,
+                       kWideRows, block_b, smem, stream, x, nodes,
+                       leaf_value, ct, dcount, out, B, F, T, block_t);
+  }
 }
 
 }  // namespace forest

@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   const int bb = blockDim.x, b = threadIdx.x, rows = kRows * bb;
   const auto s = tile_refs<NARROW>(
       smem, tile_layout(rows, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
-                        FUSED, sizeof(Node)));
+                        FUSED ? 0 : rows, sizeof(Node)));
   const long long b0 = (long long)blockIdx.x * rows;
   const float* xb = s.x + b;  // row j of this thread: xb[f * rows + j * bb]
   const float* xr[kRows];     // wide rows: row j of this thread in x
@@ -205,7 +205,7 @@ int launch_quickscorer(const float* x,
                        int block_t, cudaStream_t stream) {
   const size_t smem =
       tile_layout(kRows * block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
-                  tree_buffers(T, block_t), 0, FUSED,
+                  tree_buffers(T, block_t), 0, FUSED ? 0 : kRows * block_b,
                   sizeof(typename Record<NARROW>::Node))
           .total;
   return launch_kernel<kRows>(

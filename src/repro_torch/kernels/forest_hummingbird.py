@@ -14,7 +14,9 @@ on pad leaves, which never match).  ``hummingbird_fused`` also takes bf16
 tree tiles (narrow records and bf16 leaves, ``common.pack_narrow_nodes``).
 ``hummingbird_fused.launches`` / ``hummingbird_raw.launches`` count kernel
 launches (``.wide_launches`` those in the wide-row x mode,
-``hummingbird_fused.bf16_launches`` those over narrow records).
+``hummingbird_fused.bf16_launches`` those over narrow records).  Past 28
+features both run the wide-tiled layout (``common.wide_tiled``): 32-row
+blocks whose warps take different trees, over feature-major x.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.forest import hb_path_matrix
-from repro_torch.kernels.common import (count_launch, dense_predicates,
+from repro_torch.kernels.common import (dense_predicates,
                                         launch_forest_kernel, record_bytes,
                                         resolve_staged, sum_trees_in_order,
                                         unpack_nodes)
@@ -115,8 +117,8 @@ def hummingbird_fused(x: torch.Tensor, nodes: torch.Tensor,
                             record_bytes(nodes))
     out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
-                               fused=True, staged=staged)
-    count_launch(hummingbird_fused, staged, narrow=nodes.dim() == 2)
+                               fused=True, staged=staged,
+                               counter=hummingbird_fused)
     return out
 
 
@@ -133,8 +135,8 @@ def hummingbird_raw(x: torch.Tensor, nodes: torch.Tensor,
     staged = resolve_staged("hummingbird", x, depth, False, staged)
     out = launch_forest_kernel("hummingbird", x, trees, (ct, dcount),
                                depth=depth, block_b=block_b, block_t=block_t,
-                               fused=False, staged=staged)
-    count_launch(hummingbird_raw, staged)
+                               fused=False, staged=staged,
+                               counter=hummingbird_raw)
     return out
 
 

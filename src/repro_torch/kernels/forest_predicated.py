@@ -15,16 +15,18 @@ load, summed in f32.  For CPU tensors they run the plain versions; for
 CUDA tensors they launch the kernel or raise.  Each wrapper's
 ``.launches`` counts its kernel launches, ``.wide_launches`` those in the
 wide-row x mode, ``predicated_fused.bf16_launches`` those over narrow
-records.
+records.  Past 400 features the fused kernel runs the wide-tiled layout
+(``common.wide_tiled``: 32-row blocks whose warps take different trees,
+over feature-major x); the raw one reads row-major x.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import (count_launch, launch_forest_kernel,
-                                        record_bytes, resolve_staged,
-                                        sum_trees_in_order, unpack_nodes)
+from repro_torch.kernels.common import (launch_forest_kernel, record_bytes,
+                                        resolve_staged, sum_trees_in_order,
+                                        unpack_nodes)
 
 __all__ = ["predicated_fused", "predicated_fused_plain", "predicated_raw",
            "predicated_raw_plain"]
@@ -74,8 +76,7 @@ def predicated_fused(x: torch.Tensor, nodes: torch.Tensor,
                             record_bytes(nodes))
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
                                block_b=block_b, block_t=block_t, fused=True,
-                               staged=staged)
-    count_launch(predicated_fused, staged, narrow=nodes.dim() == 2)
+                               staged=staged, counter=predicated_fused)
     return out
 
 
@@ -90,8 +91,7 @@ def predicated_raw(x: torch.Tensor, nodes: torch.Tensor,
     staged = resolve_staged("predicated", x, depth, False, staged)
     out = launch_forest_kernel("predicated", x, trees, (), depth=depth,
                                block_b=block_b, block_t=block_t, fused=False,
-                               staged=staged)
-    count_launch(predicated_raw, staged)
+                               staged=staged, counter=predicated_raw)
     return out
 
 

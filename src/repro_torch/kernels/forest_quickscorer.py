@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.algorithms import ALL_ONES, lowest_set_bit
 from repro_torch.core.forest import qs_bitvectors
-from repro_torch.kernels.common import (check_kernel_inputs, count_launch,
+from repro_torch.kernels.common import (check_kernel_inputs,
                                         dense_predicates,
                                         launch_forest_kernel, record_bytes,
                                         resolve_staged, sum_trees_in_order,
@@ -158,16 +158,17 @@ def check_words(bv: torch.Tensor, depth: int) -> None:
 
 
 def _launch(x, nodes, leaf_value, bv, *, depth, block_b, block_t, fused,
-            staged):
+            staged, counter):
     """Check every input, ``bv`` included, then launch the kernel, which
-    takes no bit-vectors."""
+    takes no bit-vectors, counting it on ``counter``."""
     check_kernel_inputs("quickscorer", x, nodes, leaf_value, depth=depth,
                         block_b=block_b, block_t=block_t, fused=fused,
                         staged=staged, structure=(bv,))
     check_words(bv, depth)
     return launch_forest_kernel("quickscorer", x, (nodes, leaf_value), (),
                                 depth=depth, block_b=block_b,
-                                block_t=block_t, fused=fused, staged=staged)
+                                block_t=block_t, fused=fused, staged=staged,
+                                counter=counter)
 
 
 def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
@@ -181,8 +182,8 @@ def quickscorer_fused(x: torch.Tensor, nodes: torch.Tensor,
     staged = resolve_staged("quickscorer", x, depth, True, staged,
                             record_bytes(nodes))
     out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
-                  block_t=block_t, fused=True, staged=staged)
-    count_launch(quickscorer_fused, staged, narrow=nodes.dim() == 2)
+                  block_t=block_t, fused=True, staged=staged,
+                  counter=quickscorer_fused)
     return out
 
 
@@ -195,8 +196,8 @@ def quickscorer_raw(x: torch.Tensor, nodes: torch.Tensor,
         return quickscorer_raw_plain(x, nodes, leaf_value, bv, depth=depth)
     staged = resolve_staged("quickscorer", x, depth, False, staged)
     out = _launch(x, nodes, leaf_value, bv, depth=depth, block_b=block_b,
-                  block_t=block_t, fused=False, staged=staged)
-    count_launch(quickscorer_raw, staged)
+                  block_t=block_t, fused=False, staged=staged,
+                  counter=quickscorer_raw)
     return out
 
 

@@ -435,6 +435,97 @@ def test_cuda_kernels_wide_rows_both_x_modes(base, F, fused):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3, 5, 8])
+@pytest.mark.parametrize("F", [968, 1185, 2000, 4096, 10_000])
+def test_cuda_wide_tiled_kernels_match_plain(F, depth):
+    """The wide-tiled mode (32-row blocks, warps over trees, feature-major
+    x) of fused predicated, fused HummingBird and raw HummingBird, bit for
+    bit against the plain versions (ragged rows, NaN rows, +-inf, -0.0
+    leaves), f32 tiles and, at 968 and 2,000 features, bf16 ones; each
+    call one launch, in the wide-row mode, after one transpose."""
+    _need_card()
+    from repro_torch.kernels.common import feature_major
+
+    forest, x = _case(T=24, depth=depth, F=F, B=1000, seed=F + depth,
+                      integer_leaves=False, device="cuda")
+    lv = forest.leaf_value.clone()
+    lv[:, ::3] = -0.0
+    forest = dataclasses.replace(forest, leaf_value=lv)
+    xc = torch.from_numpy(x).cuda()
+    runs = [("predicated", True, None), ("hummingbird", True, None),
+            ("hummingbird", False, None)]
+    if F in (968, 2000):
+        runs += [("predicated", True, torch.bfloat16),
+                 ("hummingbird", True, torch.bfloat16)]
+    for base, fused, tree_dtype in runs:
+        wrapper = (KERNEL_WRAPPERS if fused else RAW_KERNEL_WRAPPERS)[base]
+        plain = (PLAIN if fused else RAW_PLAIN)[base]
+        args, tiles = prepare_inputs(base, forest, xc, fused=fused,
+                                     staged=False, tree_dtype=tree_dtype)
+        before = (wrapper.launches, wrapper.wide_launches,
+                  feature_major.launches)
+        got = wrapper(*args, **tiles)
+        torch.cuda.synchronize()
+        assert (wrapper.launches - before[0],
+                wrapper.wide_launches - before[1],
+                feature_major.launches - before[2]) == (1, 1, 1)
+        want = plain(*args, depth=depth)
+        assert torch.equal(_bits(got), _bits(want)), (base, fused,
+                                                      tree_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base,fused", [("predicated", True),
+                                        ("hummingbird", True),
+                                        ("hummingbird", False)])
+def test_cuda_wide_tiled_rows_in_chunks(base, fused, monkeypatch):
+    """Past ``XT_CHUNK_BYTES`` of x a wide-tiled launch transposes and
+    scores its rows chunk by chunk (here 4 chunks, the last ragged): the
+    same bits as the plain version, and four counted launches of the
+    kernel, each in the wide-row mode, and four of the transpose."""
+    _need_card()
+    from repro_torch.kernels import common
+
+    forest, x = _case(T=16, depth=6, F=3000, B=1000, seed=81,
+                      integer_leaves=False, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    monkeypatch.setattr(common, "XT_CHUNK_BYTES", 4 * 3000 * 288)
+    assert [n for _, n in common.xt_chunks(1000, 3000)] == [288] * 3 + [136]
+    wrapper = (KERNEL_WRAPPERS if fused else RAW_KERNEL_WRAPPERS)[base]
+    args, tiles = prepare_inputs(base, forest, xc, fused=fused)
+    assert tiles["staged"] is False
+    before = (wrapper.launches, wrapper.wide_launches,
+              common.feature_major.launches)
+    got = wrapper(*args, **tiles)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before[0], wrapper.wide_launches - before[1],
+            common.feature_major.launches - before[2]) == (4, 4, 4)
+    want = (PLAIN if fused else RAW_PLAIN)[base](*args, depth=6)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F", [(7, 2), (33, 13), (1000, 2000),
+                                 (4097, 968)])
+def test_cuda_feature_major_matches_plain(B, F):
+    """The transpose kernel: [F, B rounded up to 32], x transposed, zeros
+    past row B, bit for bit (NaN rows, +-inf) its plain version; one
+    counted launch."""
+    _need_card()
+    from repro_torch.kernels.common import (feature_major,
+                                            feature_major_plain)
+
+    _, x = _case(T=1, depth=1, F=F, B=B, seed=B, integer_leaves=True,
+                 device="cpu")
+    xc = torch.from_numpy(x).cuda()
+    before = feature_major.launches
+    got = feature_major(xc)
+    torch.cuda.synchronize()
+    assert feature_major.launches == before + 1
+    assert torch.equal(_bits(got), _bits(feature_major_plain(xc)))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("depth", [2, 1])
 @pytest.mark.parametrize("tier", ["device", "host", "disk"])
 @pytest.mark.parametrize("plan,algorithm", [
@@ -562,6 +653,28 @@ def test_cuda_bf16_past_the_narrow_record_keeps_the_wide_one(base):
     q = forest.astype(torch.bfloat16).astype(torch.float32)
     want = predict_sum_pallas(q, xc, algorithm=f"{base}_pallas_fused")
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("base", ["predicated", "hummingbird"])
+def test_cuda_wide_tiled_bf16_past_the_narrow_record(base):
+    """bf16 tiles over 40,000 features (past the narrow record): the
+    wide-tiled kernel over 8-byte records of the rounded forest, bit for
+    bit its plain version, one wide launch and no narrow one."""
+    _need_card()
+    forest, x = _case(T=20, depth=8, F=40_000, B=500, seed=72,
+                      integer_leaves=False, device="cuda")
+    xc = torch.from_numpy(x).cuda()
+    kernel = KERNEL_WRAPPERS[base]
+    args, tiles = prepare_inputs(base, forest, xc,
+                                 tree_dtype=torch.bfloat16)
+    assert args[1].dim() == 3 and tiles["staged"] is False
+    before = (kernel.launches, kernel.wide_launches, kernel.bf16_launches)
+    got = kernel(*args, **tiles)
+    torch.cuda.synchronize()
+    assert (kernel.launches - before[0], kernel.wide_launches - before[1],
+            kernel.bf16_launches - before[2]) == (1, 1, 0)
+    assert torch.equal(_bits(got), _bits(PLAIN[base](*args, depth=8)))
 
 
 @pytest.mark.gpu

@@ -13,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "chip_ab.py",
-                             "chip_tiers_probe.py", "chip_ssd_bf16_probe.py")]
+                             "chip_tiers_probe.py", "chip_ssd_bf16_probe.py",
+                             "chip_wide_probe.py")]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -78,3 +79,23 @@ def test_query_engine_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_names_every_lm_phase():
+    """``chip_ab.py --forest-only`` runs chip_smoke.py's main() without the
+    phases its ``LM_PHASES`` names.  They are exactly the phases main()
+    calls that take nothing but ``smi`` (every forest phase takes the
+    launch counter), so a phase added without the forest's arguments
+    must be named there, and every name is a function of the script."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    named = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "LM_PHASES")
+    called = {c.func.id for c in ast.walk(funcs["main"])
+              if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
+    smi_only = {name for name in called & funcs.keys()
+                if not funcs[name].args.args
+                and [a.arg for a in funcs[name].args.kwonlyargs] == ["smi"]}
+    assert set(named) <= funcs.keys()
+    assert smi_only == set(named) and len(named) == len(set(named))
