@@ -433,7 +433,7 @@ PROFILE_H2D_SHARE = 0.75        # least H2D time of a complete phase 8
 #                                 trace, as a share of bytes / link rate
 #: phase 9: the x-mode timings' widths and rows (65,536 rows: 500 trees
 #: fused, one 16-tree partition raw)
-XMODE_F = (28, 200, 400, 512, 640, 768, 968, 1184, 1536, 2000, 10000)
+XMODE_F = (28, 90, 200, 400, 512, 640, 768, 968, 1184, 1536, 2000, 10000)
 XMODE_ROWS = 65_536
 #: phase 9's tables, at the datasets' shapes (src/repro/db/loader.py:
 #: DATASETS): Epsilon dense at its full 100,000 x 2,000; Bosch at its full
@@ -1652,7 +1652,8 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
     from repro_torch.db.store import TensorBlockStore
     from repro_torch.kernels.common import (WIDE_ROWS, X_STAGED_MAX_F,
                                             feature_major,
-                                            feature_major_plain, wide_ldx,
+                                            feature_major_plain,
+                                            tiled_launch, wide_ldx,
                                             wide_tiled, x_staged, xt_chunks)
     from repro_torch.kernels.forest_hummingbird import (
         hummingbird_fused_plain, hummingbird_raw_plain)
@@ -1730,8 +1731,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
             limit = X_STAGED_MAX_F[kind, variant == "fused"]
             log(f"[sparse] xmode crossover {kind} {variant}: the wide-row "
                 f"mode is first faster at F={cross} of {XMODE_F}; the port "
-                f"stages x up to "
-                f"{'where a tile fits' if limit is None else limit}")
+                f"stages x up to {limit}")
 
     def launches_of(name, f, r, dataset):
         """Kernel launches a query makes: one a batch and partition, or,
@@ -1743,7 +1743,7 @@ def sparse_phase(*, counted, only, smi: str, tally) -> dict:
         fused, s = variant == "fused", r.scan
         F = (compact_forest(f)[1].numel() if r.storage_format == "csr"
              else f.n_features)
-        if not wide_tiled(kind, fused) or x_staged(kind, F, DEPTH, fused):
+        if not tiled_launch(kind, fused, x_staged(kind, F, DEPTH, fused)):
             return r.n_parts * s.batches
         pages = [min(s.batch_pages, dataset.num_pages - i * s.batch_pages)
                  for i in range(s.batches)]

@@ -25,9 +25,10 @@ upcasts it exactly; 15 bits hold the feature, so only forests of at most
 kernels read either record; ``unpack_nodes`` unpacks either.
 
 ``block_heuristics`` sizes the kernels' tiles for an H100 block: BB
-threads, one sample a thread (QuickScorer: ``QS_ROWS_PER_THREAD`` samples
-a thread, BB apart, so its tile holds rows = 4 * BB samples; the others
-rows = BB), and a shared-memory working set of
+threads, one sample a thread (QuickScorer staged: ``QS_ROWS_PER_THREAD``
+samples a thread, BB apart, so its tile holds rows = 4 * BB samples; the
+others, and every wide-tiled block, rows = BB), and a shared-memory
+working set of
 
     x tile     4 * F * rows                  staged mode only (below)
     tree tiles buffers * BT * 12 * L      node records and leaves (6 * L
@@ -62,14 +63,14 @@ and the tile is sized from the trees alone, as at a narrow F: wide rows
 no longer shrink the block to one warp and one tree (a 1600-tree rel
 plan of the predicated kernel at Bosch's 968 features would otherwise
 take 1600 one-tree launches), and no width is refused.  The raw
-predicated and QuickScorer kernels read each thread's row from row-major
-global x there.  The fused kernels of predicated and HummingBird and raw
-HummingBird run the WIDE-TILED layout instead (``wide_tiled``): a block
-owns ``WIDE_ROWS`` = 32 rows and its BB / 32 warps walk different trees
-of each tile, writing their scores to an out tile of 32 rows that the
-block then adds in tree order (fused) or writes out (raw), so the rows
-in flight are an eighth of 256-row blocks' (34 MB at 2,000 features for
-one block an SM, inside the 50 MB L2).  Their x is feature-major,
+predicated kernel reads each thread's row from row-major global x there.
+Every other kernel -- the three fused ones, raw HummingBird and raw
+QuickScorer -- runs the WIDE-TILED layout instead (``wide_tiled``): a
+block owns ``WIDE_ROWS`` = 32 rows and its BB / 32 warps walk different
+trees of each tile, writing their scores to an out tile of 32 rows that
+the block then adds in tree order (fused) or writes out (raw), so the
+rows in flight are an eighth of 256-row blocks' (34 MB at 2,000 features
+for one block an SM, inside the 50 MB L2).  Their x is feature-major,
 [F, ldx] with ldx = the rows rounded up to 32 (``wide_ldx``), which
 ``launch_forest_kernel`` writes with ``forest_transpose_rows`` before the
 launch, ``XT_CHUNK_BYTES`` of x at a time at most.
@@ -86,7 +87,7 @@ __all__ = ["dense_predicates", "pack_nodes", "unpack_nodes",
            "pack_narrow_nodes", "unpack_narrow_nodes", "narrow_record",
            "record_bytes", "block_heuristics", "tile_smem_bytes",
            "tree_buffers", "smem_budget", "launch_forest_kernel",
-           "rows_per_thread", "x_staged", "resolve_staged",
+           "rows_per_thread", "tiled_launch", "x_staged", "resolve_staged",
            "SMEM_BLOCK_MAX", "SMEM_BUDGET", "MAX_KERNEL_DEPTH",
            "QS_ROWS_PER_THREAD", "X_STAGED_MAX_F", "NARROW_MAX_FEATURES",
            "WIDE_ROWS", "XT_CHUNK_BYTES", "wide_tiled", "wide_ldx",
@@ -103,7 +104,8 @@ MAX_KERNEL_DEPTH = 8
 MAX_BLOCK_B = 256
 #: tree-tile cap
 MAX_BLOCK_T = 64
-#: samples a QuickScorer thread scores (csrc/forest_quickscorer.cu: kRows)
+#: samples a QuickScorer thread of the staged mode scores
+#: (csrc/forest_quickscorer.cu: kRows)
 QS_ROWS_PER_THREAD = 4
 #: samples a block of the wide-tiled layout owns, one a lane of every warp
 #: (csrc/forest_common.cuh: kWideRows)
@@ -118,17 +120,18 @@ NARROW_MAX_FEATURES = 1 << 15
 #: half as many
 WIDE_RECORD_BYTES, NARROW_RECORD_BYTES = 8, 4
 #: widest F at which each (kernel, fused) stages x in shared memory, wider
-#: rows running the wide-row mode; None: wherever a 32-sample staged tile
-#: fits one block.  Each limit is the widest of chip_smoke.py phase 9's
-#: widths at which the staged mode timed faster, at depth 8 on an H100
+#: rows running the wide-row mode.  Each limit is the widest of
+#: chip_smoke.py phase 9's widths at which the staged mode timed faster,
+#: at depth 8 on an H100
 #: (PERF.md section 6; chip_wide_probe.py times the same loop for the
-#: wide-tiled kernels): predicated fused is staged-faster at 400 features
-#: and wide-faster at 512, predicated raw the same; HummingBird fused and
-#: raw staged-faster at 28 and wide-faster at 200; QuickScorer stays
-#: faster staged for as long as a tile fits
+#: wide-tiled kernels): predicated fused and raw are staged-faster at 400
+#: features and wide-faster at 640 and 512 (fused at 512 is a tie within
+#: 3 %, which way varies by run); HummingBird fused and raw and raw
+#: QuickScorer staged-faster at 90 and wide-faster at 200; QuickScorer
+#: fused staged-faster at 200 and wide-faster at 400
 X_STAGED_MAX_F = {("predicated", True): 400, ("predicated", False): 400,
-                  ("hummingbird", True): 28, ("hummingbird", False): 28,
-                  ("quickscorer", True): None, ("quickscorer", False): None}
+                  ("hummingbird", True): 90, ("hummingbird", False): 90,
+                  ("quickscorer", True): 200, ("quickscorer", False): 90}
 
 
 def dense_predicates(x: torch.Tensor, feature: torch.Tensor,
@@ -226,17 +229,26 @@ def _extra_bytes(kind: str, depth: int, block_b: int) -> int:
     raise ValueError(f"unknown kernel {kind!r}")
 
 
-def rows_per_thread(kind: str) -> int:
-    """Samples one thread of this kernel scores: a block of BB threads
-    holds BB times as many."""
-    return QS_ROWS_PER_THREAD if kind == "quickscorer" else 1
-
-
 def wide_tiled(kind: str, fused: bool) -> bool:
     """Whether this kernel's wide-row mode runs the wide-tiled layout
-    (32-row blocks, warps over trees, feature-major x): the fused
-    predicated and HummingBird kernels and raw HummingBird."""
-    return kind == "hummingbird" or (kind == "predicated" and fused)
+    (32-row blocks, warps over trees, feature-major x): every kernel but
+    raw predicated, which reads row-major x."""
+    return fused or kind != "predicated"
+
+
+def tiled_launch(kind: str, fused: bool, staged: bool) -> bool:
+    """Whether a launch in this x mode runs the wide-tiled layout."""
+    return not staged and wide_tiled(kind, fused)
+
+
+def rows_per_thread(kind: str, fused: bool = True,
+                    staged: bool = True) -> int:
+    """Samples one thread of this kernel scores in this x mode: a block of
+    BB threads holds BB times as many.  In the wide-tiled layout a thread
+    of every kernel holds one row, its lane's."""
+    if kind == "quickscorer" and not tiled_launch(kind, fused, staged):
+        return QS_ROWS_PER_THREAD
+    return 1
 
 
 def wide_ldx(rows: int) -> int:
@@ -320,12 +332,14 @@ def tile_smem_bytes(kind: str, block_b: int, block_t: int, F: int,
     wide-row mode, no x tile, and where ``wide_tiled`` an out tile of
     ``WIDE_ROWS`` rows, fused kernels too; ``record``: node-record bytes,
     a leaf half of it).  ``block_b`` counts threads; the tile holds
-    ``rows_per_thread(kind)`` samples for each (staged and row-major)."""
+    ``rows_per_thread(kind)`` samples for each (staged and row-major),
+    one in the wide-tiled layout."""
     L = 1 << depth
-    rows = block_b * rows_per_thread(kind)
+    tiled = tiled_launch(kind, fused, staged)
+    rows = block_b * rows_per_thread(kind, fused, staged)
     tree = (_align16(record * block_t * L)
             + _align16(record // 2 * block_t * L))
-    if not staged and wide_tiled(kind, fused):
+    if tiled:
         out_rows = WIDE_ROWS
     else:
         out_rows = 0 if fused else rows
@@ -341,8 +355,7 @@ def x_staged(kind: str, F: int, depth: int, fused: bool = True, *,
     memory: up to ``X_STAGED_MAX_F[kind, fused]`` features, and only where
     a 32-sample x tile fits one block beside one tree.  Otherwise the
     wide-row mode reads x from global memory."""
-    limit = X_STAGED_MAX_F[kind, fused]
-    if limit is not None and F > limit:
+    if F > X_STAGED_MAX_F[kind, fused]:
         return False
     least = tile_smem_bytes(kind, 32 // rows_per_thread(kind), 1, F, depth,
                             fused=fused, record=record)
@@ -377,8 +390,8 @@ def block_heuristics(kind: str, B: int, T: int, F: int, depth: int, *,
                                record=record)
 
     budget = smem_budget(kind)
-    per = rows_per_thread(kind)
-    if not staged and wide_tiled(kind, fused):
+    per = rows_per_thread(kind, fused, staged)
+    if tiled_launch(kind, fused, staged):
         bb = MAX_BLOCK_B        # warps over trees: any B takes them all
     else:
         bb = min(MAX_BLOCK_B, max(32, -(-B // (32 * per)) * 32))
@@ -465,7 +478,8 @@ def check_kernel_inputs(kind: str, x: torch.Tensor, nodes: torch.Tensor,
     if tuple(leaf_value.shape) != (T, L):
         raise ValueError(f"{kind}: leaf_value shape "
                          f"{tuple(leaf_value.shape)} != ({T}, {L})")
-    per = rows_per_thread(kind)
+    # a wide-tiled block's warps share its 32 rows: whole warps only
+    per = rows_per_thread(kind, fused, staged)
     if block_b * per % 32 or not 32 // per <= block_b <= MAX_BLOCK_B:
         raise ValueError(f"{kind}: block_b must be in [{32 // per}, "
                          f"{MAX_BLOCK_B}] threads of {per} samples, a "
@@ -518,7 +532,7 @@ def launch_forest_kernel(kind: str, x: torch.Tensor,
         out = torch.empty((B,) if fused else (B, T), dtype=torch.float32,
                           device=x.device)
         tree_ptrs = [t.data_ptr() for t in (*trees, *structure)]
-        if staged or not wide_tiled(kind, fused):
+        if not tiled_launch(kind, fused, staged):
             err = getattr(lib, name)(
                 x.data_ptr(), *tree_ptrs, out.data_ptr(), B, F, T, depth,
                 block_b, block_t, int(staged), stream)

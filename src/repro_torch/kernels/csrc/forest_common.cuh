@@ -16,11 +16,11 @@
 //     over f put a warp's 32 stores on 2-3 banks); its strided global
 //     reads hit the x rows' lines in L1 once fetched;
 //   * in the WIDE-ROW mode (STAGED false, kernels/common.py:x_staged) x is
-//     not staged.  The raw predicated and both QuickScorer kernels read
-//     each thread's row from row-major global x through the read-only path
-//     (``global_row`` / ``row_at``), with 64-bit offsets, in blocks sized
-//     as at a narrow F.  The fused kernels
-//     and raw HummingBird run the WIDE-TILED layout instead
+//     not staged.  The raw predicated kernel reads each thread's row from
+//     row-major global x through the read-only path (``global_row`` /
+//     ``row_at``), with 64-bit offsets, in blocks sized as at a narrow F.
+//     The fused kernels, raw HummingBird and raw QuickScorer run the
+//     WIDE-TILED layout instead
 //     (``run_wide_tiles``): a block owns kWideRows = 32 rows, one a lane,
 //     and its warps walk different trees of each tile, so that few rows
 //     are in flight on the card while every tree reads them again (132
@@ -356,15 +356,20 @@ __host__ __device__ inline long long wide_ldx(long long B) {
 }
 
 // Node n's feature of the lane's row, from feature-major x: ``col`` is
-// x + (the lane's row), ``ldx`` the rows of a feature.  The narrow record
-// holds twice the feature in (n & 0xFFFE).
+// x + (the lane's row), ``ldx`` the rows of a feature, below 2^32
+// (launch_rows checks), so the 64-bit offset is one 32 x 32 -> 64-bit
+// multiply and ldx takes one register.  The narrow record holds twice the
+// feature in (n & 0xFFFE).  Kernel alone at 2,000 features on an H100,
+// against a 64 x 64-bit product (chip_wide_probe.py, PERF.md section 6):
+// QuickScorer fused 0.77x, HummingBird fused 0.94x and raw 0.97x,
+// predicated fused 1.007x (f32; 1.03x at 968 features) and 0.98x (bf16).
 __device__ inline float col_at(const float* __restrict__ col, int2 n,
-                               long long ldx) {
-  return __ldg(col + node_feature(n) * ldx);
+                               unsigned ldx) {
+  return __ldg(col + (unsigned long long)unsigned(node_feature(n)) * ldx);
 }
 __device__ inline float col_at(const float* __restrict__ col, uint32_t n,
-                               long long ldx) {
-  return __ldg(col + (long long)((n & 0xFFFEu) >> 1) * ldx);
+                               unsigned ldx) {
+  return __ldg(col + (unsigned long long)((n & 0xFFFEu) >> 1) * ldx);
 }
 
 // The tree loop of the wide-tiled layout.  The block owns kWideRows rows
@@ -466,11 +471,14 @@ inline int transpose_rows(const float* x, float* xt, long long rows, int F,
   return int(cudaGetLastError());
 }
 
-// (launch_rows: one block per ``rows`` samples, whatever block_b is.)
+// (launch_rows: one block per ``rows`` samples, whatever block_b is.  B
+// rounded up to whole warps stays below 2^32: the wide-tiled kernels'
+// ldx, which col_at takes as 32 bits.)
 template <typename Kernel, typename... Args>
 inline int launch_rows(Kernel kernel, long long B, long long rows,
                        int block_b, size_t smem, cudaStream_t stream,
                        Args... args) {
+  if (wide_ldx(B) > 0xFFFFFFFFll) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);

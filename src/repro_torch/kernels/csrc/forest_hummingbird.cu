@@ -312,7 +312,7 @@ __global__ void __launch_bounds__(kMaxBlock, 1) hummingbird_wide_kernel(
   unsigned char* s_tile = reinterpret_cast<unsigned char*>(d_s) +
                           align16(4 * H::NP) + warp * 32 * H::KP;
   const long long b0 = (long long)blockIdx.x * kWideRows;
-  const long long ldx = wide_ldx(B);
+  const unsigned ldx = unsigned(wide_ldx(B));  // launch_rows checks
 
   stage_structure<DEPTH>(ct_s, d_s, ct, dcount);
 

@@ -125,7 +125,7 @@ __global__ void __launch_bounds__(kMaxBlock, 2) predicated_wide_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   const long long b0 = (long long)blockIdx.x * kWideRows;
-  const long long ldx = wide_ldx(B);
+  const unsigned ldx = unsigned(wide_ldx(B));  // launch_rows checks
   const float* xb = x + b0 + lane;
   float* out_row = s.out + lane * (bt + 1);
 

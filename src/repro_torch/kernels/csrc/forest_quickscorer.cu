@@ -48,8 +48,20 @@
 //     predicated AND; __ffs per word;
 //   * x staging, cp.async tree tiles (double-buffered over several tiles)
 //     and the raw out tile are the shared ones of forest_common.cuh.
-// Wide rows (STAGED false): a thread keeps one global row pointer per
-// sample, and each node's gather is kRows read-only loads of those rows.
+// Wide rows (STAGED false, ``quickscorer_wide_kernel``), fused and raw:
+// the wide-tiled layout (forest_common.cuh).  A block of 32 rows, one a
+// lane, its 8 warps over trees, two blocks an SM; each warp walks one
+// tree at a time with the same mask rule (``qs_exit_leaves``, which the
+// staged mode runs over its kRows rows).  Every one of a tree's I nodes
+// loads its feature of the warp's 32 rows from feature-major x: one
+// aligned 128-byte line, where 32 row-major rows took 32 lines (over
+// row-major x the same kernel took 24x the time of the transpose and this
+// kernel).  The walk sits at the 128 registers of two blocks an SM, where
+// ``col_at``'s 32 x 32 -> 64-bit offset product matters.  Kernel alone
+// at 100,352 x 2,000 x 512 trees on an H100 (chip_wide_probe.py, PERF.md
+// section 6): 11.40 ms; with a 64 x 64-bit product 14.77 ms; walking two
+// trees a warp at once, which spills, 18.28 ms.  Its time hardly grows with F (9.09 ms at 968
+// features): what bounds it is instructions and their latency, not lines.
 // bf16 tree tiles (NARROW, fused only): each node is a 4-byte record whose
 // threshold is masked out of it, each exit leaf a 2-byte load shifted to
 // f32; the masks and the word loop are the same.
@@ -57,7 +69,8 @@
 
 namespace forest {
 
-// samples a thread (kernels/common.py:QS_ROWS_PER_THREAD mirrors it)
+// samples a thread of the staged mode (kernels/common.py:
+// QS_ROWS_PER_THREAD mirrors it)
 constexpr int kRows = 4;
 
 __host__ __device__ constexpr int ilog2(int v) {
@@ -84,7 +97,61 @@ __device__ inline bool goes_right(float v, float threshold, bool nan_right) {
   return (v >= threshold) | (nan_right & isnan(v));
 }
 
-template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
+// The exit leaves of R (row, tree) pairs, in the rule above:
+// ``right(slot, r)`` sets r[j] when pair j goes right at heap slot ``slot``
+// of its tree (its node is FALSE).  The top nodes set the dead-words bits;
+// each word's subtree is one flat loop of constant trip count, so it
+// unrolls whole and every mask is an immediate, while the word loop stays
+// rolled; the exit leaf is the lowest set bit of the first surviving word.
+template <int DEPTH, int R, typename Right>
+__device__ __forceinline__ void qs_exit_leaves(Right right, int (&leaf)[R]) {
+  constexpr int DW = DEPTH < 5 ? DEPTH : 5;  // levels inside one word
+  constexpr int K = DEPTH - DW;              // top levels
+  constexpr int W = 1 << K;                  // words of a tree's leaves
+  // top nodes, heap slots 1 .. W-1
+  uint32_t dead[R] = {};
+#pragma unroll
+  for (int i = 1; i < W; ++i) {
+    bool r[R];
+    right(i, r);
+    const uint32_t m = dead_words(K, ilog2(i), i - (1 << ilog2(i)));
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (r[j]) dead[j] |= m;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) leaf[j] = -1;
+#pragma unroll 1
+  for (int w = 0; w < W; ++w) {
+    uint32_t cur[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) cur[j] = 0xFFFFFFFFu;
+    // word w's subtree: its node i (level k = ilog2(i), position
+    // q = i - 2^k) is heap slot ((W + w) << k) + q
+#pragma unroll
+    for (int i = 1; i < (1 << DW); ++i) {
+      const int k = ilog2(i), q = i - (1 << k);
+      bool r[R];
+      right(((W + w) << k) + q, r);
+      const uint32_t m = in_word_mask(DW, k, q);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (r[j]) cur[j] &= m;  // a predicated AND, no branch
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const uint32_t surv = (dead[j] >> w) & 1u ? 0u : cur[j];
+      leaf[j] = leaf[j] < 0 && surv != 0u ? w * 32 + __ffs(int(surv)) - 1
+                                          : leaf[j];
+    }
+  }
+}
+
+// The staged mode: kRows rows a thread, blockDim.x apart, from the
+// block's x tile; every thread walks every tree of the tile.
+template <int DEPTH, bool FUSED, bool NARROW>
 __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
     const float* __restrict__ x,
     const typename Record<NARROW>::Node* __restrict__ nodes,
@@ -93,41 +160,15 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   using Node = typename Record<NARROW>::Node;
   using Leaf = typename Record<NARROW>::Leaf;
   constexpr int L = 1 << DEPTH;
-  constexpr int DW = DEPTH < 5 ? DEPTH : 5;  // levels inside one word
-  constexpr int K = DEPTH - DW;              // top levels
-  constexpr int W = 1 << K;                  // words of a tree's leaves
   extern __shared__ __align__(16) unsigned char smem[];
   const int bb = blockDim.x, b = threadIdx.x, rows = kRows * bb;
   const auto s = tile_refs<NARROW>(
-      smem, tile_layout(rows, bt, STAGED ? F : 0, L, tree_buffers(T, bt), 0,
+      smem, tile_layout(rows, bt, F, L, tree_buffers(T, bt), 0,
                         FUSED ? 0 : rows, sizeof(Node)));
   const long long b0 = (long long)blockIdx.x * rows;
   const float* xb = s.x + b;  // row j of this thread: xb[f * rows + j * bb]
-  const float* xr[kRows];     // wide rows: row j of this thread in x
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    xr[j] = STAGED ? nullptr : global_row(x, b0 + j * bb + b, B, F);
-  }
 
-  // right[j]: row j goes right at node record n (heap slot order)
-  auto eval = [&](const Node n, bool (&right)[kRows]) {
-    const float threshold = node_threshold(n);
-    const bool nan_right = node_default_right(n);
-    if constexpr (STAGED) {
-      const float* xf = xb + node_offset(n, rows);
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        right[j] = goes_right(xf[j * bb], threshold, nan_right);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        right[j] = goes_right(row_at(xr[j], n), threshold, nan_right);
-      }
-    }
-  };
-
-  if constexpr (STAGED) stage_x_async(s.x, x, b0, B, F, rows);
+  stage_x_async(s.x, x, b0, B, F, rows);
   float acc[kRows] = {};
   run_tiles<FUSED, kRows>(
       s, nodes, leaf_value, out, b0, B, T, bt, L,
@@ -135,48 +176,20 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
 #pragma unroll 1
         for (int t = 0; t < bt; ++t) {
           const Node* tree = nd + t * L;
-          // top nodes, heap slots 1 .. W-1 (one loop of constant trip
-          // count, so it unrolls whole and every mask is an immediate)
-          uint32_t dead[kRows] = {};
-#pragma unroll
-          for (int i = 1; i < W; ++i) {
-            bool right[kRows];
-            eval(tree[i], right);
-            const uint32_t m = dead_words(K, ilog2(i), i - (1 << ilog2(i)));
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-              if (right[j]) dead[j] |= m;
-            }
-          }
           int leaf[kRows];
+          // right[j]: row j goes right at the node of heap slot ``slot``
+          qs_exit_leaves<DEPTH, kRows>(
+              [&](int slot, bool (&right)[kRows]) {
+                const Node n = tree[slot];
+                const float threshold = node_threshold(n);
+                const bool nan_right = node_default_right(n);
+                const float* xf = xb + node_offset(n, rows);
 #pragma unroll
-          for (int j = 0; j < kRows; ++j) leaf[j] = -1;
-#pragma unroll 1
-          for (int w = 0; w < W; ++w) {
-            uint32_t cur[kRows];
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) cur[j] = 0xFFFFFFFFu;
-            // word w's subtree: its node i (level k = ilog2(i), position
-            // q = i - 2^k) is heap slot ((W + w) << k) + q
-#pragma unroll
-            for (int i = 1; i < (1 << DW); ++i) {
-              const int k = ilog2(i), q = i - (1 << k);
-              bool right[kRows];
-              eval(tree[((W + w) << k) + q], right);
-              const uint32_t m = in_word_mask(DW, k, q);
-#pragma unroll
-              for (int j = 0; j < kRows; ++j) {
-                if (right[j]) cur[j] &= m;  // a predicated AND, no branch
-              }
-            }
-#pragma unroll
-            for (int j = 0; j < kRows; ++j) {
-              const uint32_t surv = (dead[j] >> w) & 1u ? 0u : cur[j];
-              leaf[j] = leaf[j] < 0 && surv != 0u
-                            ? w * 32 + __ffs(int(surv)) - 1
-                            : leaf[j];
-            }
-          }
+                for (int j = 0; j < kRows; ++j) {
+                  right[j] = goes_right(xf[j * bb], threshold, nan_right);
+                }
+              },
+              leaf);
 #pragma unroll
           for (int j = 0; j < kRows; ++j) {
             const float v = leaf_f32(lv[t * L + leaf[j]]);
@@ -197,20 +210,74 @@ __global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_kernel(
   }
 }
 
+// The wide-tiled mode (forest_common.cuh) over feature-major x
+// [F][wide_ldx(B)]: the block's 32 rows, one a lane of every warp; warp w
+// scores trees w, w + W, ... of each tile (W warps), one at a time, into
+// the out tile.
+template <int DEPTH, bool FUSED, bool NARROW>
+__global__ void __launch_bounds__(kMaxBlock, 2) quickscorer_wide_kernel(
+    const float* __restrict__ x,
+    const typename Record<NARROW>::Node* __restrict__ nodes,
+    const typename Record<NARROW>::Leaf* __restrict__ leaf_value,
+    float* __restrict__ out, long long B, int F, int T, int bt) {
+  using Node = typename Record<NARROW>::Node;
+  using Leaf = typename Record<NARROW>::Leaf;
+  constexpr int L = 1 << DEPTH;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const auto s = tile_refs<NARROW>(
+      smem, tile_layout(kWideRows, bt, 0, L, tree_buffers(T, bt), 0,
+                        kWideRows, sizeof(Node)));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const long long b0 = (long long)blockIdx.x * kWideRows;
+  const unsigned ldx = unsigned(wide_ldx(B));  // launch_rows checks
+  const float* xb = x + b0 + lane;
+  float* out_row = s.out + lane * (bt + 1);
+
+  run_wide_tiles<FUSED>(
+      s, nodes, leaf_value, out, b0, B, T, bt, L,
+      [&](const Node* nd, const Leaf* lv) {
+        for (int t = warp; t < bt; t += nw) {
+          const Node* tree = nd + t * L;
+          int leaf[1];
+          qs_exit_leaves<DEPTH, 1>(
+              [&](int slot, bool (&right)[1]) {
+                const Node n = tree[slot];
+                right[0] = goes_right(col_at(xb, n, ldx),
+                                      node_threshold(n),
+                                      node_default_right(n));
+              },
+              leaf);
+          out_row[t] = leaf_f32(lv[t * L + leaf[0]]);
+        }
+      });
+}
+
 template <int DEPTH, bool FUSED, bool STAGED, bool NARROW>
 int launch_quickscorer(const float* x,
                        const typename Record<NARROW>::Node* nodes,
                        const typename Record<NARROW>::Leaf* leaf_value,
                        float* out, long long B, int F, int T, int block_b,
                        int block_t, cudaStream_t stream) {
-  const size_t smem =
-      tile_layout(kRows * block_b, block_t, STAGED ? F : 0, 1 << DEPTH,
-                  tree_buffers(T, block_t), 0, FUSED ? 0 : kRows * block_b,
-                  sizeof(typename Record<NARROW>::Node))
-          .total;
-  return launch_kernel<kRows>(
-      quickscorer_kernel<DEPTH, FUSED, STAGED, NARROW>, B, block_b, smem,
-      stream, x, nodes, leaf_value, out, B, F, T, block_t);
+  const int record = sizeof(typename Record<NARROW>::Node);
+  if constexpr (STAGED) {
+    const size_t smem =
+        tile_layout(kRows * block_b, block_t, F, 1 << DEPTH,
+                    tree_buffers(T, block_t), 0, FUSED ? 0 : kRows * block_b,
+                    record)
+            .total;
+    return launch_kernel<kRows>(quickscorer_kernel<DEPTH, FUSED, NARROW>, B,
+                                block_b, smem, stream, x, nodes, leaf_value,
+                                out, B, F, T, block_t);
+  } else {
+    const size_t smem =
+        tile_layout(kWideRows, block_t, 0, 1 << DEPTH,
+                    tree_buffers(T, block_t), 0, kWideRows, record)
+            .total;
+    return launch_rows(quickscorer_wide_kernel<DEPTH, FUSED, NARROW>, B,
+                       kWideRows, block_b, smem, stream, x, nodes,
+                       leaf_value, out, B, F, T, block_t);
+  }
 }
 
 }  // namespace forest

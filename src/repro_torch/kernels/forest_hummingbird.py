@@ -14,7 +14,7 @@ on pad leaves, which never match).  ``hummingbird_fused`` also takes bf16
 tree tiles (narrow records and bf16 leaves, ``common.pack_narrow_nodes``).
 ``hummingbird_fused.launches`` / ``hummingbird_raw.launches`` count kernel
 launches (``.wide_launches`` those in the wide-row x mode,
-``hummingbird_fused.bf16_launches`` those over narrow records).  Past 28
+``hummingbird_fused.bf16_launches`` those over narrow records).  Past 90
 features both run the wide-tiled layout (``common.wide_tiled``): 32-row
 blocks whose warps take different trees, over feature-major x.
 """

@@ -17,7 +17,10 @@ int32 ``>>`` is arithmetic.  ``quickscorer_fused`` also takes bf16 tree
 tiles (narrow records and bf16 leaves, ``common.pack_narrow_nodes``).
 ``quickscorer_fused.launches`` / ``quickscorer_raw.launches`` count kernel
 launches (``.wide_launches`` those in the wide-row x mode,
-``quickscorer_fused.bf16_launches`` those over narrow records).
+``quickscorer_fused.bf16_launches`` those over narrow records).  Past 200
+features (raw: 90) both kernels run the wide-tiled layout
+(``common.wide_tiled``: 32-row blocks whose warps take different trees,
+one row a lane, over feature-major x).
 """
 
 from __future__ import annotations

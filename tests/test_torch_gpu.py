@@ -439,10 +439,11 @@ def test_cuda_kernels_wide_rows_both_x_modes(base, F, fused):
 @pytest.mark.parametrize("F", [968, 1185, 2000, 4096, 10_000])
 def test_cuda_wide_tiled_kernels_match_plain(F, depth):
     """The wide-tiled mode (32-row blocks, warps over trees, feature-major
-    x) of fused predicated, fused HummingBird and raw HummingBird, bit for
-    bit against the plain versions (ragged rows, NaN rows, +-inf, -0.0
-    leaves), f32 tiles and, at 968 and 2,000 features, bf16 ones; each
-    call one launch, in the wide-row mode, after one transpose."""
+    x) of every kernel but raw predicated -- fused predicated,
+    HummingBird and QuickScorer, raw HummingBird and QuickScorer -- bit
+    for bit against the plain versions (ragged rows, NaN rows, +-inf,
+    -0.0 leaves), f32 tiles and, at 968 and 2,000 features, bf16 ones;
+    each call one launch, in the wide-row mode, after one transpose."""
     _need_card()
     from repro_torch.kernels.common import feature_major
 
@@ -453,10 +454,10 @@ def test_cuda_wide_tiled_kernels_match_plain(F, depth):
     forest = dataclasses.replace(forest, leaf_value=lv)
     xc = torch.from_numpy(x).cuda()
     runs = [("predicated", True, None), ("hummingbird", True, None),
-            ("hummingbird", False, None)]
+            ("hummingbird", False, None), ("quickscorer", True, None),
+            ("quickscorer", False, None)]
     if F in (968, 2000):
-        runs += [("predicated", True, torch.bfloat16),
-                 ("hummingbird", True, torch.bfloat16)]
+        runs += [(base, True, torch.bfloat16) for base in BASES]
     for base, fused, tree_dtype in runs:
         wrapper = (KERNEL_WRAPPERS if fused else RAW_KERNEL_WRAPPERS)[base]
         plain = (PLAIN if fused else RAW_PLAIN)[base]
@@ -477,7 +478,9 @@ def test_cuda_wide_tiled_kernels_match_plain(F, depth):
 @pytest.mark.gpu
 @pytest.mark.parametrize("base,fused", [("predicated", True),
                                         ("hummingbird", True),
-                                        ("hummingbird", False)])
+                                        ("hummingbird", False),
+                                        ("quickscorer", True),
+                                        ("quickscorer", False)])
 def test_cuda_wide_tiled_rows_in_chunks(base, fused, monkeypatch):
     """Past ``XT_CHUNK_BYTES`` of x a wide-tiled launch transposes and
     scores its rows chunk by chunk (here 4 chunks, the last ragged): the
@@ -656,7 +659,7 @@ def test_cuda_bf16_past_the_narrow_record_keeps_the_wide_one(base):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("base", ["predicated", "hummingbird"])
+@pytest.mark.parametrize("base", BASES)
 def test_cuda_wide_tiled_bf16_past_the_narrow_record(base):
     """bf16 tiles over 40,000 features (past the narrow record): the
     wide-tiled kernel over 8-byte records of the rounded forest, bit for

@@ -14,6 +14,7 @@ The CUDA kernels in both modes are held against these plain versions by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` on the card.
 """
 
+import sys
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -31,8 +32,13 @@ from repro_torch.db.query import ForestQueryEngine
 from repro_torch.db.store import TensorBlockStore
 from repro_torch.kernels import common
 from repro_torch.kernels.common import unpack_nodes
-from repro_torch.kernels.forest_hummingbird import hummingbird_fused_plain
+from repro_torch.kernels.forest_hummingbird import (hummingbird_fused_plain,
+                                                    hummingbird_raw_plain)
 from repro_torch.kernels.forest_predicated import predicated_fused_plain
+from repro_torch.kernels.forest_quickscorer import (dead_words, in_word_mask,
+                                                    qs_word_split,
+                                                    quickscorer_fused_plain,
+                                                    quickscorer_raw_plain)
 from repro_torch.kernels.ops import (default_tree_block, predict_raw_pallas,
                                      predict_sum_pallas, prepare_inputs)
 
@@ -72,8 +78,8 @@ def test_wide_rows_tile_like_narrow_rows(kind, F):
             kind, 32 // common.rows_per_thread(kind), 1, F, DEPTH,
             fused=fused) <= common.SMEM_BLOCK_MAX
         limit = common.X_STAGED_MAX_F[kind, fused]
-        assert common.x_staged(kind, F, DEPTH, fused) is (
-            (limit is None or F <= limit) and fits)
+        assert common.x_staged(kind, F, DEPTH, fused) is (F <= limit
+                                                          and fits)
         for one_tile in (False, True):
             got = common.block_heuristics(kind, 1_000_000, 1600, F, DEPTH,
                                           fused=fused, one_tile=one_tile,
@@ -106,27 +112,27 @@ def test_default_tree_block_at_wide_rows(F):
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
 @pytest.mark.parametrize("kind", BASES)
 def test_x_mode_switch_points(kind, fused):
-    """Staged at the HIGGS width; past the measured crossover, or where no
-    staged 32-sample tile fits a block, the wide-row mode.  The crossovers
-    are those measured on an H100 (PERF.md section 6): the wide-tiled
-    predicated fused kernel first faster at 512 features, HummingBird's
-    at 200, the row-major raw predicated one at 512; QuickScorer staged
-    wherever a tile fits."""
+    """Staged at the HIGGS width; past the measured crossover the
+    wide-row mode.  The crossovers are those measured on an H100 (PERF.md
+    section 6): the wide-tiled predicated fused kernel first faster at
+    512-640 features, HummingBird's at 200 (staged faster at 90), the
+    row-major raw predicated one at 512, the wide-tiled QuickScorer fused
+    one at 400 and raw at 200 (staged faster at 90).  Each limit is a
+    width whose staged tile fits a block."""
     assert common.x_staged(kind, 28, DEPTH, fused)
     limit = common.X_STAGED_MAX_F[kind, fused]
-    assert limit == {"predicated": 400, "hummingbird": 28,
-                     "quickscorer": None}[kind]
-    if limit is not None:
-        assert common.x_staged(kind, limit, DEPTH, fused)
-        assert not common.x_staged(kind, limit + 1, DEPTH, fused)
+    assert limit == {("predicated", True): 400, ("predicated", False): 400,
+                     ("hummingbird", True): 90, ("hummingbird", False): 90,
+                     ("quickscorer", True): 200,
+                     ("quickscorer", False): 90}[kind, fused]
+    assert common.x_staged(kind, limit, DEPTH, fused)
+    assert not common.x_staged(kind, limit + 1, DEPTH, fused)
     widest = max(F for F in range(28, 2000)
                  if common.x_staged(kind, F, DEPTH, fused))
-    fits = common.tile_smem_bytes(
-        kind, 32 // common.rows_per_thread(kind), 1, widest + 1, DEPTH,
-        fused=fused) <= common.SMEM_BLOCK_MAX
-    assert widest == limit if limit is not None else not fits
-    # a shallower forest leaves a staged tile room for more features
+    assert widest == limit
+    # a shallower forest stages up to the same limit
     assert common.x_staged(kind, widest, 4, fused)
+    assert not common.x_staged(kind, widest + 1, 4, fused)
 
 
 @pytest.mark.parametrize("integer_leaves", [False, True],
@@ -192,7 +198,7 @@ def test_wide_infer_matches_reference(plan, algorithm):
         assert np.array_equal(default.predictions.numpy(), g)
 
 
-# -- the wide-tiled layout (fused predicated and HummingBird, raw HB) ---------
+# -- the wide-tiled layout (every kernel but raw predicated) ------------------
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "raw"])
@@ -201,14 +207,14 @@ def test_tile_smem_bytes_mirrors_the_wide_tiled_layout(kind, fused):
     """csrc/forest_common.cuh:tile_layout as the wide-tiled kernels call
     it (out_rows = kWideRows, F = 0): tree buffers, the kind's extra (one
     S tile a warp for HummingBird), and an out tile of 32 rows for fused
-    kernels too; the row-major wide mode (raw predicated, QuickScorer)
-    keeps its raw out tile of the block's rows and none when fused."""
+    kernels too, whatever rows a staged thread of the kind holds; the
+    row-major wide mode (raw predicated) keeps its raw out tile of the
+    block's rows."""
     def a16(n):
         return -(-n // 16) * 16
 
     tiled = common.wide_tiled(kind, fused)
-    assert tiled is (kind == "hummingbird"
-                     or (kind == "predicated" and fused))
+    assert tiled is (kind != "predicated" or fused)
     for depth in range(1, 9):
         L = 1 << depth
         kp, np_ = max(32, L), max(8, L)
@@ -232,14 +238,22 @@ def test_tile_smem_bytes_mirrors_the_wide_tiled_layout(kind, fused):
     if kind == "hummingbird" and fused:
         assert common.tile_smem_bytes(kind, 256, 8, 2000, 8, buffers=2,
                                       staged=False) == 182_400
+    # QuickScorer's 16-tree f32 tiles, two buffers: trees 2 x 49,152, out
+    # 32 x 17 x 4 -- two blocks an SM; a raw 16-tree partition holds one
+    if kind == "quickscorer":
+        assert common.tile_smem_bytes(kind, 256, 16, 2000, 8, fused=fused,
+                                      buffers=2, staged=False) == 100_480
+        assert common.tile_smem_bytes(kind, 256, 16, 2000, 8, fused=fused,
+                                      staged=False) == 51_328
 
 
 def test_wide_tiled_tiles_at_the_epsilon_shape():
     """The tiles the wide-tiled kernels take at 100,352 x 2,000, depth 8
-    (PERF.md section 6): 256 threads, 8 warps over trees; predicated two
-    blocks an SM (16 f32 trees a tile, 32 bf16), HummingBird one (8 f32
-    trees a tile beside C^T and eight S tiles, 16 bf16); raw HummingBird
-    over a 16-tree partition takes it whole."""
+    (PERF.md section 6): 256 threads, 8 warps over trees; predicated and
+    QuickScorer two blocks an SM (16 f32 trees a tile, 32 bf16),
+    HummingBird one (8 f32 trees a tile beside C^T and eight S tiles, 16
+    bf16); raw HummingBird and raw QuickScorer over a 16-tree partition
+    take it whole."""
     def tiles(kind, T, fused=True, record=8):
         return common.block_heuristics(kind, 100_352, T, 2000, DEPTH,
                                        fused=fused, record=record)
@@ -249,9 +263,21 @@ def test_wide_tiled_tiles_at_the_epsilon_shape():
     assert tiles("hummingbird", 512) == (256, 8)
     assert tiles("hummingbird", 512, record=4) == (256, 16)
     assert tiles("hummingbird", 16, fused=False) == (256, 16)
-    # a batch of 8 rows still takes every warp: they share 32 rows
-    assert common.block_heuristics("hummingbird", 8, 512, 2000, DEPTH)[0] \
-        == 256
+    assert tiles("quickscorer", 512) == (256, 16)
+    assert tiles("quickscorer", 512, record=4) == (256, 32)
+    assert tiles("quickscorer", 16, fused=False) == (256, 16)
+    # a batch of 8 rows still takes every warp: they share 32 rows, one a
+    # thread, QuickScorer's too
+    for kind in ("hummingbird", "quickscorer"):
+        assert common.block_heuristics(kind, 8, 512, 2000, DEPTH)[0] == 256
+    # one row a thread: no wide-tiled tile is sized as if it held four
+    for fused in (True, False):
+        assert common.rows_per_thread("quickscorer", fused,
+                                      staged=False) == 1
+        assert common.rows_per_thread("quickscorer", fused) == 4
+        assert common.tiled_launch("quickscorer", fused, False)
+        assert not common.tiled_launch("quickscorer", fused, True)
+    assert not common.tiled_launch("predicated", False, False)
 
 
 @pytest.mark.parametrize("B", [1, 31, 32, 33, 77, 1000])
@@ -285,12 +311,15 @@ def test_feature_major_operand_is_x_transposed(B, monkeypatch):
     assert common.xt_chunks(B, F)[0] == (0, min(B, 32))
 
 
-def _wide_tiled_sums(kind, args, depth, block_b, block_t):
-    """numpy: what the wide-tiled fused kernels compute, in their order.
+def _wide_tiled_scores(kind, args, depth, block_b, block_t, *, fused=True):
+    """numpy: what the wide-tiled kernels compute, in their order.
     Blocks of 32 rows read feature-major x (zeros past B); warp w of
     block_b / 32 scores trees w, w + W, ... of each tile into the out
-    tile; the tile's columns are then added into each row's f32 sum tree
-    by tree; HummingBird's score is the P == D leaf + 0.0."""
+    tile, each column once; fused, the tile's columns are then added into
+    each row's f32 sum tree by tree; raw, they are the rows' [B, T]
+    scores.  HummingBird's score is the P == D leaf + 0.0;
+    QuickScorer's the leaf of the lowest surviving bit: the top nodes'
+    dead words, then word by word the in-word ANDs."""
     x, nodes, leaves = args[:3]
     B = x.shape[0]
     xt = common.feature_major(x).numpy()
@@ -302,47 +331,86 @@ def _wide_tiled_sums(kind, args, depth, block_b, block_t):
         ct, dcount = (a.numpy() for a in args[3:5])
         C = ct[:L, :L - 1].T.astype(np.int32)
         D = dcount[:L]
+    dw, K, W = qs_word_split(depth)
+    ones = np.uint32(0xFFFFFFFF)
 
-    def go_left(v, t, i):
-        return np.where(np.isnan(v), dl[t, i], v < th[t, i])
+    tt = np.arange(T)[:, None]               # [T, 1]: every tree at once
 
-    def score(t, xb):                       # xb [F, 32]
+    def go_left(v, i):                      # v, i [T, 32] or [T, 1]
+        return np.where(np.isnan(v), dl[tt, i], v < th[tt, i])
+
+    def quickscorer_leaf(xb):
+        def right(slot):
+            return ~go_left(xb[fe[:, slot - 1]], slot - 1)
+
+        dead = np.zeros((T, 32), np.uint32)
+        for i in range(1, W):
+            d = i.bit_length() - 1
+            dead |= np.where(right(i), np.uint32(dead_words(K, d,
+                                                           i - (1 << d))),
+                             np.uint32(0))
+        leaf = np.full((T, 32), -1)
+        for w in range(W):
+            cur = np.full((T, 32), ones)
+            for i in range(1, 1 << dw):
+                k = i.bit_length() - 1
+                cur &= np.where(right(((W + w) << k) + i - (1 << k)),
+                                np.uint32(in_word_mask(dw, k, i - (1 << k))),
+                                ones)
+            surv = np.where((dead >> np.uint32(w)) & 1, np.uint32(0), cur)
+            low = surv & (~surv + np.uint32(1))
+            bit = np.log2(np.maximum(low, 1).astype(np.float64)).astype(int)
+            leaf = np.where((leaf < 0) & (surv != 0), w * 32 + bit, leaf)
+        assert ((leaf >= 0) & (leaf < L)).all()
+        return leaf
+
+    def scores(xb):                  # xb [F, 32] -> every tree's [32, T]
         if kind == "predicated":
-            idx = np.ones(32, np.int64)
+            idx = np.ones((T, 32), np.int64)
             for _ in range(depth):
                 i = idx - 1
-                v = xb[fe[t, i], np.arange(32)]
-                idx = 2 * idx + (~go_left(v, t, i)).astype(np.int64)
-            return leaves[t, idx - L]
-        s = np.stack([go_left(xb[fe[t, i]], t, i) for i in range(L - 1)],
-                     axis=1).astype(np.int32)      # [32, I]
-        hit = (s @ C) == D                          # [32, L], one True
-        assert (hit.sum(1) == 1).all()
-        return leaves[t, hit.argmax(1)] + np.float32(0.0)
+                v = xb[fe[tt, i], np.arange(32)]
+                idx = 2 * idx + (~go_left(v, i)).astype(np.int64)
+            return leaves[tt, idx - L].T
+        if kind == "quickscorer":
+            return leaves[tt, quickscorer_leaf(xb)].T
+        s = np.stack([go_left(xb[fe[:, i]], np.full((T, 1), i))
+                      for i in range(L - 1)], axis=2).astype(np.int32)
+        hit = (s @ C) == D                          # [T, 32, L], one True
+        assert (hit.sum(2) == 1).all()
+        return (leaves[tt, hit.argmax(2)] + np.float32(0.0)).T
 
-    out = np.empty(B, np.float32)
+    out = np.empty((B,) if fused else (B, T), np.float32)
     for b0 in range(0, B, 32):
-        xb = xt[:, b0:b0 + 32]
+        block = scores(xt[:, b0:b0 + 32])
         acc = np.zeros(32, np.float32)
         for t0 in range(0, T, block_t):
             tile = np.full((32, block_t + 1), np.nan, np.float32)
+            written = np.zeros(block_t, int)
             for w in range(nw):
-                for t in range(t0 + w, t0 + block_t, nw):
-                    tile[:, t - t0] = score(t, xb)
-            for c in range(block_t):
-                acc = acc + tile[:, c]
-        out[b0:b0 + 32] = acc[:B - b0]
+                for t in range(w, block_t, nw):
+                    tile[:, t] = block[:, t0 + t]
+                    written[t] += 1
+            assert (written == 1).all()
+            if fused:
+                for c in range(block_t):
+                    acc = acc + tile[:, c]
+            else:
+                out[b0:b0 + 32, t0:t0 + block_t] = tile[:B - b0, :block_t]
+        if fused:
+            out[b0:b0 + 32] = acc[:B - b0]
     return out
 
 
 @pytest.mark.parametrize("depth", range(1, 9))
-@pytest.mark.parametrize("kind", ["predicated", "hummingbird"])
+@pytest.mark.parametrize("kind", BASES)
 def test_wide_tiled_order_matches_plain(kind, depth):
     """The wide-tiled kernels' order -- warps over trees into the out
     tile, then the in-order add -- gives the plain fused versions' sums
-    bit for bit: ragged rows (B = 77), NaN and +-inf rows, -0.0 leaves,
+    bit for bit (and raw HummingBird's and QuickScorer's out tiles their
+    raw scores): ragged rows (B = 77), NaN and +-inf rows, -0.0 leaves,
     f32 and bf16 tree tiles, at the tiles the card takes and at 3 warps
-    over 5-tree tiles."""
+    over 1-, 3- and 5-tree tiles."""
     F, B, T = 40, 77, 21
     fe, th, dl, lv = random_forest_arrays(None, T=T, depth=depth, F=F,
                                           seed=depth)
@@ -356,17 +424,23 @@ def test_wide_tiled_order_matches_plain(kind, depth):
     x[::9] = np.nan
     x[4] = np.inf
     x[5] = -np.inf
-    plain = {"predicated": predicated_fused_plain,
-             "hummingbird": hummingbird_fused_plain}[kind]
-    for tree_dtype in (None, torch.bfloat16):
-        args, tiles = prepare_inputs(kind, forest, torch.from_numpy(x),
-                                     staged=False, tree_dtype=tree_dtype)
-        want = plain(*args, depth=depth).numpy()
-        for block_b, block_t in ((tiles["block_b"], tiles["block_t"]),
-                                 (96, 1), (96, 3)):
-            if args[1].shape[0] % block_t:
-                continue
-            got = _wide_tiled_sums(kind, args, depth, block_b, block_t)
+    plain = {"predicated": (predicated_fused_plain, None),
+             "hummingbird": (hummingbird_fused_plain,
+                             hummingbird_raw_plain),
+             "quickscorer": (quickscorer_fused_plain,
+                             quickscorer_raw_plain)}[kind]
+    runs = [(True, None), (True, torch.bfloat16)]
+    if common.wide_tiled(kind, False):
+        runs.append((False, None))
+    for fused, tree_dtype in runs:
+        for block_b, block_t in ((None, None), (96, 1), (96, 3), (96, 5)):
+            args, tiles = prepare_inputs(kind, forest, torch.from_numpy(x),
+                                         block_b=block_b, block_t=block_t,
+                                         fused=fused, staged=False,
+                                         tree_dtype=tree_dtype)
+            want = plain[not fused](*args, depth=depth).numpy()
+            got = _wide_tiled_scores(kind, args, depth, tiles["block_b"],
+                                     tiles["block_t"], fused=fused)
             assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
@@ -384,3 +458,34 @@ def test_every_library_holds_the_transpose():
                                                   ).read_text()
     assert "lib.forest_transpose_rows.argtypes = [_P, _P, _LL, _I, _P]" in (
         Path(_build.__file__).read_text())
+
+
+def _probe_edits():
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_wide_probe as probe
+
+    jobs = [("row_major", name, probe.ROW_MAJOR_EDITS)
+            for name in probe.LIBRARIES]
+    jobs += [(v, name, edits) for v, per in probe.VARIANT_EDITS.items()
+             for name, edits in per.items()]
+    return jobs
+
+
+@pytest.mark.parametrize("tag,name,edits", _probe_edits(),
+                         ids=[f"{t}-{n}" for t, n, _ in _probe_edits()])
+def test_probe_edits_apply_once_to_the_wide_tiled_kernels(tag, name,
+                                                          edits):
+    """chip_wide_probe.py builds each library with its edits applied (the
+    row-major x read, the 64-bit offset product, QuickScorer's two-tree
+    walk); each old text is in the source exactly once, as the probe
+    requires, and every wide-tiled kernel reads x through ``col_at`` at a
+    32-bit ldx."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / _build.KERNEL_SOURCES[name][0]).read_text()
+    for old, _ in edits:
+        assert src.count(old) == 1, old[:60]
+    assert src.count("const unsigned ldx = unsigned(wide_ldx(B));") == 1
+    assert "col_at32" not in src
