@@ -15,18 +15,22 @@ fraction), its ``[sparse]`` runs (each x-mode kernel time, and the wall
 time and rows/s of each Epsilon, Bosch and Criteo-shaped query), its bf16
 tree-tile timings (each fused kernel f32 and bf16 at the HIGGS and Epsilon
 shapes) and its ``[load]`` runs (each loader's LoadTiming total, each
-external / in-database ratio and its two sides) and its ``[obs]``
-overhead lines (untraced and traced medians, their ratio), then each
-side's mean per kernel and per run, and the change / parent ratio; a side
-whose script has no such line (a parent without phase 8b, 9, 10 or the
-bf16 tiles) shows "n/a".  Any run that fails makes the script exit non-zero.
+external / in-database ratio and its two sides), its ``[obs]``
+overhead lines (untraced and traced medians, their ratio), its walls
+(``[smoke] wall``, each half's and every ``phase wall`` line) and its
+``[part]`` lines (each LM and dry-run part's host wall and CPU time),
+then each side's mean per kernel, per run, per phase and per part, and
+the change / parent ratio; a side whose script has no such line (a
+parent without phase 8b, 9, 10, the bf16 tiles or the part clocks) shows
+"n/a".  Any run that fails makes the script exit non-zero.
 
     python3 chip_ab.py PARENT_DIR --forest-only
 
-runs each side's ``chip_smoke.main()`` with its LM and dry-run phases
-(15-21 and 19 (d), which chip_smoke.py names in ``LM_PHASES``) replaced by
-no-ops: the forest phases alone, about a third of a whole run, for
-changes the LM phases do not reach.
+runs the forest phases alone (about half a whole run), for changes the
+LM and dry-run phases (15-21 and 19 (d)) do not reach: ``chip_smoke.py
+--phases forest`` on a side whose script takes ``--phases``; on a side
+whose script does not, its ``chip_smoke.main()`` with the phases its
+``LM_PHASES`` names replaced by no-ops.
 """
 
 from __future__ import annotations
@@ -60,11 +64,19 @@ OBS = re.compile(r"\[obs\] overhead (.+?): untraced ([0-9.]+) s, traced "
                  r"([0-9.]+) s .*traced / untraced ([0-9.]+)")
 LOAD_RATIO = re.compile(r"\[load\] ratio (.+?): external ([0-9.]+) s .* / "
                         r"in-database ([0-9.]+) s .*?= ([0-9.]+)")
+#: the wall lines: ``[smoke] wall``, ``[smoke] forest phases wall``,
+#: ``[lm] phase wall``, ``[dryrun] (d) part wall``, ``[lm-spmd] (a) wall``
+WALL = re.compile(r"^\[([\w-]+)\] ((?:\(\w+\) )?(?:(?:forest|LM) phases |"
+                  r"phase |part )?)wall ([0-9.]+) s")
+PART = re.compile(r"^\[part\] (\S+ \(.+?\)): wall ([0-9.]+) s, cpu "
+                  r"([0-9.]+) s")
 
 
 #: run a side's chip_smoke.main() with the phases its ``LM_PHASES``
 #: names (or, for a script that names none, ``{names}``: this side's)
-#: replaced by no-ops; a name the script does not define fails the run
+#: replaced by no-ops; a name the script does not define fails the run.
+#: Only a chip_smoke.py without ``--phases`` needs it: it goes, with the
+#: text search in command(), once no parent run here lacks the selector
 FOREST_ONLY = ("import sys, chip_smoke as c\n"
                "names = getattr(c, 'LM_PHASES', {names!r})\n"
                "missing = [n for n in names if not hasattr(c, n)]\n"
@@ -75,23 +87,36 @@ FOREST_ONLY = ("import sys, chip_smoke as c\n"
                "sys.exit(c.main())\n")
 
 
+def command(root: Path, forest_only: bool) -> list[str]:
+    """How to run ``root``'s chip_smoke.py: whole, or its forest phases
+    through ``--phases forest`` where the script takes it, else with its
+    LM phases patched out (FOREST_ONLY)."""
+    if not forest_only:
+        return [sys.executable, "chip_smoke.py"]
+    if "--phases" in (root / "chip_smoke.py").read_text():
+        return [sys.executable, "chip_smoke.py", "--phases", "forest"]
+    from chip_smoke import LM_PHASES
+    return [sys.executable, "-c", FOREST_ONLY.format(names=LM_PHASES)]
+
+
 def run(root: Path, log: Path, forest_only: bool = False) -> dict:
-    if forest_only:
-        from chip_smoke import LM_PHASES
-        cmd = [sys.executable, "-c", FOREST_ONLY.format(names=LM_PHASES)]
-    else:
-        cmd = [sys.executable, "chip_smoke.py"]
-    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=1500)
+    proc = subprocess.run(command(root, forest_only), cwd=root,
+                          capture_output=True, text=True, timeout=1500)
     log.write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"{root}/chip_smoke.py exit {proc.returncode}; "
                            f"see {log}")
+    return parse(proc.stdout)
+
+
+def parse(stdout: str) -> dict:
+    """What one chip_smoke.py run printed, by kind (see the docstring)."""
     out = {"kernels": None, "rel_s": {}, "rows": {}, "tier_s": {},
            "tier_rows_s": {}, "overlap": {}, "sparse_s": {},
            "sparse_rows_s": {}, "xmode": {}, "bf16": {}, "load_s": {},
-           "load_ratio": {}, "obs_s": {}, "obs_ratio": {}}
-    for line in proc.stdout.splitlines():
+           "load_ratio": {}, "obs_s": {}, "obs_ratio": {}, "wall_s": {},
+           "part_s": {}, "part_cpu_s": {}}
+    for line in stdout.splitlines():
         if line.startswith('{"kernels"'):
             out["kernels"] = {k["name"]: k["ms"]
                               for k in json.loads(line)["kernels"]}
@@ -130,6 +155,12 @@ def run(root: Path, log: Path, forest_only: bool = False) -> dict:
             out["obs_s"][f"{what} untraced"] = float(off)
             out["obs_s"][f"{what} traced"] = float(on)
             out["obs_ratio"][what] = float(ratio)
+        elif (m := PART.match(line)):
+            out["part_s"][m.group(1)] = float(m.group(2))
+            out["part_cpu_s"][m.group(1)] = float(m.group(3))
+        elif (m := WALL.match(line)):
+            out["wall_s"][f"{m.group(1)} {m.group(2)}".strip()] = float(
+                m.group(3))
         elif line.startswith("[report]"):
             out["report"] = line
     return out
@@ -162,7 +193,10 @@ def main() -> int:
               f"{json.dumps(res['load_s'])}, ratios "
               f"{json.dumps(res['load_ratio'])}; obs s "
               f"{json.dumps(res['obs_s'])}, traced/untraced "
-              f"{json.dumps(res['obs_ratio'])}", flush=True)
+              f"{json.dumps(res['obs_ratio'])}; walls s "
+              f"{json.dumps(res['wall_s'])}; parts wall s "
+              f"{json.dumps(res['part_s'])}, cpu s "
+              f"{json.dumps(res['part_cpu_s'])}", flush=True)
     for what, unit, prefix in (("kernels", "ms", ""),
                                ("rel_s", "s", "rel+reuse "),
                                ("tier_s", "s", "tiers wall "),
@@ -175,7 +209,10 @@ def main() -> int:
                                ("load_s", "s", "load "),
                                ("load_ratio", "", "load ratio "),
                                ("obs_s", "s", "obs "),
-                               ("obs_ratio", "", "obs traced/untraced ")):
+                               ("obs_ratio", "", "obs traced/untraced "),
+                               ("wall_s", "s", "wall "),
+                               ("part_s", "s", "part wall "),
+                               ("part_cpu_s", "s", "part cpu ")):
         names = {n: None for _, r in runs for n in r[what]}
         for name in names:
             side_t = {s: [r[what].get(name, "n/a") for side, r in runs

@@ -1,6 +1,18 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases all|forest|lm]
+
+``--phases forest`` runs phases 1-14 (the build and every forest kernel
+and path), ``--phases lm`` phases 1 and 15-21 with 19 (d) (the LM and the
+dry-run, which launch no forest kernel: the kernels' record is then
+empty); ``all``, the default, runs every phase.  Each part of an LM or
+dry-run phase logs a ``[part]`` line (``part_clock``: its host wall beside
+this process's CPU time, context switches, the load, torch's threads and
+the affinity, the CUDA allocator's device mallocs and frees, empty_cache's
+and gc's time, the profiled device time where the part profiles, and a
+host probe after it), and the smoke logs the host (``[host]``: its cores,
+/proc/pressure/cpu where readable, and the probe with a 1 GiB cudaMalloc)
+at its start and end.
 
 Phases (any failure exits non-zero and prints no result line):
   1. report   the card's name, the device count, name and power limit;
@@ -245,7 +257,7 @@ Phases (any failure exits non-zero and prints no result line):
               single-request greedy loop up to that loop's first near-tie
               (top-two logits within 1e-3).  In bf16 (the engine's default
               caches): ServeEngine(slots=8, max_ctx=1024, buckets 128 / 256
-              / 512) serving 16 requests (prompts of 32-500 tokens, 32-128
+              / 512) serving 8 requests (prompts of 32-500 tokens, 16-64
               new tokens, from a seed) routed by the forest router on the
               card; prints stats(), prefill ms a bucket, decode tick ms
               p50 / p99 beside its byte bound (weights + the whole KV cache
@@ -253,13 +265,14 @@ Phases (any failure exits non-zero and prints no result line):
               ticks (device busy share, kernels a tick).  Then the CLI
               (launch/serve.main) at the reduced config on the card.
  16. lm-families  the SSD, hybrid and MoE serving paths, one block a
-              model, each freed before the next: mamba2-2.7b (64 SSD
-              layers) and zamba2-2.7b (54 SSD layers, 9 shared-attention
-              call sites with LoRA) at full width, uncut, and
-              llama4-scout-17b-a16e at full width (d_model 5,120, 16
-              experts, vocab 202,048) cut to 8 layers for bf16 serving and
-              4 (one iRoPE period) for the f32 checks, so that both fit the
-              card.  Each tree's parameter count equals the reference's.
+              model, each freed before the next, at full width and cut
+              in depth (LMF_LAYERS): mamba2-2.7b (16 of its 64 SSD
+              layers), zamba2-2.7b (12 of its 54 SSD layers, 2
+              shared-attention call sites with LoRA) and
+              llama4-scout-17b-a16e (d_model 5,120, 16 experts, vocab
+              202,048; 4 of its 48 layers, one iRoPE period, so that it
+              fits the card).  Each tree's parameter count equals the
+              reference's.
               In f32 with TF32 off: a 2 x 300 prefill (two SSD chunks, a
               padded tail), 3 teacher-forced decode steps each within
               rtol = atol = 1e-3 of lm_prefill over the same prefix
@@ -267,11 +280,11 @@ Phases (any failure exits non-zero and prints no result line):
               and 3 requests through a 2-slot ServeEngine, token for token
               the single-request loop up to its first near-tie.  In bf16:
               ServeEngine(slots=8, max_ctx=1024, buckets 128 / 256 / 512)
-              serving 8 requests (prompts of 32-500 tokens, 16-64 new
+              serving 8 requests (prompts of 32-500 tokens, 8-32 new
               tokens, from a seed); prints stats(), prefill ms a bucket,
               decode tick p50 / p99 beside its byte bound (weights + the
               whole cache once a tick), tokens/s, peak memory, a profile of
-              5 decode ticks (device busy share, kernels a tick), and for
+              3 decode ticks (device busy share, kernels a tick), and for
               llama4 the bytes the decode's per-token expert-weight
               gathers copy a tick.
  17. lm-train  the LM training path (the loss with remat and the chunked
@@ -296,12 +309,12 @@ Phases (any failure exits non-zero and prints no result line):
               prefill-then-decode defect.  (e) bf16 training at full
               width, AdamW, the configs' remat ("full"), deterministic
               steps: olmo-1b on 8 x 1,024 tokens and seamless on 8 x 1,024
-              frames + 8 x 256 decoder tokens (batch_for), 10 steps each
+              frames + 8 x 256 decoder tokens (batch_for), 5 steps each
               through TrainLoop, each model freed before the next: losses
               and gnorm (finite at every step), step wall p50 / p99
               without step 0, training tokens/s, model FLOPs a step over
               the wall against the 989.4 TFLOP/s dense bf16 peak, peak
-              memory, a 2-step profile (busy share, kernels a step, the
+              memory, a 1-step profile (busy share, kernels a step, the
               top 8 kernels) and the step without deterministic mode.
  18. lm-mesh  the LM on a mesh of positions, all on cuda:0 (dist/sharding
               make_plan / param_specs / tree_named, the constraint checks
@@ -321,12 +334,13 @@ Phases (any failure exits non-zero and prints no result line):
               local experts, summed in model order) within 1e-3 of the
               mesh-less paths; at the config's capacity the tokens kept
               equal the sum over blocks and experts of min(routed,
-              cap_src); then bf16 serving of phase 16's script at 8 layers
+              cap_src); then bf16 serving of phase 16's script at 4 layers
               through ServeEngine on the mesh plan beside its mesh-less
               twin: tokens/s, decode tick p50 / p99, kernels a tick, busy
               share, the expert-weight bytes a tick reads, each mesh /
-              twin.  (c) olmo-1b at full width (8 x 1,024, bf16, AdamW,
-              full remat, deterministic) on (2, 2, 2) with grad_compress:
+              twin.  (c) olmo-1b at full width cut to 4 of its 16 layers
+              (8 x 1,024, bf16, AdamW, full remat, deterministic) on (2,
+              2, 2) with grad_compress:
               step 1's loss bit for bit the mesh-less twin's and every new
               parameter bit for bit the twin's update over its
               int8-round-tripped gradients; the step-1 state saved,
@@ -342,7 +356,7 @@ Phases (any failure exits non-zero and prints no result line):
               a step), the H100 roofline terms and the count's bound as a
               share of the device time (raising past 1), the counted peak
               of live bytes beside max_memory_allocated.  (b) llama4-scout
-              at phase 16's cut (8 layers, 8 slots x 1,024 positions,
+              at phase 16's cut (4 layers, 8 slots x 1,024 positions,
               bf16): one decode call of the EP path on (data 1, model 4)
               and of the mesh-less gather, each counted on the card and
               on meta (the psum's bytes included) and profiled; each
@@ -370,7 +384,7 @@ Phases (any failure exits non-zero and prints no result line):
  21. lm-spmd-train  LM training over positions that own their shards,
               all on cuda:0 (train/trainer.py, dist/collectives' transposes,
               the optimizers over pieces, checkpoints as pieces): (a)
-              olmo-1b at full width, an f32 AdamW step at 4 layers against
+              olmo-1b at full width, an f32 AdamW step at 2 layers against
               the held-once step (loss, gnorm, each leaf's update), then
               bf16 steps at full depth beside the held-once step: p50 /
               p99, kernels a step, busy share, bytes moved a step, peak
@@ -397,10 +411,14 @@ Epsilon's 2,000, Bosch's 968, Criteo's 10,000 of DATASETS).
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import functools
 import gc
 import json
 import math
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -504,26 +522,28 @@ LM_TOL = 1e-3
 LM_TIE_GAP = 1e-3
 LM_CHECK_REQUESTS, LM_CHECK_NEW = 4, 12
 LM_SLOTS, LM_MAX_CTX, LM_BUCKETS = 8, 1024, (128, 256, 512)
-LM_REQUESTS = 16
-LM_PROMPT_LEN, LM_NEW_TOKENS = (32, 500), (32, 128)
-LM_PROFILE_TICKS = 5
+LM_REQUESTS = 8
+LM_PROMPT_LEN, LM_NEW_TOKENS = (32, 500), (16, 64)
+LM_PROFILE_TICKS = 3
 #: phase 16, the SSD / hybrid / MoE serving paths: the three models and,
 #: for one cut in depth, its (bf16 serving, f32 checks) layers; an arch not
-#: listed runs uncut
+#: listed runs uncut (mamba2-2.7b's 64 layers and zamba2-2.7b's 54 are cut
+#: to 16 and 12, two of its shared-attention blocks; llama4-scout's 48 to
+#: 4, one iRoPE period, which phases 18 (b), 19 (b) and 20 (b) take too)
 LMF_ARCHS = ("mamba2-2.7b", "zamba2-2.7b", "llama4-scout-17b-a16e")
-LMF_LAYERS = {"llama4-scout-17b-a16e": (8, 4)}
+LMF_LAYERS = {"mamba2-2.7b": (16, 16), "zamba2-2.7b": (12, 12),
+              "llama4-scout-17b-a16e": (4, 4)}
 LMF_CHECK_BATCH, LMF_CHECK_LEN, LMF_CHECK_STEPS = 2, 300, 3
 LMF_CHECK_REQUESTS, LMF_CHECK_NEW = 3, 8
 LMF_REQUESTS = 8
-LMF_PROMPT_LEN, LMF_NEW_TOKENS = (32, 500), (16, 64)
+LMF_PROMPT_LEN, LMF_NEW_TOKENS = (32, 500), (8, 32)
 #: phases 15-16: the reference's init_lm tree at each depth run (leaves'
 #: sizes summed over jax.eval_shape of repro.models.get_bundle(cfg).init
 #: on the CPU)
 LM_TREE_PARAMS = {("olmo-1b", 16): 1_177_026_560,
                   ("seamless-m4t-large-v2", 24): 1_632_358_400,
-                  ("mamba2-2.7b", 64): 2_832_074_240,
-                  ("zamba2-2.7b", 54): 2_451_183_520,
-                  ("llama4-scout-17b-a16e", 8): 19_687_758_848,
+                  ("mamba2-2.7b", 16): 901_679_360,
+                  ("zamba2-2.7b", 12): 768_996_160,
                   ("llama4-scout-17b-a16e", 4): 10_879_350_784}
 
 #: phase 17, LM training: (a) one AdamW step of each config at reduced()
@@ -550,8 +570,8 @@ LMT_XENT_TOKENS = 512
 LMT_XENT_LOSS_RTOL, LMT_XENT_GRAD_TOL = 1e-5, 1e-4
 LMT_ED_BATCH, LMT_ED_FRAMES, LMT_ED_CTX, LMT_ED_STEPS = 2, 1024, 64, 8
 LMT_ARCHS = ("olmo-1b", "seamless-m4t-large-v2")
-LMT_BATCH, LMT_SEQ, LMT_STEPS = 8, 1024, 10
-LMT_PROFILE_STEPS, LMT_LOOSE_STEPS = 2, 4
+LMT_BATCH, LMT_SEQ, LMT_STEPS = 8, 1024, 5
+LMT_PROFILE_STEPS, LMT_LOOSE_STEPS = 1, 3
 BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core peak
 #: phase 18, the LM on a mesh of positions, all on cuda:0: (a) one f32
 #: AdamW step of each config at reduced() on (pod 2, data 2, model 2) with
@@ -565,9 +585,9 @@ BF16_TENSOR_FLOPS = 989.4e12     # H100 SXM dense bf16 tensor-core peak
 #: optimizer LMM_OPT (lr 1e-2 from step 0: a first update of ~1e-2 an
 #: element, 1,000 x that limit), and the card's step without compression
 #: must miss the update limit by LMM_MISS x; (b) llama4-scout at full width
-#: (phase 16's cut) on (data 1, model 4); (c) olmo-1b at full width on the
-#: (2, 2, 2) mesh, LMM_STEPS timed steps a side and LMM_RT_REPS timed int8
-#: round trips of its gradients
+#: (phase 16's cut) on (data 1, model 4); (c) olmo-1b at full width cut to
+#: LMM_TRAIN_LAYERS layers (of 16) on the (2, 2, 2) mesh, LMM_STEPS timed
+#: steps a side and LMM_RT_REPS timed int8 round trips of its gradients
 LMM_TRAIN_MESH = (("pod", 2), ("data", 2), ("model", 2))
 LMM_SERVE_MESH = (("data", 1), ("model", 4))
 LMM_FLIP_SHARE = 1e-3
@@ -579,6 +599,7 @@ LMM_MISS_GNORM = 4.0
 LMM_RT_REPS = 5
 LMM_ARCH_EP = "llama4-scout-17b-a16e"
 LMM_STEPS = 4
+LMM_TRAIN_LAYERS = 4
 
 #: phase 19, the dry-run tools (launch/hlo_cost, dryrun, hillclimb) on the
 #: card: (a) phase 18 (c)'s olmo-1b step counted on the card and on meta,
@@ -609,17 +630,18 @@ DRY_SPMD_MEASURED: dict[str, dict] = {}
 #: has the held-once run's top two within LMS_TIE_GAP); (b) llama4-scout
 #: on LMS_MESH_B (EP): one MoE layer's EP prefill (kept sets) and decode
 #: in f32 against the held-once layer, LMS_LAYERS_B_F32 layers f32 as (a),
-#: then phase 16's 8-layer cut served in bf16 on both engines, as (a);
+#: then phase 16's cut served in bf16 on both engines, as (a);
 #: (c) LMS_ARCH_C cut to LMS_LAYERS_C layers on LMS_MESH_C (cp),
 #: f32 prefill and decode against held-once; (d) (a)'s f32 check on
 #: distinct cards when the machine has two or more; (e) mamba2-2.7b
 #: (``cp``: no attention heads) and (f) zamba2-2.7b (``tp``) at full width
 #: cut to LMS_FAM_LAYERS on LMS_MESH_A: f32 as (a), then LMS_REQUESTS bf16
 #: requests of LMS_FAM_PROMPT_LEN / LMS_FAM_NEW_TOKENS through both engines
-#: as (a), prefill timed at LMS_FAM_TIMED only; (g) seamless-m4t-large-v2 at full
-#: width on LMS_MESH_A: ``encdec_prefill`` of LMS_ED_CHECK[0] x
-#: DECODE_MEMORY_FRAMES seeded frames and LMS_ED_CHECK[1] decoder tokens,
-#: then LMS_ED_CHECK[2] decode steps, f32, against the held-once path
+#: as (a); (a), (b), (e) and (f) time the prefill at LMS_TIMED only; (g)
+#: seamless-m4t-large-v2 at full width on LMS_MESH_A: ``encdec_prefill``
+#: of LMS_ED_CHECK[0] x DECODE_MEMORY_FRAMES seeded frames and
+#: LMS_ED_CHECK[1] decoder tokens, then LMS_ED_CHECK[2] decode steps, f32,
+#: against the held-once path
 LMS_MESH_A = (("data", 2), ("model", 4))
 LMS_MESH_B = (("data", 1), ("model", 4))
 LMS_MESH_C = (("data", 2), ("model", 8))
@@ -627,12 +649,15 @@ LMS_ARCH_C, LMS_LAYERS_C = "qwen2-7b", 4
 LMS_LAYERS_B_F32 = 4                   # one global NoPE layer, three local
 LMS_CHECK = (2, 64, 4)                 # batch, prefix, decode steps
 LMS_MOE_TOKENS = (2, 256)              # the MoE layer's [B, S]
-LMS_REQUESTS, LMS_PROMPT_LEN, LMS_NEW_TOKENS = 8, (32, 200), (8, 24)
+#: LMS_REQUESTS fills every one of the LM_SLOTS slots, so that each data
+#: position of LMS_MESH_A serves live requests (the engine hands out slots
+#: from the top, and the plan splits the slots over data in halves)
+LMS_REQUESTS, LMS_PROMPT_LEN, LMS_NEW_TOKENS = 8, (32, 200), (4, 12)
 LMS_TIE_GAP = 0.125
 LMS_FAMILIES = ("mamba2-2.7b", "zamba2-2.7b")
 LMS_FAM_PROMPT_LEN, LMS_FAM_NEW_TOKENS = (32, 120), (4, 8)
-LMS_FAM_TIMED = (128,)                 # the buckets whose prefill is timed
-LMS_ED_CHECK = (2, 64, 4)              # batch, decoder prefix, decode steps
+LMS_TIMED = (128,)                     # the buckets whose prefill is timed
+LMS_ED_CHECK = (2, 64, 2)              # batch, decoder prefix, decode steps
 LMS_F32_REQUESTS, LMS_F32_NEW = 2, 4   # (e) / (f)'s f32 engines
 #: (e) / (f)'s depth: mamba2-2.7b's 64 layers and zamba2-2.7b's 54 cut to
 #: these (zamba2's 6 keep one shared block), to make room for phases 21
@@ -659,10 +684,10 @@ LMS_FAM_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
 #: uninterrupted run; its last save restored onto LMM_TRAIN_MESH as pieces
 #: and held once, bit for bit
 LMP_MESH = (("data", 2), ("model", 4))
-LMP_F32_LAYERS = 4
+LMP_F32_LAYERS = 2
 LMP_RTOL = 1e-4
 LMP_BF16_RTOL = 1e-2
-LMP_STEPS = 4
+LMP_STEPS = 3
 LMP_FAMILIES = (("qwen2-7b", "adamw"), ("llama4-scout-17b-a16e", "adafactor"),
                 ("mamba2-2.7b", "adamw"), ("zamba2-2.7b", "adamw"),
                 ("seamless-m4t-large-v2", "adamw"))
@@ -3504,6 +3529,7 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
         wall_us = (time.perf_counter() - t0) * 1e6
     every, kernels, _ = device_intervals(prof)
     busy = union_us(every)
+    note_profiled(busy / 1e3, wall_us / 1e3)
     log(f"{tag} profile of {LM_PROFILE_TICKS} decode ticks ({LM_SLOTS} slots "
         f"busy): wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms"
         f" = {100 * busy / wall_us:.1f} % (idle "
@@ -3520,9 +3546,179 @@ def lm_bf16_serving(tag: str, cfg, params, script: list, *, seed: int,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+#: the CUDA caching allocator's counters a part's clock reports: device
+#: mallocs and frees (cudaMalloc / cudaFree), retries after a failed
+#: malloc, and the synchronisations of every stream they forced
+CUDA_COUNTERS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+                 "num_sync_all_streams")
+#: what the profiled windows of the running part measured: device time
+#: (the union of kernel and copy spans) and the windows' host wall, ms;
+#: the profiling helpers add to it and a part's clock reports its growth
+PROFILED = {"device_ms": 0.0, "wall_ms": 0.0, "windows": 0}
+#: host seconds spent in gc's collections (through ``gc.callbacks``, once
+#: main() installs ``gc_clock``) and in free_card's ``empty_cache``
+HOST_TIME = {"gc_s": 0.0, "empty_cache_s": 0.0, "empty_cache_calls": 0}
+_GC_START = [0.0]
+
+
+def gc_clock(phase: str, info: dict) -> None:
+    """A ``gc.callbacks`` entry adding each collection's time to
+    HOST_TIME."""
+    if phase == "start":
+        _GC_START[0] = time.perf_counter()
+    else:
+        HOST_TIME["gc_s"] += time.perf_counter() - _GC_START[0]
+
+
+def note_profiled(device_ms: float, wall_ms: float) -> None:
+    PROFILED["device_ms"] += device_ms
+    PROFILED["wall_ms"] += wall_ms
+    PROFILED["windows"] += 1
+
+
+def host_counters() -> dict:
+    """What a part's clock reads before and after the part: the host
+    clock; this process's CPU time (every thread) and context switches;
+    gc's collections by generation; PROFILED, HOST_TIME and the
+    CUDA_COUNTERS."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    out = {"wall": time.perf_counter(), "user": ru.ru_utime,
+           "sys": ru.ru_stime, "vcsw": ru.ru_nvcsw, "ivcsw": ru.ru_nivcsw,
+           "gc": [g["collections"] for g in gc.get_stats()], **PROFILED,
+           **HOST_TIME}
+    if torch.cuda.is_available():
+        stats = torch.cuda.memory_stats()
+        out.update({k: stats.get(k, 0) for k in CUDA_COUNTERS})
+    return out
+
+
+def part_line(phase: str, part: str, a: dict, b: dict) -> str:
+    """The ``[part]`` line of one part between the counters ``a`` and
+    ``b`` (``host_counters``)."""
+    def delta(key: str, fmt: str = ".3f") -> str:
+        """``b[key] - a[key]`` in ``fmt``; n/a where either lacks it."""
+        if key not in a or key not in b:
+            return "n/a"
+        return format(b[key] - a[key], fmt)
+
+    wall = max(b["wall"] - a["wall"], 1e-9)
+    user, sys_ = b["user"] - a["user"], b["sys"] - a["sys"]
+    line = (f"[part] {phase} ({part}): wall {wall:.3f} s, cpu "
+            f"{user + sys_:.3f} s (user {user:.3f}, sys {sys_:.3f}; cpu / "
+            f"wall {(user + sys_) / wall:.3f}), context switches voluntary "
+            f"{delta('vcsw', 'd')} involuntary {delta('ivcsw', 'd')}, load "
+            + " ".join(f"{x:.2f}" for x in os.getloadavg())
+            + f", torch threads {torch.get_num_threads()}, affinity "
+            f"{len(os.sched_getaffinity(0))}, device mallocs "
+            f"{delta('num_device_alloc', '+d')} frees "
+            f"{delta('num_device_free', '+d')} alloc retries "
+            f"{delta('num_alloc_retries', '+d')} sync_all_streams "
+            f"{delta('num_sync_all_streams', '+d')}, empty_cache "
+            f"{delta('empty_cache_s')} s ({delta('empty_cache_calls', 'd')} "
+            f"calls), gc collections "
+            + "/".join(f"+{y - x}" for x, y in zip(a["gc"], b["gc"]))
+            + f" in {delta('gc_s')} s")
+    if "probe" in b:
+        line += "; probe " + probe_text(b["probe"])
+    windows = b["windows"] - a["windows"]
+    if windows:
+        line += (f"; profiled device time "
+                 f"{b['device_ms'] - a['device_ms']:.3f} ms in "
+                 f"{b['wall_ms'] - a['wall_ms']:.3f} ms of profiled wall "
+                 f"({windows} windows)")
+    return line
+
+
+@contextlib.contextmanager
+def part_clock(phase: str, part: str):
+    """Clock one part of an LM or dry-run phase: on its end (the card
+    synchronised) log its ``[part]`` line (``part_line``), whose host wall
+    beside its CPU time, switches, load, allocator and gc counts and times
+    and the host probe after it tell a contended host, oversubscribed
+    threads, allocator churn and the collector apart."""
+    a = host_counters()
+    try:
+        yield
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        b = host_counters()
+        b["probe"] = host_probe()
+        log(part_line(phase, part, a, b))
+
+
+def host_probe(malloc: bool = False) -> dict:
+    """Fixed work timed on the host after a part, to tell a slower host
+    from a slower part: a pure-Python loop (the interpreter) and 2,000
+    launches of a one-element add on the card, synchronised (the host's
+    cost of a launch); with ``malloc`` (at the smoke's start and end only,
+    since it empties the allocator's cache) also the caching allocator's
+    cudaMalloc and cudaFree of 1 GiB."""
+    t0 = time.perf_counter()
+    sum(i * i for i in range(200_000))
+    out = {"python_ms": 1e3 * (time.perf_counter() - t0)}
+    if torch.cuda.is_available():
+        x = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            x.add_(1)
+        torch.cuda.synchronize()
+        out["launch_us"] = 1e6 * (time.perf_counter() - t0) / 2000
+    if malloc and torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        x = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        out["malloc_ms"] = 1e3 * (time.perf_counter() - t0)
+        del x
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        out["free_ms"] = 1e3 * (time.perf_counter() - t0)
+    return out
+
+
+def probe_text(probe: dict) -> str:
+    return (f"python loop {probe['python_ms']:.3f} ms"
+            + (f", launch {probe['launch_us']:.3f} us" if "launch_us" in
+               probe else "")
+            + (f", cudaMalloc 1 GiB {probe['malloc_ms']:.3f} ms, cudaFree "
+               f"{probe['free_ms']:.3f} ms" if "malloc_ms" in probe else ""))
+
+
+def run_parts(phase: str, parts) -> None:
+    """Run each ``(part, fn)`` of ``parts`` under its part clock."""
+    for part, fn in parts:
+        with part_clock(phase, part):
+            fn()
+
+
+def host_report(when: str) -> None:
+    """Log the host: its cores, this process's affinity, torch's threads,
+    the load and, where readable, /proc/pressure/cpu; this process's CPU,
+    gc and empty_cache time so far; and a host probe."""
+    try:
+        psi = " | ".join(Path("/proc/pressure/cpu").read_text().splitlines())
+    except OSError:
+        psi = "not readable"
+    c = host_counters()
+    log(f"[host] {when}: {os.cpu_count()} cores, affinity "
+        f"{len(os.sched_getaffinity(0))}, torch threads "
+        f"{torch.get_num_threads()} (inter-op "
+        f"{torch.get_num_interop_threads()}), load "
+        + " ".join(f"{x:.2f}" for x in os.getloadavg())
+        + f", /proc/pressure/cpu: {psi}; this process's cpu "
+        f"{c['user'] + c['sys']:.3f} s, gc {c['gc_s']:.3f} s, empty_cache "
+        f"{c['empty_cache_s']:.3f} s; probe "
+        + probe_text(host_probe(malloc=True)))
+
+
 def free_card() -> None:
     gc.collect()
+    t0 = time.perf_counter()
     torch.cuda.empty_cache()
+    HOST_TIME["empty_cache_s"] += time.perf_counter() - t0
+    HOST_TIME["empty_cache_calls"] += 1
 
 
 def lm_phase(*, smi: str) -> None:
@@ -3541,48 +3737,51 @@ def lm_phase(*, smi: str) -> None:
         f"{cfg.norm_type}, vocab {cfg.vocab_size} -> {cfg.vocab_padded}, "
         f"tied {cfg.tie_embeddings}; on {smi}")
 
-    t0 = time.perf_counter()
-    params = bundle.init(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED + 150),
-        dtype=torch.float32)
-    torch.cuda.synchronize()
-    on_card(params, "f32 params")
-    n = lm_tree_params(cfg, params)
-    log(f"[lm] f32 params: {n:,} ({4 * n / 1e9:.3f} GB) drawn on the card "
-        f"in {time.perf_counter() - t0:.3f} s")
-    lm_f32_checks("[lm]", cfg, params, batch=LM_CHECK_BATCH,
-                  length=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
-                  requests=LM_CHECK_REQUESTS, new=LM_CHECK_NEW,
-                  seed=SEED + 151)
-    del params
-    free_card()
+    with part_clock("lm", "f32"):
+        t0 = time.perf_counter()
+        params = bundle.init(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED + 150),
+            dtype=torch.float32)
+        torch.cuda.synchronize()
+        on_card(params, "f32 params")
+        n = lm_tree_params(cfg, params)
+        log(f"[lm] f32 params: {n:,} ({4 * n / 1e9:.3f} GB) drawn on the card "
+            f"in {time.perf_counter() - t0:.3f} s")
+        lm_f32_checks("[lm]", cfg, params, batch=LM_CHECK_BATCH,
+                      length=LM_CHECK_LEN, steps=LM_CHECK_STEPS,
+                      requests=LM_CHECK_REQUESTS, new=LM_CHECK_NEW,
+                      seed=SEED + 151)
+        del params
+        free_card()
 
-    torch.cuda.reset_peak_memory_stats()
-    params = bundle.init(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED + 153))
-    router = ForestRouter(seed=SEED, device="cuda")
-    rng = np.random.default_rng(SEED + 154)
-    script, tiers, recent = [], [0, 0], []
-    for _ in range(LM_REQUESTS):
-        plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
-        mnt = int(rng.integers(LM_NEW_TOKENS[0], LM_NEW_TOKENS[1] + 1))
-        recent.append(plen)
-        tier = router.route(request_features(
-            plen, mnt, None, 0, float(np.mean(recent[-8:]))))
-        tiers[tier] += 1
-        script.append((rng.integers(0, cfg.vocab_size, plen), mnt, tier))
-    log(f"[lm] {LM_REQUESTS} requests routed by the forest router on the "
-        f"card: {tiers[0]} interactive, {tiers[1]} batch")
-    lm_bf16_serving("[lm]", cfg, params, script, seed=SEED + 155, smi=smi)
-    del params, router
-    free_card()
+    with part_clock("lm", "bf16"):
+        torch.cuda.reset_peak_memory_stats()
+        params = bundle.init(
+            cfg, torch.Generator(device="cuda").manual_seed(SEED + 153))
+        router = ForestRouter(seed=SEED, device="cuda")
+        rng = np.random.default_rng(SEED + 154)
+        script, tiers, recent = [], [0, 0], []
+        for _ in range(LM_REQUESTS):
+            plen = int(rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1))
+            mnt = int(rng.integers(LM_NEW_TOKENS[0], LM_NEW_TOKENS[1] + 1))
+            recent.append(plen)
+            tier = router.route(request_features(
+                plen, mnt, None, 0, float(np.mean(recent[-8:]))))
+            tiers[tier] += 1
+            script.append((rng.integers(0, cfg.vocab_size, plen), mnt, tier))
+        log(f"[lm] {LM_REQUESTS} requests routed by the forest router on the "
+            f"card: {tiers[0]} interactive, {tiers[1]} batch")
+        lm_bf16_serving("[lm]", cfg, params, script, seed=SEED + 155, smi=smi)
+        del params, router
+        free_card()
 
-    # -- the CLI, at the reduced config on the card --------------------------
-    t0 = time.perf_counter()
-    st = serve_cli.main([])
-    log(f"[lm] cli launch.serve.main on the card: {st['requests']} requests "
-        f"served, none dropped, {st['tokens']} tokens in "
-        f"{time.perf_counter() - t0:.3f} s")
+    # the CLI, at the reduced config on the card
+    with part_clock("lm", "cli"):
+        t0 = time.perf_counter()
+        st = serve_cli.main([])
+        log(f"[lm] cli launch.serve.main on the card: {st['requests']} "
+            f"requests served, none dropped, {st['tokens']} tokens in "
+            f"{time.perf_counter() - t0:.3f} s")
     log(f"[lm] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
@@ -3595,7 +3794,6 @@ def lm_family_block(arch: str, *, smi: str) -> None:
     from repro_torch.models import lm as LM
     from repro_torch.serve.router import TIER_BATCH
 
-    t_block = time.perf_counter()
     tag = f"[lm-families] {arch}"
     full = get_config(arch)
     serve_layers, check_layers = LMF_LAYERS.get(
@@ -3671,15 +3869,14 @@ def lm_family_block(arch: str, *, smi: str) -> None:
             f"bf16), {gathered / param_bytes:.2f}x the weights' bytes")
     del params
     free_card()
-    log(f"{tag} block wall {time.perf_counter() - t_block:.3f} s")
 
 
 def lm_families_phase(*, smi: str) -> None:
     """Phase 16: the SSD, hybrid and MoE serving paths, one model at a
     time."""
     t_phase = time.perf_counter()
-    for arch in LMF_ARCHS:
-        lm_family_block(arch, smi=smi)
+    run_parts("lm-families", ((arch, functools.partial(
+        lm_family_block, arch, smi=smi)) for arch in LMF_ARCHS))
     log(f"[lm-families] phase wall {time.perf_counter() - t_phase:.3f} s")
 
 
@@ -4139,6 +4336,7 @@ def lm_train_full(arch: str, *, smi: str) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     every, kernels, _ = device_intervals(prof)
     busy = union_us(every)
+    note_profiled(busy / 1e3, wall_us / 1e3)
     log(f"{tag} profile of {LMT_PROFILE_STEPS} steps: wall "
         f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms = "
         f"{100 * busy / wall_us:.1f} % (idle {100 - 100 * busy / wall_us:.1f}"
@@ -4168,12 +4366,13 @@ def lm_train_phase(*, smi: str) -> None:
     optimizers, train step, checkpoints, TrainLoop, launch/train.py) and
     the enc-dec model."""
     t_phase = time.perf_counter()
-    lm_train_parity(smi=smi)
-    lm_train_continuation(smi=smi)
-    lm_train_xent(smi=smi)
-    lm_train_encdec(smi=smi)
-    for arch in LMT_ARCHS:
-        lm_train_full(arch, smi=smi)
+    run_parts("lm-train", (
+        ("a", lambda: lm_train_parity(smi=smi)),
+        ("b", lambda: lm_train_continuation(smi=smi)),
+        ("c", lambda: lm_train_xent(smi=smi)),
+        ("d", lambda: lm_train_encdec(smi=smi)),
+        *((f"e {arch}", functools.partial(lm_train_full, arch, smi=smi))
+          for arch in LMT_ARCHS)))
     log(f"[lm-train] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
@@ -4435,10 +4634,13 @@ def lm_mesh_ep(*, smi: str) -> None:
 
 
 def lm_mesh_train(*, smi: str) -> None:
-    """Phase 18 (c): olmo-1b at full width, bf16, AdamW, full remat,
-    deterministic, on the (pod 2, data 2, model 2) mesh with grad_compress:
-    step 1 against the mesh-less twin, bit for bit; timed steps a side;
-    save, restore_checkpoint(mesh=) and a next step, bit for bit."""
+    """Phase 18 (c): olmo-1b at full width cut to LMM_TRAIN_LAYERS layers,
+    bf16, AdamW, full remat, deterministic, on the (pod 2, data 2, model 2)
+    mesh with grad_compress: step 1 against the mesh-less twin, bit for
+    bit; timed steps a side; save, restore_checkpoint(mesh=) and a next
+    step, bit for bit."""
+    import dataclasses
+
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.dist.compression import compress_grads_crosspod
     from repro_torch.launch.mesh import make_position_mesh
@@ -4451,7 +4653,8 @@ def lm_mesh_train(*, smi: str) -> None:
                                            make_train_step, place_state)
 
     tag = "[lm-mesh] (c) olmo-1b"
-    cfg = get_config("olmo-1b")
+    cfg = dataclasses.replace(get_config("olmo-1b"),
+                              num_layers=LMM_TRAIN_LAYERS)
     mesh = make_position_mesh(LMM_TRAIN_MESH, "cuda:0")
     shape = ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH, "train")
     batches = [batch_for(cfg, shape, k, seed=SEED) for k in
@@ -4497,7 +4700,8 @@ def lm_mesh_train(*, smi: str) -> None:
     if not bits_equal(params1, twin_params):
         raise AssertionError("step 1 params are not the twin's update over "
                              "its round-tripped gradients")
-    log(f"{tag} full width, bf16, AdamW, remat {cfg.remat_policy}, "
+    log(f"{tag} full width, {cfg.num_layers} layers, bf16, AdamW, remat "
+        f"{cfg.remat_policy}, "
         f"deterministic, {LMT_BATCH} x {LMT_SEQ} tokens on (pod 2, data 2, "
         f"model 2), {splan.attn_mode}, grad_compress: step 1 loss "
         f"{float(m['loss']):.6f} bit for bit the mesh-less twin's; every new "
@@ -4562,9 +4766,9 @@ def lm_mesh_train(*, smi: str) -> None:
 def lm_mesh_phase(*, smi: str) -> None:
     """Phase 18: the LM on a mesh of positions on the card."""
     t_phase = time.perf_counter()
-    lm_mesh_parity(smi=smi)
-    lm_mesh_ep(smi=smi)
-    lm_mesh_train(smi=smi)
+    run_parts("lm-mesh", (("a", lambda: lm_mesh_parity(smi=smi)),
+                          ("b", lambda: lm_mesh_ep(smi=smi)),
+                          ("c", lambda: lm_mesh_train(smi=smi))))
     log(f"[lm-mesh] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
@@ -4606,12 +4810,15 @@ def device_time(run, n: int) -> tuple[float, float]:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n):
             run()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     every, _, _ = device_intervals(prof)
     if not every:
         raise AssertionError("the profiler saw no device time")
+    note_profiled(union_us(every) / 1e3, wall_ms)
     return union_us(every) / 1e3 / n, len(every) / n
 
 
@@ -4855,11 +5062,6 @@ def dryrun_spmd(*, smi: str) -> None:
     records kind for kind, ``moved_bytes`` against the records; the
     count's H100 terms beside what phases 20 (a) and 21 (a) measured."""
     from repro_torch.configs import ShapeConfig
-    from repro_torch.dist import collectives as C
-    from repro_torch.launch import hlo_cost
-    from repro_torch.launch.dryrun import build_cell
-    from repro_torch.launch.mesh import H100, make_position_mesh
-    from repro_torch.launch.roofline import roofline_terms
 
     t_part = time.perf_counter()
     cells = (("train", "21 (a)", ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH,
@@ -4868,100 +5070,115 @@ def dryrun_spmd(*, smi: str) -> None:
                                                LM_SLOTS, "decode"),
               LMS_MESH_A))
     for what, src, shape, pairs in cells:
-        tag = f"[dryrun] (d) {DRY_SPMD_ARCH} {what}"
-        positions = int(np.prod([n for _, n in pairs]))
-        counts = {}
-        for dev in ("meta", "cuda:0"):
-            mesh = make_position_mesh(pairs, dev)
-            fn, args, cfg, _, splan, _ = build_cell(
-                DRY_SPMD_ARCH, shape, mesh, own_shards=True)
-            if dev != "meta":
-                off = [t.device for a in args for x in tree_values(a)
-                       for t in (x.pieces.values() if hasattr(x, "pieces")
-                                 else [x]) if not t.is_cuda]
-                if off:
-                    raise AssertionError(f"{tag}: arguments off the card "
-                                         f"{off[:3]}")
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            moved = C.moved_bytes()
-            with hlo_cost.CostMode(held=args) as mode:
-                fn(*args)
-            if dev != "meta":
-                torch.cuda.synchronize()
-            counts[dev] = (mode.summary(), mode.records,
-                           C.moved_bytes() - moved,
-                           time.perf_counter() - t0)
-            del fn, args, mode
-            free_card()
-        (card, recs, moved, card_s), (meta, meta_recs, _, meta_s) = \
-            counts["cuda:0"], counts["meta"]
-        diff = count_diff(card, meta, f"{what} over own shards")
-        if recs != meta_recs:
-            raise AssertionError(f"{tag}: the card's collective records "
-                                 f"differ from meta's")
-        for k in ("collective_bytes_by_kind",
-                  "collective_wire_bytes_by_kind"):
-            if card[k] != meta[k]:
-                raise AssertionError(f"{tag}: {k} card {card[k]} against "
-                                     f"meta {meta[k]}")
-        want_moved = sum(C.received_bytes(*r) for r in recs)
-        if moved != want_moved:
-            raise AssertionError(f"{tag}: moved_bytes {moved} against the "
-                                 f"records' received bytes {want_moved}")
-        terms = roofline_terms(
-            flops_per_chip=card["flops"] / positions,
-            bytes_per_chip=card["bytes"] / positions,
-            coll_bytes_per_chip=card["collective_bytes"] / positions,
-            peak=H100)
-        copy_ms = 1e3 * 2 * moved / H100["hbm_bandwidth"]
-        one_card_ms = max(1e3 * card["flops"] / H100["peak_flops_bf16"],
-                          1e3 * card["bytes"] / H100["hbm_bandwidth"])
-        by_kind = ", ".join(
-            f"{k} x{card['collective_counts'][k] // positions} "
-            f"{v / positions / 1e6:.3f} MB (wire "
-            f"{card['collective_wire_bytes_by_kind'][k] / positions / 1e6:.3f}"
-            f" MB)" for k, v in sorted(card["collective_bytes_by_kind"]
-                                        .items()))
-        got = DRY_SPMD_MEASURED.get(what)
-        unit = {"train": "step", "decode": "tick"}[what]
-        seen = (f"phase {src} measured: wall p50 {got['p50_ms']:.3f} ms, "
-                f"device time {got['device_ms']:.3f} ms, "
-                f"{got['kernels']:.1f} kernels a {unit}; the one-card bound "
-                f"{100 * one_card_ms / got['device_ms']:.1f} % of that device "
-                f"time" if got else f"phase {src} not measured in this run")
-        log(f"{tag}, bf16 at full width, {shape.global_batch} x "
-            f"{shape.seq_len} on {dict(pairs)} ({splan.attn_mode}), over own "
-            f"shards: counted on cuda:0 positions ({card_s:.3f} s) and on "
-            f"meta ({meta_s:.3f} s): ops {card['ops']} / {meta['ops']}, "
-            f"FLOPs {card['flops']:.6e} equal"
-            + ("; differing ops: " + "; ".join(diff) if diff else
-               "; every op's count and bytes equal")
-            + f"; the collective records equal kind for kind "
-            f"({len(recs)} moves), a position: {by_kind}; moved_bytes "
-            f"{moved:,} B = the records' received bytes (all-gather, "
-            f"all-to-all and reduce-scatter their ring wire bytes, a psum's "
-            f"fold (g - 1) r where the ring moves 2r (g - 1) / g; gather_to "
-            f"adds none); on {smi}")
-        log(f"{tag} H100 terms a position ({positions}): compute "
-            f"{terms['compute_s'] * 1e3:.4f} ms, memory "
-            f"{terms['memory_s'] * 1e3:.4f} ms, collective "
-            f"{terms['collective_s'] * 1e3:.4f} ms (NVLink rate), dominant "
-            f"{terms['dominant']}; on this one card every move is a copy "
-            f"within HBM, so the whole call's bound is max(FLOPs / bf16 peak"
-            f", bytes / HBM rate) = {one_card_ms:.3f} ms, the copies "
-            f"already in its bytes ({copy_ms:.3f} ms of HBM time to read "
-            f"and write {moved / 1e6:.3f} MB); {seen}; on {smi}")
+        with part_clock("dryrun", f"d {what}"):
+            dryrun_spmd_cell(what, src, shape, pairs, smi=smi)
     log(f"[dryrun] (d) part wall {time.perf_counter() - t_part:.3f} s; on "
         f"{smi}")
+
+
+def dryrun_spmd_cell(what: str, src: str, shape, pairs, *,
+                     smi: str) -> None:
+    """One cell of phase 19 (d): ``what`` (``train`` or ``decode``, the
+    call phase ``src`` measured) at ``shape`` over own shards on the mesh
+    ``pairs``, counted on cuda:0 positions and on meta."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import H100, make_position_mesh
+    from repro_torch.launch.roofline import roofline_terms
+
+    tag = f"[dryrun] (d) {DRY_SPMD_ARCH} {what}"
+    positions = int(np.prod([n for _, n in pairs]))
+    counts = {}
+    for dev in ("meta", "cuda:0"):
+        mesh = make_position_mesh(pairs, dev)
+        fn, args, cfg, _, splan, _ = build_cell(
+            DRY_SPMD_ARCH, shape, mesh, own_shards=True)
+        if dev != "meta":
+            off = [t.device for a in args for x in tree_values(a)
+                   for t in (x.pieces.values() if hasattr(x, "pieces")
+                             else [x]) if not t.is_cuda]
+            if off:
+                raise AssertionError(f"{tag}: arguments off the card "
+                                     f"{off[:3]}")
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = C.moved_bytes()
+        with hlo_cost.CostMode(held=args) as mode:
+            fn(*args)
+        if dev != "meta":
+            torch.cuda.synchronize()
+        counts[dev] = (mode.summary(), mode.records,
+                       C.moved_bytes() - moved,
+                       time.perf_counter() - t0)
+        del fn, args, mode
+        free_card()
+    (card, recs, moved, card_s), (meta, meta_recs, _, meta_s) = \
+        counts["cuda:0"], counts["meta"]
+    diff = count_diff(card, meta, f"{what} over own shards")
+    if recs != meta_recs:
+        raise AssertionError(f"{tag}: the card's collective records "
+                             f"differ from meta's")
+    for k in ("collective_bytes_by_kind",
+              "collective_wire_bytes_by_kind"):
+        if card[k] != meta[k]:
+            raise AssertionError(f"{tag}: {k} card {card[k]} against "
+                                 f"meta {meta[k]}")
+    want_moved = sum(C.received_bytes(*r) for r in recs)
+    if moved != want_moved:
+        raise AssertionError(f"{tag}: moved_bytes {moved} against the "
+                             f"records' received bytes {want_moved}")
+    terms = roofline_terms(
+        flops_per_chip=card["flops"] / positions,
+        bytes_per_chip=card["bytes"] / positions,
+        coll_bytes_per_chip=card["collective_bytes"] / positions,
+        peak=H100)
+    copy_ms = 1e3 * 2 * moved / H100["hbm_bandwidth"]
+    one_card_ms = max(1e3 * card["flops"] / H100["peak_flops_bf16"],
+                      1e3 * card["bytes"] / H100["hbm_bandwidth"])
+    by_kind = ", ".join(
+        f"{k} x{card['collective_counts'][k] // positions} "
+        f"{v / positions / 1e6:.3f} MB (wire "
+        f"{card['collective_wire_bytes_by_kind'][k] / positions / 1e6:.3f}"
+        f" MB)" for k, v in sorted(card["collective_bytes_by_kind"]
+                                    .items()))
+    got = DRY_SPMD_MEASURED.get(what)
+    unit = {"train": "step", "decode": "tick"}[what]
+    seen = (f"phase {src} measured: wall p50 {got['p50_ms']:.3f} ms, "
+            f"device time {got['device_ms']:.3f} ms, "
+            f"{got['kernels']:.1f} kernels a {unit}; the one-card bound "
+            f"{100 * one_card_ms / got['device_ms']:.1f} % of that device "
+            f"time" if got else f"phase {src} not measured in this run")
+    log(f"{tag}, bf16 at full width, {shape.global_batch} x "
+        f"{shape.seq_len} on {dict(pairs)} ({splan.attn_mode}), over own "
+        f"shards: counted on cuda:0 positions ({card_s:.3f} s) and on "
+        f"meta ({meta_s:.3f} s): ops {card['ops']} / {meta['ops']}, "
+        f"FLOPs {card['flops']:.6e} equal"
+        + ("; differing ops: " + "; ".join(diff) if diff else
+           "; every op's count and bytes equal")
+        + f"; the collective records equal kind for kind "
+        f"({len(recs)} moves), a position: {by_kind}; moved_bytes "
+        f"{moved:,} B = the records' received bytes (all-gather, "
+        f"all-to-all and reduce-scatter their ring wire bytes, a psum's "
+        f"fold (g - 1) r where the ring moves 2r (g - 1) / g; gather_to "
+        f"adds none); on {smi}")
+    log(f"{tag} H100 terms a position ({positions}): compute "
+        f"{terms['compute_s'] * 1e3:.4f} ms, memory "
+        f"{terms['memory_s'] * 1e3:.4f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.4f} ms (NVLink rate), dominant "
+        f"{terms['dominant']}; on this one card every move is a copy "
+        f"within HBM, so the whole call's bound is max(FLOPs / bf16 peak"
+        f", bytes / HBM rate) = {one_card_ms:.3f} ms, the copies "
+        f"already in its bytes ({copy_ms:.3f} ms of HBM time to read "
+        f"and write {moved / 1e6:.3f} MB); {seen}; on {smi}")
 
 
 def dryrun_phase(*, smi: str) -> None:
     """Phase 19: the dry-run tools' counts against the card."""
     t_phase = time.perf_counter()
-    dryrun_train(smi=smi)
-    dryrun_decode(smi=smi)
-    dryrun_cli(smi=smi)
+    run_parts("dryrun", (("a", lambda: dryrun_train(smi=smi)),
+                         ("b", lambda: dryrun_decode(smi=smi)),
+                         ("c", lambda: dryrun_cli(smi=smi))))
     log(f"[dryrun] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
@@ -5291,7 +5508,8 @@ def lm_spmd_olmo(*, smi: str) -> None:
     own = make_plan(cfg, mesh, decode_batch=LM_SLOTS, own_shards=True)
     torch.cuda.reset_peak_memory_stats()
     twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
-                           seed=SEED + 404, smi=smi, splan=held)
+                           seed=SEED + 404, smi=smi, splan=held,
+                           timed=LMS_TIMED)
     seen = {}
 
     def probe(engine):
@@ -5301,7 +5519,8 @@ def lm_spmd_olmo(*, smi: str) -> None:
 
     torch.cuda.reset_peak_memory_stats()
     mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
-                           seed=SEED + 404, smi=smi, splan=own, probe=probe)
+                           seed=SEED + 404, smi=smi, splan=own, probe=probe,
+                           timed=LMS_TIMED)
     agree = lms_tokens_agree(
         tag, script, mine["tokens"], twin["tokens"],
         lambda i, k: lms_replay(cfg, params, held, script[i][0],
@@ -5418,7 +5637,8 @@ def lm_spmd_ep(*, smi: str) -> None:
     # fit side by side
     torch.cuda.reset_peak_memory_stats()
     twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
-                           seed=SEED + 414, smi=smi, splan=held)
+                           seed=SEED + 414, smi=smi, splan=held,
+                           timed=LMS_TIMED)
     free_card()
     t0 = time.perf_counter()
     replays = [lms_replay(cfg, params, held, prompt, w[:-1])
@@ -5439,7 +5659,8 @@ def lm_spmd_ep(*, smi: str) -> None:
         seen["resident"] = lms_resident(engine, tag)
 
     mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
-                           seed=SEED + 414, smi=smi, splan=own, probe=probe)
+                           seed=SEED + 414, smi=smi, splan=own, probe=probe,
+                           timed=LMS_TIMED)
     agree = lms_tokens_agree(
         tag, script, mine["tokens"], twin["tokens"],
         lambda i, k: replays[i],
@@ -5558,7 +5779,7 @@ def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     twin = lm_bf16_serving(f"{tag} held-once", cfg, params, script,
                            seed=seed + 4, smi=smi, splan=held,
-                           timed=LMS_FAM_TIMED)
+                           timed=LMS_TIMED)
     seen = {}
 
     def probe(engine):
@@ -5569,7 +5790,7 @@ def lm_spmd_family(arch: str, part: str, *, seed: int, smi: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     mine = lm_bf16_serving(f"{tag} own shards", cfg, params, script,
                            seed=seed + 4, smi=smi, splan=own, probe=probe,
-                           timed=LMS_FAM_TIMED)
+                           timed=LMS_TIMED)
     # a 64-layer random SSD stack turns bf16 roundings into logit
     # differences of bf16's own size between any two summation orders
     # (PERF.md §6), so a token's near-tie is measured against the
@@ -5613,6 +5834,7 @@ def lms_tick_profile(step, out: dict | None = None) -> tuple[int, float]:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     every, kernels, _ = device_intervals(prof)
+    note_profiled(union_us(every) / 1e3, wall_us / 1e3)
     if out is not None:
         out["device_ms"] = union_us(every) / 1e3
     return len(kernels), union_us(every) / wall_us
@@ -5718,18 +5940,15 @@ def lm_spmd_encdec(*, seed: int, smi: str) -> None:
 def lm_spmd_phase(*, smi: str) -> None:
     """Phase 20: LM serving over positions that own their shards."""
     t_phase = time.perf_counter()
-    parts = (("a", lambda: lm_spmd_olmo(smi=smi)),
-             ("b", lambda: lm_spmd_ep(smi=smi)),
-             ("c", lambda: lm_spmd_cp(smi=smi)),
-             ("e", lambda: lm_spmd_family(LMS_FAMILIES[0], "e",
-                                          seed=SEED + 430, smi=smi)),
-             ("f", lambda: lm_spmd_family(LMS_FAMILIES[1], "f",
-                                          seed=SEED + 440, smi=smi)),
-             ("g", lambda: lm_spmd_encdec(seed=SEED + 450, smi=smi)))
-    for part, run in parts:
-        t0 = time.perf_counter()
-        run()
-        log(f"[lm-spmd] ({part}) wall {time.perf_counter() - t0:.3f} s")
+    run_parts("lm-spmd", (
+        ("a", lambda: lm_spmd_olmo(smi=smi)),
+        ("b", lambda: lm_spmd_ep(smi=smi)),
+        ("c", lambda: lm_spmd_cp(smi=smi)),
+        ("e", lambda: lm_spmd_family(LMS_FAMILIES[0], "e", seed=SEED + 430,
+                                     smi=smi)),
+        ("f", lambda: lm_spmd_family(LMS_FAMILIES[1], "f", seed=SEED + 440,
+                                     smi=smi)),
+        ("g", lambda: lm_spmd_encdec(seed=SEED + 450, smi=smi))))
     log(f"[lm-spmd] phase wall {time.perf_counter() - t_phase:.3f} s; on "
         f"{smi}")
 
@@ -5744,7 +5963,9 @@ def lmp_update_check(tag: str, cfg, opt, mesh, *, seed: int) -> str:
     update of the held-once optimizer fed those gradients (a first AdamW
     update is lr g / (|g| + eps): fed the held-once gradients instead, a
     rounding-sized difference of a gradient near 0 moves it by up to 2
-    lr); returns the summary."""
+    lr); the state is copied to the card once and each step's copy of it
+    cloned there, while the comparisons and that reference update run on
+    the CPU, from the drawn state; returns the summary."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.dist import collectives as C
     from repro_torch.dist.sharding import make_plan
@@ -5766,16 +5987,20 @@ def lmp_update_check(tag: str, cfg, opt, mesh, *, seed: int) -> str:
     batch = batch_for(cfg, ShapeConfig("check", LMT_CHECK_SEQ,
                                        LMT_CHECK_BATCH, "train"), 0,
                       seed=seed)
+    base = state_from_arrays(arrays, device="cuda")
+
+    def fresh():
+        """A copy of the state on the card, made there."""
+        return tree_map(torch.clone, base)
+
     held = make_plan(cfg, mesh)
-    _, wm = make_train_step(cfg, opt, held)(
-        state_from_arrays(arrays, device="cuda"), batch)
-    _, want_g = loss_and_grads(cfg, state_from_arrays(arrays, device="cuda")
-                               ["params"], batch, held)
+    _, wm = make_train_step(cfg, opt, held)(fresh(), batch)
+    _, want_g = loss_and_grads(cfg, fresh()["params"], batch, held)
     want_g = [g.cpu() for g in flat(want_g)]
     step, own = jit_train_step(cfg, opt, mesh, own_shards=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got, gm = step(state_from_arrays(arrays, device="cuda"), batch)
+    got, gm = step(fresh(), batch)
     torch.cuda.synchronize()
     own_s = time.perf_counter() - t0
     on_card(got, f"{tag} own-shards state")
@@ -5788,8 +6013,7 @@ def lmp_update_check(tag: str, cfg, opt, mesh, *, seed: int) -> str:
         if not (math.isfinite(g) and errs[key] <= LMP_RTOL):
             raise AssertionError(f"{tag} {key}: own shards {g} against held "
                                  f"once {w}")
-    placed = place_state(state_from_arrays(arrays, device="cuda"), mesh,
-                         own_shards=True)
+    placed = place_state(fresh(), mesh, own_shards=True)
     tb = {k: (torch.from_numpy(a) if a.dtype.kind == "f"
               else torch.from_numpy(a).long()).cuda() for k, a in batch.items()}
     with deterministic_algorithms():
@@ -5890,11 +6114,12 @@ def lm_spmd_train_olmo(*, smi: str) -> None:
     full = get_config("olmo-1b")
     mesh = make_position_mesh(LMP_MESH, "cuda:0")
     cut = dataclasses.replace(full, num_layers=LMP_F32_LAYERS)
-    log(f"{tag} f32 at {LMP_F32_LAYERS} layers on (data 2, model 4), every "
-        f"position on cuda:0 with its own pieces, {LMT_CHECK_BATCH} x "
-        f"{LMT_CHECK_SEQ} tokens: "
-        + lmp_update_check(tag, cut, make_optimizer(OptimizerConfig(
-            **LMM_OPT)), mesh, seed=SEED + 500) + f"; on {smi}")
+    with part_clock("lm-spmd-train", "a f32"):
+        log(f"{tag} f32 at {LMP_F32_LAYERS} layers on (data 2, model 4), "
+            f"every position on cuda:0 with its own pieces, "
+            f"{LMT_CHECK_BATCH} x {LMT_CHECK_SEQ} tokens: "
+            + lmp_update_check(tag, cut, make_optimizer(OptimizerConfig(
+                **LMM_OPT)), mesh, seed=SEED + 500) + f"; on {smi}")
 
     opt = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
     shape = ShapeConfig("train_1k", LMT_SEQ, LMT_BATCH, "train")
@@ -6113,62 +6338,74 @@ def lm_spmd_train_loop(*, smi: str) -> None:
 def lm_spmd_train_phase(*, smi: str) -> None:
     """Phase 21: LM training over positions that own their shards."""
     t_phase = time.perf_counter()
-    for part, run in (("a", lm_spmd_train_olmo),
-                      ("b", lm_spmd_train_families),
-                      ("c", lm_spmd_train_compress),
-                      ("d", lm_spmd_train_loop)):
-        t0 = time.perf_counter()
-        run(smi=smi)
-        log(f"[lm-spmd-train] ({part}) wall {time.perf_counter() - t0:.3f} s")
+    run_parts("lm-spmd-train", (
+        ("a", lambda: lm_spmd_train_olmo(smi=smi)),
+        ("b", lambda: lm_spmd_train_families(smi=smi)),
+        ("c", lambda: lm_spmd_train_compress(smi=smi)),
+        ("d", lambda: lm_spmd_train_loop(smi=smi))))
     log(f"[lm-spmd-train] phase wall {time.perf_counter() - t_phase:.3f} s; "
         f"on {smi}")
 
 
+def kernel_wrappers() -> dict:
+    """Each forest kernel's wrapper under its record's name."""
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS, RAW_KERNEL_WRAPPERS
+
+    return {**{f"{k}_fused": w for k, w in KERNEL_WRAPPERS.items()},
+            **{f"{k}_raw": w for k, w in RAW_KERNEL_WRAPPERS.items()}}
+
+
 #: the phases that launch no forest kernel (15-21 and 19 (d)), by their
-#: functions' names: ``chip_ab.py --forest-only`` runs main() without them
-LM_PHASES = ("lm_phase", "lm_families_phase", "lm_train_phase",
-             "lm_mesh_phase", "dryrun_phase", "lm_spmd_phase",
-             "lm_spmd_train_phase", "dryrun_spmd")
+#: functions' names, with their log tags, in the order main() runs them
+#: (19 (d), the dry-run over own shards, after phases 20 and 21):
+#: ``--phases lm`` runs exactly LM_PHASES, ``--phases forest`` none of them
+LM_PHASE_TAGS = (("lm_phase", "[lm]"),
+                 ("lm_families_phase", "[lm-families]"),
+                 ("lm_train_phase", "[lm-train]"),
+                 ("lm_mesh_phase", "[lm-mesh]"),
+                 ("dryrun_phase", "[dryrun]"),
+                 ("lm_spmd_phase", "[lm-spmd]"),
+                 ("lm_spmd_train_phase", "[lm-spmd-train]"),
+                 ("dryrun_spmd", "[dryrun] (d)"))
+LM_PHASES = tuple(name for name, _ in LM_PHASE_TAGS)
 
 
-def main() -> int:
+#: the phase functions main() runs for each ``--phases`` choice: ``forest``
+#: the build and phases 1-14, ``lm`` those LM_PHASES names; ``all``, the
+#: default, both
+PHASES = {"forest": ("forest_phases",), "lm": LM_PHASES}
+PHASES["all"] = PHASES["forest"] + PHASES["lm"]
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", choices=tuple(PHASES), default="all",
+                    help="forest: the build and phases 1-14; lm: the "
+                    "phases LM_PHASES names (15-21 and 19 (d)); all (the "
+                    "default): both")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    gc.callbacks.append(gc_clock)
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    from repro_torch.core.forest import make_forest, tree_slice
-    from repro_torch.core.postprocess import predict_proba
-    from repro_torch.db.store import TensorBlockStore
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.common import (feature_major,
-                                            feature_major_plain, wide_tiled)
-    from repro_torch.kernels.forest_hummingbird import (
-        hummingbird_fused_plain, hummingbird_raw_plain)
-    from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
-                                                       predicated_raw_plain)
-    from repro_torch.kernels.forest_quickscorer import (
-        quickscorer_fused_plain, quickscorer_raw_plain)
-    from repro_torch.kernels.ops import (KERNEL_WRAPPERS, RAW_KERNEL_WRAPPERS,
-                                         default_tree_block,
-                                         predict_sum_pallas, prepare_inputs)
+    from repro_torch.kernels.common import feature_major, wide_tiled
+    from repro_torch.kernels.ops import KERNEL_WRAPPERS
 
-    BF16 = torch.bfloat16
-    plain = dict(predicated=predicated_fused_plain,
-                 hummingbird=hummingbird_fused_plain,
-                 quickscorer=quickscorer_fused_plain)
-    raw_plain = dict(predicated=predicated_raw_plain,
-                     hummingbird=hummingbird_raw_plain,
-                     quickscorer=quickscorer_raw_plain)
-    wrappers = {**{f"{k}_fused": w for k, w in KERNEL_WRAPPERS.items()},
-                **{f"{k}_raw": w for k, w in RAW_KERNEL_WRAPPERS.items()}}
+    wrappers = kernel_wrappers()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
 
     def counted(run):
         """Run ``run()`` with every kernel's launch counts set to 0 just
@@ -6216,6 +6453,76 @@ def main() -> int:
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
     log(f"[report] device={name} count={count} nvidia-smi: {smi}")
+    log(f"[smoke] phases {args.phases}")
+    host_report("start")
+    run = PHASES[args.phases]
+    record, bf16_record = [], []
+    if "forest_phases" in run:
+        t_half = time.perf_counter()
+        record, bf16_record = forest_phases(smi=smi, counted=counted,
+                                            only=only)
+        log(f"[smoke] forest phases wall {time.perf_counter() - t_half:.3f}"
+            f" s")
+
+    # -- 15-21 and 19 (d): the LM and the dry-run, no forest kernel ---------
+    # (19 (d), the dry-run over own shards, comes after phases 20 and 21)
+    t_half = time.perf_counter()
+    for phase_name, tag in LM_PHASE_TAGS:
+        if phase_name not in run:
+            continue
+        (_, counts) = counted(functools.partial(globals()[phase_name],
+                                                smi=smi))
+        log(f"{tag} forest kernel launches "
+            f"{ {k: n for k, n in counts.items() if n} }")
+        for entry in record:
+            name_ = entry["name"]
+            if name_.endswith("_wide"):
+                entry["launches"] += counts[name_]
+            else:
+                entry["launches"] += counts[name_] - counts[f"{name_}_wide"]
+    if "lm_phase" in run:
+        log(f"[smoke] LM phases wall {time.perf_counter() - t_half:.3f} s")
+
+    record.extend(bf16_record)
+    host_report("end")
+
+    log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")
+
+    print(json.dumps({"kernels": record}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": count}}), flush=True)
+    return 0
+
+
+def forest_phases(*, smi: str, counted, only) -> tuple[list, list]:
+    """Phases 2-14: the build, every forest kernel against its plain
+    version, and every forest path; returns the kernels' records (each
+    with its launches on those paths) and the bf16 tree tiles' records."""
+    from repro_torch.core.forest import make_forest, tree_slice
+    from repro_torch.core.postprocess import predict_proba
+    from repro_torch.db.store import TensorBlockStore
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.common import (feature_major,
+                                            feature_major_plain, wide_tiled)
+    from repro_torch.kernels.forest_hummingbird import (
+        hummingbird_fused_plain, hummingbird_raw_plain)
+    from repro_torch.kernels.forest_predicated import (predicated_fused_plain,
+                                                       predicated_raw_plain)
+    from repro_torch.kernels.forest_quickscorer import (
+        quickscorer_fused_plain, quickscorer_raw_plain)
+    from repro_torch.kernels.ops import (KERNEL_WRAPPERS, RAW_KERNEL_WRAPPERS,
+                                         default_tree_block,
+                                         predict_sum_pallas, prepare_inputs)
+
+    BF16 = torch.bfloat16
+    plain = dict(predicated=predicated_fused_plain,
+                 hummingbird=hummingbird_fused_plain,
+                 quickscorer=quickscorer_fused_plain)
+    raw_plain = dict(predicated=predicated_raw_plain,
+                     hummingbird=hummingbird_raw_plain,
+                     quickscorer=quickscorer_raw_plain)
+    wrappers = kernel_wrappers()
 
     # -- 2. build -----------------------------------------------------------
     build_s = _build.build_all()
@@ -6937,103 +7244,7 @@ def main() -> int:
             entry["launches"] += counts14[name_]
         else:
             entry["launches"] += counts14[name_] - counts14[f"{name_}_wide"]
-
-    # -- 15. the LM serving path ---------------------------------------------
-    (_, counts15) = counted(lambda: lm_phase(smi=smi))
-    log(f"[lm] forest kernel launches "
-        f"{ {k: n for k, n in counts15.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts15[name_]
-        else:
-            entry["launches"] += counts15[name_] - counts15[f"{name_}_wide"]
-
-    # -- 16. the SSD, hybrid and MoE serving paths ---------------------------
-    (_, counts16) = counted(lambda: lm_families_phase(smi=smi))
-    log(f"[lm-families] forest kernel launches "
-        f"{ {k: n for k, n in counts16.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts16[name_]
-        else:
-            entry["launches"] += counts16[name_] - counts16[f"{name_}_wide"]
-
-    # -- 17. the LM training path and enc-dec ---------------------------------
-    (_, counts17) = counted(lambda: lm_train_phase(smi=smi))
-    log(f"[lm-train] forest kernel launches "
-        f"{ {k: n for k, n in counts17.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts17[name_]
-        else:
-            entry["launches"] += counts17[name_] - counts17[f"{name_}_wide"]
-
-    # -- 18. the LM on a mesh -------------------------------------------------
-    (_, counts18) = counted(lambda: lm_mesh_phase(smi=smi))
-    log(f"[lm-mesh] forest kernel launches "
-        f"{ {k: n for k, n in counts18.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts18[name_]
-        else:
-            entry["launches"] += counts18[name_] - counts18[f"{name_}_wide"]
-
-    # -- 19. the dry-run tools ----------------------------------------------
-    (_, counts19) = counted(lambda: dryrun_phase(smi=smi))
-    log(f"[dryrun] forest kernel launches "
-        f"{ {k: n for k, n in counts19.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts19[name_]
-        else:
-            entry["launches"] += counts19[name_] - counts19[f"{name_}_wide"]
-
-    # -- 20. LM serving over positions that own their shards --------------------
-    (_, counts20) = counted(lambda: lm_spmd_phase(smi=smi))
-    log(f"[lm-spmd] forest kernel launches "
-        f"{ {k: n for k, n in counts20.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts20[name_]
-        else:
-            entry["launches"] += counts20[name_] - counts20[f"{name_}_wide"]
-
-    # -- 21. LM training over positions that own their shards ---------------
-    (_, counts21) = counted(lambda: lm_spmd_train_phase(smi=smi))
-    log(f"[lm-spmd-train] forest kernel launches "
-        f"{ {k: n for k, n in counts21.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts21[name_]
-        else:
-            entry["launches"] += counts21[name_] - counts21[f"{name_}_wide"]
-
-    # -- 19 (d). the dry-run over own shards, after phases 20 and 21 -------
-    (_, counts19d) = counted(lambda: dryrun_spmd(smi=smi))
-    log(f"[dryrun] (d) forest kernel launches "
-        f"{ {k: n for k, n in counts19d.items() if n} }")
-    for entry in record:
-        name_ = entry["name"]
-        if name_.endswith("_wide"):
-            entry["launches"] += counts19d[name_]
-        else:
-            entry["launches"] += counts19d[name_] - counts19d[f"{name_}_wide"]
-    record.extend(bf16_record)
-
-    log(f"[smoke] wall {time.perf_counter() - t_start:.3f} s")
-
-    print(json.dumps({"kernels": record}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}), flush=True)
-    return 0
+    return record, bf16_record
 
 
 if __name__ == "__main__":

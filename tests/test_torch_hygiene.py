@@ -3,6 +3,7 @@ neither jax nor the JAX package ``repro`` (``repro_torch`` itself is
 allowed), and the query engine imports in a process where jax cannot."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -81,21 +82,114 @@ def test_query_engine_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def _chip_script(name: str):
+    """Import the repo-root chip script ``name`` (it imports no jax)."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(name)
+
+
 def test_chip_smoke_names_every_lm_phase():
-    """``chip_ab.py --forest-only`` runs chip_smoke.py's main() without the
-    phases its ``LM_PHASES`` names.  They are exactly the phases main()
-    calls that take nothing but ``smi`` (every forest phase takes the
-    launch counter), so a phase added without the forest's arguments
-    must be named there, and every name is a function of the script."""
+    """``--phases lm`` runs the phases chip_smoke.py's ``LM_PHASES`` names
+    and ``--phases forest`` none of them.  main() runs the LM phases only
+    from ``LM_PHASE_TAGS``, whose names LM_PHASES are: each is a function
+    of the script that takes nothing but ``smi`` (every forest phase takes
+    the launch counter), and main() names no such function itself, so a
+    phase added without the forest's arguments must be in that table.  The
+    selector's ``all`` is ``forest`` and ``lm`` together, ``lm`` is
+    LM_PHASES, and ``all`` is what the script runs with no argument."""
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    named = next(ast.literal_eval(n.value) for n in tree.body
+    table = next(ast.literal_eval(n.value) for n in tree.body
                  if isinstance(n, ast.Assign)
-                 and getattr(n.targets[0], "id", None) == "LM_PHASES")
-    called = {c.func.id for c in ast.walk(funcs["main"])
-              if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)}
-    smi_only = {name for name in called & funcs.keys()
-                if not funcs[name].args.args
-                and [a.arg for a in funcs[name].args.kwonlyargs] == ["smi"]}
-    assert set(named) <= funcs.keys()
-    assert smi_only == set(named) and len(named) == len(set(named))
+                 and getattr(n.targets[0], "id", None) == "LM_PHASE_TAGS")
+    named = tuple(name for name, _ in table)
+    used = {x.id for x in ast.walk(funcs["main"])
+            if isinstance(x, ast.Name) and isinstance(x.ctx, ast.Load)}
+
+    def smi_only(name: str) -> bool:
+        return (not funcs[name].args.args
+                and [a.arg for a in funcs[name].args.kwonlyargs] == ["smi"])
+
+    assert set(named) <= funcs.keys() and all(map(smi_only, named))
+    assert len(named) == len(set(named))
+    assert "LM_PHASE_TAGS" in used
+    assert not {name for name in used & funcs.keys() if smi_only(name)}
+
+    smoke = _chip_script("chip_smoke")
+    assert smoke.PHASES["lm"] == smoke.LM_PHASES == named
+    assert set(smoke.PHASES) == {"all", "forest", "lm"}
+    assert set(smoke.PHASES["all"]) == (set(smoke.PHASES["forest"])
+                                        | set(smoke.PHASES["lm"]))
+    assert not set(smoke.PHASES["forest"]) & set(smoke.PHASES["lm"])
+    assert set(smoke.PHASES["forest"]) <= funcs.keys()
+    assert smoke.parse_args([]).phases == "all"
+    assert smoke.parse_args(["--phases", "lm"]).phases == "lm"
+
+
+def test_chip_smoke_refuses_an_unknown_phase_selector():
+    """An unknown ``--phases`` value exits non-zero before any phase, on
+    a machine with or without a card."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--phases", "kernels"], capture_output=True,
+                          text=True, timeout=120, cwd=ROOT)
+    assert proc.returncode != 0
+    assert "invalid choice: 'kernels'" in proc.stderr
+    assert proc.stdout == ""
+
+
+CANNED_PART = ("[part] lm-spmd (e): wall 123.300 s, cpu 119.875 s (user "
+               "112.500, sys 7.375; cpu / wall 0.972), context switches "
+               "voluntary 5123 involuntary 77, load 1.20 1.10 0.90, torch "
+               "threads 8, affinity 8, device mallocs +12 frees +10 alloc "
+               "retries +0 sync_all_streams +0, empty_cache 0.125 s (4 "
+               "calls), gc collections +3/+1/+0 in 0.480 s; probe python "
+               "loop 16.674 ms, launch 8.379 us; profiled device time "
+               "77.300 ms in 6512.000 ms of profiled wall (2 windows)")
+
+
+def test_chip_ab_reads_walls_and_part_clocks():
+    """``chip_ab.parse`` reads a phase wall line, the halves' and the
+    smoke's walls (and no other line with a wall in it), and a part
+    clock's wall and CPU time, canned and as chip_smoke.py's own
+    ``part_clock`` prints it."""
+    ab = _chip_script("chip_ab")
+    got = ab.parse("\n".join((
+        "[lm-spmd] phase wall 388.125 s; on NVIDIA H100 80GB HBM3, "
+        "700.00 W",
+        "[lm] phase wall 61.500 s",
+        "[smoke] forest phases wall 299.910 s",
+        "[smoke] LM phases wall 401.280 s",
+        "[smoke] wall 701.185 s",
+        "[obs] traced host udf predicated_pallas_fused: wall 0.041 s, "
+        "span counts {}",
+        CANNED_PART)))
+    assert got["wall_s"] == {"lm-spmd phase": 388.125, "lm phase": 61.5,
+                             "smoke forest phases": 299.91,
+                             "smoke LM phases": 401.28, "smoke": 701.185}
+    assert got["part_s"] == {"lm-spmd (e)": 123.3}
+    assert got["part_cpu_s"] == {"lm-spmd (e)": 119.875}
+
+    smoke = _chip_script("chip_smoke")
+    a = smoke.host_counters()
+    sum(range(10 ** 5))
+    line = smoke.part_line("lm-train", "e olmo-1b", a, smoke.host_counters())
+    got = ab.parse(line)
+    assert list(got["part_s"]) == ["lm-train (e olmo-1b)"]
+    assert got["part_s"]["lm-train (e olmo-1b)"] >= 0.0
+    assert got["part_cpu_s"]["lm-train (e olmo-1b)"] >= 0.0
+    assert not got["wall_s"]
+
+
+def test_chip_ab_forest_only_uses_the_selector(tmp_path):
+    """``--forest-only`` runs ``chip_smoke.py --phases forest`` on a side
+    whose script takes ``--phases``, and patches the LM phases out of one
+    whose script does not."""
+    ab = _chip_script("chip_ab")
+    assert ab.command(ROOT, True)[1:] == ["chip_smoke.py", "--phases",
+                                          "forest"]
+    assert ab.command(ROOT, False)[1:] == ["chip_smoke.py"]
+    (tmp_path / "chip_smoke.py").write_text("def main():\n    return 0\n")
+    cmd = ab.command(tmp_path, True)
+    assert cmd[1] == "-c" and "setattr(c, n, lambda **kw: None)" in cmd[2]
+    assert "lm_spmd_train_phase" in cmd[2]
